@@ -1,0 +1,43 @@
+"""PyTorch/CUDA port of the lag-based Kafka partition assignor.
+
+A second package beside ``kafka_lag_based_assignor_tpu`` (the JAX/TPU
+reference, which it never imports).  This slice runs the plugin's
+``assign()`` end to end for the ``rounds`` and ``global`` solvers, with the
+greedy round scan in a hand-written CUDA kernel (``csrc/rounds_scan.cu``).
+"""
+
+from .assignor import LagBasedPartitionAssignor
+from .lag import compute_partition_lag, read_topic_partition_lags
+from .models.greedy import assign_greedy, assign_greedy_global
+from .ops.dispatch import assign_device
+from .types import (
+    Assignment,
+    Cluster,
+    GroupAssignment,
+    GroupSubscription,
+    OffsetAndMetadata,
+    PartitionInfo,
+    Subscription,
+    TopicPartition,
+    TopicPartitionLag,
+)
+from .utils.device import resolve_device
+
+__all__ = [
+    "Assignment",
+    "Cluster",
+    "GroupAssignment",
+    "GroupSubscription",
+    "LagBasedPartitionAssignor",
+    "OffsetAndMetadata",
+    "PartitionInfo",
+    "Subscription",
+    "TopicPartition",
+    "TopicPartitionLag",
+    "assign_device",
+    "assign_greedy",
+    "assign_greedy_global",
+    "compute_partition_lag",
+    "read_topic_partition_lags",
+    "resolve_device",
+]

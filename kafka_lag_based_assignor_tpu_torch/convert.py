@@ -1,0 +1,41 @@
+"""The state carried across from the JAX package.
+
+The assignor has no learned weights: its state is the columnar solve input.
+:func:`group_tensors` turns a packed topic group — the numpy ``lags``
+int64[T, P], ``partition_ids`` int32[T, P] and ``valid`` bool[T, P] of a
+``TopicGroup`` of either package — into the port's device tensors.  It is
+duck-typed: it reads those three attributes, or takes the three arrays
+directly, and imports nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .utils.device import DeviceLike, resolve_device
+
+
+def group_tensors(lags, partition_ids=None, valid=None, device: DeviceLike = None):
+    """(lags int64, partition_ids int32, valid bool) tensors on ``device``.
+
+    ``lags`` is either the lag array (then ``partition_ids`` and ``valid``
+    are required) or any object with ``lags``, ``partition_ids`` and
+    ``valid`` attributes, such as a ``TopicGroup``.
+    """
+    if partition_ids is None and valid is None:
+        lags, partition_ids, valid = lags.lags, lags.partition_ids, lags.valid
+    if partition_ids is None or valid is None:
+        raise ValueError("pass lags, partition_ids and valid, or one group")
+    dev = resolve_device(device)
+    arrays = (
+        np.ascontiguousarray(lags, dtype=np.int64),
+        np.ascontiguousarray(partition_ids, dtype=np.int32),
+        np.ascontiguousarray(valid, dtype=np.bool_),
+    )
+    if not arrays[0].shape == arrays[1].shape == arrays[2].shape:
+        raise ValueError(
+            "lags, partition_ids and valid must share one shape, got "
+            f"{[a.shape for a in arrays]}"
+        )
+    return tuple(torch.from_numpy(a).to(dev) for a in arrays)

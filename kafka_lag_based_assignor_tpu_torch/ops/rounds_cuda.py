@@ -1,0 +1,155 @@
+"""The greedy round scan: the hand-written CUDA kernel, its wrapper and its
+plain PyTorch version.
+
+Counterpart of ``kafka_lag_based_assignor_tpu/ops/rounds_pallas.py``: the
+kernel in ``csrc/rounds_scan.cu`` replaces the TPU kernels
+``_rounds_kernel`` (int32 totals) and ``_rounds_kernel_wide`` (int64 totals
+as two int32 planes).  It is one int64 kernel, one thread block per topic,
+with every consumer's (total, id) slot kept in shared memory across the
+rounds; see the source for what bounds it.
+
+:func:`rounds_scan` is the wrapper.  A CUDA tensor launches the kernel or
+raises; a CPU tensor runs :func:`rounds_scan_torch`, the plain version.  Both
+accept the same inputs and raise on the same ones, so the CPU and the card
+never disagree about what is admissible.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+#: Largest padded consumer count: 16384 slots of 12 B = 192 KiB of shared
+#: memory per block (Hopper gives a block up to 227 KB).
+MAX_SLOTS = 16384
+_INT64_MAX = torch.iinfo(torch.int64).max
+
+
+def slots_for(num_consumers: int) -> int:
+    """next_pow2(C): the kernel's slot count for C consumers."""
+    return 1 << max(int(num_consumers) - 1, 0).bit_length()
+
+
+def _check(gains, valid, totals0, carry_across_topics: bool) -> None:
+    if gains.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"rounds_scan runs on cuda or cpu, not {gains.device}")
+    if gains.dim() != 3 or gains.dtype != torch.int64:
+        raise ValueError(f"gains must be int64[T, R, C], got {gains.dtype}"
+                         f"{list(gains.shape)}")
+    if valid.dtype != torch.uint8 or valid.shape != gains.shape:
+        raise ValueError(f"valid must be uint8{list(gains.shape)}, got "
+                         f"{valid.dtype}{list(valid.shape)}")
+    C = gains.shape[2]
+    if totals0.dtype != torch.int64 or tuple(totals0.shape) != (C,):
+        raise ValueError(f"totals0 must be int64[{C}], got {totals0.dtype}"
+                         f"{list(totals0.shape)}")
+    if not (gains.device == valid.device == totals0.device):
+        raise ValueError("gains, valid and totals0 must be on one device")
+    if not (gains.is_contiguous() and valid.is_contiguous()
+            and totals0.is_contiguous()):
+        raise ValueError("gains, valid and totals0 must be contiguous")
+    if C < 1:
+        raise ValueError("the round scan needs at least one consumer")
+    if slots_for(C) > MAX_SLOTS:
+        raise ValueError(
+            f"{C} consumers pad to {slots_for(C)} slots, above the round "
+            f"scan's limit of {MAX_SLOTS} (192 KiB of shared memory a block)"
+        )
+    if gains.numel() == 0:
+        return
+    # The largest total any slot can reach, in f64 (an int64 sum could
+    # wrap): it must stay below the INT64_MAX sentinel of the pad slots.
+    per_topic = torch.where(valid.bool(), gains, 0).to(torch.float64).abs()
+    sums = per_topic.sum() if carry_across_topics else per_topic.sum(dim=(1, 2)).max()
+    bound = float(sums) + float(totals0.to(torch.float64).abs().max())
+    if bound >= float(_INT64_MAX):
+        raise ValueError(
+            f"total lag up to {bound:.6g} could reach the int64 sentinel "
+            f"(2**63 - 1) of the round scan"
+        )
+
+
+def rounds_scan_torch(gains, valid, totals0, carry_across_topics: bool = False):
+    """Plain PyTorch version of the kernel: the ``_rounds_body`` loop.
+
+    Each round sorts the totals stably (ties break by consumer id, the
+    index order), seats ``order[j]`` at position j (-1 where invalid) and
+    adds the valid gains to the seated consumers.  Returns (choice
+    int32[T, R, C], totals int64[T, C], or [1, C] when carrying the totals
+    across topics).
+    """
+    T, R, C = gains.shape
+    if carry_across_topics:
+        gains, valid = gains.reshape(1, T * R, C), valid.reshape(1, T * R, C)
+    n_blocks, n_rounds = gains.shape[0], gains.shape[1]
+    totals = totals0.expand(n_blocks, C).clone()
+    choice = torch.empty(gains.shape, dtype=torch.int32, device=gains.device)
+    for r in range(n_rounds):
+        _, order = torch.sort(totals, dim=1, stable=True)
+        v = valid[:, r].bool()
+        choice[:, r] = torch.where(v, order.to(torch.int32), -1)
+        totals.scatter_add_(1, order, torch.where(v, gains[:, r], 0))
+    return choice.reshape(T, R, C), totals
+
+
+def _bind():
+    from ._build import load
+
+    lib = load("rounds_scan")
+    fn = lib.klba_rounds_scan
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.klba_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.klba_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(gains, valid, totals0, carry_across_topics: bool):
+    T, R, C = gains.shape
+    n_blocks, n_rounds = (1, T * R) if carry_across_topics else (T, R)
+    choice = torch.empty(gains.shape, dtype=torch.int32, device=gains.device)
+    totals = torch.empty((n_blocks, C), dtype=torch.int64, device=gains.device)
+    if n_blocks == 0:
+        return choice, totals
+    lib = _bind()
+    with torch.cuda.device(gains.device):
+        err = lib.klba_rounds_scan(
+            gains.data_ptr(), valid.data_ptr(), totals0.data_ptr(),
+            choice.data_ptr(), totals.data_ptr(),
+            n_blocks, n_rounds, C, slots_for(C),
+            torch.cuda.current_stream(gains.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            "rounds_scan kernel launch failed: "
+            + lib.klba_cuda_error_string(err).decode()
+        )
+    rounds_scan.launches += 1
+    return choice, totals
+
+
+def rounds_scan(gains, valid, totals0, carry_across_topics: bool = False):
+    """The greedy round scan over pre-rounded rows.
+
+    Args:
+      gains: int64[T, R, C] — round r's sorted lags of topic t (from
+        :func:`..ops.rounds_kernel.round_rows`).
+      valid: uint8[T, R, C] — their validity (0 = padding position).
+      totals0: int64[C] — every topic's starting per-consumer totals.
+      carry_across_topics: run the T*R rounds as one sequence with the
+        totals carried from topic to topic (the ``global`` solver).
+
+    Returns (choice int32[T, R, C]: consumer seated at each position, -1
+    where invalid; totals int64[T, C] in consumer order, or [1, C] when
+    carrying).  A CUDA tensor launches the kernel (and counts the launch in
+    ``rounds_scan.launches``) or raises; a CPU tensor runs
+    :func:`rounds_scan_torch`.
+    """
+    _check(gains, valid, totals0, carry_across_topics)
+    if gains.device.type == "cpu":
+        return rounds_scan_torch(gains, valid, totals0, carry_across_topics)
+    return _launch(gains, valid, totals0, carry_across_topics)
+
+
+rounds_scan.launches = 0

@@ -1,0 +1,137 @@
+"""Typed configuration layer.
+
+A copy of ``parse_config`` / ``AssignorConfig`` from
+``kafka_lag_based_assignor_tpu/utils/config.py``, cut to the keys this
+package reads.  The reference receives an untyped ``Map<String,?>``
+through Kafka's ``Configurable`` SPI (LagBasedPartitionAssignor.java:97-130)
+and consumes ``group.id`` (required, :107-113) and ``auto.offset.reset``
+(default "latest", :346-347), and derives the metadata-consumer overrides
+``enable.auto.commit=false`` + ``client.id=<group.id>.assignor``
+(:116-120).  The framework's own knobs live under the ``tpu.assignor.``
+prefix, with the JAX package's names, so one consumer config drives either
+package; keys this package does not read pass through untouched, as the
+reference copies the whole map (:101-104).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, Mapping, Optional
+
+GROUP_ID_CONFIG = "group.id"
+AUTO_OFFSET_RESET_CONFIG = "auto.offset.reset"
+ENABLE_AUTO_COMMIT_CONFIG = "enable.auto.commit"
+CLIENT_ID_CONFIG = "client.id"
+PARTITION_ASSIGNMENT_STRATEGY_CONFIG = "partition.assignment.strategy"
+
+SOLVER_CONFIG = (
+    "tpu.assignor.solver"  # rounds | scan | global | sinkhorn | native | host
+)
+# Opt-in bounded retry for the three lag batch RPCs (lag.py): number of
+# RETRIES per RPC (0 = reference abort semantics, the default) and the
+# deterministic exponential-backoff base delay.
+LAG_RETRIES_CONFIG = "tpu.assignor.lag.retries"  # int >= 0
+LAG_RETRY_BACKOFF_CONFIG = "tpu.assignor.lag.retry.backoff.ms"
+# int >= 0, or unset/"auto".  An explicit integer > 0 opts the parity
+# solvers into the exchange refinement, which this package does not run
+# yet (the assignor raises NotImplementedError for it).
+REFINE_ITERS_CONFIG = "tpu.assignor.refine.iters"
+
+# The JAX package's solver names: all of them parse, so a config written
+# for it is accepted here; the assignor names the ones this package runs.
+VALID_SOLVERS = ("rounds", "scan", "global", "sinkhorn", "native", "host")
+
+
+@dataclass
+class AssignorConfig:
+    """Validated view over the consumer config map."""
+
+    group_id: str
+    auto_offset_reset: str = "latest"
+    solver: str = "rounds"
+    # Lag-RPC retry policy: 0 retries preserves the reference's
+    # broker-exception-aborts-the-rebalance semantics exactly.
+    lag_retries: int = 0
+    lag_retry_backoff_s: float = 0.05
+    refine_iters: Optional[int] = None
+    consumer_group_props: Dict[str, Any] = field(default_factory=dict)
+    metadata_consumer_props: Dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def client_id(self) -> str:
+        return f"{self.group_id}.assignor"
+
+
+def parse_config(configs: Mapping[str, Any]) -> AssignorConfig:
+    """Validate and type the raw config map.
+
+    Raises ``ValueError`` if ``group.id`` is absent — the reference throws
+    IllegalArgumentException in the same situation (:107-113) so that a
+    misconfigured consumer fails at construction, not mid-rebalance.
+    """
+    consumer_group_props = dict(configs)
+
+    group_id = consumer_group_props.get(GROUP_ID_CONFIG)
+    if group_id is None:
+        raise ValueError(
+            f"{GROUP_ID_CONFIG} cannot be null when using "
+            f"{PARTITION_ASSIGNMENT_STRATEGY_CONFIG}=LagBasedPartitionAssignor"
+        )
+
+    solver = str(consumer_group_props.get(SOLVER_CONFIG, "rounds"))
+    if solver not in VALID_SOLVERS:
+        raise ValueError(
+            f"{SOLVER_CONFIG}={solver!r} invalid; choose one of {VALID_SOLVERS}"
+        )
+
+    # Derived metadata-consumer properties, exactly as the reference builds
+    # them (:116-120): same config, auto-commit off, suffixed client id.
+    metadata_consumer_props = dict(consumer_group_props)
+    metadata_consumer_props[ENABLE_AUTO_COMMIT_CONFIG] = "false"
+    metadata_consumer_props[CLIENT_ID_CONFIG] = f"{group_id}.assignor"
+
+    def _as_int(key: str, default: int, minimum: int) -> int:
+        raw = consumer_group_props.get(key, default)
+        try:
+            value = int(raw)
+        except (TypeError, ValueError):
+            raise ValueError(f"{key}={raw!r} is not an integer")
+        if value < minimum:
+            raise ValueError(f"{key}={value} must be >= {minimum}")
+        return value
+
+    raw_refine = consumer_group_props.get(REFINE_ITERS_CONFIG, None)
+    refine_iters = (
+        None
+        if raw_refine in (None, "", "auto")
+        else _as_int(REFINE_ITERS_CONFIG, raw_refine, 0)
+    )
+    if solver == "global" and refine_iters:
+        raise ValueError(
+            f"{REFINE_ITERS_CONFIG} is per-topic and would undo the "
+            f"'global' solver's cross-topic balance; unset it or choose "
+            f"solver 'rounds'/'scan'/'sinkhorn'"
+        )
+
+    raw_backoff = consumer_group_props.get(LAG_RETRY_BACKOFF_CONFIG, 50.0)
+    try:
+        backoff_ms = float(raw_backoff)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"{LAG_RETRY_BACKOFF_CONFIG}={raw_backoff!r} is not a number"
+        )
+    if backoff_ms < 0:
+        raise ValueError(f"{LAG_RETRY_BACKOFF_CONFIG}={backoff_ms} must be >= 0")
+
+    return AssignorConfig(
+        group_id=str(group_id),
+        auto_offset_reset=str(
+            consumer_group_props.get(AUTO_OFFSET_RESET_CONFIG, "latest")
+        ),
+        solver=solver,
+        lag_retries=_as_int(LAG_RETRIES_CONFIG, 0, 0),
+        lag_retry_backoff_s=backoff_ms / 1000.0,
+        refine_iters=refine_iters,
+        consumer_group_props=consumer_group_props,
+        metadata_consumer_props=metadata_consumer_props,
+    )

@@ -1,0 +1,30 @@
+"""Device resolution for the port's entry points.
+
+Entry points run on the CUDA card unless the caller asks for the CPU
+(``device="cpu"``, as the tests do).  With no card and no explicit CPU
+request they raise: a rebalance never quietly moves to the CPU.  Lags stay
+int64 on every device (Kafka offsets are Java longs), the rule the JAX
+package enforces with ``ops/dispatch.ensure_x64``.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` -> ``cuda`` (raises when no card is present); anything else
+    is taken as asked, and a CUDA device is checked for a card."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "port's plain PyTorch path on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev

@@ -1,0 +1,187 @@
+"""The port's rebalance path against the JAX package, on the CPU.
+
+``assign_device`` and the plugin's ``assign()`` of both packages solve the
+same BASELINE workloads (the README example = config 1, configs 2 and 3 at
+full size, config 5 cut to 5k partitions / 100 consumers) for the
+``rounds`` and ``global`` solvers.  Results must be identical, member list
+order included (both packages promise processing order), and equal to the
+JAX package's host oracle.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from kafka_lag_based_assignor_tpu import lag as jax_lag  # noqa: E402
+from kafka_lag_based_assignor_tpu.assignor import (  # noqa: E402
+    LagBasedPartitionAssignor as JaxAssignor,
+)
+from kafka_lag_based_assignor_tpu.models import greedy as jax_greedy  # noqa: E402
+from kafka_lag_based_assignor_tpu.ops import dispatch as jax_dispatch  # noqa: E402
+from kafka_lag_based_assignor_tpu.testing import FakeBroker as JaxBroker  # noqa: E402
+from kafka_lag_based_assignor_tpu.utils import config as jax_config  # noqa: E402
+from kafka_lag_based_assignor_tpu_torch import lag  # noqa: E402
+from kafka_lag_based_assignor_tpu_torch.assignor import (  # noqa: E402
+    LagBasedPartitionAssignor,
+)
+from kafka_lag_based_assignor_tpu_torch.ops.dispatch import (  # noqa: E402
+    assign_device,
+    assign_topic_device,
+)
+from kafka_lag_based_assignor_tpu_torch.testing import (  # noqa: E402
+    baseline_workload,
+    broker_for,
+    lag_rows,
+)
+from kafka_lag_based_assignor_tpu_torch.types import (  # noqa: E402
+    GroupSubscription,
+    Subscription,
+    TopicPartition,
+)
+from kafka_lag_based_assignor_tpu_torch.utils import config  # noqa: E402
+
+# (BASELINE config, (partitions, consumers) cut or None for full size).
+CASES = [(1, None), (2, None), (3, None), (5, (5000, 100))]
+CASE_IDS = ["readme", "zipf_1k_16c", "vmap_256t_64p_64c", "northstar_5k_100c"]
+ORACLES = {
+    "rounds": jax_greedy.assign_greedy,
+    "global": jax_greedy.assign_greedy_global,
+}
+
+
+def workload(case):
+    cfg, cut = case
+    lags, members = baseline_workload(cfg, *(cut or ()))
+    return lags, {m: sorted(lags) for m in members}
+
+
+def pairs(assignment):
+    """member -> [(topic, partition), ...] in list order, either package."""
+    return {
+        m: [(tp.topic, tp.partition) for tp in tps]
+        for m, tps in assignment.items()
+    }
+
+
+@pytest.mark.parametrize("solver", ["rounds", "global"])
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_assign_device_matches_jax(case, solver):
+    lags, subs = workload(case)
+    rows = lag_rows(lags)
+    got = pairs(assign_device(rows, subs, kernel=solver, device="cpu"))
+    assert got == pairs(jax_dispatch.assign_device(rows, subs, kernel=solver))
+    assert got == pairs(ORACLES[solver](rows, subs))
+    for topic in lags:  # per-topic count spread <= 1
+        counts = [sum(t == topic for t, _ in tps) for tps in got.values()]
+        assert max(counts) - min(counts) <= 1
+
+
+def test_readme_worked_example():
+    rows = lag_rows(baseline_workload(1)[0])
+    got = assign_device(rows, {"C0": ["t0"], "C1": ["t0"]}, device="cpu")
+    assert got == assign_topic_device("t0", ["C1", "C0"], rows["t0"], device="cpu")
+    assert got == {
+        "C0": [TopicPartition("t0", 0)],
+        "C1": [TopicPartition("t0", 2), TopicPartition("t0", 1)],
+    }
+
+
+def jax_broker_for(lags):
+    broker = JaxBroker()
+    for topic, arr in lags.items():
+        for p, value in enumerate(arr.tolist()):
+            broker.with_partition(topic, p, end=value, committed=0)
+    return broker
+
+
+@pytest.mark.parametrize("solver", ["rounds", "global"])
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_plugin_matches_jax_plugin(case, solver):
+    lags, subs = workload(case)
+    group = GroupSubscription({m: Subscription(t) for m, t in subs.items()})
+    configs = {"group.id": "g", "tpu.assignor.solver": solver}
+
+    port = LagBasedPartitionAssignor(lambda props: broker_for(lags), device="cpu")
+    port.configure(configs)
+    broker = broker_for(lags)
+    got = port.assign(broker.cluster(), group)
+
+    ref = JaxAssignor(lambda props: jax_broker_for(lags))
+    ref.configure(configs)
+    want = ref.assign(broker.cluster(), group)
+
+    def by_member(ga):
+        return pairs({m: a.partitions for m, a in ga.group_assignment.items()})
+
+    assert by_member(got) == by_member(want)
+    assert not ref.last_stats.fallback_used
+    assert port.last_stats.device == "cpu"
+    assert port.last_stats.num_partitions == ref.last_stats.num_partitions
+    assert port.last_stats.quality_ratio == ref.last_stats.quality_ratio
+
+
+def test_host_solver_is_the_oracle():
+    lags, subs = workload(CASES[1])
+    group = GroupSubscription({m: Subscription(t) for m, t in subs.items()})
+    port = LagBasedPartitionAssignor(lambda props: broker_for(lags), device="cpu")
+    port.configure({"group.id": "g", "tpu.assignor.solver": "host"})
+    got = port.assign(broker_for(lags).cluster(), group)
+    want = jax_greedy.assign_greedy(lag_rows(lags), subs)
+    assert pairs({m: a.partitions for m, a in got.group_assignment.items()}) == (
+        pairs(want)
+    )
+    assert port.last_stats.device is None
+
+
+@pytest.mark.parametrize(
+    "configs",
+    [
+        {"tpu.assignor.solver": "scan"},
+        {"tpu.assignor.solver": "sinkhorn"},
+        {"tpu.assignor.solver": "native"},
+        {"tpu.assignor.refine.iters": "8"},
+    ],
+)
+def test_unported_options_raise(configs):
+    port = LagBasedPartitionAssignor(lambda props: broker_for({}), device="cpu")
+    port.configure({"group.id": "g", **configs})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        port.assign(broker_for({}).cluster(), GroupSubscription({}))
+
+
+@pytest.mark.parametrize(
+    "raw",
+    [
+        {"group.id": "orders", "auto.offset.reset": "earliest"},
+        {"group.id": "g", "tpu.assignor.solver": "global",
+         "tpu.assignor.lag.retries": "2"},
+        {"group.id": "g", "tpu.assignor.refine.iters": "auto"},
+    ],
+)
+def test_config_matches_jax(raw):
+    got, want = config.parse_config(raw), jax_config.parse_config(raw)
+    for key in ("group_id", "auto_offset_reset", "solver", "lag_retries",
+                "lag_retry_backoff_s", "refine_iters", "client_id",
+                "metadata_consumer_props"):
+        assert getattr(got, key) == getattr(want, key), key
+
+
+@pytest.mark.parametrize("bad", [{}, {"group.id": "g", "tpu.assignor.solver": "x"}])
+def test_config_rejects_like_jax(bad):
+    with pytest.raises(ValueError):
+        config.parse_config(bad)
+    with pytest.raises(ValueError):
+        jax_config.parse_config(bad)
+
+
+def test_lag_formula_matches_jax():
+    rng = np.random.default_rng(11)
+    for _ in range(200):
+        begin, end = sorted(int(v) for v in rng.integers(0, 1000, size=2))
+        committed = None if rng.random() < 0.4 else int(rng.integers(0, 1200))
+        mode = str(rng.choice(["latest", "LATEST", "earliest", "none"]))
+        meta = None if committed is None else jax_lag.OffsetAndMetadata(committed)
+        assert lag.compute_partition_lag(meta, begin, end, mode) == (
+            jax_lag.compute_partition_lag(meta, begin, end, mode)
+        )

@@ -1,0 +1,135 @@
+"""The port stands alone: no JAX, devices resolved loudly, state carried.
+
+* no module of ``kafka_lag_based_assignor_tpu_torch`` (nor ``chip_smoke.py``)
+  imports ``jax`` or ``kafka_lag_based_assignor_tpu`` — by an AST walk, and
+  by importing every module in a fresh interpreter;
+* entry points default to the CUDA card and raise without one;
+* CPU tensors take the plain path and never count a kernel launch;
+* ``convert.group_tensors`` carries a JAX ``TopicGroup`` over unchanged.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from kafka_lag_based_assignor_tpu.ops import packing as jax_packing  # noqa: E402
+from kafka_lag_based_assignor_tpu_torch import convert  # noqa: E402
+from kafka_lag_based_assignor_tpu_torch.assignor import (  # noqa: E402
+    LagBasedPartitionAssignor,
+)
+from kafka_lag_based_assignor_tpu_torch.ops import dispatch, rounds_cuda  # noqa: E402
+from kafka_lag_based_assignor_tpu_torch.testing import (  # noqa: E402
+    baseline_workload,
+    lag_rows,
+)
+from kafka_lag_based_assignor_tpu_torch.utils.device import resolve_device  # noqa: E402
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "kafka_lag_based_assignor_tpu_torch"
+FORBIDDEN = ("jax", "kafka_lag_based_assignor_tpu")
+
+
+def port_sources():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def imported_modules(path):
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize(
+    "path", port_sources(), ids=lambda p: str(p.relative_to(REPO))
+)
+def test_no_jax_imports(path):
+    for name in imported_modules(path):
+        root = name.split(".")[0]
+        assert root not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import kafka_lag_based_assignor_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'kafka_lag_based_assignor_tpu'))\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120, check=True,
+    )
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve_device(device)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LagBasedPartitionAssignor()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dispatch.assign_device({}, {"m": ["t"]})
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def test_default_device_is_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
+    assert LagBasedPartitionAssignor().device == torch.device("cuda")
+
+
+def test_cpu_tensors_never_count_a_launch():
+    before = rounds_cuda.rounds_scan.launches
+    lags, members = baseline_workload(5, 3000, 40)
+    subs = {m: ["t0"] for m in members}
+    for kernel in ("rounds", "global"):
+        dispatch.assign_device(lag_rows(lags), subs, kernel=kernel, device="cpu")
+    assert rounds_cuda.rounds_scan.launches == before
+
+
+def test_other_devices_never_reach_the_plain_version():
+    gains = torch.zeros((1, 1, 4), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        rounds_cuda.rounds_scan(
+            gains, torch.ones_like(gains, dtype=torch.uint8),
+            torch.zeros(4, dtype=torch.int64, device="meta"),
+        )
+
+
+def test_group_tensors_round_trips_a_jax_topic_group():
+    lags, members = baseline_workload(3)
+    subset = {t: lags[t][: 1 + i % 64] for i, t in enumerate(sorted(lags)[:20])}
+    (group,) = jax_packing.build_groups(
+        lag_rows(subset), {t: members for t in subset}
+    )
+    tensors = convert.group_tensors(group, device="cpu")
+    arrays = convert.group_tensors(
+        group.lags, group.partition_ids, group.valid, device="cpu"
+    )
+    for got, again, want, dtype in zip(
+        tensors, arrays, (group.lags, group.partition_ids, group.valid),
+        (torch.int64, torch.int32, torch.bool),
+    ):
+        assert got.dtype == dtype and got.device.type == "cpu"
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert torch.equal(got, again)
+    with pytest.raises(ValueError, match="one shape"):
+        convert.group_tensors(group.lags, group.partition_ids[:1], group.valid,
+                              device="cpu")
