@@ -12,21 +12,42 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    ``nvidia-smi`` reports them;
 2. build: ``nvcc`` builds every ``csrc/*.cu`` of the port (seconds printed);
 3. kernels: each kernel against its plain PyTorch version on the card, on the
-   same inputs, bit for bit (every value is an integer: tolerance 0);
-4. main path: the port's ``LagBasedPartitionAssignor(device="cuda")`` with a
-   ``FakeBroker`` on BASELINE config 5 (1 topic, 100k partitions, 1k
-   consumers) and config 3 (256 topics x 64 partitions, 64 consumers), for
-   the ``rounds`` and ``global`` solvers: every ``assign()`` must launch the
-   round-scan kernel, keep each topic's count spread <= 1 and equal the
-   port's CPU path on the same input; the README example must give its
-   documented answer;
-5. times at the config-5 shape, with CUDA events, median of 30 runs after
-   warm-up: the kernel alone, its plain version on the card, and the whole
-   ``assign()`` on the host clock; then, for each phase-4 cell, one
-   ``assign()`` under ``torch.profiler``: the device's busy time and its
-   idle share of the wall.
+   same inputs, at every shape the main paths give it and at edge shapes:
+   the round scan bit for bit (integers: tolerance 0), also at the quality
+   solver's greedy-leg shapes of configs 2, 4 and 5; the f32 quality
+   kernels (plan statistics at configs 2 and 4, superblock partials and
+   the mirror-prox step at config 5) within ``max |kernel - plain| <= 1e-5
+   * max |plain|`` (f32 sums in another order), also at edge shapes (C = 2,
+   C not a multiple of 128, 8 value rows, all-zero weights), and run twice
+   to the same bits; and torch's argmin / argmax on the card take the
+   first index among ties, as the JAX package's do;
+4. main paths, each with every launch count set to 0 just before it and
+   read just after, through the port's ``LagBasedPartitionAssignor(
+   device="cuda")`` with a ``FakeBroker``:
+   a. ``rounds`` and ``global`` on BASELINE config 5 (1 topic, 100k
+      partitions, 1k consumers) and config 3 (256 topics x 64 partitions,
+      64 consumers): every ``assign()`` launches the round-scan kernel,
+      keeps each topic's count spread <= 1 and equals the port's CPU path;
+      the README example gives its documented answer;
+   b. ``sinkhorn`` on BASELINE configs 2 (1k x 16), 4 (10k x 512, 90 %
+      zero lag: the dense path) and 5 (the linear path): the plan-statistics
+      kernel launches at 2 and 4, the mirror-prox step (and so the
+      superblock partials) at 5, the round scan at all three; every
+      partition is assigned once, count spread <= 1, peak member load no
+      worse than the ``rounds`` solver's, the additive bound at config 5; a
+      second ``assign()`` gives the same assignment; the port's CPU path
+      on the same input meets the same invariants (both quality ratios
+      printed);
+5. times, with CUDA events, medians of 30 runs after warm-up: each kernel
+   alone at its main-path shape, its plain version on the card, the
+   library yardstick where there is one, and its bound; the ``assign()``
+   wall on the host clock at config 5 (``rounds``) and configs 4 and 5
+   (``sinkhorn``); then, for each phase-4 cell, one ``assign()`` under
+   ``torch.profiler``: the device's busy time and its idle share of the
+   wall.
 
-It prints one JSON ``kernels`` line, and as its last line
+It prints the card's name and power limit, one JSON ``kernels`` line, and as
+its last line
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
 result.
 """
@@ -44,7 +65,16 @@ import numpy as np
 import torch
 
 from kafka_lag_based_assignor_tpu_torch.assignor import LagBasedPartitionAssignor
-from kafka_lag_based_assignor_tpu_torch.ops import _build, rounds_cuda
+from kafka_lag_based_assignor_tpu_torch.models import sinkhorn
+from kafka_lag_based_assignor_tpu_torch.ops import (
+    _build,
+    linear_ot,
+    linear_ot_cuda,
+    plan_stats,
+    plan_stats_cuda,
+    rounds_cuda,
+)
+from kafka_lag_based_assignor_tpu_torch.ops.packing import pad_topic_rows
 from kafka_lag_based_assignor_tpu_torch.ops.rounds_kernel import round_rows
 from kafka_lag_based_assignor_tpu_torch.ops.scan_kernel import sort_partitions_with
 from kafka_lag_based_assignor_tpu_torch.testing import baseline_workload, broker_for
@@ -56,11 +86,37 @@ from kafka_lag_based_assignor_tpu_torch.types import GroupSubscription, Subscrip
 # bound stays a lower bound).
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# The exp rate: 16 ex2 results a clock on each SM (the multi-function
+# unit's throughput for compute capability 9.0 in NVIDIA's CUDA programming
+# guide), 132 SMs, 1.98 GHz boost clock.  One f32 exp is one ex2 after a
+# multiply, so this bounds any softmax from below.
+EXPS_PER_S = 16 * 132 * 1.98e9
 REPEATS = 30
+# The f32 kernels' tolerance against their plain versions, relative to the
+# largest entry: sums run in another order.
+F32_TOL = 1e-5
+SINKHORN_CONFIGS = (2, 4, 5)
+
+# Every kernel's launch counter: (name, the object holding ``launches``).
+COUNTERS = (
+    ("rounds_scan", rounds_cuda.rounds_scan),
+    ("plan_stats", plan_stats.plan_stats),
+    ("superblock_partials", linear_ot_cuda.superblock_partials),
+    ("mirror_prox_step", linear_ot_cuda.mirror_prox_step),
+)
 
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+def reset_counts() -> None:
+    for _, fn in COUNTERS:
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTERS}
 
 
 # -- phase 1 ---------------------------------------------------------------
@@ -90,15 +146,19 @@ def build() -> None:
 # -- phase 3 ---------------------------------------------------------------
 
 
-def round_inputs(lags: np.ndarray, n_valid: np.ndarray, C: int, device):
+def round_inputs(lags: np.ndarray, n_valid: np.ndarray, C: int, device,
+                 rows: int | None = None):
     """Kernel inputs as the main path makes them: each topic's rows sorted
-    into processing order and cut into rounds (gains, valid, totals0)."""
+    into processing order and cut into rounds (gains, valid, totals0).
+    ``rows`` bounds the rows the rounds cover (default the most valid
+    rows of any topic; the quality solver's greedy leg covers every padded
+    row)."""
     T, P = lags.shape
     lags_t = torch.from_numpy(lags).to(device)
     pids = torch.arange(P, dtype=torch.int32, device=device).expand(T, P)
     valid = torch.arange(P, device=device)[None, :] < torch.from_numpy(n_valid).to(device)[:, None]
     _, sl, sv = sort_partitions_with(lags_t, pids, valid, pack_shift=0)
-    gains, ok, R, _ = round_rows(sl, sv, C, int(n_valid.max()))
+    gains, ok, R, _ = round_rows(sl, sv, C, int(n_valid.max()) if rows is None else rows)
     return (
         gains.reshape(T, R, C).contiguous(),
         ok.reshape(T, R, C).to(torch.uint8).contiguous(),
@@ -107,31 +167,41 @@ def round_inputs(lags: np.ndarray, n_valid: np.ndarray, C: int, device):
 
 
 def kernel_cases():
-    """(name, lags [T, P], valid rows per topic, C, carry across topics)."""
+    """(name, lags [T, P], valid rows per topic, C, carry across topics,
+    rows the rounds cover or None)."""
     rng = np.random.default_rng(7)
 
     def full(T, P):
         return np.full(T, P)
 
+    # The quality solver's greedy leg at each sinkhorn cell: the padded
+    # topic, every padded row scanned (ops/rounds_kernel.assign_topic_rounds
+    # without n_valid).
+    for config in SINKHORN_CONFIGS:
+        lags, members = baseline_workload(config)
+        lags_p, _, valid = pad_topic_rows(lags["t0"])
+        yield (f"sinkhorn_greedy_config{config}", lags_p[None],
+               np.array([int(valid.sum())]), len(members), False, lags_p.shape[0])
     yield ("config5_narrow", rng.integers(0, 20_000, (1, 100_000)),
-           full(1, 100_000), 1000, False)
+           full(1, 100_000), 1000, False, None)
     yield ("config5_wide", rng.integers(2**20, 2**31, (1, 100_000)),
-           full(1, 100_000), 1000, False)
+           full(1, 100_000), 1000, False, None)
     table = rng.integers(0, 1000, (256, 64))
-    yield "config3_rounds", table, full(256, 64), 64, False
-    yield "config3_global", table, full(256, 64), 64, True
-    yield "one_consumer", rng.integers(0, 10**6, (4, 50)), full(4, 50), 1, False
+    yield "config3_rounds", table, full(256, 64), 64, False, None
+    yield "config3_global", table, full(256, 64), 64, True, None
+    yield "one_consumer", rng.integers(0, 10**6, (4, 50)), full(4, 50), 1, False, None
     yield ("fewer_rows_than_consumers", rng.integers(0, 10**6, (3, 128)),
-           np.array([100, 7, 1]), 700, False)
-    yield "ties", rng.integers(0, 3, (8, 5000)), full(8, 5000), 300, False
+           np.array([100, 7, 1]), 700, False, None)
+    yield "ties", rng.integers(0, 3, (8, 5000)), full(8, 5000), 300, False, None
     yield ("max_slots", rng.integers(0, 10**9, (2, 40_000)), full(2, 40_000),
-           rounds_cuda.MAX_SLOTS, False)
+           rounds_cuda.MAX_SLOTS, False, None)
 
 
 def kernels_vs_plain(device) -> int:
     worst = 0
-    for name, lags, n_valid, C, carry in kernel_cases():
-        gains, valid, totals0 = round_inputs(lags.astype(np.int64), n_valid, C, device)
+    for name, lags, n_valid, C, carry, rows in kernel_cases():
+        gains, valid, totals0 = round_inputs(lags.astype(np.int64), n_valid, C, device,
+                                             rows)
         got_c, got_t = rounds_cuda.rounds_scan(gains, valid, totals0, carry)
         want_c, want_t = rounds_cuda.rounds_scan_torch(gains, valid, totals0, carry)
         if device.type == "cuda":
@@ -145,6 +215,131 @@ def kernels_vs_plain(device) -> int:
             f"C={C} carry={carry}: max |diff| {err}")
         if err:
             raise AssertionError(f"rounds_scan disagrees with its plain version on {name}")
+    return worst
+
+
+def f32_check(kind: str, name: str, got, want, again) -> float:
+    """Hold one f32 kernel output to its plain version (module docstring's
+    tolerance) and to a second run's bits; returns max |kernel - plain|."""
+    worst, scale = 0.0, 0.0
+    for g, w, a in zip(got, want, again):
+        if not torch.equal(g, a):
+            raise AssertionError(f"{kind} {name}: two runs differ")
+        worst = max(worst, float((g - w).abs().max()))
+        scale = max(scale, float(w.abs().max()))
+    log(f"kernel vs plain  {kind:19s} {name:28s} max |diff| {worst!r} "
+        f"(max |plain| {scale!r})")
+    if not worst <= F32_TOL * scale:
+        raise AssertionError(f"{kind} disagrees with its plain version on {name}")
+    return worst
+
+
+def dedup_case(config: int, device):
+    """The dedup weights of a BASELINE config, as the dense path makes them."""
+    lags, members = baseline_workload(config)
+    lags_p, _, valid = pad_topic_rows(lags["t0"])
+    return tuple(
+        torch.from_numpy(a).to(device)
+        for a in sinkhorn._dedup_weights(lags_p, valid, len(members))
+    ), len(members)
+
+
+def blocks_case(config: int, device, tile: int = 1024):
+    """The mirror-prox row blocks of a BASELINE config: ws_b, cnt_b
+    [8, tpb, tile], as the linear path makes them."""
+    lags, members = baseline_workload(config)
+    lags_p, _, valid = pad_topic_rows(lags["t0"])
+    C = len(members)
+    P2, t, _ = linear_ot.plan_shape(lags_p.shape[0], tile)
+    ws, cnt = linear_ot._ws_cnt(
+        torch.from_numpy(lags_p).to(device), torch.from_numpy(valid).to(device),
+        sinkhorn._scale_np(lags_p, valid, C),
+    )
+    return (linear_ot._to_blocks(ws, P2, 8, t),
+            linear_ot._to_blocks(cnt, P2, 8, t)), C
+
+
+def random_duals(C: int, device, seed: int = 0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(C, generator=g).mul_(0.3).to(device),
+            torch.randn(C, generator=g).mul_(0.1).to(device))
+
+
+def plan_stats_cases(device):
+    """(name, ws_u, count_u, wsum_u, A, B): the dense path's shapes at
+    configs 2 and 4, config 5's (the dedup cap) and edge shapes."""
+    g = torch.Generator().manual_seed(1)
+    for config in (2, 4, 5):
+        (ws, cnt, wsum), C = dedup_case(config, device)
+        yield (f"config{config} U={ws.shape[0]} C={C}", ws, cnt, wsum,
+               *random_duals(C, device))
+    for U, C in ((8, 2), (1024, 130)):
+        ws = torch.rand(U, generator=g).mul_(4.0)
+        cnt = torch.randint(0, 5, (U,), generator=g).float()
+        yield (f"random U={U} C={C}", *(x.to(device) for x in (ws, cnt, ws * cnt)),
+               *random_duals(C, device, U))
+    zeros = torch.zeros(64, device=device)
+    yield "all-zero weights U=64 C=100", zeros, zeros, zeros, *random_duals(100, device)
+
+
+def linear_cases(device):
+    """(name, ws_b, cnt_b, A, B)."""
+    g = torch.Generator().manual_seed(2)
+    (ws_b, cnt_b), C = blocks_case(5, device)
+    yield f"config5 {list(ws_b.shape)} C={C}", ws_b, cnt_b, *random_duals(C, device)
+    for shape, C in (((8, 2, 8), 2), ((8, 4, 64), 130)):
+        ws = torch.rand(shape, generator=g).mul_(3.0)
+        cnt = (torch.rand(shape, generator=g) < 0.8).float()
+        yield (f"random {list(shape)} C={C}", ws.to(device), cnt.to(device),
+               *random_duals(C, device, C))
+    zeros = torch.zeros((8, 1, 8), device=device)
+    yield "all-zero weights [8, 1, 8] C=5", zeros, zeros, *random_duals(5, device)
+
+
+def first_index_ties(device) -> None:
+    """The quality path relies on torch.argmin / argmax returning the first
+    index among ties on the card, as jnp.argmin / argmax do."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randint(0, 3, (64, 4096), generator=g).to(device)
+    first = torch.arange(4096).expand(64, 4096)
+    for got, hit in ((x.argmin(dim=1), x == x.min(dim=1, keepdim=True).values),
+                     (x.argmax(dim=1), x == x.max(dim=1, keepdim=True).values)):
+        want = torch.where(hit.cpu(), first, 4096).min(dim=1).values
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError("argmin / argmax on the card do not take the first tie")
+    log("argmin / argmax on the card take the first index among ties")
+
+
+def quality_kernels_vs_plain(device) -> dict:
+    """The f32 kernels against their plain versions; max |diff| by kernel."""
+    first_index_ties(device)
+    worst = {"plan_stats": 0.0, "superblock_partials": 0.0, "mirror_prox_step": 0.0}
+    for name, *args in plan_stats_cases(device):
+        got, again = plan_stats.plan_stats(*args), plan_stats.plan_stats(*args)
+        want = plan_stats.plan_stats_torch(*args)
+        worst["plan_stats"] = max(worst["plan_stats"],
+                                  f32_check("plan_stats", name, got, want, again))
+    for name, ws_b, cnt_b, A, B in linear_cases(device):
+        got = linear_ot_cuda.superblock_partials(ws_b, cnt_b, A, B)
+        again = linear_ot_cuda.superblock_partials(ws_b, cnt_b, A, B)
+        want = linear_ot._superblock_partials(ws_b, cnt_b, A, B)
+        worst["superblock_partials"] = max(
+            worst["superblock_partials"],
+            f32_check("superblock_partials", name, got, want, again),
+        )
+        for sc, prev in ((1.0, float("inf")), (0.5, 0.0)):
+            scalars = (torch.tensor(sc, device=device), torch.tensor(prev, device=device))
+            step = (ws_b, cnt_b, A, B, *scalars)
+            got = linear_ot_cuda.mirror_prox_step(*step, eta=linear_ot.MIRROR_PROX_ETA)
+            again = linear_ot_cuda.mirror_prox_step(*step, eta=linear_ot.MIRROR_PROX_ETA)
+            want = linear_ot_cuda.mirror_prox_step_torch(
+                *step, eta=linear_ot.MIRROR_PROX_ETA)
+            worst["mirror_prox_step"] = max(
+                worst["mirror_prox_step"],
+                f32_check("mirror_prox_step", f"{name} sc={sc} prev={prev}",
+                          got, want, again),
+            )
+    torch.cuda.synchronize()
     return worst
 
 
@@ -173,6 +368,9 @@ def assign_once(lags, members, solver, device):
 
 
 def main_path(device) -> int:
+    """Path a: ``rounds`` and ``global``.  Returns the round-scan launches
+    counted from just before the path to just after it."""
+    reset_counts()
     lags, members = baseline_workload(1)
     got, _ = assign_once(lags, members, "rounds", device)
     if got != {"C0": [("t0", 0)], "C1": [("t0", 2), ("t0", 1)]}:
@@ -181,14 +379,13 @@ def main_path(device) -> int:
     runs = [(cfg, solver) for cfg in (5, 3) for solver in ("rounds", "global")]
     workloads = {cfg: baseline_workload(cfg) for cfg in (5, 3)}
     results = {}
-    rounds_cuda.rounds_scan.launches = 0
     for cfg, solver in runs:
         before = rounds_cuda.rounds_scan.launches
         results[cfg, solver] = assign_once(*workloads[cfg], solver, device)
         grew = rounds_cuda.rounds_scan.launches - before
         if device.type == "cuda" and grew < 1:
             raise AssertionError(f"config {cfg} {solver}: no round-scan launch")
-    launches = rounds_cuda.rounds_scan.launches
+    launches = read_counts()["rounds_scan"]
 
     for (cfg, solver), (got, stats) in results.items():
         lags, members = workloads[cfg]
@@ -203,7 +400,76 @@ def main_path(device) -> int:
             f"{stats.num_members} members, quality_ratio {stats.quality_ratio!r}, "
             f"wall {stats.wall_ms:.3f} ms (solve {stats.solve_ms:.3f} ms), "
             "equal to the CPU path")
-    log(f"main path: rounds_scan launched {launches} times")
+    log(f"main path (rounds, global): rounds_scan launched {launches} times")
+    return launches
+
+
+def check_quality(label: str, lags, members, got, greedy_peak, linear: bool):
+    """The quality solve's invariants on one single-topic result: every
+    partition once, count spread <= 1, peak load no worse than greedy's
+    and, in linear mode, within the additive bound.  Returns the peak."""
+    arr = lags["t0"]
+    held = {m: [p for _, p in tps] for m, tps in got.items()}
+    if sorted(p for ps in held.values() for p in ps) != list(range(arr.size)):
+        raise AssertionError(f"{label}: not every partition assigned exactly once")
+    counts = [len(held[m]) for m in members]
+    if max(counts) - min(counts) > 1:
+        raise AssertionError(f"{label}: count spread {max(counts) - min(counts)}")
+    peak = max(int(arr[ps].sum()) if ps else 0 for ps in held.values())
+    if peak > greedy_peak:
+        raise AssertionError(f"{label}: peak {peak} above greedy's {greedy_peak}")
+    if linear:
+        bound = linear_ot.additive_bound(arr, np.ones(arr.size, bool), len(members))
+        if peak > bound:
+            raise AssertionError(f"{label}: peak {peak} above the additive bound {bound}")
+    return peak
+
+
+def greedy_peak(lags, got) -> int:
+    arr = lags["t0"]
+    return max(int(arr[[p for _, p in tps]].sum()) if tps else 0 for tps in got.values())
+
+
+def sinkhorn_path(device) -> dict:
+    """Path b: ``sinkhorn`` at BASELINE configs 2, 4 and 5.  Returns every
+    kernel's launches counted from just before the path to just after."""
+    workloads = {cfg: baseline_workload(cfg) for cfg in SINKHORN_CONFIGS}
+    peaks = {cfg: greedy_peak(workloads[cfg][0],
+                              assign_once(*workloads[cfg], "rounds", device)[0])
+             for cfg in SINKHORN_CONFIGS}
+    reset_counts()
+    results = {}
+    for cfg in SINKHORN_CONFIGS:
+        before = read_counts()
+        got, stats = assign_once(*workloads[cfg], "sinkhorn", device)
+        rounds = linear_ot.last_solve_info() if cfg == 5 else None
+        again, _ = assign_once(*workloads[cfg], "sinkhorn", device)
+        grew = {k: v - before[k] for k, v in read_counts().items()}
+        needed = ["rounds_scan"] + (
+            ["mirror_prox_step", "superblock_partials"] if cfg == 5 else ["plan_stats"])
+        if device.type == "cuda" and any(grew[k] < 1 for k in needed):
+            raise AssertionError(f"config {cfg} sinkhorn: launches {grew}, "
+                                 f"needed {needed}")
+        if got != again:
+            raise AssertionError(f"config {cfg} sinkhorn: a second assign() differs")
+        results[cfg] = (got, stats, grew, rounds)
+    launches = read_counts()
+
+    for cfg, (got, stats, grew, rounds) in results.items():
+        lags, members = workloads[cfg]
+        peak = check_quality(f"config {cfg} sinkhorn", lags, members, got,
+                             peaks[cfg], linear=cfg == 5)
+        cpu, cpu_stats = assign_once(lags, members, "sinkhorn", torch.device("cpu"))
+        check_quality(f"config {cfg} sinkhorn (CPU)", lags, members, cpu,
+                      peaks[cfg], linear=cfg == 5)
+        log(f"main path  config {cfg} sinkhorn: {stats.num_partitions} partitions, "
+            f"{stats.num_members} members, peak {peak} (greedy {peaks[cfg]}), "
+            f"quality_ratio {stats.quality_ratio!r} (CPU path "
+            f"{cpu_stats.quality_ratio!r}; same assignment: {got == cpu}), "
+            f"wall {stats.wall_ms:.3f} ms (solve {stats.solve_ms:.3f} ms), "
+            f"launches in two assign() {grew}"
+            + (f", duals rounds {rounds['duals_rounds']}" if rounds else ""))
+    log(f"main path (sinkhorn): launches {launches}")
     return launches
 
 
@@ -237,6 +503,24 @@ def bound_ms(T: int, R: int, C: int) -> tuple:
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations", stages
 
 
+def assign_walls(cfg: int, solver: str, device, repeats: int = REPEATS):
+    """Medians of ``repeats`` ``assign()`` calls after 3 warm-ups, host
+    clock, ending in a synchronize: (wall, lag read, solve, min wall)."""
+    lags, members = baseline_workload(cfg)
+    assignor, cluster, group = plugin(lags, members, solver, device)
+    walls, parts = [], []
+    for i in range(repeats + 3):
+        t0 = time.perf_counter()
+        assignor.assign(cluster, group)
+        torch.cuda.synchronize()
+        if i >= 3:
+            walls.append((time.perf_counter() - t0) * 1e3)
+            stats = assignor.last_stats
+            parts.append((stats.lag_read_ms, stats.solve_ms))
+    return (statistics.median(walls), statistics.median(p[0] for p in parts),
+            statistics.median(p[1] for p in parts), min(walls))
+
+
 def times(device):
     lags, members = baseline_workload(5)
     P = lags["t0"].size
@@ -247,59 +531,185 @@ def times(device):
     wrapper = median_event_ms(lambda: rounds_cuda.rounds_scan(gains, valid, totals0))
     plain = median_event_ms(lambda: rounds_cuda.rounds_scan_torch(gains, valid, totals0))
     bound, bound_by, stages = bound_ms(T, R, C)
-
-    assignor, cluster, group = plugin(lags, members, "rounds", device)
-    walls, parts = [], []
-    for i in range(REPEATS + 3):
-        t0 = time.perf_counter()
-        assignor.assign(cluster, group)
-        torch.cuda.synchronize()
-        if i >= 3:
-            walls.append((time.perf_counter() - t0) * 1e3)
-            stats = assignor.last_stats
-            parts.append((stats.lag_read_ms, stats.solve_ms))
-    wall = statistics.median(walls)
-    lag_read = statistics.median(p[0] for p in parts)
-    solve = statistics.median(p[1] for p in parts)
+    wall, lag_read, solve, fastest = assign_walls(5, "rounds", device)
     log(f"times at config 5 (T={T} R={R} C={C}, {R * stages} barrier stages): kernel "
         f"{kernel!r} ms ({kernel * 1e6 / (R * stages):.1f} ns a stage), wrapper with "
         f"its checks {wrapper!r} ms, plain version on the card {plain!r} ms, bound "
         f"{bound!r} ms ({bound_by})")
-    log(f"assign() at config 5, medians of {REPEATS} (host clock): wall {wall!r} ms "
-        f"(min {min(walls)!r}), of which lag read {lag_read!r} ms (FakeBroker), "
-        f"solve {solve!r} ms, the rest (stats, result objects) "
+    log(f"assign() at config 5 rounds, medians of {REPEATS} (host clock): wall "
+        f"{wall!r} ms (min {fastest!r}), of which lag read {lag_read!r} ms "
+        f"(FakeBroker), solve {solve!r} ms, the rest (stats, result objects) "
         f"{wall - lag_read - solve!r} ms; the kernel is {kernel / wall:.4%} of the wall")
     return kernel, plain, bound, bound_by
 
 
-def device_shares(device) -> None:
-    """One profiled assign() per main-path cell: the device's busy time
-    (kernels and copies, from torch.profiler's CUDA activity), the round
-    scan's share of it, and the device's idle share of the wall."""
+def exp_bound(exps: int, moved: int) -> tuple:
+    """(bound ms, "operations" or "bytes"): the larger of the exps over the
+    card's exp rate and the bytes over its memory rate."""
+    by_ops, by_bytes = exps / EXPS_PER_S * 1e3, moved / HBM_BYTES_PER_S * 1e3
+    return max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
+
+
+def softmax_library(ws, A, B, weights):
+    """The library yardstick: torch.softmax over the materialized logits,
+    then one matrix product per weight vector (timed, never used by the
+    port)."""
+    x = torch.softmax(-ws[:, None] * A + B, dim=1)
+    return [torch.mv(x.T, w) for w in weights]
+
+
+def superblock_library(ws_b, cnt_b, A, B):
+    Sb = ws_b.shape[0]
+    x = torch.softmax(-ws_b.reshape(-1)[:, None] * A + B, dim=1).reshape(Sb, -1, A.shape[0])
+    return [torch.matmul(w.reshape(Sb, 1, -1), x) for w in (ws_b, cnt_b)]
+
+
+def device_ms(fn, kernels) -> float:
+    """The device time of one ``fn()`` spent in the named CUDA kernels:
+    torch.profiler's CUDA activity over REPEATS calls, divided by REPEATS.
+    Unlike the CUDA-event time it leaves out the host's launch gaps."""
     from torch.profiler import ProfilerActivity, profile
 
-    for cfg in (5, 3):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPEATS):
+            fn()
+        torch.cuda.synchronize()
+    return sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and any(k in e.key for k in kernels)
+    ) / 1e3 / REPEATS
+
+
+def quality_times(device) -> dict:
+    """Each f32 kernel at its main-path shape: kernel, plain version and
+    library yardstick (CUDA events, medians of 30), the kernel's device
+    time alone (profiler) and its bound; then the sinkhorn walls.  Returns
+    {name: (ms, plain ms, library ms or None, bound ms, bound_by)}."""
+    out = {}
+    (ws, cnt, wsum), C = dedup_case(4, device)
+    A, B = random_duals(C, device)
+    U = int((cnt > 0).sum())
+
+    def k3():
+        return plan_stats_cuda.launch(ws, cnt, wsum, A, B)
+
+    out["plan_stats"] = (
+        median_event_ms(k3),
+        median_event_ms(lambda: plan_stats.plan_stats_torch(ws, cnt, wsum, A, B)),
+        median_event_ms(lambda: softmax_library(ws, A, B, (wsum, cnt))),
+        *exp_bound(U * C, 4 * (3 * ws.shape[0] + 4 * C)),
+    )
+    shapes = {"plan_stats": f"config 4: U_pad {ws.shape[0]} ({U} with weight), C {C}"}
+    alone = {"plan_stats": device_ms(k3, ("klba::",))}
+
+    (ws_b, cnt_b), C = blocks_case(5, device)
+    A, B = random_duals(C, device)
+    rows = int((cnt_b > 0).sum())
+    Sb = ws_b.shape[0]
+    sc, prev = torch.tensor(1.0, device=device), torch.tensor(float("inf"), device=device)
+    eta = linear_ot.MIRROR_PROX_ETA
+
+    def k5():
+        return linear_ot_cuda.superblock_partials(ws_b, cnt_b, A, B)
+
+    def k4():
+        return linear_ot_cuda.mirror_prox_step(ws_b, cnt_b, A, B, sc, prev, eta=eta)
+
+    out["superblock_partials"] = (
+        median_event_ms(k5),
+        median_event_ms(lambda: linear_ot._superblock_partials(ws_b, cnt_b, A, B)),
+        median_event_ms(lambda: superblock_library(ws_b, cnt_b, A, B)),
+        *exp_bound(rows * C, 4 * (2 * ws_b.numel() + 2 * C + 2 * Sb * C)),
+    )
+    out["mirror_prox_step"] = (
+        median_event_ms(k4),
+        median_event_ms(lambda: linear_ot_cuda.mirror_prox_step_torch(
+            ws_b, cnt_b, A, B, sc, prev, eta=eta)),
+        None,
+        *exp_bound(2 * rows * C, 4 * (2 * ws_b.numel() + 2 * C + 2 + 3 * C)),
+    )
+    shape = f"config 5: {list(ws_b.shape)} ({rows} valid rows), C {C}"
+    # K5 with both marginals is the launch of K4's corrector pass; the
+    # predictor pass launches it for the load only.
+    shapes.update(superblock_partials=f"{shape}, both marginals",
+                  mirror_prox_step=shape)
+    alone["superblock_partials"] = device_ms(k5, ("klba::",))
+    alone["mirror_prox_step"] = device_ms(k4, ("klba::", "mirror_step"))
+
+    for name, (ms, plain, library, bound, bound_by) in out.items():
+        log(f"times  {name:19s} at {shapes[name]}: kernel {ms!r} ms (device time "
+            f"alone {alone[name]!r} ms), plain version {plain!r} ms, library "
+            f"yardstick {library!r} ms, bound {bound!r} ms ({bound_by}), "
+            f"{ms / bound:.1f}x the bound")
+    for cfg in (4, 5):
+        wall, lag_read, solve, fastest = assign_walls(cfg, "sinkhorn", device)
+        log(f"assign() at config {cfg} sinkhorn, medians of {REPEATS} (host clock): "
+            f"wall {wall!r} ms (min {fastest!r}), lag read {lag_read!r} ms, solve "
+            f"{solve!r} ms ({solve / wall:.2%} of the wall)")
+    return out
+
+
+def device_shares(device) -> None:
+    """One profiled assign() per main-path cell: the device's busy time
+    (kernels and copies, from torch.profiler's CUDA activity), the port's
+    kernels' share of it, and the device's idle share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cells = [(cfg, solver) for cfg in (5, 3) for solver in ("rounds", "global")]
+    cells += [(cfg, "sinkhorn") for cfg in SINKHORN_CONFIGS]
+    ours = ("rounds_scan", "klba::", "mirror_step")
+    for cfg, solver in cells:
         lags, members = baseline_workload(cfg)
-        for solver in ("rounds", "global"):
-            assignor, cluster, group = plugin(lags, members, solver, device)
+        assignor, cluster, group = plugin(lags, members, solver, device)
+        assignor.assign(cluster, group)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             assignor.assign(cluster, group)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                assignor.assign(cluster, group)
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-            events = [
-                e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and "Activity Buffer" not in e.key
-            ]
-            busy = sum(e.self_device_time_total for e in events) / 1e3
-            scan = sum(
-                e.self_device_time_total for e in events if "rounds_scan" in e.key
-            ) / 1e3
-            log(f"device share  config {cfg} {solver:6s}: wall {wall!r} ms (profiled), "
-                f"device busy {busy!r} ms, of which the round scan {scan!r} ms; "
-                f"idle share {1 - busy / wall!r}")
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = [
+            e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "Activity Buffer" not in e.key
+        ]
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        kernels = sum(
+            e.self_device_time_total for e in events if any(k in e.key for k in ours)
+        ) / 1e3
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+        log(f"device share  config {cfg} {solver:8s}: wall {wall!r} ms (profiled), "
+            f"device busy {busy!r} ms, of which the port's kernels {kernels!r} ms; "
+            f"idle share {1 - busy / wall!r}; top: "
+            + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms "
+                        f"x{e.count}" for e in top))
+
+
+SOURCES = {
+    "rounds_scan": ("csrc/rounds_scan.cu", "ops/rounds_pallas.py:194"),
+    "plan_stats": ("csrc/plan_stats.cu", "ops/plan_stats.py:184"),
+    "superblock_partials": ("csrc/linear_ot.cu", "ops/linear_ot_pallas.py:169"),
+    "mirror_prox_step": ("csrc/linear_ot.cu", "ops/linear_ot_pallas.py:226"),
+}
+
+
+def kernel_line(name, launches, err, ms, plain, bound, bound_by, library) -> dict:
+    source, replaces = SOURCES[name]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"kafka_lag_based_assignor_tpu_torch/{source}",
+        "replaces": f"kafka_lag_based_assignor_tpu/{replaces}",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": library,
+    }
 
 
 def main() -> int:
@@ -311,23 +721,19 @@ def main() -> int:
     name = environment()
     build()
     max_err = kernels_vs_plain(device)
-    launches = main_path(device)
+    f32_err = quality_kernels_vs_plain(device)
+    rounds_launches = main_path(device)
+    launches = sinkhorn_path(device)
+    launches["rounds_scan"] += rounds_launches
     kernel, plain, bound, bound_by = times(device)
+    quality = quality_times(device)
     device_shares(device)
-    log(json.dumps({"kernels": [{
-        "name": "rounds_scan",
-        "route": "cuda",
-        "source": "kafka_lag_based_assignor_tpu_torch/csrc/rounds_scan.cu",
-        "replaces": "kafka_lag_based_assignor_tpu/ops/rounds_pallas.py:194",
-        "also_replaces": "kafka_lag_based_assignor_tpu/ops/rounds_pallas.py:160",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel,
-        "plain_ms": plain,
-        "bound_ms": bound,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]}))
+    line = [dict(kernel_line("rounds_scan", launches["rounds_scan"], max_err, kernel,
+                             plain, bound, bound_by, None),
+                 also_replaces="kafka_lag_based_assignor_tpu/ops/rounds_pallas.py:160")]
+    for k, (ms, plain_ms, library, bnd, by) in quality.items():
+        line.append(kernel_line(k, launches[k], f32_err[k], ms, plain_ms, bnd, by, library))
+    log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}))

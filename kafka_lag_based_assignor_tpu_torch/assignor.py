@@ -12,11 +12,13 @@ not a subclass).  Mirrors the reference's protocol contract
   leader: unions subscribed topics, reads lags (the only network boundary),
   solves the assignment, wraps results with no user data.
 
-The ``rounds`` (default) and ``global`` solvers run on ``device`` — the CUDA
-card unless the caller passes ``device="cpu"`` — and ``host`` runs the host
-greedy.  There is no host fallback: a device error propagates out of
-``assign()``.  Every rebalance leaves a :class:`RebalanceStats` record in
-``last_stats``.
+The ``rounds`` (default), ``global`` and ``sinkhorn`` solvers run on
+``device`` — the CUDA card unless the caller passes ``device="cpu"`` — and
+``host`` runs the host greedy.  ``sinkhorn`` is the quality solver; the
+process-wide ``quality.mode`` (:mod:`.ops.dispatch`) routes each of its
+topics to the dense or the linear-space path.  There is no host fallback:
+a device error propagates out of ``assign()``.  Every rebalance leaves a
+:class:`RebalanceStats` record in ``last_stats``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Any, Callable, Mapping, Optional
 
 from .lag import LagRetryPolicy, MetadataConsumer, read_topic_partition_lags
 from .models.greedy import assign_greedy
+from .models.sinkhorn import assign_sinkhorn
 from .ops.dispatch import assign_device
 from .types import (
     Assignment,
@@ -43,7 +46,7 @@ LOGGER = logging.getLogger(__name__)
 MetadataConsumerFactory = Callable[[Mapping[str, Any]], MetadataConsumer]
 
 #: Solvers this package runs on the device.
-DEVICE_SOLVERS = ("rounds", "global")
+DEVICE_SOLVERS = ("rounds", "global", "sinkhorn")
 
 
 class LagBasedPartitionAssignor:
@@ -96,15 +99,23 @@ class LagBasedPartitionAssignor:
                 f"solver {solver!r} is not ported to PyTorch yet; this "
                 f"package runs {DEVICE_SOLVERS + ('host',)} (see ROADMAP.md)"
             )
-        if self._config.refine_iters:
+        if self._config.refine_iters and solver != "sinkhorn":
             raise NotImplementedError(
-                "the exchange refinement (tpu.assignor.refine.iters > 0) is "
-                "not ported to PyTorch yet (see ROADMAP.md)"
+                "the exchange refinement of the parity solvers "
+                "(tpu.assignor.refine.iters > 0) is not ported to PyTorch "
+                "yet (see ROADMAP.md)"
             )
 
         stats = RebalanceStats(
             solver=solver,
             device=self.device.type if solver in DEVICE_SOLVERS else None,
+            # Only solvers that consume the budget record it, as in the
+            # JAX package.
+            refine_iters=(
+                self._config.refine_iters
+                if solver in ("rounds", "scan", "sinkhorn")
+                else None
+            ),
         )
         with stopwatch() as wall:
             group_assignment = self._assign_inner(metadata, subscriptions, stats)
@@ -145,6 +156,13 @@ class LagBasedPartitionAssignor:
         with stopwatch() as solve_ms:
             if self._config.solver == "host":
                 raw = assign_greedy(lags, topic_subscriptions)
+            elif self._config.solver == "sinkhorn":
+                raw = assign_sinkhorn(
+                    lags, topic_subscriptions,
+                    iters=self._config.sinkhorn_iters,
+                    refine_iters=self._config.refine_iters,
+                    device=self.device,
+                )
             else:
                 raw = assign_device(
                     lags, topic_subscriptions, kernel=self._config.solver,

@@ -6,6 +6,11 @@ int64[T, P], ``partition_ids`` int32[T, P] and ``valid`` bool[T, P] of a
 ``TopicGroup`` of either package — into the port's device tensors.  It is
 duck-typed: it reads those three attributes, or takes the three arrays
 directly, and imports nothing of the JAX package.
+
+The quality solvers carry float state as well: :func:`duals_from_numpy`
+takes the (A, B) duals of either package and :func:`dedup_from_numpy` the
+deduplicated lag weights of ``models.sinkhorn._dedup_weights``, so the same
+solver state can be fed to both packages.
 """
 
 from __future__ import annotations
@@ -39,3 +44,25 @@ def group_tensors(lags, partition_ids=None, valid=None, device: DeviceLike = Non
             f"{[a.shape for a in arrays]}"
         )
     return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+
+def _float32_tensors(arrays, device: DeviceLike):
+    dev = resolve_device(device)
+    out = tuple(np.ascontiguousarray(a, dtype=np.float32) for a in arrays)
+    if any(a.ndim != 1 or a.shape != out[0].shape for a in out):
+        raise ValueError(
+            f"expected 1-D arrays of one length, got {[a.shape for a in out]}"
+        )
+    return tuple(torch.from_numpy(a).to(dev) for a in out)
+
+
+def duals_from_numpy(A, B, device: DeviceLike = None):
+    """The (A, B) duals of the implicit plan, float32[C] each, as tensors
+    on ``device``."""
+    return _float32_tensors((A, B), device)
+
+
+def dedup_from_numpy(ws_u, count_u, wsum_u, device: DeviceLike = None):
+    """The deduplicated lag weights (ws_u, count_u, wsum_u), float32[U]
+    each, as tensors on ``device``."""
+    return _float32_tensors((ws_u, count_u, wsum_u), device)

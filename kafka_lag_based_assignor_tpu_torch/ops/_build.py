@@ -2,10 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/klba_torch/lib<name>-<digest>.so`` beside the package (the
-checkout's ``build/`` directory), where ``<digest>`` hashes the source and
-the flags, so an edited source never reuses a stale library.  The build runs
-at first use, never at import: importing this module needs no compiler and
-no card.
+checkout's ``build/`` directory), where ``<digest>`` hashes the source, the
+shared ``csrc/*.cuh`` headers and the flags, so an edited source never
+reuses a stale library.  The build runs at first use, never at import:
+importing this module needs no compiler and no card.
 """
 
 from __future__ import annotations
@@ -47,9 +47,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (content- and flag-addressed)."""
+    """Where ``csrc/<name>.cu`` builds to (addressed by its content, the
+    shared headers' and the flags)."""
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(p.read_bytes() for p in sources) + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

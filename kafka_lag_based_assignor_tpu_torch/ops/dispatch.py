@@ -14,17 +14,25 @@ descending, partition id ascending, :228-235).
 Member-rank convention: per group, subscribed members sorted
 lexicographically map to dense kernel indices, so the kernel's integer
 tie-break reproduces the reference's member-id string compare (:259).
+
+The quality router (``tpu.assignor.quality.mode``) and the per-topic host
+orchestration of the quality solvers (:func:`assign_per_topic`) live here
+too, as in the JAX module.  The knobs are process-wide, as there.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence
+import threading
+from contextlib import contextmanager
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..convert import group_tensors
 from ..models.greedy import consumers_per_topic
 from ..types import AssignmentMap, TopicPartition, TopicPartitionLag
+from ..utils.config import QUALITY_MODES, validate_quality_tile
 from ..utils.device import DeviceLike, resolve_device
 from .batched import assign_batched_rounds
 from .packing import TopicGroup, build_groups
@@ -151,3 +159,109 @@ def assign_topic_device(
         kernel=kernel,
         device=device,
     )
+
+
+#: "auto" routes the quality solve to the linear-space mode at or above
+#: this many (padded) partition rows; below it the dense Sinkhorn path.
+LINEAR_AUTO_MIN_ROWS = 32768
+
+# Process-wide quality-plane knobs; tests scope overrides with
+# quality_scope.
+_QUALITY = {"mode": "auto", "tile": 1024}
+_QUALITY_LOCK = threading.Lock()
+
+
+def normalize_quality_mode(mode) -> str:
+    m = str(mode)
+    if m not in QUALITY_MODES:
+        raise ValueError(
+            f"quality mode {mode!r} invalid; choose one of {QUALITY_MODES}"
+        )
+    return m
+
+
+def set_quality_mode(mode) -> str:
+    """Install the process-wide quality mode."""
+    m = normalize_quality_mode(mode)
+    with _QUALITY_LOCK:
+        _QUALITY["mode"] = m
+    return m
+
+
+def quality_mode() -> str:
+    return _QUALITY["mode"]
+
+
+def set_quality_tile(tile) -> int:
+    """Install the process-wide linear-mode tile size (pow2 rows per
+    streamed tile — the ``tpu.assignor.quality.tile`` knob)."""
+    t = validate_quality_tile(tile)
+    with _QUALITY_LOCK:
+        _QUALITY["tile"] = t
+    return t
+
+
+def quality_tile() -> int:
+    return _QUALITY["tile"]
+
+
+@contextmanager
+def quality_scope(mode, tile: Optional[int] = None):
+    """Scope a quality mode (and optionally a tile size) to a block; the
+    previous knobs are restored even when a setter rejects its value."""
+    with _QUALITY_LOCK:
+        prev = dict(_QUALITY)
+    try:
+        set_quality_mode(mode)
+        if tile is not None:
+            set_quality_tile(tile)
+        yield
+    finally:
+        with _QUALITY_LOCK:
+            _QUALITY.update(prev)
+
+
+def resolve_quality_mode(num_rows: int, num_consumers: int) -> str:
+    """THE quality-mode router: pinned modes win; "auto" picks linear at
+    or above :data:`LINEAR_AUTO_MIN_ROWS` rows (and never for one
+    consumer)."""
+    mode = _QUALITY["mode"]
+    if mode != "auto":
+        return mode
+    if int(num_consumers) < 2:
+        return "sinkhorn"
+    if int(num_rows) >= LINEAR_AUTO_MIN_ROWS:
+        return "linear"
+    return "sinkhorn"
+
+
+def assign_per_topic(
+    partition_lag_per_topic: Mapping[str, Sequence[TopicPartitionLag]],
+    subscriptions: Mapping[str, Sequence[str]],
+    solve_topic,
+) -> AssignmentMap:
+    """Shared host orchestration for per-topic solvers: dedup + rank
+    members, columnarize rows, call ``solve_topic(lags int64[P], pids
+    int32[P], num_consumers) -> choice`` (a tensor or array of consumer
+    indices in input row order), and rebuild per-member lists with the
+    same reference ordering as the batched path."""
+    assignment: AssignmentMap = {m: [] for m in subscriptions}
+    by_topic = consumers_per_topic(subscriptions)
+    for topic in sorted(by_topic):
+        members = sorted(set(by_topic[topic]))
+        rows = partition_lag_per_topic.get(topic, ())
+        if not members or not rows:
+            continue
+        P = len(rows)
+        lags = np.fromiter((r.lag for r in rows), np.int64, count=P)
+        pids = np.fromiter((r.partition for r in rows), np.int32, count=P)
+        choice = solve_topic(lags, pids, len(members))
+        if isinstance(choice, torch.Tensor):
+            choice = choice.cpu().numpy()
+        frag = _rebuild_topic(
+            topic, members, lags, pids, np.ones(P, dtype=bool),
+            np.asarray(choice)[:P],
+        )
+        for member, tps in frag.items():
+            assignment[member].extend(tps)
+    return assignment

@@ -37,6 +37,37 @@ def pad_bucket(n: int, minimum: int = 8) -> int:
     return b
 
 
+def table_rows(num_rows: int, num_consumers: int) -> int:
+    """Per-consumer slot budget for the resident refine's [C, M] row
+    table (:func:`.refine.build_choice_tables`): the count invariant
+    ``max - min <= 1`` bounds any consumer at ``ceil(P / C)`` rows, and
+    exchange moves never push a consumer past the current maximum, so
+    ``ceil(P / C) + 1`` slots hold every reachable state with one slot of
+    headroom."""
+    C = max(int(num_consumers), 1)
+    return -(-int(num_rows) // C) + 1
+
+
+def pad_topic_rows(lags, partition_ids=None):
+    """Pad one topic's columns to its power-of-two bucket.
+
+    The single place the (lags, partition_ids, valid) pad-and-mask triple
+    is built for per-topic solvers.  Returns (lags int64[P_pad],
+    partition_ids int32[P_pad], valid bool[P_pad]).
+    """
+    P = len(lags)
+    P_pad = pad_bucket(P)
+    lags_p = np.zeros(P_pad, dtype=np.int64)
+    pids_p = np.zeros(P_pad, dtype=np.int32)
+    valid = np.zeros(P_pad, dtype=bool)
+    lags_p[:P] = lags
+    pids_p[:P] = (
+        np.arange(P, dtype=np.int32) if partition_ids is None else partition_ids
+    )
+    valid[:P] = True
+    return lags_p, pids_p, valid
+
+
 @dataclass
 class TopicGroup:
     """A batch of topics sharing one (deduped, rank-ordered) subscriber set.

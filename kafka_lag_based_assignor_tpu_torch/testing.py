@@ -111,11 +111,13 @@ def baseline_workload(
     config: int, partitions: Optional[int] = None,
     consumers: Optional[int] = None,
 ) -> Tuple[Dict[str, np.ndarray], List[str]]:
-    """(lags by topic, member ids) of BASELINE config 1, 2, 3 or 5.
+    """(lags by topic, member ids) of BASELINE config 1, 2, 3, 4 or 5.
 
     1: the README case, 3 partitions (100k / 50k / 60k), 2 consumers;
     2: 1 topic, 1k partitions, 16 consumers, Zipf(1.1);
     3: 256 topics x 64 partitions, 64 consumers, uniform lag;
+    4: 1 topic, 10k partitions, 512 consumers, 90 % zero lag and 10 % hot
+       partitions with lags uniform in [1e5, 1e7);
     5: 1 topic, 100k partitions, 1k consumers, Zipf(1.1).
     ``partitions`` / ``consumers`` cut config 5 to size.
     """
@@ -130,12 +132,19 @@ def baseline_workload(
         table = rng.integers(0, 1000, size=(256, 64)).astype(np.int64)
         lags = {f"t{t:03d}": table[t] for t in range(256)}
         C = 64
+    elif config == 4:
+        rng = np.random.default_rng(4)
+        P, C = 10_000, 512
+        skew = np.zeros(P, dtype=np.int64)
+        hot = rng.choice(P, size=P // 10, replace=False)
+        skew[hot] = rng.integers(10**5, 10**7, size=hot.size)
+        lags = {"t0": skew}
     elif config == 5:
         P = 100_000 if partitions is None else partitions
         lags = {"t0": zipf_lags(np.random.default_rng(5), P)}
         C = 1000 if consumers is None else consumers
     else:
-        raise ValueError(f"no BASELINE config {config} here (1, 2, 3 or 5)")
+        raise ValueError(f"no BASELINE config {config} (1 to 5)")
     return lags, [f"consumer-{i:04d}" for i in range(C)]
 
 

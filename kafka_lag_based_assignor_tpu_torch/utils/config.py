@@ -32,10 +32,45 @@ SOLVER_CONFIG = (
 # deterministic exponential-backoff base delay.
 LAG_RETRIES_CONFIG = "tpu.assignor.lag.retries"  # int >= 0
 LAG_RETRY_BACKOFF_CONFIG = "tpu.assignor.lag.retry.backoff.ms"
-# int >= 0, or unset/"auto".  An explicit integer > 0 opts the parity
-# solvers into the exchange refinement, which this package does not run
-# yet (the assignor raises NotImplementedError for it).
+# int >= 0, or unset/"auto".  For the "sinkhorn" solver, "auto" selects
+# the per-rounding-path budget (models/sinkhorn: 24 for the sequential
+# rounding, 96 for the parallel one) and an explicit integer is honored
+# exactly.  For the parity solvers an explicit integer > 0 opts into the
+# exchange refinement, which this package does not run yet (the assignor
+# raises NotImplementedError for it).
 REFINE_ITERS_CONFIG = "tpu.assignor.refine.iters"
+SINKHORN_ITERS_CONFIG = "tpu.assignor.sinkhorn.iters"  # int > 0
+# Quality-mode plane (ops/dispatch + ops/linear_ot).  ``quality.mode``
+# routes every quality solve: "sinkhorn" pins the dense implicit-plan
+# path, "linear" the O(P + C)-memory mirror-prox path, "auto" (default)
+# picks linear at large row counts.  ``quality.tile`` is the linear
+# mode's streamed tile size in rows (pow2).  Both are validated here, so
+# a malformed value fails at configure() as in the JAX package, but they
+# are not kept: the plugin does not install them (the JAX plugin does not
+# either; its sidecar does), and the router reads the process-wide knobs
+# of ops/dispatch.
+QUALITY_MODE_CONFIG = "tpu.assignor.quality.mode"
+QUALITY_TILE_CONFIG = "tpu.assignor.quality.tile"
+
+#: Valid ``quality.mode`` values (the router in ops/dispatch uses them).
+QUALITY_MODES = ("sinkhorn", "linear", "auto")
+
+_MAX_QUALITY_TILE = 1 << 16
+
+
+def validate_quality_tile(tile) -> int:
+    """THE ``quality.tile`` validator, shared by this config key and
+    ops/linear_ot: a power of two in [8, 65536]."""
+    try:
+        t = int(tile)
+    except (TypeError, ValueError):
+        raise ValueError(f"quality tile {tile!r} is not an integer")
+    if t < 8 or t > _MAX_QUALITY_TILE or (t & (t - 1)):
+        raise ValueError(
+            f"quality tile {t} must be a power of two in "
+            f"[8, {_MAX_QUALITY_TILE}]"
+        )
+    return t
 
 # The JAX package's solver names: all of them parse, so a config written
 # for it is accepted here; the assignor names the ones this package runs.
@@ -54,6 +89,7 @@ class AssignorConfig:
     lag_retries: int = 0
     lag_retry_backoff_s: float = 0.05
     refine_iters: Optional[int] = None
+    sinkhorn_iters: int = 24
     consumer_group_props: Dict[str, Any] = field(default_factory=dict)
     metadata_consumer_props: Dict[str, Any] = field(default_factory=dict)
 
@@ -100,6 +136,7 @@ def parse_config(configs: Mapping[str, Any]) -> AssignorConfig:
             raise ValueError(f"{key}={value} must be >= {minimum}")
         return value
 
+    sinkhorn_iters = _as_int(SINKHORN_ITERS_CONFIG, 24, 1)
     raw_refine = consumer_group_props.get(REFINE_ITERS_CONFIG, None)
     refine_iters = (
         None
@@ -112,6 +149,20 @@ def parse_config(configs: Mapping[str, Any]) -> AssignorConfig:
             f"'global' solver's cross-topic balance; unset it or choose "
             f"solver 'rounds'/'scan'/'sinkhorn'"
         )
+
+    quality_mode = str(
+        consumer_group_props.get(QUALITY_MODE_CONFIG, "auto")
+    )
+    if quality_mode not in QUALITY_MODES:
+        raise ValueError(
+            f"{QUALITY_MODE_CONFIG}={quality_mode!r} invalid; choose "
+            f"one of {QUALITY_MODES}"
+        )
+    raw_tile = consumer_group_props.get(QUALITY_TILE_CONFIG, 1024)
+    try:
+        validate_quality_tile(raw_tile)
+    except ValueError as exc:
+        raise ValueError(f"{QUALITY_TILE_CONFIG}: {exc}")
 
     raw_backoff = consumer_group_props.get(LAG_RETRY_BACKOFF_CONFIG, 50.0)
     try:
@@ -132,6 +183,7 @@ def parse_config(configs: Mapping[str, Any]) -> AssignorConfig:
         lag_retries=_as_int(LAG_RETRIES_CONFIG, 0, 0),
         lag_retry_backoff_s=backoff_ms / 1000.0,
         refine_iters=refine_iters,
+        sinkhorn_iters=sinkhorn_iters,
         consumer_group_props=consumer_group_props,
         metadata_consumer_props=metadata_consumer_props,
     )

@@ -53,6 +53,9 @@ class RebalanceStats:
     wall_ms: float = 0.0
     lag_read_ms: float = 0.0
     solve_ms: float = 0.0
+    # Exchange-refinement budget the solve consumed (None: the solver
+    # does not refine, or "auto").
+    refine_iters: Optional[int] = None
     total_lag: int = 0
     # Per-member totals across all topics (host-aggregated).
     member_total_lag: Dict[str, int] = field(default_factory=dict)

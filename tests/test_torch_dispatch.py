@@ -138,7 +138,9 @@ def test_host_solver_is_the_oracle():
     "configs",
     [
         {"tpu.assignor.solver": "scan"},
-        {"tpu.assignor.solver": "sinkhorn"},
+        # sinkhorn runs now (test_sinkhorn_solver_runs); the parity
+        # solvers' refinement still raises, on scan as on rounds.
+        {"tpu.assignor.solver": "scan", "tpu.assignor.refine.iters": "8"},
         {"tpu.assignor.solver": "native"},
         {"tpu.assignor.refine.iters": "8"},
     ],
@@ -150,9 +152,25 @@ def test_unported_options_raise(configs):
         port.assign(broker_for({}).cluster(), GroupSubscription({}))
 
 
+def test_sinkhorn_solver_runs():
+    lags, subs = workload(CASES[1])
+    group = GroupSubscription({m: Subscription(t) for m, t in subs.items()})
+    port = LagBasedPartitionAssignor(lambda props: broker_for(lags), device="cpu")
+    port.configure({"group.id": "g", "tpu.assignor.solver": "sinkhorn"})
+    got = port.assign(broker_for(lags).cluster(), group)
+    held = sorted(tp.partition for a in got.group_assignment.values()
+                  for tp in a.partitions)
+    assert held == list(range(len(lags["t0"])))
+    assert port.last_stats.count_spread <= 1
+    assert port.last_stats.solver == "sinkhorn" and port.last_stats.device == "cpu"
+
+
 @pytest.mark.parametrize(
     "raw",
     [
+        {"group.id": "g", "tpu.assignor.solver": "sinkhorn",
+         "tpu.assignor.sinkhorn.iters": "12", "tpu.assignor.quality.mode": "linear",
+         "tpu.assignor.quality.tile": "256", "tpu.assignor.refine.iters": "4"},
         {"group.id": "orders", "auto.offset.reset": "earliest"},
         {"group.id": "g", "tpu.assignor.solver": "global",
          "tpu.assignor.lag.retries": "2"},
@@ -163,11 +181,23 @@ def test_config_matches_jax(raw):
     got, want = config.parse_config(raw), jax_config.parse_config(raw)
     for key in ("group_id", "auto_offset_reset", "solver", "lag_retries",
                 "lag_retry_backoff_s", "refine_iters", "client_id",
-                "metadata_consumer_props"):
+                "metadata_consumer_props", "sinkhorn_iters"):
         assert getattr(got, key) == getattr(want, key), key
+    # quality.mode / .tile are validated but not kept: nothing in the
+    # plugin installs them (the router reads ops.dispatch's knobs).
+    assert not hasattr(got, "quality_mode") and not hasattr(got, "quality_tile")
 
 
-@pytest.mark.parametrize("bad", [{}, {"group.id": "g", "tpu.assignor.solver": "x"}])
+@pytest.mark.parametrize(
+    "bad",
+    [
+        {},
+        {"group.id": "g", "tpu.assignor.solver": "x"},
+        {"group.id": "g", "tpu.assignor.quality.mode": "dense"},
+        {"group.id": "g", "tpu.assignor.quality.tile": "100"},
+        {"group.id": "g", "tpu.assignor.sinkhorn.iters": "0"},
+    ],
+)
 def test_config_rejects_like_jax(bad):
     with pytest.raises(ValueError):
         config.parse_config(bad)

@@ -23,7 +23,15 @@ from kafka_lag_based_assignor_tpu_torch import convert  # noqa: E402
 from kafka_lag_based_assignor_tpu_torch.assignor import (  # noqa: E402
     LagBasedPartitionAssignor,
 )
-from kafka_lag_based_assignor_tpu_torch.ops import dispatch, rounds_cuda  # noqa: E402
+from kafka_lag_based_assignor_tpu_torch.models import sinkhorn  # noqa: E402
+from kafka_lag_based_assignor_tpu_torch.ops import (  # noqa: E402
+    dispatch,
+    linear_ot,
+    linear_ot_cuda,
+    packing,
+    plan_stats,
+    rounds_cuda,
+)
 from kafka_lag_based_assignor_tpu_torch.testing import (  # noqa: E402
     baseline_workload,
     lag_rows,
@@ -84,6 +92,15 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         LagBasedPartitionAssignor()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         dispatch.assign_device({}, {"m": ["t"]})
+    # The quality entry points resolve device=None the same way.
+    for entry in (sinkhorn.assign_sinkhorn, linear_ot.assign_linear):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry({}, {"m": ["t"]})
+    lags_p, pids_p, valid = packing.pad_topic_rows(np.arange(20))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sinkhorn.assign_topic_sinkhorn(lags_p, pids_p, valid, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        linear_ot.assign_topic_linear(lags_p, pids_p, valid, 3)
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
@@ -95,13 +112,22 @@ def test_default_device_is_the_card(monkeypatch):
     assert LagBasedPartitionAssignor().device == torch.device("cuda")
 
 
+def launch_counts():
+    return (rounds_cuda.rounds_scan.launches, plan_stats.plan_stats.launches,
+            linear_ot_cuda.superblock_partials.launches,
+            linear_ot_cuda.mirror_prox_step.launches)
+
+
 def test_cpu_tensors_never_count_a_launch():
-    before = rounds_cuda.rounds_scan.launches
+    before = launch_counts()
     lags, members = baseline_workload(5, 3000, 40)
     subs = {m: ["t0"] for m in members}
     for kernel in ("rounds", "global"):
         dispatch.assign_device(lag_rows(lags), subs, kernel=kernel, device="cpu")
-    assert rounds_cuda.rounds_scan.launches == before
+    sinkhorn.assign_sinkhorn(lag_rows(lags), subs, device="cpu")
+    with dispatch.quality_scope("linear", tile=64):
+        sinkhorn.assign_sinkhorn(lag_rows(lags), subs, device="cpu")
+    assert launch_counts() == before
 
 
 def test_other_devices_never_reach_the_plain_version():
@@ -111,6 +137,33 @@ def test_other_devices_never_reach_the_plain_version():
             gains, torch.ones_like(gains, dtype=torch.uint8),
             torch.zeros(4, dtype=torch.int64, device="meta"),
         )
+    vec = torch.zeros(4, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        plan_stats.plan_stats(vec, vec, vec, vec, vec)
+    rows = torch.zeros((8, 1, 8), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        linear_ot_cuda.superblock_partials(rows, rows, vec, vec)
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        # more consumers than the kernels take (16384)
+        lambda z: plan_stats.plan_stats(z(4), z(4), z(4), z(16385), z(16385)),
+        lambda z: linear_ot_cuda.superblock_partials(
+            z(8, 1, 8), z(8, 1, 8), z(16385), z(16385)),
+        # mismatched shapes, dtypes and scalars
+        lambda z: plan_stats.plan_stats(z(4), z(3), z(4), z(2), z(2)),
+        lambda z: plan_stats.plan_stats(z(4), z(4), z(4), z(2), z(2).double()),
+        lambda z: linear_ot_cuda.superblock_partials(z(8, 1, 8), z(8, 2, 4),
+                                                     z(2), z(2)),
+        lambda z: linear_ot_cuda.mirror_prox_step(z(8, 1, 8), z(8, 1, 8), z(2), z(2),
+                                                  z(1), z(), eta=8.0),
+    ],
+)
+def test_kernel_limits_raise_on_the_cpu_too(call):
+    with pytest.raises(ValueError):
+        call(lambda *shape: torch.zeros(shape, dtype=torch.float32))
 
 
 def test_group_tensors_round_trips_a_jax_topic_group():
