@@ -20,7 +20,12 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    * max |plain|`` (f32 sums in another order), also at edge shapes (C = 2,
    C not a multiple of 128, 8 value rows, all-zero weights), and run twice
    to the same bits; and torch's argmin / argmax on the card take the
-   first index among ties, as the JAX package's do;
+   first index among ties, as the JAX package's do; the resident-state
+   digest (K6) bit for bit at BASELINE config 5's resident shape (B 131,072,
+   C 1,000, M 133), clean and with each corruption class, at B = 8, C = 1,
+   C = 16,384 and a wrapping lag sum, and C = 16,385 raising on both
+   devices; and the streaming engine's bulk refine on the card bit for bit
+   against the port's CPU path from a drifted config-5 resident state;
 4. main paths, each with every launch count set to 0 just before it and
    read just after, through the port's ``LagBasedPartitionAssignor(
    device="cuda")`` with a ``FakeBroker``:
@@ -38,13 +43,26 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       second ``assign()`` gives the same assignment; the port's CPU path
       on the same input meets the same invariants (both quality ratios
       printed);
+   c. the streaming engine ``StreamingAssignor(num_consumers=1000,
+      refine_iters=512, imbalance_guardrail=1.25)`` at full config 5 in four
+      legs: bench.py's 10-epoch drift schedule (seed 5), three delta epochs
+      (at most 512 changed lags, on one consumer's partitions), a member
+      leaving and one joining, and a corruption drill (one flipped bit of
+      the resident choice raises ``CorruptStateDetected``, the next epoch
+      heals).  Every epoch keeps each partition in [0, C), count spread
+      <= 1 and, warm and untripped, churn <= 2 * 512 + repaired rows; the
+      digest kernel launches once per refine dispatch and the round scan
+      once per cold chain; a second run on the card and a run of the port's
+      CPU engine at the card's bucket give the same bits;
 5. times, with CUDA events, medians of 30 runs after warm-up: each kernel
    alone at its main-path shape, its plain version on the card, the
    library yardstick where there is one, and its bound; the ``assign()``
    wall on the host clock at config 5 (``rounds``) and configs 4 and 5
    (``sinkhorn``); then, for each phase-4 cell, one ``assign()`` under
    ``torch.profiler``: the device's busy time and its idle share of the
-   wall.
+   wall; the streaming epoch walls by type (cold, and the medians of the
+   no-op, warm-refine and delta epochs), the host reads of a warm epoch and
+   one profiled warm-refine epoch.
 
 It prints the card's name and power limit, one JSON ``kernels`` line, and as
 its last line
@@ -54,6 +72,7 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -72,13 +91,29 @@ from kafka_lag_based_assignor_tpu_torch.ops import (
     linear_ot_cuda,
     plan_stats,
     plan_stats_cuda,
+    refine,
     rounds_cuda,
+    state_digest_cuda,
+    streaming,
 )
-from kafka_lag_based_assignor_tpu_torch.ops.packing import pad_topic_rows
+from kafka_lag_based_assignor_tpu_torch.ops.packing import (
+    pad_bucket,
+    pad_topic_rows,
+    table_rows,
+)
 from kafka_lag_based_assignor_tpu_torch.ops.rounds_kernel import round_rows
 from kafka_lag_based_assignor_tpu_torch.ops.scan_kernel import sort_partitions_with
-from kafka_lag_based_assignor_tpu_torch.testing import baseline_workload, broker_for
+from kafka_lag_based_assignor_tpu_torch.testing import (
+    baseline_workload,
+    broker_for,
+    stream_drift,
+    stream_lags0,
+)
 from kafka_lag_based_assignor_tpu_torch.types import GroupSubscription, Subscription
+from kafka_lag_based_assignor_tpu_torch.utils import scrub
+from kafka_lag_based_assignor_tpu_torch.utils.observability import (
+    count_constrained_bound,
+)
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bandwidth, and the non-tensor
 # float32 rate, used for the kernel's int64 compare-exchanges, which have no
@@ -103,11 +138,22 @@ COUNTERS = (
     ("plan_stats", plan_stats.plan_stats),
     ("superblock_partials", linear_ot_cuda.superblock_partials),
     ("mirror_prox_step", linear_ot_cuda.mirror_prox_step),
+    ("state_digest", refine.state_digest),
 )
+# The streaming engine at BASELINE config 5, as bench.py drives it: P
+# partitions, C consumers, and the warm epoch's exchange budget.
+STREAM_P = 100_000
+STREAM_C = 1000
+STREAM_BUDGET = 512
 
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
 
 
 def reset_counts() -> None:
@@ -343,6 +389,142 @@ def quality_kernels_vs_plain(device) -> dict:
     return worst
 
 
+def resident_case(B: int, P: int, C: int, device, seed: int = 0):
+    """A consistent resident state on ``device``: lags int64[B] (0 past P),
+    a count-balanced choice over [:P] (-1 past it), and the row table and
+    counts built from them."""
+    rng = np.random.default_rng(seed)
+    lags = np.zeros(B, np.int64)
+    lags[:P] = rng.integers(0, 10**9, P)
+    choice = np.full(B, -1, np.int32)
+    choice[:P] = rng.permutation(np.arange(P) % C)
+    lags_t, choice_t = torch.from_numpy(lags).to(device), torch.from_numpy(choice).to(device)
+    tab, counts, _ = refine.build_choice_tables(
+        lags_t, torch.arange(B, device=device) < P, choice_t, C, table_rows(B, C)
+    )
+    return lags_t, choice_t, counts, tab
+
+
+def corrupted(kind: str, lags, choice, counts, tab, C: int):
+    """Copies of the four buffers with one corruption class applied."""
+    lags, choice, counts, tab = (t.clone() for t in (lags, choice, counts, tab))
+    if kind == "choice -2":
+        choice[7] = -2
+    elif kind == "choice C":
+        choice[9] = C
+    elif kind == "choice C+5":
+        choice[11] = C + 5
+    elif kind == "counts +1":
+        counts[-1] += 1
+    elif kind == "counts -1":
+        counts[0] -= 1
+    elif kind == "table bit flip":
+        tab[2, 1] ^= 1 << 5
+    elif kind == "table slot names another row":
+        tab[4, 0] = tab[4, 1]
+    elif kind == "table sentinel":
+        tab[1, int(counts[1])] = 0
+    elif kind == "table row out of range":
+        tab[5, 0] = -7
+    elif kind == "lag sum wraps":
+        lags[:4] = 2**62 + 3
+    return lags, choice, counts, tab
+
+
+DIGEST_KINDS = ("clean", "choice -2", "choice C", "choice C+5", "counts +1",
+                "counts -1", "table bit flip", "table slot names another row",
+                "table sentinel", "table row out of range", "lag sum wraps")
+
+
+def digest_cases(device):
+    """(name, lags, choice, counts, C, row_tab, P): config 5's resident
+    shape clean and corrupted, then the edge shapes."""
+    B = pad_bucket(STREAM_P)
+    base = resident_case(B, STREAM_P, STREAM_C, device)
+    for kind in DIGEST_KINDS:
+        lags, choice, counts, tab = corrupted(kind, *base, STREAM_C)
+        yield (f"config5 B={B} C={STREAM_C} M={tab.shape[1]} {kind}", lags, choice, counts,
+               STREAM_C, tab, STREAM_P)
+    for B, P, C, kind in ((8, 5, 3, "clean"), (8, 5, 3, "counts +1"), (1024, 1000, 1, "clean"),
+                          (65536, 3 * 16384, 16384, "clean"),
+                          (65536, 3 * 16384, 16384, "choice C+5"),
+                          (4096, 4000, 24, "lag sum wraps")):
+        lags, choice, counts, tab = corrupted(kind, *resident_case(B, P, C, device, B + C), C)
+        yield f"B={B} C={C} M={tab.shape[1]} {kind}", lags, choice, counts, C, tab, P
+
+
+def digest_plain(lags, choice, counts, C: int, tab):
+    base = refine._state_digest_torch(lags, choice, counts, C)
+    return torch.cat([base, refine._row_tab_lane_torch(lags, choice, tab, counts, C)[None]])
+
+
+def digest_vs_plain(device) -> int:
+    """K6 against its plain version, bit for bit; returns max |diff| (0)."""
+    worst = 0
+    for name, lags, choice, counts, C, tab, P in digest_cases(device):
+        got = refine.state_digest(lags, choice, counts, C, row_tab=tab)
+        four = refine.state_digest(lags, choice, counts, C)
+        want = digest_plain(lags, choice, counts, C, tab)
+        sync(device)
+        err = int((got - want).abs().max())
+        worst = max(worst, err)
+        fails = scrub.digest_failures(got.cpu().numpy(), P, int(lags.sum()))
+        log(f"kernel vs plain  state_digest {name:52s}: {got.tolist()} max |diff| {err}; "
+            f"host check fails {fails}")
+        if err or not torch.equal(four, want[:4]):
+            raise AssertionError(f"state_digest disagrees with its plain version on {name}")
+        if ("clean" in name or "wraps" in name) != (fails == []):
+            raise AssertionError(f"state_digest on {name}: host check gave {fails}")
+    for dev in (device, torch.device("cpu")):
+        C = refine.DIGEST_MAX_CONSUMERS + 1
+        z = torch.zeros(8, dtype=torch.int32, device=dev)
+        try:
+            refine.state_digest(z.long(), z, torch.zeros(C, dtype=torch.int32, device=dev), C)
+        except ValueError:
+            continue
+        raise AssertionError(f"state_digest took C={C} on {dev}")
+    log(f"state_digest raises ValueError at C={refine.DIGEST_MAX_CONSUMERS + 1} on both devices")
+    return worst
+
+
+def drifted_resident(device):
+    """A config-5 engine on ``device`` after its cold start, and the lags
+    of six epochs of bench.py's drift (so the drain and the heat-up have
+    happened): (engine, int64 lags)."""
+    rng, lags0 = stream_lags0(STREAM_P)
+    engine = stream_engine(device)
+    choice = engine.rebalance(lags0)
+    lags = lags0.astype(np.float64)
+    for epoch in range(6):
+        lags = stream_drift(rng, lags, epoch, choice, STREAM_C)
+    return engine, lags.astype(np.int64)
+
+
+def bulk_refine_vs_cpu(device) -> None:
+    """The warm bulk refine (fan 8, budget 512, the engine's quality limit)
+    on the card against the port's CPU path from the same drifted config-5
+    resident state, bit for bit."""
+    engine, lags = drifted_resident(device)
+    choice_p, row_tab, counts, _ = engine._resident
+    lags_p = streaming._pad_lags(torch.from_numpy(lags).to(device), choice_p.shape[0])
+    totals = streaming._resident_totals(lags_p, row_tab, counts)
+    limit = engine._quality_limit(count_constrained_bound(lags, STREAM_C),
+                                  float(lags.sum(dtype=np.float64)))
+    kw = dict(num_consumers=STREAM_C, iters=STREAM_BUDGET, max_pairs=min(STREAM_C // 2, 16),
+              exchange_budget=STREAM_BUDGET, quality_limit=limit, bulk_transfer=True, fan=8)
+    state = (lags_p, choice_p, row_tab, counts, totals)
+    got = refine.refine_rounds_resident(*state, **kw)
+    want = refine.refine_rounds_resident(*(t.cpu() for t in state), **kw)
+    for name, g, w in zip(("choice", "row_tab", "counts", "totals"), got, want):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError(f"bulk refine on the card: {name} differs from the CPU path")
+    if got[4:] != want[4:] or got[5] == 0:
+        raise AssertionError(f"bulk refine: rounds/exchanges {got[4:]} vs CPU {want[4:]}")
+    log(f"bulk refine on the card = CPU path at config 5 (B={choice_p.shape[0]}, "
+        f"M={row_tab.shape[1]}, limit {limit!r}): {got[4]} rounds, {got[5]} exchanges, "
+        f"peak {int(totals.max())} -> {int(got[3].max())}")
+
+
 # -- phase 4 ---------------------------------------------------------------
 
 
@@ -471,6 +653,171 @@ def sinkhorn_path(device) -> dict:
             + (f", duals rounds {rounds['duals_rounds']}" if rounds else ""))
     log(f"main path (sinkhorn): launches {launches}")
     return launches
+
+
+def stream_engine(device):
+    """The streaming engine as bench.py drives it at BASELINE config 5."""
+    return streaming.StreamingAssignor(
+        num_consumers=STREAM_C, refine_iters=STREAM_BUDGET, imbalance_guardrail=1.25,
+        device=device,
+    )
+
+
+def heat(lags: np.ndarray, choice: np.ndarray, C: int) -> np.ndarray:
+    """The lags with the partitions (at most 512) of the consumer at the
+    median load scaled so that its total is 1.15x the refine threshold: the
+    kept assignment needs a refine, and since the refine never raises the
+    peak, the guardrail cannot trip (1.02 * 1.15 < 1.25)."""
+    totals = np.bincount(choice, weights=lags, minlength=C)
+    c = int(np.argsort(totals, kind="stable")[C // 2])
+    rows = np.flatnonzero(choice == c)[:512]
+    mean = lags.sum(dtype=np.float64) / C
+    target = 1.15 * 1.02 * max(count_constrained_bound(lags, C), 1.0) * mean
+    out = lags.copy()
+    out[rows] = (lags[rows] * (target / totals[c])).astype(np.int64)
+    return out
+
+
+def outcomes(engine) -> dict:
+    return {"delta": dict(engine.delta_epochs), "readback": dict(engine.rb_delta_epochs)}
+
+
+class StreamRun:
+    """The four streaming legs on one fresh engine, each epoch checked as it
+    runs.  ``model`` tracks what the engine's resident state should be (live
+    or stale, and the lags its host mirror holds), from which each epoch's
+    delta and readback outcomes are predicted."""
+
+    def __init__(self, device, bucket=None):
+        self.device = device
+        self.engine = stream_engine(device)
+        if bucket is not None:  # the CPU engine at the card's padded shape
+            self.engine._bucket = bucket
+        self.records = []
+        self.live, self.mirror = False, None
+
+    def epoch(self, leg: str, lags: np.ndarray, corrupt: bool = False):
+        """One rebalance; returns its choice (None when it raised, as a
+        corrupted epoch must)."""
+        engine, C = self.engine, self.engine.num_consumers
+        launches, before = read_counts(), outcomes(engine)
+        t0 = time.perf_counter()
+        try:
+            choice, raised = engine.rebalance(lags), None
+        except scrub.CorruptStateDetected as exc:
+            if not corrupt:
+                raise
+            choice, raised = None, exc.buffers
+        sync(self.device)
+        wall = (time.perf_counter() - t0) * 1e3
+        s = None if raised else dataclasses.replace(engine.last_stats)
+        grew = {k: v - launches[k] for k, v in read_counts().items()}
+        moved = {side: {o: n - before[side][o] for o, n in d.items() if n != before[side][o]}
+                 for side, d in outcomes(engine).items()}
+        label = f"stream {leg} epoch {len(self.records)}"
+        if corrupt:
+            if raised is None or "choice" not in raised or not engine.quarantined:
+                raise AssertionError(f"{label}: a flipped choice bit gave {raised}")
+            refined, cold = True, False
+        else:
+            refined, cold = s.refined, s.cold_start
+            counts = np.bincount(choice, minlength=C)
+            if choice.min() < 0 or choice.max() >= C or counts.max() - counts.min() > 1:
+                raise AssertionError(f"{label}: choice outside [0, C) or count spread > 1")
+            if not cold and s.churn > 2 * STREAM_BUDGET + s.repaired_rows:
+                raise AssertionError(f"{label}: churn {s.churn} past the budget's bound")
+        # Predicted outcomes: a warm dispatch over a live resident plans a
+        # delta upload (applied when at most 512 lags changed since the
+        # mirror) and reads back O(changed); a stale resident is rebuilt.
+        want = {"delta": {}, "readback": {}}
+        if refined and self.live and (corrupt or s.repaired_rows == 0):
+            n = int((lags != self.mirror).sum())
+            want["delta"] = {"applied" if n <= 512 else "fallback": 1}
+            want["readback"] = {} if corrupt else {"applied": 1}
+        if moved != want:
+            raise AssertionError(f"{label}: outcomes {moved}, expected {want}")
+        if self.device.type == "cuda" and (
+                grew["state_digest"] != int(refined) + int(cold)
+                or grew["rounds_scan"] != int(cold)):
+            raise AssertionError(f"{label}: launches {grew} for refined={refined} cold={cold}")
+        if corrupt:
+            self.live, self.mirror = False, None
+        elif refined or cold:
+            self.live, self.mirror = True, lags.copy()
+        self.last_lags = lags
+        kind = ("corrupt" if corrupt else "trip" if s.guardrail_tripped else "cold" if cold
+                else "noop" if not refined else "delta" if moved["delta"].get("applied")
+                else "refine")
+        self.records.append((leg, kind, choice, s, moved, raised, wall))
+        log(f"{label:28s} {kind:7s} wall {wall:9.3f} ms "
+            + (f"raised CorruptStateDetected({raised})" if corrupt else
+               f"churn {s.churn} repaired {s.repaired_rows} quality_ratio "
+               f"{s.quality_ratio:.4f} rounds {s.refine_rounds} exchanges "
+               f"{s.refine_exchanges}")
+            + f" outcomes {moved} launches {grew}")
+        return choice
+
+    def remap(self, old_to_new: np.ndarray, C: int) -> None:
+        self.engine.remap_members(old_to_new, C)
+        self.live, self.mirror = False, None
+
+    def run(self) -> "StreamRun":
+        rng, lags0 = stream_lags0(STREAM_P)
+        choice = self.epoch("schedule", lags0)
+        lags = lags0.astype(np.float64)
+        for e in range(10):  # bench.py's drift schedule
+            lags = stream_drift(rng, lags, e, choice, STREAM_C)
+            choice = self.epoch("schedule", lags.astype(np.int64))
+        cur = lags.astype(np.int64)
+        for _ in range(3):
+            cur = heat(cur, choice, STREAM_C)
+            choice = self.epoch("delta", cur)
+        leave = np.arange(STREAM_C, dtype=np.int32) - (np.arange(STREAM_C) > STREAM_C // 2)
+        leave[STREAM_C // 2] = -1
+        self.remap(leave, STREAM_C - 1)
+        choice = self.epoch("membership", cur)
+        self.remap(np.arange(STREAM_C - 1, dtype=np.int32), STREAM_C)
+        choice = self.epoch("membership", cur)
+        # The drill: a live resident, one flipped bit of its choice tensor,
+        # then the same lags twice: the first dispatch raises, the next heals.
+        cur = heat(cur, choice, STREAM_C)
+        choice = self.epoch("drill", cur)
+        resident_choice = self.engine._resident[0]
+        host = resident_choice[:STREAM_P].cpu().numpy()
+        resident_choice[:STREAM_P].copy_(torch.from_numpy(scrub.flip_bit(host, seed=5)))
+        cur = heat(cur, choice, STREAM_C)
+        self.epoch("drill", cur, corrupt=True)
+        self.epoch("drill", cur)
+        if self.engine.quarantined or self.engine.needs_dense_resync:
+            raise AssertionError("the epoch after the corrupted one did not heal")
+        return self
+
+
+def same_runs(a: StreamRun, b: StreamRun, what: str) -> None:
+    """Two runs of the legs give the same bits at every epoch."""
+    for i, (x, y) in enumerate(zip(a.records, b.records)):
+        if not (x[0] == y[0] and np.array_equal(x[2], y[2]) and x[3] == y[3]
+                and x[4:6] == y[4:6]):
+            raise AssertionError(f"stream epoch {i} ({x[0]}): {what} differ")
+    if len(a.records) != len(b.records):
+        raise AssertionError(f"stream: {what} ran {len(a.records)} and {len(b.records)} epochs")
+    log(f"stream: {what} give the same choice, stats and outcomes at all "
+        f"{len(a.records)} epochs")
+
+
+def streaming_path(device):
+    """Path c: the streaming engine at full config 5.  Returns (the launches
+    of the first run on the card, counted from just before it to just after,
+    and the second run, whose walls phase 5 reports)."""
+    reset_counts()
+    first = StreamRun(device).run()
+    launches = read_counts()
+    log(f"main path (streaming): launches {launches}")
+    second = StreamRun(device).run()
+    same_runs(first, second, "two runs on the card")
+    cpu = StreamRun(torch.device("cpu"), bucket=pad_bucket).run()
+    same_runs(first, cpu, "the card and the CPU engine at the card's bucket")
+    return launches, second
 
 
 # -- phase 5 ---------------------------------------------------------------
@@ -687,11 +1034,79 @@ def device_shares(device) -> None:
                         f"x{e.count}" for e in top))
 
 
+def profiled_epoch(engine, lags: np.ndarray):
+    """One rebalance under torch.profiler: (stats, wall ms, device busy ms,
+    the digest kernel's ms, device-to-host copies, top device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.rebalance(lags)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and "Activity Buffer" not in e.key
+    ]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    digest = sum(e.self_device_time_total for e in events if "digest_" in e.key) / 1e3
+    reads = sum(e.count for e in events if "DtoH" in e.key)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    return engine.last_stats, wall, busy, digest, reads, top
+
+
+def stream_times(run: StreamRun):
+    """The digest kernel alone at the resident state the legs left (config
+    5), its plain version and its bound; the epoch walls of ``run`` by type;
+    one profiled warm-refine epoch.  Returns (ms, plain ms, bound ms)."""
+    engine = run.engine
+    choice_p, row_tab, counts, lags_p = engine._resident
+    C, M = engine.num_consumers, row_tab.shape[1]
+
+    def k6():
+        return state_digest_cuda.launch(lags_p, choice_p, counts, C, row_tab)
+
+    ms = median_event_ms(k6)
+    alone = device_ms(k6, ("digest_",))
+    plain = median_event_ms(lambda: digest_plain(lags_p, choice_p, counts, C, row_tab))
+    # Each input read once, the owner of every valid slot gathered once, the
+    # five lanes written once.
+    valid_slots = int(torch.clamp(counts, max=M).sum())
+    moved = 8 * lags_p.numel() + 4 * (choice_p.numel() + C + C * M + valid_slots) + 8 * 5
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    log(f"times  state_digest at B={lags_p.numel()} C={C} M={M} ({valid_slots} valid slots): "
+        f"kernel {ms!r} ms (two launches, a memset and the output allocation; device time "
+        f"alone {alone!r} ms), plain version {plain!r} ms, bound {bound!r} ms ({moved} bytes), "
+        f"{ms / bound:.1f}x the bound")
+
+    walls = {}
+    for leg, kind, *_, wall in run.records:
+        walls.setdefault(kind, []).append(wall)
+    log("stream epoch walls (host clock, second run on the card): " + "; ".join(
+        f"{kind} p50 {statistics.median(w)!r} ms of {len(w)} (min {min(w)!r}, max {max(w)!r})"
+        for kind, w in sorted(walls.items())))
+
+    rng = np.random.default_rng(9)
+    lags = (run.last_lags * rng.lognormal(0.0, 0.05, run.last_lags.shape[0])).astype(np.int64)
+    lags = heat(lags, engine.export_state(), C)
+    s, wall, busy, digest, reads, top = profiled_epoch(engine, lags)
+    if not s.refined or s.guardrail_tripped:
+        raise AssertionError(f"the profiled epoch did not refine warm: {s}")
+    log(f"profiled warm-refine epoch (dense upload): wall {wall!r} ms, {s.refine_rounds} "
+        f"rounds, {s.refine_exchanges} exchanges, device busy {busy!r} ms, of which "
+        f"state_digest {digest!r} ms; idle share {1 - busy / wall!r}; {reads} device-to-host "
+        "copies; top: " + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms "
+                                    f"x{e.count}" for e in top))
+    return ms, plain, bound
+
+
 SOURCES = {
     "rounds_scan": ("csrc/rounds_scan.cu", "ops/rounds_pallas.py:194"),
     "plan_stats": ("csrc/plan_stats.cu", "ops/plan_stats.py:184"),
     "superblock_partials": ("csrc/linear_ot.cu", "ops/linear_ot_pallas.py:169"),
     "mirror_prox_step": ("csrc/linear_ot.cu", "ops/linear_ot_pallas.py:226"),
+    "state_digest": ("csrc/state_digest.cu", "ops/linear_ot_pallas.py:350"),
 }
 
 
@@ -722,17 +1137,24 @@ def main() -> int:
     build()
     max_err = kernels_vs_plain(device)
     f32_err = quality_kernels_vs_plain(device)
+    digest_err = digest_vs_plain(device)
+    bulk_refine_vs_cpu(device)
     rounds_launches = main_path(device)
     launches = sinkhorn_path(device)
-    launches["rounds_scan"] += rounds_launches
+    stream_launches, stream_run = streaming_path(device)
+    launches["rounds_scan"] += rounds_launches + stream_launches["rounds_scan"]
+    launches["state_digest"] = stream_launches["state_digest"]
     kernel, plain, bound, bound_by = times(device)
     quality = quality_times(device)
+    digest_ms, digest_plain_ms, digest_bound = stream_times(stream_run)
     device_shares(device)
     line = [dict(kernel_line("rounds_scan", launches["rounds_scan"], max_err, kernel,
                              plain, bound, bound_by, None),
                  also_replaces="kafka_lag_based_assignor_tpu/ops/rounds_pallas.py:160")]
     for k, (ms, plain_ms, library, bnd, by) in quality.items():
         line.append(kernel_line(k, launches[k], f32_err[k], ms, plain_ms, bnd, by, library))
+    line.append(kernel_line("state_digest", launches["state_digest"], digest_err, digest_ms,
+                            digest_plain_ms, digest_bound, "bytes", None))
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

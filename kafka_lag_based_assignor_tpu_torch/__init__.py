@@ -13,6 +13,7 @@ from .lag import compute_partition_lag, read_topic_partition_lags
 from .models.greedy import assign_greedy, assign_greedy_global
 from .models.sinkhorn import assign_sinkhorn
 from .ops.dispatch import assign_device
+from .ops.streaming import StreamingAssignor, StreamingStats
 from .types import (
     Assignment,
     Cluster,
@@ -34,6 +35,8 @@ __all__ = [
     "LagBasedPartitionAssignor",
     "OffsetAndMetadata",
     "PartitionInfo",
+    "StreamingAssignor",
+    "StreamingStats",
     "Subscription",
     "TopicPartition",
     "TopicPartitionLag",

@@ -10,7 +10,9 @@ directly, and imports nothing of the JAX package.
 The quality solvers carry float state as well: :func:`duals_from_numpy`
 takes the (A, B) duals of either package and :func:`dedup_from_numpy` the
 deduplicated lag weights of ``models.sinkhorn._dedup_weights``, so the same
-solver state can be fed to both packages.
+solver state can be fed to both packages.  The streaming engine's state is
+its resident 4-tuple: :func:`resident_from_numpy` takes it from either
+package as numpy arrays.
 """
 
 from __future__ import annotations
@@ -66,3 +68,26 @@ def dedup_from_numpy(ws_u, count_u, wsum_u, device: DeviceLike = None):
     """The deduplicated lag weights (ws_u, count_u, wsum_u), float32[U]
     each, as tensors on ``device``."""
     return _float32_tensors((ws_u, count_u, wsum_u), device)
+
+
+def resident_from_numpy(choice_p, row_tab, counts, lags_p, device: DeviceLike = None):
+    """A streaming engine's resident state (choice int32[B], row_tab
+    int32[C, M], counts int32[C], lags int64[B]) as tensors on ``device``,
+    in the order ``ops.streaming.StreamingAssignor`` keeps it."""
+    dev = resolve_device(device)
+    # Copies: the engine owns its resident tensors.
+    arrays = (
+        np.array(choice_p, dtype=np.int32),
+        np.array(row_tab, dtype=np.int32),
+        np.array(counts, dtype=np.int32),
+        np.array(lags_p, dtype=np.int64),
+    )
+    B = arrays[0].shape[0]
+    C = arrays[2].shape[0]
+    if (arrays[0].ndim != 1 or arrays[3].shape != (B,) or arrays[1].ndim != 2
+            or arrays[1].shape[0] != C):
+        raise ValueError(
+            "expected choice[B], row_tab[C, M], counts[C] and lags[B], got "
+            f"{[a.shape for a in arrays]}"
+        )
+    return tuple(torch.from_numpy(a).to(dev) for a in arrays)

@@ -37,6 +37,13 @@ def pad_bucket(n: int, minimum: int = 8) -> int:
     return b
 
 
+def pad_chunk(n: int, chunk: int = 4096) -> int:
+    """Next multiple of ``chunk`` >= n: the streaming engine's padded
+    refine shape on the CPU, where a power-of-two pad wastes up to ~2x sort
+    work (the JAX package's bucket on its CPU backend)."""
+    return max(chunk, -(-n // chunk) * chunk)
+
+
 def table_rows(num_rows: int, num_consumers: int) -> int:
     """Per-consumer slot budget for the resident refine's [C, M] row
     table (:func:`.refine.build_choice_tables`): the count invariant

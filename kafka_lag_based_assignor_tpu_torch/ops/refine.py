@@ -1,4 +1,4 @@
-"""Resident-table pairwise-exchange refinement (the parity body).
+"""Resident-table pairwise-exchange refinement and the resident-state digest.
 
 Counterpart of ``_quant_shift``, ``build_choice_tables`` and
 ``refine_rounds_resident`` in ``kafka_lag_based_assignor_tpu/ops/refine.py``.
@@ -17,11 +17,16 @@ so all winners apply at once; every transferred amount d satisfies
 0 < d < gap, so the global maximum never rises.  Integer arithmetic
 throughout: the port gives the JAX package's bits.
 
-Only the parity body is ported.  The warm-path options of the JAX loop
-(``bulk_transfer``, ``fan``, ``quality_limit``, ``exchange_budget``,
-``allow_moves=False``) serve the streaming and federated slices and raise
-``NotImplementedError`` here.  The loop runs on the host and reads one
-scalar from the device a round (the patience stop).
+The streaming engine's warm round type (``bulk_transfer`` with a partner
+``fan``) and its exits (``quality_limit``, ``exchange_budget``) are ported
+too; ``allow_moves=False`` serves the federated slice and raises
+``NotImplementedError``.  The loop runs on the host and makes one read from
+the device a round: the stop test and the exchanges so far.
+
+:func:`state_digest` is the integrity digest of the streaming engine's
+resident state: the K6 kernel (``csrc/state_digest.cu``) on the card, its
+plain version (:func:`_state_digest_torch` + :func:`_row_tab_lane_torch`)
+on the CPU.
 """
 
 from __future__ import annotations
@@ -34,6 +39,9 @@ _PAIR_BITS = 14
 _VBITS = 63 - _PAIR_BITS - 1  # quantized-lag field width (48)
 _SBIG = 1 << 60  # score sentinel; (x << 1) | 1 fits int64
 _INT64_MAX = torch.iinfo(torch.int64).max
+#: Most consumers the digest kernel takes: an int32 histogram of 16,384
+#: consumers is 64 KiB of shared memory a block (``rounds_cuda.MAX_SLOTS``).
+DIGEST_MAX_CONSUMERS = 16384
 
 
 def _quant_shift(lags, assigned):
@@ -103,23 +111,36 @@ def refine_rounds_resident(
     fan: int = 1,
     allow_moves: bool = True,
 ):
-    """The resident-table round loop, parity body (module docstring).
+    """The resident-table round loop (module docstring).
 
     Args: lags int64[P]; choice int32[P] (-1 unassigned); row_tab,
     counts, totals from :func:`build_choice_tables`; ``iters`` the round
     budget; ``max_pairs`` caps the pair count K (default C // 2);
-    ``patience`` stops after that many rounds without a drop of the peak.
+    ``patience`` stops after that many rounds without progress;
+    ``exchange_budget`` caps the applied exchanges (0: no cap);
+    ``quality_limit`` is a peak-total target (None or negative: none) —
+    a pair whose heavy consumer is at or below it applies nothing, and
+    the loop stops once the peak is.
 
-    Returns (choice, row_tab, counts, totals, rounds_done,
+    ``bulk_transfer`` selects the warm engine's round: each pair sorts the
+    heavy consumer's rows lag-descending and the light one's
+    lag-ascending, matches the ranks, and applies the positive-gap swaps
+    largest-gap-first while the cumulative transfer stays under the
+    half-gap, the receiver's headroom to the limit and the heavy
+    consumer's remaining distance to it.  ``fan`` clones each heavy
+    consumer across that many pairs, each clone on a disjoint stripe of
+    its sorted ranks.  A bulk round counts as progress only if it closed
+    at least 1/16 of the peak's distance to the limit.
+
+    The inputs are never written: every round builds new tensors, so the
+    caller's entry state stays intact (the streaming engine diffs and
+    audits it).  Returns (choice, row_tab, counts, totals, rounds_done,
     exchanges_done), the last two as ints.
     """
-    if (exchange_budget or quality_limit is not None or bulk_transfer
-            or fan != 1 or not allow_moves):
+    if not allow_moves:
         raise NotImplementedError(
-            "refine_rounds_resident's bulk_transfer, fan, quality_limit, "
-            "exchange_budget and allow_moves=False serve the streaming and "
-            "federated paths, which are not ported to PyTorch yet (see "
-            "ROADMAP.md)"
+            "refine_rounds_resident(allow_moves=False) serves the federated "
+            "path, which is not ported to PyTorch yet (see ROADMAP.md)"
         )
     C = int(num_consumers)
     P = lags.shape[0]
@@ -129,14 +150,21 @@ def refine_rounds_resident(
         return choice, row_tab, counts, totals, 0, 0
     dev = lags.device
     choice = choice.to(torch.int32)
-    pshift = _quant_shift(lags, choice >= 0)
     n_light = C - K
     kk = torch.arange(K, device=dev)
     mslots = torch.arange(M, device=dev)
     nop = C * M
-    limit = -1.0  # no quality limit: every pair stays active
+    limit = -1.0 if quality_limit is None else float(quality_limit)
+    budget = int(exchange_budget)
 
-    def body(it, since, choice, tab, counts, totals):
+    def admit(do, ex_done):
+        """Exact budget adherence: admit winners in order (heaviest pair
+        first) until the remaining quota is spent."""
+        if not budget:
+            return do
+        return do & (torch.cumsum(do.to(torch.int64), dim=0) <= budget - ex_done)
+
+    def body(it, since, ex_done, choice, tab, counts, totals):
         order = torch.argsort(totals, stable=True)
         light = order[(kk + it % n_light) % n_light]  # [K]
         heavy = order[C - 1 - kk]                     # [K]
@@ -194,8 +222,10 @@ def refine_rounds_resident(
         m3 = torch.where(on2, rows_h, P).min(dim=1).values
         win = torch.argmax((on2 & (rows_h == m3[:, None])).to(torch.int32), dim=1)
 
+        # With a quality limit, a pair whose heavy consumer already meets
+        # the target applies nothing; limit < 0 keeps every pair active.
         active = totals[heavy].to(torch.float64) > limit
-        do = (m1 < (_SBIG << 1)) & active
+        do = admit((m1 < (_SBIG << 1)) & active, ex_done)
         is_swap = (m1 & 1) == 1
         p_sel = _take(rows_h, win)
         lag_p = _take(lag_h, win)
@@ -238,19 +268,231 @@ def refine_rounds_resident(
 
         peak_dropped = new_totals.max() < totals.max()
         new_since = torch.where(peak_dropped, 0, since + 1)
-        n_ex = do.to(torch.int64).sum()
-        return (new_since, new_choice, flat[:nop].reshape(C, M), new_counts,
-                new_totals, n_ex)
+        new_ex = ex_done + do.to(torch.int64).sum()
+        return (new_since, new_ex, new_choice, flat[:nop].reshape(C, M),
+                new_counts, new_totals)
 
+    fan_eff = max(1, min(int(fan), K))
+    big64 = _INT64_MAX
+
+    def bulk_body(it, since, ex_done, choice, tab, counts, totals):
+        order = torch.argsort(totals, stable=True)
+        light = order[(kk + it % n_light) % n_light]  # [K]
+        # Each of the top ceil(K / fan) consumers appears in ``fan``
+        # consecutive pairs, each clone on a disjoint stripe of its ranks.
+        heavy = order[C - 1 - kk // fan_eff]
+        diff = totals[heavy] - totals[light]
+        delta = diff >> 1
+        heavy_f = totals[heavy].to(torch.float64)
+        active = heavy_f > limit
+        # The remaining distance to the target split across the clones
+        # (no target: each clone's share of the half-gap), and the
+        # receiver's headroom to the same target.  f64 as in the JAX
+        # package: IEEE division gives the same bits on every device.
+        if limit >= 0:
+            needed = torch.ceil((heavy_f - limit) / fan_eff).to(torch.int64)
+            headroom = torch.floor(
+                limit - totals[light].to(torch.float64)
+            ).to(torch.int64)
+        else:
+            needed = delta // fan_eff + 1
+            headroom = torch.full_like(delta, big64)
+        cap = torch.minimum(delta, torch.clamp(headroom, min=0))
+
+        rows_h = tab[heavy]  # [K, M] int32
+        rows_l = tab[light]
+        hvalid = mslots[None, :] < counts[heavy][:, None]
+        lvalid = mslots[None, :] < counts[light][:, None]
+        lag_h = torch.where(hvalid, lags[torch.clamp(rows_h.long(), 0, P - 1)], -1)
+        lag_l = torch.where(lvalid, lags[torch.clamp(rows_l.long(), 0, P - 1)], big64)
+        # Anti-ranked pairing: heavy rows lag-descending against light rows
+        # lag-ascending, ties by row id (``lax.sort(num_keys=2)``).
+        perm_h = lexsort(-lag_h, rows_h, dim=1)
+        nh = (-lag_h).gather(1, perm_h)
+        hs_row = rows_h.gather(1, perm_h)
+        perm_l = lexsort(lag_l, rows_l, dim=1)
+        la = lag_l.gather(1, perm_l)
+        ls_row = rows_l.gather(1, perm_l)
+        # Clone k works the sorted ranks r with r % fan == k % fan; its
+        # j-th stripe row meets the light's j-th smallest.
+        Ms = -(-M // fan_eff)
+        jj = torch.arange(Ms, device=dev)
+        gidx = jj[None, :] * fan_eff + (kk[:, None] % fan_eff)  # [K, Ms]
+        in_seg = gidx < M
+        gidx = torch.clamp(gidx, max=M - 1)
+        nh_s = nh.gather(1, gidx)
+        hs_row_s = hs_row.gather(1, gidx)
+        hs_slot_s = perm_h.gather(1, gidx)
+        ls_lag = la[:, :Ms]
+        ls_row_s = ls_row[:, :Ms]
+        ls_slot_s = perm_l[:, :Ms]
+        rank_ok = in_seg & (nh_s <= 0) & (ls_lag < big64) & active[:, None]
+        d = torch.where(rank_ok, -nh_s - ls_lag, 0)  # anti-ranked gap
+        # Largest gaps first; prefix-select while the cumulative transfer
+        # stays under the per-pair cap and the remaining distance.
+        perm_d = lexsort(-d, hs_row_s, dim=1)
+        ds = d.gather(1, perm_d)
+        dh_row = hs_row_s.gather(1, perm_d)
+        dh_slot = hs_slot_s.gather(1, perm_d)
+        dl_row = ls_row_s.gather(1, perm_d)
+        dl_slot = ls_slot_s.gather(1, perm_d)
+        # A gap above the cap can never apply: keep it out of the running
+        # total, or it would block every smaller swap behind it.
+        fit = (ds > 0) & (ds <= cap[:, None])
+        cum = torch.cumsum(torch.where(fit, ds, 0), dim=1)
+        sel = fit & (cum <= cap[:, None]) & ((cum - ds) < needed[:, None])
+        sel = admit(sel.reshape(-1), ex_done).reshape(K, Ms)
+
+        transfer = torch.where(sel, ds, 0).sum(dim=1)  # int64 [K]
+        # ``heavy`` repeats across the clones: index_add_ accumulates every
+        # duplicate, as ``.at[heavy].add`` does (exact for int64).
+        new_totals = totals.clone()
+        new_totals.index_add_(0, heavy, -transfer)
+        new_totals.index_add_(0, light, transfer)
+        h_rows = torch.where(sel, dh_row.long(), P).reshape(-1)
+        l_rows = torch.where(sel, dl_row.long(), P).reshape(-1)
+        ext = torch.cat([choice, choice.new_zeros(1)])
+        ext = _drop_set(ext, h_rows, light[:, None].expand(K, Ms).reshape(-1))
+        ext = _drop_set(ext, l_rows, heavy[:, None].expand(K, Ms).reshape(-1))
+        # Swaps are count-neutral: the two rows trade table slots (the
+        # stripes are disjoint, so only the drop slot sees duplicates).
+        flat = torch.cat([tab.reshape(C * M), tab.new_zeros(1)])
+        hidx = torch.where(sel, heavy[:, None] * M + dh_slot, nop).reshape(-1)
+        lidx = torch.where(sel, light[:, None] * M + dl_slot, nop).reshape(-1)
+        flat = _drop_set(flat, hidx, dl_row.reshape(-1))
+        flat = _drop_set(flat, lidx, dh_row.reshape(-1))
+
+        # Relative-progress patience: a round counts only if it closed at
+        # least 1/16 of the peak's remaining distance to the limit.
+        old_peak = totals.max().to(torch.float64)
+        new_peak = new_totals.max().to(torch.float64)
+        min_step = (old_peak - limit) / 16.0 if limit >= 0 else 0.0
+        good = (old_peak - new_peak) > torch.clamp(
+            torch.as_tensor(min_step, dtype=torch.float64, device=dev), min=0.0
+        )
+        new_since = torch.where(good, 0, since + 1)
+        new_ex = ex_done + sel.to(torch.int64).sum()
+        return (new_since, new_ex, ext[:P], flat[:nop].reshape(C, M), counts,
+                new_totals)
+
+    if not bulk_transfer:
+        pshift = _quant_shift(lags, choice >= 0)
+    step = bulk_body if bulk_transfer else body
     since = torch.zeros((), dtype=torch.int64, device=dev)
     ex_done = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def going():
+        """The loop test and the exchanges so far, in one host read."""
+        go = (since < patience) & (totals.max().to(torch.float64) > limit)
+        if budget:
+            go &= ex_done < budget
+        flag, ex = torch.stack([go.to(torch.int64), ex_done]).tolist()
+        return bool(flag), ex
+
     it = 0
-    go = patience > 0 and bool(totals.max().to(torch.float64) > limit)
+    go, ex = going()
     while go and it < iters:
-        since, choice, row_tab, counts, totals, n_ex = body(
-            it, since, choice, row_tab, counts, totals
+        since, ex_done, choice, row_tab, counts, totals = step(
+            it, since, ex_done, choice, row_tab, counts, totals
         )
-        ex_done = ex_done + n_ex
         it += 1
-        go = bool((since < patience) & (totals.max().to(torch.float64) > limit))
-    return choice, row_tab, counts, totals, it, int(ex_done)
+        go, ex = going()
+    return choice, row_tab, counts, totals, it, ex
+
+
+# ---------------------------------------------------------------------------
+# Resident-state integrity digest (K6)
+# ---------------------------------------------------------------------------
+
+
+def _state_digest_torch(lags_p, choice_p, counts, num_consumers: int):
+    """Plain version of the digest, int64[4]: ``[counts_sum,
+    range_violations, lags_sum, counts_vs_choice_L1]`` (the JAX package's
+    ``_state_digest_xla``; :mod:`..utils.scrub` has the host truths).
+    Integer sums, exact in any order; the int64 sums wrap modulo 2**64."""
+    C = int(num_consumers)
+    in_range = (choice_p >= 0) & (choice_p < C)
+    viol = ((choice_p < -1) | (choice_p >= C)).sum()
+    cnt = torch.bincount(
+        torch.where(in_range, choice_p.long(), C), minlength=C + 1
+    )[:C]
+    mismatch = (cnt - counts.long()).abs().sum()
+    return torch.stack([counts.long().sum(), viol, lags_p.long().sum(), mismatch])
+
+
+def _row_tab_lane_torch(lags_p, choice_p, row_tab, counts, num_consumers: int):
+    """Plain version of the row-table lane (int64 scalar, host truth 0; the
+    JAX package's ``_row_tab_lane_xla``): the valid slots (``j <
+    counts[c]``) whose row is outside [0, B) or not owned by ``c``, the
+    empty slots not holding the sentinel B, and ``|sum(valid-slot rows) -
+    sum(assigned rows)|``, which catches a slot that names another row of
+    the same consumer."""
+    B = lags_p.shape[0]
+    C, M = int(num_consumers), row_tab.shape[1]
+    dev = row_tab.device
+    slot_j = torch.arange(M, device=dev)[None, :]
+    valid_slot = slot_j < torch.clamp(counts.long(), max=M)[:, None]
+    r = torch.clamp(row_tab.long(), 0, B - 1)
+    owner_bad = (
+        valid_slot & (choice_p[r] != torch.arange(C, device=dev)[:, None])
+    ).sum()
+    range_bad = (valid_slot & ((row_tab < 0) | (row_tab >= B))).sum()
+    sentinel_bad = (~valid_slot & (row_tab != B)).sum()
+    slot_sum = torch.where(valid_slot, r, 0).sum()
+    assigned = (choice_p >= 0) & (choice_p < C)
+    row_sum = torch.where(assigned, torch.arange(B, device=dev), 0).sum()
+    return owner_bad + range_bad + sentinel_bad + (slot_sum - row_sum).abs()
+
+
+def _check_digest(lags_p, choice_p, counts, num_consumers: int, row_tab) -> None:
+    dev = lags_p.device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"state_digest runs on cuda or cpu, not {dev}")
+    C = int(num_consumers)
+    if not 1 <= C <= DIGEST_MAX_CONSUMERS:
+        raise ValueError(
+            f"state_digest takes 1 to {DIGEST_MAX_CONSUMERS} consumers, got {C}"
+        )
+    B = lags_p.shape[0]
+    want = [("lags_p", lags_p, torch.int64, (B,)),
+            ("choice_p", choice_p, torch.int32, (B,)),
+            ("counts", counts, torch.int32, (C,))]
+    if row_tab is not None:
+        want.append(("row_tab", row_tab, torch.int32, (C, row_tab.shape[-1])))
+    for name, t, dtype, shape in want:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {dtype}{list(shape)}, got "
+                             f"{t.dtype}{list(t.shape)}")
+        if t.device != dev:
+            raise ValueError("state_digest inputs must be on one device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not 1 <= B < 2**31 or (row_tab is not None and row_tab.numel() >= 2**31):
+        raise ValueError(f"state_digest takes 1 to 2**31 - 1 rows, got {B}")
+
+
+def state_digest(lags_p, choice_p, counts, num_consumers: int, row_tab=None):
+    """The integrity digest of the resident state: int64[4], or int64[5]
+    with the row-table lane when ``row_tab`` is given.
+
+    Args: lags_p int64[B], choice_p int32[B] (-1 on padding), counts
+    int32[C], row_tab int32[C, M]; 1 <= C <= 16384.  A CUDA tensor
+    launches the K6 kernel (one count in ``state_digest.launches``), which
+    computes all five lanes in one call, or raises; a CPU tensor runs the
+    plain version.  Both raise ``ValueError`` on the same inputs.
+    """
+    _check_digest(lags_p, choice_p, counts, num_consumers, row_tab)
+    if lags_p.device.type == "cpu":
+        base = _state_digest_torch(lags_p, choice_p, counts, num_consumers)
+        if row_tab is None:
+            return base
+        lane = _row_tab_lane_torch(lags_p, choice_p, row_tab, counts, num_consumers)
+        return torch.cat([base, lane[None]])
+    from .state_digest_cuda import launch
+
+    out = launch(lags_p, choice_p, counts, num_consumers, row_tab)
+    state_digest.launches += 1
+    return out if row_tab is not None else out[:4]
+
+
+state_digest.launches = 0

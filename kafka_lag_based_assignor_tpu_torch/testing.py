@@ -163,3 +163,36 @@ def lag_rows(lags: Mapping[str, np.ndarray]) -> Dict[str, List[TopicPartitionLag
         topic: [TopicPartitionLag(topic, p, lag) for p, lag in enumerate(arr.tolist())]
         for topic, arr in lags.items()
     }
+
+
+# -- the BASELINE config-5 streaming schedule -------------------------------
+
+
+def stream_lags0(partitions: int = 100_000, seed: int = 5):
+    """(rng, lags0): config 5's starting lags, ``zipf_lags(default_rng(5),
+    100000)`` as bench.py makes them, and the generator that then drives
+    :func:`stream_drift`, in the same state as bench.py's."""
+    rng = np.random.default_rng(seed)
+    return rng, zipf_lags(rng, partitions)
+
+
+def stream_drift(rng: np.random.Generator, lags: np.ndarray, epoch: int,
+                 choice: np.ndarray, num_consumers: int) -> np.ndarray:
+    """One epoch of bench.py's config-5 drift (float64 lags in and out;
+    the engine is given ``lags.astype(np.int64)``).  Every epoch drifts
+    each lag by a lognormal(0, 0.2) factor plus uniform noise; at epoch 5
+    the 100 hottest partitions drain to 2 %; from epoch 5 on the partitions
+    of the consumer at the median load under ``choice`` heat up by 1.5x."""
+    P = lags.shape[0]
+    drift = rng.lognormal(0.0, 0.2, size=P)
+    lags = lags * drift + rng.integers(0, 1000, size=P)
+    if epoch == 5:
+        top = np.argsort(lags)[-100:]
+        lags[top] *= 0.02
+    if epoch >= 5:
+        totals = np.bincount(
+            choice.astype(np.int64), weights=lags, minlength=num_consumers
+        )
+        mid = np.argsort(totals)[num_consumers // 2]
+        lags[choice == mid] *= 1.5
+    return lags

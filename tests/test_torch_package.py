@@ -3,6 +3,7 @@
 * no module of ``kafka_lag_based_assignor_tpu_torch`` (nor ``chip_smoke.py``)
   imports ``jax`` or ``kafka_lag_based_assignor_tpu`` — by an AST walk, and
   by importing every module in a fresh interpreter;
+* every module of the streaming slice is covered by both checks;
 * entry points default to the CUDA card and raise without one;
 * CPU tensors take the plain path and never count a kernel launch;
 * ``convert.group_tensors`` carries a JAX ``TopicGroup`` over unchanged.
@@ -30,7 +31,11 @@ from kafka_lag_based_assignor_tpu_torch.ops import (  # noqa: E402
     linear_ot_cuda,
     packing,
     plan_stats,
+    refine,
     rounds_cuda,
+)
+from kafka_lag_based_assignor_tpu_torch.ops.streaming import (  # noqa: E402
+    StreamingAssignor,
 )
 from kafka_lag_based_assignor_tpu_torch.testing import (  # noqa: E402
     baseline_workload,
@@ -65,6 +70,16 @@ def test_no_jax_imports(path):
         assert root not in FORBIDDEN, f"{path.name} imports {name}"
 
 
+STREAMING_SLICE = ("ops/streaming.py", "ops/delta.py", "ops/state_digest_cuda.py",
+                   "utils/scrub.py", "utils/watchdog.py")
+
+
+def test_import_checks_cover_the_streaming_slice():
+    walked = {p.relative_to(PORT).as_posix() for p in port_sources() if PORT in p.parents}
+    assert set(STREAMING_SLICE) <= walked
+    assert (PORT / "csrc" / "state_digest.cu").exists()
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -96,6 +111,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     for entry in (sinkhorn.assign_sinkhorn, linear_ot.assign_linear):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry({}, {"m": ["t"]})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingAssignor(4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.resident_from_numpy(np.zeros(8), np.zeros((2, 5)), np.zeros(2),
+                                    np.zeros(8))
     lags_p, pids_p, valid = packing.pad_topic_rows(np.arange(20))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sinkhorn.assign_topic_sinkhorn(lags_p, pids_p, valid, 3)
@@ -110,12 +130,13 @@ def test_default_device_is_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_device() == torch.device("cuda")
     assert LagBasedPartitionAssignor().device == torch.device("cuda")
+    assert StreamingAssignor(4).device == torch.device("cuda")
 
 
 def launch_counts():
     return (rounds_cuda.rounds_scan.launches, plan_stats.plan_stats.launches,
             linear_ot_cuda.superblock_partials.launches,
-            linear_ot_cuda.mirror_prox_step.launches)
+            linear_ot_cuda.mirror_prox_step.launches, refine.state_digest.launches)
 
 
 def test_cpu_tensors_never_count_a_launch():
@@ -127,6 +148,10 @@ def test_cpu_tensors_never_count_a_launch():
     sinkhorn.assign_sinkhorn(lag_rows(lags), subs, device="cpu")
     with dispatch.quality_scope("linear", tile=64):
         sinkhorn.assign_sinkhorn(lag_rows(lags), subs, device="cpu")
+    engine = StreamingAssignor(40, refine_threshold=None, device="cpu")
+    for scale in (1, 3):
+        engine.rebalance(lags["t0"] * scale)
+    assert engine.last_stats.refined
     assert launch_counts() == before
 
 
@@ -143,6 +168,10 @@ def test_other_devices_never_reach_the_plain_version():
     rows = torch.zeros((8, 1, 8), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         linear_ot_cuda.superblock_partials(rows, rows, vec, vec)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        refine.state_digest(gains.reshape(4), torch.zeros(4, dtype=torch.int32,
+                                                          device="meta"),
+                            torch.zeros(2, dtype=torch.int32, device="meta"), 2)
 
 
 @pytest.mark.parametrize(

@@ -5,7 +5,8 @@ exact equality: the row-table geometry (``table_rows``, ``pad_topic_rows``),
 ``segment_sum``, the lexicographic sort helper, the quantization shift,
 ``build_choice_tables`` and the parity body of ``refine_rounds_resident``
 (compared on ``choice``, ``row_tab``, ``counts``, ``totals`` and the rounds
-run).  Inputs are made with numpy from a seed and handed to both packages.
+run; its warm options are held in ``test_torch_delta.py``).  Inputs are
+made with numpy from a seed and handed to both packages.
 """
 
 import numpy as np
@@ -136,14 +137,18 @@ def test_refine_rounds_resident_matches_jax(seed, P, C, kind, max_pairs):
 @pytest.mark.parametrize(
     "kwargs",
     [{"bulk_transfer": True}, {"fan": 2}, {"quality_limit": 10.0},
-     {"exchange_budget": 5}, {"allow_moves": False}],
+     {"exchange_budget": 5}, {}],
 )
 def test_unported_refine_options_raise(kwargs):
+    """``allow_moves=False`` (the federated slice) raises with any of the
+    warm options beside it; the warm options alone are ported
+    (tests/test_torch_delta.py holds them to the JAX package)."""
     lags, valid, choice = case(1, 64, 4, "ties")
     tab, counts, totals = refine.build_choice_tables(
         T(lags), T(valid), T(choice), 4, packing.table_rows(64, 4)
     )
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         refine.refine_rounds_resident(
-            T(lags), T(choice), tab, counts, totals, 4, iters=3, **kwargs
+            T(lags), T(choice), tab, counts, totals, 4, iters=3,
+            allow_moves=False, **kwargs
         )
