@@ -16,13 +16,18 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    the round scan bit for bit (integers: tolerance 0), also at the quality
    solver's greedy-leg shapes of configs 2, 4 and 5; the f32 quality
    kernels (plan statistics at configs 2 and 4, superblock partials and
-   the mirror-prox step at config 5) within ``max |kernel - plain| <= 1e-5
-   * max |plain|`` (f32 sums in another order), also at edge shapes (C = 2,
-   C not a multiple of 128, 8 value rows, all-zero weights), and run twice
-   to the same bits; and torch's argmin / argmax on the card take the
-   first index among ties, as the JAX package's do; the resident-state
-   digest (K6) bit for bit at BASELINE config 5's resident shape (B 131,072,
-   C 1,000, M 133), clean and with each corruption class, at B = 8, C = 1,
+   the mirror-prox step at config 5 with C 1000 and 16, and at the duals
+   the plain linear loop holds after its last step at config 5) within
+   ``max |kernel - plain| <= 1e-5 * max |plain|`` (f32 sums in another
+   order and an approximate exp), also at edge shapes (C = 1, 2, not a
+   multiple of 128, and 1,025, 2,000 and 16,384 in that order, the generic
+   kernel's shared memory growing in one process; 8 value rows, trailing
+   tiles all padding, all-zero weights), and run twice to the same bits;
+   C = 16,385 raising in both
+   linear-OT wrappers on both devices; and torch's argmin / argmax on the
+   card take the first index among ties, as the JAX package's do; the
+   resident-state digest (K6) bit for bit at BASELINE config 5's resident
+   shape (B 131,072, C 1,000, M 133), clean and with each corruption class, at B = 8, C = 1,
    C = 16,384 and a wrapping lag sum, and C = 16,385 raising on both
    devices; and the streaming engine's bulk refine on the card bit for bit
    against the port's CPU path from a drifted config-5 resident state;
@@ -56,7 +61,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       CPU engine at the card's bucket give the same bits;
 5. times, with CUDA events, medians of 30 runs after warm-up: each kernel
    alone at its main-path shape, its plain version on the card, the
-   library yardstick where there is one, and its bound; the ``assign()``
+   library yardstick where there is one, and its bound; the device time
+   of each kernel alone (``torch.profiler``, by kernel name) and K4's
+   kernel launches a step; the ``assign()``
    wall on the host clock at config 5 (``rounds``) and configs 4 and 5
    (``sinkhorn``); then, for each phase-4 cell, one ``assign()`` under
    ``torch.profiler``: the device's busy time and its idle share of the
@@ -127,10 +134,14 @@ SCALAR_OPS_PER_S = 67e12
 # multiply, so this bounds any softmax from below.
 EXPS_PER_S = 16 * 132 * 1.98e9
 REPEATS = 30
+# Dynamic shared memory a block may use on the H100 (227 KB).
+SMEM_PER_BLOCK = 232448
 # The f32 kernels' tolerance against their plain versions, relative to the
 # largest entry: sums run in another order.
 F32_TOL = 1e-5
 SINKHORN_CONFIGS = (2, 4, 5)
+# Duals iterations of an assign() (the tpu.assignor.sinkhorn.iters default).
+LINEAR_ITERS = 24
 
 # Every kernel's launch counter: (name, the object holding ``launches``).
 COUNTERS = (
@@ -140,6 +151,15 @@ COUNTERS = (
     ("mirror_prox_step", linear_ot_cuda.mirror_prox_step),
     ("state_digest", refine.state_digest),
 )
+# The name each kernel has in the profiler (a substring of it): K5 is the
+# pass K4 launches twice.
+KERNEL_NAMES = {
+    "rounds_scan": "rounds_scan_kernel",
+    "plan_stats": "klba_plan_stats_pass",
+    "superblock_partials": "klba_linear_ot_pass",
+    "mirror_prox_step": "klba_linear_ot_pass",
+    "state_digest": "digest_",
+}
 # The streaming engine at BASELINE config 5, as bench.py drives it: P
 # partitions, C consumers, and the warm epoch's exchange budget.
 STREAM_P = 100_000
@@ -274,7 +294,7 @@ def f32_check(kind: str, name: str, got, want, again) -> float:
         worst = max(worst, float((g - w).abs().max()))
         scale = max(scale, float(w.abs().max()))
     log(f"kernel vs plain  {kind:19s} {name:28s} max |diff| {worst!r} "
-        f"(max |plain| {scale!r})")
+        f"(max |plain| {scale!r}, ratio {worst / scale if scale else 0.0!r})")
     if not worst <= F32_TOL * scale:
         raise AssertionError(f"{kind} disagrees with its plain version on {name}")
     return worst
@@ -319,7 +339,7 @@ def plan_stats_cases(device):
         (ws, cnt, wsum), C = dedup_case(config, device)
         yield (f"config{config} U={ws.shape[0]} C={C}", ws, cnt, wsum,
                *random_duals(C, device))
-    for U, C in ((8, 2), (1024, 130)):
+    for U, C in ((8, 2), (1024, 130), (64, 1025), (64, 2000), (16, 16384)):
         ws = torch.rand(U, generator=g).mul_(4.0)
         cnt = torch.randint(0, 5, (U,), generator=g).float()
         yield (f"random U={U} C={C}", *(x.to(device) for x in (ws, cnt, ws * cnt)),
@@ -328,18 +348,74 @@ def plan_stats_cases(device):
     yield "all-zero weights U=64 C=100", zeros, zeros, zeros, *random_duals(100, device)
 
 
+def loop_duals(ws_b, cnt_b, C: int, device):
+    """The duals (A, B) the linear loop holds after its last step on these
+    blocks: the main path's loop and iteration count, with the plain step.
+    The duals grow along the loop, and with them the logits' magnitude."""
+    eta = linear_ot.MIRROR_PROX_ETA
+    A, B, rounds = linear_ot.mirror_prox(
+        lambda A, B, sc, prev: linear_ot_cuda.mirror_prox_step_torch(
+            ws_b, cnt_b, A, B, sc, prev, eta),
+        C, LINEAR_ITERS, float(cnt_b.sum()), device=device)
+    log(f"linear loop duals at config 5: {rounds} rounds, max |A| {float(A.abs().max())!r}, "
+        f"max |B| {float(B.abs().max())!r}, max |ws * A| "
+        f"{float(ws_b.max()) * float(A.abs().max())!r}")
+    return A, B
+
+
 def linear_cases(device):
-    """(name, ws_b, cnt_b, A, B)."""
+    """(name, ws_b, cnt_b, A, B): config 5's blocks with C 1000 (its main
+    path) at random duals and at the duals its loop ends with, and with C
+    16; then edge shapes: C = 1, 2, 130, then 1,025, 2,000 and 16,384 (the
+    largest, the fewest rows a chunk) in that order, so that the generic
+    kernel's shared memory grows from call to call in one process; trailing
+    tiles all padding (65 real rows in [8, 8, 64]) and all-zero weights."""
     g = torch.Generator().manual_seed(2)
     (ws_b, cnt_b), C = blocks_case(5, device)
     yield f"config5 {list(ws_b.shape)} C={C}", ws_b, cnt_b, *random_duals(C, device)
-    for shape, C in (((8, 2, 8), 2), ((8, 4, 64), 130)):
+    yield (f"config5 {list(ws_b.shape)} C={C} loop duals", ws_b, cnt_b,
+           *loop_duals(ws_b, cnt_b, C, device))
+    yield f"config5 {list(ws_b.shape)} C=16", ws_b, cnt_b, *random_duals(16, device, 16)
+    for shape, C in (((8, 2, 8), 2), ((8, 4, 64), 130), ((8, 1, 8), 1), ((8, 1, 8), 1025),
+                     ((8, 2, 8), 2000), ((8, 1, 8), linear_ot_cuda.MAX_CONSUMERS)):
         ws = torch.rand(shape, generator=g).mul_(3.0)
         cnt = (torch.rand(shape, generator=g) < 0.8).float()
         yield (f"random {list(shape)} C={C}", ws.to(device), cnt.to(device),
                *random_duals(C, device, C))
+    ws = torch.zeros((8, 8, 64))
+    cnt = torch.zeros((8, 8, 64))
+    ws.view(-1)[:65] = torch.rand(65, generator=g).mul_(3.0)
+    cnt.view(-1)[:65] = 1.0
+    yield ("65 real rows in [8, 8, 64] C=100", ws.to(device), cnt.to(device),
+           *random_duals(100, device, 100))
     zeros = torch.zeros((8, 1, 8), device=device)
     yield "all-zero weights [8, 1, 8] C=5", zeros, zeros, *random_duals(5, device)
+
+
+def linear_limits(device) -> None:
+    """C = 16,385 raises ValueError from both linear-OT wrappers on the card
+    and on the CPU; the row-tile pass's shared memory fits a block at every
+    C it takes."""
+    C = linear_ot_cuda.MAX_CONSUMERS + 1
+    for dev in (device, torch.device("cpu")):
+        ws = torch.ones((8, 1, 8), device=dev)
+        A, B = torch.zeros(C, device=dev), torch.zeros(C, device=dev)
+        scalars = (torch.tensor(1.0, device=dev), torch.tensor(0.0, device=dev))
+        for name, call in (
+                ("superblock_partials", lambda: linear_ot_cuda.superblock_partials(ws, ws, A, B)),
+                ("mirror_prox_step", lambda: linear_ot_cuda.mirror_prox_step(
+                    ws, ws, A, B, *scalars, eta=linear_ot.MIRROR_PROX_ETA))):
+            try:
+                call()
+            except ValueError:
+                continue
+            raise AssertionError(f"{name} took C={C} on {dev}")
+    lib = linear_ot_cuda._bind()
+    smem = {c: lib.klba_row_tile_smem_bytes(c) for c in (1, 2, 16, 130, 1000, 1024, 1025, C - 1)}
+    if max(smem.values()) > SMEM_PER_BLOCK:
+        raise AssertionError(f"row-tile shared memory {smem} above {SMEM_PER_BLOCK} bytes")
+    log(f"linear-OT wrappers raise ValueError at C={C} on both devices; row-tile shared "
+        f"memory by C (bytes): {smem}")
 
 
 def first_index_ties(device) -> None:
@@ -386,6 +462,7 @@ def quality_kernels_vs_plain(device) -> dict:
                           got, want, again),
             )
     torch.cuda.synchronize()
+    linear_limits(device)
     return worst
 
 
@@ -911,23 +988,33 @@ def superblock_library(ws_b, cnt_b, A, B):
     return [torch.matmul(w.reshape(Sb, 1, -1), x) for w in (ws_b, cnt_b)]
 
 
-def device_ms(fn, kernels) -> float:
-    """The device time of one ``fn()`` spent in the named CUDA kernels:
+def device_ms(fn, kernel: str) -> tuple:
+    """The device time of one ``fn()`` spent in the CUDA kernels whose name
+    holds ``kernel`` (one of KERNEL_NAMES), and their launches a call:
     torch.profiler's CUDA activity over REPEATS calls, divided by REPEATS.
-    Unlike the CUDA-event time it leaves out the host's launch gaps."""
+    Unlike the CUDA-event time it leaves out the host's launch gaps.  A
+    profiler session now and then records none of a short kernel's
+    activity, so a session without the kernel is repeated, up to three in
+    all; raises when none of them gave such kernels time, so that a renamed
+    kernel cannot read as a free one."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPEATS):
-            fn()
-        torch.cuda.synchronize()
-    return sum(
-        e.self_device_time_total for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and any(k in e.key for k in kernels)
-    ) / 1e3 / REPEATS
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPEATS):
+                fn()
+            torch.cuda.synchronize()
+        cuda = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        hits = [e for e in cuda if kernel in e.key]
+        us = sum(e.self_device_time_total for e in hits)
+        if hits and us > 0:
+            return us / 1e3 / REPEATS, sum(e.count for e in hits) / REPEATS
+        log(f"profiler session {attempt + 1} gave no time to kernels named {kernel!r}; "
+            f"it recorded {[(e.key[:40], e.count) for e in cuda]}")
+    raise AssertionError(f"the profiler saw no device time in kernels named {kernel!r}")
 
 
 def quality_times(device) -> dict:
@@ -950,11 +1037,14 @@ def quality_times(device) -> dict:
         *exp_bound(U * C, 4 * (3 * ws.shape[0] + 4 * C)),
     )
     shapes = {"plan_stats": f"config 4: U_pad {ws.shape[0]} ({U} with weight), C {C}"}
-    alone = {"plan_stats": device_ms(k3, ("klba::",))}
+    alone = {"plan_stats": device_ms(k3, KERNEL_NAMES["plan_stats"])[0]}
 
     (ws_b, cnt_b), C = blocks_case(5, device)
     A, B = random_duals(C, device)
-    rows = int((cnt_b > 0).sum())
+    # Rows with a weight: the corrector pass and K5 compute those with ws or
+    # cnt non-zero, the predictor those with ws non-zero.
+    rows = int(((ws_b != 0) | (cnt_b != 0)).sum())
+    load_rows = int((ws_b != 0).sum())
     Sb = ws_b.shape[0]
     sc, prev = torch.tensor(1.0, device=device), torch.tensor(float("inf"), device=device)
     eta = linear_ot.MIRROR_PROX_ETA
@@ -976,15 +1066,18 @@ def quality_times(device) -> dict:
         median_event_ms(lambda: linear_ot_cuda.mirror_prox_step_torch(
             ws_b, cnt_b, A, B, sc, prev, eta=eta)),
         None,
-        *exp_bound(2 * rows * C, 4 * (2 * ws_b.numel() + 2 * C + 2 + 3 * C)),
+        *exp_bound((rows + load_rows) * C, 4 * (2 * ws_b.numel() + 2 * C + 2 + 3 * C)),
     )
     shape = f"config 5: {list(ws_b.shape)} ({rows} valid rows), C {C}"
     # K5 with both marginals is the launch of K4's corrector pass; the
     # predictor pass launches it for the load only.
     shapes.update(superblock_partials=f"{shape}, both marginals",
                   mirror_prox_step=shape)
-    alone["superblock_partials"] = device_ms(k5, ("klba::",))
-    alone["mirror_prox_step"] = device_ms(k4, ("klba::", "mirror_step"))
+    alone["superblock_partials"], _ = device_ms(k5, KERNEL_NAMES["superblock_partials"])
+    alone["mirror_prox_step"], per_step = device_ms(k4, KERNEL_NAMES["mirror_prox_step"])
+    if per_step > 2:
+        raise AssertionError(f"mirror_prox_step launched {per_step} kernels a step")
+    log(f"mirror_prox_step: {per_step!r} kernel launches a step (profiler)")
 
     for name, (ms, plain, library, bound, bound_by) in out.items():
         log(f"times  {name:19s} at {shapes[name]}: kernel {ms!r} ms (device time "
@@ -1007,7 +1100,7 @@ def device_shares(device) -> None:
 
     cells = [(cfg, solver) for cfg in (5, 3) for solver in ("rounds", "global")]
     cells += [(cfg, "sinkhorn") for cfg in SINKHORN_CONFIGS]
-    ours = ("rounds_scan", "klba::", "mirror_step")
+    ours = tuple(dict.fromkeys(KERNEL_NAMES.values()))
     for cfg, solver in cells:
         lags, members = baseline_workload(cfg)
         assignor, cluster, group = plugin(lags, members, solver, device)
@@ -1050,7 +1143,8 @@ def profiled_epoch(engine, lags: np.ndarray):
         and "Activity Buffer" not in e.key
     ]
     busy = sum(e.self_device_time_total for e in events) / 1e3
-    digest = sum(e.self_device_time_total for e in events if "digest_" in e.key) / 1e3
+    digest = sum(e.self_device_time_total for e in events
+                 if KERNEL_NAMES["state_digest"] in e.key) / 1e3
     reads = sum(e.count for e in events if "DtoH" in e.key)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
     return engine.last_stats, wall, busy, digest, reads, top
@@ -1068,7 +1162,7 @@ def stream_times(run: StreamRun):
         return state_digest_cuda.launch(lags_p, choice_p, counts, C, row_tab)
 
     ms = median_event_ms(k6)
-    alone = device_ms(k6, ("digest_",))
+    alone, _ = device_ms(k6, KERNEL_NAMES["state_digest"])
     plain = median_event_ms(lambda: digest_plain(lags_p, choice_p, counts, C, row_tab))
     # Each input read once, the owner of every valid slot gathered once, the
     # five lanes written once.

@@ -12,8 +12,8 @@ dedup pre-pass:
   into ``_SUPERBLOCKS`` blocks whose partials are always combined in the
   same left-to-right order; live memory is O(tile * C + P + C).  On the
   card one iteration is one step (:func:`.linear_ot_cuda.mirror_prox_step`,
-  K4): the superblock-partials kernel (K5) twice around K4's own
-  extrapolation kernel.
+  K4): two launches of the superblock-partials pass (K5), the first of
+  which also computes the extrapolation in its last block.
 * **Push-relabel-style additive rounding** (arXiv:2203.03732 — pattern
   only): the parallel rounding, exchange refinement and greedy portfolio
   shared with the Sinkhorn solver

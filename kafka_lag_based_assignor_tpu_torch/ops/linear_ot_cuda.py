@@ -14,19 +14,23 @@ version for a CPU tensor:
   ``superblock_partials.launches``.
 * :func:`mirror_prox_step` — one extragradient step, ``(load1, load2,
   colsum2)``; plain version :func:`mirror_prox_step_torch`.  On the card
-  it launches K5 at (A, B) for the load, its own extrapolation kernel
-  (counted in ``mirror_prox_step.launches``) and K5 at (A_half, B): the
-  two K5 passes count in ``superblock_partials.launches``.
+  one host call launches two kernels: K5's pass at (A, B) for the load,
+  whose last block also computes the damped step and A_half, and K5's pass
+  at (A_half, B).  It counts once in ``mirror_prox_step.launches`` and
+  twice in ``superblock_partials.launches``.
+
+Each card call allocates its outputs and the kernel's scratch in one
+tensor.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import linear_ot
-from .kernel_admission import lane_pad
 from .rounds_cuda import MAX_SLOTS
 
 #: Largest consumer count the kernel takes: the round scan's, so every
@@ -63,55 +67,43 @@ def _bind():
     from ._build import load
 
     lib = load("linear_ot")
-    fn = lib.klba_superblock_partials
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.klba_mirror_extrapolate
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_void_p,
-                                            ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    lib.klba_cuda_error_string.argtypes = [ctypes.c_int]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.klba_superblock_partials.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+    lib.klba_superblock_partials.restype = i32
+    lib.klba_mirror_prox_step.argtypes = ([ptr] * 6 + [ctypes.c_float] + [ptr] * 4
+                                          + [i32] * 4 + [ptr])
+    lib.klba_mirror_prox_step.restype = i32
+    lib.klba_linear_ot_scratch.argtypes = [i32] * 4
+    lib.klba_linear_ot_scratch.restype = ctypes.c_longlong
+    lib.klba_row_tile_smem_bytes.argtypes = [i32]
+    lib.klba_row_tile_smem_bytes.restype = ctypes.c_longlong
+    lib.klba_cuda_error_string.argtypes = [i32]
     lib.klba_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _raise_on(lib, err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(
-            f"{name} kernel launch failed: "
-            + lib.klba_cuda_error_string(err).decode()
-        )
-
-
-def _launch_partials(ws_b, cnt_b, A, B, colsum: bool):
-    """K5 on the card, counted in ``superblock_partials.launches``:
-    (sb_load [Sb, C], sb_col [Sb, C], load [C], colsum [C]), the colsum
-    pair None when ``colsum`` is false."""
+def _call(name: str, shape, ws_b, cnt_b, A, B, *args):
+    """One call of ``lib.<name>`` on the inputs' card, its outputs (a
+    tensor of ``shape``, one output per row) and scratch in one allocation;
+    ``args`` go between the duals and the scratch.  Returns the outputs."""
     Sb, tpb, tile = ws_b.shape
     C = A.shape[0]
-    k = 2 if colsum else 1
-    dev = ws_b.device
-    parts = torch.empty((k, Sb * tpb, lane_pad(C)), dtype=torch.float32, device=dev)
-    sb = torch.empty((k, Sb, C), dtype=torch.float32, device=dev)
-    tot = torch.empty((k, C), dtype=torch.float32, device=dev)
-
-    def second(t):
-        return t[1] if colsum else None
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     lib = _bind()
+    dev = ws_b.device
+    n = math.prod(shape)
+    buf = torch.empty(n + lib.klba_linear_ot_scratch(Sb, tpb, tile, C),
+                      dtype=torch.float32, device=dev)
+    outs = buf[:n].view(shape).unbind(0)
     with torch.cuda.device(dev):
-        err = lib.klba_superblock_partials(
-            ws_b.data_ptr(), cnt_b.data_ptr(), A.data_ptr(), B.data_ptr(),
-            ptr(parts[0]), ptr(second(parts)), ptr(sb[0]), ptr(second(sb)),
-            ptr(tot[0]), ptr(second(tot)), Sb, tpb, tile, C, lane_pad(C),
-            torch.cuda.current_stream(dev).cuda_stream,
+        err = getattr(lib, name)(
+            ws_b.data_ptr(), cnt_b.data_ptr(), A.data_ptr(), B.data_ptr(), *args,
+            buf[n:].data_ptr(), *(o.data_ptr() for o in outs),
+            Sb, tpb, tile, C, torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(lib, err, "superblock_partials")
-    superblock_partials.launches += 1
-    return sb[0], second(sb), tot[0], second(tot)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + lib.klba_cuda_error_string(err).decode())
+    return outs
 
 
 def superblock_partials(ws_b, cnt_b, A, B):
@@ -125,8 +117,10 @@ def superblock_partials(ws_b, cnt_b, A, B):
     _check(ws_b, cnt_b, A, B)
     if ws_b.device.type == "cpu":
         return linear_ot._superblock_partials(ws_b, cnt_b, A, B)
-    sb_load, sb_col, _, _ = _launch_partials(ws_b, cnt_b, A, B, colsum=True)
-    return sb_load, sb_col
+    out = _call("klba_superblock_partials", (2, ws_b.shape[0], A.shape[0]),
+                ws_b, cnt_b, A, B)
+    superblock_partials.launches += 1
+    return out
 
 
 superblock_partials.launches = 0
@@ -155,20 +149,11 @@ def mirror_prox_step(ws_b, cnt_b, A, B, sc, prev_spread, eta: float):
     _check(ws_b, cnt_b, A, B, (("sc", sc), ("prev_spread", prev_spread)))
     if ws_b.device.type == "cpu":
         return mirror_prox_step_torch(ws_b, cnt_b, A, B, sc, prev_spread, eta)
-    _, _, load1, _ = _launch_partials(ws_b, cnt_b, A, B, colsum=False)
-    a_half = torch.empty_like(A)
-    lib = _bind()
-    dev = ws_b.device
-    with torch.cuda.device(dev):
-        err = lib.klba_mirror_extrapolate(
-            load1.data_ptr(), A.data_ptr(), sc.data_ptr(), prev_spread.data_ptr(),
-            float(eta), a_half.data_ptr(), A.shape[0],
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _raise_on(lib, err, "mirror_prox_step")
+    out = _call("klba_mirror_prox_step", (3, A.shape[0]), ws_b, cnt_b, A, B, sc.data_ptr(),
+                prev_spread.data_ptr(), ctypes.c_float(eta))
     mirror_prox_step.launches += 1
-    _, _, load2, colsum2 = _launch_partials(ws_b, cnt_b, a_half, B, colsum=True)
-    return load1, load2, colsum2
+    superblock_partials.launches += 2
+    return out
 
 
 mirror_prox_step.launches = 0

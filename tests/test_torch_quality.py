@@ -217,6 +217,67 @@ def test_mirror_prox_step_matches_jax(P, C, tile, sc, prev_spread):
         assert_close(f.numpy(), w)
 
 
+def edge_blocks(name):
+    """The kernels' edge shapes: 65 real rows in P2 = 4096 (the trailing
+    tiles all padding), or the largest consumer count with 8 x 1 x 8 rows."""
+    rng = np.random.default_rng(11)
+    if name == "65 real rows of 4096":
+        ws = np.zeros(4096, np.float32)
+        cnt = np.zeros(4096, np.float32)
+        ws[:65] = rng.gamma(0.5, 2.0, 65)
+        ws[:65][rng.random(65) < 0.2] = 0.0  # valid zero-lag rows
+        cnt[:65] = 1.0
+        blocks = [np.array(jax_linear._to_blocks(jnp.asarray(x), 4096, 8, 64))
+                  for x in (ws, cnt)]
+        C = 100
+    else:
+        blocks = [rng.gamma(0.5, 2.0, (8, 1, 8)).astype(np.float32),
+                  (rng.random((8, 1, 8)) < 0.8).astype(np.float32)]
+        C = linear_ot_cuda.MAX_CONSUMERS
+    A = rng.normal(0, 0.5, C).astype(np.float32)
+    B = rng.normal(0, 0.1, C).astype(np.float32)
+    return blocks[0], blocks[1], A, B
+
+
+EDGE_CASES = ["65 real rows of 4096", "C=16384 at 8 x 1 x 8"]
+
+
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_superblock_partials_match_jax_at_edge_shapes(name):
+    ws_b, cnt_b, A, B = edge_blocks(name)
+    got = linear_ot_cuda.superblock_partials(T(ws_b), T(cnt_b), T(A), T(B))
+    want = jax_linear._superblock_partials(*(jnp.asarray(x) for x in (ws_b, cnt_b, A, B)))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert_close(g.numpy(), w)
+
+
+@pytest.mark.parametrize("sc,prev_spread", [(1.0, np.inf), (0.5, 0.0)])
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_mirror_prox_step_matches_jax_at_edge_shapes(name, sc, prev_spread):
+    ws_b, cnt_b, A, B = edge_blocks(name)
+    want = jax_step(ws_b, cnt_b, A, B, np.float32(sc), np.float32(prev_spread))
+    scalars = (torch.tensor(sc, dtype=torch.float32),
+               torch.tensor(prev_spread, dtype=torch.float32))
+    got = linear_ot_cuda.mirror_prox_step(T(ws_b), T(cnt_b), T(A), T(B), *scalars,
+                                          eta=linear_ot.MIRROR_PROX_ETA)
+    for g, w in zip(got, want):
+        assert_close(g.numpy(), w)
+
+
+@pytest.mark.parametrize("wrapper", ["superblock_partials", "mirror_prox_step"])
+def test_linear_ot_wrappers_refuse_one_consumer_too_many(wrapper):
+    C = linear_ot_cuda.MAX_CONSUMERS + 1
+    ws = torch.ones((8, 1, 8))
+    A, B = torch.zeros(C), torch.zeros(C)
+    with pytest.raises(ValueError, match="consumers"):
+        if wrapper == "superblock_partials":
+            linear_ot_cuda.superblock_partials(ws, ws, A, B)
+        else:
+            linear_ot_cuda.mirror_prox_step(ws, ws, A, B, torch.tensor(1.0),
+                                            torch.tensor(0.0), eta=8.0)
+
+
 def test_sinkhorn_duals_track_jax():
     lags = skewed(7, 3000)
     valid = np.ones(3000, bool)
