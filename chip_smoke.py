@@ -10,11 +10,19 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 
 1. environment: the card's name, and its name and power limit as
    ``nvidia-smi`` reports them;
-2. build: ``nvcc`` builds every ``csrc/*.cu`` of the port (seconds printed);
+2. build: ``nvcc`` builds every ``csrc/*.cu`` of the port (seconds printed,
+   and ptxas' registers, shared memory and spills of every kernel
+   instantiation);
 3. kernels: each kernel against its plain PyTorch version on the card, on the
    same inputs, at every shape the main paths give it and at edge shapes:
    the round scan bit for bit (integers: tolerance 0), also at the quality
-   solver's greedy-leg shapes of configs 2, 4 and 5; the f32 quality
+   solver's greedy-leg shapes of configs 2, 4 and 5, at every slot count
+   1, 2, 4, ..., 16,384 (C not a power of two above 2) with small lags and
+   with lags that force the two-key form, at config 5's shape forced into
+   the two-key form (lags near 2^40) and with negative gains; each case in
+   the key form ``packed_rank_bits`` gives it and, where that is the
+   packed key, in the two-key form too, every launch twice to the same
+   bits, the form logged; the f32 quality
    kernels (plan statistics at configs 2 and 4, superblock partials and
    the mirror-prox step at config 5 with C 1000 and 16, and at the duals
    the plain linear loop holds after its last step at config 5) within
@@ -62,8 +70,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 5. times, with CUDA events, medians of 30 runs after warm-up: each kernel
    alone at its main-path shape, its plain version on the card, the
    library yardstick where there is one, and its bound; the device time
-   of each kernel alone (``torch.profiler``, by kernel name) and K4's
-   kernel launches a step; the ``assign()``
+   of each kernel alone (``torch.profiler``, by kernel name), the round
+   scan's at config 5 and at config 3 ``global`` with its time a round and
+   a network stage, and K4's kernel launches a step; the ``assign()``
    wall on the host clock at config 5 (``rounds``) and configs 4 and 5
    (``sinkhorn``); then, for each phase-4 cell, one ``assign()`` under
    ``torch.profiler``: the device's busy time and its idle share of the
@@ -75,6 +84,16 @@ It prints the card's name and power limit, one JSON ``kernels`` line, and as
 its last line
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
 result.
+
+Two more modes time the round scan alone::
+
+    python3 chip_smoke.py --k1-times           # phase 5's K1 times only
+    python3 chip_smoke.py --k1-ab ROOT [ROOT ...]
+
+``--k1-ab`` runs ``--k1-times`` once for each checkout ROOT, in that order,
+each in a process that imports the port's package from that ROOT (its
+kernels build under ROOT), for example a parent commit unpacked with
+``git archive`` beside this one: ``--k1-ab parent . . parent``.
 """
 
 from __future__ import annotations
@@ -82,6 +101,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -232,9 +252,28 @@ def round_inputs(lags: np.ndarray, n_valid: np.ndarray, C: int, device,
     )
 
 
+def slot_class_cases(rng):
+    """Two cases at each slot count N = 1, 2, 4, ..., 16,384 (C not a power
+    of two where C > 2, so every class has pad slots): small lags, which
+    admit the packed key, and lags from 2 to 4 times 2^(61 - rank_bits)
+    over the rows, which force the two-key form.  The odd C of these takes
+    the kernel's slot-at-a-time loads from 4,096 slots up; the ``_vector``
+    cases, at 4,096 and 8,192 slots (4 and 8 a thread), have a C that is a
+    multiple of that and must take its 16-byte loads and stores."""
+    shapes = [(f"slots{1 << n}", {1: 1, 2: 2, 4: 3}.get(1 << n, (1 << n) // 2 + (1 << n) // 8 + 1))
+              for n in range(15)]
+    for name, C in shapes + [("slots4096_vector", 3000), ("slots8192_vector", 6000)]:
+        P = 3 * C + 5
+        lo = 2 ** (62 - max(1, (C - 1).bit_length())) // P
+        yield (f"{name}_packed", rng.integers(0, 10**6, (2, P)), np.full(2, P), C, False,
+               None, "packed")
+        yield (f"{name}_two_key", rng.integers(lo, 2 * lo, (2, P)), np.full(2, P), C, False,
+               None, "two-key")
+
+
 def kernel_cases():
     """(name, lags [T, P], valid rows per topic, C, carry across topics,
-    rows the rounds cover or None)."""
+    rows the rounds cover or None, the key form it must take or None)."""
     rng = np.random.default_rng(7)
 
     def full(T, P):
@@ -247,40 +286,71 @@ def kernel_cases():
         lags, members = baseline_workload(config)
         lags_p, _, valid = pad_topic_rows(lags["t0"])
         yield (f"sinkhorn_greedy_config{config}", lags_p[None],
-               np.array([int(valid.sum())]), len(members), False, lags_p.shape[0])
+               np.array([int(valid.sum())]), len(members), False, lags_p.shape[0], None)
     yield ("config5_narrow", rng.integers(0, 20_000, (1, 100_000)),
-           full(1, 100_000), 1000, False, None)
+           full(1, 100_000), 1000, False, None, None)
     yield ("config5_wide", rng.integers(2**20, 2**31, (1, 100_000)),
-           full(1, 100_000), 1000, False, None)
+           full(1, 100_000), 1000, False, None, None)
     table = rng.integers(0, 1000, (256, 64))
-    yield "config3_rounds", table, full(256, 64), 64, False, None
-    yield "config3_global", table, full(256, 64), 64, True, None
-    yield "one_consumer", rng.integers(0, 10**6, (4, 50)), full(4, 50), 1, False, None
+    yield "config3_rounds", table, full(256, 64), 64, False, None, None
+    yield "config3_global", table, full(256, 64), 64, True, None, None
+    yield "one_consumer", rng.integers(0, 10**6, (4, 50)), full(4, 50), 1, False, None, None
     yield ("fewer_rows_than_consumers", rng.integers(0, 10**6, (3, 128)),
-           np.array([100, 7, 1]), 700, False, None)
-    yield "ties", rng.integers(0, 3, (8, 5000)), full(8, 5000), 300, False, None
+           np.array([100, 7, 1]), 700, False, None, None)
+    yield "ties", rng.integers(0, 3, (8, 5000)), full(8, 5000), 300, False, None, None
     yield ("max_slots", rng.integers(0, 10**9, (2, 40_000)), full(2, 40_000),
-           rounds_cuda.MAX_SLOTS, False, None)
+           rounds_cuda.MAX_SLOTS, False, None, None)
+    yield from slot_class_cases(rng)
+    # Config 5's shape with lags near 2^40: the sum, about 2^56.6, passes
+    # 2^51 (rank_bits 10) but stays below the 2^63 sentinel.
+    yield ("config5_two_key", rng.integers(2**40 - 2**36, 2**40, (1, 100_000)),
+           np.full(1, 100_000), 1000, False, None, "two-key")
+    yield ("negative_gains", rng.integers(-1000, 10**6, (3, 3000)), np.full(3, 3000), 300,
+           False, None, "two-key")
+
+
+def scan_diff(got, want) -> int:
+    """max |diff| over the (choice, totals) of two round scans."""
+    return max(int((got[0].long() - want[0].long()).abs().max()),
+               int((got[1] - want[1]).abs().max()))
 
 
 def kernels_vs_plain(device) -> int:
+    """K1 bit for bit against its plain version: every case in the form
+    ``packed_rank_bits`` gives it (through the wrapper) and, where that is
+    the packed key, in the two-key form too; each launch twice, to the same
+    bits.  Logs whether each launch moved its rows with vector loads or a
+    slot at a time.  Returns max |diff| (0)."""
     worst = 0
-    for name, lags, n_valid, C, carry, rows in kernel_cases():
+    for name, lags, n_valid, C, carry, rows, form in kernel_cases():
         gains, valid, totals0 = round_inputs(lags.astype(np.int64), n_valid, C, device,
                                              rows)
-        got_c, got_t = rounds_cuda.rounds_scan(gains, valid, totals0, carry)
-        want_c, want_t = rounds_cuda.rounds_scan_torch(gains, valid, totals0, carry)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        err = max(
-            int((got_c.long() - want_c.long()).abs().max()),
-            int((got_t - want_t).abs().max()),
-        )
+        rb = rounds_cuda.packed_rank_bits(gains, valid, totals0, carry)
+        if form is not None and (rb > 0) != (form == "packed"):
+            raise AssertionError(f"{name}: rank_bits {rb}, expected the {form} form")
+        want = rounds_cuda.rounds_scan_torch(gains, valid, totals0, carry, rb)
+        errs, io = {}, set()
+        if rb:  # the plain version's two bodies agree
+            errs["plain two-key"] = scan_diff(
+                rounds_cuda.rounds_scan_torch(gains, valid, totals0, carry, 0), want)
+        for key_rb in sorted({rb, 0}, reverse=True):
+            first = (rounds_cuda.rounds_scan(gains, valid, totals0, carry) if key_rb == rb
+                     else rounds_cuda._launch(gains, valid, totals0, carry, key_rb))
+            again = rounds_cuda._launch(gains, valid, totals0, carry, key_rb)
+            sync(device)
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise AssertionError(f"rounds_scan {name}: two runs differ")
+            errs["packed" if key_rb else "two-key"] = scan_diff(first, want)
+            io.add("vector" if rounds_cuda.vector_io(gains, valid, first[0]) else "scalar")
+        err = max(errs.values())
         worst = max(worst, err)
         log(f"kernel vs plain  {name:26s} T={gains.shape[0]} R={gains.shape[1]} "
-            f"C={C} carry={carry}: max |diff| {err}")
+            f"C={C} carry={carry} rank_bits {rb}: max |diff| {errs}, two runs equal, "
+            f"{'/'.join(sorted(io))} loads")
         if err:
             raise AssertionError(f"rounds_scan disagrees with its plain version on {name}")
+        if "_vector_" in name and io != {"vector"}:
+            raise AssertionError(f"rounds_scan {name}: took {io} loads, not the vector path")
     return worst
 
 
@@ -927,6 +997,81 @@ def bound_ms(T: int, R: int, C: int) -> tuple:
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations", stages
 
 
+def k1_cases(device):
+    """K1's two timed shapes, as the main path makes them: (name, (gains,
+    valid, totals0), carry).  Config 5 is one block of 100 rounds of 1,000
+    consumers; config 3 ``global`` one block of 256 rounds of 64."""
+    lags, members = baseline_workload(5)
+    P = lags["t0"].size
+    yield ("config 5", round_inputs(lags["t0"][None], np.array([P]), len(members), device),
+           False)
+    lags, members = baseline_workload(3)
+    table = np.stack([lags[t] for t in sorted(lags)])
+    yield ("config 3 global",
+           round_inputs(table, np.full(len(table), table.shape[1]), len(members), device), True)
+
+
+def k1_times(device) -> dict:
+    """K1 through its wrapper at each of ``k1_cases``: the CUDA-event time
+    (the wrapper's checks and host read included), the device time alone
+    (profiler, by kernel name), per round and per network stage, beside the
+    bound.  Uses only the wrapper's public interface, so that it times any
+    version of the package on the path."""
+    out = {}
+    for name, (gains, valid, totals0), carry in k1_cases(device):
+        T, R, C = gains.shape
+        depth = T * R if carry else R  # rounds in one block's chain
+
+        def fn():
+            return rounds_cuda.rounds_scan(gains, valid, totals0, carry)
+
+        event = median_event_ms(fn)
+        alone, per_call = device_ms(fn, KERNEL_NAMES["rounds_scan"])
+        bound, bound_by, stages = bound_ms(T, R, C)
+        packed = getattr(rounds_cuda, "packed_rank_bits", None)
+        rank_bits = packed(gains, valid, totals0, carry) if packed else None
+        two_key = None
+        if rank_bits:  # the same inputs forced into the two-key form
+            two_key, _ = device_ms(
+                lambda: rounds_cuda._launch(gains, valid, totals0, carry, 0),
+                KERNEL_NAMES["rounds_scan"])
+        out[name] = {
+            "T": T, "R": R, "C": C, "carry": carry, "rank_bits": rank_bits,
+            "event_ms": event, "alone_ms": alone, "launches_a_call": per_call,
+            "ns_a_round": alone * 1e6 / depth, "ns_a_stage": alone * 1e6 / (depth * stages),
+            "two_key_alone_ms": two_key, "bound_ms": bound, "bound_by": bound_by,
+        }
+        log(f"times  rounds_scan at {name} (T={T} R={R} C={C} carry={carry}, rank_bits "
+            f"{rank_bits}): event {event!r} ms, device time alone {alone!r} ms "
+            f"({per_call!r} kernels a call), {alone * 1e6 / depth!r} ns a round, "
+            f"{alone * 1e6 / (depth * stages)!r} ns a stage of {stages}, bound {bound!r} ms "
+            f"({bound_by}); forced into the two-key form, alone {two_key!r} ms")
+    return out
+
+
+def k1_ab(roots) -> None:
+    """Time K1 (``k1_times``) for the package of each checkout in ``roots``,
+    in that order, each in a process of its own that imports the package
+    from that root (for example parent, change, change, parent)."""
+    runs = []
+    for root in roots:
+        proc = subprocess.run(
+            [sys.executable, "-P", os.path.abspath(__file__), "--k1-times"], cwd=root,
+            env={**os.environ, "PYTHONPATH": os.path.abspath(root)},
+            capture_output=True, text=True, timeout=600,
+        )
+        sys.stdout.write(proc.stdout)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stderr)
+            raise AssertionError(f"K1 times of {root} exited {proc.returncode}")
+        runs.append({"root": root, **json.loads(proc.stdout.strip().splitlines()[-1])})
+    for run in runs:
+        log(f"k1 a/b  {run['root']}: " + "; ".join(
+            f"{name} alone {t['alone_ms']!r} ms event {t['event_ms']!r} ms"
+            for name, t in run["k1_times"].items()))
+    log(json.dumps({"k1_ab": runs}))
+
+
 def assign_walls(cfg: int, solver: str, device, repeats: int = REPEATS):
     """Medians of ``repeats`` ``assign()`` calls after 3 warm-ups, host
     clock, ending in a synchronize: (wall, lag read, solve, min wall)."""
@@ -951,15 +1096,20 @@ def times(device):
     C = len(members)
     gains, valid, totals0 = round_inputs(lags["t0"][None], np.array([P]), C, device)
     T, R, _ = gains.shape
-    kernel = median_event_ms(lambda: rounds_cuda._launch(gains, valid, totals0, False))
+    rb = rounds_cuda.packed_rank_bits(gains, valid, totals0)
+    kernel = median_event_ms(lambda: rounds_cuda._launch(gains, valid, totals0, False, rb))
     wrapper = median_event_ms(lambda: rounds_cuda.rounds_scan(gains, valid, totals0))
-    plain = median_event_ms(lambda: rounds_cuda.rounds_scan_torch(gains, valid, totals0))
+    plain = median_event_ms(
+        lambda: rounds_cuda.rounds_scan_torch(gains, valid, totals0, False, rb))
+    plain_two_key = median_event_ms(
+        lambda: rounds_cuda.rounds_scan_torch(gains, valid, totals0, False, 0))
     bound, bound_by, stages = bound_ms(T, R, C)
+    log(f"times at config 5 (T={T} R={R} C={C}, rank_bits {rb}, {R * stages} network "
+        f"stages): kernel {kernel!r} ms ({kernel * 1e6 / (R * stages):.1f} ns a stage), "
+        f"wrapper with its checks {wrapper!r} ms, plain version on the card {plain!r} ms "
+        f"(its two-key body {plain_two_key!r} ms), bound {bound!r} ms ({bound_by})")
+    k1_times(device)
     wall, lag_read, solve, fastest = assign_walls(5, "rounds", device)
-    log(f"times at config 5 (T={T} R={R} C={C}, {R * stages} barrier stages): kernel "
-        f"{kernel!r} ms ({kernel * 1e6 / (R * stages):.1f} ns a stage), wrapper with "
-        f"its checks {wrapper!r} ms, plain version on the card {plain!r} ms, bound "
-        f"{bound!r} ms ({bound_by})")
     log(f"assign() at config 5 rounds, medians of {REPEATS} (host clock): wall "
         f"{wall!r} ms (min {fastest!r}), of which lag read {lag_read!r} ms "
         f"(FakeBroker), solve {solve!r} ms, the rest (stats, result objects) "
@@ -1227,7 +1377,13 @@ def main() -> int:
               "port on the card", file=sys.stderr)
         return 1
     device = torch.device("cuda")
+    if sys.argv[1:2] == ["--k1-ab"]:
+        k1_ab(sys.argv[2:])
+        return 0
     name = environment()
+    if sys.argv[1:] == ["--k1-times"]:
+        log(json.dumps({"k1_times": k1_times(device), "device": name}))
+        return 0
     build()
     max_err = kernels_vs_plain(device)
     f32_err = quality_kernels_vs_plain(device)

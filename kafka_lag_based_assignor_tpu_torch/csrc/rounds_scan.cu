@@ -4,12 +4,13 @@
 // ::_rounds_kernel (int32 totals) and ::_rounds_kernel_wide (int64 totals as
 // two int32 planes with a carry).  One int64 kernel covers both.
 //
-// What it computes: exactly ops/rounds_kernel.py::_rounds_body, round after
-// round.  At the start of round r every consumer holds r partitions, so the
-// j-th partition of the round (in processing order) goes to the consumer with
-// the (j+1)-th smallest (total lag, consumer id).  A round is therefore: sort
-// the C (total, id) slots ascending, seat id[j] at position j, add gain[j] to
-// slot j.
+// What it computes: exactly ops/rounds_kernel.py::_rounds_body (the two-key
+// form) or ::_rounds_body_packed (the packed form), round after round.  At
+// the start of round r every consumer holds r partitions, so the j-th
+// partition of the round (in processing order) goes to the consumer with the
+// (j+1)-th smallest (total lag, consumer id).  A round is therefore: sort the
+// C (total, id) slots ascending, seat the id at position j, add gain[j] to
+// the slot at position j.
 //
 // Layout: gains int64[T, R, C] and valid uint8[T, R, C] (the sorted lags of
 // each round's row and their validity), totals0 int64[C], choice
@@ -19,117 +20,528 @@
 // topics.
 //
 // What bounds it: its sequential depth, not bytes.  Each round is a full
-// bitonic network over C_pad = next_pow2(C) slots, log2(C_pad) *
-// (log2(C_pad) + 1) / 2 stages with a block barrier after each, so a topic
-// costs R * stages barriers; at 100k partitions / 1k consumers that is
-// 100 * 55 barriers against 1.3 MB of device-memory traffic.  The design keeps
-// all (total, id) state in shared memory across the rounds (12 B a slot, up
-// to C_pad = 16384 = 192 KiB), so a round touches device memory only for its
-// C gains, C validity bytes and C choices; nothing else leaves the SM.
+// bitonic network over N = next_pow2(C) slots, log2(N) * (log2(N) + 1) / 2
+// compare-exchange stages, each depending on the one before; at 100k
+// partitions / 1k consumers that is 100 * 55 stages against 1.3 MB of
+// device-memory traffic, in one block on one SM.  A round cannot be a merge
+// of the seated slots into the rest: after round r slot j holds t_j + g_j
+// with t ascending and g descending, which can be any order at all.  So the
+// design shortens each stage instead:
 //
-// Pad slots (j >= C) hold total INT64_MAX and id j >= C, so they sort after
-// every real slot (ties on total break by id) and never receive a gain.
+// - Keys live in registers in a blocked layout: thread t holds the K
+//   consecutive sorted positions t*K .. t*K+K-1 (slots_per_thread).  A stage
+//   of stride j < K runs inside the thread's registers; a stride from K to
+//   16*K is one __shfl_xor_sync with lane ^ (j / K) at the same register
+//   index; only strides of 32*K and more go through shared memory, one block
+//   barrier each (the exchange buffer is double-buffered where it fits, so
+//   no second barrier guards its reuse).  The network is the all-ascending
+//   form (each merge starts by pairing slot i with its mirror), so no stage
+//   computes a direction.  K is 2 up to 2,048 slots: a
+//   stage is a short dependent chain (shuffle, compare, select), and on one
+//   SM more warps hide it better than more slots a thread do (at 1,024
+//   slots K 2 over 16 warps ran faster than K 4 over 8, K 8 over 4 and K 1
+//   over 32 with its 15 barriers).  At 1,024 slots that is 10 register, 35
+//   shuffle and 10 barrier stages a round, against 55 barriers before; at
+//   64 slots (one warp) no barrier at all.  Every register index is a
+//   constant after unrolling: the kernel is a template on log2(N), one
+//   instantiation for each power of two up to 16,384.
+// - One key where it is admissible: the packed int64 (total << rank_bits) |
+//   id, whose order is the (total, id) order, so a stage compares and moves
+//   one 64-bit word instead of a word and an id; the gain is added as gain
+//   << rank_bits.  The wrapper admits it (rank_bits > 0) when every valid
+//   gain and every starting total is >= 0 and the largest reachable total is
+//   below 2^(61 - rank_bits); otherwise the two-key (int64 total, int32 id)
+//   network runs, the same template with the other key.
+// - The next round's C gains and validity bytes are loaded into registers
+//   (16-byte loads where the row allows) before this round's network starts
+//   and read only after it, so no round waits on device memory; the choice
+//   row is written K int32 at a time.  At 8,192 and 16,384 slots (K 8 and 16 over 1,024 threads,
+//   64 registers a thread) the round's gains are read after its network
+//   instead, so that the keys stay in registers; at 16,384 slots they spill
+//   all the same.
+//
+// Pad slots (positions >= C) hold a key above every real one (total
+// INT64_MAX, or the packed ((INT64_MAX >> rank_bits) << rank_bits) | j) and
+// id j >= C, so they sort after every real slot and never receive a gain.
 // Validity is read from `valid`, never inferred from the gain, so a valid
 // zero lag is never taken for padding.
 
 #include <climits>
 #include <cstdint>
+#include <mutex>
+#include <type_traits>
+#include <utility>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxSlots = 16384;
+constexpr int kMaxLogSlots = 14;
+constexpr int kMaxSlots = 1 << kMaxLogSlots;
+constexpr int kMaxDevices = 64;
+// Dynamic shared memory a block may use on Hopper (227 KB).
+constexpr int kSmemPerBlock = 232448;
 
-__device__ __forceinline__ bool slot_greater(long long ta, int ia, long long tb,
-                                             int ib) {
-  return ta > tb || (ta == tb && ia > ib);
+// Slots a thread holds (K) for 2^log_n slots: 2, so that as many warps as
+// possible hide each other's latency, until 1,024 threads hold them all.
+__host__ __device__ constexpr int slots_per_thread(int log_n) {
+  return log_n == 0 ? 1 : log_n <= 11 ? 2 : 1 << (log_n - 10);
 }
 
-__global__ void rounds_scan_kernel(const long long* __restrict__ gains,
-                                   const unsigned char* __restrict__ valid,
-                                   const long long* __restrict__ totals0,
-                                   int* __restrict__ choice,
-                                   long long* __restrict__ totals_out, int R,
-                                   int C, int c_pad) {
-  extern __shared__ long long smem[];
-  long long* tot = smem;
-  int* ids = reinterpret_cast<int*>(smem + c_pad);
+template <int kLogN, bool kPacked>
+struct Plan {
+  static constexpr int kSlots = 1 << kLogN;
+  static constexpr int kK = slots_per_thread(kLogN);
+  static constexpr int kThreads = kSlots / kK;
+  static constexpr int kSlotBytes = kPacked ? 8 : 12;
+  // Two exchange buffers (one barrier a stage) where they fit, else one.
+  static constexpr bool kDouble = 2 * kSlots * kSlotBytes <= kSmemPerBlock;
+  static constexpr int kSmem =
+      kThreads <= 32 ? 0 : (kDouble ? 2 : 1) * kSlots * kSlotBytes;
+  // Read the next round's gains during this round's network where the 64
+  // registers a thread has at 1,024 threads hold them beside the keys.
+  static constexpr bool kPrefetch = kK <= 4;
+  static constexpr unsigned kLanes =
+      kThreads >= 32 ? 0xffffffffu : (1u << kThreads) - 1u;
+};
 
-  const long long topic = blockIdx.x;
-  for (int j = threadIdx.x; j < c_pad; j += blockDim.x) {
-    tot[j] = j < C ? totals0[j] : LLONG_MAX;
-    ids[j] = j;
+template <class F, int... Is>
+__device__ __forceinline__ void static_for_impl(F&& f,
+                                                std::integer_sequence<int, Is...>) {
+  (f(std::integral_constant<int, Is>{}), ...);
+}
+
+// f(integral_constant<int, 0>) ... f(integral_constant<int, N - 1>).
+template <int N, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  static_for_impl(f, std::make_integer_sequence<int, N>{});
+}
+
+// (key a, id a) < (key b, id b): the packed key alone, or total then id.
+template <bool kPacked>
+__device__ __forceinline__ bool less(long long ka, int ia, long long kb, int ib) {
+  if constexpr (kPacked) {
+    return ka < kb;
+  } else {
+    return ka < kb || (ka == kb && ia < ib);
   }
-  __syncthreads();
+}
 
-  const int half = c_pad >> 1;
-  for (int r = 0; r < R; ++r) {
-    // Ascending bitonic sort of (total, id).  Ids are distinct, so the
-    // order is total and the network exact.
-    for (int k = 2; k <= c_pad; k <<= 1) {
-      for (int j = k >> 1; j > 0; j >>= 1) {
-        for (int p = threadIdx.x; p < half; p += blockDim.x) {
-          const int lo = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-          const int hi = lo | j;
-          const long long tl = tot[lo];
-          const long long th = tot[hi];
-          const int il = ids[lo];
-          const int ih = ids[hi];
-          const bool ascending = (lo & k) == 0;
-          if (slot_greater(tl, il, th, ih) == ascending) {
-            tot[lo] = th;
-            tot[hi] = tl;
-            ids[lo] = ih;
-            ids[hi] = il;
-          }
+struct Exchange {
+  long long* key;  // [buffers][N]
+  int* id;         // [buffers][N], two-key form only
+  int sel;         // the buffer the next barrier stage writes
+};
+
+template <int K>
+__device__ __forceinline__ void put_keys(long long* dst, const long long (&v)[K]) {
+  if constexpr (K == 1) {
+    dst[0] = v[0];
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; k += 2)
+      reinterpret_cast<longlong2*>(dst)[k >> 1] = make_longlong2(v[k], v[k + 1]);
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void get_keys(const long long* src, long long (&v)[K]) {
+  if constexpr (K == 1) {
+    v[0] = src[0];
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; k += 2) {
+      const longlong2 w = reinterpret_cast<const longlong2*>(src)[k >> 1];
+      v[k] = w.x;
+      v[k + 1] = w.y;
+    }
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void put_ids(int* dst, const int (&v)[K]) {
+  if constexpr (K == 1) {
+    dst[0] = v[0];
+  } else if constexpr (K == 2) {
+    *reinterpret_cast<int2*>(dst) = make_int2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; k += 4)
+      reinterpret_cast<int4*>(dst)[k >> 2] = make_int4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void get_ids(const int* src, int (&v)[K]) {
+  if constexpr (K == 1) {
+    v[0] = src[0];
+  } else if constexpr (K == 2) {
+    const int2 w = *reinterpret_cast<const int2*>(src);
+    v[0] = w.x;
+    v[1] = w.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; k += 4) {
+      const int4 w = reinterpret_cast<const int4*>(src)[k >> 2];
+      v[k] = w.x;
+      v[k + 1] = w.y;
+      v[k + 2] = w.z;
+      v[k + 3] = w.w;
+    }
+  }
+}
+
+// One stage of the bitonic network, in its all-ascending form: merge size
+// 2^kLS, stride 2^kLJ.  The first stage of a merge pairs slot i with its
+// mirror i ^ (size - 1), every later one with i ^ stride; in each pair the
+// lower slot (i & stride == 0) keeps the smaller key.  So no slot needs a
+// direction, and a thread's partner in another thread is always the same
+// register index (reversed in a mirror stage).  Keys are distinct (ids
+// differ), so "take the partner's" is exactly "partner < mine" == "I keep
+// the smaller".
+template <int kLogN, bool kPacked, int kLS, int kLJ>
+__device__ __forceinline__ void stage(long long (&key)[Plan<kLogN, kPacked>::kK],
+                                      int (&id)[Plan<kLogN, kPacked>::kK], Exchange& x) {
+  using P = Plan<kLogN, kPacked>;
+  constexpr int K = P::kK;
+  constexpr int kStride = 1 << kLJ;
+  constexpr bool kMirror = kLJ + 1 == kLS;
+  constexpr int kFlip = kMirror ? (1 << kLS) - 1 : kStride;  // partner = i ^ kFlip
+  const int t = threadIdx.x;
+
+  if constexpr (kStride < K) {
+    static_for<K>([&](auto kc) {
+      constexpr int lo = decltype(kc)::value;
+      if constexpr ((lo & kStride) == 0) {
+        constexpr int hi = lo ^ kFlip;
+        const bool swap = less<kPacked>(key[hi], id[hi], key[lo], id[lo]);
+        const long long k0 = key[lo], k1 = key[hi];
+        key[lo] = swap ? k1 : k0;
+        key[hi] = swap ? k0 : k1;
+        if constexpr (!kPacked) {
+          const int i0 = id[lo], i1 = id[hi];
+          id[lo] = swap ? i1 : i0;
+          id[hi] = swap ? i0 : i1;
         }
-        __syncthreads();
+      }
+    });
+    return;
+  }
+  // The partner's keys for each of this thread's K slots.
+  long long yk[K];
+  int yi[K];
+  if constexpr (kStride < 32 * K) {
+    constexpr int m = kFlip / K;  // partner lane = lane ^ m
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int src = kMirror ? K - 1 - k : k;
+      yk[k] = __shfl_xor_sync(P::kLanes, key[src], m);
+      if constexpr (!kPacked) yi[k] = __shfl_xor_sync(P::kLanes, id[src], m);
+    }
+  } else {
+    if constexpr (!P::kDouble) __syncthreads();  // one buffer: readers done
+    long long* kb = x.key + x.sel * P::kSlots;
+    int* ib = x.id + x.sel * P::kSlots;
+    put_keys<K>(kb + t * K, key);
+    if constexpr (!kPacked) put_ids<K>(ib + t * K, id);
+    __syncthreads();
+    const int partner = (t ^ (kFlip / K)) * K;
+    long long pk[K];
+    int pi[K];
+    get_keys<K>(kb + partner, pk);
+    if constexpr (!kPacked) get_ids<K>(ib + partner, pi);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      yk[k] = pk[kMirror ? K - 1 - k : k];
+      if constexpr (!kPacked) yi[k] = pi[kMirror ? K - 1 - k : k];
+    }
+    if constexpr (P::kDouble) x.sel ^= 1;
+  }
+  const bool keep_min = (t & (kStride / K)) == 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const bool take = less<kPacked>(yk[k], kPacked ? 0 : yi[k], key[k], id[k]) == keep_min;
+    key[k] = take ? yk[k] : key[k];
+    if constexpr (!kPacked) id[k] = take ? yi[k] : id[k];
+  }
+}
+
+// The whole ascending bitonic network over N slots, every stage unrolled.
+template <int kLogN, bool kPacked>
+__device__ __forceinline__ void sort_slots(long long (&key)[Plan<kLogN, kPacked>::kK],
+                                           int (&id)[Plan<kLogN, kPacked>::kK],
+                                           Exchange& x) {
+  static_for<kLogN>([&](auto a) {
+    constexpr int ls = decltype(a)::value + 1;
+    static_for<ls>([&](auto b) {
+      stage<kLogN, kPacked, ls, ls - 1 - decltype(b)::value>(key, id, x);
+    });
+  });
+}
+
+// This thread's K gains and validity bytes of one round row, as loaded:
+// fetch() issues the loads and decode() alone reads them, after the
+// network, so that a warp does not wait for them where it issues them.
+template <int K>
+struct RowLoad {
+  long long gain[K];
+  unsigned valid[K];  // a byte each, or (vector loads) four to a word
+};
+
+// `vec`: C % K == 0 and the pointers aligned, so the K positions are all
+// inside the row or all past it, and one 16-byte load takes two gains.
+template <int K>
+__device__ __forceinline__ void fetch(const long long* __restrict__ g,
+                                      const unsigned char* __restrict__ v, int i0, int C,
+                                      bool vec, RowLoad<K>& row) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    row.gain[k] = 0;
+    row.valid[k] = 0;
+  }
+  if (vec && K > 1) {
+    if (i0 >= C) return;
+#pragma unroll
+    for (int q = 0; q < K / 2; ++q) {
+      const longlong2 w = __ldg(reinterpret_cast<const longlong2*>(g + i0) + q);
+      row.gain[2 * q] = w.x;
+      row.gain[2 * q + 1] = w.y;
+    }
+    if constexpr (K == 2) {
+      row.valid[0] = __ldg(reinterpret_cast<const unsigned short*>(v + i0));
+    } else if constexpr (K == 4) {
+      row.valid[0] = __ldg(reinterpret_cast<const unsigned*>(v + i0));
+    } else if constexpr (K == 8) {
+      const uint2 w = __ldg(reinterpret_cast<const uint2*>(v + i0));
+      row.valid[0] = w.x;
+      row.valid[1] = w.y;
+    } else {
+#pragma unroll
+      for (int q = 0; q < K / 16; ++q) {
+        const uint4 w = __ldg(reinterpret_cast<const uint4*>(v + i0) + q);
+        row.valid[4 * q] = w.x;
+        row.valid[4 * q + 1] = w.y;
+        row.valid[4 * q + 2] = w.z;
+        row.valid[4 * q + 3] = w.w;
       }
     }
-    const long long row = (topic * R + r) * C;
-    for (int j = threadIdx.x; j < C; j += blockDim.x) {
-      const bool v = valid[row + j] != 0;
-      choice[row + j] = v ? ids[j] : -1;
-      if (v) tot[j] += gains[row + j];
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (i0 + k < C) {
+        row.gain[k] = __ldg(g + i0 + k);
+        row.valid[k] = __ldg(v + i0 + k);
+      }
     }
-    __syncthreads();
+  }
+}
+
+// The gains, 0 where invalid; returns the validity as a bit mask.
+template <int K>
+__device__ __forceinline__ unsigned decode(const RowLoad<K>& row, bool vec,
+                                           long long (&gain)[K]) {
+  unsigned mask = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const unsigned ok =
+        vec && K > 1 ? (row.valid[k / 4] >> (8 * (k % 4))) & 0xff : row.valid[k];
+    gain[k] = ok ? row.gain[k] : 0;
+    mask |= static_cast<unsigned>(ok != 0) << k;
+  }
+  return mask;
+}
+
+template <int K>
+__device__ __forceinline__ void store_choice(int* __restrict__ c, int i0, int C, bool vec,
+                                             const int (&cv)[K]) {
+  if (vec && K > 1) {
+    if (i0 < C) {
+      if constexpr (K == 2) {
+        *reinterpret_cast<int2*>(c + i0) = make_int2(cv[0], cv[1]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < K; k += 4)
+          reinterpret_cast<int4*>(c + i0)[k >> 2] =
+              make_int4(cv[k], cv[k + 1], cv[k + 2], cv[k + 3]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (i0 + k < C) c[i0 + k] = cv[k];
+  }
+}
+
+template <int kLogN, bool kPacked>
+__global__ void __launch_bounds__(Plan<kLogN, kPacked>::kThreads, 1)
+    rounds_scan_kernel(const long long* __restrict__ gains,
+                       const unsigned char* __restrict__ valid,
+                       const long long* __restrict__ totals0, int* __restrict__ choice,
+                       long long* __restrict__ totals_out, int R, int C, int rank_bits,
+                       int vec) {
+  using P = Plan<kLogN, kPacked>;
+  constexpr int K = P::kK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int buffers = P::kDouble ? 2 : 1;
+  Exchange x{reinterpret_cast<long long*>(smem),
+             reinterpret_cast<int*>(smem + static_cast<size_t>(buffers) * P::kSlots * 8), 0};
+
+  const int i0 = threadIdx.x * K;
+  const long long id_mask = (1LL << rank_bits) - 1;
+  long long key[K];
+  int id[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = i0 + k;
+    id[k] = j;
+    if constexpr (kPacked) {
+      key[k] = j < C ? (totals0[j] << rank_bits) | j
+                     : ((LLONG_MAX >> rank_bits) << rank_bits) | j;
+    } else {
+      key[k] = j < C ? totals0[j] : LLONG_MAX;
+    }
   }
 
-  // Slots are in the last round's order: scatter the totals back to
-  // consumer order (this replaces the Pallas path's final sort by id).
-  for (int j = threadIdx.x; j < c_pad; j += blockDim.x) {
-    const int id = ids[j];
-    if (id < C) totals_out[topic * C + id] = tot[j];
+  const long long first = static_cast<long long>(blockIdx.x) * R;  // first row
+  RowLoad<K> cur, next;
+  if (P::kPrefetch && R > 0)
+    fetch<K>(gains + first * C, valid + first * C, i0, C, vec != 0, cur);
+  if constexpr (P::kPrefetch) next = cur;
+
+  for (int r = 0; r < R; ++r) {
+    const long long row = (first + r) * C;
+    if constexpr (P::kPrefetch) {
+      if (r + 1 < R) fetch<K>(gains + row + C, valid + row + C, i0, C, vec != 0, next);
+    }
+    sort_slots<kLogN, kPacked>(key, id, x);
+    if constexpr (!P::kPrefetch) fetch<K>(gains + row, valid + row, i0, C, vec != 0, cur);
+    long long gain[K];
+    const unsigned mask = decode<K>(cur, vec != 0, gain);
+    int cv[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int who = kPacked ? static_cast<int>(key[k] & id_mask) : id[k];
+      cv[k] = (mask >> k) & 1 ? who : -1;
+      key[k] += kPacked ? gain[k] << rank_bits : gain[k];
+    }
+    store_choice<K>(choice + row, i0, C, vec != 0, cv);
+    if constexpr (P::kPrefetch) cur = next;
   }
+
+  // Positions < C hold the real slots, in the last round's order: scatter
+  // the totals back to consumer order (this replaces the Pallas path's
+  // final sort by id).
+  long long* out = totals_out + static_cast<long long>(blockIdx.x) * C;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (i0 + k < C) {
+      if constexpr (kPacked) {
+        out[key[k] & id_mask] = key[k] >> rank_bits;
+      } else {
+        out[id[k]] = key[k];
+      }
+    }
+  }
+}
+
+using KernelFn = void (*)(const long long*, const unsigned char*, const long long*, int*,
+                          long long*, int, int, int, int);
+
+struct Instance {
+  KernelFn fn;
+  int threads;
+  int k;
+  int smem;
+};
+
+template <bool kPacked, int... Ls>
+const Instance* instances(std::integer_sequence<int, Ls...>) {
+  static const Instance table[] = {
+      {rounds_scan_kernel<Ls, kPacked>, Plan<Ls, kPacked>::kThreads,
+       Plan<Ls, kPacked>::kK, Plan<Ls, kPacked>::kSmem}...};
+  return table;
+}
+
+const Instance& instance(int log_n, bool packed) {
+  constexpr auto all = std::make_integer_sequence<int, kMaxLogSlots + 1>{};
+  return packed ? instances<true>(all)[log_n] : instances<false>(all)[log_n];
+}
+
+// Raise every instantiation's dynamic shared-memory limit to what it uses,
+// once a device, whatever C the first call has.
+cudaError_t set_smem_limits() {
+  for (int packed = 0; packed < 2; ++packed) {
+    for (int log_n = 0; log_n <= kMaxLogSlots; ++log_n) {
+      const Instance& in = instance(log_n, packed != 0);
+      if (in.smem <= 48 * 1024) continue;
+      const cudaError_t err = cudaFuncSetAttribute(
+          reinterpret_cast<const void*>(in.fn),
+          cudaFuncAttributeMaxDynamicSharedMemorySize, in.smem);
+      if (err != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
+}
+
+int log2_of(int n) {
+  int l = 0;
+  while ((1 << l) < n) ++l;
+  return l;
+}
+
+bool aligned(const void* p, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// Whether a launch moves its rows with vector loads and stores: C a multiple
+// of the slots a thread and every row aligned for them.
+int vector_io(int k, const void* gains, const void* valid, const void* choice, int C) {
+  return k > 1 && C % k == 0 && aligned(gains, 16) && aligned(valid, k < 16 ? k : 16) &&
+         aligned(choice, 4 * k < 16 ? 4 * k : 16);
 }
 
 }  // namespace
 
-// Launches the round scan on `stream`; returns cudaGetLastError() (0 = ok).
+// Launches the round scan on `stream`; returns the CUDA error (0 = ok).
 // T blocks, each over R rounds of C consumers; c_pad = next_pow2(C) <= 16384.
+// rank_bits > 0 runs the packed key (the caller has checked that the
+// shifted totals fit, and c_pad <= 2^rank_bits), 0 the two-key network.
 extern "C" int klba_rounds_scan(const void* gains, const void* valid,
                                 const void* totals0, void* choice,
                                 void* totals_out, int T, int R, int C,
-                                int c_pad, void* stream) {
-  if (T < 1 || C < 1 || c_pad < C || c_pad > kMaxSlots || (c_pad & (c_pad - 1)))
+                                int c_pad, int rank_bits, void* stream) {
+  if (T < 1 || R < 0 || C < 1 || c_pad < C || c_pad > kMaxSlots ||
+      (c_pad & (c_pad - 1)) || rank_bits < 0 || rank_bits > 61 ||
+      (rank_bits > 0 && c_pad > (1LL << rank_bits)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(c_pad) * (sizeof(long long) + sizeof(int));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rounds_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  int threads = c_pad / 2;
-  if (threads < 32) threads = 32;
-  if (threads > 1024) threads = 1024;
-  rounds_scan_kernel<<<T, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(gains),
-      static_cast<const unsigned char*>(valid),
-      static_cast<const long long*>(totals0), static_cast<int*>(choice),
-      static_cast<long long*>(totals_out), R, C, c_pad);
-  return static_cast<int>(cudaGetLastError());
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  static std::once_flag once[kMaxDevices];
+  static cudaError_t limits[kMaxDevices];
+  std::call_once(once[device], [device] { limits[device] = set_smem_limits(); });
+  if (limits[device] != cudaSuccess) return static_cast<int>(limits[device]);
+
+  const Instance& in = instance(log2_of(c_pad), rank_bits > 0);
+  int vec = vector_io(in.k, gains, valid, choice, C);
+  const long long* g = static_cast<const long long*>(gains);
+  const unsigned char* v = static_cast<const unsigned char*>(valid);
+  const long long* t0 = static_cast<const long long*>(totals0);
+  int* ch = static_cast<int*>(choice);
+  long long* out = static_cast<long long*>(totals_out);
+  void* args[] = {&g, &v, &t0, &ch, &out, &R, &C, &rank_bits, &vec};
+  err = cudaLaunchKernel(reinterpret_cast<const void*>(in.fn), dim3(T), dim3(in.threads),
+                         args, in.smem, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// 1 where klba_rounds_scan on these pointers moves its rows with vector
+// loads and stores, 0 where it moves one slot at a time, -1 for a bad c_pad.
+extern "C" int klba_rounds_scan_vector_io(const void* gains, const void* valid,
+                                          const void* choice, int C, int c_pad) {
+  if (C < 1 || c_pad < C || c_pad > kMaxSlots || (c_pad & (c_pad - 1))) return -1;
+  return vector_io(slots_per_thread(log2_of(c_pad)), gains, valid, choice, C);
 }
 
 extern "C" const char* klba_cuda_error_string(int err) {

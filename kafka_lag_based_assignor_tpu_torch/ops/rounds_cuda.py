@@ -5,13 +5,19 @@ Counterpart of ``kafka_lag_based_assignor_tpu/ops/rounds_pallas.py``: the
 kernel in ``csrc/rounds_scan.cu`` replaces the TPU kernels
 ``_rounds_kernel`` (int32 totals) and ``_rounds_kernel_wide`` (int64 totals
 as two int32 planes).  It is one int64 kernel, one thread block per topic,
-with every consumer's (total, id) slot kept in shared memory across the
-rounds; see the source for what bounds it.
+with every consumer's slot kept in registers across the rounds; see the
+source for what bounds it.
+
+It has two key forms, chosen per call from the input's range as the JAX
+package chooses its round body (``totals_rank_bits_for``): the packed int64
+key ``(total << rank_bits) | id`` (``ops/rounds_kernel.py::
+_rounds_body_packed``) where :func:`packed_rank_bits` admits it, else the
+two-key (total, id) network (``_rounds_body``).  Both give the same bits.
 
 :func:`rounds_scan` is the wrapper.  A CUDA tensor launches the kernel or
-raises; a CPU tensor runs :func:`rounds_scan_torch`, the plain version.  Both
-accept the same inputs and raise on the same ones, so the CPU and the card
-never disagree about what is admissible.
+raises; a CPU tensor runs :func:`rounds_scan_torch`, the plain version, in
+the same key form.  Both accept the same inputs and raise on the same ones,
+so the CPU and the card never disagree about what is admissible.
 """
 
 from __future__ import annotations
@@ -20,8 +26,9 @@ import ctypes
 
 import torch
 
-#: Largest padded consumer count: 16384 slots of 12 B = 192 KiB of shared
-#: memory per block (Hopper gives a block up to 227 KB).
+#: Largest padded consumer count: 16384 slots, 16 a thread over 1,024
+#: threads, whose two-key exchange buffer (12 B a slot) is 192 KiB of
+#: shared memory (Hopper gives a block up to 227 KB).
 MAX_SLOTS = 16384
 _INT64_MAX = torch.iinfo(torch.int64).max
 
@@ -31,7 +38,10 @@ def slots_for(num_consumers: int) -> int:
     return 1 << max(int(num_consumers) - 1, 0).bit_length()
 
 
-def _check(gains, valid, totals0, carry_across_topics: bool) -> None:
+def _check(gains, valid, totals0, carry_across_topics: bool) -> tuple:
+    """Raise on what the kernel does not take; return (bound, low): the
+    largest total any slot can reach (f64, an int64 sum could wrap) and the
+    least valid gain or starting total, from one host read."""
     if gains.device.type not in ("cuda", "cpu"):
         raise ValueError(f"rounds_scan runs on cuda or cpu, not {gains.device}")
     if gains.dim() != 3 or gains.dtype != torch.int64:
@@ -56,32 +66,61 @@ def _check(gains, valid, totals0, carry_across_topics: bool) -> None:
             f"{C} consumers pad to {slots_for(C)} slots, above the round "
             f"scan's limit of {MAX_SLOTS} (192 KiB of shared memory a block)"
         )
-    if gains.numel() == 0:
-        return
-    # The largest total any slot can reach, in f64 (an int64 sum could
-    # wrap): it must stay below the INT64_MAX sentinel of the pad slots.
-    per_topic = torch.where(valid.bool(), gains, 0).to(torch.float64).abs()
-    sums = per_topic.sum() if carry_across_topics else per_topic.sum(dim=(1, 2)).max()
-    bound = float(sums) + float(totals0.to(torch.float64).abs().max())
+    f64 = torch.float64
+    if gains.numel():
+        live = torch.where(valid.bool(), gains, 0)
+        per_topic = live.to(f64).abs()
+        sums = per_topic.sum() if carry_across_topics else per_topic.sum(dim=(1, 2)).amax()
+        low = live.amin().to(f64)
+    else:
+        sums = low = torch.zeros((), dtype=f64, device=gains.device)
+    start = totals0.to(f64)
+    sums, start_abs, low, start_low = torch.stack(
+        [sums, start.abs().amax(), low, start.amin()]).tolist()
+    # It must stay below the INT64_MAX sentinel of the pad slots.
+    bound = sums + start_abs
     if bound >= float(_INT64_MAX):
         raise ValueError(
             f"total lag up to {bound:.6g} could reach the int64 sentinel "
             f"(2**63 - 1) of the round scan"
         )
+    return bound, min(low, start_low)
 
 
-def rounds_scan_torch(gains, valid, totals0, carry_across_topics: bool = False):
-    """Plain PyTorch version of the kernel: the ``_rounds_body`` loop.
+def packed_rank_bits(gains, valid, totals0, carry_across_topics: bool = False) -> int:
+    """The key form a call takes: rank_bits = max(1, bit_length(C - 1)) when
+    every valid gain and every ``totals0`` entry is >= 0 and the largest
+    total a slot can reach (each topic's valid gains, or with
+    ``carry_across_topics`` all topics', plus max |totals0|) is below
+    2^(61 - rank_bits), so that ``(total << rank_bits) | id`` fits an int64
+    with room to spare; else 0, the two-key form.  The port's copy of
+    ``ops/batched.totals_rank_bits_for``'s rule, which also counts the
+    starting totals.  Raises where :func:`rounds_scan` does."""
+    bound, low = _check(gains, valid, totals0, carry_across_topics)
+    rank_bits = max(1, (gains.shape[-1] - 1).bit_length())
+    return rank_bits if low >= 0 and bound < float(1 << (61 - rank_bits)) else 0
 
-    Each round sorts the totals stably (ties break by consumer id, the
-    index order), seats ``order[j]`` at position j (-1 where invalid) and
-    adds the valid gains to the seated consumers.  Returns (choice
-    int32[T, R, C], totals int64[T, C], or [1, C] when carrying the totals
-    across topics).
+
+def rounds_scan_torch(gains, valid, totals0, carry_across_topics: bool = False,
+                      rank_bits: int = 0):
+    """Plain PyTorch version of the kernel, in either key form.
+
+    ``rank_bits`` 0 runs the ``_rounds_body`` loop: each round sorts the
+    totals stably (ties break by consumer id, the index order), seats
+    ``order[j]`` at position j (-1 where invalid) and adds the valid gains
+    to the seated consumers.  ``rank_bits`` > 0 (as :func:`packed_rank_bits`
+    gives it) runs the ``_rounds_body_packed`` loop over the kernel's
+    next_pow2(C) slots: it sorts the packed keys, with the pad slots' key
+    above every real one, reads the ids from the low bits and adds the
+    gains positionally.  Returns (choice int32[T, R, C], totals int64[T,
+    C], or [1, C] when carrying the totals across topics).
     """
     T, R, C = gains.shape
     if carry_across_topics:
         gains, valid = gains.reshape(1, T * R, C), valid.reshape(1, T * R, C)
+    if rank_bits:
+        choice, totals = _packed_rounds(gains, valid, totals0, rank_bits)
+        return choice.reshape(T, R, C), totals
     n_blocks, n_rounds = gains.shape[0], gains.shape[1]
     totals = totals0.expand(n_blocks, C).clone()
     choice = torch.empty(gains.shape, dtype=torch.int32, device=gains.device)
@@ -93,19 +132,50 @@ def rounds_scan_torch(gains, valid, totals0, carry_across_topics: bool = False):
     return choice.reshape(T, R, C), totals
 
 
+def _packed_rounds(gains, valid, totals0, rank_bits: int):
+    n_blocks, n_rounds, C = gains.shape
+    ids = torch.arange(slots_for(C), dtype=torch.int64, device=gains.device)
+    pad = ((_INT64_MAX >> rank_bits) << rank_bits) | ids[C:]
+    keys = torch.cat([(totals0 << rank_bits) | ids[:C], pad]).expand(n_blocks, -1)
+    id_mask = (1 << rank_bits) - 1
+    choice = torch.empty(gains.shape, dtype=torch.int32, device=gains.device)
+    for r in range(n_rounds):
+        keys = torch.sort(keys, dim=1).values
+        v = valid[:, r].bool()
+        choice[:, r] = torch.where(v, keys[:, :C] & id_mask, -1).to(torch.int32)
+        keys[:, :C] += torch.where(v, gains[:, r], 0) << rank_bits
+    real = keys[:, :C]  # the pad slots sort after every real one
+    totals = torch.empty((n_blocks, C), dtype=torch.int64, device=gains.device)
+    return choice, totals.scatter_(1, real & id_mask, real >> rank_bits)
+
+
 def _bind():
     from ._build import load
 
     lib = load("rounds_scan")
     fn = lib.klba_rounds_scan
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.klba_rounds_scan_vector_io.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    lib.klba_rounds_scan_vector_io.restype = ctypes.c_int
     lib.klba_cuda_error_string.argtypes = [ctypes.c_int]
     lib.klba_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(gains, valid, totals0, carry_across_topics: bool):
+def vector_io(gains, valid, choice) -> bool:
+    """Whether the kernel, given these CUDA tensors (``choice`` as a launch
+    returned it), moved its rows with 16-byte loads and stores (C a multiple
+    of the slots a thread, the rows aligned) rather than a slot at a time."""
+    C = gains.shape[2]
+    got = _bind().klba_rounds_scan_vector_io(
+        gains.data_ptr(), valid.data_ptr(), choice.data_ptr(), C, slots_for(C))
+    if got < 0:
+        raise ValueError(f"no round-scan kernel for {C} consumers")
+    return bool(got)
+
+
+def _launch(gains, valid, totals0, carry_across_topics: bool, rank_bits: int):
     T, R, C = gains.shape
     n_blocks, n_rounds = (1, T * R) if carry_across_topics else (T, R)
     choice = torch.empty(gains.shape, dtype=torch.int32, device=gains.device)
@@ -117,7 +187,7 @@ def _launch(gains, valid, totals0, carry_across_topics: bool):
         err = lib.klba_rounds_scan(
             gains.data_ptr(), valid.data_ptr(), totals0.data_ptr(),
             choice.data_ptr(), totals.data_ptr(),
-            n_blocks, n_rounds, C, slots_for(C),
+            n_blocks, n_rounds, C, slots_for(C), rank_bits,
             torch.cuda.current_stream(gains.device).cuda_stream,
         )
     if err != 0:
@@ -142,14 +212,15 @@ def rounds_scan(gains, valid, totals0, carry_across_topics: bool = False):
 
     Returns (choice int32[T, R, C]: consumer seated at each position, -1
     where invalid; totals int64[T, C] in consumer order, or [1, C] when
-    carrying).  A CUDA tensor launches the kernel (and counts the launch in
+    carrying).  The key form is :func:`packed_rank_bits`'s, on both
+    devices.  A CUDA tensor launches the kernel (and counts the launch in
     ``rounds_scan.launches``) or raises; a CPU tensor runs
     :func:`rounds_scan_torch`.
     """
-    _check(gains, valid, totals0, carry_across_topics)
+    rank_bits = packed_rank_bits(gains, valid, totals0, carry_across_topics)
     if gains.device.type == "cpu":
-        return rounds_scan_torch(gains, valid, totals0, carry_across_topics)
-    return _launch(gains, valid, totals0, carry_across_topics)
+        return rounds_scan_torch(gains, valid, totals0, carry_across_topics, rank_bits)
+    return _launch(gains, valid, totals0, carry_across_topics, rank_bits)
 
 
 rounds_scan.launches = 0

@@ -68,16 +68,156 @@ def port_scan(lags, valid, C, n_valid):
     return totals.numpy(), choice.numpy()
 
 
+def kernel_rows(lags, valid, C, n_valid=None):
+    """One topic's sorted rows cut into rounds, as the wrapper takes them:
+    (gains int64[1, R, C], valid uint8[1, R, C])."""
+    lags_h, valid_h, R, _ = rounds_kernel.round_rows(
+        torch.from_numpy(lags), torch.from_numpy(valid), C, n_valid)
+    return (lags_h.reshape(1, R, C).contiguous(),
+            valid_h.reshape(1, R, C).to(torch.uint8).contiguous())
+
+
+def port_body(lags, valid, C, n_valid, rank_bits, totals0=None):
+    """The port's plain version in one key form, laid out as the JAX scan
+    returns it: (totals[C], choice int32[P] in sorted order)."""
+    gains, ok = kernel_rows(lags, valid, C, n_valid)
+    start = torch.zeros(C, dtype=torch.int64) if totals0 is None else torch.from_numpy(totals0)
+    choice, totals = rounds_cuda.rounds_scan_torch(gains, ok, start, False, rank_bits)
+    flat = np.full(lags.shape[0], -1, np.int32)
+    head = min(choice.numel(), lags.shape[0])
+    flat[:head] = choice.reshape(-1)[:head].numpy()
+    return totals[0].numpy(), flat
+
+
 @pytest.mark.parametrize("C,P", SHAPES)
 def test_scan_matches_jax_both_bodies(C, P):
     lags, valid, n_valid = sorted_case(C * 1000 + P, P)
     rank_bits = jax_batched.totals_rank_bits_for(lags, C)
     assert rank_bits > 0  # the packed body is admissible here
+    assert rounds_cuda.packed_rank_bits(
+        *kernel_rows(lags, valid, C, n_valid), torch.zeros(C, dtype=torch.int64)
+    ) == rank_bits
     want_t, want_c = port_scan(lags, valid, C, n_valid)
+    for port_rb in (0, rank_bits):
+        got_t, got_c = port_body(lags, valid, C, n_valid, port_rb)
+        np.testing.assert_array_equal(want_c, got_c)
+        np.testing.assert_array_equal(want_t, got_t)
     for rb in (0, rank_bits):
         got_t, got_c = jax_scan(lags, valid, C, n_valid, rb)
         np.testing.assert_array_equal(want_c, got_c)
         np.testing.assert_array_equal(want_t, got_t)
+
+
+def boundary_lags(seed, C, P, target):
+    """P descending lags, all multiples of 64 (so every f64 partial sum
+    below 2**59 is exact), summing to exactly ``target``."""
+    rng = np.random.default_rng(seed)
+    lags = rng.integers(1, 1000, size=P).astype(np.int64) * 64
+    lags[0] = target // 128 * 64
+    lags[1] = target - lags[0] - lags[2:].sum()
+    return -np.sort(-lags)
+
+
+@pytest.mark.parametrize("side", [-1, 1])
+@pytest.mark.parametrize("C", [7, 64])
+def test_packing_boundary(C, side):
+    """Lags summing to 64 below and 64 above 2**(61 - rank_bits): the rule
+    admits the packed key, then not; both port bodies equal both JAX bodies
+    on each side (the shifted totals still fit an int64 just above)."""
+    rb = max(1, (C - 1).bit_length())
+    lags = boundary_lags(C, C, 3 * C + 5, 2 ** (61 - rb) + side * 64)
+    valid = np.ones(lags.shape, bool)
+    zeros = torch.zeros(C, dtype=torch.int64)
+    want_rb = rb if side < 0 else 0
+    assert rounds_cuda.packed_rank_bits(*kernel_rows(lags, valid, C), zeros) == want_rb
+    assert jax_batched.totals_rank_bits_for(lags, C) == want_rb
+    want_t, want_c = jax_scan(lags, valid, C, None, 0)
+    for port_rb in (0, rb):
+        got_t, got_c = port_body(lags, valid, C, None, port_rb)
+        np.testing.assert_array_equal(got_c, want_c)
+        np.testing.assert_array_equal(got_t, want_t)
+    got_t, got_c = jax_scan(lags, valid, C, None, rb)
+    np.testing.assert_array_equal(got_c, want_c)
+    np.testing.assert_array_equal(got_t, want_t)
+    assert want_t.sum() == 2 ** (61 - rb) + side * 64
+
+
+def test_carry_packs_per_topic_not_across():
+    """Each topic's sum fits the packed key; the carried sum does not: the
+    per-topic scan packs, the carried one takes the two-key form, and both
+    equal the JAX scan (the carried one run topic after topic)."""
+    C, P = 7, 26
+    rb = max(1, (C - 1).bit_length())
+    tables = [boundary_lags(s, C, P, 2 ** (61 - rb) - 64 * (s + 1)) for s in range(2)]
+    valid = np.ones(P, bool)
+    rows = [kernel_rows(t, valid, C) for t in tables]
+    gains = torch.cat([g for g, _ in rows])
+    ok = torch.cat([v for _, v in rows])
+    zeros = torch.zeros(C, dtype=torch.int64)
+    assert rounds_cuda.packed_rank_bits(gains, ok, zeros, False) == rb
+    assert rounds_cuda.packed_rank_bits(gains, ok, zeros, True) == 0
+    choice, totals = rounds_cuda.rounds_scan(gains, ok, zeros, False)
+    for t, lags in enumerate(tables):
+        want_t, want_c = jax_scan(lags, valid, C, None, rb)
+        np.testing.assert_array_equal(choice[t].reshape(-1)[:P].numpy(), want_c)
+        np.testing.assert_array_equal(totals[t].numpy(), want_t)
+    choice, totals = rounds_cuda.rounds_scan(gains, ok, zeros, True)
+    start = jnp.zeros((C,), jnp.int64)
+    for t, lags in enumerate(tables):
+        start, want_c = jax_rounds._rounds_scan(
+            jnp.asarray(lags), jnp.asarray(valid), start, C, totals_rank_bits=0)
+        np.testing.assert_array_equal(choice[t].reshape(-1)[:P].numpy(),
+                                      np.asarray(want_c))
+    np.testing.assert_array_equal(totals[0].numpy(), np.asarray(start))
+    assert int(totals.sum()) > 2 ** (61 - rb)
+
+
+@pytest.mark.parametrize("kind", ["totals0 > 0", "totals0 < 0", "negative gain"])
+def test_start_and_sign_cases(kind):
+    """A positive start packs; a negative start or a negative valid gain
+    takes the two-key form; each equals the JAX scan from the same start."""
+    C, P = 13, 70
+    rng = np.random.default_rng(11)
+    lags, valid, n_valid = sorted_case(5, P)
+    totals0 = rng.integers(0, 10**6, size=C).astype(np.int64)
+    if kind == "totals0 < 0":
+        totals0[3] = -5
+    if kind == "negative gain":
+        lags[n_valid - 1] = -7
+    gains, ok = kernel_rows(lags, valid, C, n_valid)
+    rb = rounds_cuda.packed_rank_bits(gains, ok, torch.from_numpy(totals0))
+    assert rb == (4 if kind == "totals0 > 0" else 0)
+    want_t, want_c = jax_rounds._rounds_scan(
+        jnp.asarray(lags), jnp.asarray(valid), jnp.asarray(totals0), C,
+        n_valid=n_valid, totals_rank_bits=rb)
+    got_t, got_c = port_body(lags, valid, C, n_valid, rb, totals0)
+    np.testing.assert_array_equal(got_c, np.asarray(want_c))
+    np.testing.assert_array_equal(got_t, np.asarray(want_t))
+    choice, totals = rounds_cuda.rounds_scan(gains, ok, torch.from_numpy(totals0))
+    np.testing.assert_array_equal(totals[0].numpy(), np.asarray(want_t))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "negative gain"])
+def test_wrapper_runs_the_plain_version_in_the_admitted_form(monkeypatch, kind):
+    """On the CPU the wrapper hands the plain version the rank_bits it would
+    give the kernel."""
+    C, P = 9, 40
+    lags, valid, _ = sorted_case(2, P)
+    if kind == "negative gain":
+        lags[0] = -1
+    gains, ok = kernel_rows(lags, valid, C)
+    zeros = torch.zeros(C, dtype=torch.int64)
+    seen = []
+    plain = rounds_cuda.rounds_scan_torch
+
+    def spy(*args):
+        seen.append(args[-1])
+        return plain(*args)
+
+    monkeypatch.setattr(rounds_cuda, "rounds_scan_torch", spy)
+    rounds_cuda.rounds_scan(gains, ok, zeros)
+    assert seen == [rounds_cuda.packed_rank_bits(gains, ok, zeros)]
+    assert seen[0] == (4 if kind == "uniform" else 0)
 
 
 @pytest.mark.parametrize("kind", ["zeros", "ties", "wide"])
@@ -118,6 +258,25 @@ def test_plain_kernel_matches_pallas_interpret(C, P, kind, wide):
     np.testing.assert_array_equal(totals[0].numpy(), np.asarray(pal_totals))
     if wide:
         assert totals.max() > 2**31
+
+
+def test_packed_plain_body_matches_pallas_interpret():
+    """The packed plain body (pad sentinel, unpacking, positional add) at
+    64 slots of 41 consumers against the narrow TPU kernel (K1)."""
+    C, P = 41, 200
+    lags, valid, _ = sorted_case(41, P)
+    gains, ok = kernel_rows(lags, valid, C)
+    R = gains.shape[1]
+    pal_totals, pal_choice = rounds_scan_pallas(
+        jnp.asarray(np.where(ok[0].numpy() != 0, gains[0].numpy(), -1).astype(np.int32)),
+        num_consumers=C, interpret=True, wide=False,
+    )
+    rb = rounds_cuda.packed_rank_bits(gains, ok, torch.zeros(C, dtype=torch.int64))
+    assert rb == 6 and rounds_cuda.slots_for(C) == 64 and R == 5
+    choice, totals = rounds_cuda.rounds_scan_torch(
+        gains, ok, torch.zeros(C, dtype=torch.int64), False, rb)
+    np.testing.assert_array_equal(choice[0].numpy(), np.asarray(pal_choice))
+    np.testing.assert_array_equal(totals[0].numpy(), np.asarray(pal_totals))
 
 
 def group_case(seed, T, P, C, max_lag=10**6):
