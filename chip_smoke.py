@@ -23,22 +23,31 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    the key form ``packed_rank_bits`` gives it and, where that is the
    packed key, in the two-key form too, every launch twice to the same
    bits, the form logged; the f32 quality
-   kernels (plan statistics at configs 2 and 4, superblock partials and
+   kernels within ``max |kernel - plain| <= 1e-5 * max |plain|`` (f32 sums
+   in another order and an approximate exp), each run twice to the same
+   bits: the plan statistics (K3) at the dedup shapes of configs 2, 4 and
+   5 and at every U = 1, 17, 1,024, 4,096 and C = 1, 16, 31, 512, 1,000,
+   1,024, 1,025, 2,000, 16,384 (C ascending, the generic kernel's shared
+   memory growing in one process), in each ``need`` (both, load, colsum;
+   the marginal asked for alone equal bit for bit to its ``need="both"``
+   value) and in each kernel form that takes the shape (the cluster form
+   up to C = 1,024, the pass form at every C); superblock partials and
    the mirror-prox step at config 5 with C 1000 and 16, and at the duals
-   the plain linear loop holds after its last step at config 5) within
-   ``max |kernel - plain| <= 1e-5 * max |plain|`` (f32 sums in another
-   order and an approximate exp), also at edge shapes (C = 1, 2, not a
-   multiple of 128, and 1,025, 2,000 and 16,384 in that order, the generic
-   kernel's shared memory growing in one process; 8 value rows, trailing
-   tiles all padding, all-zero weights), and run twice to the same bits;
+   the plain linear loop holds after its last step at config 5, also at
+   edge shapes (C = 1, 2, not a multiple of 128, and 1,025, 2,000 and
+   16,384 in that order; trailing tiles all padding, all-zero weights);
    C = 16,385 raising in both
    linear-OT wrappers on both devices; and torch's argmin / argmax on the
    card take the first index among ties, as the JAX package's do; the
-   resident-state digest (K6) bit for bit at BASELINE config 5's resident
-   shape (B 131,072, C 1,000, M 133), clean and with each corruption class, at B = 8, C = 1,
-   C = 16,384 and a wrapping lag sum, and C = 16,385 raising on both
-   devices; and the streaming engine's bulk refine on the card bit for bit
-   against the port's CPU path from a drifted config-5 resident state;
+   resident-state digest (K6) bit for bit, each case launched twice to the
+   same bits, at BASELINE config 5's resident shape (B 131,072, C 1,000,
+   M 133), clean and with each corruption class, at B = 7 and 8, B = 1,027
+   (not a multiple of 4), C = 1, C = 16,384, M = 0 and a wrapping lag sum,
+   and C = 16,385 raising on both devices; from the profiler, one call of
+   K3 (configs 2 and 4, ``need`` load and colsum) and of K6 (config 5)
+   enqueues one kernel and no memset; and the streaming engine's bulk
+   refine on the card bit for bit against the port's CPU path from a
+   drifted config-5 resident state;
 4. main paths, each with every launch count set to 0 just before it and
    read just after, through the port's ``LagBasedPartitionAssignor(
    device="cuda")`` with a ``FakeBroker``:
@@ -70,7 +79,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 5. times, with CUDA events, medians of 30 runs after warm-up: each kernel
    alone at its main-path shape, its plain version on the card, the
    library yardstick where there is one, and its bound; the device time
-   of each kernel alone (``torch.profiler``, by kernel name), the round
+   of each kernel alone (``torch.profiler``, by kernel name), of all the
+   device work one call enqueues (kernels, memsets and copies: "all
+   ops"), and of K3's library yardstick (all its ops), the round
    scan's at config 5 and at config 3 ``global`` with its time a round and
    a network stage, and K4's kernel launches a step; the ``assign()``
    wall on the host clock at config 5 (``rounds``) and configs 4 and 5
@@ -85,20 +96,30 @@ its last line
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
 result.
 
-Two more modes time the round scan alone::
+Four more modes time kernels alone::
 
     python3 chip_smoke.py --k1-times           # phase 5's K1 times only
     python3 chip_smoke.py --k1-ab ROOT [ROOT ...]
+    python3 chip_smoke.py --k36-times          # K3 and K6 (and K4, K5 alone)
+    python3 chip_smoke.py --k36-ab ROOT [ROOT ...]
 
-``--k1-ab`` runs ``--k1-times`` once for each checkout ROOT, in that order,
-each in a process that imports the port's package from that ROOT (its
-kernels build under ROOT), for example a parent commit unpacked with
-``git archive`` beside this one: ``--k1-ab parent . . parent``.
+``--k36-times`` times K3 at the dedup shapes of configs 2 and 4 (``need``
+load and colsum, through the public wrapper; a package without ``need``
+computes both) and its library yardstick, K6 at config 5's resident
+state, K4 and K5 alone at config 5, and the quality ratio of the dense
+``sinkhorn`` cells (configs 2 and 4); where the package has two K3 forms,
+each form alone at U = 1,024, 2,048, 4,096 and C = 16, 512, 1,024.  The
+``-ab`` modes run the matching ``-times`` mode once for each checkout ROOT,
+in that order, each in a process that imports the port's package from
+that ROOT (its kernels build under ROOT), for example a parent commit
+unpacked with ``git archive`` beside this one: ``--k36-ab parent . .
+parent``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import json
 import math
 import os
@@ -172,10 +193,11 @@ COUNTERS = (
     ("state_digest", refine.state_digest),
 )
 # The name each kernel has in the profiler (a substring of it): K5 is the
-# pass K4 launches twice.
+# pass K4 launches twice; K3's two forms are klba_plan_stats_cluster and
+# klba_plan_stats_pass.
 KERNEL_NAMES = {
     "rounds_scan": "rounds_scan_kernel",
-    "plan_stats": "klba_plan_stats_pass",
+    "plan_stats": "klba_plan_stats_",
     "superblock_partials": "klba_linear_ot_pass",
     "mirror_prox_step": "klba_linear_ot_pass",
     "state_digest": "digest_",
@@ -403,19 +425,68 @@ def random_duals(C: int, device, seed: int = 0):
 
 def plan_stats_cases(device):
     """(name, ws_u, count_u, wsum_u, A, B): the dense path's shapes at
-    configs 2 and 4, config 5's (the dedup cap) and edge shapes."""
+    configs 2 and 4, config 5's (the dedup cap), every U = 1, 17, 1,024,
+    4,096 at every C = 1, 16, 31, 512, 1,000, 1,024, 1,025, 2,000, 16,384
+    (C ascending), and all-zero weights."""
     g = torch.Generator().manual_seed(1)
     for config in (2, 4, 5):
         (ws, cnt, wsum), C = dedup_case(config, device)
         yield (f"config{config} U={ws.shape[0]} C={C}", ws, cnt, wsum,
                *random_duals(C, device))
-    for U, C in ((8, 2), (1024, 130), (64, 1025), (64, 2000), (16, 16384)):
-        ws = torch.rand(U, generator=g).mul_(4.0)
-        cnt = torch.randint(0, 5, (U,), generator=g).float()
-        yield (f"random U={U} C={C}", *(x.to(device) for x in (ws, cnt, ws * cnt)),
-               *random_duals(C, device, U))
+    for C in (1, 16, 31, 512, 1000, 1024, 1025, 2000, 16384):
+        for U in (1, 17, 1024, 4096):
+            ws = torch.rand(U, generator=g).mul_(4.0)
+            cnt = torch.randint(0, 5, (U,), generator=g).float()
+            cnt[0] = 1.0  # at least one live row
+            yield (f"random U={U} C={C}", *(x.to(device) for x in (ws, cnt, ws * cnt)),
+                   *random_duals(C, device, U + C))
     zeros = torch.zeros(64, device=device)
     yield "all-zero weights U=64 C=100", zeros, zeros, zeros, *random_duals(100, device)
+
+
+def plan_stats_vs_plain(device) -> float:
+    """K3 against its plain version at every case of ``plan_stats_cases``,
+    in each ``need`` and each form that takes the shape, every launch twice
+    to the same bits, and the marginal asked for alone equal bit for bit to
+    its ``need="both"`` value.  Returns max |kernel - plain|."""
+    worst = 0.0
+    for name, *args in plan_stats_cases(device):
+        U, C = args[0].shape[0], args[3].shape[0]
+        forms = ["cluster", "pass"] if C <= plan_stats_cuda.REG_COLS else ["pass"]
+        chosen = plan_stats_cuda.form_for(U, C)
+        ratios = {}
+        for form in forms:
+            both = None
+            for need in ("both", "load", "colsum"):
+                got = (plan_stats.plan_stats(*args, need=need) if form == chosen
+                       else plan_stats_cuda.launch(*args, need=need, form=form))
+                again = plan_stats_cuda.launch(*args, need=need, form=form)
+                want = plan_stats.plan_stats_torch(*args, need=need)
+                if [g is None for g in got] != [w is None for w in want]:
+                    raise AssertionError(f"plan_stats {name} {need}: returned {got}")
+                pairs = [(g, w, a) for g, w, a in zip(got, want, again) if w is not None]
+                err, scale = 0.0, 0.0
+                for g, w, a in pairs:
+                    if not torch.equal(g, a):
+                        raise AssertionError(f"plan_stats {name} {need} {form}: two runs differ")
+                    err = max(err, float((g - w).abs().max()))
+                    scale = max(scale, float(w.abs().max()))
+                if not err <= F32_TOL * scale:
+                    raise AssertionError(f"plan_stats disagrees with its plain version on "
+                                         f"{name} need={need} form={form}: {err} of {scale}")
+                if need == "both":
+                    both = got
+                else:
+                    i = 0 if need == "load" else 1
+                    if not torch.equal(got[i], both[i]):
+                        raise AssertionError(f"plan_stats {name} {form}: need={need} differs "
+                                             f"from need=both")
+                worst = max(worst, err)
+                ratios[f"{form}/{need}"] = err / scale if scale else 0.0
+        log(f"kernel vs plain  plan_stats {name:28s} (form {chosen}): max |diff| / max |plain| "
+            + ", ".join(f"{k} {v:.3g}" for k, v in ratios.items())
+            + "; two runs equal; alone = both")
+    return worst
 
 
 def loop_duals(ws_b, cnt_b, C: int, device):
@@ -505,12 +576,8 @@ def first_index_ties(device) -> None:
 def quality_kernels_vs_plain(device) -> dict:
     """The f32 kernels against their plain versions; max |diff| by kernel."""
     first_index_ties(device)
-    worst = {"plan_stats": 0.0, "superblock_partials": 0.0, "mirror_prox_step": 0.0}
-    for name, *args in plan_stats_cases(device):
-        got, again = plan_stats.plan_stats(*args), plan_stats.plan_stats(*args)
-        want = plan_stats.plan_stats_torch(*args)
-        worst["plan_stats"] = max(worst["plan_stats"],
-                                  f32_check("plan_stats", name, got, want, again))
+    worst = {"plan_stats": plan_stats_vs_plain(device), "superblock_partials": 0.0,
+             "mirror_prox_step": 0.0}
     for name, ws_b, cnt_b, A, B in linear_cases(device):
         got = linear_ot_cuda.superblock_partials(ws_b, cnt_b, A, B)
         again = linear_ot_cuda.superblock_partials(ws_b, cnt_b, A, B)
@@ -592,12 +659,19 @@ def digest_cases(device):
         lags, choice, counts, tab = corrupted(kind, *base, STREAM_C)
         yield (f"config5 B={B} C={STREAM_C} M={tab.shape[1]} {kind}", lags, choice, counts,
                STREAM_C, tab, STREAM_P)
-    for B, P, C, kind in ((8, 5, 3, "clean"), (8, 5, 3, "counts +1"), (1024, 1000, 1, "clean"),
+    for B, P, C, kind in ((8, 5, 3, "clean"), (8, 5, 3, "counts +1"), (7, 5, 3, "clean"),
+                          (1027, 1000, 24, "clean"), (1027, 1000, 24, "choice C+5"),
+                          (1027, 1000, 24, "table bit flip"), (1024, 1000, 1, "clean"),
                           (65536, 3 * 16384, 16384, "clean"),
                           (65536, 3 * 16384, 16384, "choice C+5"),
+                          (65536, 3 * 16384, 16384, "table sentinel"),
                           (4096, 4000, 24, "lag sum wraps")):
         lags, choice, counts, tab = corrupted(kind, *resident_case(B, P, C, device, B + C), C)
         yield f"B={B} C={C} M={tab.shape[1]} {kind}", lags, choice, counts, C, tab, P
+    # M = 0: a table with no slots (lane 4 is then |0 - sum of assigned rows|).
+    lags, choice, counts, _ = resident_case(1024, 1000, 24, device, 5)
+    tab = torch.empty((24, 0), dtype=torch.int32, device=device)
+    yield "B=1024 C=24 M=0 clean", lags, choice, counts, 24, tab, 1000
 
 
 def digest_plain(lags, choice, counts, C: int, tab):
@@ -610,16 +684,21 @@ def digest_vs_plain(device) -> int:
     worst = 0
     for name, lags, choice, counts, C, tab, P in digest_cases(device):
         got = refine.state_digest(lags, choice, counts, C, row_tab=tab)
+        again = refine.state_digest(lags, choice, counts, C, row_tab=tab)
         four = refine.state_digest(lags, choice, counts, C)
         want = digest_plain(lags, choice, counts, C, tab)
         sync(device)
         err = int((got - want).abs().max())
         worst = max(worst, err)
-        fails = scrub.digest_failures(got.cpu().numpy(), P, int(lags.sum()))
-        log(f"kernel vs plain  state_digest {name:52s}: {got.tolist()} max |diff| {err}; "
-            f"host check fails {fails}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"state_digest {name}: two runs differ")
+        log(f"kernel vs plain  state_digest {name:52s}: {got.tolist()} max |diff| {err}, "
+            f"two runs equal")
         if err or not torch.equal(four, want[:4]):
             raise AssertionError(f"state_digest disagrees with its plain version on {name}")
+        if tab.shape[1] == 0:
+            continue  # no table: the host check's lane 4 does not apply
+        fails = scrub.digest_failures(got.cpu().numpy(), P, int(lags.sum()))
         if ("clean" in name or "wraps" in name) != (fails == []):
             raise AssertionError(f"state_digest on {name}: host check gave {fails}")
     for dev in (device, torch.device("cpu")):
@@ -1049,29 +1128,6 @@ def k1_times(device) -> dict:
     return out
 
 
-def k1_ab(roots) -> None:
-    """Time K1 (``k1_times``) for the package of each checkout in ``roots``,
-    in that order, each in a process of its own that imports the package
-    from that root (for example parent, change, change, parent)."""
-    runs = []
-    for root in roots:
-        proc = subprocess.run(
-            [sys.executable, "-P", os.path.abspath(__file__), "--k1-times"], cwd=root,
-            env={**os.environ, "PYTHONPATH": os.path.abspath(root)},
-            capture_output=True, text=True, timeout=600,
-        )
-        sys.stdout.write(proc.stdout)
-        if proc.returncode != 0:
-            sys.stderr.write(proc.stderr)
-            raise AssertionError(f"K1 times of {root} exited {proc.returncode}")
-        runs.append({"root": root, **json.loads(proc.stdout.strip().splitlines()[-1])})
-    for run in runs:
-        log(f"k1 a/b  {run['root']}: " + "; ".join(
-            f"{name} alone {t['alone_ms']!r} ms event {t['event_ms']!r} ms"
-            for name, t in run["k1_times"].items()))
-    log(json.dumps({"k1_ab": runs}))
-
-
 def assign_walls(cfg: int, solver: str, device, repeats: int = REPEATS):
     """Medians of ``repeats`` ``assign()`` calls after 3 warm-ups, host
     clock, ending in a synchronize: (wall, lag read, solve, min wall)."""
@@ -1090,7 +1146,10 @@ def assign_walls(cfg: int, solver: str, device, repeats: int = REPEATS):
             statistics.median(p[1] for p in parts), min(walls))
 
 
-def times(device):
+def times(device) -> dict:
+    """K1 at config 5 (the launch alone, through the wrapper, the plain
+    version), ``k1_times`` and the config-5 ``rounds`` walls.  Returns the
+    kernels-line fields."""
     lags, members = baseline_workload(5)
     P = lags["t0"].size
     C = len(members)
@@ -1108,13 +1167,14 @@ def times(device):
         f"stages): kernel {kernel!r} ms ({kernel * 1e6 / (R * stages):.1f} ns a stage), "
         f"wrapper with its checks {wrapper!r} ms, plain version on the card {plain!r} ms "
         f"(its two-key body {plain_two_key!r} ms), bound {bound!r} ms ({bound_by})")
-    k1_times(device)
+    alone = k1_times(device)["config 5"]["alone_ms"]
     wall, lag_read, solve, fastest = assign_walls(5, "rounds", device)
     log(f"assign() at config 5 rounds, medians of {REPEATS} (host clock): wall "
         f"{wall!r} ms (min {fastest!r}), of which lag read {lag_read!r} ms "
         f"(FakeBroker), solve {solve!r} ms, the rest (stats, result objects) "
         f"{wall - lag_read - solve!r} ms; the kernel is {kernel / wall:.4%} of the wall")
-    return kernel, plain, bound, bound_by
+    return dict(ms=kernel, alone_ms=alone, plain_ms=plain, bound_ms=bound, bound_by=bound_by,
+                library_ms=None)
 
 
 def exp_bound(exps: int, moved: int) -> tuple:
@@ -1138,56 +1198,160 @@ def superblock_library(ws_b, cnt_b, A, B):
     return [torch.matmul(w.reshape(Sb, 1, -1), x) for w in (ws_b, cnt_b)]
 
 
-def device_ms(fn, kernel: str) -> tuple:
-    """The device time of one ``fn()`` spent in the CUDA kernels whose name
-    holds ``kernel`` (one of KERNEL_NAMES), and their launches a call:
-    torch.profiler's CUDA activity over REPEATS calls, divided by REPEATS.
-    Unlike the CUDA-event time it leaves out the host's launch gaps.  A
-    profiler session now and then records none of a short kernel's
-    activity, so a session without the kernel is repeated, up to three in
-    all; raises when none of them gave such kernels time, so that a renamed
-    kernel cannot read as a free one."""
-    from torch.profiler import ProfilerActivity, profile
+def device_profile(fn, kernel: str) -> dict:
+    """What one ``fn()`` enqueues on the device, from torch.profiler's CUDA
+    activity over REPEATS calls, divided by REPEATS: ``alone_ms``, the time
+    in the CUDA kernels whose name holds ``kernel`` (one of KERNEL_NAMES),
+    and ``launches``, their count; ``all_ops_ms``, the time of everything
+    the call enqueued (kernels, memsets and copies); ``kernels`` and
+    ``memsets``, the counts of each.  Unlike the CUDA-event time it leaves
+    out the host's launch gaps.  A session first runs REPEATS calls with
+    the profiler warming up (their records are dropped), then records
+    REPEATS calls.  A session that lost records (an op counted a number of
+    times that is not a multiple of REPEATS) or gave the named kernels no
+    time is repeated, up to five in all; raises when none was whole, so that
+    neither a renamed kernel nor a lost record can read as a cheaper call."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(REPEATS):
-                fn()
-            torch.cuda.synchronize()
-        cuda = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
+    for attempt in range(5):
+        sessions = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: sessions.append(p.key_averages())) as prof:
+            for _ in range(2):
+                for _ in range(REPEATS):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        cuda = [e for e in sessions[-1]
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "Activity Buffer" not in e.key]
         hits = [e for e in cuda if kernel in e.key]
-        us = sum(e.self_device_time_total for e in hits)
-        if hits and us > 0:
-            return us / 1e3 / REPEATS, sum(e.count for e in hits) / REPEATS
-        log(f"profiler session {attempt + 1} gave no time to kernels named {kernel!r}; "
-            f"it recorded {[(e.key[:40], e.count) for e in cuda]}")
-    raise AssertionError(f"the profiler saw no device time in kernels named {kernel!r}")
+        lost = [(e.key[:40], e.count) for e in cuda if e.count % REPEATS]
+        if hits and sum(e.self_device_time_total for e in hits) > 0 and not lost:
+            def ms(events):
+                return sum(e.self_device_time_total for e in events) / REPEATS / 1e3
+
+            def count(events):
+                return sum(e.count for e in events) // REPEATS
+
+            return {
+                "alone_ms": ms(hits),
+                "launches": count(hits),
+                "all_ops_ms": ms(cuda),
+                "kernels": count(e for e in cuda
+                                 if "Memset" not in e.key and "Memcpy" not in e.key),
+                "memsets": count(e for e in cuda if "Memset" in e.key),
+            }
+        log(f"profiler session {attempt + 1} lost records or gave no time to kernels named "
+            f"{kernel!r}; it recorded {[(e.key[:40], e.count) for e in cuda]}")
+    raise AssertionError(f"no whole profiler session for kernels named {kernel!r}")
+
+
+def device_ms(fn, kernel: str) -> tuple:
+    """(device time alone, launches) of one ``fn()`` in the kernels named
+    ``kernel`` (``device_profile``)."""
+    prof = device_profile(fn, kernel)
+    return prof["alone_ms"], prof["launches"]
+
+
+def op_times(fn, kernel: str) -> dict:
+    """CUDA-event time of ``fn()`` (median of REPEATS) beside its
+    ``device_profile``."""
+    return {"event_ms": median_event_ms(fn), **device_profile(fn, kernel)}
+
+
+def call_plan_stats(args, need: str):
+    """K3 through its public wrapper for ``need``; a package without
+    ``need`` (this change's parent) computes both marginals."""
+    if HAS_NEED:
+        return plan_stats.plan_stats(*args, need=need)
+    return plan_stats.plan_stats(*args)
+
+
+HAS_NEED = "need" in inspect.signature(plan_stats.plan_stats).parameters
+
+
+def one_launch_a_call(device) -> None:
+    """From the profiler: one call of K3 at the dense main path's shapes
+    (configs 2 and 4, ``need`` load and colsum) and of K6 at config 5's
+    resident state enqueues one kernel and no memset."""
+    calls = []
+    for config in (2, 4):
+        (ws, cnt, wsum), C = dedup_case(config, device)
+        args = (ws, cnt, wsum, *random_duals(C, device))
+        for need in ("load", "colsum"):
+            calls.append((f"plan_stats config {config} need={need}", "plan_stats",
+                          lambda args=args, need=need: call_plan_stats(args, need)))
+    lags, choice, counts, tab = resident_case(pad_bucket(STREAM_P), STREAM_P, STREAM_C, device)
+    calls.append(("state_digest config 5", "state_digest",
+                  lambda: refine.state_digest(lags, choice, counts, STREAM_C, row_tab=tab)))
+    for label, name, fn in calls:
+        prof = device_profile(fn, KERNEL_NAMES[name])
+        log(f"enqueued a call  {label}: {prof['kernels']!r} kernels, {prof['memsets']!r} "
+            f"memsets")
+        if prof["kernels"] != 1 or prof["memsets"] != 0:
+            raise AssertionError(f"{label}: a call enqueued {prof}, not one kernel")
+
+
+def k3_times(device) -> dict:
+    """K3 through its public wrapper at the dense path's shapes (configs 2
+    and 4), for each ``need`` (``op_times``), and its library yardstick for
+    the load alone (softmax and one ``mv``, beside need=load) and for both
+    marginals (softmax and two, beside need=both): CUDA-event time and
+    device time of all its ops.  Returns {config: row}."""
+    out = {}
+    for config in (2, 4):
+        (ws, cnt, wsum), C = dedup_case(config, device)
+        A, B = random_duals(C, device)
+        args = (ws, cnt, wsum, A, B)
+        row = {"U_pad": ws.shape[0], "U": int((cnt > 0).sum()), "C": C}
+        for need in ("load", "colsum", "both"):
+            row[need] = op_times(lambda: call_plan_stats(args, need),
+                                 KERNEL_NAMES["plan_stats"])
+        for need, weights in (("load", (wsum,)), ("both", (wsum, cnt))):
+            def library(weights=weights):
+                return softmax_library(ws, A, B, weights)
+
+            row[f"library_{need}"] = {"event_ms": median_event_ms(library),
+                                      "all_ops_ms": device_profile(library, "")["all_ops_ms"]}
+        out[config] = row
+        log(f"times  plan_stats at config {config} (U_pad {row['U_pad']}, {row['U']} with "
+            f"weight, C {C}): " + "; ".join(
+                f"need={need} event {row[need]['event_ms']!r} ms, alone "
+                f"{row[need]['alone_ms']!r} ms, all ops {row[need]['all_ops_ms']!r} ms "
+                f"({row[need]['kernels']!r} kernels, {row[need]['memsets']!r} memsets)"
+                for need in ("load", "colsum", "both"))
+            + "; " + "; ".join(
+                f"library yardstick for need={need} event {row[f'library_{need}']['event_ms']!r}"
+                f" ms, device time (all its ops) {row[f'library_{need}']['all_ops_ms']!r} ms"
+                for need in ("load", "both")))
+    return out
 
 
 def quality_times(device) -> dict:
-    """Each f32 kernel at its main-path shape: kernel, plain version and
-    library yardstick (CUDA events, medians of 30), the kernel's device
-    time alone (profiler) and its bound; then the sinkhorn walls.  Returns
-    {name: (ms, plain ms, library ms or None, bound ms, bound_by)}."""
-    out = {}
+    """Each f32 kernel at its main-path shape: kernel (K3 through its
+    wrapper for the load, as the duals loop's first call), plain version
+    and library yardstick (CUDA events, medians of 30), the kernel's device
+    time alone and of all its ops (profiler) and its bound; then the
+    sinkhorn walls.  Returns {name: kernels-line fields}."""
+    k3 = k3_times(device)[4]
     (ws, cnt, wsum), C = dedup_case(4, device)
     A, B = random_duals(C, device)
     U = int((cnt > 0).sum())
-
-    def k3():
-        return plan_stats_cuda.launch(ws, cnt, wsum, A, B)
-
-    out["plan_stats"] = (
-        median_event_ms(k3),
-        median_event_ms(lambda: plan_stats.plan_stats_torch(ws, cnt, wsum, A, B)),
-        median_event_ms(lambda: softmax_library(ws, A, B, (wsum, cnt))),
-        *exp_bound(U * C, 4 * (3 * ws.shape[0] + 4 * C)),
-    )
-    shapes = {"plan_stats": f"config 4: U_pad {ws.shape[0]} ({U} with weight), C {C}"}
-    alone = {"plan_stats": device_ms(k3, KERNEL_NAMES["plan_stats"])[0]}
+    out = {"plan_stats": dict(
+        zip(("bound_ms", "bound_by"), exp_bound(U * C, 4 * (2 * ws.shape[0] + 3 * C))),
+        ms=k3["load"]["event_ms"], alone_ms=k3["load"]["alone_ms"],
+        all_ops_ms=k3["load"]["all_ops_ms"],
+        plain_ms=median_event_ms(
+            lambda: plan_stats.plan_stats_torch(ws, cnt, wsum, A, B, "load")),
+        library_ms=k3["library_load"]["event_ms"],
+        library_alone_ms=k3["library_load"]["all_ops_ms"],
+    )}
+    shapes = {"plan_stats": f"config 4: U_pad {ws.shape[0]} ({U} with weight), C {C}, "
+                            "need=load"}
 
     (ws_b, cnt_b), C = blocks_case(5, device)
     A, B = random_duals(C, device)
@@ -1205,35 +1369,39 @@ def quality_times(device) -> dict:
     def k4():
         return linear_ot_cuda.mirror_prox_step(ws_b, cnt_b, A, B, sc, prev, eta=eta)
 
-    out["superblock_partials"] = (
-        median_event_ms(k5),
-        median_event_ms(lambda: linear_ot._superblock_partials(ws_b, cnt_b, A, B)),
-        median_event_ms(lambda: superblock_library(ws_b, cnt_b, A, B)),
-        *exp_bound(rows * C, 4 * (2 * ws_b.numel() + 2 * C + 2 * Sb * C)),
+    out["superblock_partials"] = dict(
+        zip(("bound_ms", "bound_by"),
+            exp_bound(rows * C, 4 * (2 * ws_b.numel() + 2 * C + 2 * Sb * C))),
+        ms=median_event_ms(k5),
+        plain_ms=median_event_ms(lambda: linear_ot._superblock_partials(ws_b, cnt_b, A, B)),
+        library_ms=median_event_ms(lambda: superblock_library(ws_b, cnt_b, A, B)),
     )
-    out["mirror_prox_step"] = (
-        median_event_ms(k4),
-        median_event_ms(lambda: linear_ot_cuda.mirror_prox_step_torch(
+    out["mirror_prox_step"] = dict(
+        zip(("bound_ms", "bound_by"),
+            exp_bound((rows + load_rows) * C, 4 * (2 * ws_b.numel() + 2 * C + 2 + 3 * C))),
+        ms=median_event_ms(k4),
+        plain_ms=median_event_ms(lambda: linear_ot_cuda.mirror_prox_step_torch(
             ws_b, cnt_b, A, B, sc, prev, eta=eta)),
-        None,
-        *exp_bound((rows + load_rows) * C, 4 * (2 * ws_b.numel() + 2 * C + 2 + 3 * C)),
+        library_ms=None,
     )
     shape = f"config 5: {list(ws_b.shape)} ({rows} valid rows), C {C}"
     # K5 with both marginals is the launch of K4's corrector pass; the
     # predictor pass launches it for the load only.
     shapes.update(superblock_partials=f"{shape}, both marginals",
                   mirror_prox_step=shape)
-    alone["superblock_partials"], _ = device_ms(k5, KERNEL_NAMES["superblock_partials"])
-    alone["mirror_prox_step"], per_step = device_ms(k4, KERNEL_NAMES["mirror_prox_step"])
+    for name, fn in (("superblock_partials", k5), ("mirror_prox_step", k4)):
+        prof = device_profile(fn, KERNEL_NAMES[name])
+        out[name].update(alone_ms=prof["alone_ms"], all_ops_ms=prof["all_ops_ms"])
+    per_step = device_profile(k4, KERNEL_NAMES["mirror_prox_step"])["launches"]
     if per_step > 2:
         raise AssertionError(f"mirror_prox_step launched {per_step} kernels a step")
     log(f"mirror_prox_step: {per_step!r} kernel launches a step (profiler)")
 
-    for name, (ms, plain, library, bound, bound_by) in out.items():
-        log(f"times  {name:19s} at {shapes[name]}: kernel {ms!r} ms (device time "
-            f"alone {alone[name]!r} ms), plain version {plain!r} ms, library "
-            f"yardstick {library!r} ms, bound {bound!r} ms ({bound_by}), "
-            f"{ms / bound:.1f}x the bound")
+    for name, t in out.items():
+        log(f"times  {name:19s} at {shapes[name]}: kernel {t['ms']!r} ms (device time "
+            f"alone {t['alone_ms']!r} ms, all ops {t['all_ops_ms']!r} ms), plain version "
+            f"{t['plain_ms']!r} ms, library yardstick {t['library_ms']!r} ms, bound "
+            f"{t['bound_ms']!r} ms ({t['bound_by']}), {t['ms'] / t['bound_ms']:.1f}x the bound")
     for cfg in (4, 5):
         wall, lag_read, solve, fastest = assign_walls(cfg, "sinkhorn", device)
         log(f"assign() at config {cfg} sinkhorn, medians of {REPEATS} (host clock): "
@@ -1301,18 +1469,15 @@ def profiled_epoch(engine, lags: np.ndarray):
 
 
 def stream_times(run: StreamRun):
-    """The digest kernel alone at the resident state the legs left (config
-    5), its plain version and its bound; the epoch walls of ``run`` by type;
-    one profiled warm-refine epoch.  Returns (ms, plain ms, bound ms)."""
+    """The digest kernel at the resident state the legs left (config 5)
+    through its wrapper (``op_times``), its plain version and its bound;
+    the epoch walls of ``run`` by type; one profiled warm-refine epoch.
+    Returns the kernels-line fields."""
     engine = run.engine
     choice_p, row_tab, counts, lags_p = engine._resident
     C, M = engine.num_consumers, row_tab.shape[1]
-
-    def k6():
-        return state_digest_cuda.launch(lags_p, choice_p, counts, C, row_tab)
-
-    ms = median_event_ms(k6)
-    alone, _ = device_ms(k6, KERNEL_NAMES["state_digest"])
+    t = op_times(lambda: refine.state_digest(lags_p, choice_p, counts, C, row_tab=row_tab),
+                 KERNEL_NAMES["state_digest"])
     plain = median_event_ms(lambda: digest_plain(lags_p, choice_p, counts, C, row_tab))
     # Each input read once, the owner of every valid slot gathered once, the
     # five lanes written once.
@@ -1320,9 +1485,10 @@ def stream_times(run: StreamRun):
     moved = 8 * lags_p.numel() + 4 * (choice_p.numel() + C + C * M + valid_slots) + 8 * 5
     bound = moved / HBM_BYTES_PER_S * 1e3
     log(f"times  state_digest at B={lags_p.numel()} C={C} M={M} ({valid_slots} valid slots): "
-        f"kernel {ms!r} ms (two launches, a memset and the output allocation; device time "
-        f"alone {alone!r} ms), plain version {plain!r} ms, bound {bound!r} ms ({moved} bytes), "
-        f"{ms / bound:.1f}x the bound")
+        f"wrapper {t['event_ms']!r} ms (device time alone {t['alone_ms']!r} ms, all ops "
+        f"{t['all_ops_ms']!r} ms: {t['kernels']!r} kernels, {t['memsets']!r} memsets), plain "
+        f"version {plain!r} ms, bound {bound!r} ms ({moved} bytes), "
+        f"{t['event_ms'] / bound:.1f}x the bound")
 
     walls = {}
     for leg, kind, *_, wall in run.records:
@@ -1342,7 +1508,8 @@ def stream_times(run: StreamRun):
         f"state_digest {digest!r} ms; idle share {1 - busy / wall!r}; {reads} device-to-host "
         "copies; top: " + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms "
                                     f"x{e.count}" for e in top))
-    return ms, plain, bound
+    return dict(ms=t["event_ms"], alone_ms=t["alone_ms"], all_ops_ms=t["all_ops_ms"],
+                plain_ms=plain, bound_ms=bound, bound_by="bytes", library_ms=None)
 
 
 SOURCES = {
@@ -1354,21 +1521,133 @@ SOURCES = {
 }
 
 
-def kernel_line(name, launches, err, ms, plain, bound, bound_by, library) -> dict:
+def kernel_line(name, launches, err, t: dict) -> dict:
     source, replaces = SOURCES[name]
-    return {
+    line = {
         "name": name,
         "route": "cuda",
         "source": f"kafka_lag_based_assignor_tpu_torch/{source}",
         "replaces": f"kafka_lag_based_assignor_tpu/{replaces}",
         "launches": launches,
         "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain,
-        "bound_ms": bound,
-        "bound_by": bound_by,
-        "library_ms": library,
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                             "alone_ms")},
     }
+    if "library_alone_ms" in t:
+        line["library_alone_ms"] = t["library_alone_ms"]
+    return line
+
+
+def k36_times(device) -> dict:
+    """K3 (``k3_times``), K6 through its wrapper at config 5's resident
+    state, K5 and K4 alone at config 5, K1 alone (``k1_times``), the dense
+    ``sinkhorn`` cells' quality ratios and K3's pass form (both marginals)
+    at U 1,024 and C 2,000 and 16,384 and at U 4,096 and C 2,000; where the
+    package has two K3 forms, each form alone at U = 1,024, 2,048, 4,096 and
+    C = 16, 512, 1,024.  Uses only interfaces this change's parent has too,
+    apart from the forms."""
+    out = {"plan_stats": k3_times(device)}
+    lags, choice, counts, tab = resident_case(pad_bucket(STREAM_P), STREAM_P, STREAM_C, device)
+    out["state_digest"] = op_times(
+        lambda: refine.state_digest(lags, choice, counts, STREAM_C, row_tab=tab),
+        KERNEL_NAMES["state_digest"])
+    (ws_b, cnt_b), C = blocks_case(5, device)
+    A, B = random_duals(C, device)
+    sc, prev = torch.tensor(1.0, device=device), torch.tensor(float("inf"), device=device)
+    out["superblock_partials"] = device_ms(
+        lambda: linear_ot_cuda.superblock_partials(ws_b, cnt_b, A, B),
+        KERNEL_NAMES["superblock_partials"])[0]
+    out["mirror_prox_step"] = device_ms(
+        lambda: linear_ot_cuda.mirror_prox_step(ws_b, cnt_b, A, B, sc, prev,
+                                                eta=linear_ot.MIRROR_PROX_ETA),
+        KERNEL_NAMES["mirror_prox_step"])[0]
+    out["rounds_scan"] = {name: t["alone_ms"] for name, t in k1_times(device).items()}
+    out["quality_ratio"] = {
+        cfg: assign_once(*baseline_workload(cfg), "sinkhorn", device)[1].quality_ratio
+        for cfg in (2, 4)}
+    # The pass form where the cluster cannot serve (C > 1,024), both
+    # marginals, as both packages compute them.
+    g = torch.Generator().manual_seed(3)
+    wide = {}
+    for U, C in ((1024, 2000), (1024, 16384), (4096, 2000)):
+        ws = torch.rand(U, generator=g).mul_(4.0).to(device)
+        cnt = torch.randint(0, 5, (U,), generator=g).float().to(device)
+        args = (ws, cnt, ws * cnt, *random_duals(C, device, C))
+        wide[f"U={U} C={C}"] = op_times(lambda: call_plan_stats(args, "both"),
+                                        KERNEL_NAMES["plan_stats"])
+    out["plan_stats_wide"] = wide
+    if hasattr(plan_stats_cuda, "form_for"):
+        g = torch.Generator().manual_seed(4)
+        forms = {}
+        for U in (1024, 2048, 4096):
+            for C in (16, 512, 1024):
+                ws = torch.rand(U, generator=g).mul_(4.0).to(device)
+                cnt = torch.randint(0, 5, (U,), generator=g).float().to(device)
+                args = (ws, cnt, ws * cnt, *random_duals(C, device, C))
+                forms[f"U={U} C={C}"] = {
+                    form: device_ms(lambda: plan_stats_cuda.launch(*args, need="load",
+                                                                   form=form),
+                                    KERNEL_NAMES["plan_stats"])[0]
+                    for form in ("cluster", "pass")}
+                forms[f"U={U} C={C}"]["chosen"] = plan_stats_cuda.form_for(U, C)
+        out["forms"] = forms
+    k3 = out["plan_stats"]
+    log(f"k36  K3 alone (load/colsum/both): " + "; ".join(
+        f"config {cfg} " + " / ".join(f"{k3[cfg][need]['alone_ms']!r}"
+                                      for need in ("load", "colsum", "both"))
+        + f" ms, library (load/both) {k3[cfg]['library_load']['all_ops_ms']!r} / "
+        f"{k3[cfg]['library_both']['all_ops_ms']!r} ms" for cfg in (2, 4))
+        + "; K3 pass form (both): " + "; ".join(
+            f"{shape} alone {t['alone_ms']!r} ms all ops {t['all_ops_ms']!r} ms"
+            for shape, t in out["plan_stats_wide"].items())
+        + f"; K6 "
+        f"alone {out['state_digest']['alone_ms']!r} ms, all ops "
+        f"{out['state_digest']['all_ops_ms']!r} ms, event {out['state_digest']['event_ms']!r} "
+        f"ms; K5 {out['superblock_partials']!r} ms; K4 {out['mirror_prox_step']!r} ms; "
+        f"K1 {out['rounds_scan']}; quality ratios {out['quality_ratio']}")
+    for shape, t in out.get("forms", {}).items():
+        log(f"k36  K3 forms at {shape}: cluster {t['cluster']!r} ms, pass {t['pass']!r} ms, "
+            f"chosen {t['chosen']}")
+    return out
+
+
+def ab(mode: str, roots) -> None:
+    """Run ``--{mode}-times`` for the package of each checkout in ``roots``,
+    in that order, each in a process of its own that imports the package
+    from that root (for example parent, change, change, parent)."""
+    runs = []
+    for root in roots:
+        proc = subprocess.run(
+            [sys.executable, "-P", os.path.abspath(__file__), f"--{mode}-times"], cwd=root,
+            env={**os.environ, "PYTHONPATH": os.path.abspath(root)},
+            capture_output=True, text=True, timeout=900,
+        )
+        sys.stdout.write(proc.stdout)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stderr)
+            raise AssertionError(f"{mode} times of {root} exited {proc.returncode}")
+        runs.append({"root": root, **json.loads(proc.stdout.strip().splitlines()[-1])})
+    for run in runs:
+        if mode == "k1":
+            log(f"k1 a/b  {run['root']}: " + "; ".join(
+                f"{name} alone {t['alone_ms']!r} ms event {t['event_ms']!r} ms"
+                for name, t in run["k1_times"].items()))
+        else:
+            t = run["k36_times"]
+            log(f"k36 a/b  {run['root']}: " + "; ".join(
+                f"K3 config {cfg} load alone {t['plan_stats'][cfg]['load']['alone_ms']!r} ms "
+                f"all ops {t['plan_stats'][cfg]['load']['all_ops_ms']!r} ms event "
+                f"{t['plan_stats'][cfg]['load']['event_ms']!r} ms"
+                for cfg in ("2", "4"))
+                + "; K3 pass form (both): " + "; ".join(
+                    f"{shape} alone {w['alone_ms']!r} ms all ops {w['all_ops_ms']!r} ms"
+                    for shape, w in t["plan_stats_wide"].items())
+                + f"; K6 alone {t['state_digest']['alone_ms']!r} ms all ops "
+                f"{t['state_digest']['all_ops_ms']!r} ms event "
+                f"{t['state_digest']['event_ms']!r} ms; K5 {t['superblock_partials']!r} ms; "
+                f"K4 {t['mirror_prox_step']!r} ms; K1 {t['rounds_scan']}; quality ratios "
+                f"{t['quality_ratio']}")
+    log(json.dumps({f"{mode}_ab": runs}))
 
 
 def main() -> int:
@@ -1377,34 +1656,38 @@ def main() -> int:
               "port on the card", file=sys.stderr)
         return 1
     device = torch.device("cuda")
-    if sys.argv[1:2] == ["--k1-ab"]:
-        k1_ab(sys.argv[2:])
-        return 0
+    for mode in ("k1", "k36"):
+        if sys.argv[1:2] == [f"--{mode}-ab"]:
+            ab(mode, sys.argv[2:])
+            return 0
     name = environment()
     if sys.argv[1:] == ["--k1-times"]:
         log(json.dumps({"k1_times": k1_times(device), "device": name}))
+        return 0
+    if sys.argv[1:] == ["--k36-times"]:
+        _build.build_all()
+        log(json.dumps({"k36_times": k36_times(device), "device": name}))
         return 0
     build()
     max_err = kernels_vs_plain(device)
     f32_err = quality_kernels_vs_plain(device)
     digest_err = digest_vs_plain(device)
+    one_launch_a_call(device)
     bulk_refine_vs_cpu(device)
     rounds_launches = main_path(device)
     launches = sinkhorn_path(device)
     stream_launches, stream_run = streaming_path(device)
     launches["rounds_scan"] += rounds_launches + stream_launches["rounds_scan"]
     launches["state_digest"] = stream_launches["state_digest"]
-    kernel, plain, bound, bound_by = times(device)
+    k1 = times(device)
     quality = quality_times(device)
-    digest_ms, digest_plain_ms, digest_bound = stream_times(stream_run)
+    digest = stream_times(stream_run)
     device_shares(device)
-    line = [dict(kernel_line("rounds_scan", launches["rounds_scan"], max_err, kernel,
-                             plain, bound, bound_by, None),
+    line = [dict(kernel_line("rounds_scan", launches["rounds_scan"], max_err, k1),
                  also_replaces="kafka_lag_based_assignor_tpu/ops/rounds_pallas.py:160")]
-    for k, (ms, plain_ms, library, bnd, by) in quality.items():
-        line.append(kernel_line(k, launches[k], f32_err[k], ms, plain_ms, bnd, by, library))
-    line.append(kernel_line("state_digest", launches["state_digest"], digest_err, digest_ms,
-                            digest_plain_ms, digest_bound, "bytes", None))
+    for k, t in quality.items():
+        line.append(kernel_line(k, launches[k], f32_err[k], t))
+    line.append(kernel_line("state_digest", launches["state_digest"], digest_err, digest))
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -152,10 +152,11 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Shared memory of a block: x [R][ldx], coef float2 [R], the live rows'
-// weights (lw, load_w, count_w) float [kThreads] each, then 64 words: warp
-// counts (0-7), the last-block flag (9), the work item (10) and, from word
-// 16, 33 floats of reduction scratch.
+// Shared memory of a block of `Threads` threads: x [R][ldx], coef float2
+// [R], the live rows' weights (lw, load_w, count_w) float [Threads] each,
+// then 64 words: warp counts (0 to Threads / 32 - 1), the last-block flag
+// (9) and the work item (10) of the pass (whose blocks have 8 warps) and,
+// from word 16, 33 floats of reduction scratch.
 struct Smem {
   float* x;
   float2* coef;
@@ -164,22 +165,24 @@ struct Smem {
   float* scratch;
 };
 
+template <int Threads = kThreads>
 __device__ __forceinline__ Smem smem_layout(int R, int ldx) {
   extern __shared__ float4 smem_raw[];
   Smem s;
   s.x = reinterpret_cast<float*>(smem_raw);
   s.coef = reinterpret_cast<float2*>(s.x + static_cast<size_t>(R) * ldx);
   s.live_w = reinterpret_cast<float*>(s.coef + R);
-  s.live_load = s.live_w + kThreads;
-  s.live_count = s.live_load + kThreads;
-  s.misc = reinterpret_cast<int*>(s.live_count + kThreads);
+  s.live_load = s.live_w + Threads;
+  s.live_count = s.live_load + Threads;
+  s.misc = reinterpret_cast<int*>(s.live_count + Threads);
   s.scratch = reinterpret_cast<float*>(s.misc + 16);
   return s;
 }
 
 // Writes, in order, the weights of the live rows of [r0, r1) (r1 - r0 <=
-// kThreads) to live_w / live_load / live_count; returns their count.  The
-// row phase then reads them from shared memory.
+// Threads, the block's size) to live_w / live_load / live_count; returns
+// their count.  The row phase then reads them from shared memory.
+template <int Threads = kThreads>
 __device__ __forceinline__ int compact_rows(const Pass& p, long long r0, long long r1,
                                             const Smem& s) {
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
@@ -189,7 +192,7 @@ __device__ __forceinline__ int compact_rows(const Pass& p, long long r0, long lo
   if (lane == 0) s.misc[warp] = __popc(mask);
   __syncthreads();
   int base = 0, total = 0;
-  for (int w = 0; w < kWarps; ++w) {
+  for (int w = 0; w < Threads / 32; ++w) {
     const int n = s.misc[w];
     base += w < warp ? n : 0;
     total += n;

@@ -19,177 +19,319 @@
 // 0, so padding is neutral), counts int32[C], row_tab int32[C, M] (or none,
 // M = 0; lane 4 is then meaningless and the wrapper drops it).
 //
-// Design.  Pass 1 is a grid-stride loop over the B rows and the C * M table
-// slots: each block keeps an in-range histogram of `choice` in shared memory
-// (int32[C], C <= 16384: 64 KiB) and five 64-bit sums in registers, reduces
-// the sums over the block with warp shuffles, and adds them and its nonzero
-// histogram bins into global accumulators with integer atomics.  Pass 2 is
-// one block over the C consumers: sum(counts), the L1 distance of the
-// histogram to `counts`, and the assembly of the five lanes.  Integer
-// addition is exact in any order, so the atomics give the same bits on every
-// run; every sum is taken as unsigned long long, which wraps exactly as the
-// JAX package's and numpy's int64 sums do.
-//
-// What bounds it: bytes, and at the streaming engine's shapes the launch.
-// At 100k partitions / 1k consumers (B = 131,072, M = 133) it reads 2.64 MB
-// (lags 1 MB, choice 0.5 MB, the table 0.53 MB, at most 0.53 MB of gathered
-// choices), 0.79 us at 3.35 TB/s: two launches and a memset cost more.
+// What bounds it: bytes, and at the streaming engine's shapes the latency.
+// At 100k partitions / 1k consumers (B = 131,072, M = 133) it reads 2.5 MB
+// (lags 1 MB, choice 0.5 MB, the table 0.53 MB, the gathered choices of the
+// valid slots 0.4 MB), 0.75 us at 3.35 TB/s: the launch and a chain of
+// dependent memory round trips cost more than the bytes.  The design:
+//   * one launch, no memset.  Every block adds its five 64-bit sums, and
+//     every cluster its histogram, into global accumulators with integer
+//     atomics;
+//     the last block to arrive (a __threadfence and an integer ticket)
+//     computes sum(counts) and the L1 distance of the histogram to counts,
+//     writes the five lanes and re-zeroes the accumulators, the histogram
+//     and the ticket, which the wrapper zeroed once.
+//   * enough blocks for the work, on a full card: a thread takes four rows
+//     at a time with 16-byte loads (lags as longlong2, choice as int4; a
+//     ragged tail or an unaligned buffer one row at a time), a warp takes
+//     one consumer row of the table (counts[c] read once, lanes over j, the
+//     slots' loads and then their gathers issued in batches of kBatch, no
+//     division).  A thread's first rows are loaded before its table walk,
+//     so that their round trips overlap.
+//   * a histogram in each block's shared memory, merged across a cluster of
+//     kCluster blocks: after cluster.sync() block b of the cluster sums the
+//     bins c = b (mod kCluster) over the cluster's blocks through
+//     distributed shared memory and adds each nonzero one to the global
+//     histogram, so a bin takes one global atomic a cluster, not a block.
+//     Every global atomic is issued after the block's last cluster barrier
+//     arrival, so no cluster barrier waits for one to complete.
+//     (Adding each row straight into the bin's owner block through
+//     distributed shared memory was slower on the H100: PERF.md §6.)
+// Integer addition is exact in any order, so the atomics give the same bits
+// on every run; every sum is taken as unsigned long long, which wraps
+// exactly as the JAX package's and numpy's int64 sums do.
 
 #include <cstdint>
+#include <mutex>
+#include <utility>
+#include <vector>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kMaxConsumers = 16384;
 constexpr int kThreads = 256;
-constexpr int kFinishThreads = 1024;
-constexpr int kRowsPerBlock = 2048;
-constexpr int kMaxBlocks = 264;  // two blocks on each of 132 SMs
+constexpr int kWarps = kThreads / 32;
+constexpr int kCluster = 8;
+constexpr int kBatch = 8;  // table slots a lane loads before it gathers
 
-// Slots of the 64-bit accumulators in the scratch buffer.
+// 64-bit words of the scratch buffer before the histogram: the five sums,
+// then the ticket (an unsigned int in word kTicket).
 enum { kLagSum = 0, kViol, kRowSum, kSlotSum, kBad, kNumAcc };
-constexpr int kAccSlots = 8;  // kNumAcc rounded up; the histogram follows
+constexpr int kTicket = 7;
+constexpr int kAccWords = 8;
 
 __device__ __forceinline__ unsigned long long warp_sum(unsigned long long v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   return v;
 }
 
-// Sums v[0..n) over the block; the result is valid in thread 0.
-template <int N>
-__device__ void block_sum(unsigned long long (&v)[N]) {
-  __shared__ unsigned long long part[N][32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int warps = (blockDim.x + 31) >> 5;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    v[k] = warp_sum(v[k]);
-    if (lane == 0) part[k][warp] = v[k];
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) v[k] = warp_sum(lane < warps ? part[k][lane] : 0ULL);
+struct Rows {
+  unsigned long long lag_sum = 0, viol = 0, row_sum = 0;
+};
+
+// One row: its lag, its choice into the block's histogram.
+__device__ __forceinline__ void add_row(Rows& v, unsigned* hist, int i, long long lag, int ch,
+                                        int C) {
+  v.lag_sum += static_cast<unsigned long long>(lag);
+  if (ch < -1 || ch >= C) {
+    v.viol += 1ULL;
+  } else if (ch >= 0) {
+    atomicAdd(hist + ch, 1u);
+    v.row_sum += static_cast<unsigned long long>(i);
   }
 }
 
-__global__ void digest_pass1(const long long* __restrict__ lags,
-                             const int* __restrict__ choice,
-                             const int* __restrict__ counts,
-                             const int* __restrict__ row_tab, long long B,
-                             int C, int M, unsigned long long* __restrict__ acc,
-                             unsigned int* __restrict__ hist) {
-  extern __shared__ unsigned int sh_hist[];
-  for (int c = threadIdx.x; c < C; c += blockDim.x) sh_hist[c] = 0u;
+__global__ void __launch_bounds__(kThreads) klba_state_digest_kernel(
+    const long long* __restrict__ lags, const int* __restrict__ choice,
+    const int* __restrict__ counts, const int* __restrict__ row_tab, int B, int C, int M,
+    unsigned long long* __restrict__ acc, long long* __restrict__ out) {
+  extern __shared__ unsigned sh_hist[];  // int32[C]
+  __shared__ unsigned long long part[kNumAcc][kWarps];
+  __shared__ bool last;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  unsigned* hist = reinterpret_cast<unsigned*>(acc + kAccWords);
+  for (int c = threadIdx.x; c < C; c += kThreads) sh_hist[c] = 0u;
+
+  const int tid = blockIdx.x * kThreads + threadIdx.x, n_threads = gridDim.x * kThreads;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool vec = ((reinterpret_cast<uintptr_t>(lags) | reinterpret_cast<uintptr_t>(choice)) &
+                    15) == 0;
+  const int quads = vec ? B / 4 : 0;
+  int4 ch = make_int4(0, 0, 0, 0);
+  longlong2 l0 = make_longlong2(0, 0), l1 = make_longlong2(0, 0);
+  if (tid < quads) {
+    ch = __ldg(reinterpret_cast<const int4*>(choice) + tid);
+    l0 = __ldg(reinterpret_cast<const longlong2*>(lags) + 2 * tid);
+    l1 = __ldg(reinterpret_cast<const longlong2*>(lags) + 2 * tid + 1);
+  }
+
+  // The table: a warp a consumer row.
+  unsigned long long slot_sum = 0, bad = 0;
+  for (int c = tid >> 5; c < C && M > 0; c += n_threads >> 5) {
+    const int k = min(__ldg(counts + c), M);
+    const int* tab = row_tab + static_cast<size_t>(c) * M;
+    for (int j0 = lane; j0 < M; j0 += 32 * kBatch) {
+      int rt[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int j = j0 + 32 * u;
+        rt[u] = j < M ? __ldg(tab + j) : B;
+      }
+      int owner[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int r = rt[u] < 0 ? 0 : (rt[u] >= B ? B - 1 : rt[u]);
+        owner[u] = j0 + 32 * u < k ? __ldg(choice + r) : c;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int j = j0 + 32 * u;
+        if (j < k) {
+          const int r = rt[u] < 0 ? 0 : (rt[u] >= B ? B - 1 : rt[u]);
+          bad += static_cast<unsigned long long>(owner[u] != c) +
+                 static_cast<unsigned long long>(rt[u] < 0 || rt[u] >= B);
+          slot_sum += static_cast<unsigned long long>(r);
+        } else if (j < M) {
+          bad += static_cast<unsigned long long>(rt[u] != B);
+        }
+      }
+    }
+  }
+
+  __syncthreads();  // the block's bins are zero before any add
+  Rows v;
+  for (int q = tid; q < quads; q += n_threads) {
+    if (q != tid) {
+      ch = __ldg(reinterpret_cast<const int4*>(choice) + q);
+      l0 = __ldg(reinterpret_cast<const longlong2*>(lags) + 2 * q);
+      l1 = __ldg(reinterpret_cast<const longlong2*>(lags) + 2 * q + 1);
+    }
+    add_row(v, sh_hist, 4 * q, l0.x, ch.x, C);
+    add_row(v, sh_hist, 4 * q + 1, l0.y, ch.y, C);
+    add_row(v, sh_hist, 4 * q + 2, l1.x, ch.z, C);
+    add_row(v, sh_hist, 4 * q + 3, l1.y, ch.w, C);
+  }
+  for (int i = 4 * quads + tid; i < B; i += n_threads)
+    add_row(v, sh_hist, i, __ldg(lags + i), __ldg(choice + i), C);
+
+  // The sums: a warp's into shared memory, then the block's.
+  unsigned long long sums[kNumAcc] = {v.lag_sum, v.viol, v.row_sum, slot_sum, bad};
+#pragma unroll
+  for (int k = 0; k < kNumAcc; ++k) {
+    sums[k] = warp_sum(sums[k]);
+    if (lane == 0) part[k][warp] = sums[k];
+  }
+  cluster.sync();  // every block's histogram is complete
+  // Block `rank` of the cluster owns the bins c = rank (mod kCluster): it
+  // sums them over the cluster's blocks into its own slots, which no other
+  // block reads.
+  for (int c = rank + kCluster * threadIdx.x; c < C; c += kCluster * kThreads) {
+    unsigned h[kCluster];
+#pragma unroll
+    for (int q = 0; q < kCluster; ++q) h[q] = *cluster.map_shared_rank(sh_hist + c, q);
+    unsigned total = 0;
+#pragma unroll
+    for (int q = 0; q < kCluster; ++q) total += h[q];
+    sh_hist[c] = total;
+  }
+  // Done reading the other blocks' shared memory; the global atomics come
+  // after this arrival, so the cluster barriers never wait for them.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  if (threadIdx.x < kNumAcc) {
+    unsigned long long t = 0;
+    for (int w = 0; w < kWarps; ++w) t += part[threadIdx.x][w];
+    if (t) atomicAdd(&acc[threadIdx.x], t);
+  }
+  for (int c = rank + kCluster * threadIdx.x; c < C; c += kCluster * kThreads)
+    if (sh_hist[c]) atomicAdd(&hist[c], sh_hist[c]);
+
+  // The last block to arrive finishes the digest and re-zeroes the scratch.
+  __threadfence();
   __syncthreads();
-
-  unsigned long long v[kNumAcc] = {0ULL, 0ULL, 0ULL, 0ULL, 0ULL};
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  for (long long i = first; i < B; i += stride) {
-    v[kLagSum] += static_cast<unsigned long long>(lags[i]);
-    const int ch = choice[i];
-    if (ch < -1 || ch >= C) {
-      v[kViol] += 1ULL;
-    } else if (ch >= 0) {
-      atomicAdd(&sh_hist[ch], 1u);
-      v[kRowSum] += static_cast<unsigned long long>(i);
-    }
-  }
-  const long long slots = static_cast<long long>(C) * M;
-  for (long long e = first; e < slots; e += stride) {
-    const int c = static_cast<int>(e / M);
-    const int j = static_cast<int>(e - static_cast<long long>(c) * M);
-    const long long rt = row_tab[e];
-    if (j < min(counts[c], M)) {
-      const long long r = rt < 0 ? 0 : (rt >= B ? B - 1 : rt);
-      v[kBad] += static_cast<unsigned long long>(choice[r] != c) +
-                 static_cast<unsigned long long>(rt < 0 || rt >= B);
-      v[kSlotSum] += static_cast<unsigned long long>(r);
-    } else {
-      v[kBad] += static_cast<unsigned long long>(rt != B);
-    }
-  }
-
-  block_sum(v);
+  if (threadIdx.x == 0)
+    last = atomicAdd(reinterpret_cast<unsigned*>(acc + kTicket), 1u) == gridDim.x - 1;
+  __syncthreads();
+  // No block leaves while another of its cluster may read its histogram.
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  if (!last) return;
+  __threadfence();
+  unsigned long long a[kNumAcc];
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int k = 0; k < kNumAcc; ++k)
-      if (v[k]) atomicAdd(&acc[k], v[k]);
+    for (int k = 0; k < kNumAcc; ++k) a[k] = __ldcg(acc + k);
   }
-  __syncthreads();  // every shared-memory histogram add is done
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const unsigned int h = sh_hist[c];
-    if (h) atomicAdd(&hist[c], h);
-  }
-}
-
-__global__ void digest_finish(const int* __restrict__ counts,
-                              const unsigned int* __restrict__ hist,
-                              const unsigned long long* __restrict__ acc, int C,
-                              long long* __restrict__ out) {
-  unsigned long long v[2] = {0ULL, 0ULL};  // sum(counts), L1
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+  unsigned long long fin[2] = {0ULL, 0ULL};  // sum(counts), L1
+#pragma unroll 4
+  for (int c = threadIdx.x; c < C; c += kThreads) {
     const long long k = counts[c];
-    const long long d = static_cast<long long>(hist[c]) - k;
-    v[0] += static_cast<unsigned long long>(k);
-    v[1] += static_cast<unsigned long long>(d < 0 ? -d : d);
+    const long long d = static_cast<long long>(__ldcg(hist + c)) - k;
+    hist[c] = 0u;
+    fin[0] += static_cast<unsigned long long>(k);
+    fin[1] += static_cast<unsigned long long>(d < 0 ? -d : d);
   }
-  block_sum(v);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    fin[k] = warp_sum(fin[k]);
+    if (lane == 0) part[k][warp] = fin[k];
+  }
+  __syncthreads();
   if (threadIdx.x == 0) {
+    fin[0] = fin[1] = 0ULL;
+    for (int w = 0; w < kWarps; ++w) {
+      fin[0] += part[0][w];
+      fin[1] += part[1][w];
+    }
+#pragma unroll
+    for (int k = 0; k < kNumAcc; ++k) acc[k] = 0ULL;
+    acc[kTicket] = 0ULL;
     // |slot_sum - row_sum| in wrapping int64, as jnp.abs gives it.
-    const long long diff = static_cast<long long>(acc[kSlotSum] - acc[kRowSum]);
-    const unsigned long long adiff =
-        diff < 0 ? 0ULL - static_cast<unsigned long long>(diff)
-                 : static_cast<unsigned long long>(diff);
-    out[0] = static_cast<long long>(v[0]);
-    out[1] = static_cast<long long>(acc[kViol]);
-    out[2] = static_cast<long long>(acc[kLagSum]);
-    out[3] = static_cast<long long>(v[1]);
-    out[4] = static_cast<long long>(acc[kBad] + adiff);
+    const long long diff = static_cast<long long>(a[kSlotSum] - a[kRowSum]);
+    const unsigned long long adiff = diff < 0 ? 0ULL - static_cast<unsigned long long>(diff)
+                                              : static_cast<unsigned long long>(diff);
+    out[0] = static_cast<long long>(fin[0]);
+    out[1] = static_cast<long long>(a[kViol]);
+    out[2] = static_cast<long long>(a[kLagSum]);
+    out[3] = static_cast<long long>(fin[1]);
+    out[4] = static_cast<long long>(a[kBad] + adiff);
   }
+}
+
+// Clusters of the kernel that fit on the current card at once with `smem`
+// bytes of dynamic shared memory, found once a device and size (the first
+// query for a device also lets the kernel take the 64 KiB of a
+// 16,384-consumer histogram).
+cudaError_t resident_clusters(size_t smem, int* clusters) {
+  static std::mutex mu;
+  static std::vector<std::pair<std::pair<int, size_t>, int>> known;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> lock(mu);
+  bool seen = false;
+  for (const auto& [key, n] : known) {
+    if (key.first != device) continue;
+    if (key.second == smem) return *clusters = n, cudaSuccess;
+    seen = true;
+  }
+  if (!seen && (err = cudaFuncSetAttribute(klba_state_digest_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           kMaxConsumers * static_cast<int>(sizeof(unsigned)))) !=
+                   cudaSuccess)
+    return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if ((err = cudaOccupancyMaxActiveClusters(&n, klba_state_digest_kernel, &cfg)) != cudaSuccess)
+    return err;
+  if (n < 1) return cudaErrorInvalidConfiguration;
+  known.push_back({{device, smem}, n});
+  *clusters = n;
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// Bytes of scratch the wrapper allocates for C consumers (zeroed here).
-extern "C" long long klba_state_digest_scratch_bytes(int C) {
-  return static_cast<long long>(kAccSlots) * 8 + static_cast<long long>(C) * 4;
-}
-
 // Launches the digest on `stream`; returns the first CUDA error (0 = ok).
-// row_tab may be null with M = 0.  out: int64[5].
-extern "C" int klba_state_digest(const void* lags, const void* choice,
-                                 const void* counts, const void* row_tab,
-                                 long long B, int C, int M, void* scratch,
+// row_tab may be null with M = 0.  scratch: 64 + 4 * C bytes, the sums and
+// the ticket, then the histogram (ops/state_digest_cuda.scratch_bytes), zero
+// at the call and left zero.  out: int64[5].  The grid: a thread for four
+// rows and a warp for a table row, in whole clusters, at most as many as
+// fit on the card at once (the grid-stride loops take the rest).
+extern "C" int klba_state_digest(const void* lags, const void* choice, const void* counts,
+                                 const void* row_tab, long long B, int C, int M, void* scratch,
                                  void* out, void* stream) {
-  if (B < 1 || C < 1 || C > kMaxConsumers || M < 0 || (M > 0 && row_tab == nullptr))
+  if (B < 1 || B >= (1LL << 31) || C < 1 || C > kMaxConsumers || M < 0 ||
+      (M > 0 && row_tab == nullptr) || static_cast<long long>(C) * M >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(scratch, 0, klba_state_digest_scratch_bytes(C), s);
+  const size_t smem = static_cast<size_t>(C) * sizeof(unsigned);
+  int fit = 0;
+  cudaError_t err = resident_clusters(smem, &fit);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto* acc = static_cast<unsigned long long*>(scratch);
-  auto* hist = reinterpret_cast<unsigned int*>(acc + kAccSlots);
-
-  const size_t smem = static_cast<size_t>(C) * sizeof(unsigned int);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(digest_pass1, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const long long work = B > static_cast<long long>(C) * M ? B : static_cast<long long>(C) * M;
-  long long blocks = (work + kRowsPerBlock - 1) / kRowsPerBlock;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  digest_pass1<<<static_cast<int>(blocks), kThreads, smem, s>>>(
-      static_cast<const long long*>(lags), static_cast<const int*>(choice),
-      static_cast<const int*>(counts), static_cast<const int*>(row_tab), B, C, M,
-      acc, hist);
-  err = cudaGetLastError();
+  const long long work = (B + 3) / 4 > 32LL * C ? (B + 3) / 4 : 32LL * C;
+  long long clusters = (work + kThreads * kCluster - 1) / (kThreads * kCluster);
+  if (clusters > fit) clusters = fit;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * kCluster));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, klba_state_digest_kernel, static_cast<const long long*>(lags),
+                           static_cast<const int*>(choice), static_cast<const int*>(counts),
+                           static_cast<const int*>(row_tab), static_cast<int>(B), C, M,
+                           static_cast<unsigned long long*>(scratch), static_cast<long long*>(out));
   if (err != cudaSuccess) return static_cast<int>(err);
-  digest_finish<<<1, kFinishThreads, 0, s>>>(static_cast<const int*>(counts), hist, acc,
-                                            C, static_cast<long long*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -145,7 +145,8 @@ def _sinkhorn_duals(ws_u, count_u, wsum_u, num_consumers: int,
     iteration and recovers by 1.2x (capped at 1) otherwise; the loop stops
     once both the load spread and the column correction
     ``max |log(cap / colsum)|`` are at most ``tol``, or after ``iters``.
-    Two ``plan_stats`` calls an iteration, and one scalar read.
+    Two ``plan_stats`` calls an iteration, each for the one marginal its
+    half-step reads, and one scalar read.
     Returns (A, B) f32[C].
     """
     C = int(num_consumers)
@@ -159,12 +160,12 @@ def _sinkhorn_duals(ws_u, count_u, wsum_u, num_consumers: int,
     scale = torch.tensor(1.0, dtype=torch.float32, device=dev)
     prev_spread = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
     for _ in range(iters):
-        load, _ = plan_stats(ws_u, count_u, wsum_u, A, B)
+        load, _ = plan_stats(ws_u, count_u, wsum_u, A, B, need="load")
         spread = load.max() - load.min()
         scale = torch.where(spread > prev_spread, scale * 0.5,
                             torch.clamp(scale * 1.2, max=1.0))
         A = A + (eta * scale) * (load - load.mean())
-        _, colsum = plan_stats(ws_u, count_u, wsum_u, A, B)
+        _, colsum = plan_stats(ws_u, count_u, wsum_u, A, B, need="colsum")
         upd = torch.log(cap / (colsum + 1e-9))
         B = B + upd
         delta = torch.maximum(spread, upd.abs().max())

@@ -8,8 +8,9 @@ Sinkhorn solver's log-plan is rank-structured
 
 up to a per-row normalizer that cancels in the softmax, so the [P, C] plan
 never exists in memory.  Each duals iteration needs only the plan's two
-marginals, and rows with equal scaled lag have identical noise-free rows,
-so the marginals collapse onto the deduplicated lag-value axis u::
+marginals (one a half-step, asked for with ``need``), and rows with equal
+scaled lag have identical noise-free rows, so the marginals collapse onto
+the deduplicated lag-value axis u::
 
     load_j   = sum_u  wsum_u  * X_u[j]     (scaled consumer loads)
     colsum_j = sum_u  count_u * X_u[j]     (count marginal)
@@ -116,35 +117,44 @@ def _check(ws_u, count_u, wsum_u, A, B) -> None:
         )
 
 
-def plan_stats_torch(ws_u, count_u, wsum_u, A, B):
+def plan_stats_torch(ws_u, count_u, wsum_u, A, B, need: str = "both"):
     """Plain PyTorch version: the ``plan_stats_lax`` tile loop.  Each
-    512-row value tile's softmax and its two weighted column sums, then
-    the tiles summed.  Returns (load f32[C] in ws units, colsum f32[C])."""
+    512-row value tile's softmax and its weighted column sums, then the
+    tiles summed.  Returns (load f32[C] in ws units, colsum f32[C]), with
+    None for the marginal ``need`` leaves out (its reduction is skipped)."""
     U = ws_u.shape[0]
     loads, cols = [], []
     for lo in range(0, U, _TILE_P):
         w = ws_u[lo: lo + _TILE_P]
         x = torch.softmax(-w[:, None] * A[None, :] + B[None, :], dim=1)
-        loads.append((wsum_u[lo: lo + _TILE_P, None] * x).sum(dim=0))
-        cols.append((count_u[lo: lo + _TILE_P, None] * x).sum(dim=0))
-    return torch.stack(loads).sum(dim=0), torch.stack(cols).sum(dim=0)
+        if need != "colsum":
+            loads.append((wsum_u[lo: lo + _TILE_P, None] * x).sum(dim=0))
+        if need != "load":
+            cols.append((count_u[lo: lo + _TILE_P, None] * x).sum(dim=0))
+    return (torch.stack(loads).sum(dim=0) if loads else None,
+            torch.stack(cols).sum(dim=0) if cols else None)
 
 
-def plan_stats(ws_u, count_u, wsum_u, A, B):
-    """Both marginals of the implicit plan on the deduplicated value axis.
+def plan_stats(ws_u, count_u, wsum_u, A, B, need: str = "both"):
+    """The marginals of the implicit plan on the deduplicated value axis.
 
     Args: ws_u, count_u, wsum_u f32[U] (padding rows carry count = wsum =
-    0 and contribute nothing); A, B f32[C], 1 <= C <= 16384.  Returns
-    (load f32[C], colsum f32[C]).  A CUDA tensor launches the kernel (one
-    count in ``plan_stats.launches``) or raises; a CPU tensor runs
-    :func:`plan_stats_torch`.
+    0 and contribute nothing); A, B f32[C], 1 <= C <= 16384; ``need`` is
+    "both", "load" or "colsum", as in the JAX package (each duals half-step
+    consumes one marginal).  Returns (load f32[C], colsum f32[C]) with None
+    in the place ``need`` leaves out; a marginal has the same bits whether
+    it was asked for alone or beside the other.  A CUDA tensor launches the
+    kernel (one count in ``plan_stats.launches``) or raises; a CPU tensor
+    runs :func:`plan_stats_torch`.
     """
     _check(ws_u, count_u, wsum_u, A, B)
+    if need not in ("both", "load", "colsum"):
+        raise ValueError(f"need must be 'both', 'load' or 'colsum', got {need!r}")
     if ws_u.device.type == "cpu":
-        return plan_stats_torch(ws_u, count_u, wsum_u, A, B)
+        return plan_stats_torch(ws_u, count_u, wsum_u, A, B, need)
     from .plan_stats_cuda import launch
 
-    out = launch(ws_u, count_u, wsum_u, A, B)
+    out = launch(ws_u, count_u, wsum_u, A, B, need)
     plan_stats.launches += 1
     return out
 

@@ -4,29 +4,61 @@ The kernel replaces ``kafka_lag_based_assignor_tpu/ops/linear_ot_pallas.py::
 state_digest_pallas`` and the XLA row-table lane beside it; the source says
 what bounds it.  :func:`launch` is called by :func:`.refine.state_digest`
 for CUDA tensors only, after that wrapper has checked the inputs; it
-allocates the output and the scratch and raises if the launch fails.
+allocates the output and raises if the launch fails.
+
+The kernel's accumulators, ticket and histogram live in a scratch buffer
+that is zeroed once for each (device, stream) and grown when a call needs
+more consumers than it holds; the kernel leaves it zero, so a repeated call
+allocates no scratch and enqueues no memset.  The library is bound once.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
+#: 64-bit words before the histogram: five sums, then the ticket.
+ACC_WORDS = 8
+
+_fn = None
+_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def scratch_bytes(num_consumers: int) -> int:
+    """Bytes of scratch a call at C consumers needs: the accumulator words,
+    then an int32 histogram of C bins."""
+    return 8 * ACC_WORDS + 4 * int(num_consumers)
+
+
+def scratch_for(device: torch.device, stream: int, num_consumers: int) -> torch.Tensor:
+    """The scratch for (device, stream), holding at least ``num_consumers``
+    bins: zeroed when made (or grown), then kept (the kernel leaves it
+    zero)."""
+    key = (device.index if device.index is not None else -1, stream)
+    need = scratch_bytes(num_consumers)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros(need, dtype=torch.uint8, device=device)
+        _scratch[key] = buf
+    return buf
+
 
 def _bind():
-    from ._build import load
+    global _fn
+    if _fn is None:
+        from ._build import load
 
-    lib = load("state_digest")
-    fn = lib.klba_state_digest
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
-    fn.restype = ctypes.c_int
-    lib.klba_state_digest_scratch_bytes.argtypes = [ctypes.c_int]
-    lib.klba_state_digest_scratch_bytes.restype = ctypes.c_longlong
-    lib.klba_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.klba_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+        lib = load("state_digest")
+        fn = lib.klba_state_digest
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
+        fn.restype = ctypes.c_int
+        lib.klba_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.klba_cuda_error_string.restype = ctypes.c_char_p
+        _fn = fn, lib.klba_cuda_error_string
+    return _fn
 
 
 def launch(lags_p, choice_p, counts, num_consumers: int, row_tab=None):
@@ -34,22 +66,18 @@ def launch(lags_p, choice_p, counts, num_consumers: int, row_tab=None):
     meaningless when ``row_tab`` is None)."""
     C = int(num_consumers)
     M = 0 if row_tab is None else int(row_tab.shape[1])
-    lib = _bind()
+    fn, error_string = _bind()
     dev = lags_p.device
-    scratch = torch.empty(
-        lib.klba_state_digest_scratch_bytes(C), dtype=torch.uint8, device=dev
-    )
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
     out = torch.empty(5, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.klba_state_digest(
-            lags_p.data_ptr(), choice_p.data_ptr(), counts.data_ptr(),
-            0 if row_tab is None else row_tab.data_ptr(),
-            lags_p.shape[0], C, M, scratch.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    args = (lags_p.data_ptr(), choice_p.data_ptr(), counts.data_ptr(),
+            None if row_tab is None else row_tab.data_ptr(), lags_p.shape[0], C, M,
+            scratch_for(dev, stream, C).data_ptr(), out.data_ptr(), stream)
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
     if err != 0:
-        raise RuntimeError(
-            "state_digest kernel launch failed: "
-            + lib.klba_cuda_error_string(err).decode()
-        )
+        raise RuntimeError(f"state_digest kernel launch failed: {error_string(err).decode()}")
     return out

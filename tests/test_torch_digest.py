@@ -21,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 from kafka_lag_based_assignor_tpu.ops import refine as jax_refine  # noqa: E402
 from kafka_lag_based_assignor_tpu.utils import scrub as jax_scrub  # noqa: E402
 from kafka_lag_based_assignor_tpu_torch.ops import packing, refine  # noqa: E402
+from kafka_lag_based_assignor_tpu_torch.ops import state_digest_cuda  # noqa: E402
 from kafka_lag_based_assignor_tpu_torch.utils import scrub  # noqa: E402
 
 T = torch.from_numpy
@@ -157,3 +158,27 @@ def test_flip_bit_matches_jax(dtype, limit):
         got = scrub.flip_bit(arr, seed, limit=limit)
         np.testing.assert_array_equal(got, jax_scrub.flip_bit(arr, seed, limit=limit))
         assert int((got != arr).sum()) == 1
+
+
+@pytest.mark.parametrize("C,nbytes", [(1, 68), (1000, 4064), (16384, 65600)])
+def test_digest_scratch_size(C, nbytes):
+    """Eight 64-bit words (five sums, the ticket, two spare), then an int32
+    histogram of C bins."""
+    assert state_digest_cuda.scratch_bytes(C) == nbytes
+
+
+def test_digest_scratch_is_kept_per_device_and_stream(monkeypatch):
+    monkeypatch.setattr(state_digest_cuda, "_scratch", {})
+    cpu = torch.device("cpu")
+    first = state_digest_cuda.scratch_for(cpu, 3, 1000)
+    assert first.dtype == torch.uint8 and not first.any()
+    assert first.numel() == state_digest_cuda.scratch_bytes(1000)
+    # Fewer consumers fit the buffer held; more grow it, zeroed again.
+    assert state_digest_cuda.scratch_for(cpu, 3, 24) is first
+    grown = state_digest_cuda.scratch_for(cpu, 3, 16384)
+    assert grown is not first and grown.numel() == state_digest_cuda.scratch_bytes(16384)
+    assert not grown.any()
+    assert state_digest_cuda.scratch_for(cpu, 3, 1000) is grown
+    other = state_digest_cuda.scratch_for(cpu, 4, 1000)
+    assert other is not grown
+    assert set(state_digest_cuda._scratch) == {(-1, 3), (-1, 4)}

@@ -44,11 +44,13 @@ from kafka_lag_based_assignor_tpu_torch.assignor import (  # noqa: E402
 from kafka_lag_based_assignor_tpu_torch.models import sinkhorn  # noqa: E402
 from kafka_lag_based_assignor_tpu_torch.ops import dispatch, linear_ot  # noqa: E402
 from kafka_lag_based_assignor_tpu_torch.ops import linear_ot_cuda, plan_stats  # noqa: E402
+from kafka_lag_based_assignor_tpu_torch.ops import plan_stats_cuda  # noqa: E402
 from kafka_lag_based_assignor_tpu_torch.ops.packing import pad_topic_rows  # noqa: E402
 from kafka_lag_based_assignor_tpu_torch.ops.rounds_kernel import (  # noqa: E402
     assign_topic_rounds,
 )
 from kafka_lag_based_assignor_tpu_torch.testing import (  # noqa: E402
+    baseline_workload,
     broker_for,
     zipf_lags,
 )
@@ -153,6 +155,100 @@ def test_plan_stats_matches_jax(U, C):
     for g, w in zip(got, want):
         assert_close(g.numpy(), w)
     assert plan_stats.plan_stats.launches == before  # CPU tensors: no launch
+
+
+@pytest.mark.parametrize("need", ["both", "load", "colsum"])
+@pytest.mark.parametrize("U,C", [(1024, 512), (1024, 16), (17, 31), (8, 2)])
+def test_plan_stats_need_matches_jax(U, C, need):
+    """Each ``need`` against the JAX package's, with None in the same place;
+    a marginal asked for alone has its ``need="both"`` bits."""
+    ws, cnt, wsum, A, B = duals_case(U + C, U, C)
+    args = [T(x) for x in (ws, cnt, wsum, A, B)]
+    got = plan_stats.plan_stats(*args, need=need)
+    want = jax_plan.plan_stats_lax(*(jnp.asarray(x) for x in (ws, cnt, wsum, A, B)),
+                                   need=need)
+    assert [g is None for g in got] == [w is None for w in want]
+    both = plan_stats.plan_stats(*args)
+    for g, w, b in zip(got, want, both):
+        if w is not None:
+            assert_close(g.numpy(), w)
+            assert torch.equal(g, b)
+
+
+def test_plan_stats_refuses_an_unknown_need():
+    ws, cnt, wsum, A, B = (T(x) for x in duals_case(0, 8, 2))
+    with pytest.raises(ValueError, match="need"):
+        plan_stats.plan_stats(ws, cnt, wsum, A, B, need="loads")
+
+
+@pytest.mark.parametrize("config", [2, 4])
+def test_sinkhorn_duals_with_need_equal_both_marginals(monkeypatch, config):
+    """The duals loop asks for one marginal a call; the same loop given both
+    marginals at every call ends on the same bits."""
+    lags, members = baseline_workload(config)
+    lags_p, _, valid = pad_topic_rows(lags["t0"])
+    C = len(members)
+    dedup = [T(a) for a in sinkhorn._dedup_weights(lags_p, valid, C)]
+    needs = []
+    A, B = sinkhorn._sinkhorn_duals(*dedup, C, iters=6)
+    real = sinkhorn.plan_stats
+
+    def both(*args, need="both"):
+        needs.append(need)
+        return real(*args)
+
+    monkeypatch.setattr(sinkhorn, "plan_stats", both)
+    A2, B2 = sinkhorn._sinkhorn_duals(*dedup, C, iters=6)
+    assert needs[:2] == ["load", "colsum"]
+    assert torch.equal(A, A2) and torch.equal(B, B2)
+
+
+@pytest.mark.parametrize("U,C,form", [
+    (1, 1, "cluster"), (1024, 16, "cluster"), (1024, 512, "cluster"), (2048, 1024, "cluster"),
+    (4096, 512, "pass"), (1024, 1025, "pass"), (8, 16384, "pass"),
+])
+def test_plan_stats_form_choice(U, C, form):
+    assert plan_stats_cuda.form_for(U, C) == form
+
+
+@pytest.mark.parametrize("U,C,per,tickets,floats", [
+    # tiles = ceil(U / 16) in groups of ceil(sqrt(tiles)); tickets: tiles +
+    # groups + 3; floats: the tile rows of both marginals and, with more
+    # than one group, the group rows.
+    (1, 1, 1, 5, 2),
+    (1024, 512, 8, 75, 2 * 64 * 512 + 2 * 8 * 512),
+    (4096, 16384, 16, 275, 2 * 256 * 16384 + 2 * 16 * 16384),
+    (1040, 3, 9, 76, 2 * 65 * 3 + 2 * 8 * 3),
+])
+def test_plan_stats_pass_geometry(U, C, per, tickets, floats):
+    assert plan_stats_cuda.pass_geometry(U, C) == (plan_stats_cuda.VAL_TILE, per, tickets,
+                                                   floats)
+
+
+def test_plan_stats_scratch_is_kept_per_device_stream_and_shape(monkeypatch):
+    """The pass form's scratch is kept for each (device, stream) and only
+    grows, whatever the shapes it serves."""
+    monkeypatch.setattr(plan_stats_cuda, "_scratch", {})
+    cpu = torch.device("cpu")
+    first = plan_stats_cuda.scratch_for(cpu, 7, *plan_stats_cuda.pass_geometry(4096, 512)[2:])
+    tickets, rows = first
+    assert tickets.dtype == torch.int32 and not tickets.any() and rows.dtype == torch.float32
+    assert (tickets.numel(), rows.numel()) == plan_stats_cuda.pass_geometry(4096, 512)[2:]
+    assert plan_stats_cuda.scratch_for(cpu, 7, *plan_stats_cuda.pass_geometry(1024, 511)[2:]) \
+        is first
+    assert plan_stats_cuda.scratch_for(cpu, 8, 275, 4) is not first
+    grown = plan_stats_cuda.scratch_for(cpu, 7, 300, 10)
+    assert grown is not first and not grown[0].any()
+    assert (grown[0].numel(), grown[1].numel()) == (300, rows.numel())
+    assert plan_stats_cuda.scratch_for(cpu, 7, 5, 2) is grown
+    assert set(plan_stats_cuda._scratch) == {(-1, 7), (-1, 8)}
+
+
+@pytest.mark.parametrize("need,form", [("loads", None), ("load", "grid")])
+def test_plan_stats_launch_refuses_unknown_need_or_form(need, form):
+    ws, cnt, wsum, A, B = (T(x) for x in duals_case(0, 8, 2))
+    with pytest.raises(ValueError):
+        plan_stats_cuda.launch(ws, cnt, wsum, A, B, need=need, form=form)
 
 
 def test_plan_stats_matches_the_pallas_kernel_in_interpret_mode():

@@ -28,6 +28,7 @@ from kafka_lag_based_assignor_tpu.utils import metrics  # noqa: E402
 from kafka_lag_based_assignor_tpu_torch import convert  # noqa: E402
 from kafka_lag_based_assignor_tpu_torch.ops import refine  # noqa: E402
 from kafka_lag_based_assignor_tpu_torch.ops.dispatch import quality_scope  # noqa: E402
+from kafka_lag_based_assignor_tpu_torch.ops.packing import pad_bucket, pad_chunk  # noqa: E402
 from kafka_lag_based_assignor_tpu_torch.ops.streaming import (  # noqa: E402
     StreamingAssignor,
 )
@@ -145,6 +146,46 @@ def test_engine_epochs_match_jax():
     _, s, _ = pair.epoch(lags)
     assert s.cold_start and not s.guardrail_tripped
     assert pair.port.h2d_bytes["delta"] > 0 and pair.port.d2h_bytes["delta"] > 0
+
+
+def test_engine_epochs_match_jax_at_the_card_bucket(monkeypatch):
+    """The card pads the resident state to ``pad_bucket(P)``, the CPU to
+    ``pad_chunk(P)``; at P = 9,000 they differ (16,384 against 12,288), and
+    the table width and the bulk round's stripes with them.  Both engines
+    pinned to the card's bucket go through the same epochs to the same
+    bits: a cold start, warm refines on the same lags up to a no-op, a
+    dense drift refine, two delta epochs and a guardrail trip."""
+    P9 = 9000
+    assert pad_bucket(P9) == 16384 and pad_chunk(P9) == 12288
+    for engine in (JaxEngine, StreamingAssignor):
+        monkeypatch.setattr(engine, "_bucket", lambda self, n: pad_bucket(n))
+    rng = np.random.default_rng(9)
+    lags = zipf_lags(rng, P9)
+    pair = Pair(**KW)
+
+    c, s, _ = pair.epoch(lags)
+    assert s.cold_start and pair.port._resident[0].shape[0] == 16384
+    # The same lags again: warm refines (each a delta of no lags) until the
+    # quality gate holds, then a no-op.
+    for _ in range(4):
+        c, s, _ = pair.epoch(lags)
+        if not s.refined:
+            break
+    assert not s.refined and s.churn == 0
+    lags = (lags * rng.lognormal(0, 0.05, P9)).astype(np.int64)
+    lags[c == heaviest(c, lags, C // 2)] *= 3
+    c, s, moved = pair.epoch(lags)
+    assert s.refined and not s.guardrail_tripped
+    assert moved["delta_epochs"]["fallback"] == 1
+    for rank in (-1, -2):  # 40 lags of a heavy consumer 4x: a delta epoch
+        lags = lags.copy()
+        lags[np.flatnonzero(c == heaviest(c, lags, rank))[:40]] *= 4
+        c, s, moved = pair.epoch(lags)
+        assert s.refined and s.churn > 0 and moved["delta_epochs"]["applied"] == 1
+    lags = lags.copy()
+    lags[c == 3] *= 40
+    _, s, _ = pair.epoch(lags)
+    assert s.guardrail_tripped and s.cold_start
 
 
 def test_resident_state_carries_over_from_jax():
