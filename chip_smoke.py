@@ -12,7 +12,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    ``nvidia-smi`` reports them;
 2. build: ``nvcc`` builds every ``csrc/*.cu`` of the port (seconds printed,
    and ptxas' registers, shared memory and spills of every kernel
-   instantiation);
+   instantiation), and ``g++`` the native core (``native/greedy.cpp``);
 3. kernels: each kernel against its plain PyTorch version on the card, on the
    same inputs, at every shape the main paths give it and at edge shapes:
    the round scan bit for bit (integers: tolerance 0), also at the quality
@@ -45,9 +45,20 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    (not a multiple of 4), C = 1, C = 16,384, M = 0 and a wrapping lag sum,
    and C = 16,385 raising on both devices; from the profiler, one call of
    K3 (configs 2 and 4, ``need`` load and colsum) and of K6 (config 5)
-   enqueues one kernel and no memset; and the streaming engine's bulk
+   enqueues one kernel and no memset; the streaming engine's bulk
    refine on the card bit for bit against the port's CPU path from a
-   drifted config-5 resident state;
+   drifted config-5 resident state; the P-step scan (K7) bit for bit
+   against its plain version on the card, each case launched twice to the
+   same bits, at C = 1, 2, 31, 32, 33, 1,000, 1,024, 1,025 and 16,384, with
+   all-zero lags, lags near 2^62 (wrapping totals), an eligible mask and a
+   mask with none eligible, padding rows (at the end and in the middle)
+   and config 3's 256 topics x 64 rows, then the main path's own inputs
+   at configs 5 (131,072 padded rows, 100k valid, C 1,000) and 3 bit for
+   bit against the plain version on CPU copies (timed on the host clock),
+   and C = 16,385 raising on both devices; ``refine_batched`` (16 rounds) on the card bit for bit against
+   the port's CPU path at config 3, at its shape with 16 consumers and on
+   the config-5 topic; and ``native.assign_native`` at config 5 equal to
+   the ``rounds`` solve on the card;
 4. main paths, each with every launch count set to 0 just before it and
    read just after, through the port's ``LagBasedPartitionAssignor(
    device="cuda")`` with a ``FakeBroker``:
@@ -76,6 +87,11 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       digest kernel launches once per refine dispatch and the round scan
       once per cold chain; a second run on the card and a run of the port's
       CPU engine at the card's bucket give the same bits;
+   d. ``scan``, ``native``, and ``rounds`` and ``scan`` with
+      ``tpu.assignor.refine.iters=16`` at configs 5 and 3: every ``scan``
+      ``assign()`` launches K7; ``scan`` and ``native`` equal ``rounds``;
+      ``rounds`` + refine keeps each topic's count spread <= 1 and its peak
+      <= the greedy one, equals the port's CPU path and ``scan`` + refine;
 5. times, with CUDA events, medians of 30 runs after warm-up: each kernel
    alone at its main-path shape, its plain version on the card, the
    library yardstick where there is one, and its bound; the device time
@@ -89,7 +105,11 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    ``torch.profiler``: the device's busy time and its idle share of the
    wall; the streaming epoch walls by type (cold, and the medians of the
    no-op, warm-refine and delta epochs), the host reads of a warm epoch and
-   one profiled warm-refine epoch.
+   one profiled warm-refine epoch; K7 alone at configs 5 and 3 (event and
+   device time, time a step, bound; its plain version on the card, a
+   median at config 3 and one call at config 5, equal to the kernel), the ``assign()`` walls of ``scan`` and ``rounds`` + 16 refine
+   rounds at config 5 (medians of 10), and the device shares of those
+   cells at configs 5 and 3.
 
 It prints the card's name and power limit, one JSON ``kernels`` line, and as
 its last line
@@ -113,7 +133,9 @@ each form alone at U = 1,024, 2,048, 4,096 and C = 16, 512, 1,024.  The
 in that order, each in a process that imports the port's package from
 that ROOT (its kernels build under ROOT), for example a parent commit
 unpacked with ``git archive`` beside this one: ``--k36-ab parent . .
-parent``.
+parent``.  ``--device-share CFG SOLVER REFINE`` (REFINE 0 for none) prints
+one phase-4 cell's profiled ``assign()`` as JSON: phase 5 runs it when the
+cell's profiler sessions in its own process all lost their records.
 """
 
 from __future__ import annotations
@@ -131,16 +153,20 @@ import time
 import numpy as np
 import torch
 
+from kafka_lag_based_assignor_tpu_torch import native
 from kafka_lag_based_assignor_tpu_torch.assignor import LagBasedPartitionAssignor
 from kafka_lag_based_assignor_tpu_torch.models import sinkhorn
 from kafka_lag_based_assignor_tpu_torch.ops import (
     _build,
+    batched,
+    dispatch,
     linear_ot,
     linear_ot_cuda,
     plan_stats,
     plan_stats_cuda,
     refine,
     rounds_cuda,
+    scan_cuda,
     state_digest_cuda,
     streaming,
 )
@@ -150,10 +176,14 @@ from kafka_lag_based_assignor_tpu_torch.ops.packing import (
     table_rows,
 )
 from kafka_lag_based_assignor_tpu_torch.ops.rounds_kernel import round_rows
-from kafka_lag_based_assignor_tpu_torch.ops.scan_kernel import sort_partitions_with
+from kafka_lag_based_assignor_tpu_torch.ops.scan_kernel import (
+    pack_shift_for,
+    sort_partitions_with,
+)
 from kafka_lag_based_assignor_tpu_torch.testing import (
     baseline_workload,
     broker_for,
+    lag_rows,
     stream_drift,
     stream_lags0,
 )
@@ -191,6 +221,7 @@ COUNTERS = (
     ("superblock_partials", linear_ot_cuda.superblock_partials),
     ("mirror_prox_step", linear_ot_cuda.mirror_prox_step),
     ("state_digest", refine.state_digest),
+    ("scan_greedy", scan_cuda.scan_greedy),
 )
 # The name each kernel has in the profiler (a substring of it): K5 is the
 # pass K4 launches twice; K3's two forms are klba_plan_stats_cluster and
@@ -201,12 +232,15 @@ KERNEL_NAMES = {
     "superblock_partials": "klba_linear_ot_pass",
     "mirror_prox_step": "klba_linear_ot_pass",
     "state_digest": "digest_",
+    "scan_greedy": "scan_greedy_kernel",
 }
 # The streaming engine at BASELINE config 5, as bench.py drives it: P
 # partitions, C consumers, and the warm epoch's exchange budget.
 STREAM_P = 100_000
 STREAM_C = 1000
 STREAM_BUDGET = 512
+# The parity solvers' quality mode in path d: tpu.assignor.refine.iters.
+REFINE_ITERS = 16
 
 
 def log(*parts) -> None:
@@ -249,6 +283,10 @@ def build() -> None:
     for name, seconds in _build.build_all().items():
         log(f"built csrc/{name}.cu in {seconds:.2f} s")
         log(_build.build_log(name).strip())
+    t0 = time.perf_counter()
+    native.load()
+    log(f"built native/greedy.cpp with g++ into {native.library_path()} in "
+        f"{time.perf_counter() - t0:.2f} s")
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -374,6 +412,121 @@ def kernels_vs_plain(device) -> int:
         if "_vector_" in name and io != {"vector"}:
             raise AssertionError(f"rounds_scan {name}: took {io} loads, not the vector path")
     return worst
+
+
+def scan_cases():
+    """(name, sorted lags [T, P], valid [T, P], C, eligible or None): K7's
+    inputs, each topic's rows in processing order (lag descending, padding
+    last) unless the name says otherwise."""
+    rng = np.random.default_rng(17)
+
+    def rows(T, P, lo=0, hi=10**6, n_valid=None):
+        lags = -np.sort(-rng.integers(lo, hi, (T, P)), axis=1)
+        n = np.full(T, P) if n_valid is None else np.asarray(n_valid)
+        valid = np.arange(P)[None, :] < n[:, None]
+        return np.where(valid, lags, 0), valid
+
+    for C in (1, 2, 31, 32, 33, 1000, 1024, 1025, 16384):
+        yield f"C{C}", *rows(2, min(3 * C + 7, 3000)), C, None
+    yield "all_zero_lags", *rows(2, 2000, 0, 1), 300, None
+    # 12 rows of about 2^62 a consumer: the totals wrap past 2^63.
+    yield "near_2^62", *rows(2, 600, 2**62 - 2**40, 2**62), 50, None
+    yield "eligible_mask", *rows(3, 2500), 1000, rng.random(1000) < 0.5
+    yield "none_eligible", *rows(2, 100), 40, np.zeros(40, bool)
+    yield "padding_rows", *rows(4, 1500, n_valid=[1500, 1, 0, 777]), 100, None
+    lags, valid = rows(2, 500)
+    yield "padding_in_the_middle", lags, valid & (rng.random((2, 500)) < 0.8), 64, None
+    yield "config3", *rows(256, 64, 0, 1000), 64, None
+
+
+def scan_vs_plain(device) -> tuple:
+    """K7 bit for bit against its plain version, each case launched twice
+    to the same bits: the ``scan_cases`` against the plain version on the
+    card, then the main path's inputs at configs 5 and 3 (``k7_cases``)
+    against the plain version on CPU copies, timed on the host clock; C =
+    16,385 raises on both devices; any difference raises.  Returns (the
+    max |diff|, 0, {config: the CPU plain version's ms})."""
+    for dev in (device, torch.device("cpu")):
+        z = torch.zeros((1, 4), dtype=torch.int64, device=dev)
+        try:
+            scan_cuda.scan_greedy(z, z.to(torch.uint8), scan_cuda.MAX_SLOTS + 1)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"scan_greedy took 16,385 consumers on {dev}")
+
+    def check(name, L, V, C, E, want, where):
+        first = scan_cuda.scan_greedy(L, V, C, E)
+        again = scan_cuda._launch(L, V, C, E)
+        sync(device)
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"scan_greedy {name}: two runs differ")
+        if not all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(first, want)):
+            raise AssertionError(f"scan_greedy disagrees with its plain version on {name}")
+        log(f"kernel vs plain  scan_greedy {name:22s} T={L.shape[0]} P={L.shape[1]} C={C}: "
+            f"bit-equal to the plain version {where}, two runs equal, "
+            f"{int((first[0] >= 0).sum())} rows assigned")
+
+    for name, lags, valid, C, elig in scan_cases():
+        L = torch.from_numpy(lags.astype(np.int64)).to(device)
+        V = torch.from_numpy(valid.astype(np.uint8)).to(device)
+        E = None if elig is None else torch.from_numpy(elig.astype(np.uint8)).to(device)
+        check(name, L, V, C, E, scan_cuda.scan_greedy_torch(L, V, C, E), "on the card")
+    cpu_ms = {}
+    for name, sl, sv, C, _ in k7_cases(device):
+        start = time.perf_counter()
+        want = scan_cuda.scan_greedy(sl.cpu(), sv.cpu(), C)
+        cpu_ms[name] = (time.perf_counter() - start) * 1e3
+        check(f"main path {name}", sl, sv, C, None, want,
+              f"on the CPU ({cpu_ms[name]!r} ms there)")
+    log("scan_greedy: 16,385 consumers raise ValueError on the card and on the CPU")
+    return 0, cpu_ms
+
+
+def refine_batched_vs_cpu(device) -> None:
+    """``refine_batched`` (16 rounds) on the card against the port's CPU
+    path from the same greedy start, bit for bit: config 3 (T 256, where
+    one partition a consumer leaves nothing to exchange), its shape with 16
+    consumers (topics that stop in different rounds) and the config-5
+    topic at its padded shape."""
+    lags3, members3 = baseline_workload(3)
+    table = np.stack([lags3[t] for t in sorted(lags3)])
+    lags5, members5 = baseline_workload(5)
+    cases = [("config 3", table, table.shape[1], len(members3)),
+             ("config 3 shape, 16 consumers", table, table.shape[1], 16),
+             ("config 5", pad_topic_rows(lags5["t0"])[0][None], lags5["t0"].size,
+              len(members5))]
+    for name, lags, n_valid, C in cases:
+        T, P = lags.shape
+        L = torch.from_numpy(lags).to(device)
+        pids = torch.arange(P, dtype=torch.int32, device=device).expand(T, P).contiguous()
+        V = (torch.arange(P, device=device) < n_valid).expand(T, P).contiguous()
+        greedy = batched.assign_batched_rounds(L, pids, V, C)
+        got = batched.refine_batched(L, V, greedy[0], C, REFINE_ITERS)
+        want = batched.refine_batched(L.cpu(), V.cpu(), greedy[0].cpu(), C, REFINE_ITERS)
+        for what, g, w in zip(("choice", "counts", "totals"), got, want):
+            if not torch.equal(g.cpu(), w):
+                raise AssertionError(f"refine_batched {name}: {what} differs from the CPU path")
+        spread = int((got[1].amax(1) - got[1].amin(1)).max())
+        peak_before, peak_after = int(greedy[2].amax()), int(got[2].amax())
+        if spread > 1 or (got[2].amax(1) > greedy[2].amax(1)).any():
+            raise AssertionError(f"refine_batched {name}: spread {spread} or a peak rose")
+        log(f"refine_batched on the card = CPU path at {name} (T={T} P={P} C={C}): "
+            f"{int((got[0] != greedy[0]).sum())} rows moved, peak {peak_before} -> "
+            f"{peak_after}, count spread {spread}")
+
+
+def native_vs_rounds(device) -> None:
+    """``native.assign_native`` at config 5 equal to the ``rounds`` solve on
+    the card, member list order included."""
+    lags, members = baseline_workload(5)
+    rows, subs = lag_rows(lags), {m: ["t0"] for m in members}
+    t0 = time.perf_counter()
+    got = native.assign_native(rows, subs)
+    wall = (time.perf_counter() - t0) * 1e3
+    if got != dispatch.assign_device(rows, subs, kernel="rounds", device=device):
+        raise AssertionError("assign_native at config 5 differs from rounds on the card")
+    log(f"assign_native at config 5 = rounds on the card ({wall:.3f} ms on the host)")
 
 
 def f32_check(kind: str, name: str, got, want, again) -> float:
@@ -758,16 +911,20 @@ def subscription(members, topics) -> GroupSubscription:
     return GroupSubscription({m: Subscription(tuple(topics)) for m in members})
 
 
-def plugin(lags, members, solver, device):
-    """A configured assignor with its broker, and the assign() arguments."""
+def plugin(lags, members, solver, device, refine=None):
+    """A configured assignor with its broker, and the assign() arguments;
+    ``refine`` sets tpu.assignor.refine.iters."""
     broker = broker_for(lags)
     assignor = LagBasedPartitionAssignor(lambda props: broker, device=device)
-    assignor.configure({"group.id": "chip-smoke", "tpu.assignor.solver": solver})
+    configs = {"group.id": "chip-smoke", "tpu.assignor.solver": solver}
+    if refine is not None:
+        configs["tpu.assignor.refine.iters"] = str(refine)
+    assignor.configure(configs)
     return assignor, broker.cluster(), subscription(members, sorted(lags))
 
 
-def assign_once(lags, members, solver, device):
-    assignor, cluster, group = plugin(lags, members, solver, device)
+def assign_once(lags, members, solver, device, refine=None):
+    assignor, cluster, group = plugin(lags, members, solver, device, refine)
     out = assignor.assign(cluster, group)
     return {
         m: [(tp.topic, tp.partition) for tp in a.partitions]
@@ -878,6 +1035,75 @@ def sinkhorn_path(device) -> dict:
             f"launches in two assign() {grew}"
             + (f", duals rounds {rounds['duals_rounds']}" if rounds else ""))
     log(f"main path (sinkhorn): launches {launches}")
+    return launches
+
+
+def topic_loads(lags, got) -> dict:
+    """{topic: (count spread, peak member load)} of an assignment."""
+    counts, loads = {}, {}
+    for member, tps in got.items():
+        for topic, p in tps:
+            counts.setdefault(topic, {}).setdefault(member, 0)
+            counts[topic][member] += 1
+            loads.setdefault(topic, {}).setdefault(member, 0)
+            loads[topic][member] += int(lags[topic][p])
+    members = len(got)
+    return {t: (max(c.values()) - (min(c.values()) if len(c) == members else 0),
+                max(loads[t].values())) for t, c in counts.items()}
+
+
+SOLVER_RUNS = (("rounds", None), ("scan", None), ("native", None), ("rounds", REFINE_ITERS),
+               ("scan", REFINE_ITERS))
+
+
+def solver_path(device) -> dict:
+    """Path d: ``scan``, ``native``, and ``rounds`` and ``scan`` with 16
+    refine rounds at BASELINE configs 5 and 3.  Every ``scan`` assign()
+    launches K7; ``scan`` and ``native`` equal ``rounds``; ``rounds`` +
+    refine keeps each topic's count spread <= 1 and its peak <= the greedy
+    one, equals the port's CPU path, and equals ``scan`` + refine.  Returns
+    every kernel's launches counted from just before the path to just
+    after."""
+    workloads = {cfg: baseline_workload(cfg) for cfg in (5, 3)}
+    reset_counts()
+    results = {}
+    for cfg in (5, 3):
+        for solver, refine_iters in SOLVER_RUNS:
+            before = scan_cuda.scan_greedy.launches
+            results[cfg, solver, refine_iters] = assign_once(*workloads[cfg], solver, device,
+                                                             refine_iters)
+            if (solver == "scan" and device.type == "cuda"
+                    and scan_cuda.scan_greedy.launches - before < 1):
+                raise AssertionError(f"config {cfg} scan: no scan_greedy launch")
+    launches = read_counts()
+
+    for cfg in (5, 3):
+        lags, members = workloads[cfg]
+        greedy, _ = results[cfg, "rounds", None]
+        refined, _ = results[cfg, "rounds", REFINE_ITERS]
+        for solver, refine_iters in SOLVER_RUNS[1:]:
+            want = refined if refine_iters else greedy
+            if results[cfg, solver, refine_iters][0] != want:
+                raise AssertionError(f"config {cfg} {solver} refine {refine_iters}: differs "
+                                     f"from rounds")
+        before, after = topic_loads(lags, greedy), topic_loads(lags, refined)
+        for topic, (spread, peak) in after.items():
+            if spread > 1 or peak > before[topic][1]:
+                raise AssertionError(f"config {cfg} rounds + refine: {topic} spread {spread}, "
+                                     f"peak {peak} against greedy {before[topic][1]}")
+        cpu, _ = assign_once(lags, members, "rounds", torch.device("cpu"), REFINE_ITERS)
+        if cpu != refined:
+            raise AssertionError(f"config {cfg} rounds + refine: differs from the CPU path")
+        moved = sum(len(set(refined[m]) - set(greedy[m])) for m in greedy)
+        for solver, refine_iters in SOLVER_RUNS:
+            _, stats = results[cfg, solver, refine_iters]
+            log(f"main path  config {cfg} {solver:6s} refine {refine_iters}: "
+                f"quality_ratio {stats.quality_ratio!r}, wall {stats.wall_ms:.3f} ms (solve "
+                f"{stats.solve_ms:.3f} ms), device {stats.device}")
+        log(f"main path  config {cfg}: scan = native = rounds; scan + refine = rounds + refine "
+            f"= the CPU path; refine moved {moved} partitions, peak "
+            f"{max(p for _, p in before.values())} -> {max(p for _, p in after.values())}")
+    log(f"main path (scan, native, refine): launches {launches}")
     return launches
 
 
@@ -1128,11 +1354,11 @@ def k1_times(device) -> dict:
     return out
 
 
-def assign_walls(cfg: int, solver: str, device, repeats: int = REPEATS):
+def assign_walls(cfg: int, solver: str, device, repeats: int = REPEATS, refine=None):
     """Medians of ``repeats`` ``assign()`` calls after 3 warm-ups, host
     clock, ending in a synchronize: (wall, lag read, solve, min wall)."""
     lags, members = baseline_workload(cfg)
-    assignor, cluster, group = plugin(lags, members, solver, device)
+    assignor, cluster, group = plugin(lags, members, solver, device, refine)
     walls, parts = [], []
     for i in range(repeats + 3):
         t0 = time.perf_counter()
@@ -1175,6 +1401,101 @@ def times(device) -> dict:
         f"{wall - lag_read - solve!r} ms; the kernel is {kernel / wall:.4%} of the wall")
     return dict(ms=kernel, alone_ms=alone, plain_ms=plain, bound_ms=bound, bound_by=bound_by,
                 library_ms=None)
+
+
+def k7_cases(device):
+    """K7's inputs as the main path makes them, at configs 5 and 3: each
+    topic padded to its bucket, sorted into processing order.  Yields
+    (name, sorted lags, sorted valid, C, valid rows of all topics)."""
+    for cfg in (5, 3):
+        lags, members = baseline_workload(cfg)
+        table = np.stack([pad_topic_rows(lags[t])[0] for t in sorted(lags)])
+        n_valid = np.array([lags[t].size for t in sorted(lags)])
+        T, P = table.shape
+        L = torch.from_numpy(table).to(device)
+        pids = torch.arange(P, dtype=torch.int32, device=device).expand(T, P)
+        V = torch.arange(P, device=device)[None, :] < torch.from_numpy(n_valid).to(device)[:, None]
+        _, sl, sv = sort_partitions_with(L, pids, V, pack_shift_for(int(table.max()), P - 1))
+        yield (f"config {cfg}", sl.contiguous(), sv.to(torch.uint8).contiguous(), len(members),
+               int(n_valid.sum()))
+
+
+def k7_bound(T: int, P: int, C: int, steps: int) -> tuple:
+    """(bound ms, "bytes" or "operations"): each input read once and each
+    output written once over the HBM rate, or one compare a consumer a
+    step (the argmin this run's valid rows need) over the scalar rate."""
+    moved = T * P * (8 + 1 + 4) + T * C * (4 + 8)
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    by_ops = steps * C / SCALAR_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def once_event_ms(fn) -> tuple:
+    """(CUDA-event ms of one ``fn()`` call, its result)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def k7_times(device) -> dict:
+    """K7 through its wrapper at configs 5 and 3: CUDA-event time, device
+    time alone (profiler, by kernel name), time a step of the deepest
+    topic, the bound; its plain version on the card, a median at config 3
+    and one call at config 5 (a 100k-step torch loop), whose output must
+    equal the kernel's."""
+    out = {}
+    for name, sl, sv, C, steps in k7_cases(device):
+        T, P = sl.shape
+        depth = int(sv.sum(dim=1).max())
+
+        def fn():
+            return scan_cuda.scan_greedy(sl, sv, C)
+
+        event = median_event_ms(fn)
+        alone, per_call = device_ms(fn, KERNEL_NAMES["scan_greedy"])
+        bound, bound_by = k7_bound(T, P, C, steps)
+        if name == "config 3":
+            plain = median_event_ms(lambda: scan_cuda.scan_greedy_torch(sl, sv, C))
+        else:
+            plain, want = once_event_ms(lambda: scan_cuda.scan_greedy_torch(sl, sv, C))
+            if not all(torch.equal(a, b) for a, b in zip(fn(), want)):
+                raise AssertionError(f"scan_greedy disagrees with its plain version at {name}")
+        out[name] = {"T": T, "P": P, "C": C, "depth": depth, "event_ms": event,
+                     "alone_ms": alone, "launches_a_call": per_call,
+                     "ns_a_step": alone * 1e6 / depth, "bound_ms": bound, "bound_by": bound_by,
+                     "plain_ms": plain}
+        log(f"times  scan_greedy at {name} (T={T} P={P} C={C}, {depth} dependent steps): event "
+            f"{event!r} ms, device time alone {alone!r} ms ({per_call!r} kernels a call), "
+            f"{alone * 1e6 / depth!r} ns a step, bound {bound!r} ms ({bound_by}), plain "
+            f"version on the card {plain!r} ms"
+            + (" (one call)" if name == "config 5" else ""))
+    return out
+
+
+def solver_times(device, plain_cpu_ms: dict) -> dict:
+    """K7's times (``k7_times``) and the ``assign()`` walls of ``scan`` and
+    of ``rounds`` + 16 refine rounds at config 5, medians of 10.  Returns
+    the kernels-line fields: the standard ones at config 5, where K7 spends
+    its time; config 3's under ``config3_*``; the CPU plain version's time
+    from phase 3 under ``plain_cpu_ms``."""
+    k7 = k7_times(device)
+    for solver, refine_iters in (("scan", None), ("rounds", REFINE_ITERS)):
+        wall, lag_read, solve, fastest = assign_walls(5, solver, device, 10, refine_iters)
+        log(f"assign() at config 5 {solver} refine {refine_iters}, medians of 10 (host "
+            f"clock): wall {wall!r} ms (min {fastest!r}), lag read {lag_read!r} ms, solve "
+            f"{solve!r} ms")
+    c3, c5 = k7["config 3"], k7["config 5"]
+    return dict(ms=c5["event_ms"], alone_ms=c5["alone_ms"], plain_ms=c5["plain_ms"],
+                bound_ms=c5["bound_ms"], bound_by=c5["bound_by"], library_ms=None,
+                depth=c5["depth"], ns_a_step=c5["ns_a_step"],
+                plain_cpu_ms=plain_cpu_ms["config 5"],
+                config3_ms=c3["event_ms"], config3_alone_ms=c3["alone_ms"],
+                config3_plain_ms=c3["plain_ms"], config3_bound_ms=c3["bound_ms"],
+                config3_plain_cpu_ms=plain_cpu_ms["config 3"])
 
 
 def exp_bound(exps: int, moved: int) -> tuple:
@@ -1410,39 +1731,90 @@ def quality_times(device) -> dict:
     return out
 
 
-def device_shares(device) -> None:
-    """One profiled assign() per main-path cell: the device's busy time
-    (kernels and copies, from torch.profiler's CUDA activity), the port's
-    kernels' share of it, and the device's idle share of the wall."""
-    from torch.profiler import ProfilerActivity, profile
+def profiled_assign(cfg: int, solver: str, refine_iters, device) -> dict:
+    """One assign() of a phase-4 cell under torch.profiler: its wall (ms,
+    host clock), the device's busy time (ms), the port's kernels' part of
+    it and the five busiest device ops.  A session first runs one assign()
+    with the profiler warming up (its records are dropped), then records
+    one.  Every main-path cell launches a port kernel, so a session that
+    recorded none of them lost its records: it is repeated, up to three in
+    all; ``None`` when none was whole."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    cells = [(cfg, solver) for cfg in (5, 3) for solver in ("rounds", "global")]
-    cells += [(cfg, "sinkhorn") for cfg in SINKHORN_CONFIGS]
+    lags, members = baseline_workload(cfg)
+    assignor, cluster, group = plugin(lags, members, solver, device, refine_iters)
+    assignor.assign(cluster, group)
     ours = tuple(dict.fromkeys(KERNEL_NAMES.values()))
-    for cfg, solver in cells:
-        lags, members = baseline_workload(cfg)
-        assignor, cluster, group = plugin(lags, members, solver, device)
-        assignor.assign(cluster, group)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            assignor.assign(cluster, group)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
+    for attempt in range(3):
+        sessions, walls = [], []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: sessions.append(p.key_averages())) as prof:
+            for _ in range(2):
+                t0 = time.perf_counter()
+                assignor.assign(cluster, group)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                prof.step()
         events = [
-            e for e in prof.key_averages()
+            e for e in (sessions[-1] if sessions else [])
             if e.device_type == torch.autograd.DeviceType.CUDA
             and "Activity Buffer" not in e.key
         ]
-        busy = sum(e.self_device_time_total for e in events) / 1e3
         kernels = sum(
             e.self_device_time_total for e in events if any(k in e.key for k in ours)
         ) / 1e3
-        top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
-        log(f"device share  config {cfg} {solver:8s}: wall {wall!r} ms (profiled), "
-            f"device busy {busy!r} ms, of which the port's kernels {kernels!r} ms; "
-            f"idle share {1 - busy / wall!r}; top: "
-            + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms "
-                        f"x{e.count}" for e in top))
+        if kernels > 0:
+            top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+            return {
+                "wall_ms": walls[-1],
+                "busy_ms": sum(e.self_device_time_total for e in events) / 1e3,
+                "kernels_ms": kernels,
+                "top": [(e.key[:48], e.self_device_time_total / 1e3, e.count) for e in top],
+            }
+        log(f"profiler session {attempt + 1} of an assign() recorded no port kernel; it "
+            f"recorded {[(e.key[:40], e.count) for e in events]}")
+    return None
+
+
+def device_shares(device) -> None:
+    """One profiled assign() per main-path cell: the device's busy time
+    (kernels and copies, from torch.profiler's CUDA activity), the port's
+    kernels' share of it, and the device's idle share of the wall.  A cell
+    whose sessions all lost their records is profiled again in a new
+    process (``--device-share``), whose profiler starts afresh; it raises
+    when that fails too."""
+    cells = [(cfg, solver, None) for cfg in (5, 3) for solver in ("rounds", "global")]
+    cells += [(cfg, "sinkhorn", None) for cfg in SINKHORN_CONFIGS]
+    cells += [(cfg, solver, refine_iters) for cfg in (5, 3)
+              for solver, refine_iters in (("scan", None), ("rounds", REFINE_ITERS))]
+    for cfg, solver, refine_iters in cells:
+        share = profiled_assign(cfg, solver, refine_iters, device)
+        label = solver if refine_iters is None else f"{solver}+refine{refine_iters}"
+        if share is None:
+            log(f"device share  config {cfg} {label}: profiled again in a new process")
+            share = device_share_in_child(cfg, solver, refine_iters)
+        log(f"device share  config {cfg} {label:16s}: wall {share['wall_ms']!r} ms (profiled), "
+            f"device busy {share['busy_ms']!r} ms, of which the port's kernels "
+            f"{share['kernels_ms']!r} ms; idle share {1 - share['busy_ms'] / share['wall_ms']!r}; "
+            "top: " + "; ".join(f"{k} {ms:.3f} ms x{n}" for k, ms, n in share["top"]))
+
+
+def device_share_in_child(cfg: int, solver: str, refine_iters) -> dict:
+    """``profiled_assign`` of one cell in a new process of this script (its
+    kernels are built already); raises when that process fails or its
+    sessions lost their records too."""
+    argv = [sys.executable, os.path.abspath(__file__), "--device-share", str(cfg), solver,
+            str(refine_iters or 0)]
+    done = subprocess.run(argv, capture_output=True, text=True, timeout=300)
+    lines = done.stdout.strip().splitlines()
+    share = json.loads(lines[-1]).get("device_share") if done.returncode == 0 and lines else None
+    if share is None:
+        raise AssertionError(
+            f"no profiler session of an assign() at config {cfg} {solver} recorded a port "
+            f"kernel, in this process or a new one (rc {done.returncode}): "
+            f"{done.stdout[-2000:]}{done.stderr[-2000:]}")
+    return share
 
 
 def profiled_epoch(engine, lags: np.ndarray):
@@ -1518,7 +1890,11 @@ SOURCES = {
     "superblock_partials": ("csrc/linear_ot.cu", "ops/linear_ot_pallas.py:169"),
     "mirror_prox_step": ("csrc/linear_ot.cu", "ops/linear_ot_pallas.py:226"),
     "state_digest": ("csrc/state_digest.cu", "ops/linear_ot_pallas.py:350"),
+    # No Pallas kernel: the JAX package's lax.scan in this function.
+    "scan_greedy": ("csrc/scan_greedy.cu", None),
 }
+COUNTERPARTS = {"scan_greedy": "kafka_lag_based_assignor_tpu/ops/scan_kernel.py::"
+                               "assign_topic_scan"}
 
 
 def kernel_line(name, launches, err, t: dict) -> dict:
@@ -1527,14 +1903,19 @@ def kernel_line(name, launches, err, t: dict) -> dict:
         "name": name,
         "route": "cuda",
         "source": f"kafka_lag_based_assignor_tpu_torch/{source}",
-        "replaces": f"kafka_lag_based_assignor_tpu/{replaces}",
+        "replaces": None if replaces is None else f"kafka_lag_based_assignor_tpu/{replaces}",
         "launches": launches,
         "max_abs_err": err,
         **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                              "alone_ms")},
     }
-    if "library_alone_ms" in t:
-        line["library_alone_ms"] = t["library_alone_ms"]
+    if name in COUNTERPARTS:
+        line["counterpart"] = COUNTERPARTS[name]
+    for key in ("library_alone_ms", "depth", "ns_a_step", "plain_cpu_ms", "config3_ms",
+                "config3_alone_ms", "config3_plain_ms", "config3_bound_ms",
+                "config3_plain_cpu_ms"):
+        if key in t:
+            line[key] = t[key]
     return line
 
 
@@ -1668,26 +2049,38 @@ def main() -> int:
         _build.build_all()
         log(json.dumps({"k36_times": k36_times(device), "device": name}))
         return 0
+    if sys.argv[1:2] == ["--device-share"]:
+        cfg, solver, refine_iters = int(sys.argv[2]), sys.argv[3], int(sys.argv[4]) or None
+        log(json.dumps({"device_share": profiled_assign(cfg, solver, refine_iters, device)}))
+        return 0
     build()
     max_err = kernels_vs_plain(device)
     f32_err = quality_kernels_vs_plain(device)
     digest_err = digest_vs_plain(device)
     one_launch_a_call(device)
     bulk_refine_vs_cpu(device)
+    scan_err, k7_plain_cpu_ms = scan_vs_plain(device)
+    refine_batched_vs_cpu(device)
+    native_vs_rounds(device)
     rounds_launches = main_path(device)
     launches = sinkhorn_path(device)
     stream_launches, stream_run = streaming_path(device)
-    launches["rounds_scan"] += rounds_launches + stream_launches["rounds_scan"]
+    solver_launches = solver_path(device)
+    launches["rounds_scan"] += (rounds_launches + stream_launches["rounds_scan"]
+                                + solver_launches["rounds_scan"])
     launches["state_digest"] = stream_launches["state_digest"]
+    launches["scan_greedy"] = solver_launches["scan_greedy"]
     k1 = times(device)
     quality = quality_times(device)
     digest = stream_times(stream_run)
+    k7 = solver_times(device, k7_plain_cpu_ms)
     device_shares(device)
     line = [dict(kernel_line("rounds_scan", launches["rounds_scan"], max_err, k1),
                  also_replaces="kafka_lag_based_assignor_tpu/ops/rounds_pallas.py:160")]
     for k, t in quality.items():
         line.append(kernel_line(k, launches[k], f32_err[k], t))
     line.append(kernel_line("state_digest", launches["state_digest"], digest_err, digest))
+    line.append(kernel_line("scan_greedy", launches["scan_greedy"], scan_err, k7))
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -12,13 +12,18 @@ not a subclass).  Mirrors the reference's protocol contract
   leader: unions subscribed topics, reads lags (the only network boundary),
   solves the assignment, wraps results with no user data.
 
-The ``rounds`` (default), ``global`` and ``sinkhorn`` solvers run on
-``device`` — the CUDA card unless the caller passes ``device="cpu"`` — and
-``host`` runs the host greedy.  ``sinkhorn`` is the quality solver; the
-process-wide ``quality.mode`` (:mod:`.ops.dispatch`) routes each of its
-topics to the dense or the linear-space path.  There is no host fallback:
-a device error propagates out of ``assign()``.  Every rebalance leaves a
-:class:`RebalanceStats` record in ``last_stats``.
+The ``rounds`` (default), ``scan``, ``global`` and ``sinkhorn`` solvers
+run on ``device`` — the CUDA card unless the caller passes
+``device="cpu"`` — ``native`` runs the C++ greedy core on the host and
+``host`` the Python greedy.  ``rounds``, ``scan``, ``native`` and ``host``
+give the reference's answer bit for bit; ``tpu.assignor.refine.iters > 0``
+appends the exchange refinement to ``rounds`` and ``scan`` (the quality
+mode of the default solver, no longer the reference's answer).
+``sinkhorn`` is the quality solver; the process-wide ``quality.mode``
+(:mod:`.ops.dispatch`) routes each of its topics to the dense or the
+linear-space path.  There is no host fallback: a device error propagates
+out of ``assign()``.  Every rebalance leaves a :class:`RebalanceStats`
+record in ``last_stats``.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from typing import Any, Callable, Mapping, Optional
 from .lag import LagRetryPolicy, MetadataConsumer, read_topic_partition_lags
 from .models.greedy import assign_greedy
 from .models.sinkhorn import assign_sinkhorn
+from .native import assign_native
 from .ops.dispatch import assign_device
 from .types import (
     Assignment,
@@ -46,7 +52,7 @@ LOGGER = logging.getLogger(__name__)
 MetadataConsumerFactory = Callable[[Mapping[str, Any]], MetadataConsumer]
 
 #: Solvers this package runs on the device.
-DEVICE_SOLVERS = ("rounds", "global", "sinkhorn")
+DEVICE_SOLVERS = ("rounds", "scan", "global", "sinkhorn")
 
 
 class LagBasedPartitionAssignor:
@@ -94,18 +100,6 @@ class LagBasedPartitionAssignor:
         if self._config is None:
             raise RuntimeError("configure() must be called before assign()")
         solver = self._config.solver
-        if solver not in DEVICE_SOLVERS + ("host",):
-            raise NotImplementedError(
-                f"solver {solver!r} is not ported to PyTorch yet; this "
-                f"package runs {DEVICE_SOLVERS + ('host',)} (see ROADMAP.md)"
-            )
-        if self._config.refine_iters and solver != "sinkhorn":
-            raise NotImplementedError(
-                "the exchange refinement of the parity solvers "
-                "(tpu.assignor.refine.iters > 0) is not ported to PyTorch "
-                "yet (see ROADMAP.md)"
-            )
-
         stats = RebalanceStats(
             solver=solver,
             device=self.device.type if solver in DEVICE_SOLVERS else None,
@@ -156,6 +150,8 @@ class LagBasedPartitionAssignor:
         with stopwatch() as solve_ms:
             if self._config.solver == "host":
                 raw = assign_greedy(lags, topic_subscriptions)
+            elif self._config.solver == "native":
+                raw = assign_native(lags, topic_subscriptions)
             elif self._config.solver == "sinkhorn":
                 raw = assign_sinkhorn(
                     lags, topic_subscriptions,
@@ -164,9 +160,12 @@ class LagBasedPartitionAssignor:
                     device=self.device,
                 )
             else:
+                # An explicit refine budget appends the exchange refinement
+                # to the per-topic parity kernels; global + refine is
+                # rejected by configure().
                 raw = assign_device(
                     lags, topic_subscriptions, kernel=self._config.solver,
-                    device=self.device,
+                    device=self.device, refine_iters=self._config.refine_iters,
                 )
         stats.solve_ms = solve_ms[0]
 

@@ -1,14 +1,19 @@
-"""Batched (one launch over a topic group) round-decomposition solve, and the
-transfer-lean single-topic stream path.
+"""Batched (one launch over a topic group) solves, their exchange
+refinement, and the transfer-lean single-topic stream path.
 
-Counterpart of ``assign_batched_rounds``, ``_narrow_choice``,
-``stream_payload`` and ``assign_stream`` in
-``kafka_lag_based_assignor_tpu/ops/batched.py``, which vmaps the per-topic
-solve.  Here the batch dimension is written out: one sort along the
-partition axis of the [T, P] group and one round-scan launch with one
-thread block per topic — BASELINE config 3 (256 topics x 64 partitions x 64
-consumers) runs as a single launch instead of 256.  Per-topic independence
-(SURVEY §2.4.3) makes the blocks independent.
+Counterpart of ``_maybe_refine``, ``assign_batched_rounds``, ``assign_batched_scan``, ``_narrow_choice``,
+``stream_payload``, ``assign_stream``, ``refine_batched`` and
+``assign_stream_refined`` in ``kafka_lag_based_assignor_tpu/ops/batched.py``,
+which vmaps the per-topic solve.  Here the batch dimension is written out:
+one sort along the partition axis of the [T, P] group and one kernel launch
+with one thread block per topic — BASELINE config 3 (256 topics x 64
+partitions x 64 consumers) runs as a single launch instead of 256.
+Per-topic independence (SURVEY §2.4.3) makes the blocks independent.
+
+Refinement is routed as in the JAX package: the batched solves refine with
+the oracle :func:`..ops.refine.refine_assignment` over the whole batch; the
+stream path with the resident rounds (:func:`_maybe_refine`).  A budget of
+0 leaves the greedy answer as it is (strict parity with the reference).
 """
 
 from __future__ import annotations
@@ -16,9 +21,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .packing import pad_bucket
+from .packing import pad_bucket, table_rows
+from .refine import build_choice_tables, refine_assignment, refine_rounds_resident
 from .rounds_kernel import assign_topic_rounds
-from .scan_kernel import pack_shift_for
+from .scan_kernel import assign_topic_scan, pack_shift_for
+
+
+def _maybe_refine(lags, valid, choice, num_consumers: int, iters: int):
+    """The stream path's refinement: ``iters`` resident rounds on one
+    topic's greedy choice (0: the choice as it is).  The resident rounds'
+    selection is bit-identical to :func:`..ops.refine.refine_assignment`'s,
+    and a greedy solve's count-balanced output always fits the table."""
+    if not iters:
+        return choice
+    row_tab, counts, totals = build_choice_tables(
+        lags, valid, choice, num_consumers, table_rows(lags.shape[0], num_consumers)
+    )
+    return refine_rounds_resident(
+        lags, choice, row_tab, counts, totals, num_consumers=num_consumers, iters=iters,
+    )[0]
 
 
 def assign_batched_rounds(
@@ -28,20 +49,57 @@ def assign_batched_rounds(
     num_consumers: int,
     pack_shift: int = 0,
     n_valid: int | None = None,
+    refine_iters: int = 0,
 ):
     """Rounds solve over a topic batch.
 
     Args: lags int64[T, P], partition_ids int32[T, P], valid bool[T, P];
     ``pack_shift`` as in :func:`..ops.scan_kernel.pack_shift_for`;
-    ``n_valid`` an upper bound on any topic's valid rows.
+    ``n_valid`` an upper bound on any topic's valid rows; ``refine_iters``
+    rounds of exchange refinement after the greedy solve (0: none, strict
+    parity with the reference).
     Returns (choice int32[T, P], counts int32[T, C], totals int64[T, C]).
     """
     if lags.dim() != 2:
         raise ValueError(f"lags must be [T, P], got {list(lags.shape)}")
-    return assign_topic_rounds(
+    out = assign_topic_rounds(
         lags, partition_ids, valid, num_consumers,
         pack_shift=pack_shift, n_valid=n_valid,
     )
+    if refine_iters:
+        out = refine_assignment(lags, valid, out[0], num_consumers, iters=refine_iters)
+    return out
+
+
+def assign_batched_scan(
+    lags: torch.Tensor,
+    partition_ids: torch.Tensor,
+    valid: torch.Tensor,
+    num_consumers: int,
+    pack_shift: int = 0,
+    refine_iters: int = 0,
+):
+    """The P-step scan over a topic batch (same contract, ``refine_iters``
+    included, as :func:`assign_batched_rounds`; the scan stops after each
+    topic's valid rows on its own)."""
+    if lags.dim() != 2:
+        raise ValueError(f"lags must be [T, P], got {list(lags.shape)}")
+    out = assign_topic_scan(lags, partition_ids, valid, num_consumers,
+                            pack_shift=pack_shift)
+    if refine_iters:
+        out = refine_assignment(lags, valid, out[0], num_consumers, iters=refine_iters)
+    return out
+
+
+def refine_batched(lags, valid, choice, num_consumers: int, iters: int):
+    """The exchange refinement of an existing batch assignment.
+
+    Args: lags int64[T, P], valid bool[T, P], choice int32[T, P] (count
+    balanced, e.g. a batched solve's).  Returns (choice int32[T, P], counts
+    int32[T, C], totals int64[T, C]): each topic's count spread kept, its
+    max/mean lag imbalance tightened; each topic stops on its own, as the
+    JAX package's vmapped while-loop does."""
+    return refine_assignment(lags, valid, choice, num_consumers, iters=iters)
 
 
 def _narrow_choice(choice: torch.Tensor, num_consumers: int) -> torch.Tensor:
@@ -65,14 +123,17 @@ def stream_payload(lags: np.ndarray):
     return lags, shift
 
 
-def assign_stream(lags: torch.Tensor, num_consumers: int, pack_shift: int = 0):
+def assign_stream(lags: torch.Tensor, num_consumers: int, pack_shift: int = 0,
+                  refine_iters: int = 0):
     """Greedy solve of one dense topic (partition ids 0..P-1, all valid).
 
     ``lags`` is the exact-size lag vector on the solve's device (int32 or
     int64); it is padded to ``pad_bucket(P)`` and solved by
     :func:`..ops.rounds_kernel.assign_topic_rounds` over ``ceil(P / C)``
-    rounds, so on the card it launches the round-scan kernel.  Returns the
-    narrowed choice[P] (int16 when C <= 32767), on the same device.
+    rounds, so on the card it launches the round-scan kernel; then
+    ``refine_iters`` resident refine rounds (:func:`_maybe_refine`, 0: none).
+    Returns the narrowed choice[P] (int16 when C <= 32767), on the same
+    device.
     """
     P = int(lags.shape[0])
     B = pad_bucket(P)
@@ -84,4 +145,15 @@ def assign_stream(lags: torch.Tensor, num_consumers: int, pack_shift: int = 0):
     choice, _, _ = assign_topic_rounds(
         lags_p, pids, valid, num_consumers, pack_shift=pack_shift, n_valid=P
     )
+    choice = _maybe_refine(lags_p, valid, choice, num_consumers, refine_iters)
     return _narrow_choice(choice[:P], num_consumers)
+
+
+def assign_stream_refined(lags: torch.Tensor, num_consumers: int,
+                          refine_iters: int = 64):
+    """The quality variant of :func:`assign_stream`: the greedy round scan,
+    then ``refine_iters`` resident refine rounds.  The count invariant is
+    the greedy one; the max/mean imbalance is tightened, so the answer is
+    not the reference's (the default solver's opt-in quality mode).
+    Returns the narrowed choice[P]."""
+    return assign_stream(lags, num_consumers, refine_iters=int(refine_iters))

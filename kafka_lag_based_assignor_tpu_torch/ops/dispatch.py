@@ -6,7 +6,7 @@ Counterpart of ``assign_device``, ``assign_group_device``,
 core's signature — ``(Map<topic, List<TopicPartitionLag>>, Map<member,
 List<topic>>) -> Map<member, List<TopicPartition>>``
 (LagBasedPartitionAssignor.java:166-188) — into packed topic groups
-(:mod:`.packing`), runs one batched solve per group (one round-scan launch),
+(:mod:`.packing`), runs one batched solve per group (one kernel launch),
 and rebuilds per-member partition lists in the reference's append order:
 topics in sorted order, partitions within a topic in processing order (lag
 descending, partition id ascending, :228-235).
@@ -34,15 +34,16 @@ from ..models.greedy import consumers_per_topic
 from ..types import AssignmentMap, TopicPartition, TopicPartitionLag
 from ..utils.config import QUALITY_MODES, validate_quality_tile
 from ..utils.device import DeviceLike, resolve_device
-from .batched import assign_batched_rounds
+from .batched import assign_batched_rounds, assign_batched_scan
 from .packing import TopicGroup, build_groups
 from .rounds_kernel import assign_global_rounds
 from .scan_kernel import pack_shift_for
 
 # "global" returns a single [C] totals vector (cross-topic) instead of
-# [T, C]; the choice/counts contracts are identical.
+# [T, C]; the choice/counts contracts are identical across all three.
 _BATCHED_KERNELS = {
     "rounds": assign_batched_rounds,
+    "scan": assign_batched_scan,
     "global": assign_global_rounds,
 }
 
@@ -79,28 +80,36 @@ def _rebuild_topic(
 
 
 def assign_group_device(
-    group: TopicGroup, kernel: str = "rounds", device: DeviceLike = None
+    group: TopicGroup, kernel: str = "rounds", device: DeviceLike = None,
+    refine_iters: int = 0,
 ):
     """Run one packed topic group through a batched kernel.
 
     Returns (choice int32[T, P_pad], counts int32[T, C], totals) as tensors
-    on ``device``; ``totals`` is per-topic [T, C] for "rounds" but a single
-    cross-topic [C] vector for "global".
+    on ``device``; ``totals`` is per-topic [T, C] for the parity kernels
+    ("rounds", "scan") but a single cross-topic [C] vector for "global".
+    ``refine_iters`` (0: strict parity; "rounds" and "scan" only) appends
+    that many rounds of per-topic exchange refinement.
     """
     kernel_fn = _BATCHED_KERNELS[kernel]
+    if refine_iters and kernel == "global":
+        raise ValueError(
+            "refine_iters is per-topic and would undo the 'global' "
+            "kernel's cross-topic balance; use kernel='rounds' or 'scan'"
+        )
     # Packed single-key sort when the group's value ranges allow, checked
     # on the numpy inputs (padding rows included: they only widen the
-    # bound); the scan stops after the longest topic's rounds.
+    # bound).  The round scans stop after the longest topic's rounds; the
+    # P-step scan stops after each topic's valid rows on its own.
     max_lag = int(group.lags.max()) if group.lags.size else 0
     max_pid = int(group.partition_ids.max()) if group.partition_ids.size else 0
-    n_valid = int(group.valid.sum(axis=1).max()) if group.valid.size else 0
+    options = {"pack_shift": pack_shift_for(max_lag, max_pid)}
+    if kernel != "scan":
+        options["n_valid"] = int(group.valid.sum(axis=1).max()) if group.valid.size else 0
+    if refine_iters:
+        options["refine_iters"] = int(refine_iters)
     lags, pids, valid = group_tensors(group, device=device)
-    return kernel_fn(
-        lags, pids, valid,
-        num_consumers=group.num_consumers,
-        pack_shift=pack_shift_for(max_lag, max_pid),
-        n_valid=n_valid,
-    )
+    return kernel_fn(lags, pids, valid, num_consumers=group.num_consumers, **options)
 
 
 def assign_device(
@@ -108,16 +117,24 @@ def assign_device(
     subscriptions: Mapping[str, Sequence[str]],
     kernel: str = "rounds",
     device: DeviceLike = None,
+    refine_iters: Optional[int] = None,
 ) -> AssignmentMap:
     """Device-backed equivalent of the reference's static core (:166-188):
     full parity including empty members and missing-lag topics, with one
     batched solve per subscriber-set group.  ``device`` defaults to the
     CUDA card (raises without one); ``"cpu"`` runs the plain PyTorch path.
+
+    ``refine_iters`` (default off: strict reference parity) appends that
+    many rounds of exchange refinement to each group's solve, the default
+    solver's quality mode; only the per-topic kernels ("rounds", "scan")
+    take it, since a per-topic refinement would undo "global"'s
+    cross-topic balance.
     """
     if kernel not in _BATCHED_KERNELS:
         raise ValueError(
             f"unknown kernel {kernel!r}; valid: {sorted(_BATCHED_KERNELS)}"
         )
+    refine = int(refine_iters) if refine_iters else 0
     dev = resolve_device(device)
     assignment: AssignmentMap = {m: [] for m in subscriptions}
     by_topic = consumers_per_topic(subscriptions)
@@ -125,7 +142,9 @@ def assign_device(
 
     fragments: Dict[str, Dict[str, List[TopicPartition]]] = {}
     for group in groups:
-        choice = assign_group_device(group, kernel=kernel, device=dev)[0]
+        choice = assign_group_device(
+            group, kernel=kernel, device=dev, refine_iters=refine
+        )[0]
         choice = choice.cpu().numpy()
         for ti, topic in enumerate(group.topics):
             fragments[topic] = _rebuild_topic(
@@ -151,6 +170,7 @@ def assign_topic_device(
     partition_lags: Sequence[TopicPartitionLag],
     kernel: str = "rounds",
     device: DeviceLike = None,
+    refine_iters: Optional[int] = None,
 ) -> Dict[str, List[TopicPartition]]:
     """Single-topic convenience wrapper (degenerate one-topic group)."""
     return assign_device(
@@ -158,6 +178,7 @@ def assign_topic_device(
         {m: [topic] for m in consumers},
         kernel=kernel,
         device=device,
+        refine_iters=refine_iters,
     )
 
 

@@ -1,11 +1,19 @@
-"""Resident-table pairwise-exchange refinement and the resident-state digest.
+"""Pairwise-exchange refinement and the resident-state digest.
 
-Counterpart of ``_quant_shift``, ``build_choice_tables`` and
-``refine_rounds_resident`` in ``kafka_lag_based_assignor_tpu/ops/refine.py``.
-It post-processes an integral, count-balanced assignment to tighten the
-max/mean lag imbalance while keeping ``max - min <= 1`` partitions.
+Counterpart of ``refine_assignment``, ``_quant_shift``,
+``build_choice_tables``, ``refine_rounds_resident`` and
+``refine_assignment_resident`` in
+``kafka_lag_based_assignor_tpu/ops/refine.py``.  It post-processes an
+integral, count-balanced assignment to tighten the max/mean lag imbalance
+while keeping ``max - min <= 1`` partitions.
 
-The state is a compact per-consumer row table ``row_tab`` [C, M] (M =
+:func:`refine_assignment` is the oracle round: two P-sized stable sorts a
+round (every row keyed by pair, quantized lag and side; then one segmented
+argmin), the swap partners found as nearest light neighbours by cumulative
+max and min scans.  It takes a batch of independent topics, each stopping
+on its own as the JAX package's ``vmap`` of the loop does.
+
+The resident form keeps a compact per-consumer row table ``row_tab`` [C, M] (M =
 ``packing.table_rows``), the per-consumer counts and int64 totals.  Each
 round ranks the consumers by total, pairs the K heaviest with K partners
 from the light side (the partner permutation rotates every round), and for
@@ -33,7 +41,14 @@ from __future__ import annotations
 
 import torch
 
-from .sortops import lexsort
+from .packing import table_rows
+from .sortops import (
+    bincount_sorted,
+    lexsort,
+    segment_argmin_first,
+    segment_sum,
+    sort_with,
+)
 
 _PAIR_BITS = 14
 _VBITS = 63 - _PAIR_BITS - 1  # quantized-lag field width (48)
@@ -45,13 +60,185 @@ DIGEST_MAX_CONSUMERS = 16384
 
 
 def _quant_shift(lags, assigned):
-    """The quantization shift: max(bit_length(max assigned lag, >= 1) -
-    48, 0), as an int64 scalar tensor.  The bit length is counted with
-    integer shifts (no float, which rounds above 2**53)."""
-    maxlag = torch.clamp(torch.where(assigned, lags, 0).max(), min=1)
+    """The quantization shift of each topic (along the last axis):
+    max(bit_length(max assigned lag, >= 1) - 48, 0), as int64[...] (a
+    scalar tensor for one topic).  The bit length is counted with integer
+    shifts (no float, which rounds above 2**53)."""
+    maxlag = torch.clamp(torch.where(assigned, lags, 0).amax(dim=-1), min=1)
     shifts = torch.arange(63, dtype=torch.int64, device=lags.device)
-    bitlen = ((maxlag >> shifts) > 0).sum()
+    bitlen = ((maxlag[..., None] >> shifts) > 0).sum(dim=-1)
     return torch.clamp(bitlen - _VBITS, min=0)
+
+
+def _start_state(lags, valid, choice, num_consumers: int):
+    """(choice int32, assigned mask, counts int32[..., C], totals
+    int64[..., C]) of an assignment."""
+    choice = choice.to(torch.int32)
+    assigned = valid & (choice >= 0)
+    seg0 = torch.where(assigned, choice, -1)
+    totals = segment_sum(torch.where(assigned, lags, 0), seg0, num_consumers)
+    return choice, assigned, bincount_sorted(seg0, num_consumers), totals
+
+
+def refine_assignment(lags, valid, choice, num_consumers: int, iters: int = 16,
+                      max_pairs: int | None = None, patience: int = 8):
+    """Improve an integral assignment by rounds of parallel exchanges (the
+    JAX package's oracle kernel, module docstring).
+
+    Args: lags int64[P] or [T, P] (non-negative); valid bool of the same
+    shape (invalid rows must have choice -1); choice int32 (count-balanced);
+    ``num_consumers`` C; ``iters`` the round budget; ``max_pairs`` the
+    pairs a round (default C // 2); ``patience`` stops a topic after that
+    many consecutive rounds that did not lower its peak total.  Each topic
+    of a batch runs until its own budget or patience ends and is frozen
+    after that; the loop reads the device once a round (are any topics
+    still going).
+
+    Returns (choice int32, counts int32[..., C], totals int64[..., C]).
+    """
+    C = int(num_consumers)
+    K = max(1, min(C // 2, max_pairs if max_pairs is not None else C // 2))
+    if K >= (1 << _PAIR_BITS) - 1:
+        raise ValueError(
+            f"max_pairs={K} exceeds the packed pair-id field ({_PAIR_BITS} bits)"
+        )
+    choice, assigned, counts, totals = _start_state(lags, valid, choice, C)
+    if C < 2:
+        return choice, counts, totals
+    one = lags.dim() == 1
+    if one:
+        lags, assigned, choice = lags[None], assigned[None], choice[None]
+        counts, totals = counts[None], totals[None]
+    T, P = lags.shape
+    dev = lags.device
+    n_light = C - K
+    kk = torch.arange(K, device=dev)
+    arange_p = torch.arange(P, device=dev).expand(T, P)
+    arange_c = torch.arange(C, device=dev).expand(T, C)
+    vmask = (1 << _VBITS) - 1
+    pshift = _quant_shift(lags, assigned)[:, None]  # [T, 1]
+
+    def body(it, choice, totals, counts):
+        safe_choice = torch.clamp(choice, 0, C - 1).to(torch.int64)
+        # Rank the consumers by load; pair the k-th heaviest with a partner
+        # from the light side, the partner permutation rotating each round.
+        order = torch.argsort(totals, dim=1, stable=True)
+        rank = torch.empty_like(order).scatter_(1, order, arange_c)
+        light_slot = (kk + it % n_light) % n_light
+        light = order[:, light_slot]     # [T, K]
+        heavy = order[:, C - 1 - kk]     # [T, K]
+        diff = totals.gather(1, heavy) - totals.gather(1, light)
+
+        # Per-consumer (pair, side, move allowed), gathered once per row.
+        slot_to_pair = torch.full((n_light,), K, dtype=torch.int64, device=dev)
+        slot_to_pair[light_slot] = kk
+        pair_of = torch.where(rank < n_light,
+                              slot_to_pair[torch.clamp(rank, 0, n_light - 1)],
+                              C - 1 - rank)
+        heavy_side = rank >= C - K
+        move_ok_pair = counts.gather(1, heavy) > counts.gather(1, light)
+        move_ok_pad = torch.cat([move_ok_pair, move_ok_pair.new_zeros(T, 1)], dim=1)
+        move_ok_of = heavy_side & move_ok_pad.gather(1, torch.clamp(pair_of, 0, K))
+        combo_tab = (pair_of | (heavy_side.to(torch.int64) << _PAIR_BITS)
+                     | (move_ok_of.to(torch.int64) << (_PAIR_BITS + 1)))
+        combo = torch.where(assigned, combo_tab.gather(1, safe_choice), -1)
+        k_p = combo & ((1 << _PAIR_BITS) - 1)
+        row_heavy = (combo >> _PAIR_BITS) & 1
+        row_move_ok = (combo >> (_PAIR_BITS + 1)) & 1
+        participates = (combo >= 0) & (k_p < K)
+        diff_p = torch.where(participates, diff.gather(1, torch.clamp(k_p, 0, K - 1)), 0)
+
+        # The round sort: light rows keyed by their quantized lag, heavy
+        # rows by their ideal counterpart's (lag - gap / 2), the pair in
+        # the high bits, the side bit last.
+        tgt = torch.clamp(lags - (diff_p >> 1), min=0) >> pshift
+        qval = torch.where(row_heavy == 1, tgt, lags >> pshift)
+        key = torch.where(
+            participates,
+            (k_p << (_VBITS + 1)) | (torch.clamp(qval, 0, vmask) << 1) | row_heavy,
+            _INT64_MAX,
+        )
+        skey, slag, srow, smove_ok = sort_with(key, lags, arange_p, row_move_ok)
+
+        part_s = skey < _INT64_MAX
+        pair_s = skey >> (_VBITS + 1)
+        heavy_s = part_s & ((skey & 1) == 1)
+        light_s = part_s & ((skey & 1) == 0)
+        qlag_s = slag >> pshift
+        diff_s = torch.where(heavy_s, diff.gather(1, torch.clamp(pair_s, 0, K - 1)), 0)
+        delta_q_s = (diff_s >> 1) >> pshift
+        diff_q_s = diff_s >> pshift
+
+        # Nearest light neighbours: the last light row at or below, the
+        # first above (lax.cummin(reverse=True) is a flip, cummin, flip).
+        prev_l = torch.cummax(torch.where(light_s, arange_p, -1), dim=1).values
+        nxt_l = torch.cummin(torch.where(light_s, arange_p, P).flip(1), dim=1).values.flip(1)
+
+        def neighbour(nb):
+            nkey = skey.gather(1, torch.clamp(nb, 0, P - 1))
+            okq = ((nb >= 0) & (nb < P) & ((nkey & 1) == 0)
+                   & ((nkey >> (_VBITS + 1)) == pair_s))
+            d_q = qlag_s - ((nkey >> 1) & vmask)
+            ok = heavy_s & okq & (d_q > 0) & (d_q < diff_q_s)
+            return torch.where(ok, (d_q - delta_q_s).abs(), _SBIG)
+
+        err_a = neighbour(prev_l)
+        err_b = neighbour(nxt_l)
+        use_b = err_b < err_a
+        err_swap = torch.where(use_b, err_b, err_a)
+        nb_sel = torch.where(use_b, nxt_l, prev_l)
+
+        # The move candidate (exact validity) merged with the swap by a tag
+        # bit under the score: ties prefer the move.
+        ok_move = heavy_s & (smove_ok == 1) & (slag > 0) & (slag < diff_s)
+        score_move = torch.where(ok_move, (qlag_s - delta_q_s).abs(), _SBIG)
+        combined = torch.where(score_move <= err_swap, score_move << 1,
+                               (err_swap << 1) | 1)
+        seg_h = torch.where(heavy_s, pair_s, K)
+        minv, widx = segment_argmin_first(combined, seg_h, K, P)
+
+        # The [T, K] winners; pairs are disjoint, so all apply at once.
+        do = minv < (_SBIG << 1)
+        is_swap = (minv & 1) == 1
+        wclip = torch.clamp(widx, 0, P - 1).to(torch.int64)
+        p_sel = srow.gather(1, wclip)
+        lag_p = slag.gather(1, wclip)
+        nb_k = torch.clamp(nb_sel.gather(1, wclip), 0, P - 1)
+        q_sel = srow.gather(1, nb_k)
+        lag_q = slag.gather(1, nb_k)
+        use_swap = do & is_swap
+        d = torch.where(do, torch.where(use_swap, lag_p - lag_q, lag_p), 0)
+
+        # Column P takes the writes JAX's mode="drop" discards.
+        ext = torch.cat([choice, choice.new_zeros(T, 1)], dim=1)
+        ext.scatter_(1, torch.where(do, p_sel, P), light.to(torch.int32))
+        ext.scatter_(1, torch.where(use_swap, q_sel, P), heavy.to(torch.int32))
+        new_totals = totals.clone()
+        new_totals.scatter_add_(1, heavy, -d)
+        new_totals.scatter_add_(1, light, d)
+        dc = (do & ~is_swap).to(counts.dtype)
+        new_counts = counts.clone()
+        new_counts.scatter_add_(1, heavy, -dc)
+        new_counts.scatter_add_(1, light, dc)
+        peak_dropped = new_totals.amax(dim=1) < totals.amax(dim=1)
+        return ext[:, :P], new_totals, new_counts, peak_dropped
+
+    since = torch.zeros(T, dtype=torch.int64, device=dev)
+    active = since < patience
+    it = 0
+    while it < iters and bool(active.any()):
+        new_choice, new_totals, new_counts, peak_dropped = body(it, choice, totals, counts)
+        # A topic that has stopped keeps its state, as under JAX's vmap.
+        go = active[:, None]
+        choice = torch.where(go, new_choice, choice)
+        totals = torch.where(go, new_totals, totals)
+        counts = torch.where(go, new_counts, counts)
+        since = torch.where(active, torch.where(peak_dropped, 0, since + 1), since)
+        it += 1
+        active = since < patience
+    if one:
+        return choice[0], counts[0], totals[0]
+    return choice, counts, totals
 
 
 def build_choice_tables(lags, valid, choice, num_consumers: int, table_rows: int):
@@ -398,6 +585,32 @@ def refine_rounds_resident(
         it += 1
         go, ex = going()
     return choice, row_tab, counts, totals, it, ex
+
+
+def refine_assignment_resident(lags, valid, choice, num_consumers: int,
+                               iters: int = 16, max_pairs: int | None = None,
+                               patience: int = 8, exchange_budget: int = 0,
+                               quality_limit=-1.0):
+    """:func:`refine_assignment` of one topic through the resident rounds:
+    the table built fresh by one P-sized sort, :func:`refine_rounds_resident`
+    run on it, the table dropped.  With no budget and no limit its results
+    are bit-identical to :func:`refine_assignment`'s.  Needs the count
+    invariant (max count <= ceil(P / C) + 1).  Returns (choice int32[P],
+    counts int32[C], totals int64[C])."""
+    C = int(num_consumers)
+    if C < 2 or iters <= 0:
+        choice, _, counts, totals = _start_state(lags, valid, choice, C)
+        return choice, counts, totals
+    choice = choice.to(torch.int32)
+    row_tab, counts, totals = build_choice_tables(
+        lags, valid, choice, C, table_rows(lags.shape[0], C)
+    )
+    choice, _, counts, totals, _, _ = refine_rounds_resident(
+        lags, choice, row_tab, counts, totals, num_consumers=C, iters=iters,
+        max_pairs=max_pairs, patience=patience, exchange_budget=exchange_budget,
+        quality_limit=quality_limit,
+    )
+    return choice, counts, totals
 
 
 # ---------------------------------------------------------------------------

@@ -36,8 +36,7 @@ LAG_RETRY_BACKOFF_CONFIG = "tpu.assignor.lag.retry.backoff.ms"
 # the per-rounding-path budget (models/sinkhorn: 24 for the sequential
 # rounding, 96 for the parallel one) and an explicit integer is honored
 # exactly.  For the parity solvers an explicit integer > 0 opts into the
-# exchange refinement, which this package does not run yet (the assignor
-# raises NotImplementedError for it).
+# exchange refinement (rounds and scan; rejected for global below).
 REFINE_ITERS_CONFIG = "tpu.assignor.refine.iters"
 SINKHORN_ITERS_CONFIG = "tpu.assignor.sinkhorn.iters"  # int > 0
 # Quality-mode plane (ops/dispatch + ops/linear_ot).  ``quality.mode``
@@ -72,8 +71,7 @@ def validate_quality_tile(tile) -> int:
         )
     return t
 
-# The JAX package's solver names: all of them parse, so a config written
-# for it is accepted here; the assignor names the ones this package runs.
+# The JAX package's solver names: all of them parse and run here.
 VALID_SOLVERS = ("rounds", "scan", "global", "sinkhorn", "native", "host")
 
 

@@ -1,11 +1,13 @@
 """The port's rebalance path against the JAX package, on the CPU.
 
-``assign_device`` and the plugin's ``assign()`` of both packages solve the
-same BASELINE workloads (the README example = config 1, configs 2 and 3 at
-full size, config 5 cut to 5k partitions / 100 consumers) for the
-``rounds`` and ``global`` solvers.  Results must be identical, member list
-order included (both packages promise processing order), and equal to the
-JAX package's host oracle.
+``assign_device`` (``native.assign_native`` for ``native``) and the
+plugin's ``assign()`` of both packages solve the same BASELINE workloads
+(the README example = config 1, configs 2 and 3 at full size, config 5 cut
+to 5k partitions / 100 consumers) for the ``rounds``, ``global``, ``scan``
+and ``native`` solvers and for ``rounds`` and ``scan`` with 16 rounds of
+exchange refinement.  Results must be identical, member list order
+included (both packages promise processing order), and the parity
+solvers' equal to the JAX package's host oracle.
 """
 
 import numpy as np
@@ -14,16 +16,21 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from kafka_lag_based_assignor_tpu import lag as jax_lag  # noqa: E402
+from kafka_lag_based_assignor_tpu import native as jax_native  # noqa: E402
 from kafka_lag_based_assignor_tpu.assignor import (  # noqa: E402
     LagBasedPartitionAssignor as JaxAssignor,
 )
 from kafka_lag_based_assignor_tpu.models import greedy as jax_greedy  # noqa: E402
+from kafka_lag_based_assignor_tpu.ops import batched as jax_batched  # noqa: E402
 from kafka_lag_based_assignor_tpu.ops import dispatch as jax_dispatch  # noqa: E402
 from kafka_lag_based_assignor_tpu.testing import FakeBroker as JaxBroker  # noqa: E402
 from kafka_lag_based_assignor_tpu.utils import config as jax_config  # noqa: E402
-from kafka_lag_based_assignor_tpu_torch import lag  # noqa: E402
+from kafka_lag_based_assignor_tpu_torch import lag, native  # noqa: E402
 from kafka_lag_based_assignor_tpu_torch.assignor import (  # noqa: E402
     LagBasedPartitionAssignor,
+)
+from kafka_lag_based_assignor_tpu_torch.ops.batched import (  # noqa: E402
+    assign_stream_refined,
 )
 from kafka_lag_based_assignor_tpu_torch.ops.dispatch import (  # noqa: E402
     assign_device,
@@ -46,8 +53,16 @@ CASES = [(1, None), (2, None), (3, None), (5, (5000, 100))]
 CASE_IDS = ["readme", "zipf_1k_16c", "vmap_256t_64p_64c", "northstar_5k_100c"]
 ORACLES = {
     "rounds": jax_greedy.assign_greedy,
+    "scan": jax_greedy.assign_greedy,
+    "native": jax_greedy.assign_greedy,
     "global": jax_greedy.assign_greedy_global,
 }
+# (solver, refine rounds or None): the parity solvers, and the default
+# solver's quality mode on both per-topic kernels.
+SOLVERS = [("rounds", None), ("global", None), ("scan", None), ("native", None),
+           ("rounds", 16), ("scan", 16)]
+SOLVER_IDS = ["rounds", "global", "scan", "native", "rounds_refine16", "scan_refine16"]
+REFINE_ITERS = 16
 
 
 def workload(case):
@@ -64,17 +79,44 @@ def pairs(assignment):
     }
 
 
-@pytest.mark.parametrize("solver", ["rounds", "global"])
+@pytest.mark.parametrize("solver,refine", SOLVERS, ids=SOLVER_IDS)
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
-def test_assign_device_matches_jax(case, solver):
+def test_assign_device_matches_jax(case, solver, refine):
     lags, subs = workload(case)
     rows = lag_rows(lags)
-    got = pairs(assign_device(rows, subs, kernel=solver, device="cpu"))
-    assert got == pairs(jax_dispatch.assign_device(rows, subs, kernel=solver))
-    assert got == pairs(ORACLES[solver](rows, subs))
+    if solver == "native":
+        got = pairs(native.assign_native(rows, subs))
+        want = pairs(jax_native.assign_native(rows, subs))
+    else:
+        got = pairs(assign_device(rows, subs, kernel=solver, device="cpu",
+                                  refine_iters=refine))
+        want = pairs(jax_dispatch.assign_device(rows, subs, kernel=solver,
+                                                refine_iters=refine))
+    assert got == want
+    if refine is None:
+        assert got == pairs(ORACLES[solver](rows, subs))
     for topic in lags:  # per-topic count spread <= 1
         counts = [sum(t == topic for t, _ in tps) for tps in got.values()]
         assert max(counts) - min(counts) <= 1
+
+
+def test_global_refine_is_rejected_like_jax():
+    lags, subs = workload(CASES[1])
+    rows = lag_rows(lags)
+    with pytest.raises(ValueError, match="global"):
+        assign_device(rows, subs, kernel="global", device="cpu", refine_iters=8)
+    with pytest.raises(ValueError, match="global"):
+        jax_dispatch.assign_device(rows, subs, kernel="global", refine_iters=8)
+
+
+@pytest.mark.parametrize("P,C,iters", [(3000, 40, 32), (5000, 100, 16), (777, 1, 8)])
+def test_assign_stream_refined_matches_jax(P, C, iters):
+    lags, _ = baseline_workload(5, P, C)
+    arr = lags["t0"]
+    got = assign_stream_refined(torch.from_numpy(arr), C, refine_iters=iters)
+    want = np.asarray(jax_batched.assign_stream_refined(arr, C, refine_iters=iters))
+    assert got.dtype == torch.int16 and want.dtype == np.int16
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_readme_worked_example():
@@ -95,12 +137,14 @@ def jax_broker_for(lags):
     return broker
 
 
-@pytest.mark.parametrize("solver", ["rounds", "global"])
+@pytest.mark.parametrize("solver,refine", SOLVERS, ids=SOLVER_IDS)
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
-def test_plugin_matches_jax_plugin(case, solver):
+def test_plugin_matches_jax_plugin(case, solver, refine):
     lags, subs = workload(case)
     group = GroupSubscription({m: Subscription(t) for m, t in subs.items()})
     configs = {"group.id": "g", "tpu.assignor.solver": solver}
+    if refine is not None:
+        configs["tpu.assignor.refine.iters"] = str(refine)
 
     port = LagBasedPartitionAssignor(lambda props: broker_for(lags), device="cpu")
     port.configure(configs)
@@ -116,7 +160,8 @@ def test_plugin_matches_jax_plugin(case, solver):
 
     assert by_member(got) == by_member(want)
     assert not ref.last_stats.fallback_used
-    assert port.last_stats.device == "cpu"
+    assert port.last_stats.device == (None if solver == "native" else "cpu")
+    assert port.last_stats.refine_iters == ref.last_stats.refine_iters
     assert port.last_stats.num_partitions == ref.last_stats.num_partitions
     assert port.last_stats.quality_ratio == ref.last_stats.quality_ratio
 
@@ -132,24 +177,6 @@ def test_host_solver_is_the_oracle():
         pairs(want)
     )
     assert port.last_stats.device is None
-
-
-@pytest.mark.parametrize(
-    "configs",
-    [
-        {"tpu.assignor.solver": "scan"},
-        # sinkhorn runs now (test_sinkhorn_solver_runs); the parity
-        # solvers' refinement still raises, on scan as on rounds.
-        {"tpu.assignor.solver": "scan", "tpu.assignor.refine.iters": "8"},
-        {"tpu.assignor.solver": "native"},
-        {"tpu.assignor.refine.iters": "8"},
-    ],
-)
-def test_unported_options_raise(configs):
-    port = LagBasedPartitionAssignor(lambda props: broker_for({}), device="cpu")
-    port.configure({"group.id": "g", **configs})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port.assign(broker_for({}).cluster(), GroupSubscription({}))
 
 
 def test_sinkhorn_solver_runs():
@@ -196,6 +223,8 @@ def test_config_matches_jax(raw):
         {"group.id": "g", "tpu.assignor.quality.mode": "dense"},
         {"group.id": "g", "tpu.assignor.quality.tile": "100"},
         {"group.id": "g", "tpu.assignor.sinkhorn.iters": "0"},
+        {"group.id": "g", "tpu.assignor.solver": "global",
+         "tpu.assignor.refine.iters": "8"},
     ],
 )
 def test_config_rejects_like_jax(bad):

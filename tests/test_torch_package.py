@@ -3,7 +3,8 @@
 * no module of ``kafka_lag_based_assignor_tpu_torch`` (nor ``chip_smoke.py``)
   imports ``jax`` or ``kafka_lag_based_assignor_tpu`` — by an AST walk, and
   by importing every module in a fresh interpreter;
-* every module of the streaming slice is covered by both checks;
+* every module of the streaming slice and of the solver surface (the scan
+  kernel's wrapper, the native core's loader) is covered by both checks;
 * entry points default to the CUDA card and raise without one;
 * CPU tensors take the plain path and never count a kernel launch;
 * ``convert.group_tensors`` carries a JAX ``TopicGroup`` over unchanged.
@@ -20,7 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from kafka_lag_based_assignor_tpu.ops import packing as jax_packing  # noqa: E402
-from kafka_lag_based_assignor_tpu_torch import convert  # noqa: E402
+from kafka_lag_based_assignor_tpu_torch import convert, native  # noqa: E402
 from kafka_lag_based_assignor_tpu_torch.assignor import (  # noqa: E402
     LagBasedPartitionAssignor,
 )
@@ -33,6 +34,7 @@ from kafka_lag_based_assignor_tpu_torch.ops import (  # noqa: E402
     plan_stats,
     refine,
     rounds_cuda,
+    scan_cuda,
 )
 from kafka_lag_based_assignor_tpu_torch.ops.streaming import (  # noqa: E402
     StreamingAssignor,
@@ -74,10 +76,21 @@ STREAMING_SLICE = ("ops/streaming.py", "ops/delta.py", "ops/state_digest_cuda.py
                    "utils/scrub.py", "utils/watchdog.py")
 
 
+SOLVER_SLICE = ("ops/scan_cuda.py", "ops/scan_kernel.py", "ops/refine.py",
+                "ops/batched.py", "native/__init__.py")
+
+
 def test_import_checks_cover_the_streaming_slice():
     walked = {p.relative_to(PORT).as_posix() for p in port_sources() if PORT in p.parents}
     assert set(STREAMING_SLICE) <= walked
     assert (PORT / "csrc" / "state_digest.cu").exists()
+
+
+def test_import_checks_cover_the_solver_surface():
+    walked = {p.relative_to(PORT).as_posix() for p in port_sources() if PORT in p.parents}
+    assert set(SOLVER_SLICE) <= walked
+    assert (PORT / "csrc" / "scan_greedy.cu").exists()
+    assert (PORT / "native" / "greedy.cpp").exists()
 
 
 def test_importing_the_port_loads_no_jax():
@@ -136,15 +149,20 @@ def test_default_device_is_the_card(monkeypatch):
 def launch_counts():
     return (rounds_cuda.rounds_scan.launches, plan_stats.plan_stats.launches,
             linear_ot_cuda.superblock_partials.launches,
-            linear_ot_cuda.mirror_prox_step.launches, refine.state_digest.launches)
+            linear_ot_cuda.mirror_prox_step.launches, refine.state_digest.launches,
+            scan_cuda.scan_greedy.launches)
 
 
 def test_cpu_tensors_never_count_a_launch():
     before = launch_counts()
     lags, members = baseline_workload(5, 3000, 40)
     subs = {m: ["t0"] for m in members}
-    for kernel in ("rounds", "global"):
+    for kernel in ("rounds", "global", "scan"):
         dispatch.assign_device(lag_rows(lags), subs, kernel=kernel, device="cpu")
+    for kernel in ("rounds", "scan"):
+        dispatch.assign_device(lag_rows(lags), subs, kernel=kernel, device="cpu",
+                               refine_iters=4)
+    native.assign_native(lag_rows(lags), subs)
     sinkhorn.assign_sinkhorn(lag_rows(lags), subs, device="cpu")
     with dispatch.quality_scope("linear", tile=64):
         sinkhorn.assign_sinkhorn(lag_rows(lags), subs, device="cpu")
@@ -162,6 +180,8 @@ def test_other_devices_never_reach_the_plain_version():
             gains, torch.ones_like(gains, dtype=torch.uint8),
             torch.zeros(4, dtype=torch.int64, device="meta"),
         )
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        scan_cuda.scan_greedy(gains[0], torch.ones_like(gains[0], dtype=torch.uint8), 4)
     vec = torch.zeros(4, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         plan_stats.plan_stats(vec, vec, vec, vec, vec)
