@@ -49,16 +49,21 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    refine on the card bit for bit against the port's CPU path from a
    drifted config-5 resident state; the P-step scan (K7) bit for bit
    against its plain version on the card, each case launched twice to the
-   same bits, at C = 1, 2, 31, 32, 33, 1,000, 1,024, 1,025 and 16,384, with
+   same bits, and a case the packed key admits also in the two-key form,
+   at C = 1, 2, 31, 32, 33, 1,000, 1,024, 1,025 and 16,384, with
    all-zero lags, lags near 2^62 (wrapping totals), an eligible mask and a
-   mask with none eligible, padding rows (at the end and in the middle)
-   and config 3's 256 topics x 64 rows, then the main path's own inputs
-   at configs 5 (131,072 padded rows, 100k valid, C 1,000) and 3 bit for
-   bit against the plain version on CPU copies (timed on the host clock),
-   and C = 16,385 raising on both devices; ``refine_batched`` (16 rounds) on the card bit for bit against
-   the port's CPU path at config 3, at its shape with 16 consumers and on
-   the config-5 topic; and ``native.assign_native`` at config 5 equal to
-   the ``rounds`` solve on the card;
+   mask with none eligible, padding rows (at the end and in the middle),
+   config 3's 256 topics x 64 rows, E = 1, 2 and 33 eligible of 1,000
+   consumers and 2 of 16,384, and four topics of their own valid lengths
+   with padding in the middle, then the main path's own inputs at configs
+   5 (131,072 padded rows, 100k valid, C 1,000) and 3 bit for bit against
+   the plain version on CPU copies (timed on the host clock), also as the
+   main path calls it (the lags' range from the host, the same plan), and C =
+   16,385 raising on both devices; ``refine_batched`` (16 rounds) on the
+   card bit for bit against the port's CPU path at config 3, at its shape
+   with 16 consumers and on the config-5 topic; and
+   ``native.assign_native`` at config 5 equal to the ``rounds`` solve on
+   the card;
 4. main paths, each with every launch count set to 0 just before it and
    read just after, through the port's ``LagBasedPartitionAssignor(
    device="cuda")`` with a ``FakeBroker``:
@@ -105,21 +110,25 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    ``torch.profiler``: the device's busy time and its idle share of the
    wall; the streaming epoch walls by type (cold, and the medians of the
    no-op, warm-refine and delta epochs), the host reads of a warm epoch and
-   one profiled warm-refine epoch; K7 alone at configs 5 and 3 (event and
-   device time, time a step, bound; its plain version on the card, a
-   median at config 3 and one call at config 5, equal to the kernel), the ``assign()`` walls of ``scan`` and ``rounds`` + 16 refine
-   rounds at config 5 (medians of 10), and the device shares of those
-   cells at configs 5 and 3.
+   one profiled warm-refine epoch; K7 alone at configs 5 and 3 and at the
+   direct API's ``K7_TIMED`` shapes (event and device time, time a row,
+   rounds x stages, bound; its plain version on the card, a median at
+   config 3 and one call at config 5, equal to the kernel), the
+   ``assign()`` walls of ``scan`` and ``rounds`` + 16 refine rounds at
+   config 5 (medians of 10), and the device shares of those cells at
+   configs 5 and 3.
 
 It prints the card's name and power limit, one JSON ``kernels`` line, and as
 its last line
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
 result.
 
-Four more modes time kernels alone::
+Six more modes time kernels alone::
 
     python3 chip_smoke.py --k1-times           # phase 5's K1 times only
     python3 chip_smoke.py --k1-ab ROOT [ROOT ...]
+    python3 chip_smoke.py --k7-times           # phase 5's K7 times only
+    python3 chip_smoke.py --k7-ab ROOT [ROOT ...]
     python3 chip_smoke.py --k36-times          # K3 and K6 (and K4, K5 alone)
     python3 chip_smoke.py --k36-ab ROOT [ROOT ...]
 
@@ -437,6 +446,15 @@ def scan_cases():
     lags, valid = rows(2, 500)
     yield "padding_in_the_middle", lags, valid & (rng.random((2, 500)) < 0.8), 64, None
     yield "config3", *rows(256, 64, 0, 1000), 64, None
+    # The direct API's eligible masks, a few of many consumers (E small
+    # against C), and a batch of topics with their own valid lengths and
+    # padding in the middle: K7_TIMED times these too.
+    for E, C in ((1, 1000), (2, 1000), (33, 1000), (2, 16384)):
+        mask = np.zeros(C, bool)
+        mask[rng.choice(C, E, replace=False)] = True
+        yield f"E{E}_of_C{C}", *rows(2, 4096), C, mask
+    lags, valid = rows(4, 4096, n_valid=[4096, 3000, 1, 0])
+    yield "padded_batch", lags, valid & (rng.random((4, 4096)) < 0.8), 100, None
 
 
 def scan_vs_plain(device) -> tuple:
@@ -455,16 +473,28 @@ def scan_vs_plain(device) -> tuple:
         else:
             raise AssertionError(f"scan_greedy took 16,385 consumers on {dev}")
 
-    def check(name, L, V, C, E, want, where):
+    def check(name, L, V, C, E, want, where, lag_range=None):
+        n_eligible, rb = scan_cuda.scan_plan(L, V, C, E)
         first = scan_cuda.scan_greedy(L, V, C, E)
         again = scan_cuda._launch(L, V, C, E)
+        # A packed case also in the two-key form, which must give its bits.
+        two_key = scan_cuda._launch(L, V, C, E, rank_bits=0) if rb else first
+        # The main path's call: the plan from the host's range, no read.
+        ranged = first
+        if lag_range is not None:
+            if scan_cuda.scan_plan(L, V, C, E, lag_range) != (n_eligible, rb):
+                raise AssertionError(f"scan_greedy {name}: the host's range plans otherwise")
+            ranged = scan_cuda.scan_greedy(L, V, C, E, lag_range=lag_range)
         sync(device)
-        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        if not all(torch.equal(a, b) for x in (again, ranged) for a, b in zip(first, x)):
             raise AssertionError(f"scan_greedy {name}: two runs differ")
-        if not all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(first, want)):
-            raise AssertionError(f"scan_greedy disagrees with its plain version on {name}")
-        log(f"kernel vs plain  scan_greedy {name:22s} T={L.shape[0]} P={L.shape[1]} C={C}: "
-            f"bit-equal to the plain version {where}, two runs equal, "
+        for got in (first, two_key):
+            if not all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, want)):
+                raise AssertionError(f"scan_greedy disagrees with its plain version on {name}"
+                                     f" (rank_bits {rb if got is first else 0})")
+        log(f"kernel vs plain  scan_greedy {name:22s} T={L.shape[0]} P={L.shape[1]} C={C} "
+            f"E={n_eligible} rank_bits {rb}: bit-equal to the plain version {where}"
+            f"{' (and in the two-key form)' if rb else ''}, two runs equal, "
             f"{int((first[0] >= 0).sum())} rows assigned")
 
     for name, lags, valid, C, elig in scan_cases():
@@ -473,12 +503,12 @@ def scan_vs_plain(device) -> tuple:
         E = None if elig is None else torch.from_numpy(elig.astype(np.uint8)).to(device)
         check(name, L, V, C, E, scan_cuda.scan_greedy_torch(L, V, C, E), "on the card")
     cpu_ms = {}
-    for name, sl, sv, C, _ in k7_cases(device):
+    for name, sl, sv, C, lag_range in k7_cases(device):
         start = time.perf_counter()
         want = scan_cuda.scan_greedy(sl.cpu(), sv.cpu(), C)
         cpu_ms[name] = (time.perf_counter() - start) * 1e3
         check(f"main path {name}", sl, sv, C, None, want,
-              f"on the CPU ({cpu_ms[name]!r} ms there)")
+              f"on the CPU ({cpu_ms[name]!r} ms there)", lag_range)
     log("scan_greedy: 16,385 consumers raise ValueError on the card and on the CPU")
     return 0, cpu_ms
 
@@ -1290,14 +1320,22 @@ def median_event_ms(fn) -> float:
     return statistics.median(times)
 
 
+def network(n: int) -> tuple:
+    """(stages, compare-exchanges) of one bitonic sort of ``n`` keys, on
+    ``rounds_cuda.slots_for(n)`` slots."""
+    slots = rounds_cuda.slots_for(n)
+    log_n = int(math.log2(slots))
+    stages = log_n * (log_n + 1) // 2
+    return stages, stages * (slots // 2)
+
+
 def bound_ms(T: int, R: int, C: int) -> tuple:
     """The least time for the work: each input read once, each output
     written once, over the HBM rate; or the compare-exchanges of the
     bitonic network over the scalar rate — whichever is larger."""
     moved = T * R * C * (8 + 1 + 4) + C * 8 + T * C * 8
-    slots = rounds_cuda.slots_for(C)
-    stages = int(math.log2(slots)) * (int(math.log2(slots)) + 1) // 2
-    ops = T * R * stages * (slots // 2)
+    stages, compares = network(C)
+    ops = T * R * compares
     by_bytes, by_ops = moved / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations", stages
 
@@ -1406,7 +1444,9 @@ def times(device) -> dict:
 def k7_cases(device):
     """K7's inputs as the main path makes them, at configs 5 and 3: each
     topic padded to its bucket, sorted into processing order.  Yields
-    (name, sorted lags, sorted valid, C, valid rows of all topics)."""
+    (name, sorted lags, sorted valid, C, the lags' range as ``dispatch``
+    hands it to the wrapper, or None where the wrapper takes none)."""
+    host_range = getattr(scan_cuda, "host_lag_range", None)
     for cfg in (5, 3):
         lags, members = baseline_workload(cfg)
         table = np.stack([pad_topic_rows(lags[t])[0] for t in sorted(lags)])
@@ -1417,16 +1457,18 @@ def k7_cases(device):
         V = torch.arange(P, device=device)[None, :] < torch.from_numpy(n_valid).to(device)[:, None]
         _, sl, sv = sort_partitions_with(L, pids, V, pack_shift_for(int(table.max()), P - 1))
         yield (f"config {cfg}", sl.contiguous(), sv.to(torch.uint8).contiguous(), len(members),
-               int(n_valid.sum()))
+               host_range(table, n_valid) if host_range else None)
 
 
-def k7_bound(T: int, P: int, C: int, steps: int) -> tuple:
+def k7_bound(T: int, P: int, C: int, E: int, n_valid) -> tuple:
     """(bound ms, "bytes" or "operations"): each input read once and each
-    output written once over the HBM rate, or one compare a consumer a
-    step (the argmin this run's valid rows need) over the scalar rate."""
+    output written once over the HBM rate, or the compare-exchanges the
+    function needs over the scalar rate: per topic, ceil(n / E) sorts of E
+    keys (``network``) for its n valid rows."""
     moved = T * P * (8 + 1 + 4) + T * C * (4 + 8)
+    compares = network(E)[1] * sum(-(-int(n) // E) for n in n_valid) if E else 0
     by_bytes = moved / HBM_BYTES_PER_S * 1e3
-    by_ops = steps * C / SCALAR_OPS_PER_S * 1e3
+    by_ops = compares / SCALAR_OPS_PER_S * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
@@ -1441,48 +1483,78 @@ def once_event_ms(fn) -> tuple:
     return start.elapsed_time(end), out
 
 
+# The direct-API cases of ``scan_cases`` that ``k7_times`` times beside
+# the main path's: E small against C, and padding in the middle.
+K7_TIMED = ("E1_of_C1000", "E33_of_C1000", "E2_of_C16384", "padded_batch")
+
+
+def k7_inputs(device):
+    """K7's timed inputs: the main path's at configs 5 and 3 (``k7_cases``),
+    then ``K7_TIMED``.  Yields (name, sorted lags, sorted valid, C,
+    eligible or None, the lags' range or None)."""
+    for name, sl, sv, C, lag_range in k7_cases(device):
+        yield name, sl, sv, C, None, lag_range
+    for name, lags, valid, C, elig in scan_cases():
+        if name in K7_TIMED:
+            yield (name, torch.from_numpy(lags.astype(np.int64)).to(device),
+                   torch.from_numpy(valid.astype(np.uint8)).to(device), C,
+                   None if elig is None else torch.from_numpy(elig.astype(np.uint8)).to(device),
+                   None)
+
+
 def k7_times(device) -> dict:
-    """K7 through its wrapper at configs 5 and 3: CUDA-event time, device
-    time alone (profiler, by kernel name), time a step of the deepest
-    topic, the bound; its plain version on the card, a median at config 3
-    and one call at config 5 (a 100k-step torch loop), whose output must
-    equal the kernel's."""
+    """K7 through its wrapper at each of ``k7_inputs``, called as the main
+    path calls it (with the lags' range where this version takes one):
+    CUDA-event time (the wrapper's host work included), device time alone
+    (profiler, by kernel name), time a valid row of the deepest topic, its
+    depth as the round form has it (rounds of E rows, stages of a sort of
+    next_pow2(E) slots) and the bound.  Uses only the wrapper's public
+    interface, so that it times any version of the package (``--k7-ab``)."""
     out = {}
-    for name, sl, sv, C, steps in k7_cases(device):
+    for name, sl, sv, C, elig, lag_range in k7_inputs(device):
         T, P = sl.shape
-        depth = int(sv.sum(dim=1).max())
+        n_valid = sv.sum(dim=1).tolist()
+        depth = int(max(n_valid))
+        E = C if elig is None else int(elig.sum())
+        rounds, stages = -(-depth // max(E, 1)), network(E)[0]
+        ranged = {} if lag_range is None else {"lag_range": lag_range}
 
         def fn():
-            return scan_cuda.scan_greedy(sl, sv, C)
+            return scan_cuda.scan_greedy(sl, sv, C, elig, **ranged)
 
         event = median_event_ms(fn)
         alone, per_call = device_ms(fn, KERNEL_NAMES["scan_greedy"])
-        bound, bound_by = k7_bound(T, P, C, steps)
-        if name == "config 3":
-            plain = median_event_ms(lambda: scan_cuda.scan_greedy_torch(sl, sv, C))
-        else:
-            plain, want = once_event_ms(lambda: scan_cuda.scan_greedy_torch(sl, sv, C))
-            if not all(torch.equal(a, b) for a, b in zip(fn(), want)):
-                raise AssertionError(f"scan_greedy disagrees with its plain version at {name}")
-        out[name] = {"T": T, "P": P, "C": C, "depth": depth, "event_ms": event,
-                     "alone_ms": alone, "launches_a_call": per_call,
-                     "ns_a_step": alone * 1e6 / depth, "bound_ms": bound, "bound_by": bound_by,
-                     "plain_ms": plain}
-        log(f"times  scan_greedy at {name} (T={T} P={P} C={C}, {depth} dependent steps): event "
-            f"{event!r} ms, device time alone {alone!r} ms ({per_call!r} kernels a call), "
-            f"{alone * 1e6 / depth!r} ns a step, bound {bound!r} ms ({bound_by}), plain "
-            f"version on the card {plain!r} ms"
-            + (" (one call)" if name == "config 5" else ""))
+        bound, bound_by = k7_bound(T, P, C, E, n_valid)
+        out[name] = {"T": T, "P": P, "C": C, "E": E, "depth": depth, "rounds": rounds,
+                     "stages": stages, "event_ms": event, "alone_ms": alone,
+                     "launches_a_call": per_call, "ns_a_step": alone * 1e6 / max(depth, 1),
+                     "bound_ms": bound, "bound_by": bound_by}
+        log(f"times  scan_greedy at {name} (T={T} P={P} C={C} E={E}, {depth} valid rows in "
+            f"the deepest topic: {rounds} rounds x {stages} stages): event {event!r} ms, "
+            f"device time alone {alone!r} ms ({per_call!r} kernels a call), "
+            f"{alone * 1e6 / max(depth, 1)!r} ns a row, bound {bound!r} ms ({bound_by})")
     return out
 
 
 def solver_times(device, plain_cpu_ms: dict) -> dict:
-    """K7's times (``k7_times``) and the ``assign()`` walls of ``scan`` and
-    of ``rounds`` + 16 refine rounds at config 5, medians of 10.  Returns
-    the kernels-line fields: the standard ones at config 5, where K7 spends
-    its time; config 3's under ``config3_*``; the CPU plain version's time
-    from phase 3 under ``plain_cpu_ms``."""
+    """K7's times (``k7_times``), its plain version on the card at configs 5
+    (one call, a 100k-step torch loop, whose output must equal the
+    kernel's) and 3 (median), and the ``assign()`` walls of ``scan`` and of
+    ``rounds`` + 16 refine rounds at config 5, medians of 10.  Returns the
+    kernels-line fields: the standard ones at config 5, where K7 spends its
+    time; config 3's under ``config3_*``; the CPU plain version's time from
+    phase 3 under ``plain_cpu_ms``."""
     k7 = k7_times(device)
+    for name, sl, sv, C, _ in k7_cases(device):
+        if name == "config 3":
+            plain = median_event_ms(lambda: scan_cuda.scan_greedy_torch(sl, sv, C))
+        else:
+            plain, want = once_event_ms(lambda: scan_cuda.scan_greedy_torch(sl, sv, C))
+            if not all(torch.equal(a, b) for a, b in zip(scan_cuda.scan_greedy(sl, sv, C), want)):
+                raise AssertionError(f"scan_greedy disagrees with its plain version at {name}")
+        k7[name]["plain_ms"] = plain
+        log(f"times  scan_greedy's plain version on the card at {name}: {plain!r} ms"
+            + (" (one call)" if name == "config 5" else ""))
     for solver, refine_iters in (("scan", None), ("rounds", REFINE_ITERS)):
         wall, lag_read, solve, fastest = assign_walls(5, solver, device, 10, refine_iters)
         log(f"assign() at config 5 {solver} refine {refine_iters}, medians of 10 (host "
@@ -1491,11 +1563,13 @@ def solver_times(device, plain_cpu_ms: dict) -> dict:
     c3, c5 = k7["config 3"], k7["config 5"]
     return dict(ms=c5["event_ms"], alone_ms=c5["alone_ms"], plain_ms=c5["plain_ms"],
                 bound_ms=c5["bound_ms"], bound_by=c5["bound_by"], library_ms=None,
-                depth=c5["depth"], ns_a_step=c5["ns_a_step"],
-                plain_cpu_ms=plain_cpu_ms["config 5"],
+                depth=c5["depth"], rounds=c5["rounds"], stages=c5["stages"],
+                ns_a_step=c5["ns_a_step"], plain_cpu_ms=plain_cpu_ms["config 5"],
                 config3_ms=c3["event_ms"], config3_alone_ms=c3["alone_ms"],
                 config3_plain_ms=c3["plain_ms"], config3_bound_ms=c3["bound_ms"],
-                config3_plain_cpu_ms=plain_cpu_ms["config 3"])
+                config3_plain_cpu_ms=plain_cpu_ms["config 3"],
+                direct_api={name: {k: k7[name][k] for k in ("E", "alone_ms", "event_ms")}
+                            for name in K7_TIMED})
 
 
 def exp_bound(exps: int, moved: int) -> tuple:
@@ -1911,9 +1985,9 @@ def kernel_line(name, launches, err, t: dict) -> dict:
     }
     if name in COUNTERPARTS:
         line["counterpart"] = COUNTERPARTS[name]
-    for key in ("library_alone_ms", "depth", "ns_a_step", "plain_cpu_ms", "config3_ms",
-                "config3_alone_ms", "config3_plain_ms", "config3_bound_ms",
-                "config3_plain_cpu_ms"):
+    for key in ("library_alone_ms", "depth", "rounds", "stages", "ns_a_step",
+                "plain_cpu_ms", "config3_ms", "config3_alone_ms", "config3_plain_ms",
+                "config3_bound_ms", "config3_plain_cpu_ms", "direct_api"):
         if key in t:
             line[key] = t[key]
     return line
@@ -2009,10 +2083,10 @@ def ab(mode: str, roots) -> None:
             raise AssertionError(f"{mode} times of {root} exited {proc.returncode}")
         runs.append({"root": root, **json.loads(proc.stdout.strip().splitlines()[-1])})
     for run in runs:
-        if mode == "k1":
-            log(f"k1 a/b  {run['root']}: " + "; ".join(
+        if mode in ("k1", "k7"):
+            log(f"{mode} a/b  {run['root']}: " + "; ".join(
                 f"{name} alone {t['alone_ms']!r} ms event {t['event_ms']!r} ms"
-                for name, t in run["k1_times"].items()))
+                for name, t in run[f"{mode}_times"].items()))
         else:
             t = run["k36_times"]
             log(f"k36 a/b  {run['root']}: " + "; ".join(
@@ -2037,13 +2111,16 @@ def main() -> int:
               "port on the card", file=sys.stderr)
         return 1
     device = torch.device("cuda")
-    for mode in ("k1", "k36"):
+    for mode in ("k1", "k7", "k36"):
         if sys.argv[1:2] == [f"--{mode}-ab"]:
             ab(mode, sys.argv[2:])
             return 0
     name = environment()
     if sys.argv[1:] == ["--k1-times"]:
         log(json.dumps({"k1_times": k1_times(device), "device": name}))
+        return 0
+    if sys.argv[1:] == ["--k7-times"]:
+        log(json.dumps({"k7_times": k7_times(device), "device": name}))
         return 0
     if sys.argv[1:] == ["--k36-times"]:
         _build.build_all()

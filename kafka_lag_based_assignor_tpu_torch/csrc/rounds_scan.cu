@@ -28,23 +28,10 @@
 // with t ascending and g descending, which can be any order at all.  So the
 // design shortens each stage instead:
 //
-// - Keys live in registers in a blocked layout: thread t holds the K
-//   consecutive sorted positions t*K .. t*K+K-1 (slots_per_thread).  A stage
-//   of stride j < K runs inside the thread's registers; a stride from K to
-//   16*K is one __shfl_xor_sync with lane ^ (j / K) at the same register
-//   index; only strides of 32*K and more go through shared memory, one block
-//   barrier each (the exchange buffer is double-buffered where it fits, so
-//   no second barrier guards its reuse).  The network is the all-ascending
-//   form (each merge starts by pairing slot i with its mirror), so no stage
-//   computes a direction.  K is 2 up to 2,048 slots: a
-//   stage is a short dependent chain (shuffle, compare, select), and on one
-//   SM more warps hide it better than more slots a thread do (at 1,024
-//   slots K 2 over 16 warps ran faster than K 4 over 8, K 8 over 4 and K 1
-//   over 32 with its 15 barriers).  At 1,024 slots that is 10 register, 35
-//   shuffle and 10 barrier stages a round, against 55 barriers before; at
-//   64 slots (one warp) no barrier at all.  Every register index is a
-//   constant after unrolling: the kernel is a template on log2(N), one
-//   instantiation for each power of two up to 16,384.
+// - The sort is slot_sort.cuh's network: keys in registers, shuffles for
+//   the short strides, shared memory (one barrier each) only for the long
+//   ones.  The kernel is a template on log2(N), one instantiation for each
+//   power of two up to 16,384.
 // - One key where it is admissible: the packed int64 (total << rank_bits) |
 //   id, whose order is the (total, id) order, so a stage compares and moves
 //   one 64-bit word instead of a word and an id; the gain is added as gain
@@ -69,215 +56,29 @@
 #include <climits>
 #include <cstdint>
 #include <mutex>
-#include <type_traits>
 #include <utility>
 
 #include <cuda_runtime.h>
 
+#include "slot_sort.cuh"
+
 namespace {
 
-constexpr int kMaxLogSlots = 14;
-constexpr int kMaxSlots = 1 << kMaxLogSlots;
-constexpr int kMaxDevices = 64;
-// Dynamic shared memory a block may use on Hopper (227 KB).
-constexpr int kSmemPerBlock = 232448;
+using klba::Exchange;
+using klba::kMaxLogSlots;
+using klba::kMaxSlots;
+using klba::slots_per_thread;
 
-// Slots a thread holds (K) for 2^log_n slots: 2, so that as many warps as
-// possible hide each other's latency, until 1,024 threads hold them all.
-__host__ __device__ constexpr int slots_per_thread(int log_n) {
-  return log_n == 0 ? 1 : log_n <= 11 ? 2 : 1 << (log_n - 10);
-}
+constexpr int kMaxDevices = 64;
 
 template <int kLogN, bool kPacked>
-struct Plan {
-  static constexpr int kSlots = 1 << kLogN;
-  static constexpr int kK = slots_per_thread(kLogN);
-  static constexpr int kThreads = kSlots / kK;
-  static constexpr int kSlotBytes = kPacked ? 8 : 12;
-  // Two exchange buffers (one barrier a stage) where they fit, else one.
-  static constexpr bool kDouble = 2 * kSlots * kSlotBytes <= kSmemPerBlock;
-  static constexpr int kSmem =
-      kThreads <= 32 ? 0 : (kDouble ? 2 : 1) * kSlots * kSlotBytes;
+struct Plan : klba::SlotPlan<kLogN, kPacked> {
+  using Net = klba::SlotPlan<kLogN, kPacked>;
+  static constexpr int kSmem = Net::kExchangeBytes;
   // Read the next round's gains during this round's network where the 64
   // registers a thread has at 1,024 threads hold them beside the keys.
-  static constexpr bool kPrefetch = kK <= 4;
-  static constexpr unsigned kLanes =
-      kThreads >= 32 ? 0xffffffffu : (1u << kThreads) - 1u;
+  static constexpr bool kPrefetch = Net::kK <= 4;
 };
-
-template <class F, int... Is>
-__device__ __forceinline__ void static_for_impl(F&& f,
-                                                std::integer_sequence<int, Is...>) {
-  (f(std::integral_constant<int, Is>{}), ...);
-}
-
-// f(integral_constant<int, 0>) ... f(integral_constant<int, N - 1>).
-template <int N, class F>
-__device__ __forceinline__ void static_for(F&& f) {
-  static_for_impl(f, std::make_integer_sequence<int, N>{});
-}
-
-// (key a, id a) < (key b, id b): the packed key alone, or total then id.
-template <bool kPacked>
-__device__ __forceinline__ bool less(long long ka, int ia, long long kb, int ib) {
-  if constexpr (kPacked) {
-    return ka < kb;
-  } else {
-    return ka < kb || (ka == kb && ia < ib);
-  }
-}
-
-struct Exchange {
-  long long* key;  // [buffers][N]
-  int* id;         // [buffers][N], two-key form only
-  int sel;         // the buffer the next barrier stage writes
-};
-
-template <int K>
-__device__ __forceinline__ void put_keys(long long* dst, const long long (&v)[K]) {
-  if constexpr (K == 1) {
-    dst[0] = v[0];
-  } else {
-#pragma unroll
-    for (int k = 0; k < K; k += 2)
-      reinterpret_cast<longlong2*>(dst)[k >> 1] = make_longlong2(v[k], v[k + 1]);
-  }
-}
-
-template <int K>
-__device__ __forceinline__ void get_keys(const long long* src, long long (&v)[K]) {
-  if constexpr (K == 1) {
-    v[0] = src[0];
-  } else {
-#pragma unroll
-    for (int k = 0; k < K; k += 2) {
-      const longlong2 w = reinterpret_cast<const longlong2*>(src)[k >> 1];
-      v[k] = w.x;
-      v[k + 1] = w.y;
-    }
-  }
-}
-
-template <int K>
-__device__ __forceinline__ void put_ids(int* dst, const int (&v)[K]) {
-  if constexpr (K == 1) {
-    dst[0] = v[0];
-  } else if constexpr (K == 2) {
-    *reinterpret_cast<int2*>(dst) = make_int2(v[0], v[1]);
-  } else {
-#pragma unroll
-    for (int k = 0; k < K; k += 4)
-      reinterpret_cast<int4*>(dst)[k >> 2] = make_int4(v[k], v[k + 1], v[k + 2], v[k + 3]);
-  }
-}
-
-template <int K>
-__device__ __forceinline__ void get_ids(const int* src, int (&v)[K]) {
-  if constexpr (K == 1) {
-    v[0] = src[0];
-  } else if constexpr (K == 2) {
-    const int2 w = *reinterpret_cast<const int2*>(src);
-    v[0] = w.x;
-    v[1] = w.y;
-  } else {
-#pragma unroll
-    for (int k = 0; k < K; k += 4) {
-      const int4 w = reinterpret_cast<const int4*>(src)[k >> 2];
-      v[k] = w.x;
-      v[k + 1] = w.y;
-      v[k + 2] = w.z;
-      v[k + 3] = w.w;
-    }
-  }
-}
-
-// One stage of the bitonic network, in its all-ascending form: merge size
-// 2^kLS, stride 2^kLJ.  The first stage of a merge pairs slot i with its
-// mirror i ^ (size - 1), every later one with i ^ stride; in each pair the
-// lower slot (i & stride == 0) keeps the smaller key.  So no slot needs a
-// direction, and a thread's partner in another thread is always the same
-// register index (reversed in a mirror stage).  Keys are distinct (ids
-// differ), so "take the partner's" is exactly "partner < mine" == "I keep
-// the smaller".
-template <int kLogN, bool kPacked, int kLS, int kLJ>
-__device__ __forceinline__ void stage(long long (&key)[Plan<kLogN, kPacked>::kK],
-                                      int (&id)[Plan<kLogN, kPacked>::kK], Exchange& x) {
-  using P = Plan<kLogN, kPacked>;
-  constexpr int K = P::kK;
-  constexpr int kStride = 1 << kLJ;
-  constexpr bool kMirror = kLJ + 1 == kLS;
-  constexpr int kFlip = kMirror ? (1 << kLS) - 1 : kStride;  // partner = i ^ kFlip
-  const int t = threadIdx.x;
-
-  if constexpr (kStride < K) {
-    static_for<K>([&](auto kc) {
-      constexpr int lo = decltype(kc)::value;
-      if constexpr ((lo & kStride) == 0) {
-        constexpr int hi = lo ^ kFlip;
-        const bool swap = less<kPacked>(key[hi], id[hi], key[lo], id[lo]);
-        const long long k0 = key[lo], k1 = key[hi];
-        key[lo] = swap ? k1 : k0;
-        key[hi] = swap ? k0 : k1;
-        if constexpr (!kPacked) {
-          const int i0 = id[lo], i1 = id[hi];
-          id[lo] = swap ? i1 : i0;
-          id[hi] = swap ? i0 : i1;
-        }
-      }
-    });
-    return;
-  }
-  // The partner's keys for each of this thread's K slots.
-  long long yk[K];
-  int yi[K];
-  if constexpr (kStride < 32 * K) {
-    constexpr int m = kFlip / K;  // partner lane = lane ^ m
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int src = kMirror ? K - 1 - k : k;
-      yk[k] = __shfl_xor_sync(P::kLanes, key[src], m);
-      if constexpr (!kPacked) yi[k] = __shfl_xor_sync(P::kLanes, id[src], m);
-    }
-  } else {
-    if constexpr (!P::kDouble) __syncthreads();  // one buffer: readers done
-    long long* kb = x.key + x.sel * P::kSlots;
-    int* ib = x.id + x.sel * P::kSlots;
-    put_keys<K>(kb + t * K, key);
-    if constexpr (!kPacked) put_ids<K>(ib + t * K, id);
-    __syncthreads();
-    const int partner = (t ^ (kFlip / K)) * K;
-    long long pk[K];
-    int pi[K];
-    get_keys<K>(kb + partner, pk);
-    if constexpr (!kPacked) get_ids<K>(ib + partner, pi);
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      yk[k] = pk[kMirror ? K - 1 - k : k];
-      if constexpr (!kPacked) yi[k] = pi[kMirror ? K - 1 - k : k];
-    }
-    if constexpr (P::kDouble) x.sel ^= 1;
-  }
-  const bool keep_min = (t & (kStride / K)) == 0;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const bool take = less<kPacked>(yk[k], kPacked ? 0 : yi[k], key[k], id[k]) == keep_min;
-    key[k] = take ? yk[k] : key[k];
-    if constexpr (!kPacked) id[k] = take ? yi[k] : id[k];
-  }
-}
-
-// The whole ascending bitonic network over N slots, every stage unrolled.
-template <int kLogN, bool kPacked>
-__device__ __forceinline__ void sort_slots(long long (&key)[Plan<kLogN, kPacked>::kK],
-                                           int (&id)[Plan<kLogN, kPacked>::kK],
-                                           Exchange& x) {
-  static_for<kLogN>([&](auto a) {
-    constexpr int ls = decltype(a)::value + 1;
-    static_for<ls>([&](auto b) {
-      stage<kLogN, kPacked, ls, ls - 1 - decltype(b)::value>(key, id, x);
-    });
-  });
-}
 
 // This thread's K gains and validity bytes of one round row, as loaded:
 // fetch() issues the loads and decode() alone reads them, after the
@@ -413,7 +214,7 @@ __global__ void __launch_bounds__(Plan<kLogN, kPacked>::kThreads, 1)
     if constexpr (P::kPrefetch) {
       if (r + 1 < R) fetch<K>(gains + row + C, valid + row + C, i0, C, vec != 0, next);
     }
-    sort_slots<kLogN, kPacked>(key, id, x);
+    klba::sort_slots<P>(key, id, x);
     if constexpr (!P::kPrefetch) fetch<K>(gains + row, valid + row, i0, C, vec != 0, cur);
     long long gain[K];
     const unsigned mask = decode<K>(cur, vec != 0, gain);

@@ -1,4 +1,5 @@
-// P-step greedy scan of the lag-based assignor, for Hopper (sm_90a).
+// P-step greedy scan of the lag-based assignor, for Hopper (sm_90a),
+// computed as rounds.
 //
 // Replaces no Pallas kernel: the JAX package computes this loop with
 // lax.scan in kafka_lag_based_assignor_tpu/ops/scan_kernel.py::
@@ -14,229 +15,380 @@
 // int64[T, C].  Grid = T: one block per topic, every topic starting from
 // zero counts and totals.
 //
-// What bounds it: its depth.  Step s needs the winner of step s - 1, so a
-// topic is n dependent steps (n its rows up to the last valid one), each a
-// block-wide lexicographic argmin; bytes (13 a row) and compares (C a step)
-// are far below what one step's latency costs.  The design keeps each step
-// short and simple:
+// What it computes, and how: the round decomposition of count-primary
+// greedy LPT (ops/rounds_kernel.py), with an eligible mask and invalid rows
+// anywhere.  The eligible set is fixed and every eligible consumer starts at
+// count 0, so the steps fill rounds of E valid rows, E the number of
+// eligible consumers: in a round every eligible consumer takes exactly one
+// row, and those still to be served keep the totals they had when the
+// round began.  So the (j+1)-th valid row of round r (valid rows ranked in
+// processing order) goes to the eligible consumer at position j of the
+// (total at the round's start, index) order.  An invalid row changes
+// nothing: it gets -1 and only shifts which rows are a round's.
 //
-// - Consumer j's slot (count, total, eligibility) lives in registers of
-//   thread j / S, S = 1 up to 1,024 consumers and the next power of two of
-//   C / 1,024 above (at most 16 at 16,384 consumers).  Each thread keeps the
-//   minimum of its own slots and recomputes it only when it owned the last
-//   winner.
-// - A step is a 5-level __shfl_xor_sync butterfly over (count, total,
-//   index), one write of each warp's minimum to shared memory, one
-//   __syncthreads, and a second butterfly over the warp minima that every
-//   warp runs, so that every thread knows the winner without a second
-//   barrier.  The warp minima are double-buffered: a warp can be one step
-//   ahead, never two.  With one warp (C <= 32) there is no barrier at all.
-// - The owning thread adds 1 and the lag (int64, wrapping on overflow as
-//   the JAX package's arithmetic does; compared as signed).  Thread 0
-//   writes the winner to sorted_choice.
-// - The rows are staged into shared memory 1,024 at a time, so a step
-//   reads its lag and validity byte there, as a broadcast.
+// What bounds it: its depth, as K1's (rounds_scan.cu): ceil(n / E) rounds
+// of log2(N) * (log2(N) + 1) / 2 dependent network stages, N =
+// next_pow2(E), n the topic's valid rows (config 5: 100 rounds of 55
+// stages, where the step form was 100,000 dependent argmins); bytes (13 a
+// row) and compares are far below it.  The design:
 //
-// The loop stops after the topic's last valid row; padding rows get -1, and
-// with no eligible consumer every row does.  An invalid row before the last
-// valid one also gets -1 and changes nothing, as in the JAX step.
+// - The eligible consumers are compacted once, in index order, by a block
+//   prefix sum over the mask (none given: all C, ids 0..C-1).  Sorted
+//   position p < E starts as (total 0, the p-th eligible id); the ids
+//   ascend with p, so the (total, id) order is the (total, index) order.
+// - Each round's sort is slot_sort.cuh's network over N slots, K1's: keys
+//   in registers, shuffles for the short strides, shared memory only for
+//   the long ones.  The key is the packed (total << rank_bits) | id where
+//   the wrapper admits it (K1's rule over each topic's valid lags) or the
+//   two-key (total, id); the two-key totals add as unsigned int64, so they
+//   wrap as the JAX arithmetic does, and compare as signed.  Pad slots
+//   (positions >= E) hold a key above every real one (the packed
+//   ((INT64_MAX >> rank_bits) << rank_bits) | p, or total INT64_MAX with id
+//   C + p, above every consumer index), so they sort last and never take a
+//   row.
+// - The rows are staged a tile at a time (2,048 rows, fewer below 256
+//   threads): a block prefix sum over the tile's validity bytes ranks its
+//   valid rows, whose lags and row indices go to shared memory in rank
+//   order; an invalid row gets -1 at once.  The next tile's rows are loaded
+//   into registers before this tile's rounds and read after them.
+// - A round sorts the slots at its position 0; the thread holding position
+//   j seats the round's (j+1)-th valid row: it writes its slot's id to
+//   choice and adds the lag.  A round may span tiles: its position carries
+//   over.  Counts need no register: after n valid rows every eligible
+//   consumer holds n / E of them, plus one for the n % E positions seated
+//   in the last round.
+// - Up to 64 slots the network is one warp's shuffles: the block is one
+//   warp and a round has no barrier.  With one slot (E <= 1) there are no
+//   rounds to keep apart: the one eligible consumer takes every valid row,
+//   and the warp writes the choices and sums the lags directly.
 
 #include <climits>
 #include <cstdint>
+#include <mutex>
+#include <utility>
 
 #include <cuda_runtime.h>
 
+#include "slot_sort.cuh"
+
 namespace {
 
-constexpr int kMaxSlots = 16384;
-constexpr int kMaxThreads = 1024;
-constexpr int kTile = 1024;  // rows staged in shared memory at a time
+using klba::Exchange;
+using klba::kMaxLogSlots;
+using klba::kMaxSlots;
+
+constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
-struct Key {
-  int count;
-  int idx;
-  long long total;
+template <int kLogN, bool kPacked>
+struct Plan : klba::SlotPlan<kLogN, kPacked> {
+  using Net = klba::SlotPlan<kLogN, kPacked>;
+  // The block: the network's threads, at least one warp.
+  static constexpr int kBlock = Net::kThreads < 32 ? 32 : Net::kThreads;
+  // Rows a thread stages a tile, and the tile.
+  static constexpr int kRows = kBlock <= 256 ? 8 : 2048 / kBlock;
+  static constexpr int kTile = kBlock * kRows;
+  // Dynamic shared memory: the exchange buffer, which first holds the
+  // compacted eligible ids, then the tile's ranked lags and row indices.
+  static constexpr int kIdBytes = 4 * Net::kSlots;
+  static constexpr int kHead =
+      ((Net::kExchangeBytes > kIdBytes ? Net::kExchangeBytes : kIdBytes) + 15) / 16 * 16;
+  static constexpr int kSmem = kHead + kTile * (8 + 4);
+  static_assert(kSmem + 32 * 4 <= klba::kSmemPerBlock, "shared memory of a block");
 };
 
-__device__ __forceinline__ Key sentinel() { return Key{INT_MAX, INT_MAX, LLONG_MAX}; }
-
-// (count, total, index) of a before b.
-__device__ __forceinline__ bool less(const Key& a, const Key& b) {
-  if (a.count != b.count) return a.count < b.count;
-  if (a.total != b.total) return a.total < b.total;
-  return a.idx < b.idx;
-}
-
-// The warp's least key, in every lane.
-__device__ __forceinline__ Key warp_min(Key k) {
+// The exclusive prefix sum of v over the block's threads, in thread order,
+// and (in `total`) their sum.  Every thread of the block calls it; a barrier
+// must come between two calls (they share `warp_sums`).
+__device__ __forceinline__ int block_scan(int v, int* warp_sums, int& total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int inc = v;
 #pragma unroll
-  for (int m = 16; m >= 1; m >>= 1) {
-    Key o;
-    o.count = __shfl_xor_sync(kFull, k.count, m);
-    o.idx = __shfl_xor_sync(kFull, k.idx, m);
-    o.total = __shfl_xor_sync(kFull, k.total, m);
-    if (less(o, k)) k = o;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, inc, d);
+    if (lane >= d) inc += y;
   }
-  return k;
-}
-
-// The least of this thread's eligible slots (consumers base .. base+S-1).
-template <int S>
-__device__ __forceinline__ Key local_min(const int (&cnt)[S], const long long (&tot)[S],
-                                         unsigned elig, int base) {
-  Key best = sentinel();
+  if (lane == 31) warp_sums[warp] = inc;
+  __syncthreads();
+  int w = lane < static_cast<int>(blockDim.x >> 5) ? warp_sums[lane] : 0;
 #pragma unroll
-  for (int k = 0; k < S; ++k) {
-    const Key c{cnt[k], base + k, tot[k]};
-    if (((elig >> k) & 1u) && less(c, best)) best = c;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, w, d);
+    if (lane >= d) w += y;
   }
-  return best;
+  total = __shfl_sync(kFull, w, 31);
+  const int before = __shfl_sync(kFull, w, warp > 0 ? warp - 1 : 0);
+  return (warp > 0 ? before : 0) + inc - v;
 }
 
-template <int S>
-__global__ void __launch_bounds__(kMaxThreads)
+// A thread's R consecutive rows of a tile as loaded: fetch_rows() issues
+// the loads and the tile loop reads them one tile later, so that no tile
+// waits on device memory.
+template <int R>
+struct Rows {
+  long long lag[R];
+  int ok[R];  // the validity bytes (0 past the topic's end)
+};
+
+template <int R>
+__device__ __forceinline__ void fetch_rows(const long long* __restrict__ g,
+                                           const unsigned char* __restrict__ v, int first,
+                                           int P, Rows<R>& rows) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = first + i;
+    rows.lag[i] = r < P ? __ldg(g + r) : 0;
+    rows.ok[i] = r < P ? __ldg(v + r) : 0;
+  }
+}
+
+template <int kLogN, bool kPacked>
+__global__ void __launch_bounds__(Plan<kLogN, kPacked>::kBlock, 1)
     scan_greedy_kernel(const long long* __restrict__ lags,
                        const unsigned char* __restrict__ valid,
                        const unsigned char* __restrict__ eligible, int* __restrict__ choice,
                        int* __restrict__ counts_out, long long* __restrict__ totals_out, int P,
-                       int C) {
-  __shared__ long long tile_lag[kTile];
-  __shared__ unsigned char tile_ok[kTile];
-  __shared__ Key red[2][32];
-  __shared__ int flags[2];  // last valid row + 1, any eligible consumer
+                       int C, int E, int rank_bits) {
+  using Pl = Plan<kLogN, kPacked>;
+  constexpr int K = Pl::kK;
+  constexpr int R = Pl::kRows;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int warp_sums[32];
+  const int buffers = Pl::kDouble ? 2 : 1;
+  Exchange x{reinterpret_cast<long long*>(smem),
+             reinterpret_cast<int*>(smem + static_cast<size_t>(buffers) * Pl::kSlots * 8), 0};
+  int* ids = reinterpret_cast<int*>(smem);  // until the first sort
+  long long* tile_lag = reinterpret_cast<long long*>(smem + Pl::kHead);
+  int* tile_row = reinterpret_cast<int*>(smem + Pl::kHead + Pl::kTile * 8);
 
   const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int base = t * S;
+  // Below one warp of network threads the other lanes sit the sort out
+  // (it has no barrier there).
+  const bool sorts = Pl::kThreads >= 32 || t < Pl::kThreads;
   const long long row0 = static_cast<long long>(blockIdx.x) * P;
   const long long* g = lags + row0;
   const unsigned char* v = valid + row0;
   int* ch = choice + row0;
+  int* cnt_out = counts_out + static_cast<long long>(blockIdx.x) * C;
+  long long* tot_out = totals_out + static_cast<long long>(blockIdx.x) * C;
 
-  int cnt[S];
-  long long tot[S];
-  unsigned elig = 0;
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    cnt[k] = 0;
-    tot[k] = 0;
-    const int j = base + k;
-    if (j < C && (eligible == nullptr || eligible[j])) elig |= 1u << k;
-  }
-
-  if (t == 0) {
-    flags[0] = 0;
-    flags[1] = 0;
-  }
-  __syncthreads();
-  int last = 0;
-  for (int i = t; i < P; i += blockDim.x)
-    if (v[i]) last = i + 1;
-  last = __reduce_max_sync(kFull, last);
-  const bool any = __any_sync(kFull, elig != 0);
-  if (lane == 0) {
-    if (last) atomicMax(&flags[0], last);
-    if (any) flags[1] = 1;
-  }
-  __syncthreads();
-  const int n = flags[1] ? flags[0] : 0;
-  for (int i = n + t; i < P; i += blockDim.x) ch[i] = -1;
-
-  Key best = local_min<S>(cnt, tot, elig, base);
-  int phase = 0;
-  for (int s0 = 0; s0 < n; s0 += kTile) {
-    const int len = min(kTile, n - s0);
-    __syncthreads();  // every thread is done with the previous tile
-    for (int i = t; i < len; i += blockDim.x) {
-      tile_lag[i] = g[s0 + i];
-      tile_ok[i] = v[s0 + i];
+  // The eligible consumers' ids in index order; the others hold nothing.
+  if (eligible != nullptr) {
+    const int per = (C + blockDim.x - 1) / blockDim.x;
+    const int c0 = min(t * per, C);
+    const int c1 = min(c0 + per, C);
+    int mine = 0;
+    for (int c = c0; c < c1; ++c) mine += eligible[c] != 0;
+    int total;
+    int rank = block_scan(mine, warp_sums, total);
+    for (int c = c0; c < c1; ++c) {
+      if (eligible[c]) {
+        if (rank < E) ids[rank] = c;
+        ++rank;
+      } else {
+        cnt_out[c] = 0;
+        tot_out[c] = 0;
+      }
     }
     __syncthreads();
-    for (int i = 0; i < len; ++i) {
-      if (!tile_ok[i]) {  // the same for every thread of the block
-        if (t == 0) ch[s0 + i] = -1;
-        continue;
+  }
+  if constexpr (kLogN == 0) {
+    // At most one eligible consumer: it takes every valid row, whatever
+    // the order, so the block's one warp sums them directly.
+    const int who = E == 0 ? -1 : eligible != nullptr ? ids[0] : 0;
+    unsigned long long sum = 0;
+    int n = 0;
+    for (int r = t; r < P; r += Pl::kBlock) {
+      const bool take = who >= 0 && v[r] != 0;
+      ch[r] = take ? who : -1;
+      if (take) {
+        sum += static_cast<unsigned long long>(g[r]);
+        ++n;
       }
-      Key w = warp_min(best);
-      if (nwarps > 1) {
-        if (lane == 0) red[phase][warp] = w;
-        __syncthreads();
-        w = warp_min(lane < nwarps ? red[phase][lane] : sentinel());
-        phase ^= 1;
-      }
-      if (w.idx / S == t) {
-        const unsigned long long lag = static_cast<unsigned long long>(tile_lag[i]);
-#pragma unroll
-        for (int k = 0; k < S; ++k) {
-          if (base + k == w.idx) {
-            cnt[k] += 1;
-            tot[k] = static_cast<long long>(static_cast<unsigned long long>(tot[k]) + lag);
-          }
-        }
-        best = local_min<S>(cnt, tot, elig, base);
-      }
-      if (t == 0) ch[s0 + i] = w.idx;
     }
+#pragma unroll
+    for (int m = 16; m >= 1; m >>= 1) {
+      sum += __shfl_xor_sync(kFull, sum, m);
+      n += __shfl_xor_sync(kFull, n, m);
+    }
+    if (t == 0 && who >= 0) {
+      cnt_out[who] = n;
+      tot_out[who] = static_cast<long long>(sum);
+    }
+    return;
   }
 
-  const long long out0 = static_cast<long long>(blockIdx.x) * C;
+  // From here on N >= 2, so E >= 2 (N = next_pow2(E)).
+  Rows<R> next;
+  fetch_rows<R>(g, v, t * R, P, next);
+  const long long id_mask = (1LL << rank_bits) - 1;
+  long long key[K];
+  int id[K];
 #pragma unroll
-  for (int k = 0; k < S; ++k) {
-    const int j = base + k;
-    if (j < C) {
-      counts_out[out0 + j] = cnt[k];
-      totals_out[out0 + j] = tot[k];
+  for (int k = 0; k < K; ++k) {
+    const int p = t * K + k;
+    const int who = p < E ? (eligible != nullptr ? ids[p] : p) : C + p;
+    if constexpr (kPacked) {
+      key[k] = p < E ? who : ((LLONG_MAX >> rank_bits) << rank_bits) | p;
+    } else {
+      key[k] = p < E ? 0 : LLONG_MAX;
+    }
+    id[k] = who;
+  }
+
+  int pos = 0;     // the current round's next position
+  int seated = 0;  // valid rows seated so far
+  for (int s0 = 0; s0 < P; s0 += Pl::kTile) {
+    const Rows<R> cur = next;
+    int mine = 0;
+#pragma unroll
+    for (int i = 0; i < R; ++i) mine += cur.ok[i] != 0;
+    int m;
+    // Its barrier also ends the previous tile's rounds.
+    int rank = block_scan(mine, warp_sums, m);
+    const int first = s0 + t * R;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int r = first + i;
+      if (r < P && cur.ok[i] != 0) {
+        tile_lag[rank] = cur.lag[i];
+        tile_row[rank] = r;
+        ++rank;
+      } else if (r < P) {
+        ch[r] = -1;
+      }
+    }
+    __syncthreads();
+    if (s0 + Pl::kTile < P) fetch_rows<R>(g, v, s0 + Pl::kTile + t * R, P, next);
+
+    for (int q = 0; q < m;) {
+      const int take = min(E - pos, m - q);
+      // The rows this thread's positions take, read before the sort (up to
+      // 4 slots a thread) so that the network hides the shared loads.
+      long long lag[K];
+      int row[K];
+      const auto read = [&] {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int j = t * K + k - pos;
+          row[k] = j >= 0 && j < take ? tile_row[q + j] : -1;
+          lag[k] = row[k] >= 0 ? tile_lag[q + j] : 0;
+        }
+      };
+      if constexpr (K <= 4) read();
+      if (pos == 0 && sorts) klba::sort_slots<Pl>(key, id, x);
+      if constexpr (K > 4) read();
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (row[k] >= 0) {
+          ch[row[k]] = kPacked ? static_cast<int>(key[k] & id_mask) : id[k];
+          if constexpr (kPacked) {
+            key[k] += lag[k] << rank_bits;
+          } else {
+            key[k] = static_cast<long long>(static_cast<unsigned long long>(key[k]) +
+                                            static_cast<unsigned long long>(lag[k]));
+          }
+        }
+      }
+      q += take;
+      pos += take;
+      if (pos == E) pos = 0;
+    }
+    seated += m;
+  }
+
+  const int full = seated / E;
+  const int part = seated % E;  // positions seated in the last round
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int p = t * K + k;
+    if (p < E) {
+      const int who = kPacked ? static_cast<int>(key[k] & id_mask) : id[k];
+      cnt_out[who] = full + (p < part ? 1 : 0);
+      tot_out[who] = kPacked ? key[k] >> rank_bits : key[k];
     }
   }
 }
 
 using KernelFn = void (*)(const long long*, const unsigned char*, const unsigned char*, int*,
-                          int*, long long*, int, int);
+                          int*, long long*, int, int, int, int);
 
-// S, the slots a thread holds for C consumers: the least power of two that
-// fits them into 1,024 threads.
-int slots_per_thread(int C) {
-  int s = 1;
-  while ((C + s - 1) / s > kMaxThreads) s <<= 1;
-  return s;
+struct Instance {
+  KernelFn fn;
+  int threads;
+  int smem;
+};
+
+template <bool kPacked, int... Ls>
+const Instance* instances(std::integer_sequence<int, Ls...>) {
+  static const Instance table[] = {{scan_greedy_kernel<Ls, kPacked>,
+                                    Plan<Ls, kPacked>::kBlock, Plan<Ls, kPacked>::kSmem}...};
+  return table;
 }
 
-KernelFn kernel_for(int s) {
-  switch (s) {
-    case 1: return scan_greedy_kernel<1>;
-    case 2: return scan_greedy_kernel<2>;
-    case 4: return scan_greedy_kernel<4>;
-    case 8: return scan_greedy_kernel<8>;
-    case 16: return scan_greedy_kernel<16>;
-    default: return nullptr;
+const Instance& instance(int log_n, bool packed) {
+  constexpr auto all = std::make_integer_sequence<int, kMaxLogSlots + 1>{};
+  return packed ? instances<true>(all)[log_n] : instances<false>(all)[log_n];
+}
+
+// Set every instantiation's dynamic shared-memory limit to what it uses,
+// once a device (also at 48 KB and below: the static warp sums count
+// against the default limit too).
+cudaError_t set_smem_limits() {
+  for (int packed = 0; packed < 2; ++packed) {
+    for (int log_n = 0; log_n <= kMaxLogSlots; ++log_n) {
+      const Instance& in = instance(log_n, packed != 0);
+      const cudaError_t err = cudaFuncSetAttribute(
+          reinterpret_cast<const void*>(in.fn),
+          cudaFuncAttributeMaxDynamicSharedMemorySize, in.smem);
+      if (err != cudaSuccess) return err;
+    }
   }
+  return cudaSuccess;
+}
+
+int log2_of(int n) {
+  int l = 0;
+  while ((1 << l) < n) ++l;
+  return l;
 }
 
 }  // namespace
 
 // Launches the scan on `stream`; returns the CUDA error (0 = ok).  T blocks,
-// each over P rows of C <= 16,384 consumers; `eligible` may be null.
+// each over P rows of C <= 16,384 consumers, E of them eligible (all C when
+// `eligible` is null: the count of its nonzero bytes otherwise), sorted in
+// next_pow2(E) slots.  rank_bits > 0 runs the packed key (the caller has
+// checked that each topic's valid lags are >= 0 and their shifted sum
+// fits, and C <= 2^rank_bits), 0 the two-key network.
 extern "C" int klba_scan_greedy(const void* lags, const void* valid, const void* eligible,
                                 void* choice, void* counts, void* totals, int T, int P, int C,
-                                void* stream) {
-  if (T < 0 || P < 0 || C < 1 || C > kMaxSlots) return static_cast<int>(cudaErrorInvalidValue);
+                                int E, int rank_bits, void* stream) {
+  if (T < 0 || P < 0 || C < 1 || C > kMaxSlots || E < 0 || E > C ||
+      (eligible == nullptr && E != C) || rank_bits < 0 || rank_bits > 61 ||
+      (rank_bits > 0 && C > (1LL << rank_bits)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (T == 0) return 0;
-  const int s = slots_per_thread(C);
-  KernelFn fn = kernel_for(s);
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = ((C + s - 1) / s + 31) / 32 * 32;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  static std::once_flag once[kMaxDevices];
+  static cudaError_t limits[kMaxDevices];
+  std::call_once(once[device], [device] { limits[device] = set_smem_limits(); });
+  if (limits[device] != cudaSuccess) return static_cast<int>(limits[device]);
+
+  const Instance& in = instance(log2_of(E), rank_bits > 0);
   const long long* g = static_cast<const long long*>(lags);
   const unsigned char* v = static_cast<const unsigned char*>(valid);
   const unsigned char* e = static_cast<const unsigned char*>(eligible);
   int* ch = static_cast<int*>(choice);
   int* cn = static_cast<int*>(counts);
   long long* tt = static_cast<long long*>(totals);
-  void* args[] = {&g, &v, &e, &ch, &cn, &tt, &P, &C};
-  cudaError_t err = cudaLaunchKernel(reinterpret_cast<const void*>(fn), dim3(T), dim3(threads),
-                                     args, 0, static_cast<cudaStream_t>(stream));
+  void* args[] = {&g, &v, &e, &ch, &cn, &tt, &P, &C, &E, &rank_bits};
+  err = cudaLaunchKernel(reinterpret_cast<const void*>(in.fn), dim3(T), dim3(in.threads), args,
+                         in.smem, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 

@@ -78,14 +78,16 @@ def assign_batched_scan(
     num_consumers: int,
     pack_shift: int = 0,
     refine_iters: int = 0,
+    lag_range: tuple | None = None,
 ):
     """The P-step scan over a topic batch (same contract, ``refine_iters``
     included, as :func:`assign_batched_rounds`; the scan stops after each
-    topic's valid rows on its own)."""
+    topic's valid rows on its own; ``lag_range`` as
+    :func:`..ops.scan_cuda.scan_greedy` takes it)."""
     if lags.dim() != 2:
         raise ValueError(f"lags must be [T, P], got {list(lags.shape)}")
     out = assign_topic_scan(lags, partition_ids, valid, num_consumers,
-                            pack_shift=pack_shift)
+                            pack_shift=pack_shift, lag_range=lag_range)
     if refine_iters:
         out = refine_assignment(lags, valid, out[0], num_consumers, iters=refine_iters)
     return out

@@ -37,6 +37,7 @@ from ..utils.device import DeviceLike, resolve_device
 from .batched import assign_batched_rounds, assign_batched_scan
 from .packing import TopicGroup, build_groups
 from .rounds_kernel import assign_global_rounds
+from .scan_cuda import host_lag_range
 from .scan_kernel import pack_shift_for
 
 # "global" returns a single [C] totals vector (cross-topic) instead of
@@ -100,11 +101,14 @@ def assign_group_device(
     # Packed single-key sort when the group's value ranges allow, checked
     # on the numpy inputs (padding rows included: they only widen the
     # bound).  The round scans stop after the longest topic's rounds; the
-    # P-step scan stops after each topic's valid rows on its own.
+    # P-step scan stops after each topic's valid rows on its own, and takes
+    # its key form from the lags' range, known here without a read.
     max_lag = int(group.lags.max()) if group.lags.size else 0
     max_pid = int(group.partition_ids.max()) if group.partition_ids.size else 0
     options = {"pack_shift": pack_shift_for(max_lag, max_pid)}
-    if kernel != "scan":
+    if kernel == "scan":
+        options["lag_range"] = host_lag_range(group.lags, group.valid.sum(axis=1))
+    else:
         options["n_valid"] = int(group.valid.sum(axis=1).max()) if group.valid.size else 0
     if refine_iters:
         options["refine_iters"] = int(refine_iters)

@@ -97,7 +97,14 @@ def packed_rank_bits(gains, valid, totals0, carry_across_topics: bool = False) -
     ``ops/batched.totals_rank_bits_for``'s rule, which also counts the
     starting totals.  Raises where :func:`rounds_scan` does."""
     bound, low = _check(gains, valid, totals0, carry_across_topics)
-    rank_bits = max(1, (gains.shape[-1] - 1).bit_length())
+    return rank_bits_for(gains.shape[-1], bound, low)
+
+
+def rank_bits_for(num_consumers: int, bound: float, low: float) -> int:
+    """rank_bits = max(1, bit_length(C - 1)) where ``low`` (the least gain
+    or starting total) is >= 0 and ``bound`` (the largest total a slot can
+    reach) is below 2^(61 - rank_bits), else 0 (the two-key form)."""
+    rank_bits = max(1, (int(num_consumers) - 1).bit_length())
     return rank_bits if low >= 0 and bound < float(1 << (61 - rank_bits)) else 0
 
 

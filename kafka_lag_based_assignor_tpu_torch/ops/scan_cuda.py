@@ -3,23 +3,29 @@ its plain PyTorch version.
 
 The JAX package runs these steps as a ``lax.scan`` inside
 ``kafka_lag_based_assignor_tpu/ops/scan_kernel.py::assign_topic_scan``;
-there is no Pallas kernel to replace.  On the card a loop of torch ops
-would be several launches a step, P steps a topic, so the kernel in
-``csrc/scan_greedy.cu`` runs the whole loop: one thread block per topic,
-every consumer's slot in registers.  See the source for what bounds it.
+there is no Pallas kernel to replace.  The kernel in
+``csrc/scan_greedy.cu`` computes the same function as rounds: the eligible
+set is fixed, so the steps fill rounds of E valid rows (E the eligible
+consumers), each a sort of the E consumers by (total, index), one thread
+block per topic.  See the source for what bounds it.  The wrapper picks
+its instantiation (``scan_plan``: E, and the key form by K1's rule) from
+what the caller knows on the host (``lag_range``: the main path's, with
+every consumer eligible, reads nothing from the card), else from one host
+read.
 
 :func:`scan_greedy` is the wrapper.  A CUDA tensor launches the kernel or
-raises; a CPU tensor runs :func:`scan_greedy_torch`, the plain version.
-Both accept the same inputs and raise on the same ones.
+raises; a CPU tensor runs :func:`scan_greedy_torch`, the plain version, the
+literal step form.  Both accept the same inputs and raise on the same ones.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
-from .rounds_cuda import MAX_SLOTS
+from .rounds_cuda import MAX_SLOTS, rank_bits_for
 from .scan_kernel import _argmin_consumer
 
 _fn = None
@@ -82,6 +88,45 @@ def scan_greedy_torch(sorted_lags, sorted_valid, num_consumers: int, eligible=No
     return choice, counts, totals
 
 
+def host_lag_range(lags: np.ndarray, n_valid: np.ndarray) -> tuple:
+    """The ``lag_range`` of :func:`scan_greedy` from host arrays: (the least
+    lag, the largest |lag| times the most valid rows of a topic, a bound on
+    any topic's sum of |valid lags|).  ``lags`` int64[T, P] holds every row,
+    padding included (it only widens the range); ``n_valid`` int[T]."""
+    if lags.size == 0:
+        return 0, 0.0
+    low, high = int(lags.min()), int(lags.max())
+    return low, float(max(high, -low)) * float(np.max(n_valid, initial=0))
+
+
+def scan_plan(sorted_lags, sorted_valid, num_consumers: int, eligible=None,
+              lag_range=None) -> tuple:
+    """(E, rank_bits) of a launch: E the eligible consumers (C without a
+    mask), which sets the kernel's sort width (``rounds_cuda.slots_for(E)``
+    slots); rank_bits the key form by K1's rule
+    (:func:`..ops.rounds_cuda.rank_bits_for`) over each topic's valid lags,
+    > 0 the packed key, 0 the two-key form.  Lags that are negative, or
+    whose sum in a topic reaches 2^(61 - rank_bits) (lags near 2^62: the
+    totals wrap), take the two-key form.  ``lag_range`` (as
+    :func:`host_lag_range` gives it) stands in for the lags; without it, or
+    with a mask, the plan takes one host read."""
+    C = int(num_consumers)
+    if lag_range is not None:
+        low, bound = lag_range
+        E = C if eligible is None else int(eligible.bool().sum())
+        return E, rank_bits_for(C, bound, low)
+    f64 = torch.float64
+    live = torch.where(sorted_valid.bool(), sorted_lags, 0)
+    if live.numel():
+        bound, low = live.to(f64).abs().sum(dim=1).amax(), live.amin().to(f64)
+    else:
+        bound = low = torch.zeros((), dtype=f64, device=sorted_lags.device)
+    n_eligible = (torch.full((), C, dtype=f64, device=sorted_lags.device) if eligible is None
+                  else eligible.bool().sum().to(f64))
+    bound, low, E = torch.stack([bound, low, n_eligible]).tolist()
+    return int(E), rank_bits_for(C, bound, low)
+
+
 def _bind():
     global _fn
     if _fn is None:
@@ -89,7 +134,7 @@ def _bind():
 
         lib = load("scan_greedy")
         fn = lib.klba_scan_greedy
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.klba_cuda_error_string.argtypes = [ctypes.c_int]
         lib.klba_cuda_error_string.restype = ctypes.c_char_p
@@ -97,7 +142,10 @@ def _bind():
     return _fn
 
 
-def _launch(sorted_lags, sorted_valid, num_consumers: int, eligible):
+def _launch(sorted_lags, sorted_valid, num_consumers: int, eligible, rank_bits=None,
+            lag_range=None):
+    """Launch the kernel in the key form of ``scan_plan``, or in the one
+    ``rank_bits`` names (0: the two-key form, which takes any input)."""
     T, P = sorted_lags.shape
     C = int(num_consumers)
     dev = sorted_lags.device
@@ -106,11 +154,13 @@ def _launch(sorted_lags, sorted_valid, num_consumers: int, eligible):
     totals = torch.empty((T, C), dtype=torch.int64, device=dev)
     if T == 0:
         return choice, counts, totals
+    E, planned = scan_plan(sorted_lags, sorted_valid, C, eligible, lag_range)
+    rank_bits = planned if rank_bits is None else rank_bits
     fn, error_string = _bind()
     args = (sorted_lags.data_ptr(), sorted_valid.data_ptr(),
             None if eligible is None else eligible.data_ptr(),
             choice.data_ptr(), counts.data_ptr(), totals.data_ptr(), T, P, C,
-            torch._C._cuda_getCurrentRawStream(dev.index))
+            E, rank_bits, torch._C._cuda_getCurrentRawStream(dev.index))
     if dev.index == torch.cuda.current_device():
         err = fn(*args)
     else:
@@ -122,7 +172,8 @@ def _launch(sorted_lags, sorted_valid, num_consumers: int, eligible):
     return choice, counts, totals
 
 
-def scan_greedy(sorted_lags, sorted_valid, num_consumers: int, eligible=None):
+def scan_greedy(sorted_lags, sorted_valid, num_consumers: int, eligible=None,
+                lag_range=None):
     """The greedy scan over presorted rows.
 
     Args:
@@ -130,6 +181,10 @@ def scan_greedy(sorted_lags, sorted_valid, num_consumers: int, eligible=None):
       sorted_valid: uint8[T, P] — their validity (0 = padding).
       num_consumers: C, at most ``MAX_SLOTS``.
       eligible: uint8[C] or None (every consumer eligible).
+      lag_range: None, or (least lag, bound on any topic's sum of |valid
+        lags|) as the caller knows them on the host (:func:`host_lag_range`);
+        with no mask the launch then reads nothing from the card.  A range
+        that does not hold the lags may give a wrong answer on the card.
 
     Returns (sorted_choice int32[T, P]: the consumer of each sorted row, -1
     where invalid or where no consumer is eligible; counts int32[T, C];
@@ -140,7 +195,7 @@ def scan_greedy(sorted_lags, sorted_valid, num_consumers: int, eligible=None):
     C = _check(sorted_lags, sorted_valid, num_consumers, eligible)
     if sorted_lags.device.type == "cpu":
         return scan_greedy_torch(sorted_lags, sorted_valid, C, eligible)
-    return _launch(sorted_lags, sorted_valid, C, eligible)
+    return _launch(sorted_lags, sorted_valid, C, eligible, lag_range=lag_range)
 
 
 scan_greedy.launches = 0

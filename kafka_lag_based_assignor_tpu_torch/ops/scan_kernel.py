@@ -116,6 +116,7 @@ def assign_topic_scan(
     num_consumers: int,
     eligible: torch.Tensor | None = None,
     pack_shift: int = 0,
+    lag_range: tuple | None = None,
 ):
     """Assign each topic's partitions by the P-step greedy scan.
 
@@ -124,7 +125,8 @@ def assign_topic_scan(
     ``num_consumers`` C; ``eligible`` an optional bool[C]: ineligible
     consumers never receive a partition, and with none eligible every row
     gets -1 (default: all eligible); ``pack_shift`` as in
-    :func:`pack_shift_for` (either sort form gives the same order).
+    :func:`pack_shift_for` (either sort form gives the same order);
+    ``lag_range`` as :func:`..ops.scan_cuda.scan_greedy` takes it.
 
     Returns (choice int32[..., P] in input order with -1 on padding, counts
     int32[..., C], totals int64[..., C]).
@@ -142,7 +144,7 @@ def assign_topic_scan(
     sorted_choice, counts, totals = scan_greedy(
         sorted_lags.reshape(-1, P).contiguous(),
         sorted_valid.reshape(-1, P).to(torch.uint8).contiguous(),
-        C, eligible,
+        C, eligible, lag_range=lag_range,
     )
     return (
         unsort(perm, sorted_choice.reshape(*batch, P)),

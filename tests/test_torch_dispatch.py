@@ -8,6 +8,12 @@ and ``native`` solvers and for ``rounds`` and ``scan`` with 16 rounds of
 exchange refinement.  Results must be identical, member list order
 included (both packages promise processing order), and the parity
 solvers' equal to the JAX package's host oracle.
+
+The JAX package's ``native`` (``assign_native``, and its plugin under
+``solver=native``) runs on ``jax_native_core`` (from
+``test_torch_native``): its own ``greedy.cpp`` built with its loader's
+flags into a private directory and handed to its loader, since the
+loader's in-place build races between test workers.
 """
 
 import numpy as np
@@ -47,6 +53,9 @@ from kafka_lag_based_assignor_tpu_torch.types import (  # noqa: E402
     TopicPartition,
 )
 from kafka_lag_based_assignor_tpu_torch.utils import config  # noqa: E402
+import test_torch_native  # noqa: E402
+
+jax_native_core = test_torch_native.jax_native_core
 
 # (BASELINE config, (partitions, consumers) cut or None for full size).
 CASES = [(1, None), (2, None), (3, None), (5, (5000, 100))]
@@ -79,6 +88,7 @@ def pairs(assignment):
     }
 
 
+@pytest.mark.usefixtures("jax_native_core")
 @pytest.mark.parametrize("solver,refine", SOLVERS, ids=SOLVER_IDS)
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
 def test_assign_device_matches_jax(case, solver, refine):
@@ -137,6 +147,7 @@ def jax_broker_for(lags):
     return broker
 
 
+@pytest.mark.usefixtures("jax_native_core")
 @pytest.mark.parametrize("solver,refine", SOLVERS, ids=SOLVER_IDS)
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
 def test_plugin_matches_jax_plugin(case, solver, refine):

@@ -6,7 +6,19 @@ member list order included, on the README example, BASELINE configs 2 and
 3 and fuzzed multi-topic groups.  Bad arguments raise; a missing compiler
 or a failed build raises ``RuntimeError`` and never answers from the Python
 oracle.
+
+The JAX package's loader builds its library in place, in its own package
+directory, at first use; test workers that load it at once can read a
+half-written file and lose the native core for the rest of their run.  So
+the tests that call it use ``jax_native_core``: the same ``greedy.cpp``
+built with the same flags into a directory of their own, put in place
+atomically and handed to that loader.
 """
+
+import ctypes
+import os
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,10 +35,34 @@ from kafka_lag_based_assignor_tpu_torch.testing import (  # noqa: E402
 )
 
 
+@pytest.fixture(scope="module")
+def jax_native_core(tmp_path_factory):
+    """The JAX package's ``native/greedy.cpp``, built with its loader's
+    flags into a private directory (a temporary name, then ``os.replace``)
+    and set as that loader's library (argument types as the loader sets
+    them) for the module's tests; the loader's state is restored after."""
+    out = tmp_path_factory.mktemp("jax_native") / "libklba_native.so"
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    source = Path(jax_native.__file__).with_name("greedy.cpp")
+    subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-o", str(tmp),
+                    str(source)], check=True, capture_output=True)
+    os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    lib.klba_assign_greedy.restype = ctypes.c_int
+    lib.klba_assign_greedy.argtypes = [
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+        ctypes.c_int32, ctypes.POINTER(ctypes.c_int32)]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_lib", lib)
+        mp.setattr(jax_native, "_load_failed", False)
+        yield lib
+
+
 def pairs(assignment):
     return {m: [(tp.topic, tp.partition) for tp in tps] for m, tps in assignment.items()}
 
 
+@pytest.mark.usefixtures("jax_native_core")
 @pytest.mark.parametrize("config", [1, 2, 3])
 def test_assign_native_matches_jax_on_baseline(config):
     lags, members = baseline_workload(config)
@@ -37,6 +73,7 @@ def test_assign_native_matches_jax_on_baseline(config):
     assert got == pairs(jax_greedy.assign_greedy(rows, subs))
 
 
+@pytest.mark.usefixtures("jax_native_core")
 @pytest.mark.parametrize("seed", range(6))
 def test_assign_native_matches_jax_fuzzed(seed):
     """Topics with ties, zero lags and lags near 2^62, members subscribed
@@ -57,6 +94,7 @@ def test_assign_native_matches_jax_fuzzed(seed):
     assert got == pairs(jax_native.assign_native(rows, subs))
 
 
+@pytest.mark.usefixtures("jax_native_core")
 def test_assign_topic_native_matches_jax_and_rejects_bad_arguments():
     rng = np.random.default_rng(3)
     lags = rng.integers(0, 50, 500)
