@@ -66,7 +66,14 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    the card;
 4. main paths, each with every launch count set to 0 just before it and
    read just after, through the port's ``LagBasedPartitionAssignor(
-   device="cuda")`` with a ``FakeBroker``:
+   device="cuda")`` with a ``FakeBroker``, with the host rung off
+   (``tpu.assignor.host.fallback=false``) and the watchdog at its default
+   deadline (the solve in its ``klba-solve`` worker thread, as users run
+   it): every ``assign()`` of phases 4 and 5 checks that
+   ``last_stats.fallback_used`` is False and that
+   ``klba_ladder_rung_total`` did not move, so a kernel fault fails the run
+   instead of hiding behind the host greedy (phase 4e alone turns the rung
+   on);
    a. ``rounds`` and ``global`` on BASELINE config 5 (1 topic, 100k
       partitions, 1k consumers) and config 3 (256 topics x 64 partitions,
       64 consumers): every ``assign()`` launches the round-scan kernel,
@@ -97,6 +104,30 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       ``assign()`` launches K7; ``scan`` and ``native`` equal ``rounds``;
       ``rounds`` + refine keeps each topic's count spread <= 1 and its peak
       <= the greedy one, equals the port's CPU path and ``scan`` + refine;
+   e. the fault ladder at BASELINE config 5: first the watchdog's cost,
+      ``assign()`` at configs 5 and 3 ``rounds`` with the default deadline
+      and with ``solve.timeout.ms=0`` (inline) in turns (medians of 6
+      each); then one assignor (``rounds``, host rung on,
+      ``breaker.failures=1``, an hour's cooldown, ``solve.timeout.ms`` 10x
+      the config-5 solve median, at least 1 s) through legs (a) no fault:
+      K1 launches, the ``assign.solve`` span histogram grows by one; (b) a
+      ``device.solve`` raise and (c) a ``device.compile`` raise: no K1
+      launch, the host rung's answer equal to (a)'s, the rung counter +1,
+      one ``rebalance`` flight record, with ``fallback_used``, and two
+      dumps (the breaker's trip and the ladder's)
+      (the breaker, opened by the one failure, is reset after each); (d) a
+      ``device.solve`` hang of twice the deadline: a solve timeout, the
+      breaker open, (a)'s answer from the host; (e) no fault with the
+      breaker open: rejected without running, no K1 launch, the host's
+      answer; (f) after ``reset_accelerator()``: K1 launches and gives
+      (a)'s bits; (g) ``host.fallback=false`` with a ``device.solve``
+      raise: ``assign()`` raises ``FaultError``.  Each abandoned worker is
+      waited for.  Then the streaming engine at config 5 under a
+      ``device.corrupt.choice`` plan: the cold epoch adopts a flipped
+      resident choice, the next epoch's refine dispatch (K6 launched)
+      raises ``CorruptStateDetected`` and the quarantine counter moves, the
+      epoch after heals; both equal the port's CPU engine at the card's
+      bucket;
 5. times, with CUDA events, medians of 30 runs after warm-up: each kernel
    alone at its main-path shape, its plain version on the card, the
    library yardstick where there is one, and its bound; the device time
@@ -106,7 +137,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    scan's at config 5 and at config 3 ``global`` with its time a round and
    a network stage, and K4's kernel launches a step; the ``assign()``
    wall on the host clock at config 5 (``rounds``) and configs 4 and 5
-   (``sinkhorn``); then, for each phase-4 cell, one ``assign()`` under
+   (``sinkhorn``; medians of 15 at config 5); then, for each phase-4 cell, one ``assign()`` under
    ``torch.profiler``: the device's busy time and its idle share of the
    wall; the streaming epoch walls by type (cold, and the medians of the
    no-op, warm-refine and delta epochs), the host reads of a warm epoch and
@@ -118,8 +149,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    config 5 (medians of 10), and the device shares of those cells at
    configs 5 and 3.
 
-It prints the card's name and power limit, one JSON ``kernels`` line, and as
-its last line
+It prints the card's name and power limit, one JSON ``ladder`` line (phase
+4e's legs, drill and watchdog cost), one JSON ``kernels`` line, and as its
+last line
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
 result.
 
@@ -157,6 +189,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -941,21 +974,47 @@ def subscription(members, topics) -> GroupSubscription:
     return GroupSubscription({m: Subscription(tuple(topics)) for m in members})
 
 
-def plugin(lags, members, solver, device, refine=None):
+def plugin(lags, members, solver, device, refine=None, **configs):
     """A configured assignor with its broker, and the assign() arguments;
-    ``refine`` sets tpu.assignor.refine.iters."""
+    ``refine`` sets tpu.assignor.refine.iters.  The host rung is off
+    (``tpu.assignor.host.fallback=false``) unless ``configs`` turn it on,
+    so a kernel fault fails the run instead of hiding behind the host
+    greedy; the watchdog keeps its default deadline (120 s) unless
+    ``configs`` set one."""
     broker = broker_for(lags)
     assignor = LagBasedPartitionAssignor(lambda props: broker, device=device)
-    configs = {"group.id": "chip-smoke", "tpu.assignor.solver": solver}
+    configs = {"group.id": "chip-smoke", "tpu.assignor.solver": solver,
+               "tpu.assignor.host.fallback": "false", **configs}
     if refine is not None:
         configs["tpu.assignor.refine.iters"] = str(refine)
     assignor.configure(configs)
     return assignor, broker.cluster(), subscription(members, sorted(lags))
 
 
+def rung_count():
+    """The host rung's counter; None for a package without the registry
+    (a parent checkout under the ``-ab`` modes)."""
+    try:
+        from kafka_lag_based_assignor_tpu_torch.utils import metrics
+    except ImportError:
+        return None
+    return metrics.REGISTRY.counter(
+        "klba_ladder_rung_total", {"method": "assign", "rung": "host_greedy"}).value
+
+
+def checked_assign(assignor, cluster, group):
+    """One assign() that the device answered: ``fallback_used`` False and
+    the host rung's counter unmoved."""
+    rung = rung_count()
+    out = assignor.assign(cluster, group)
+    if getattr(assignor.last_stats, "fallback_used", False) or rung_count() != rung:
+        raise AssertionError(f"{assignor.last_stats.solver}: answered by the host rung")
+    return out
+
+
 def assign_once(lags, members, solver, device, refine=None):
     assignor, cluster, group = plugin(lags, members, solver, device, refine)
-    out = assignor.assign(cluster, group)
+    out = checked_assign(assignor, cluster, group)
     return {
         m: [(tp.topic, tp.partition) for tp in a.partitions]
         for m, a in out.group_assignment.items()
@@ -1302,6 +1361,264 @@ def streaming_path(device):
     return launches, second
 
 
+# -- phase 4e --------------------------------------------------------------
+
+
+def join_abandoned_workers(timeout: float = 120.0) -> None:
+    """Wait for the watchdog's abandoned ``klba-solve`` workers."""
+    for t in threading.enumerate():
+        if t.name == "klba-solve":
+            t.join(timeout)
+            if t.is_alive():
+                raise AssertionError("an abandoned klba-solve worker is still running")
+
+
+def ladder_series() -> dict:
+    """The port registry's values that the ladder legs move."""
+    from kafka_lag_based_assignor_tpu_torch.utils import metrics
+
+    reg = metrics.REGISTRY
+    return {
+        "rung": rung_count(),
+        "assign_solve_spans": reg.histogram("klba_span_duration_ms",
+                                            {"span": "assign.solve"}).count,
+        "timeouts": reg.counter("klba_solve_timeouts_total", {"key": "rounds"}).value,
+        "rejected": reg.counter("klba_solve_rejected_total", {"key": "rounds"}).value,
+        "flight_dumps": metrics.FLIGHT.dump_count(),
+    }
+
+
+def watchdog_call_overhead(device, calls: int = 200) -> dict:
+    """What a call through the watchdog costs against the same call
+    inline (host clock, median of ``calls`` each, in turns): a no-op, and
+    one small launch with its host read on the caller's CUDA device and
+    stream, entered as the plugin's solve enters them.  Microseconds."""
+    from kafka_lag_based_assignor_tpu_torch.utils.device import carry_cuda_context
+    from kafka_lag_based_assignor_tpu_torch.utils.watchdog import Watchdog
+
+    wd = Watchdog(timeout_s=120.0)
+    x = torch.zeros(1, device=device)
+    ctx = carry_cuda_context(device)
+
+    def launch():
+        with ctx():
+            return float(x.add(1).item())
+
+    out = {}
+    for name, fn in (("noop", lambda: None), ("launch_and_read", launch)):
+        samples = {"worker": [], "inline": []}
+        for i in range(2 * calls + 4):
+            mode = ("worker", "inline")[(i + i // 2) % 2]
+            t0 = time.perf_counter()
+            wd.call(fn) if mode == "worker" else fn()
+            if i >= 4:
+                samples[mode].append((time.perf_counter() - t0) * 1e6)
+        med = {m: statistics.median(v) for m, v in samples.items()}
+        out[name] = {"worker_us": med["worker"], "inline_us": med["inline"],
+                     "cost_us": med["worker"] - med["inline"], "n": calls}
+    log(f"watchdog call overhead (medians of {calls} each, in turns): " + "; ".join(
+        f"{k}: worker {v['worker_us']!r} us, inline {v['inline_us']!r} us" for k, v in
+        out.items()))
+    return out
+
+
+def watchdog_cost(device, pairs: int = 6) -> dict:
+    """``assign()`` at configs 5 and 3 ``rounds`` with the watchdog at its
+    default (the solve in the ``klba-solve`` worker) and inline
+    (``solve.timeout.ms=0``), in turns (w, i, i, w, ...) after one warm-up
+    each: medians of the wall and the solve (host clock, ending in a
+    synchronize), and their difference; and the cost of one watchdog call
+    alone (``watchdog_call_overhead``)."""
+    out = {"call_overhead": watchdog_call_overhead(device)}
+    for cfg in (5, 3):
+        lags, members = baseline_workload(cfg)
+        runs = {"watchdog": plugin(lags, members, "rounds", device),
+                "inline": plugin(lags, members, "rounds", device,
+                                 **{"tpu.assignor.solve.timeout.ms": "0"})}
+        if runs["inline"][0]._watchdog.timeout_s is not None:
+            raise AssertionError("solve.timeout.ms=0 did not turn the watchdog off")
+        samples = {mode: [] for mode in runs}
+        for mode, (assignor, cluster, group) in runs.items():
+            checked_assign(assignor, cluster, group)
+        for i in range(2 * pairs):
+            mode = ("watchdog", "inline")[(i + i // 2) % 2]
+            assignor, cluster, group = runs[mode]
+            t0 = time.perf_counter()
+            checked_assign(assignor, cluster, group)
+            sync(device)
+            samples[mode].append(((time.perf_counter() - t0) * 1e3,
+                                  assignor.last_stats.solve_ms))
+        cell = {mode: {"wall_ms": statistics.median(w for w, _ in v),
+                       "solve_ms": statistics.median(s for _, s in v), "n": len(v)}
+                for mode, v in samples.items()}
+        cell["solve_cost_ms"] = cell["watchdog"]["solve_ms"] - cell["inline"]["solve_ms"]
+        cell["wall_cost_ms"] = cell["watchdog"]["wall_ms"] - cell["inline"]["wall_ms"]
+        out[cfg] = cell
+        log(f"watchdog cost  config {cfg} rounds (medians of {pairs} each, in turns): "
+            f"worker wall {cell['watchdog']['wall_ms']!r} ms solve "
+            f"{cell['watchdog']['solve_ms']!r} ms; inline wall {cell['inline']['wall_ms']!r} "
+            f"ms solve {cell['inline']['solve_ms']!r} ms; solve difference "
+            f"{cell['solve_cost_ms']!r} ms")
+    return out
+
+
+def ladder_legs(device, timeout_ms: int) -> dict:
+    """Legs (a)-(g) of the fault ladder at BASELINE config 5 through one
+    port assignor (``rounds``, host rung on, ``breaker.failures=1``, an
+    hour's cooldown, ``solve.timeout.ms`` = ``timeout_ms``), each checked
+    as it runs; returns each leg's outcome, launches and wall."""
+    from kafka_lag_based_assignor_tpu_torch.utils import faults, metrics
+
+    lags, members = baseline_workload(5)
+    ladder, cluster, group = plugin(lags, members, "rounds", device, **{
+        "tpu.assignor.host.fallback": "true", "tpu.assignor.breaker.failures": "1",
+        "tpu.assignor.breaker.cooldown.ms": "3600000",
+        "tpu.assignor.solve.timeout.ms": str(timeout_ms)})
+    hang_s = 2 * timeout_ms / 1e3
+    legs, answers = {}, {}
+
+    def leg(name, plan=None, assignor=ladder):
+        inj = None
+        if plan is not None:
+            inj = faults.FaultInjector(seed=9).plan(plan[0], plan[1], **plan[2])
+        before, k1 = ladder_series(), rounds_cuda.rounds_scan.launches
+        seq = max((r["seq"] for r in metrics.FLIGHT.records()), default=-1)
+        t0 = time.perf_counter()
+        raised = None
+        try:
+            if inj is None:
+                out = assignor.assign(cluster, group)
+            else:
+                with faults.injected(inj):
+                    out = assignor.assign(cluster, group)
+            answers[name] = {m: [(tp.topic, tp.partition) for tp in a.partitions]
+                             for m, a in out.group_assignment.items()}
+        except faults.FaultError:
+            raised = "FaultError"
+        sync(device)
+        wall = (time.perf_counter() - t0) * 1e3
+        join_abandoned_workers()
+        stats = assignor.last_stats
+        rec = {"raised": raised, "wall_ms": wall,
+               "k1_launches": rounds_cuda.rounds_scan.launches - k1,
+               **{k: v - before[k] for k, v in ladder_series().items()}}
+        if raised is None:
+            rec.update(fallback_used=stats.fallback_used, breaker_state=stats.breaker_state,
+                       solve_ms=stats.solve_ms, same_as_a=answers[name] == answers.get("a"),
+                       flight_records=[(r["kind"], r.get("fallback_used"))
+                                       for r in metrics.FLIGHT.records() if r["seq"] > seq])
+        legs[name] = rec
+        log(f"ladder leg ({name}) {json.dumps(rec)}")
+        return rec
+
+    def expect(name, ok: bool) -> None:
+        if not ok:
+            raise AssertionError(f"ladder leg ({name}): {legs[name]}")
+
+    r = leg("a")
+    expect("a", r["k1_launches"] >= 1 and not r["fallback_used"] and r["rung"] == 0
+           and r["assign_solve_spans"] == 1 and r["breaker_state"] == "closed")
+    for name, point in (("b", "device.solve"), ("c", "device.compile")):
+        r = leg(name, (point, "raise", {}))
+        # The breaker trip dumps inside the request, the ladder's dump after
+        # it (the JAX plugin's order): two dumps, one rebalance record.
+        expect(name, r["k1_launches"] == 0 and r["fallback_used"] and r["same_as_a"]
+               and r["rung"] == 1 and r["flight_dumps"] == 2
+               and r["flight_records"] == [("rebalance", True)]
+               and r["breaker_state"] == "open")  # breaker.failures=1
+        ladder.reset_accelerator()
+    r = leg("d", ("device.solve", "hang", {"delay_s": hang_s}))
+    expect("d", r["k1_launches"] == 0 and r["fallback_used"] and r["same_as_a"]
+           and r["timeouts"] == 1 and r["breaker_state"] == "open" and r["rung"] == 1)
+    r = leg("e")
+    expect("e", r["k1_launches"] == 0 and r["fallback_used"] and r["same_as_a"]
+           and r["rejected"] == 1 and r["breaker_state"] == "open")
+    ladder.reset_accelerator()
+    r = leg("f")
+    expect("f", r["k1_launches"] >= 1 and not r["fallback_used"] and r["same_as_a"]
+           and r["breaker_state"] == "closed" and r["rung"] == 0)
+    strict = plugin(lags, members, "rounds", device)[0]
+    r = leg("g", ("device.solve", "raise", {}), assignor=strict)
+    expect("g", r["raised"] == "FaultError" and r["k1_launches"] == 0 and r["rung"] == 0)
+    return legs
+
+
+def stream_drill(device) -> dict:
+    """The streaming engine at config 5 under a ``device.corrupt.choice``
+    plan: the cold epoch adopts a flipped resident choice, the next epoch's
+    refine dispatch (K6) raises CorruptStateDetected and quarantines, the
+    one after heals; the card's choices equal the port's CPU engine's at
+    the card's bucket, epoch by epoch."""
+    from kafka_lag_based_assignor_tpu_torch.utils import faults, metrics
+
+    def quarantine(outcome):
+        return metrics.REGISTRY.counter("klba_quarantine_total",
+                                        {"buffer": "choice", "outcome": outcome}).value
+
+    _, lags0 = stream_lags0(STREAM_P)
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        engine = stream_engine(dev)
+        if dev.type == "cpu":
+            engine._bucket = pad_bucket
+        q0 = (quarantine("quarantined"), quarantine("healed"))
+        inj = faults.FaultInjector(seed=11).plan("device.corrupt.choice")
+        with faults.injected(inj):
+            c0 = engine.rebalance(lags0)
+        lags1 = heat(lags0, c0, STREAM_C)
+        k6 = refine.state_digest.launches
+        t0 = time.perf_counter()
+        try:
+            engine.rebalance(lags1)
+            raised = None
+        except scrub.CorruptStateDetected as exc:
+            raised = exc.buffers
+        sync(dev)
+        detect_ms = (time.perf_counter() - t0) * 1e3
+        k6 = refine.state_digest.launches - k6
+        q1 = (quarantine("quarantined"), quarantine("healed"))
+        t0 = time.perf_counter()
+        c2 = engine.rebalance(lags1)
+        sync(dev)
+        heal_ms = (time.perf_counter() - t0) * 1e3
+        q2 = (quarantine("quarantined"), quarantine("healed"))
+        runs[dev.type] = dict(
+            c0=c0, c2=c2, raised=raised, k6=k6, detect_ms=detect_ms, heal_ms=heal_ms,
+            fired=inj.fired("device.corrupt.choice"),
+            quarantined=q1[0] - q0[0], healed=q2[1] - q1[1],
+            healthy=not engine.quarantined and not engine.needs_dense_resync)
+    card, cpu = runs[device.type], runs["cpu"]
+    if not (card["fired"] == 1 and card["raised"] is not None and "choice" in card["raised"]
+            and card["k6"] >= 1 and card["quarantined"] == 1 and card["healed"] == 1
+            and card["healthy"]):
+        raise AssertionError(f"stream corruption drill on the card: {card}")
+    if not (np.array_equal(card["c0"], cpu["c0"]) and np.array_equal(card["c2"], cpu["c2"])
+            and card["raised"] == cpu["raised"]):
+        raise AssertionError("stream corruption drill: the card and the CPU engine differ")
+    out = {k: card[k] for k in ("raised", "k6", "detect_ms", "heal_ms", "quarantined",
+                                "healed")}
+    log(f"stream corruption drill at config 5: {json.dumps(out)}; the cold and the "
+        "healed epoch equal the CPU engine's at the card's bucket")
+    return out
+
+
+def ladder_path(device) -> tuple:
+    """Phase 4e, the fault ladder on the card: the watchdog's cost, then,
+    with every count set to 0, legs (a)-(g) and the streaming corruption
+    drill at config 5.  Returns (the launches of the legs and the drill,
+    the ``ladder`` line)."""
+    cost = watchdog_cost(device)
+    timeout_ms = int(math.ceil(max(10 * cost[5]["watchdog"]["solve_ms"], 1000.0)))
+    reset_counts()
+    legs = ladder_legs(device, timeout_ms)
+    drill = stream_drill(device)
+    launches = read_counts()
+    join_abandoned_workers()
+    log(f"main path (ladder): launches {launches}")
+    return launches, {"config": 5, "solve_timeout_ms": timeout_ms, "legs": legs,
+                      "stream_drill": drill, "watchdog_cost": cost}
+
+
 # -- phase 5 ---------------------------------------------------------------
 
 
@@ -1392,15 +1709,23 @@ def k1_times(device) -> dict:
     return out
 
 
+# assign() walls at config 5 take about 2 s each: their medians are of
+# fewer runs, so that the script stays well inside its time limit.
+CONFIG5_WALL_REPEATS = 15
+
+
 def assign_walls(cfg: int, solver: str, device, repeats: int = REPEATS, refine=None):
-    """Medians of ``repeats`` ``assign()`` calls after 3 warm-ups, host
-    clock, ending in a synchronize: (wall, lag read, solve, min wall)."""
+    """Medians of ``repeats`` ``assign()`` calls (at most
+    ``CONFIG5_WALL_REPEATS`` at config 5) after 3 warm-ups, host clock,
+    ending in a synchronize: (wall, lag read, solve, min wall)."""
+    if cfg == 5:
+        repeats = min(repeats, CONFIG5_WALL_REPEATS)
     lags, members = baseline_workload(cfg)
     assignor, cluster, group = plugin(lags, members, solver, device, refine)
     walls, parts = [], []
     for i in range(repeats + 3):
         t0 = time.perf_counter()
-        assignor.assign(cluster, group)
+        checked_assign(assignor, cluster, group)
         torch.cuda.synchronize()
         if i >= 3:
             walls.append((time.perf_counter() - t0) * 1e3)
@@ -1433,7 +1758,7 @@ def times(device) -> dict:
         f"(its two-key body {plain_two_key!r} ms), bound {bound!r} ms ({bound_by})")
     alone = k1_times(device)["config 5"]["alone_ms"]
     wall, lag_read, solve, fastest = assign_walls(5, "rounds", device)
-    log(f"assign() at config 5 rounds, medians of {REPEATS} (host clock): wall "
+    log(f"assign() at config 5 rounds, medians of {CONFIG5_WALL_REPEATS} (host clock): wall "
         f"{wall!r} ms (min {fastest!r}), of which lag read {lag_read!r} ms "
         f"(FakeBroker), solve {solve!r} ms, the rest (stats, result objects) "
         f"{wall - lag_read - solve!r} ms; the kernel is {kernel / wall:.4%} of the wall")
@@ -1799,7 +2124,8 @@ def quality_times(device) -> dict:
             f"{t['bound_ms']!r} ms ({t['bound_by']}), {t['ms'] / t['bound_ms']:.1f}x the bound")
     for cfg in (4, 5):
         wall, lag_read, solve, fastest = assign_walls(cfg, "sinkhorn", device)
-        log(f"assign() at config {cfg} sinkhorn, medians of {REPEATS} (host clock): "
+        log(f"assign() at config {cfg} sinkhorn, medians of "
+            f"{CONFIG5_WALL_REPEATS if cfg == 5 else REPEATS} (host clock): "
             f"wall {wall!r} ms (min {fastest!r}), lag read {lag_read!r} ms, solve "
             f"{solve!r} ms ({solve / wall:.2%} of the wall)")
     return out
@@ -1817,7 +2143,7 @@ def profiled_assign(cfg: int, solver: str, refine_iters, device) -> dict:
 
     lags, members = baseline_workload(cfg)
     assignor, cluster, group = plugin(lags, members, solver, device, refine_iters)
-    assignor.assign(cluster, group)
+    checked_assign(assignor, cluster, group)
     ours = tuple(dict.fromkeys(KERNEL_NAMES.values()))
     for attempt in range(3):
         sessions, walls = [], []
@@ -1826,7 +2152,7 @@ def profiled_assign(cfg: int, solver: str, refine_iters, device) -> dict:
                      on_trace_ready=lambda p: sessions.append(p.key_averages())) as prof:
             for _ in range(2):
                 t0 = time.perf_counter()
-                assignor.assign(cluster, group)
+                checked_assign(assignor, cluster, group)
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
                 prof.step()
@@ -1842,6 +2168,7 @@ def profiled_assign(cfg: int, solver: str, refine_iters, device) -> dict:
             top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
             return {
                 "wall_ms": walls[-1],
+                "sessions": attempt + 1,
                 "busy_ms": sum(e.self_device_time_total for e in events) / 1e3,
                 "kernels_ms": kernels,
                 "top": [(e.key[:48], e.self_device_time_total / 1e3, e.count) for e in top],
@@ -1868,7 +2195,8 @@ def device_shares(device) -> None:
         if share is None:
             log(f"device share  config {cfg} {label}: profiled again in a new process")
             share = device_share_in_child(cfg, solver, refine_iters)
-        log(f"device share  config {cfg} {label:16s}: wall {share['wall_ms']!r} ms (profiled), "
+        log(f"device share  config {cfg} {label:16s}: profiler sessions "
+            f"{share.get('sessions', 'new process')}, wall {share['wall_ms']!r} ms (profiled), "
             f"device busy {share['busy_ms']!r} ms, of which the port's kernels "
             f"{share['kernels_ms']!r} ms; idle share {1 - share['busy_ms'] / share['wall_ms']!r}; "
             "top: " + "; ".join(f"{k} {ms:.3f} ms x{n}" for k, ms, n in share["top"]))
@@ -2143,9 +2471,12 @@ def main() -> int:
     launches = sinkhorn_path(device)
     stream_launches, stream_run = streaming_path(device)
     solver_launches = solver_path(device)
+    ladder_launches, ladder = ladder_path(device)
     launches["rounds_scan"] += (rounds_launches + stream_launches["rounds_scan"]
-                                + solver_launches["rounds_scan"])
-    launches["state_digest"] = stream_launches["state_digest"]
+                                + solver_launches["rounds_scan"]
+                                + ladder_launches["rounds_scan"])
+    launches["state_digest"] = (stream_launches["state_digest"]
+                                + ladder_launches["state_digest"])
     launches["scan_greedy"] = solver_launches["scan_greedy"]
     k1 = times(device)
     quality = quality_times(device)
@@ -2158,6 +2489,7 @@ def main() -> int:
         line.append(kernel_line(k, launches[k], f32_err[k], t))
     line.append(kernel_line("state_digest", launches["state_digest"], digest_err, digest))
     line.append(kernel_line("scan_greedy", launches["scan_greedy"], scan_err, k7))
+    log(json.dumps({"ladder": ladder}))
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -21,9 +21,38 @@ appends the exchange refinement to ``rounds`` and ``scan`` (the quality
 mode of the default solver, no longer the reference's answer).
 ``sinkhorn`` is the quality solver; the process-wide ``quality.mode``
 (:mod:`.ops.dispatch`) routes each of its topics to the dense or the
-linear-space path.  There is no host fallback: a device error propagates
-out of ``assign()``.  Every rebalance leaves a :class:`RebalanceStats`
-record in ``last_stats``.
+linear-space path.
+
+The fault ladder is the JAX plugin's:
+
+* every solve but ``host`` runs under a :class:`.utils.watchdog.Watchdog`
+  built from ``tpu.assignor.solve.timeout.ms`` (default 120 s; 0 runs it
+  inline), ``breaker.cooldown.ms`` and ``breaker.failures``, in a worker
+  thread (``klba-solve``) that enters the caller's CUDA device and stream,
+  with one circuit breaker per solver;
+* a solve that raises, times out or is rejected by its open breaker is
+  answered by :func:`.models.greedy.host_fallback_for` — the reference
+  greedy in Python, never a kernel's plain PyTorch version and never a move
+  to the CPU device — when ``tpu.assignor.host.fallback`` is on, as it is
+  by default: ``last_stats.fallback_used`` is True, the rung is counted in
+  ``klba_ladder_rung_total{method=assign,rung=host_greedy}`` and the flight
+  recorder dumps once.  With it off the error propagates out of
+  ``assign()``.  Broker-RPC exceptions always propagate, as in the
+  reference;
+* every rebalance runs in one request scope (a client-kind trace) with the
+  ``lag.read`` and ``assign.solve`` spans, observes
+  ``klba_rebalance_wall_ms{solver}``, logs its :class:`RebalanceStats` at
+  INFO, writes a ``rebalance`` flight record and leaves the record in
+  ``last_stats``; ``tpu.assignor.profile`` wraps it in a ``torch.profiler``
+  trace.
+
+A first rebalance builds its kernels with ``nvcc`` under the same
+deadline, about 40 s for the round scan's source: a ``solve.timeout.ms``
+below that can time it out, trip the breaker and answer that rebalance
+from the host, as a cold XLA compile does in the JAX plugin.  The build
+finishes in the abandoned worker and is reused.  The configure-time
+warm-up (``tpu.assignor.warmup.shapes``) that avoids this comes with the
+port's warm-up slice; the key is accepted and not read yet.
 """
 
 from __future__ import annotations
@@ -32,7 +61,7 @@ import logging
 from typing import Any, Callable, Mapping, Optional
 
 from .lag import LagRetryPolicy, MetadataConsumer, read_topic_partition_lags
-from .models.greedy import assign_greedy
+from .models.greedy import assign_greedy, host_fallback_for
 from .models.sinkhorn import assign_sinkhorn
 from .native import assign_native
 from .ops.dispatch import assign_device
@@ -43,9 +72,21 @@ from .types import (
     GroupSubscription,
     TopicPartition,
 )
-from .utils.config import AssignorConfig, parse_config
-from .utils.device import DeviceLike, resolve_device
-from .utils.observability import RebalanceStats, stopwatch, summarize_assignment
+from .utils import faults, metrics
+from .utils.config import PARITY_SOLVERS, AssignorConfig, parse_config
+from .utils.device import DeviceLike, carry_cuda_context, resolve_device
+from .utils.observability import (
+    TRACE,
+    RebalanceStats,
+    log_rebalance,
+    log_topic_summaries,
+    profile_trace,
+    stopwatch,
+    summarize_assignment,
+    summarize_topics,
+    trace_decisions,
+)
+from .utils.watchdog import Watchdog
 
 LOGGER = logging.getLogger(__name__)
 
@@ -67,6 +108,7 @@ class LagBasedPartitionAssignor:
         self._config: Optional[AssignorConfig] = None
         self._metadata_consumer: Optional[MetadataConsumer] = None
         self._metadata_consumer_factory = metadata_consumer_factory
+        self._watchdog: Optional[Watchdog] = None
         self._lag_retry: Optional[LagRetryPolicy] = None
         self.last_stats: Optional[RebalanceStats] = None
 
@@ -75,6 +117,11 @@ class LagBasedPartitionAssignor:
     def configure(self, configs: Mapping[str, Any]) -> None:
         """Reference :97-130 — fails fast if ``group.id`` is absent."""
         self._config = parse_config(configs)
+        self._watchdog = Watchdog(
+            self._config.solve_timeout_s,
+            cooldown_s=self._config.breaker_cooldown_s,
+            failure_threshold=self._config.breaker_failures,
+        )
         # Opt-in bounded lag-RPC retry; 0 retries = the reference's
         # broker-exception-aborts-the-rebalance semantics, untouched.
         self._lag_retry = (
@@ -84,6 +131,24 @@ class LagBasedPartitionAssignor:
             )
             if self._config.lag_retries > 0
             else None
+        )
+        LOGGER.debug(
+            "Configured LagBasedPartitionAssignor with values:\n"
+            "\tgroup.id = %s\n\tclient.id = %s\n\tsolver = %s",
+            self._config.group_id,
+            self._config.client_id,
+            self._config.solver,
+        )
+        # Full derived metadata-consumer property map (reference :122-128).
+        LOGGER.debug(
+            "Derived metadata consumer properties:\n%s",
+            "".join(
+                f"\t{k} = {v}\n"
+                for k, v in sorted(
+                    self._config.metadata_consumer_props.items(),
+                    key=lambda kv: kv[0],
+                )
+            ),
         )
 
     # -- ConsumerPartitionAssignor SPI ------------------------------------
@@ -112,11 +177,44 @@ class LagBasedPartitionAssignor:
             ),
         )
         with stopwatch() as wall:
-            group_assignment = self._assign_inner(metadata, subscriptions, stats)
+            with profile_trace(self._config.profile):
+                # The rebalance roots one client-kind trace: the lag read
+                # and the solve (on its worker thread too) ride it.
+                with metrics.request_scope(kind="client", root_name="client"):
+                    group_assignment = self._assign_inner(
+                        metadata, subscriptions, stats
+                    )
         stats.wall_ms = wall[0]
-        if LOGGER.isEnabledFor(logging.DEBUG):
-            LOGGER.debug("rebalance %s", stats.to_json())
+        log_rebalance(stats)
         self.last_stats = stats
+        # Registry + flight-recorder export: the structured record,
+        # queryable after the rebalance.
+        metrics.REGISTRY.histogram(
+            "klba_rebalance_wall_ms", {"solver": stats.solver}
+        ).observe(stats.wall_ms)
+        metrics.FLIGHT.record(
+            "rebalance",
+            {
+                "solver": stats.solver,
+                "num_topics": stats.num_topics,
+                "num_partitions": stats.num_partitions,
+                "num_members": stats.num_members,
+                "wall_ms": stats.wall_ms,
+                "lag_read_ms": stats.lag_read_ms,
+                "solve_ms": stats.solve_ms,
+                "total_lag": stats.total_lag,
+                "quality_ratio": stats.quality_ratio,
+                "fallback_used": stats.fallback_used,
+                "breaker_state": stats.breaker_state,
+                "refine_iters": stats.refine_iters,
+            },
+        )
+        if stats.fallback_used:
+            # The ladder descended past its first rung: one incident, one
+            # dump (a breaker trip in the same request already took it).
+            metrics.FLIGHT.auto_dump(
+                "ladder", {"method": "assign", "rung": "host_greedy"}
+            )
         return group_assignment
 
     def _assign_inner(
@@ -148,25 +246,8 @@ class LagBasedPartitionAssignor:
         stats.lag_read_ms = lag_ms[0]
 
         with stopwatch() as solve_ms:
-            if self._config.solver == "host":
-                raw = assign_greedy(lags, topic_subscriptions)
-            elif self._config.solver == "native":
-                raw = assign_native(lags, topic_subscriptions)
-            elif self._config.solver == "sinkhorn":
-                raw = assign_sinkhorn(
-                    lags, topic_subscriptions,
-                    iters=self._config.sinkhorn_iters,
-                    refine_iters=self._config.refine_iters,
-                    device=self.device,
-                )
-            else:
-                # An explicit refine budget appends the exchange refinement
-                # to the per-topic parity kernels; global + refine is
-                # rejected by configure().
-                raw = assign_device(
-                    lags, topic_subscriptions, kernel=self._config.solver,
-                    device=self.device, refine_iters=self._config.refine_iters,
-                )
+            with metrics.span("assign.solve"):
+                raw = self._solve(lags, topic_subscriptions, stats)
         stats.solve_ms = solve_ms[0]
 
         stats.num_topics = len(lags)
@@ -179,9 +260,88 @@ class LagBasedPartitionAssignor:
         }
         stats.total_lag = sum(lag_by_tp.values())
         summarize_assignment(stats, raw, lag_by_tp)
+        # Per-topic breakdown + per-decision trace + per-topic debug
+        # summary, all gated like the reference's isDebugEnabled guard
+        # (:280), as in the JAX plugin.
+        if LOGGER.isEnabledFor(logging.DEBUG):
+            summarize_topics(stats, raw, lags)
+            # The decision replay assumes per-topic sequential greedy:
+            # only the parity solvers without a refine budget ('global'
+            # carries totals across topics, 'sinkhorn' has no decision
+            # sequence; the host rung of a parity solver is the greedy).
+            refined = self._config.solver in (
+                "rounds", "scan"
+            ) and bool(self._config.refine_iters)
+            if (
+                self._config.solver in PARITY_SOLVERS
+                and not refined
+                and LOGGER.isEnabledFor(TRACE)
+            ):
+                trace_decisions(raw, lags, logger=LOGGER)
+            log_topic_summaries(stats, raw, logger=LOGGER)
+
         return GroupAssignment(
             {member: Assignment(tuple(tps)) for member, tps in raw.items()}
         )
+
+    def _solve(self, lags, topic_subscriptions, stats: RebalanceStats):
+        solver = self._config.solver
+        if solver == "host":
+            return assign_greedy(lags, topic_subscriptions)
+        try:
+            # Device and native solves run under the watchdog: a wedged
+            # device can HANG rather than raise, and a rebalance must
+            # never block past its deadline.  The breaker key is the
+            # SOLVER, so a wedged sinkhorn solve cannot banish the rounds
+            # kernel.  The worker enters this thread's CUDA device and
+            # stream (captured here, on the caller).
+            result = self._watchdog.call(
+                self._solve_accelerated, solver, lags, topic_subscriptions,
+                carry_cuda_context(self.device), key=solver,
+            )
+            stats.breaker_state = self._watchdog.state(solver)
+            return result
+        except Exception:
+            stats.breaker_state = self._watchdog.state(solver)
+            if not self._config.host_fallback:
+                raise
+            LOGGER.warning(
+                "device solver %r failed; falling back to host greedy",
+                solver,
+                exc_info=True,
+            )
+            stats.fallback_used = True
+            stats.refine_iters = None  # the host fallback never refines
+            stats.device = None  # answered on the host
+            metrics.REGISTRY.counter(
+                "klba_ladder_rung_total",
+                {"method": "assign", "rung": "host_greedy"},
+            ).inc()
+            return host_fallback_for(solver)(lags, topic_subscriptions)
+
+    def _solve_accelerated(self, solver, lags, topic_subscriptions, cuda_context):
+        """The solve the watchdog runs (on its worker thread unless the
+        timeout is off): the ``device.solve`` fault point first, then the
+        configured solver inside the caller's CUDA device and stream."""
+        faults.fire("device.solve")
+        config = self._config
+        with cuda_context():
+            if solver == "native":
+                return assign_native(lags, topic_subscriptions)
+            if solver == "sinkhorn":
+                return assign_sinkhorn(
+                    lags, topic_subscriptions,
+                    iters=config.sinkhorn_iters,
+                    refine_iters=config.refine_iters,
+                    device=self.device,
+                )
+            # An explicit refine budget appends the exchange refinement to
+            # the per-topic parity kernels; global + refine is rejected by
+            # configure().
+            return assign_device(
+                lags, topic_subscriptions, kernel=solver,
+                device=self.device, refine_iters=config.refine_iters,
+            )
 
     def _get_metadata_consumer(self) -> MetadataConsumer:
         """Lazily create the shared metadata consumer (reference :322-324);
@@ -200,3 +360,9 @@ class LagBasedPartitionAssignor:
     def set_metadata_consumer(self, consumer: MetadataConsumer) -> None:
         """Directly inject a broker client (tests, embedding runtimes)."""
         self._metadata_consumer = consumer
+
+    def reset_accelerator(self) -> None:
+        """Clear a tripped solve watchdog so the next rebalance probes the
+        device again (the trip also auto-expires after its cooldown)."""
+        if self._watchdog is not None:
+            self._watchdog.reset()

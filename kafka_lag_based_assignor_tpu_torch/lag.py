@@ -1,9 +1,11 @@
 """Lag acquisition (the I/O layer, L2) and the pure lag formula.
 
 A copy of ``compute_partition_lag``, ``read_topic_partition_lags`` and
-``LagRetryPolicy`` from ``kafka_lag_based_assignor_tpu/lag.py``, without
-that module's fault-injection points and metrics counters (they come with
-the port's observability slice).  Reference semantics reproduced exactly:
+``LagRetryPolicy`` from ``kafka_lag_based_assignor_tpu/lag.py``, with its
+fault points (``lag.begin`` / ``lag.end`` / ``lag.committed``), its retry
+counter (``klba_lag_retries_total{rpc}``) and its ``lag.read`` client scope
+and span.  ``LagDeltaTracker`` and ``AssignmentDeltaTracker`` come with the
+port's sidecar slice.  Reference semantics reproduced exactly:
 
 * ``compute_partition_lag`` — LagBasedPartitionAssignor.java:376-404:
   committed offset wins; otherwise ``auto.offset.reset=latest`` means lag 0
@@ -39,6 +41,7 @@ from .types import (
     TopicPartition,
     TopicPartitionLag,
 )
+from .utils import faults, metrics
 
 LOGGER = logging.getLogger(__name__)
 
@@ -78,6 +81,9 @@ def _call_with_retry(
         except Exception:
             if attempt == retry.attempts - 1:
                 raise
+            metrics.REGISTRY.counter(
+                "klba_lag_retries_total", {"rpc": what}
+            ).inc()
             delay = retry.backoff_s * retry.multiplier**attempt
             LOGGER.warning(
                 "lag RPC %s failed (attempt %d/%d); retrying in %.3fs",
@@ -149,9 +155,27 @@ def read_topic_partition_lags(
       committed offset" (:349).
 
     ``retry`` (default None = reference abort semantics) bounds transient
-    broker failures per RPC — see :class:`LagRetryPolicy`.
+    broker failures per RPC — see :class:`LagRetryPolicy`.  The fault
+    points ``lag.begin`` / ``lag.end`` / ``lag.committed`` sit INSIDE the
+    retried callables so injection drills exercise the retry path.
     """
     topic_partition_lags: Dict[str, List[TopicPartitionLag]] = {}
+    # Called under the assignor's rebalance scope the outer trace wins
+    # (nested scopes flatten) and this only contributes the span; called
+    # on its own it roots a client-kind trace, as in the JAX package.
+    with metrics.request_scope(kind="client", root_name="lag.read"):
+        with metrics.span("lag.read"):
+            _read_all(
+                topic_partition_lags, metadata_consumer, cluster,
+                all_subscribed_topics, auto_offset_reset_mode, retry,
+            )
+    return topic_partition_lags
+
+
+def _read_all(
+    topic_partition_lags, metadata_consumer, cluster,
+    all_subscribed_topics, auto_offset_reset_mode, retry,
+):
     for topic in all_subscribed_topics:
         partition_info = cluster.partitions_for_topic(topic)
         if not partition_info:
@@ -164,19 +188,23 @@ def read_topic_partition_lags(
         topic_partitions = [
             TopicPartition(p.topic, p.partition) for p in partition_info
         ]
+
         # The three batch RPCs — the only network boundary in the plugin.
-        begin_offsets = _call_with_retry(
-            lambda: metadata_consumer.beginning_offsets(topic_partitions),
-            "beginning_offsets", retry,
-        )
-        end_offsets = _call_with_retry(
-            lambda: metadata_consumer.end_offsets(topic_partitions),
-            "end_offsets", retry,
-        )
-        committed = _call_with_retry(
-            lambda: metadata_consumer.committed(set(topic_partitions)),
-            "committed", retry,
-        )
+        def _begin():
+            faults.fire("lag.begin")
+            return metadata_consumer.beginning_offsets(topic_partitions)
+
+        def _end():
+            faults.fire("lag.end")
+            return metadata_consumer.end_offsets(topic_partitions)
+
+        def _committed():
+            faults.fire("lag.committed")
+            return metadata_consumer.committed(set(topic_partitions))
+
+        begin_offsets = _call_with_retry(_begin, "beginning_offsets", retry)
+        end_offsets = _call_with_retry(_end, "end_offsets", retry)
+        committed = _call_with_retry(_committed, "committed", retry)
 
         topic_partition_lags[topic] = [
             TopicPartitionLag(
@@ -191,4 +219,3 @@ def read_topic_partition_lags(
             )
             for tp in topic_partitions
         ]
-    return topic_partition_lags

@@ -7,7 +7,9 @@ It exists for three reasons:
 
 1. **Oracle** for differential testing of the device kernels (bit-exact
    parity).
-2. The ``host`` solver of the plugin adapter.
+2. The ``host`` solver of the plugin adapter, and its host rung: the
+   answer when a device solve fails, times out or is rejected by its
+   breaker (:func:`host_fallback_for`).
 3. Executable specification of the semantics the kernels must reproduce
    (SURVEY §2.4): count-primary / lag-secondary / member-id-tertiary
    selection, lag-descending / partition-id-ascending processing order,
@@ -119,6 +121,24 @@ def assign_greedy_global(
             total_lag=totals,
         )
     return assignment
+
+
+def host_fallback_for(solver: str):
+    """The host solver the plugin answers from when a device (or
+    ``native``) solve fails, times out or is rejected by its breaker.
+
+    Exactness of the fallback depends on the solver: ``global`` keeps its
+    semantics exactly (:func:`assign_greedy_global` is the same algorithm
+    on the host); the reference-parity solvers (``rounds``/``scan``/
+    ``native``) fall back to :func:`assign_greedy`, which is bit-identical
+    to them.  ``sinkhorn`` has no host equivalent — its fallback is
+    :func:`assign_greedy`, a *quality downgrade* (OT-optimized balance ->
+    4/3-approximation greedy) that still satisfies every invariant (count
+    spread <= 1, determinism).  Callers see the downgrade via
+    ``RebalanceStats.fallback_used`` plus the warning log.  Both are the
+    Python reference greedy: the host rung never runs a kernel's plain
+    PyTorch version and never moves the solve to the CPU device."""
+    return assign_greedy_global if solver == "global" else assign_greedy
 
 
 def assign_greedy(

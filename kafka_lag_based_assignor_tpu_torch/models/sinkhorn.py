@@ -36,6 +36,7 @@ import torch
 
 from ..ops.plan_stats import implicit_plan_argmax, implicit_plan_rows, noise, plan_stats
 from ..types import AssignmentMap, TopicPartitionLag
+from ..utils import metrics
 from ..utils.device import DeviceLike, resolve_device
 
 # At or below this many partition rows the sequential rounding runs;
@@ -184,6 +185,9 @@ def sinkhorn_duals(lags, valid, num_consumers: int, iters: int = 24,
     lags_np = np.asarray(lags)
     valid_np = np.asarray(valid, dtype=bool)
     C = int(num_consumers)
+    metrics.REGISTRY.counter(
+        "klba_quality_solve_total", {"mode": "sinkhorn"}
+    ).inc()
     ws_u, count_u, wsum_u = (
         torch.from_numpy(a).to(dev) for a in _dedup_weights(lags_np, valid_np, C)
     )
@@ -368,6 +372,9 @@ def assign_topic_sinkhorn(lags, partition_ids, valid, num_consumers: int,
             lags_np, pids_np, valid_np, num_consumers=C, iters=iters,
             refine_iters=refine_iters, device=dev,
         )
+    metrics.REGISTRY.counter(
+        "klba_quality_solve_total", {"mode": "sinkhorn"}
+    ).inc()
     ws_u, count_u, wsum_u = (
         torch.from_numpy(a).to(dev) for a in _dedup_weights(lags_np, valid_np, C)
     )

@@ -62,13 +62,16 @@ def _build_library(out: Path) -> None:
 
 def load() -> ctypes.CDLL:
     """The loaded native library, built on first use; raises when it cannot
-    be built or loaded."""
+    be built or loaded.  A fresh build is counted
+    (``utils/observability.compile_count``) after the lock is released."""
     global _lib
+    fresh = False
     with _LOCK:
         if _lib is None:
             out = library_path()
             if not out.exists():
                 _build_library(out)
+                fresh = True
             lib = ctypes.CDLL(str(out))
             lib.klba_assign_greedy.restype = ctypes.c_int
             lib.klba_assign_greedy.argtypes = [
@@ -79,7 +82,12 @@ def load() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.c_int32),
             ]
             _lib = lib
-        return _lib
+        lib = _lib
+    if fresh:
+        from ..utils.observability import note_kernel_build
+
+        note_kernel_build()
+    return lib
 
 
 def available() -> bool:

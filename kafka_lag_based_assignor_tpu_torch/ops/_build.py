@@ -6,6 +6,14 @@ checkout's ``build/`` directory), where ``<digest>`` hashes the source, the
 shared ``csrc/*.cuh`` headers and the flags, so an edited source never
 reuses a stale library.  The build runs at first use, never at import:
 importing this module needs no compiler and no card.
+
+Each source has its own build lock, taken only around its own build and
+load: a first-use build of ``rounds_scan.cu`` (about 40 s) blocks later
+callers of that library until it is ready, and no other.  A solve the
+watchdog abandons in the middle of a build leaves the build running in its
+worker; the build finishes, the library is kept, and the next call reuses
+it.  Every fresh build is counted (``utils/observability.compile_count``),
+after its lock is released.
 """
 
 from __future__ import annotations
@@ -29,7 +37,17 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# Guards _LOCKS; each source's own lock guards its build and load.
 _LOCK = threading.Lock()
+_LOCKS: Dict[str, threading.Lock] = {}
+
+
+def _lock_for(name: str) -> threading.Lock:
+    with _LOCK:
+        lock = _LOCKS.get(name)
+        if lock is None:
+            lock = _LOCKS[name] = threading.Lock()
+        return lock
 
 
 def _nvcc() -> str:
@@ -88,13 +106,28 @@ def _finish(name: str, out: Path, started) -> Path:
 
 def build_all() -> Dict[str, float]:
     """Build every ``csrc/*.cu``, one nvcc per source, all started
-    together.  Returns the seconds until each library was ready."""
+    together (each under its build lock).  Returns the seconds until each
+    library was ready."""
+    from ..utils.observability import note_kernel_build
+
     t0 = time.perf_counter()
-    started = {p.stem: _start(p.stem) for p in sorted(CSRC.glob("*.cu"))}
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    locks = [_lock_for(name) for name in names]
+    fresh = 0
     seconds = {}
-    for name, (out, proc) in started.items():
-        _finish(name, out, proc)
-        seconds[name] = time.perf_counter() - t0
+    for lock in locks:
+        lock.acquire()
+    try:
+        started = {name: _start(name) for name in names}
+        for name, (out, proc) in started.items():
+            _finish(name, out, proc)
+            fresh += proc is not None
+            seconds[name] = time.perf_counter() - t0
+    finally:
+        for lock in locks:
+            lock.release()
+    for _ in range(fresh):
+        note_kernel_build()
     return seconds
 
 
@@ -107,9 +140,19 @@ def build_log(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    with _LOCK:
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    fresh = False
+    with _lock_for(name):
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(_finish(name, *_start(name))))
+            out, started = _start(name)
+            lib = ctypes.CDLL(str(_finish(name, out, started)))
+            fresh = started is not None
             _LIBS[name] = lib
-        return lib
+    if fresh:
+        from ..utils.observability import note_kernel_build
+
+        note_kernel_build()
+    return lib

@@ -15,16 +15,23 @@ Member-rank convention: per group, subscribed members sorted
 lexicographically map to dense kernel indices, so the kernel's integer
 tie-break reproduces the reference's member-id string compare (:259).
 
-The quality router (``tpu.assignor.quality.mode``) and the per-topic host
-orchestration of the quality solvers (:func:`assign_per_topic`) live here
-too, as in the JAX module.  The knobs are process-wide, as there.
+The quality router (``tpu.assignor.quality.mode``), the quality tile's
+autotune and the per-topic host orchestration of the quality solvers
+(:func:`assign_per_topic`) live here too, as in the JAX module.  The knobs
+are process-wide, as there.
+
+Each group dispatch fires the ``device.compile`` fault point, where a
+first-use kernel build would block, and reports the round-scan kernel's key
+form to :func:`observe_pack_shift`, as the JAX module reports its
+value-derived static arguments.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 from contextlib import contextmanager
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,13 +39,59 @@ import torch
 from ..convert import group_tensors
 from ..models.greedy import consumers_per_topic
 from ..types import AssignmentMap, TopicPartition, TopicPartitionLag
+from ..utils import faults, metrics
 from ..utils.config import QUALITY_MODES, validate_quality_tile
 from ..utils.device import DeviceLike, resolve_device
 from .batched import assign_batched_rounds, assign_batched_scan
 from .packing import TopicGroup, build_groups
+from .rounds_cuda import rank_bits_for
 from .rounds_kernel import assign_global_rounds
 from .scan_cuda import host_lag_range
 from .scan_kernel import pack_shift_for
+
+LOGGER = logging.getLogger(__name__)
+
+# The last value-derived kernel choice seen per (kernel, lags shape, C) call
+# signature.  The round-scan kernel takes one of two key forms by the
+# input's value range (:func:`.rounds_cuda.packed_rank_bits`): both give the
+# same assignment, but a lag magnitude drifting across the packing bound
+# changes the code the card runs, as it changes the executable the JAX
+# package compiles, and the change must be observable.
+_LAST_PACK_SHIFT: Dict[Tuple, object] = {}
+
+
+def observe_pack_shift(key: Tuple, shift) -> None:
+    """INFO-log changes in value-derived kernel choices per call signature.
+    ``shift`` may be a plain pack shift or a tuple (here ``(pack_shift,
+    rank_bits)``) — compared structurally, any change counts.  Every
+    observed change also bumps the process-wide drift counter
+    (utils/observability.static_drift_count), as in the JAX package."""
+    prev = _LAST_PACK_SHIFT.get(key)
+    if prev is not None and prev != shift:
+        from ..utils.observability import note_static_drift
+
+        note_static_drift()
+        LOGGER.info(
+            "value-derived kernel choice for %s changed %s -> %s (input "
+            "value ranges drifted): the round scan runs its other key form",
+            key, prev, shift,
+        )
+    _LAST_PACK_SHIFT[key] = shift
+
+
+def round_scan_rank_bits(group: TopicGroup, kernel: str) -> int:
+    """The key form the round-scan kernel takes for ``group`` with zero
+    starting totals (:func:`.rounds_cuda.packed_rank_bits`' rule on the
+    numpy inputs): > 0 the packed key's rank bits, 0 the two-key form.
+    The bound is each topic's sum of valid lags, or the whole group's for
+    ``global`` (its totals carry across topics)."""
+    C = group.num_consumers
+    live = np.where(group.valid, group.lags, 0)
+    if live.size == 0:
+        return rank_bits_for(C, 0.0, 0.0)
+    sums = live.sum(axis=-1, dtype=np.float64)
+    bound = float(sums.sum() if kernel == "global" else sums.max())
+    return rank_bits_for(C, bound, min(float(live.min()), 0.0))
 
 # "global" returns a single [C] totals vector (cross-topic) instead of
 # [T, C]; the choice/counts contracts are identical across all three.
@@ -92,6 +145,9 @@ def assign_group_device(
     ``refine_iters`` (0: strict parity; "rounds" and "scan" only) appends
     that many rounds of per-topic exchange refinement.
     """
+    # Where a first-use kernel build would block: drills inject their
+    # hang or raise here, once a group, as the JAX package does.
+    faults.fire("device.compile")
     kernel_fn = _BATCHED_KERNELS[kernel]
     if refine_iters and kernel == "global":
         raise ValueError(
@@ -106,6 +162,11 @@ def assign_group_device(
     max_lag = int(group.lags.max()) if group.lags.size else 0
     max_pid = int(group.partition_ids.max()) if group.partition_ids.size else 0
     options = {"pack_shift": pack_shift_for(max_lag, max_pid)}
+    if kernel in ("rounds", "global"):
+        observe_pack_shift(
+            (kernel, group.lags.shape, group.num_consumers),
+            (options["pack_shift"], round_scan_rank_bits(group, kernel)),
+        )
     if kernel == "scan":
         options["lag_range"] = host_lag_range(group.lags, group.valid.sum(axis=1))
     else:
@@ -228,6 +289,56 @@ def set_quality_tile(tile) -> int:
 
 def quality_tile() -> int:
     return _QUALITY["tile"]
+
+
+# How the process-wide tile was last chosen ("default" until an autotune
+# runs; then "autotuned" or "cpu-default") and the free memory the choice
+# was derived from.
+_TILE_SOURCE = {"source": "default", "memory_bytes": None}
+
+
+def autotune_quality_tile(memory_stats=None, device: DeviceLike = None) -> int:
+    """Size ``tpu.assignor.quality.tile`` from the device's free memory
+    instead of the static default (the warm-up calls it before the quality
+    solves run).  ``memory_stats`` is ``{"bytes_limit", "bytes_in_use"}``
+    as the JAX package reads it; None reads the card through
+    ``torch.cuda.mem_get_info`` (a CPU device has none).
+
+    Sizing rule, the JAX package's: the linear-OT tile keeps ~3 live
+    (tile, C) f32 blocks per step, so the tile is the largest pow2 with
+    ``3 * tile * 1024 * 4`` (C sized at the 1000-consumer lane pad) under
+    1/8th of the device's free memory.  Without memory statistics (the
+    CPU) the static tile stays.  The choice is exported as the gauge
+    ``klba_quality_tile_autotuned{source}``."""
+    if memory_stats is None:
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            free, total = torch.cuda.mem_get_info(dev)
+            memory_stats = {"bytes_limit": total, "bytes_in_use": total - free}
+    if not memory_stats:
+        _TILE_SOURCE.update(source="cpu-default", memory_bytes=None)
+        metrics.REGISTRY.gauge(
+            "klba_quality_tile_autotuned", {"source": "cpu-default"}
+        ).set(quality_tile())
+        return quality_tile()
+    free = int(
+        memory_stats.get("bytes_limit", 0)
+        - memory_stats.get("bytes_in_use", 0)
+    )
+    budget = max(free // 8, 1)
+    tile = 8
+    while tile * 2 <= 65536 and 3 * (tile * 2) * 1024 * 4 <= budget:
+        tile *= 2
+    chosen = set_quality_tile(tile)
+    _TILE_SOURCE.update(source="autotuned", memory_bytes=free)
+    metrics.REGISTRY.gauge(
+        "klba_quality_tile_autotuned", {"source": "autotuned"}
+    ).set(chosen)
+    LOGGER.info(
+        "quality tile autotuned to %d rows (device free memory %d bytes)",
+        chosen, free,
+    )
+    return chosen
 
 
 @contextmanager

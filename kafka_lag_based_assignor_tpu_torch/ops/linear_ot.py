@@ -35,6 +35,7 @@ import torch
 
 from ..types import AssignmentMap, TopicPartitionLag
 from ..utils.config import validate_quality_tile as validate_tile
+from ..utils import metrics
 from ..utils.device import DeviceLike, resolve_device
 from .kernel_admission import lane_pad as _lane_pad
 
@@ -203,12 +204,28 @@ def last_solve_info() -> Optional[dict]:
     return _LAST
 
 
+def _peak_bytes_estimate(P2: int, C: int, tile: int) -> int:
+    """The JAX package's device-memory model of the duals solve (the
+    operator-facing ``klba_quality_last_peak_bytes`` gauge, kept as the
+    same formula so both packages export one number): 25 bytes a row (the
+    int64 lags, the bool mask, an f64 intermediate and the f32 ws and
+    count vectors), ~3 live (tile, C) f32 blocks, the per-superblock
+    partials and the dual/marginal vectors."""
+    return (
+        25 * P2
+        + 3 * tile * C * 4
+        + 2 * _SUPERBLOCKS * C * 4
+        + 8 * C * 4
+    )
+
+
 def record_linear_solve(lags_p, valid_p, totals_np, num_consumers: int, *,
                         tiles: int, tile: int, rounds: int,
                         backend: str) -> None:
     """Assert the additive bound against the solved totals (a miss means
     the rounding contract broke: it raises rather than serve an
-    unbalanced assignment), then keep the ``_LAST`` record."""
+    unbalanced assignment), then keep the ``_LAST`` record and record the
+    quality-plane metrics (the JAX package's series)."""
     global _LAST
     C = int(num_consumers)
     bound = additive_bound(lags_p, valid_p, C)
@@ -219,14 +236,23 @@ def record_linear_solve(lags_p, valid_p, totals_np, num_consumers: int, *,
             f"load {max_tot:.0f} > total/C + max_lag = {bound:.0f} "
             "(push-relabel additive guarantee, ops/linear_ot)"
         )
+    P2 = int(lags_p.shape[0])
     _LAST = {
         "backend": backend,
-        "rows": int(lags_p.shape[0]),
+        "rows": P2,
         "consumers": C,
         "tile": int(tile),
         "tiles": int(tiles),
         "duals_rounds": int(rounds),
+        "peak_bytes_estimate": _peak_bytes_estimate(P2, C, int(tile)),
     }
+    metrics.REGISTRY.counter(
+        "klba_quality_solve_total", {"mode": "linear"}
+    ).inc()
+    metrics.REGISTRY.gauge("klba_quality_last_tile_count").set(int(tiles))
+    metrics.REGISTRY.gauge("klba_quality_last_peak_bytes").set(
+        _LAST["peak_bytes_estimate"]
+    )
 
 
 def finish_from_duals(lags_d, pids_d, valid_d, A, B, num_consumers: int,
@@ -237,14 +263,16 @@ def finish_from_duals(lags_d, pids_d, valid_d, A, B, num_consumers: int,
     from ..models.sinkhorn import _round_refine_portfolio, _scaled_ws
 
     C = int(num_consumers)
-    ws = _scaled_ws(lags_d, valid_d, C)
-    choice, counts, totals = _round_refine_portfolio(
-        lags_d, pids_d, valid_d, ws, A, B,
-        num_consumers=C, refine_iters=int(refine_iters),
-    )
-    choice_np, counts_np, totals_np = (
-        x.cpu().numpy() for x in (choice, counts, totals)
-    )
+    # The phase ends in the host read of its results.
+    with metrics.device_phase("rounding"):
+        ws = _scaled_ws(lags_d, valid_d, C)
+        choice, counts, totals = _round_refine_portfolio(
+            lags_d, pids_d, valid_d, ws, A, B,
+            num_consumers=C, refine_iters=int(refine_iters),
+        )
+        choice_np, counts_np, totals_np = (
+            x.cpu().numpy() for x in (choice, counts, totals)
+        )
     record_linear_solve(
         lags_d.cpu().numpy(), valid_d.cpu().numpy(), totals_np, C,
         tiles=tiles, tile=tile, rounds=rounds, backend=backend,
@@ -298,13 +326,17 @@ def assign_topic_linear(lags, partition_ids, valid, num_consumers: int,
             _AUTO_REFINE_PARALLEL if P > _SCAN_ROUNDING_MAX_P else _AUTO_REFINE_SCAN
         )
     scale = _scale_np(lags_np, valid_np, C)
-    lags_d, pids_d, valid_d = (
-        torch.from_numpy(a).to(dev) for a in (lags_np, pids_np, valid_np)
-    )
-    A, B, rounds = _linear_duals(
-        lags_d, valid_d, scale, n_valid, num_consumers=C, iters=int(iters),
-        tile=tile_e,
-    )
+    with metrics.device_phase("h2d", sync=dev):
+        lags_d, pids_d, valid_d = (
+            torch.from_numpy(a).to(dev) for a in (lags_np, pids_np, valid_np)
+        )
+    # The loop's stop test reads a device scalar every iteration, the last
+    # one included, so the phase ends with the duals complete.
+    with metrics.device_phase("duals"):
+        A, B, rounds = _linear_duals(
+            lags_d, valid_d, scale, n_valid, num_consumers=C, iters=int(iters),
+            tile=tile_e,
+        )
     return finish_from_duals(
         lags_d, pids_d, valid_d, A, B, C, refine_iters,
         tiles=n_tiles, tile=tile_e, rounds=rounds, backend=dev.type,

@@ -32,8 +32,21 @@ previous choice vector as a warm start across rebalances of one topic:
   every surviving member's partitions; a host repair pass re-seats orphans
   and count overflow.
 
+**Telemetry and drills** (the JAX engine's series, spans and fault
+points): every epoch runs under the ``stream.epoch`` span (inside it
+``stream.cold_solve``, ``stream.linear_solve``, ``stream.h2d``,
+``stream.refine`` and ``stream.h2d_delta``), feeds the churn and quality
+series, writes a ``stream_epoch`` flight record, and a guardrail trip marks
+the trace and dumps the flight recorder.  The fault points ``stream.refine``
+(epoch entry), ``delta.diff`` and ``delta.apply`` (both fall back to the
+dense upload within the epoch) and ``device.corrupt.*`` (a seeded bit flip
+in a resident tensor as it is adopted, which the next dispatch's digest
+must catch) drive the failure paths; every quarantine, heal and delta
+resync is counted by ``utils/scrub.record_quarantine``.
+
 On a CUDA device every kernel that fails to build or launch raises out of
-:meth:`StreamingAssignor.rebalance`; nothing falls back.  The padded bucket
+:meth:`StreamingAssignor.rebalance`; only the delta dispatch re-syncs
+dense first, as in the JAX engine.  The padded bucket
 is ``pad_bucket(P)`` (pow2) on the card and ``pad_chunk(P)`` on the CPU, as
 the JAX package picks by backend; M = ``table_rows(B, C)`` and the bulk
 round's clone stripes depend on it, so the two buckets can pick different
@@ -42,6 +55,7 @@ swaps.
 
 from __future__ import annotations
 
+import logging
 from collections import deque
 from dataclasses import dataclass
 from typing import Optional
@@ -49,13 +63,17 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import faults, metrics
 from ..utils import scrub as scrub_mod
+from ..utils import trace as trace_mod
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.observability import count_constrained_bound
 from .batched import _narrow_choice, assign_stream, stream_payload
 from .delta import apply_assignment_delta, compact_changed, readback_k
 from .packing import pad_bucket, pad_chunk, table_rows
 from .refine import build_choice_tables, refine_rounds_resident, state_digest
+
+LOGGER = logging.getLogger(__name__)
 
 # Delta-epoch K ladder: a sparse (indices, values) update pads to a pow2 K
 # bucket; an engine's ladder tops out at DELTA_MIN_K << (delta_buckets - 1).
@@ -265,11 +283,13 @@ class StreamingAssignor:
     disables it.  ``device`` defaults to the CUDA card (``device="cpu"``
     runs the plain PyTorch path).
 
-    The per-engine outcome counters (the JAX package's metrics of the same
-    names): ``delta_epochs`` (``applied`` / ``fallback``),
-    ``rb_delta_epochs`` (``applied`` / ``fallback`` / ``overflow``) and the
-    warm paths' transfer bytes ``h2d_bytes`` / ``d2h_bytes`` (``dense`` /
-    ``delta``).
+    The per-engine outcome counters: ``delta_epochs`` (``applied`` /
+    ``fallback``), ``rb_delta_epochs`` (``applied`` / ``fallback`` /
+    ``overflow``) and the warm paths' transfer bytes ``h2d_bytes`` /
+    ``d2h_bytes`` (``dense`` / ``delta``); each also feeds the process-wide
+    registry series of the JAX engine (``klba_delta_epochs_total``,
+    ``klba_rb_delta_epochs_total``, ``klba_h2d_bytes_total``,
+    ``klba_d2h_bytes_total``).
     """
 
     def __init__(
@@ -318,6 +338,22 @@ class StreamingAssignor:
         self.d2h_bytes = {"dense": 0, "delta": 0}
         self.delta_epochs = {"applied": 0, "fallback": 0}
         self.rb_delta_epochs = {"applied": 0, "fallback": 0, "overflow": 0}
+        # Pre-bound registry series (utils/metrics), the JAX engine's: the
+        # per-epoch records are plain observes, not name lookups.
+        reg = metrics.REGISTRY
+        self._m_eff_fraction = reg.gauge("klba_delta_effective_fraction")
+        self._m_churn = reg.histogram("klba_stream_churn")
+        self._m_quality_milli = reg.histogram("klba_stream_quality_ratio_milli")
+        self._m_quality_last = reg.gauge("klba_stream_quality_ratio")
+        self._m_guardrail = reg.counter("klba_stream_guardrail_trips_total")
+        self._m_h2d = {p: reg.counter("klba_h2d_bytes_total", {"path": p})
+                       for p in ("dense", "delta")}
+        self._m_d2h = {p: reg.counter("klba_d2h_bytes_total", {"path": p})
+                       for p in ("dense", "delta")}
+        self._m_delta = {o: reg.counter("klba_delta_epochs_total", {"outcome": o})
+                         for o in ("applied", "fallback", "resync")}
+        self._m_rb = {o: reg.counter("klba_rb_delta_epochs_total", {"outcome": o})
+                      for o in ("applied", "fallback", "overflow")}
         self._prev_choice: Optional[np.ndarray] = None
         # The resident state between dispatches: (padded int32 choice[B],
         # row table int32[C, M], counts int32[C], padded int64 lags[B]) on
@@ -333,8 +369,56 @@ class StreamingAssignor:
 
     def rebalance(self, lags: np.ndarray) -> np.ndarray:
         """Produce choice int32[P] for the current lag vector."""
+        faults.fire("stream.refine")  # fault point: poisoned warm stream
         self._epoch_num += 1
-        return self._rebalance_inner(lags)
+        with metrics.span("stream.epoch"):
+            choice = self._rebalance_inner(lags)
+        s = self.last_stats
+        ratio = s.quality_ratio
+        self._m_churn.observe(s.churn)
+        self._m_quality_milli.observe(int(ratio * 1000))
+        self._m_quality_last.set(ratio)
+        metrics.FLIGHT.record("stream_epoch", {
+            "epoch": self._epoch_num,
+            "P": int(lags.shape[0]),
+            "C": self.num_consumers,
+            "cold_start": s.cold_start,
+            "refined": s.refined,
+            "guardrail_tripped": s.guardrail_tripped,
+            "churn": s.churn,
+            "repaired_rows": s.repaired_rows,
+            "quality_ratio": ratio,
+            "max_mean_imbalance": s.max_mean_imbalance,
+            "imbalance_bound": s.imbalance_bound,
+            "count_spread": s.count_spread,
+            "refine_rounds": s.refine_rounds,
+            "refine_exchanges": s.refine_exchanges,
+            "delta_effective_fraction": s.delta_effective_fraction,
+            "sharded_solve": s.sharded_solve,
+        })
+        if s.guardrail_tripped:
+            self._m_guardrail.inc()
+            trace_mod.mark("guardrail")
+            metrics.FLIGHT.auto_dump(
+                "guardrail", {"epoch": self._epoch_num, "quality_ratio": ratio}
+            )
+        return choice
+
+    def _note_delta(self, outcome: str) -> None:
+        self.delta_epochs[outcome] += 1
+        self._m_delta[outcome].inc()
+
+    def _note_readback(self, outcome: str) -> None:
+        self.rb_delta_epochs[outcome] += 1
+        self._m_rb[outcome].inc()
+
+    def _note_h2d(self, path: str, nbytes: int) -> None:
+        self.h2d_bytes[path] += nbytes
+        self._m_h2d[path].inc(nbytes)
+
+    def _note_d2h(self, path: str, nbytes: int) -> None:
+        self.d2h_bytes[path] += nbytes
+        self._m_d2h[path].inc(nbytes)
 
     def _rebalance_inner(self, lags: np.ndarray) -> np.ndarray:
         lags = np.ascontiguousarray(lags, dtype=np.int64)
@@ -345,6 +429,7 @@ class StreamingAssignor:
         # The delta/dense cutoff in force this epoch, from PAST fractions.
         self.last_effective_delta_fraction = self._effective_delta_fraction()
         stats.delta_effective_fraction = self.last_effective_delta_fraction
+        self._m_eff_fraction.set(self.last_effective_delta_fraction)
 
         bound = count_constrained_bound(lags, self.num_consumers)
         # f64 sum for the guard: an int64 sum could wrap past 2**63.
@@ -414,17 +499,56 @@ class StreamingAssignor:
     def _adopt_resident(self, resident, lags: np.ndarray) -> None:
         """Install a dispatch's resident successors and mirror the lags they
         were computed under (copied).  A quarantined engine reaching this
-        point has healed: the successors were rebuilt from host truth."""
-        self._quarantined = None
-        self._resident = tuple(resident)
+        point has healed: the successors were rebuilt from host truth
+        (counted per buffer).  The ``device.corrupt.*`` fault points fire
+        here, so a drill can flip bits in the freshly adopted tensors (host
+        mirror left intact) and exercise the detect/quarantine/heal path."""
+        if self._quarantined is not None:
+            scrub_mod.record_quarantine(
+                self._quarantined, "healed", source="rebuild"
+            )
+            self._quarantined = None
+        self._resident = self._corrupt_resident(tuple(resident), lags.shape[0])
         self._lag_mirror = np.array(lags, dtype=np.int64, copy=True)
 
-    def quarantine_resident(self, buffers) -> None:
+    def _corrupt_resident(self, resident, P: int):
+        """The chaos injection site (fault points ``device.corrupt.choice``
+        / ``.counts`` / ``.lags`` / ``.row_tab``): when a drill's plan
+        fires, one seeded bit of the named resident tensor is flipped — the
+        host mirror is deliberately NOT updated, so the device state
+        silently diverges as a real memory fault would.  One global load
+        when no injector is active."""
+        if faults.active() is None:
+            return resident
+        plan = scrub_mod.corruption_plan(limit=P)
+        if not plan:
+            return resident
+        slot = {"choice": 0, "row_tab": 1, "counts": 2, "lags": 3}
+        bufs = list(resident)
+        for buffer, seed in plan:
+            i = slot[buffer]
+            host = scrub_mod.flip_bit(
+                bufs[i].cpu().numpy(), seed,
+                # counts and the [C, M] row table are audited over their
+                # FULL extent, so no prefix bound.
+                limit=None if buffer in ("counts", "row_tab") else P,
+            )
+            bufs[i] = torch.from_numpy(host).to(bufs[i].device)
+            LOGGER.warning(
+                "injected device.corrupt.%s bit flip (seed %d)", buffer, seed,
+            )
+        return tuple(bufs)
+
+    def quarantine_resident(self, buffers, source: str = "scrub",
+                            record: bool = True) -> None:
         """Quarantine the resident state: drop it and its lag mirror; the
         host previous choice stays, the truth the next dispatch rebuilds
-        from."""
-        self._quarantined = list(buffers)
+        from, and the heal is counted when that rebuild is adopted.
+        ``record=False`` skips the quarantine/heal accounting."""
+        self._quarantined = list(buffers) if record else None
         self._drop_resident()
+        if record:
+            scrub_mod.record_quarantine(buffers, "quarantined", source=source)
 
     @property
     def quarantined(self) -> bool:
@@ -439,7 +563,11 @@ class StreamingAssignor:
         fails = scrub_mod.digest_failures(digest, P, lag_sum)
         if not fails:
             return
-        self.quarantine_resident(fails)
+        LOGGER.warning(
+            "resident-state digest FAILED (%s) on the %s path; quarantining",
+            ",".join(fails), source,
+        )
+        self.quarantine_resident(fails, source=source)
         raise scrub_mod.CorruptStateDetected(
             f"resident-state digest mismatch ({','.join(fails)}) on the "
             f"{source} path; stream quarantined — the state heals on the next "
@@ -451,6 +579,10 @@ class StreamingAssignor:
         """Fresh greedy solve + parity refine (budget ``cold_refine_iters``,
         0 disables), or the linear-OT solve when the quality mode is pinned
         to "linear"."""
+        with metrics.span("stream.cold_solve"):
+            return self._cold_solve_inner(lags)
+
+    def _cold_solve_inner(self, lags: np.ndarray) -> np.ndarray:
         C = self.num_consumers
         linear = self._linear_cold_solve(lags)
         if linear is not None:
@@ -461,11 +593,17 @@ class StreamingAssignor:
             return assign_stream(self._upload(payload), C, pack_shift=shift
                                  ).cpu().numpy().astype(np.int32)
         P = lags.shape[0]
+        with metrics.span("stream.h2d"):
+            # ONE upload, shared by the solve and the refine.
+            with metrics.device_phase("h2d", sync=self.device):
+                payload_d = self._upload(payload)
         narrow, *resident = _cold_chain(
-            self._upload(payload), C, shift, self.cold_refine_iters, None,
-            self._bucket(P),
+            payload_d, C, shift, self.cold_refine_iters, None, self._bucket(P),
         )
-        narrow_np, digest_np = _fetch(narrow, resident[7])
+        # The refine executable INCLUDING its readback (_fetch ends in a
+        # host read).
+        with metrics.device_phase("refine"):
+            narrow_np, digest_np = _fetch(narrow, resident[7])
         self._verify_digest(digest_np, P, int(lags.sum(dtype=np.int64)), "cold")
         self._adopt_resident(resident[:4], lags)
         return narrow_np.astype(np.int32)
@@ -482,11 +620,12 @@ class StreamingAssignor:
         from .linear_ot import assign_topic_linear
         from .packing import pad_topic_rows
 
-        lags_p, pids_p, valid_p = pad_topic_rows(lags)
-        choice, _, _ = assign_topic_linear(
-            lags_p, pids_p, valid_p, num_consumers=self.num_consumers,
-            refine_iters=self.cold_refine_iters, device=self.device,
-        )
+        with metrics.span("stream.linear_solve"):
+            lags_p, pids_p, valid_p = pad_topic_rows(lags)
+            choice, _, _ = assign_topic_linear(
+                lags_p, pids_p, valid_p, num_consumers=self.num_consumers,
+                refine_iters=self.cold_refine_iters, device=self.device,
+            )
         self._drop_resident()
         return np.asarray(choice)[: lags.shape[0]].astype(np.int32)
 
@@ -510,6 +649,12 @@ class StreamingAssignor:
         bulk exchange rounds with their three exits (target met, peak
         stagnant for ``patience`` rounds, exchange budget spent).  Fills
         ``stats`` from the dispatch's own totals and counts."""
+        with metrics.span("stream.refine"):
+            return self._dispatch_warm_refine_inner(lags, choice, stats)
+
+    def _dispatch_warm_refine_inner(
+        self, lags: np.ndarray, choice: np.ndarray, stats: StreamingStats
+    ) -> np.ndarray:
         C = self.num_consumers
         P = lags.shape[0]
         B = self._bucket(P)
@@ -540,13 +685,31 @@ class StreamingAssignor:
             delta = self._delta_plan(lags, payload)
             if delta is not None:
                 out = self._dispatch_delta(delta, resident, limit, P, warm, rb_k)
+                if out is None:
+                    # The delta dispatch failed (an injected delta.apply
+                    # fault, a scatter error): re-sync dense through the
+                    # table-BUILD variant, which needs only host state, as
+                    # the JAX engine does.
+                    self._note_h2d("dense", payload.nbytes)
+                    out = _warm_fused_build(
+                        self._upload(payload),
+                        self._upload(choice.astype(np.int32)),
+                        limit, bucket=B, **warm,
+                    )
                 # Divergence check — the conservation law: refine permutes
                 # ownership, never lag mass, so the device totals must sum
                 # to the host lag sum.  A mismatch re-syncs dense on the
                 # delta's own successors.
-                if int(out[5].sum()) != lag_sum:
-                    self.delta_epochs["fallback"] += 1
-                    self.h2d_bytes["dense"] += payload.nbytes
+                elif int(out[5].sum()) != lag_sum:
+                    LOGGER.warning(
+                        "delta epoch diverged from the host lag sum; "
+                        "re-syncing with a dense upload"
+                    )
+                    self._note_delta("fallback")
+                    scrub_mod.record_quarantine(
+                        ["lags"], "resynced", source="delta"
+                    )
+                    self._note_h2d("dense", payload.nbytes)
                     # The readback tail of the resync diffs against the
                     # failed dispatch's exit choice, not the host's view.
                     rb_base = None
@@ -555,15 +718,15 @@ class StreamingAssignor:
                         delta_k=rb_k, **warm,
                     )
                 else:
-                    self.delta_epochs["applied"] += 1
+                    self._note_delta("applied")
             if out is None:
-                self.h2d_bytes["dense"] += payload.nbytes
+                self._note_h2d("dense", payload.nbytes)
                 out = _warm_fused_resident(
                     self._upload(payload), resident[0], resident[1], resident[2],
                     limit, delta_k=rb_k, **warm,
                 )
         else:
-            self.h2d_bytes["dense"] += payload.nbytes
+            self._note_h2d("dense", payload.nbytes)
             out = _warm_fused_build(
                 self._upload(payload), self._upload(choice.astype(np.int32)),
                 limit, bucket=B, **warm,
@@ -573,27 +736,30 @@ class StreamingAssignor:
         successors = (choice_p, row_tab, counts, lags_p)
         if len(out) > 9 and rb_base is not None:
             # O(changed) readback: the compaction tail, the digest and the
-            # stats in one fetch.
-            d_idx, d_vals, d_n, digest_np, totals_np, counts_np = _fetch(
-                out[9], out[10], out[11], digest, totals, counts
-            )
+            # stats in one fetch (a host read: the phase ends with the
+            # refine complete).
+            with metrics.device_phase("refine"):
+                d_idx, d_vals, d_n, digest_np, totals_np, counts_np = _fetch(
+                    out[9], out[10], out[11], digest, totals, counts
+                )
             n = int(d_n)
             if n <= rb_k:
                 self._verify_digest(digest_np, P, lag_sum, "epoch")
-                self.d2h_bytes["delta"] += d_idx.nbytes + d_vals.nbytes + 4
-                self.rb_delta_epochs["applied"] += 1
+                self._note_d2h("delta", d_idx.nbytes + d_vals.nbytes + 4)
+                self._note_readback("applied")
                 self._adopt_resident(successors, lags)
                 self._fill_stats_from_device(stats, totals_np, counts_np, rounds, ex)
                 return apply_assignment_delta(rb_base, d_idx, d_vals, n)
             # More changed rows than the tail holds: the dense narrow vector
             # is already computed — a second fetch, never a re-dispatch.
-            self.rb_delta_epochs["overflow"] += 1
+            self._note_readback("overflow")
         elif len(out) > 9:
-            self.rb_delta_epochs["fallback"] += 1
-        narrow_np, digest_np, totals_np, counts_np = _fetch(
-            narrow, digest, totals, counts
-        )
-        self.d2h_bytes["dense"] += narrow_np.nbytes
+            self._note_readback("fallback")
+        with metrics.device_phase("refine"):
+            narrow_np, digest_np, totals_np, counts_np = _fetch(
+                narrow, digest, totals, counts
+            )
+        self._note_d2h("dense", narrow_np.nbytes)
         self._verify_digest(digest_np, P, lag_sum, "epoch")
         self._adopt_resident(successors, lags)
         self._fill_stats_from_device(stats, totals_np, counts_np, rounds, ex)
@@ -625,7 +791,13 @@ class StreamingAssignor:
         mirror = self._lag_mirror
         if mirror is None or mirror.shape[0] != lags.shape[0]:
             return None
-        changed = np.flatnonzero(lags != mirror)
+        try:
+            faults.fire("delta.diff")
+            changed = np.flatnonzero(lags != mirror)
+        except Exception:  # noqa: BLE001 — dense is the safe fallback
+            LOGGER.warning("delta diff failed; uploading dense", exc_info=True)
+            self._note_delta("fallback")
+            return None
         n = int(changed.size)
         P = lags.shape[0]
         self._churn_fractions.append(n / max(P, 1))
@@ -635,7 +807,7 @@ class StreamingAssignor:
             or K > self._delta_kmax
             or K * _DELTA_ENTRY_BYTES >= payload.nbytes
         ):
-            self.delta_epochs["fallback"] += 1
+            self._note_delta("fallback")
             return None
         idx = np.zeros(K, dtype=np.int32)
         idx[:n] = changed
@@ -647,13 +819,26 @@ class StreamingAssignor:
     def _dispatch_delta(self, delta, resident, limit, P: int, warm: dict,
                         rb_k: int):
         """One delta dispatch over the resident 4-tuple; returns its output
-        tuple.  A failure raises."""
-        idx, vals, nbytes, _ = delta
-        out = _warm_fused_delta(
-            self._upload(idx), self._upload(vals), resident[3], resident[0],
-            resident[1], resident[2], limit, P, delta_k=rb_k, **warm,
-        )
-        self.h2d_bytes["delta"] += nbytes
+        tuple, or None when the dispatch failed (the fault point
+        ``delta.apply`` fires first): the caller re-syncs dense within the
+        same epoch, warm host state intact."""
+        idx, vals, nbytes, n = delta
+        try:
+            faults.fire("delta.apply")
+            with metrics.span("stream.h2d_delta"):
+                out = _warm_fused_delta(
+                    self._upload(idx), self._upload(vals), resident[3],
+                    resident[0], resident[1], resident[2], limit, P,
+                    delta_k=rb_k, **warm,
+                )
+        except Exception:  # noqa: BLE001 — dense re-sync is the contract
+            LOGGER.warning(
+                "delta apply failed (%d changed); falling back to a dense "
+                "upload", n, exc_info=True,
+            )
+            self._note_delta("fallback")
+            return None
+        self._note_h2d("delta", nbytes)
         return out
 
     def _fill_stats_from_device(self, stats: StreamingStats, totals, counts,

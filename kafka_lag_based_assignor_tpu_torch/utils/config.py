@@ -8,9 +8,12 @@ and consumes ``group.id`` (required, :107-113) and ``auto.offset.reset``
 (default "latest", :346-347), and derives the metadata-consumer overrides
 ``enable.auto.commit=false`` + ``client.id=<group.id>.assignor``
 (:116-120).  The framework's own knobs live under the ``tpu.assignor.``
-prefix, with the JAX package's names, so one consumer config drives either
-package; keys this package does not read pass through untouched, as the
-reference copies the whole map (:101-104).
+prefix, with the JAX package's names, defaults and parse rules, so one
+consumer config drives either package and a value one package rejects the
+other rejects too; keys this package does not read pass through untouched,
+as the reference copies the whole map (:101-104).  Among those are the
+sidecar's, warm-up's and lifecycle's keys (``tpu.assignor.warmup.shapes``
+and the rest), which come with those slices.
 """
 
 from __future__ import annotations
@@ -27,6 +30,14 @@ PARTITION_ASSIGNMENT_STRATEGY_CONFIG = "partition.assignment.strategy"
 SOLVER_CONFIG = (
     "tpu.assignor.solver"  # rounds | scan | global | sinkhorn | native | host
 )
+FALLBACK_CONFIG = "tpu.assignor.host.fallback"  # bool: greedy host fallback
+PROFILE_CONFIG = "tpu.assignor.profile"  # bool: torch.profiler traces
+SOLVE_TIMEOUT_CONFIG = "tpu.assignor.solve.timeout.ms"  # 0/empty disables
+# Circuit-breaker knobs (utils/watchdog): how long a tripped solver stays
+# sidelined before the single half-open probe, and how many CONSECUTIVE
+# exceptions (not only timeouts) trip the breaker.
+BREAKER_COOLDOWN_CONFIG = "tpu.assignor.breaker.cooldown.ms"
+BREAKER_FAILURES_CONFIG = "tpu.assignor.breaker.failures"  # int >= 1
 # Opt-in bounded retry for the three lag batch RPCs (lag.py): number of
 # RETRIES per RPC (0 = reference abort semantics, the default) and the
 # deterministic exponential-backoff base delay.
@@ -73,6 +84,8 @@ def validate_quality_tile(tile) -> int:
 
 # The JAX package's solver names: all of them parse and run here.
 VALID_SOLVERS = ("rounds", "scan", "global", "sinkhorn", "native", "host")
+# The solvers whose answer is the reference's, bit for bit.
+PARITY_SOLVERS = ("rounds", "scan", "native", "host")
 
 
 @dataclass
@@ -82,6 +95,19 @@ class AssignorConfig:
     group_id: str
     auto_offset_reset: str = "latest"
     solver: str = "rounds"
+    host_fallback: bool = True
+    profile: bool = False
+    # A hung device must never block a rebalance past its deadline; None
+    # disables the watchdog (the solve runs inline).  The default leaves
+    # headroom for a first rebalance's kernel builds (about 40 s for the
+    # round-scan source); a trip only sidelines the device for the
+    # breaker's cooldown, not forever.
+    solve_timeout_s: Optional[float] = 120.0
+    # Circuit-breaker policy: a tripped solver fails fast (host fallback)
+    # for the cooldown, then exactly one probe is admitted half-open;
+    # breaker_failures consecutive exceptions trip it like a timeout does.
+    breaker_cooldown_s: float = 300.0
+    breaker_failures: int = 3
     # Lag-RPC retry policy: 0 retries preserves the reference's
     # broker-exception-aborts-the-rebalance semantics exactly.
     lag_retries: int = 0
@@ -94,6 +120,14 @@ class AssignorConfig:
     @property
     def client_id(self) -> str:
         return f"{self.group_id}.assignor"
+
+
+def _as_bool(value: Any) -> bool:
+    """The JAX package's rule: a bool as given; anything else is true only
+    when its text is "true", "1" or "yes" (any case)."""
+    if isinstance(value, bool):
+        return value
+    return str(value).strip().lower() in ("true", "1", "yes")
 
 
 def parse_config(configs: Mapping[str, Any]) -> AssignorConfig:
@@ -162,6 +196,26 @@ def parse_config(configs: Mapping[str, Any]) -> AssignorConfig:
     except ValueError as exc:
         raise ValueError(f"{QUALITY_TILE_CONFIG}: {exc}")
 
+    raw_timeout = consumer_group_props.get(SOLVE_TIMEOUT_CONFIG, 120_000)
+    try:
+        timeout_ms = float(raw_timeout) if raw_timeout not in ("", None) else 0.0
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"{SOLVE_TIMEOUT_CONFIG}={raw_timeout!r} is not a number"
+        )
+    # Zero, negative or empty: no deadline (the solve runs inline).
+    solve_timeout_s = timeout_ms / 1000.0 if timeout_ms > 0 else None
+
+    def _as_ms(key: str, default_ms: float) -> float:
+        raw = consumer_group_props.get(key, default_ms)
+        try:
+            value = float(raw)
+        except (TypeError, ValueError):
+            raise ValueError(f"{key}={raw!r} is not a number")
+        if value < 0:
+            raise ValueError(f"{key}={value} must be >= 0")
+        return value / 1000.0
+
     raw_backoff = consumer_group_props.get(LAG_RETRY_BACKOFF_CONFIG, 50.0)
     try:
         backoff_ms = float(raw_backoff)
@@ -178,6 +232,11 @@ def parse_config(configs: Mapping[str, Any]) -> AssignorConfig:
             consumer_group_props.get(AUTO_OFFSET_RESET_CONFIG, "latest")
         ),
         solver=solver,
+        host_fallback=_as_bool(consumer_group_props.get(FALLBACK_CONFIG, True)),
+        profile=_as_bool(consumer_group_props.get(PROFILE_CONFIG, False)),
+        solve_timeout_s=solve_timeout_s,
+        breaker_cooldown_s=_as_ms(BREAKER_COOLDOWN_CONFIG, 300_000.0),
+        breaker_failures=_as_int(BREAKER_FAILURES_CONFIG, 3, 1),
         lag_retries=_as_int(LAG_RETRIES_CONFIG, 0, 0),
         lag_retry_backoff_s=backoff_ms / 1000.0,
         refine_iters=refine_iters,

@@ -9,7 +9,8 @@ package enforces with ``ops/dispatch.ensure_x64``.
 
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import Callable, ContextManager, Union
 
 import torch
 
@@ -28,3 +29,25 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def carry_cuda_context(device: torch.device) -> Callable[[], ContextManager]:
+    """Capture, on the calling thread, the CUDA device a call on ``device``
+    runs on (its index, or the thread's current device) and that device's
+    current stream; return a zero-argument context-manager factory that,
+    entered on ANOTHER thread, makes them that thread's current device and
+    stream.  PyTorch keeps both per thread, and a new thread starts on
+    device 0 and its default stream whatever the caller set: the
+    watchdog's solve worker enters this so its launches go where the
+    caller's would.  A CPU device carries nothing."""
+    if device.type != "cuda":
+        return contextlib.nullcontext
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(index)
+
+    @contextlib.contextmanager
+    def enter():
+        with torch.cuda.device(index), torch.cuda.stream(stream):
+            yield
+
+    return enter

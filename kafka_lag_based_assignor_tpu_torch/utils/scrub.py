@@ -1,7 +1,8 @@
 """Resident-state integrity: the digest's host truths and quarantine.
 
-A copy of ``DIGEST_LEN``, ``CorruptStateDetected``, ``digest_failures`` and
-``flip_bit`` from ``kafka_lag_based_assignor_tpu/utils/scrub.py``.  Every
+A copy of ``DIGEST_LEN``, ``CorruptStateDetected``, ``digest_failures``,
+``flip_bit``, ``CORRUPT_POINTS``, ``corruption_plan`` and
+``record_quarantine`` from ``kafka_lag_based_assignor_tpu/utils/scrub.py``.  Every
 refine dispatch of the streaming engine computes a digest of the resident
 state it starts from (``ops/refine.state_digest``, the K6 kernel on the
 card):
@@ -19,22 +20,37 @@ slot  value                   host truth it must match
 
 A mismatch quarantines the engine (the resident state is dropped, the host
 previous choice kept) and raises :class:`CorruptStateDetected`; the next
-dispatch rebuilds the resident state from the host.  The background
-scrubber, the quarantine metrics and the corruption fault points come with
-the port's observability slice.
+dispatch rebuilds the resident state from the host.  Every quarantine, heal
+and delta resync is counted by :func:`record_quarantine`; a drill corrupts
+a resident tensor through the ``device.corrupt.*`` fault points
+(:func:`corruption_plan`).  The background scrubber (``StateScrubber``)
+comes with the port's lifecycle slice.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import faults, metrics
+from . import trace as trace_mod
 from .watchdog import SolveRejected
 
 #: The digest's base length; a digest that also audits the row table has a
 #: fifth lane (host truth 0), and :func:`digest_failures` accepts both.
 DIGEST_LEN = 4
+
+#: The chaos fault point of each resident buffer class.
+CORRUPT_POINTS = {
+    "choice": "device.corrupt.choice",
+    "counts": "device.corrupt.counts",
+    "lags": "device.corrupt.lags",
+    "row_tab": "device.corrupt.row_tab",
+}
+
+#: Quarantine outcomes (the ``klba_quarantine_total`` label values).
+QUARANTINE_OUTCOMES = ("quarantined", "healed", "resynced", "escalated")
 
 
 class CorruptStateDetected(SolveRejected):
@@ -83,3 +99,56 @@ def flip_bit(arr: np.ndarray, seed: int, limit: Optional[int] = None):
         flat[i], out.dtype.type(np.int64(1) << bit)
     )
     return out
+
+
+def record_quarantine(
+    buffers: Sequence[str],
+    outcome: str,
+    stream_id: Optional[str] = None,
+    source: Optional[str] = None,
+) -> None:
+    """Account one quarantine-plane event with ONE schema whichever check
+    detected it: ``klba_quarantine_total{buffer,outcome}`` plus a
+    ``quarantine`` flight record and a ``quarantine`` anomaly mark on the
+    active trace (quarantines are always-keep for the tail sampler).  Runs
+    only on failure/heal paths."""
+    trace_mod.mark("quarantine")
+    for buffer in buffers:
+        metrics.REGISTRY.counter(
+            "klba_quarantine_total",
+            {"buffer": buffer, "outcome": outcome},
+        ).inc()
+    metrics.FLIGHT.record(
+        "quarantine",
+        {
+            "buffers": list(buffers),
+            "outcome": outcome,
+            "stream_id": stream_id,
+            "source": source,
+        },
+    )
+
+
+def corruption_plan(limit: Optional[int] = None) -> List[Tuple[str, int]]:
+    """Consult the ``device.corrupt.*`` fault points; returns ``[(buffer,
+    seed), ...]`` for each point whose plan fires at this call site (empty
+    when no injector is active — the steady state pays one global load).
+    The seed is derived from the injector's own seed and the point's call
+    count, so the same drill schedule replays the same flips, as in the JAX
+    package.  ``limit`` is folded in so two sites with different bounds
+    still diverge deterministically."""
+    inj = faults.active()
+    if inj is None:
+        return []
+    plan: List[Tuple[str, int]] = []
+    for buffer, point in CORRUPT_POINTS.items():
+        try:
+            faults.fire(point)
+        except faults.FaultError:
+            seed = (
+                inj.seed * 1_000_003
+                + inj.calls(point) * 97
+                + (int(limit) if limit else 0)
+            )
+            plan.append((buffer, seed))
+    return plan

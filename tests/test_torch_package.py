@@ -3,8 +3,11 @@
 * no module of ``kafka_lag_based_assignor_tpu_torch`` (nor ``chip_smoke.py``)
   imports ``jax`` or ``kafka_lag_based_assignor_tpu`` — by an AST walk, and
   by importing every module in a fresh interpreter;
-* every module of the streaming slice and of the solver surface (the scan
-  kernel's wrapper, the native core's loader) is covered by both checks;
+* every module of the streaming slice, of the solver surface (the scan
+  kernel's wrapper, the native core's loader) and of the fault ladder and
+  telemetry is covered by both checks;
+* no module but ``utils/observability`` imports ``torch.profiler`` at
+  import time, and that one only inside ``profile_trace``;
 * entry points default to the CUDA card and raise without one;
 * CPU tensors take the plain path and never count a kernel launch;
 * ``convert.group_tensors`` carries a JAX ``TopicGroup`` over unchanged.
@@ -78,6 +81,48 @@ STREAMING_SLICE = ("ops/streaming.py", "ops/delta.py", "ops/state_digest_cuda.py
 
 SOLVER_SLICE = ("ops/scan_cuda.py", "ops/scan_kernel.py", "ops/refine.py",
                 "ops/batched.py", "native/__init__.py")
+
+
+LADDER_SLICE = ("utils/trace.py", "utils/snapshot.py", "utils/metrics.py",
+                "utils/faults.py", "utils/observability.py", "utils/watchdog.py",
+                "utils/config.py", "utils/scrub.py", "utils/device.py",
+                "models/greedy.py", "lag.py", "ops/dispatch.py", "ops/streaming.py",
+                "ops/linear_ot.py", "models/sinkhorn.py", "ops/_build.py",
+                "assignor.py")
+
+
+def test_import_checks_cover_the_ladder_slice():
+    walked = {p.relative_to(PORT).as_posix() for p in port_sources() if PORT in p.parents}
+    assert set(LADDER_SLICE) <= walked
+
+
+def module_level_imports(path):
+    """Names imported outside any function or class body."""
+    def visit(nodes):
+        for node in nodes:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+                continue
+            if isinstance(node, ast.Import):
+                yield from (alias.name for alias in node.names)
+            elif isinstance(node, ast.ImportFrom):
+                base = node.module or ""
+                yield base
+                yield from (f"{base}.{alias.name}" for alias in node.names)
+            else:
+                for field in ("body", "orelse", "finalbody", "handlers"):
+                    yield from visit(getattr(node, field, []) or [])
+    yield from visit(ast.parse(path.read_text(encoding="utf-8")).body)
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PORT.rglob("*.py")), ids=lambda p: str(p.relative_to(REPO))
+)
+def test_no_module_imports_the_profiler_at_import_time(path):
+    names = set(module_level_imports(path))
+    assert not any(n == "torch.profiler" or n.startswith("torch.profiler.")
+                   for n in names), f"{path.name} imports torch.profiler at import time"
+    if path.relative_to(PORT).as_posix() == "utils/observability.py":
+        assert "torch.profiler" in path.read_text(encoding="utf-8")  # inside a function
 
 
 def test_import_checks_cover_the_streaming_slice():
