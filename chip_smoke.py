@@ -19,15 +19,18 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    solver's greedy-leg shapes of configs 2, 4 and 5, at every slot count
    1, 2, 4, ..., 16,384 (C not a power of two above 2) with small lags and
    with lags that force the two-key form, at config 5's shape forced into
-   the two-key form (lags near 2^40) and with negative gains; each case in
+   the two-key form (lags near 2^40), at the cold chain of phase 4f's
+   config-3-shaped streams (16,384 rows, 64 slots) and with negative gains;
+   each case in
    the key form ``packed_rank_bits`` gives it and, where that is the
    packed key, in the two-key form too, every launch twice to the same
    bits, the form logged; the f32 quality
    kernels within ``max |kernel - plain| <= 1e-5 * max |plain|`` (f32 sums
    in another order and an approximate exp), each run twice to the same
    bits: the plan statistics (K3) at the dedup shapes of configs 2, 4 and
-   5 and at every U = 1, 17, 1,024, 4,096 and C = 1, 16, 31, 512, 1,000,
-   1,024, 1,025, 2,000, 16,384 (C ascending, the generic kernel's shared
+   5 and of two of config 3's topics (C 64) and at every U = 1, 17,
+   1,024, 4,096 and C = 1, 16, 31, 512, 1,000, 1,024, 1,025, 2,000,
+   16,384 (C ascending, the generic kernel's shared
    memory growing in one process), in each ``need`` (both, load, colsum;
    the marginal asked for alone equal bit for bit to its ``need="both"``
    value) and in each kernel form that takes the shape (the cluster form
@@ -41,7 +44,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    card take the first index among ties, as the JAX package's do; the
    resident-state digest (K6) bit for bit, each case launched twice to the
    same bits, at BASELINE config 5's resident shape (B 131,072, C 1,000,
-   M 133), clean and with each corruption class, at B = 7 and 8, B = 1,027
+   M 133), clean and with each corruption class, at phase 4f's
+   config-3-shaped streams' (B 16,384, C 64), at B = 7 and 8, B = 1,027
    (not a multiple of 4), C = 1, C = 16,384, M = 0 and a wrapping lag sum,
    and C = 16,385 raising on both devices; from the profiler, one call of
    K3 (configs 2 and 4, ``need`` load and colsum) and of K6 (config 5)
@@ -128,6 +132,37 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       raises ``CorruptStateDetected`` and the quarantine counter moves, the
       epoch after heals; both equal the port's CPU engine at the card's
       bucket;
+   f. the sidecar: the port's ``AssignorService(port=0, device="cuda",
+      host_fallback=False, metrics_port=0)`` through
+      ``AssignorServiceClient`` over TCP: ``ping``; ``rounds``, ``global``
+      and ``scan`` at config 5, each equal to phase 4a's answer (``scan``
+      to ``rounds``), member lists in order, K1 (K7 for ``scan``)
+      launched exactly once, ``fallback_used`` false and
+      ``klba_ladder_rung_total{method=assign,rung=none}`` up by one;
+      ``sinkhorn`` at configs 4 (K3) and 5 (K4, K5) with phase 4b's
+      invariants; a stream with ``{"refine_iters": 512, "guardrail":
+      1.25}`` replaying phase 4c's first 16 epochs (the cold start, the 10
+      drift epochs, the 3 delta epochs as ``lag_delta`` from the client's
+      ``LagDeltaTracker``, the second acked by ``AssignmentDeltaTracker``
+      and so answered with an ``assignment_delta``, a stale
+      ``base_epoch`` answered ``resync`` with the previous assignment, the
+      member leaving (the epoch sent dense with ``encoding: "zlib"``) and
+      one joining), every epoch's choice equal to phase 4c's bit for bit,
+      K1 once for the cold chain and K6 once a refine dispatch;
+      ``stream_flight`` (one record an epoch), ``recommend``, ``stats``
+      (one live stream, every breaker closed, a linear solve recorded, the
+      kernel rule) and ``klba_requests_total{method="stream_assign"}`` in
+      the ``metrics`` Prometheus view and on ``GET /metrics``; four
+      clients at once, 8 mixed requests each (config 3 ``rounds``,
+      ``sinkhorn`` on 16 of config 3's topics, a stream of its own at
+      config 3's shape), every answer equal to a lone client's, whose
+      answers are held against a sidecar on the CPU (``rounds`` and the
+      streams equal, ``sinkhorn`` to phase 4b's rule on both and a quality
+      ratio within 2 % of the CPU's); the
+      config-5 ``rounds`` round trip (median of 5), its bytes, the
+      server's ``wire.assign`` and ``assign.solve`` spans and the stream
+      epoch walls by type against phase 4c's; ``stop()`` leaves no service
+      thread.  The sequential legs' launches count into the kernels line;
 5. times, with CUDA events, medians of 30 runs after warm-up: each kernel
    alone at its main-path shape, its plain version on the card, the
    library yardstick where there is one, and its bound; the device time
@@ -150,12 +185,18 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    configs 5 and 3.
 
 It prints the card's name and power limit, one JSON ``ladder`` line (phase
-4e's legs, drill and watchdog cost), one JSON ``kernels`` line, and as its
-last line
+4e's legs, drill and watchdog cost), one JSON ``sidecar`` line (phase 4f's
+walls and bytes), one JSON ``profiler`` line (the profiler's clock skew
+after the builds, around phase 4f and after phase 5, and its sessions
+recorded and discarded), one JSON ``kernels`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
 result.
 
-Six more modes time kernels alone::
+``python3 chip_smoke.py --sidecar`` runs phase 4f alone (after the builds,
+phase 4a and one phase-4c run it is held to) and prints its ``sidecar``
+line.  ``--profiler-probe`` runs ``profiler_probe`` (torch.profiler's
+device records in a fresh process; no build) and prints it as JSON.  Six
+more modes time kernels alone::
 
     python3 chip_smoke.py --k1-times           # phase 5's K1 times only
     python3 chip_smoke.py --k1-ab ROOT [ROOT ...]
@@ -228,6 +269,7 @@ from kafka_lag_based_assignor_tpu_torch.testing import (
     lag_rows,
     stream_drift,
     stream_lags0,
+    zipf_lags,
 )
 from kafka_lag_based_assignor_tpu_torch.types import GroupSubscription, Subscription
 from kafka_lag_based_assignor_tpu_torch.utils import scrub
@@ -247,6 +289,18 @@ SCALAR_OPS_PER_S = 67e12
 # multiply, so this bounds any softmax from below.
 EXPS_PER_S = 16 * 132 * 1.98e9
 REPEATS = 30
+# The idle time on each side of a profiler step, on a session's first try:
+# torch.profiler keeps a device record only when its timestamp falls inside
+# the step's window on the host's clock, and the device's timestamps can
+# sit off the host's (``profiler_skew``).  Each retry of a session that lost
+# records pads four times as long, up to SKEW_PAD_S.
+PROFILER_PAD_S = 0.1
+# The pad of ``profiler_skew``, wide enough that the device records of an
+# offset clock still fall inside its session, and the longest retry pad.
+SKEW_PAD_S = 2.0
+# Profiler sessions recorded and discarded (lost records) in this process.
+SESSIONS = {"recorded": 0, "discarded": 0}
+T_START = time.perf_counter()
 # Dynamic shared memory a block may use on the H100 (227 KB).
 SMEM_PER_BLOCK = 232448
 # The f32 kernels' tolerance against their plain versions, relative to the
@@ -395,6 +449,10 @@ def kernel_cases():
            full(1, 100_000), 1000, False, None, None)
     table = rng.integers(0, 1000, (256, 64))
     yield "config3_rounds", table, full(256, 64), 64, False, None, None
+    # The cold chain of phase 4f's concurrent streams (config 3's shape,
+    # the first client epoch's lags).
+    yield ("config3_stream", zipf_lags(np.random.default_rng(3), 16384)[None],
+           full(1, 16384), 64, False, None, None)
     yield "config3_global", table, full(256, 64), 64, True, None, None
     yield "one_consumer", rng.integers(0, 10**6, (4, 50)), full(4, 50), 1, False, None, None
     yield ("fewer_rows_than_consumers", rng.integers(0, 10**6, (3, 128)),
@@ -608,10 +666,11 @@ def f32_check(kind: str, name: str, got, want, again) -> float:
     return worst
 
 
-def dedup_case(config: int, device):
-    """The dedup weights of a BASELINE config, as the dense path makes them."""
+def dedup_case(config: int, device, topic: str = "t0"):
+    """The dedup weights of one topic of a BASELINE config, as the dense
+    path makes them."""
     lags, members = baseline_workload(config)
-    lags_p, _, valid = pad_topic_rows(lags["t0"])
+    lags_p, _, valid = pad_topic_rows(lags[topic])
     return tuple(
         torch.from_numpy(a).to(device)
         for a in sinkhorn._dedup_weights(lags_p, valid, len(members))
@@ -641,13 +700,18 @@ def random_duals(C: int, device, seed: int = 0):
 
 def plan_stats_cases(device):
     """(name, ws_u, count_u, wsum_u, A, B): the dense path's shapes at
-    configs 2 and 4, config 5's (the dedup cap), every U = 1, 17, 1,024,
+    configs 2 and 4, config 5's (the dedup cap), two of config 3's topics
+    (phase 4f's concurrent ``sinkhorn`` requests), every U = 1, 17, 1,024,
     4,096 at every C = 1, 16, 31, 512, 1,000, 1,024, 1,025, 2,000, 16,384
     (C ascending), and all-zero weights."""
     g = torch.Generator().manual_seed(1)
     for config in (2, 4, 5):
         (ws, cnt, wsum), C = dedup_case(config, device)
         yield (f"config{config} U={ws.shape[0]} C={C}", ws, cnt, wsum,
+               *random_duals(C, device))
+    for topic in ("t000", "t015"):
+        (ws, cnt, wsum), C = dedup_case(3, device, topic)
+        yield (f"config3 {topic} U={ws.shape[0]} C={C}", ws, cnt, wsum,
                *random_duals(C, device))
     for C in (1, 16, 31, 512, 1000, 1024, 1025, 2000, 16384):
         for U in (1, 17, 1024, 4096):
@@ -868,14 +932,17 @@ DIGEST_KINDS = ("clean", "choice -2", "choice C", "choice C+5", "counts +1",
 
 def digest_cases(device):
     """(name, lags, choice, counts, C, row_tab, P): config 5's resident
-    shape clean and corrupted, then the edge shapes."""
+    shape clean and corrupted, phase 4f's concurrent streams' (config 3's
+    shape, 16,384 rows and 64 consumers), then the edge shapes."""
     B = pad_bucket(STREAM_P)
     base = resident_case(B, STREAM_P, STREAM_C, device)
     for kind in DIGEST_KINDS:
         lags, choice, counts, tab = corrupted(kind, *base, STREAM_C)
         yield (f"config5 B={B} C={STREAM_C} M={tab.shape[1]} {kind}", lags, choice, counts,
                STREAM_C, tab, STREAM_P)
-    for B, P, C, kind in ((8, 5, 3, "clean"), (8, 5, 3, "counts +1"), (7, 5, 3, "clean"),
+    for B, P, C, kind in ((16384, 16384, 64, "clean"), (16384, 16384, 64, "counts +1"),
+                          (16384, 16384, 64, "table bit flip"),
+                          (8, 5, 3, "clean"), (8, 5, 3, "counts +1"), (7, 5, 3, "clean"),
                           (1027, 1000, 24, "clean"), (1027, 1000, 24, "choice C+5"),
                           (1027, 1000, 24, "table bit flip"), (1024, 1000, 1, "clean"),
                           (65536, 3 * 16384, 16384, "clean"),
@@ -1021,9 +1088,10 @@ def assign_once(lags, members, solver, device, refine=None):
     }, assignor.last_stats
 
 
-def main_path(device) -> int:
-    """Path a: ``rounds`` and ``global``.  Returns the round-scan launches
-    counted from just before the path to just after it."""
+def main_path(device) -> tuple:
+    """Path a: ``rounds`` and ``global``.  Returns (the round-scan launches
+    counted from just before the path to just after it, the config-5
+    answers by solver, which phase 4f holds the sidecar to)."""
     reset_counts()
     lags, members = baseline_workload(1)
     got, _ = assign_once(lags, members, "rounds", device)
@@ -1055,7 +1123,7 @@ def main_path(device) -> int:
             f"wall {stats.wall_ms:.3f} ms (solve {stats.solve_ms:.3f} ms), "
             "equal to the CPU path")
     log(f"main path (rounds, global): rounds_scan launched {launches} times")
-    return launches
+    return launches, {solver: results[5, solver][0] for solver in ("rounds", "global")}
 
 
 def check_quality(label: str, lags, members, got, greedy_peak, linear: bool):
@@ -1619,6 +1687,460 @@ def ladder_path(device) -> tuple:
                       "stream_drill": drill, "watchdog_cost": cost}
 
 
+# -- phase 4f --------------------------------------------------------------
+
+# The sidecar's stream options: phase 4c's engine (refine_iters 512,
+# guardrail 1.25) over the wire.
+SIDECAR_STREAM_OPTS = {"refine_iters": STREAM_BUDGET, "guardrail": 1.25}
+# Phase 4c's legs the sidecar replays, by epoch index: the cold start and
+# the 10 drift epochs, 3 delta epochs, the member leaving and joining.
+SIDECAR_EPOCHS = 16
+
+
+def wire_rows(arr: np.ndarray, pids=None) -> list:
+    pids = range(arr.size) if pids is None else pids
+    return [[int(p), int(v)] for p, v in zip(pids, arr.tolist())]
+
+
+def wire_topics(lags) -> dict:
+    return {topic: wire_rows(arr) for topic, arr in lags.items()}
+
+
+def wire_answer(result) -> dict:
+    return {m: [(t, int(p)) for t, p in tps] for m, tps in result["assignments"].items()}
+
+
+def wire_choice(assignments, members) -> np.ndarray:
+    """A single-topic stream answer as a choice vector: each partition's
+    member index (the partition ids are 0..P-1)."""
+    choice = np.full(sum(len(tps) for tps in assignments.values()), -1, dtype=np.int32)
+    for i, m in enumerate(members):
+        for _, p in assignments[m]:
+            choice[p] = i
+    return choice
+
+
+def counted(fn):
+    """(fn(), every kernel's launches during it): a sequential leg."""
+    reset_counts()
+    out = fn()
+    return out, read_counts()
+
+
+def add_counts(total: dict, grew: dict) -> None:
+    for k, v in grew.items():
+        total[k] += v
+
+
+def assign_rung(rung: str) -> int:
+    from kafka_lag_based_assignor_tpu_torch.utils import metrics
+
+    return metrics.REGISTRY.counter("klba_ladder_rung_total",
+                                    {"method": "assign", "rung": rung}).value
+
+
+def sidecar_assign(client, device, answers: dict, launches: dict) -> None:
+    """``rounds``, ``global`` and ``scan`` at config 5 over TCP: each equals
+    phase 4a's in-process answer (``scan`` the ``rounds`` one), member
+    lists in order, launches K1 (K7 for ``scan``) exactly once, answers on
+    the card (``fallback_used`` false) and moves the ``none`` rung by one."""
+    lags, members = baseline_workload(5)
+    params = {"topics": wire_topics(lags), "subscriptions": {m: ["t0"] for m in members}}
+    for solver, want, kernel in (("rounds", answers["rounds"], "rounds_scan"),
+                                 ("global", answers["global"], "rounds_scan"),
+                                 ("scan", answers["rounds"], "scan_greedy")):
+        rung = assign_rung("none")
+        result, grew = counted(lambda: client.request("assign", {**params, "solver": solver}))
+        add_counts(launches, grew)
+        stats = result["stats"]
+        if wire_answer(result) != want:
+            raise AssertionError(f"sidecar config 5 {solver}: differs from phase 4a's answer")
+        if (stats["fallback_used"] or stats["device"] != device.type
+                or assign_rung("none") != rung + 1):
+            raise AssertionError(f"sidecar config 5 {solver}: not answered on the card: {stats}")
+        if device.type == "cuda" and (grew[kernel] != 1 or sum(grew.values()) != 1):
+            raise AssertionError(f"sidecar config 5 {solver}: launches {grew}")
+        log(f"sidecar  config 5 {solver:6s}: equal to phase 4a's answer; launches {grew}; "
+            f"quality_ratio {stats['quality_ratio']!r}")
+
+
+def sidecar_sinkhorn(client, device, launches: dict) -> None:
+    """``sinkhorn`` over the wire at config 4 (the dense path: K3) and 5
+    (the linear path: K4 and K5), each with phase 4b's invariants."""
+    for cfg in (4, 5):
+        lags, members = baseline_workload(cfg)
+        peak = greedy_peak(lags, assign_once(lags, members, "rounds", device)[0])
+        params = {"topics": wire_topics(lags), "subscriptions": {m: ["t0"] for m in members},
+                  "solver": "sinkhorn"}
+        result, grew = counted(lambda: client.request("assign", params))
+        add_counts(launches, grew)
+        needed = ["rounds_scan"] + (
+            ["mirror_prox_step", "superblock_partials"] if cfg == 5 else ["plan_stats"])
+        if result["stats"]["fallback_used"] or (
+                device.type == "cuda" and any(grew[k] < 1 for k in needed)):
+            raise AssertionError(f"sidecar config {cfg} sinkhorn: launches {grew}, "
+                                 f"needed {needed}, stats {result['stats']}")
+        got = check_quality(f"sidecar config {cfg} sinkhorn", lags, members, wire_answer(result),
+                            peak, linear=cfg == 5)
+        log(f"sidecar  config {cfg} sinkhorn: peak {got} (greedy {peak}), quality_ratio "
+            f"{result['stats']['quality_ratio']!r}; launches {grew}")
+
+
+class WireStream:
+    """Phase 4c's legs replayed through ``stream_assign``: the client's
+    ``LagDeltaTracker`` turns each epoch's lags into dense rows or a
+    ``lag_delta``, ``AssignmentDeltaTracker`` holds the dense view (and
+    acks it where asked), and every epoch is checked against the same epoch
+    of phase 4c's run on the card."""
+
+    def __init__(self, client, device, reference: StreamRun, launches: dict):
+        from kafka_lag_based_assignor_tpu_torch.lag import (
+            AssignmentDeltaTracker,
+            LagDeltaTracker,
+        )
+
+        self.client, self.device = client, device
+        self.reference, self.launches = reference, launches
+        self.members = [f"c{i:04d}" for i in range(STREAM_C)]
+        self.up, self.down = LagDeltaTracker(), AssignmentDeltaTracker()
+        self.walls, self.shapes, self.epochs = [], [], 0
+
+    def request(self, params: dict) -> dict:
+        params = {"stream_id": "config5", "topic": "t0", "members": self.members,
+                  "options": SIDECAR_STREAM_OPTS, **params}
+        t0 = time.perf_counter()
+        result, grew = counted(lambda: self.client.request("stream_assign", params))
+        wall = (time.perf_counter() - t0) * 1e3
+        add_counts(self.launches, grew)
+        view = self.down.note_result(result, self.members)
+        self.up.note_result(result)
+        return result, view, grew, wall
+
+    def epoch(self, lags: np.ndarray, ack: bool = False, encoding=None) -> np.ndarray:
+        from kafka_lag_based_assignor_tpu_torch import service
+
+        if encoding == "zlib":
+            params = {"lags": service.encode_lags_zlib(wire_rows(lags)), "encoding": "zlib"}
+            self.up.params_for(wire_rows(lags))  # the tracker's pending read
+        else:
+            params = self.up.params_for(wire_rows(lags))
+        if ack:
+            self.down.stamp(params)
+        result, view, grew, wall = self.request(params)
+        s = result["stream"]
+        choice = wire_choice(view, self.members)
+        leg, kind, want, ws, *_ = self.reference.records[self.epochs]
+        label = f"sidecar stream epoch {self.epochs} ({leg}, {kind})"
+        if not np.array_equal(choice, want):
+            raise AssertionError(f"{label}: differs from phase 4c's choice")
+        if (s["cold_start"], s["refined"], s["churn"], s["repaired_rows"]) != (
+                ws.cold_start, ws.refined, ws.churn, ws.repaired_rows):
+            raise AssertionError(f"{label}: stats {s} against phase 4c's {ws}")
+        if s["fallback_used"] or self.device.type == "cuda" and (
+                grew["state_digest"] != int(s["refined"]) + int(s["cold_start"])
+                or grew["rounds_scan"] != int(s["cold_start"])):
+            raise AssertionError(f"{label}: launches {grew} for {s}")
+        shape = ("lag_delta" if "lag_delta" in params else encoding or "dense",
+                 "assignment_delta" if "assignment_delta" in result else "dense")
+        if ack and shape[1] != "assignment_delta":
+            raise AssertionError(f"{label}: an acked epoch was answered dense")
+        log(f"{label:44s} wall {wall:9.3f} ms up {shape[0]:9s} down {shape[1]:16s} "
+            f"churn {s['churn']} quality_ratio {s['quality_ratio']:.4f} launches {grew}")
+        self.walls.append((kind, wall))
+        self.shapes.append(shape)
+        self.epochs += 1
+        return choice
+
+    def stale_base(self) -> None:
+        """A ``lag_delta`` on the epoch before the stream's: answered
+        ``resync`` with the previous assignment, no device work."""
+        held = wire_choice(self.down.assignments(self.members), self.members)
+        epoch = self.reference.records[self.epochs - 1]
+        result, view, grew, _ = self.request({"lag_delta": {
+            "indices": [0], "values": [1], "base_epoch": 0}})
+        if (not result["stream"]["resync"] or any(grew.values())
+                or not np.array_equal(wire_choice(view, self.members), held)
+                or not np.array_equal(held, epoch[2])):
+            raise AssertionError(f"sidecar stream stale base: {result['stream']}, {grew}")
+        log("sidecar stream stale base_epoch: resync with the previous assignment")
+
+    def run(self) -> "WireStream":
+        rng, lags0 = stream_lags0(STREAM_P)
+        choice = self.epoch(lags0)
+        lags = lags0.astype(np.float64)
+        for e in range(10):  # bench.py's drift schedule, as phase 4c
+            lags = stream_drift(rng, lags, e, choice, STREAM_C)
+            choice = self.epoch(lags.astype(np.int64))
+        cur = lags.astype(np.int64)
+        for i in range(3):
+            cur = heat(cur, choice, STREAM_C)
+            choice = self.epoch(cur, ack=i == 1)
+        self.stale_base()
+        # Phase 4c's remaps by name: c0500 leaves (the later members shift
+        # down by one), then c1000 joins at the end.
+        self.members = [m for m in self.members if m != f"c{STREAM_C // 2:04d}"]
+        self.epoch(cur, encoding="zlib")
+        self.members = self.members + [f"c{STREAM_C:04d}"]
+        self.epoch(cur)
+        if self.epochs != SIDECAR_EPOCHS or ("lag_delta", "assignment_delta") not in self.shapes:
+            raise AssertionError(f"sidecar stream: {self.epochs} epochs, {self.shapes}")
+        return self
+
+
+def sidecar_observability(client, svc, device) -> None:
+    """``stream_flight`` (one record an epoch), ``recommend``, ``stats``
+    and the registry over the wire and over plain HTTP."""
+    import urllib.request
+
+    flight = client.request("stream_flight", {"stream_id": "config5"})["records"]
+    rec = client.request("recommend")["streams"]
+    stats = client.request("stats")
+    prom = client.request("metrics", {"view": "prometheus"})["prometheus"]
+    host, port = svc.metrics_address
+    with urllib.request.urlopen(f"http://{host}:{port}/metrics", timeout=60) as r:
+        scraped = r.read().decode()
+    series = 'klba_requests_total{method="stream_assign"}'
+    problems = [
+        len(flight) != SIDECAR_EPOCHS and f"{len(flight)} flight records",
+        "config5" not in rec and "recommend misses the stream",
+        stats["live_streams"] != 1 and f"live_streams {stats['live_streams']}",
+        any(b["state"] != "closed" for b in stats["breakers"].values()) and "a breaker open",
+        stats["quality"]["last_linear_solve"] is None and "no linear solve recorded",
+        set(stats["quality"]["kernel"].values()) != {device.type == "cuda"} and "kernel rule",
+        series not in prom and "prometheus view", series not in scraped and "GET /metrics",
+    ]
+    if any(problems):
+        raise AssertionError(f"sidecar observability: {[p for p in problems if p]}")
+    log(f"sidecar observability: {len(flight)} flight records, recommend "
+        f"{rec['config5']['recommended_consumers']} consumers, breakers "
+        f"{sorted(stats['breakers'])} closed, requests {stats['requests_served']}, "
+        f"GET /metrics {len(scraped)} bytes")
+
+
+def comparable(result: dict, device: bool = True) -> dict:
+    """An answer without its times (the stats' walls) and, with ``device``
+    false, without the device that answered it."""
+    dropped = ("wall_ms", "lag_read_ms", "solve_ms") + (() if device else ("device",))
+    out = dict(result)
+    if "stats" in out:
+        out["stats"] = {k: v for k, v in out["stats"].items() if k not in dropped}
+    return out
+
+
+# Topics of config 3 in the concurrent leg's ``sinkhorn`` requests: the
+# dense solve of one 64-partition topic is a host loop of small launches,
+# and all 256 topics would hold four clients for minutes.
+SIDECAR_SINKHORN_TOPICS = 16
+
+
+def same_as_cpu(plan, lags, card: list, cpu: list) -> None:
+    """The lone client's answers on the card against the same requests to
+    a sidecar on the CPU (the plain versions): ``rounds`` and the streams
+    equal (all but the answering device); ``sinkhorn`` held to phase 4b's
+    rule on both (every partition of each topic once, each topic's count
+    spread <= 1 and peak <= the ``rounds`` answer's) and to a quality ratio
+    within 2 % of the CPU's."""
+    greedy = topic_loads(lags, card[0]["assignments"])
+    for i, ((kind, _), a, b) in enumerate(zip(plan, card, cpu)):
+        if kind != "sinkhorn":
+            if comparable(a, device=False) != comparable(b, device=False):
+                raise AssertionError(f"sidecar concurrency: request {i} ({kind}) on the card "
+                                     f"differs from the CPU sidecar's")
+            continue
+        for side, got in (("card", a), ("CPU", b)):
+            held = {}
+            for _, tps in got["assignments"].items():
+                for t, p in tps:
+                    held.setdefault(t, []).append(p)
+            loads = topic_loads(lags, got["assignments"])
+            bad = [t for t, ps in held.items() if sorted(ps) != list(range(lags[t].size))]
+            bad += [t for t, (spread, peak) in loads.items()
+                    if spread > 1 or peak > greedy[t][1]]
+            if bad or len(held) != SIDECAR_SINKHORN_TOPICS:
+                raise AssertionError(f"sidecar concurrency: sinkhorn on the {side}: topics "
+                                     f"{bad[:4]} break phase 4b's rule, {len(held)} topics")
+        qa, qb = a["stats"]["quality_ratio"], b["stats"]["quality_ratio"]
+        if not qa <= 1.02 * qb:
+            raise AssertionError(f"sidecar concurrency: sinkhorn quality ratio {qa} on the "
+                                 f"card, {qb} on the CPU")
+        log(f"sidecar concurrency: sinkhorn quality ratio {qa!r} on the card, {qb!r} on the "
+            f"CPU; same assignment: {a['assignments'] == b['assignments']}")
+
+
+def sidecar_concurrency(svc, clients: int = 4) -> dict:
+    """Four clients at once, each 8 mixed requests (config 3 ``rounds``,
+    ``sinkhorn`` on ``SIDECAR_SINKHORN_TOPICS`` of config 3's topics, and
+    a stream of its own at config 3's shape, 16,384 partitions and 64
+    consumers): every answer equals the one a lone client got for the same
+    request, and the lone client's answers are held against a sidecar on
+    the CPU (``same_as_cpu``).  Launch counts are not read here.  Returns
+    the lone client's walls by request kind and the concurrent leg's
+    wall."""
+    from kafka_lag_based_assignor_tpu_torch import service
+
+    lags, members = baseline_workload(3)
+    subset = {t: lags[t] for t in sorted(lags)[:SIDECAR_SINKHORN_TOPICS]}
+    assign = {
+        "rounds": {"topics": wire_topics(lags), "solver": "rounds",
+                   "subscriptions": {m: sorted(lags) for m in members}},
+        "sinkhorn": {"topics": wire_topics(subset), "solver": "sinkhorn",
+                     "subscriptions": {m: sorted(subset) for m in members}},
+    }
+    rng = np.random.default_rng(3)
+    stream_lags = [zipf_lags(rng, 64 * len(lags)) for _ in range(4)]
+    plan = [("rounds", None), ("sinkhorn", None), ("stream", 0), ("stream", 1),
+            ("rounds", None), ("stream", 2), ("rounds", None), ("stream", 3)]
+    walls = {}
+
+    def run(address, sid, label=None):
+        answers = []
+        with service.AssignorServiceClient(*address, timeout_s=600) as c:
+            for kind, e in plan:
+                t0 = time.perf_counter()
+                if kind == "stream":
+                    r = c.request("stream_assign", {"stream_id": sid, "topic": "t0",
+                                                    "members": members,
+                                                    "lags": wire_rows(stream_lags[e])})
+                else:
+                    r = c.request("assign", assign[kind])
+                walls.setdefault((label or sid, kind), []).append(
+                    (time.perf_counter() - t0) * 1e3)
+                answers.append(comparable(r))
+        return answers
+
+    want = run(svc.address, "alone")
+    on_cpu = service.AssignorService(port=0, device="cpu", host_fallback=False).start()
+    try:
+        same_as_cpu(plan, lags, want, run(on_cpu.address, "alone", "cpu"))
+    finally:
+        on_cpu.stop()
+    t0 = time.perf_counter()
+    got, errors = {}, []
+
+    def worker(k):
+        try:
+            got[k] = run(svc.address, f"client{k}")
+        except Exception as exc:  # noqa: BLE001 — re-raised on the main thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = (time.perf_counter() - t0) * 1e3
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"sidecar concurrency: {errors or 'a client hung'}")
+    for k, answers in got.items():
+        for i, (a, b) in enumerate(zip(answers, want)):
+            if a != b:
+                raise AssertionError(f"sidecar concurrency: client {k} request {i} "
+                                     f"({plan[i][0]}) differs from the lone client's")
+    with service.AssignorServiceClient(*svc.address) as c:
+        for sid in ["alone"] + [f"client{k}" for k in range(clients)]:
+            c.stream_reset(sid)
+    alone = {kind: statistics.median(w) for (sid, kind), w in walls.items() if sid == "alone"}
+    cpu = {kind: statistics.median(w) for (sid, kind), w in walls.items() if sid == "cpu"}
+    log(f"sidecar concurrency: {clients} clients x {len(plan)} requests equal to a lone "
+        f"client's answers, which equal a CPU sidecar's, in {wall:.3f} ms; the lone "
+        f"client's medians {alone}, on the CPU sidecar {cpu}")
+    return {"requests": clients * len(plan), "wall_ms": wall, "alone_ms": alone,
+            "cpu_sidecar_ms": cpu}
+
+
+def sidecar_times(client, svc, launches: dict, stream: WireStream, reference: StreamRun) -> dict:
+    """The config-5 ``rounds`` round trip through the client (median of 5),
+    its request and response bytes on a raw connection, the server's
+    ``wire.assign`` and ``assign.solve`` spans over those 5 calls (registry
+    log2-bucket p50, and the mean), and the stream epoch walls by type over
+    the wire against phase 4c's in-process ones."""
+    import socket
+
+    from kafka_lag_based_assignor_tpu_torch.utils import metrics
+
+    lags, members = baseline_workload(5)
+    params = {"topics": wire_topics(lags), "subscriptions": {m: ["t0"] for m in members}}
+    before = metrics.REGISTRY.snapshot()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        _, grew = counted(lambda: client.request("assign", params))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        add_counts(launches, grew)
+    spans = metrics.histogram_deltas(before, metrics.REGISTRY.snapshot())
+    line = json.dumps({"id": 1, "method": "assign", "params": params}).encode() + b"\n"
+    with socket.create_connection(svc.address, timeout=600) as sock, sock.makefile("rwb") as f:
+        def exchange():
+            f.write(line)
+            f.flush()
+            return f.readline()
+
+        reply, grew = counted(exchange)
+        add_counts(launches, grew)
+    out = {"assign_round_trip_ms": statistics.median(walls), "assign_round_trips_ms": walls,
+           "request_bytes": len(line), "response_bytes": len(reply)}
+    for span in ("wire.assign", "assign.solve"):
+        h = spans[f"klba_span_duration_ms{{span={span}}}"]
+        if h["count"] != 5:
+            raise AssertionError(f"sidecar times: {h['count']} {span} spans for 5 calls")
+        out[span] = {"p50_bucket_ms": h["p50"], "mean_ms": h["sum"] / h["count"]}
+    by_kind = {}
+    for kind, wall in stream.walls:
+        by_kind.setdefault(kind, {"wire": [], "in_process": []})["wire"].append(wall)
+    for leg, kind, *_, wall in reference.records[:SIDECAR_EPOCHS]:
+        by_kind[kind]["in_process"].append(wall)
+    out["stream_epoch_ms"] = {
+        kind: {"n": len(w["wire"]), "wire_p50": statistics.median(w["wire"]),
+               "in_process_p50": statistics.median(w["in_process"])}
+        for kind, w in sorted(by_kind.items())}
+    log(f"sidecar times: config 5 rounds round trip p50 {out['assign_round_trip_ms']!r} ms "
+        f"({len(line)} bytes up, {len(reply)} down); server wire.assign mean "
+        f"{out['wire.assign']['mean_ms']!r} ms, assign.solve mean "
+        f"{out['assign.solve']['mean_ms']!r} ms; stream epochs {out['stream_epoch_ms']}")
+    return out
+
+
+def service_threads() -> list:
+    return [t.name for t in threading.enumerate()
+            if t.name in ("klba-service", "klba-metrics-http")
+            or "process_request_thread" in t.name]
+
+
+def sidecar_path(device, answers: dict, reference: StreamRun) -> tuple:
+    """Phase 4f, the sidecar on the card: the port's ``AssignorService``
+    (host rung off, the ``/metrics`` listener on) through
+    ``AssignorServiceClient`` over TCP.  Every sequential leg counts its
+    launches from 0; the concurrent leg is not counted.  Returns (the
+    launches, the ``sidecar`` line)."""
+    from kafka_lag_based_assignor_tpu_torch import service
+
+    launches = {name: 0 for name, _ in COUNTERS}
+    svc = service.AssignorService(port=0, device=device, host_fallback=False,
+                                  metrics_port=0).start()
+    try:
+        with service.AssignorServiceClient(*svc.address, timeout_s=900) as client:
+            if not client.ping():
+                raise AssertionError("sidecar: ping")
+            sidecar_assign(client, device, answers, launches)
+            sidecar_sinkhorn(client, device, launches)
+            stream = WireStream(client, device, reference, launches).run()
+            sidecar_observability(client, svc, device)
+            concurrent = sidecar_concurrency(svc)
+            times_ = sidecar_times(client, svc, launches, stream, reference)
+    finally:
+        svc.stop()
+    for _ in range(100):
+        if not service_threads():
+            break
+        time.sleep(0.05)
+    if service_threads():
+        raise AssertionError(f"sidecar: threads left after stop(): {service_threads()}")
+    log(f"main path (sidecar): launches {launches}; service stopped, no thread left; "
+        f"threads alive: {sorted(t.name for t in threading.enumerate())}")
+    name = torch.cuda.get_device_name(0) if device.type == "cuda" else "cpu"
+    return launches, {"config": 5, "device": name, "concurrent": concurrent, **times_}
+
+
 # -- phase 5 ---------------------------------------------------------------
 
 
@@ -1918,6 +2440,72 @@ def superblock_library(ws_b, cnt_b, A, B):
     return [torch.matmul(w.reshape(Sb, 1, -1), x) for w in (ws_b, cnt_b)]
 
 
+
+
+def pad_for(attempt: int) -> float:
+    """The idle pad on each side of a profiler step on try ``attempt``."""
+    return min(PROFILER_PAD_S * 4 ** attempt, SKEW_PAD_S)
+
+
+def profiler_skew(label: str) -> dict:
+    """How far torch.profiler's device timestamps sit from its host ones,
+    ``label``-ed with the process's age: 20 times, one one-kernel op on the
+    idle card, then a wait for it; the gap from each op's start on the host
+    to its kernel's start on the device (tens of microseconds when the two
+    clocks agree; an offset between them moves every gap by the same
+    amount).  Logged and returned as its median, least and largest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.zeros(1024, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(SKEW_PAD_S)
+        for _ in range(20):
+            x.add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+        time.sleep(SKEW_PAD_S)
+    events = prof.events()
+    ops = sorted(e.time_range.start for e in events if e.name == "aten::add_")
+    kernels = sorted(e.time_range.start for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "elementwise" in e.name)
+    gaps = [(k - o) / 1e3 for o, k in zip(ops, kernels)] if len(ops) == len(kernels) else []
+    out = {"at": label, "age_s": time.perf_counter() - T_START, "ops": len(ops),
+           "kernels": len(kernels), "gap_ms": statistics.median(gaps) if gaps else None,
+           "min_ms": min(gaps) if gaps else None, "max_ms": max(gaps) if gaps else None}
+    log(f"profiler skew {json.dumps(out)}")
+    return out
+
+
+def profiler_probe() -> dict:
+    """The profiler alone in a fresh process, torch's own kernels only:
+    ``profiler_skew`` three times back to back, again after 50,000
+    launches with no profiler on, again after a minute idle, two
+    ``device_profile`` calls of one op, then after each of 12 bursts of
+    launches.  Returns the probes and the sessions counted."""
+    x = torch.zeros(1 << 20, device="cuda")
+    probes = [profiler_skew(f"fresh {i}") for i in range(3)]
+    for _ in range(50_000):
+        x.add_(1)
+    torch.cuda.synchronize()
+    probes += [profiler_skew(f"after 50,000 launches {i}") for i in range(2)]
+    time.sleep(60)
+    probes += [profiler_skew(f"after a minute idle {i}") for i in range(2)]
+    for _ in range(2):
+        device_profile(lambda: x.mul_(1.0), "elementwise")
+    # Four minutes of bursts: 5 s of launches, 10 s idle, one probe.
+    a = torch.randn(2048, 2048, device="cuda")
+    for i in range(12):
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 5:
+            a = torch.tanh(a @ a)
+        torch.cuda.synchronize()
+        time.sleep(10)
+        probes.append(profiler_skew(f"burst {i}"))
+    return {"probes": probes, "sessions": SESSIONS}
+
+
 def device_profile(fn, kernel: str) -> dict:
     """What one ``fn()`` enqueues on the device, from torch.profiler's CUDA
     activity over REPEATS calls, divided by REPEATS: ``alone_ms``, the time
@@ -1930,20 +2518,24 @@ def device_profile(fn, kernel: str) -> dict:
     REPEATS calls.  A session that lost records (an op counted a number of
     times that is not a multiple of REPEATS) or gave the named kernels no
     time is repeated, up to five in all; raises when none was whole, so that
-    neither a renamed kernel nor a lost record can read as a cheaper call."""
+    neither a renamed kernel nor a lost record can read as a cheaper call.
+    Each step's calls sit between two idle pads (``pad_for``)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
     for attempt in range(5):
         sessions = []
+        SESSIONS["recorded"] += 1
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                      on_trace_ready=lambda p: sessions.append(p.key_averages())) as prof:
             for _ in range(2):
+                time.sleep(pad_for(attempt))
                 for _ in range(REPEATS):
                     fn()
                 torch.cuda.synchronize()
+                time.sleep(pad_for(attempt))
                 prof.step()
         cuda = [e for e in sessions[-1]
                 if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1965,6 +2557,7 @@ def device_profile(fn, kernel: str) -> dict:
                                  if "Memset" not in e.key and "Memcpy" not in e.key),
                 "memsets": count(e for e in cuda if "Memset" in e.key),
             }
+        SESSIONS["discarded"] += 1
         log(f"profiler session {attempt + 1} lost records or gave no time to kernels named "
             f"{kernel!r}; it recorded {[(e.key[:40], e.count) for e in cuda]}")
     raise AssertionError(f"no whole profiler session for kernels named {kernel!r}")
@@ -2138,7 +2731,7 @@ def profiled_assign(cfg: int, solver: str, refine_iters, device) -> dict:
     with the profiler warming up (its records are dropped), then records
     one.  Every main-path cell launches a port kernel, so a session that
     recorded none of them lost its records: it is repeated, up to three in
-    all; ``None`` when none was whole."""
+    all, with the pads of ``pad_for``; ``None`` when none was whole."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     lags, members = baseline_workload(cfg)
@@ -2147,14 +2740,17 @@ def profiled_assign(cfg: int, solver: str, refine_iters, device) -> dict:
     ours = tuple(dict.fromkeys(KERNEL_NAMES.values()))
     for attempt in range(3):
         sessions, walls = [], []
+        SESSIONS["recorded"] += 1
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                      on_trace_ready=lambda p: sessions.append(p.key_averages())) as prof:
             for _ in range(2):
+                time.sleep(pad_for(attempt))
                 t0 = time.perf_counter()
                 checked_assign(assignor, cluster, group)
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
+                time.sleep(pad_for(attempt))
                 prof.step()
         events = [
             e for e in (sessions[-1] if sessions else [])
@@ -2173,6 +2769,7 @@ def profiled_assign(cfg: int, solver: str, refine_iters, device) -> dict:
                 "kernels_ms": kernels,
                 "top": [(e.key[:48], e.self_device_time_total / 1e3, e.count) for e in top],
             }
+        SESSIONS["discarded"] += 1
         log(f"profiler session {attempt + 1} of an assign() recorded no port kernel; it "
             f"recorded {[(e.key[:40], e.count) for e in events]}")
     return None
@@ -2225,10 +2822,12 @@ def profiled_epoch(engine, lags: np.ndarray):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_PAD_S)
         t0 = time.perf_counter()
         engine.rebalance(lags)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILER_PAD_S)
     events = [
         e for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA
@@ -2454,11 +3053,22 @@ def main() -> int:
         _build.build_all()
         log(json.dumps({"k36_times": k36_times(device), "device": name}))
         return 0
+    if sys.argv[1:] == ["--profiler-probe"]:
+        log(json.dumps({"profiler_probe": profiler_probe(), "device": name,
+                        "env": {k: os.environ.get(k) for k in ("TEARDOWN_CUPTI",)}}))
+        return 0
+    if sys.argv[1:] == ["--sidecar"]:
+        build()
+        answers = main_path(device)[1]
+        launches, sidecar = sidecar_path(device, answers, StreamRun(device).run())
+        log(json.dumps({"sidecar": sidecar, "launches": launches, "device": name}))
+        return 0
     if sys.argv[1:2] == ["--device-share"]:
         cfg, solver, refine_iters = int(sys.argv[2]), sys.argv[3], int(sys.argv[4]) or None
         log(json.dumps({"device_share": profiled_assign(cfg, solver, refine_iters, device)}))
         return 0
     build()
+    skew = [profiler_skew("after the builds")]
     max_err = kernels_vs_plain(device)
     f32_err = quality_kernels_vs_plain(device)
     digest_err = digest_vs_plain(device)
@@ -2467,22 +3077,28 @@ def main() -> int:
     scan_err, k7_plain_cpu_ms = scan_vs_plain(device)
     refine_batched_vs_cpu(device)
     native_vs_rounds(device)
-    rounds_launches = main_path(device)
+    rounds_launches, answers = main_path(device)
     launches = sinkhorn_path(device)
     stream_launches, stream_run = streaming_path(device)
     solver_launches = solver_path(device)
     ladder_launches, ladder = ladder_path(device)
+    skew.append(profiler_skew("before phase 4f"))
+    sidecar_launches, sidecar = sidecar_path(device, answers, stream_run)
+    skew.append(profiler_skew("after phase 4f"))
     launches["rounds_scan"] += (rounds_launches + stream_launches["rounds_scan"]
                                 + solver_launches["rounds_scan"]
                                 + ladder_launches["rounds_scan"])
     launches["state_digest"] = (stream_launches["state_digest"]
                                 + ladder_launches["state_digest"])
     launches["scan_greedy"] = solver_launches["scan_greedy"]
+    for k, v in sidecar_launches.items():
+        launches[k] += v
     k1 = times(device)
     quality = quality_times(device)
     digest = stream_times(stream_run)
     k7 = solver_times(device, k7_plain_cpu_ms)
     device_shares(device)
+    skew.append(profiler_skew("after phase 5"))
     line = [dict(kernel_line("rounds_scan", launches["rounds_scan"], max_err, k1),
                  also_replaces="kafka_lag_based_assignor_tpu/ops/rounds_pallas.py:160")]
     for k, t in quality.items():
@@ -2490,6 +3106,9 @@ def main() -> int:
     line.append(kernel_line("state_digest", launches["state_digest"], digest_err, digest))
     line.append(kernel_line("scan_greedy", launches["scan_greedy"], scan_err, k7))
     log(json.dumps({"ladder": ladder}))
+    log(json.dumps({"sidecar": sidecar}))
+    log(json.dumps({"profiler": {"skew": skew, "sessions": SESSIONS,
+                                 "pad_s": PROFILER_PAD_S, "skew_pad_s": SKEW_PAD_S}}))
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -57,8 +57,9 @@ port's warm-up slice; the key is accepted and not read yet.
 
 from __future__ import annotations
 
+import contextlib
 import logging
-from typing import Any, Callable, Mapping, Optional
+from typing import Any, Callable, ContextManager, Mapping, Optional
 
 from .lag import LagRetryPolicy, MetadataConsumer, read_topic_partition_lags
 from .models.greedy import assign_greedy, host_fallback_for
@@ -94,6 +95,96 @@ MetadataConsumerFactory = Callable[[Mapping[str, Any]], MetadataConsumer]
 
 #: Solvers this package runs on the device.
 DEVICE_SOLVERS = ("rounds", "scan", "global", "sinkhorn")
+
+
+def solve_accelerated(
+    solver: str,
+    lags,
+    topic_subscriptions,
+    options: Optional[Mapping[str, Any]] = None,
+    device: DeviceLike = None,
+    cuda_context: Callable[[], ContextManager] = contextlib.nullcontext,
+):
+    """THE device solve of every solver but ``host``, which
+    :func:`solve_on_ladder` runs for the plugin and the sidecar alike (the
+    JAX sidecar calls the JAX plugin's static ``_solve_accelerated`` for the
+    same reason).  The watchdog runs it (on its worker thread unless the
+    timeout is off): the ``device.solve`` fault point first, then the
+    solver inside ``cuda_context`` (the caller's CUDA device and stream, from
+    :func:`.utils.device.carry_cuda_context`).  ``options`` carries
+    ``sinkhorn_iters`` (default 24) and ``refine_iters`` (None = the
+    reference's answer for the parity solvers, the per-path budget for
+    ``sinkhorn``): the plugin's config values, or the wire's options."""
+    faults.fire("device.solve")
+    options = options or {}
+    refine = options.get("refine_iters")
+    refine = None if refine is None else int(refine)
+    with cuda_context():
+        if solver == "native":
+            return assign_native(lags, topic_subscriptions)
+        if solver == "sinkhorn":
+            return assign_sinkhorn(
+                lags, topic_subscriptions,
+                iters=int(options.get("sinkhorn_iters", 24)),
+                refine_iters=refine, device=device,
+            )
+        # An explicit refine budget appends the exchange refinement to the
+        # per-topic parity kernels; global + refine is rejected by every
+        # entry point before it reaches here.
+        return assign_device(
+            lags, topic_subscriptions, kernel=solver, device=device,
+            refine_iters=refine,
+        )
+
+
+def solve_on_ladder(
+    solver: str,
+    lags,
+    topic_subscriptions,
+    stats: RebalanceStats,
+    *,
+    watchdog: Optional[Watchdog] = None,
+    host_fallback: bool = True,
+    options: Optional[Mapping[str, Any]] = None,
+    device: DeviceLike = None,
+    timeout_s: Optional[float] = None,
+):
+    """THE fault ladder of one stateless solve, shared by the plugin and
+    the sidecar so the two cannot drift.  ``host`` runs the reference
+    greedy.  Every other solver runs :func:`solve_accelerated` under
+    ``watchdog`` (breaker key = the solver, on a worker that enters this
+    thread's CUDA device and stream; inline without a watchdog), with
+    ``timeout_s`` in place of the watchdog's deadline when given.  A solve
+    that raises, times out or is rejected propagates when ``host_fallback``
+    is off, and is otherwise answered by
+    :func:`.models.greedy.host_fallback_for`.  Sets ``stats.breaker_state``
+    and ``stats.fallback_used``; each caller keeps its own other stats
+    fields and series."""
+    if solver == "host":
+        return assign_greedy(lags, topic_subscriptions)
+    device = resolve_device(device)
+    deadline = {} if timeout_s is None else {"timeout_s": timeout_s}
+    try:
+        if watchdog is None:
+            return solve_accelerated(solver, lags, topic_subscriptions, options, device)
+        result = watchdog.call(
+            solve_accelerated, solver, lags, topic_subscriptions, options,
+            device, carry_cuda_context(device), key=solver, **deadline,
+        )
+        stats.breaker_state = watchdog.state(solver)
+        return result
+    except Exception:
+        if watchdog is not None:
+            stats.breaker_state = watchdog.state(solver)
+        if not host_fallback:
+            raise
+        LOGGER.warning(
+            "device solver %r failed; falling back to host greedy",
+            solver,
+            exc_info=True,
+        )
+        stats.fallback_used = True
+        return host_fallback_for(solver)(lags, topic_subscriptions)
 
 
 class LagBasedPartitionAssignor:
@@ -285,63 +376,27 @@ class LagBasedPartitionAssignor:
         )
 
     def _solve(self, lags, topic_subscriptions, stats: RebalanceStats):
-        solver = self._config.solver
-        if solver == "host":
-            return assign_greedy(lags, topic_subscriptions)
-        try:
-            # Device and native solves run under the watchdog: a wedged
-            # device can HANG rather than raise, and a rebalance must
-            # never block past its deadline.  The breaker key is the
-            # SOLVER, so a wedged sinkhorn solve cannot banish the rounds
-            # kernel.  The worker enters this thread's CUDA device and
-            # stream (captured here, on the caller).
-            result = self._watchdog.call(
-                self._solve_accelerated, solver, lags, topic_subscriptions,
-                carry_cuda_context(self.device), key=solver,
-            )
-            stats.breaker_state = self._watchdog.state(solver)
-            return result
-        except Exception:
-            stats.breaker_state = self._watchdog.state(solver)
-            if not self._config.host_fallback:
-                raise
-            LOGGER.warning(
-                "device solver %r failed; falling back to host greedy",
-                solver,
-                exc_info=True,
-            )
-            stats.fallback_used = True
+        # Device and native solves run under the watchdog: a wedged device
+        # can HANG rather than raise, and a rebalance must never block past
+        # its deadline.  The breaker key is the SOLVER, so a wedged
+        # sinkhorn solve cannot banish the rounds kernel.
+        options = {
+            "sinkhorn_iters": self._config.sinkhorn_iters,
+            "refine_iters": self._config.refine_iters,
+        }
+        raw = solve_on_ladder(
+            self._config.solver, lags, topic_subscriptions, stats,
+            watchdog=self._watchdog, host_fallback=self._config.host_fallback,
+            options=options, device=self.device,
+        )
+        if stats.fallback_used:
             stats.refine_iters = None  # the host fallback never refines
             stats.device = None  # answered on the host
             metrics.REGISTRY.counter(
                 "klba_ladder_rung_total",
                 {"method": "assign", "rung": "host_greedy"},
             ).inc()
-            return host_fallback_for(solver)(lags, topic_subscriptions)
-
-    def _solve_accelerated(self, solver, lags, topic_subscriptions, cuda_context):
-        """The solve the watchdog runs (on its worker thread unless the
-        timeout is off): the ``device.solve`` fault point first, then the
-        configured solver inside the caller's CUDA device and stream."""
-        faults.fire("device.solve")
-        config = self._config
-        with cuda_context():
-            if solver == "native":
-                return assign_native(lags, topic_subscriptions)
-            if solver == "sinkhorn":
-                return assign_sinkhorn(
-                    lags, topic_subscriptions,
-                    iters=config.sinkhorn_iters,
-                    refine_iters=config.refine_iters,
-                    device=self.device,
-                )
-            # An explicit refine budget appends the exchange refinement to
-            # the per-topic parity kernels; global + refine is rejected by
-            # configure().
-            return assign_device(
-                lags, topic_subscriptions, kernel=solver,
-                device=self.device, refine_iters=config.refine_iters,
-            )
+        return raw
 
     def _get_metadata_consumer(self) -> MetadataConsumer:
         """Lazily create the shared metadata consumer (reference :322-324);

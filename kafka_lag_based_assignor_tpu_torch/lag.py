@@ -4,8 +4,11 @@ A copy of ``compute_partition_lag``, ``read_topic_partition_lags`` and
 ``LagRetryPolicy`` from ``kafka_lag_based_assignor_tpu/lag.py``, with its
 fault points (``lag.begin`` / ``lag.end`` / ``lag.committed``), its retry
 counter (``klba_lag_retries_total{rpc}``) and its ``lag.read`` client scope
-and span.  ``LagDeltaTracker`` and ``AssignmentDeltaTracker`` come with the
-port's sidecar slice.  Reference semantics reproduced exactly:
+and span, and the client-side delta trackers ``LagDeltaTracker`` (consecutive
+lag reads become dense rows or a sparse ``lag_delta``) and
+``AssignmentDeltaTracker`` (acks the held assignment epoch and rebuilds the
+dense view from an ``assignment_delta`` answer), which the sidecar's
+``stream_assign`` speaks.  Reference semantics reproduced exactly:
 
 * ``compute_partition_lag`` — LagBasedPartitionAssignor.java:376-404:
   committed offset wins; otherwise ``auto.offset.reset=latest`` means lag 0
@@ -23,6 +26,7 @@ import logging
 import time
 from dataclasses import dataclass, field
 from typing import (
+    Any,
     Callable,
     Dict,
     Iterable,
@@ -91,6 +95,199 @@ def _call_with_retry(
             )
             retry.sleep(delay)
     raise AssertionError("unreachable")  # the loop returns or raises
+
+
+class LagDeltaTracker:
+    """Host-side differ for DELTA EPOCHS (service.py "Delta epochs"):
+    turns consecutive per-stream lag reads into the smallest valid
+    ``stream_assign`` params — a sparse ``lag_delta`` when little
+    changed, full ``lags`` rows whenever a dense base must be
+    (re)established — so the JVM shim (or any client that simply
+    re-reads lags each epoch) benefits from sparse uploads with no
+    protocol change of its own.
+
+    Usage, once per stream per epoch::
+
+        params = tracker.params_for(rows)      # {"lags": ...} or
+                                               # {"lag_delta": ...}
+        result = client.stream_assign(..., **params)
+        tracker.note_result(result)            # adopt lag_epoch/resync
+
+    The tracker sends dense until the server confirms a base
+    (``stream.lag_epoch``), diffs against the last CONFIRMED rows after
+    that, and falls back to dense whenever the pid set changed, more
+    than ``max_fraction`` of the partitions moved (the server would
+    upload dense anyway), the server answered ``resync: true``, or the
+    previous request failed outright.  Fault point ``delta.diff`` fires
+    inside the differ — an injected failure degrades to dense, never to
+    a lost epoch."""
+
+    def __init__(self, max_fraction: float = 0.125):
+        if not 0.0 < float(max_fraction) <= 1.0:
+            raise ValueError(
+                f"max_fraction={max_fraction} must be in (0, 1]"
+            )
+        self.max_fraction = float(max_fraction)
+        self._base: Optional[Dict[int, int]] = None  # pid -> lag
+        self._base_epoch: Optional[int] = None
+        self._pending: Optional[Dict[int, int]] = None  # awaiting confirm
+
+    def params_for(self, rows: Sequence) -> Dict[str, Any]:
+        """``rows`` is the epoch's full ``[[pid, lag], ...]`` read (any
+        order).  Returns the params fragment to merge into the
+        ``stream_assign`` request."""
+        current = {int(p): int(lag) for p, lag in rows}
+        self._pending = current
+        base, epoch = self._base, self._base_epoch
+        if base is None or epoch is None or set(base) != set(current):
+            return {"lags": [[p, v] for p, v in current.items()]}
+        try:
+            faults.fire("delta.diff")
+            changed = [
+                (p, v) for p, v in current.items() if base[p] != v
+            ]
+        except Exception:  # noqa: BLE001 — dense is the safe fallback
+            LOGGER.warning(
+                "lag delta diff failed; sending dense", exc_info=True
+            )
+            return {"lags": [[p, v] for p, v in current.items()]}
+        if len(changed) > self.max_fraction * max(len(current), 1):
+            return {"lags": [[p, v] for p, v in current.items()]}
+        return {
+            "lag_delta": {
+                "indices": [p for p, _ in changed],
+                "values": [v for _, v in changed],
+                "base_epoch": epoch,
+            }
+        }
+
+    def note_result(self, result: Mapping) -> None:
+        """Adopt the server's answer for the epoch last built by
+        :meth:`params_for`: on success the pending read becomes the
+        confirmed base at the reported ``lag_epoch``; a ``resync``
+        answer (or a missing stream section) drops the base so the next
+        epoch re-seeds dense."""
+        stream = (result or {}).get("stream") or {}
+        if stream.get("resync") or "lag_epoch" not in stream:
+            self.note_failure()
+            return
+        self._base = self._pending or self._base
+        self._base_epoch = int(stream["lag_epoch"])
+        self._pending = None
+
+    def note_failure(self) -> None:
+        """The request failed (error, drop, shed without a lag_epoch):
+        the server's base is unknown — send dense next epoch."""
+        self._base = None
+        self._base_epoch = None
+        self._pending = None
+
+
+class AssignmentDeltaTracker:
+    """Client-side reconstructor for DELTA RESPONSES (service.py
+    "Delta responses") — the downlink mirror of
+    :class:`LagDeltaTracker`: acks the assignment epoch it holds so
+    the server may answer with only the changed rows
+    (``result.assignment_delta``), then reconstructs the dense
+    assignments dict bit-exactly from its held base.
+
+    Usage, once per stream per epoch (composes with the lag tracker —
+    both stamp fields onto the same params dict)::
+
+        params = lag_tracker.params_for(rows)
+        assign_tracker.stamp(params)            # adds assign_ack
+        result = client.stream_assign(..., **params)
+        assignments = assign_tracker.note_result(result, members)
+        lag_tracker.note_result(result)
+
+    The tracker acks nothing until a dense answer establishes a base
+    (``stream.assign_epoch``); after that every answer either applies
+    a delta against the held base (the server only serves one when the
+    ack matched and the roster is unchanged — the same
+    monotone-epoch/ack/resync ladder as the upload path) or is a dense
+    re-seed.  Any failed request drops the ack
+    (:meth:`note_failure`), so the next answer is dense — resync
+    semantics identical to the lag tracker's."""
+
+    def __init__(self):
+        self._epoch: Optional[int] = None
+        self._owner: Optional[Dict[int, str]] = None  # pid -> member
+        self._topic: Optional[str] = None
+
+    def stamp(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """Add ``assign_ack`` for the held base (no-op before the
+        first confirmed dense answer); returns ``params``."""
+        if self._epoch is not None and self._owner is not None:
+            params["assign_ack"] = self._epoch
+        return params
+
+    def note_result(
+        self, result: Mapping, members: Sequence[str]
+    ) -> Dict[str, Any]:
+        """Adopt one ``stream_assign`` answer and return the dense
+        assignments dict (reconstructed for a delta answer, adopted
+        as-is for a dense one).  ``members`` is the member list the
+        request named — owner indices in a delta bind to its sorted
+        order, exactly as the server's dense dict does."""
+        members_sorted = sorted(str(m) for m in members)
+        stream = (result or {}).get("stream") or {}
+        delta = (result or {}).get("assignment_delta")
+        if delta is not None:
+            if (
+                self._owner is None
+                or delta.get("base_epoch") != self._epoch
+            ):
+                # The server deltas only against an acked base; a
+                # mismatch here means state desynchronized (client
+                # bug, crossed responses) — drop the base and demand
+                # dense next epoch rather than apply onto the wrong
+                # view.
+                self.note_failure()
+                raise ValueError(
+                    "assignment_delta names a base this tracker does "
+                    "not hold; re-sync next epoch"
+                )
+            for pid, owner in zip(delta["indices"], delta["owners"]):
+                self._owner[int(pid)] = members_sorted[int(owner)]
+            self._epoch = int(delta["epoch"])
+            self._topic = delta.get("topic", self._topic)
+            return self.assignments(members_sorted)
+        assignments = (result or {}).get("assignments")
+        if assignments is None:
+            self.note_failure()
+            raise ValueError(
+                "result carries neither assignments nor "
+                "assignment_delta"
+            )
+        owner: Dict[int, str] = {}
+        topic = self._topic
+        for m, rows in assignments.items():
+            for t, pid in rows:
+                owner[int(pid)] = str(m)
+                topic = t
+        self._owner = owner
+        self._topic = topic
+        epoch = stream.get("assign_epoch")
+        # An old server (no delta-response support) never confirms an
+        # epoch — the tracker then acks nothing and behaves densely.
+        self._epoch = int(epoch) if epoch is not None else None
+        return assignments
+
+    def assignments(self, members_sorted: Sequence[str]) -> Dict[str, Any]:
+        """The held dense view, in the server's wire shape: ascending
+        pids per member (the server appends rows in ascending-pid
+        order, so reconstruction matches it bit-for-bit)."""
+        out: Dict[str, Any] = {m: [] for m in members_sorted}
+        for pid in sorted(self._owner or {}):
+            out[self._owner[pid]].append([self._topic, pid])
+        return out
+
+    def note_failure(self) -> None:
+        """The request failed: the server may have advanced its epoch
+        without this client seeing the answer — drop the base so the
+        next answer re-seeds dense."""
+        self._epoch = None
+        self._owner = None
 
 
 def compute_partition_lag(

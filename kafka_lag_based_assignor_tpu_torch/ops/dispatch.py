@@ -371,6 +371,32 @@ def resolve_quality_mode(num_rows: int, num_consumers: int) -> str:
     return "sinkhorn"
 
 
+def quality_status(device: DeviceLike = "cpu") -> Dict:
+    """The sidecar's ``stats.quality`` section (the JAX package's
+    ``ops/dispatch.quality_status``): the mode and tile knobs, how the tile
+    was chosen, the "auto" row floor and the last linear solve's record
+    (``linear_ot.last_solve_info()``).
+
+    Its ``kernel`` entry states the port's rule, not a probe's verdict:
+    the JAX package gates its Pallas duals and digest kernels behind a
+    parity-and-speed probe, while here the device decides alone.  On a
+    CUDA ``device`` the hand-written kernels serve every call (K4/K5 for
+    the linear duals, K6 for the digest), so both entries are True; on the
+    CPU the plain PyTorch versions serve, so both are False, the JAX
+    gate's answer on a CPU backend."""
+    from .linear_ot import last_solve_info
+
+    on_card = torch.device(device).type == "cuda"
+    return {
+        "mode": quality_mode(),
+        "tile": quality_tile(),
+        "tile_source": dict(_TILE_SOURCE),
+        "auto_min_rows": LINEAR_AUTO_MIN_ROWS,
+        "last_linear_solve": last_solve_info(),
+        "kernel": dict(duals=on_card, digest=on_card),
+    }
+
+
 def assign_per_topic(
     partition_lag_per_topic: Mapping[str, Sequence[TopicPartitionLag]],
     subscriptions: Mapping[str, Sequence[str]],

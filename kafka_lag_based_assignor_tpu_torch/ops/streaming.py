@@ -36,13 +36,16 @@ previous choice vector as a warm start across rebalances of one topic:
 points): every epoch runs under the ``stream.epoch`` span (inside it
 ``stream.cold_solve``, ``stream.linear_solve``, ``stream.h2d``,
 ``stream.refine`` and ``stream.h2d_delta``), feeds the churn and quality
-series, writes a ``stream_epoch`` flight record, and a guardrail trip marks
-the trace and dumps the flight recorder.  The fault points ``stream.refine``
-(epoch entry), ``delta.diff`` and ``delta.apply`` (both fall back to the
-dense upload within the epoch) and ``device.corrupt.*`` (a seeded bit flip
-in a resident tensor as it is adopted, which the next dispatch's digest
-must catch) drive the failure paths; every quarantine, heal and delta
-resync is counted by ``utils/scrub.record_quarantine``.
+series, writes a ``stream_epoch`` flight record (also into the engine's own
+``flight`` ring when it has one, as the sidecar gives each stream), and a
+guardrail trip marks the trace and dumps the flight recorder;
+``step_trace=True`` wraps each epoch in a ``torch.profiler`` range.  The
+fault points ``stream.refine`` (epoch entry), ``delta.diff`` and
+``delta.apply`` (both fall back to the dense upload within the epoch) and
+``device.corrupt.*`` (a seeded bit flip in a resident tensor as it is
+adopted, which the next dispatch's digest must catch) drive the failure
+paths; every quarantine, heal and delta resync is counted by
+``utils/scrub.record_quarantine``.
 
 On a CUDA device every kernel that fails to build or launch raises out of
 :meth:`StreamingAssignor.rebalance`; only the delta dispatch re-syncs
@@ -299,6 +302,19 @@ class StreamingAssignor:
         imbalance_guardrail: Optional[float] = None,
         cold_refine_iters: int = 64,
         refine_threshold: Optional[float] = 1.02,
+        # Opt-in per-epoch profiler range: each epoch runs inside
+        # ``torch.profiler.record_function("klba_stream_epoch:<epoch>")``,
+        # so a trace of the warm loop shows the epoch boundaries (the JAX
+        # engine's StepTraceAnnotation).  Off by default: the range costs a
+        # little even with no profiler attached.  Neither package's own code
+        # sets it: it is public-API parity with the JAX engine's constructor,
+        # for a user who profiles the warm loop.
+        step_trace: bool = False,
+        # Optional PER-STREAM flight-recorder ring: every epoch record
+        # written to the process-wide ring (metrics.FLIGHT) is also copied
+        # here (the sidecar keeps one small ring per live stream and serves
+        # it through the stream_flight wire method).
+        flight: Optional[metrics.FlightRecorder] = None,
         delta_enabled: bool = True,
         delta_max_fraction: float = 0.125,
         delta_buckets: int = 6,
@@ -319,6 +335,8 @@ class StreamingAssignor:
             )
         self.imbalance_guardrail = imbalance_guardrail
         self.refine_threshold = refine_threshold
+        self.step_trace = bool(step_trace)
+        self.flight = flight
         if not 0.0 < float(delta_max_fraction) <= 1.0:
             raise ValueError(
                 f"delta_max_fraction={delta_max_fraction} must be in (0, 1]"
@@ -372,13 +390,19 @@ class StreamingAssignor:
         faults.fire("stream.refine")  # fault point: poisoned warm stream
         self._epoch_num += 1
         with metrics.span("stream.epoch"):
-            choice = self._rebalance_inner(lags)
+            if self.step_trace:
+                from torch.profiler import record_function
+
+                with record_function(f"klba_stream_epoch:{self._epoch_num}"):
+                    choice = self._rebalance_inner(lags)
+            else:
+                choice = self._rebalance_inner(lags)
         s = self.last_stats
         ratio = s.quality_ratio
         self._m_churn.observe(s.churn)
         self._m_quality_milli.observe(int(ratio * 1000))
         self._m_quality_last.set(ratio)
-        metrics.FLIGHT.record("stream_epoch", {
+        rec = {
             "epoch": self._epoch_num,
             "P": int(lags.shape[0]),
             "C": self.num_consumers,
@@ -395,7 +419,12 @@ class StreamingAssignor:
             "refine_exchanges": s.refine_exchanges,
             "delta_effective_fraction": s.delta_effective_fraction,
             "sharded_solve": s.sharded_solve,
-        })
+        }
+        if self.flight is not None:
+            # A recorder takes ownership of its record (annotates it in
+            # place), so the per-stream ring gets its own shallow copy.
+            self.flight.record("stream_epoch", dict(rec))
+        metrics.FLIGHT.record("stream_epoch", rec)
         if s.guardrail_tripped:
             self._m_guardrail.inc()
             trace_mod.mark("guardrail")

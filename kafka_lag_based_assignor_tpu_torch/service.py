@@ -1,0 +1,2077 @@
+"""Sidecar service: the plugin boundary as a wire API, on the port.
+
+Counterpart of ``kafka_lag_based_assignor_tpu/service.py``, speaking its
+wire byte for byte.  The JVM-side ``partition.assignment.strategy`` plugin
+(``jvm/``) keeps the group bookkeeping and the offset/lag RPCs and sends
+the resulting ``(partition lags, subscriptions)`` to this co-located
+process, which runs the solve on the CUDA card and returns the
+member->partitions map.  The wire is unchanged, so the JVM shim needs no
+change.
+
+Protocol: newline-delimited JSON over TCP.  Request::
+
+    {"id": 1, "method": "assign",
+     "params": {"topics":        {"t0": [[0, 100000], [1, 50000]]},
+                "subscriptions": {"C0": ["t0"], "C1": ["t0"]},
+                "solver":        "rounds"}}          # optional
+
+Response::
+
+    {"id": 1, "request_id": "req-...", "trace_id": "...",
+     "result": {"assignments": {"C0": [["t0", 0]], ...}, "stats": {...},
+                "options": {...}}}
+    {"id": 1, "request_id": ..., "trace_id": ..., "error": {"message": ...}}
+
+Methods served:
+
+* ``ping`` -> ``"pong"``; ``stats`` -> the counters since start, the
+  breakers, the overload ladder, the quality plane and the active fault
+  drill; ``metrics`` -> the registry as JSON and Prometheus text plus the
+  flight recorder (``params.view`` trims it to one); ``trace`` -> the tail
+  sampler's kept traces;
+* ``assign`` -> one stateless solve with any solver (``rounds``, ``scan``,
+  ``global`` and ``sinkhorn`` on the card, ``native`` and ``host`` on the
+  host), under the per-solver watchdog with the host greedy as its degraded
+  rung;
+* ``stream_assign`` -> one epoch of a warm per-stream engine
+  (:class:`..ops.streaming.StreamingAssignor`): still-balanced epochs are
+  no-ops, drifted ones pay one bounded refine, membership changes remap by
+  member NAME, a changed partition-id set re-solves cold.  Delta epochs
+  (``params.lag_delta`` with a ``base_epoch``; a stale or gapped base
+  answers ``stream.resync: true`` with the previous assignment), delta
+  responses (``params.assign_ack`` -> ``result.assignment_delta``) and
+  zlib-encoded lag payloads and answers (``params.encoding`` /
+  ``params.accept_encoding``) are the JAX service's.  The degraded-mode
+  ladder is warm engine -> cold device (a fresh engine) -> host snake,
+  reported as ``stream.degraded_rung``; a poisoned stream's next epoch
+  warm-restarts from the last answered choice;
+* ``stream_reset``, ``stream_flight`` (one stream's own flight ring) and
+  ``recommend`` (a per-stream consumer-count recommendation from the lag
+  trend and the overload state).
+
+Every stream request first passes the overload admission
+(:mod:`.utils.overload`): its SLO class (config
+``tpu.assignor.slo.class.<stream>``, wire ``params.slo_class``), the shed
+ladder's decision (a ``best_effort`` reject answers an error envelope with
+a structured ``shed`` object; a degrade serves the previous assignment),
+and the weighted in-flight depth.  ``metrics_port`` serves the Prometheus
+exposition over plain HTTP (``GET /metrics``, :mod:`.utils.metrics_http`).
+
+What the JAX service does that this one does not do yet: the megabatch
+coalescer (every stream epoch runs inline, as the JAX service with
+``coalesce_max_batch=1``), the resident-state scrubber, snapshots with
+recovery, drain and the resync pacer, warm-up shapes, the device mesh and
+federation.  Their knobs are absent; ``drain``, ``peer_sync``,
+``federation`` and ``federated_assign`` answer the JAX "unknown method"
+error, and the ``stats`` sections ``coalesce``, ``lifecycle``, ``scrub``,
+``federation`` and ``mesh`` answer None.
+
+Device: every solve and every stream engine runs on ``device`` (default
+the CUDA card; :func:`.utils.device.resolve_device` raises without one, and
+the tests pass ``device="cpu"``).  Each request is served on its handler
+thread; the solve runs in a ``klba-solve`` watchdog worker that enters that
+thread's CUDA device and stream (:func:`.utils.device.carry_cuda_context`).
+The service never moves a solve to the CPU: with ``host_fallback=False`` a
+kernel fault fails the request.  ``stats.device`` in an ``assign`` answer
+names the device the solve ran on (None for the host solvers and the host
+rung), the one key the JAX service's answer lacks.  The sidecar also times
+its solve in the ``assign.solve`` span, as the plugin does.
+
+Wire limits: a request line may be at most ``MAX_LINE_BYTES`` (16 MiB);
+longer lines are answered with an error and drained without buffering.
+``params.options`` accepts only ``sinkhorn_iters`` (int, 1..4096) and
+``refine_iters`` (int, 0..65536), quantized to a power of two
+(``sinkhorn_iters`` up, ``refine_iters`` down) and echoed in the answer's
+``options``.
+
+Run it::
+
+    python -m kafka_lag_based_assignor_tpu_torch.service --device cuda 127.0.0.1 7531
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import socket
+import socketserver
+import threading
+import time
+from collections import deque
+from contextlib import contextmanager
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from .assignor import DEVICE_SOLVERS, solve_on_ladder
+from .ops.dispatch import quality_status, set_quality_mode, set_quality_tile
+from .ops.dispatch import normalize_quality_mode
+from .ops.streaming import StreamingAssignor, StreamingStats
+from .types import TopicPartitionLag
+from .utils import faults, metrics
+from .utils import scrub as scrub_lib
+from .utils import trace as trace_mod
+from .utils.config import VALID_SOLVERS, validate_quality_tile
+from .utils.device import DeviceLike, carry_cuda_context, resolve_device
+from .utils.observability import (
+    RebalanceStats,
+    count_constrained_bound,
+    install_compile_counter,
+    summarize_assignment,
+)
+from .utils.overload import (
+    CLASS_WEIGHTS,
+    OverloadController,
+    ShedReject,
+    SloPolicy,
+    recommend_payload,
+)
+from .utils.watchdog import SolveRejected, Watchdog
+
+LOGGER = logging.getLogger(__name__)
+
+# Upper bound on one request line.  A 100k-partition assign request with
+# 7-digit lags serializes to ~2 MB; 16 MiB leaves headroom while keeping a
+# malformed client from streaming an unbounded "line" into memory.
+MAX_LINE_BYTES = 16 * 1024 * 1024
+
+# params.options whitelist: (min, max) per key.  In-range values are
+# QUANTIZED to a power of two (0 stays 0), so a client cycling values gets
+# at most ~log2(max) distinct budgets.  ``sinkhorn_iters`` is a quality
+# floor and rounds UP; ``refine_iters`` is the exchange budget whose
+# contract is "churn bounded by 2x this value" and rounds DOWN.  The
+# effective values are echoed in the answer's ``options`` field.
+_OPTION_BOUNDS = {"sinkhorn_iters": (1, 4096), "refine_iters": (0, 65536)}
+_OPTION_ROUNDS_UP = {"sinkhorn_iters": True, "refine_iters": False}
+
+# Live warm-state cap for stream_assign.
+MAX_STREAMS = 64
+
+# Per-stream flight-recorder ring size (64 streams x 64 records).
+STREAM_FLIGHT_CAPACITY = 64
+
+# Wire methods, as metric label values: anything else is labeled
+# "unknown", so a client cannot mint unbounded label cardinality.  The
+# JAX service's set, whole (its unported methods are labeled by name and
+# answered "unknown method").
+_KNOWN_METHODS = frozenset(
+    {
+        "ping", "stats", "metrics", "assign", "stream_assign",
+        "stream_reset", "stream_flight", "recommend", "drain",
+        "peer_sync", "federation", "federated_assign", "trace",
+    }
+)
+
+# Wire encodings for the dense lag payload: ``params.encoding`` "zlib" =
+# base64(zlib(JSON rows)).  An unknown encoding is a structured error
+# naming the supported set so the client can fall back to plain JSON.
+_LAG_ENCODINGS = ("zlib",)
+
+# Per-stream lag-trend window for ``recommend``: (time, total_lag) samples.
+STREAM_HISTORY = 64
+
+
+def _counter_total(name: str) -> int:
+    """Sum of every series registered under ``name`` — the registry view
+    behind the service ``stats`` counters."""
+    return sum(c.value for c in metrics.REGISTRY.series(name))
+
+
+class _DeadlineBudget:
+    """Per-request deadline: the degraded-mode ladder's rungs share ONE
+    budget (``solve_timeout_s`` total), so the remaining budget shrinks
+    down the ladder.  ``clock`` is injectable."""
+
+    def __init__(
+        self,
+        total_s: Optional[float],
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        self.total_s = total_s
+        self._clock = clock
+        self._start = clock()
+
+    def remaining(self) -> Optional[float]:
+        """Seconds left (may be <= 0: the watchdog then fails fast without
+        charging the breaker); None = no deadline configured."""
+        if self.total_s is None:
+            return None
+        return self.total_s - (self._clock() - self._start)
+
+    def consumed_ms(self) -> float:
+        """Milliseconds spent since the budget was minted."""
+        return (self._clock() - self._start) * 1000.0
+
+
+def _quantize_pow2(value: int, up: bool) -> int:
+    if value == 0:
+        return 0
+    if up:
+        return 1 << (value - 1).bit_length()
+    return 1 << (value.bit_length() - 1)
+
+
+def _validate_options(options: Any) -> Dict[str, int]:
+    if not isinstance(options, dict):
+        raise ValueError("params.options must be a JSON object")
+    out: Dict[str, int] = {}
+    for key, value in options.items():
+        bounds = _OPTION_BOUNDS.get(key)
+        if bounds is None:
+            raise ValueError(
+                f"unknown option {key!r}; valid: {sorted(_OPTION_BOUNDS)}"
+            )
+        if isinstance(value, bool) or not isinstance(value, int):
+            raise ValueError(f"option {key} must be an integer, got {value!r}")
+        lo, hi = bounds
+        if not lo <= value <= hi:
+            raise ValueError(
+                f"option {key}={value} out of range [{lo}, {hi}]"
+            )
+        out[key] = _quantize_pow2(value, _OPTION_ROUNDS_UP[key])
+    return out
+
+
+def _validate_stream_options(options: Any) -> Dict[str, Any]:
+    """Stream options: ``refine_iters`` gets the stateless path's
+    validation and pow2-down quantization; ``guardrail`` /
+    ``refine_threshold`` are host-side floats in [1, 1000] or null."""
+    if not isinstance(options, dict):
+        raise ValueError("params.options must be a JSON object")
+    out: Dict[str, Any] = {}
+    for key, value in options.items():
+        if key == "refine_iters":
+            out.update(_validate_options({key: value}))
+        elif key in ("guardrail", "refine_threshold"):
+            if value is None:
+                out[key] = None
+                continue
+            if isinstance(value, bool) or not isinstance(
+                value, (int, float)
+            ):
+                raise ValueError(f"option {key} must be a number or null")
+            if not 1.0 <= float(value) <= 1000.0:
+                raise ValueError(
+                    f"option {key}={value} out of range [1.0, 1000.0]"
+                )
+            out[key] = float(value)
+        else:
+            raise ValueError(
+                f"unknown stream option {key!r}; valid: "
+                "['guardrail', 'refine_iters', 'refine_threshold']"
+            )
+    return out
+
+
+def _host_choice_stats(choice, lags, C: int, prev, cold_start: bool):
+    """StreamingStats for a host-side choice vector (the snake and
+    kept-previous rungs share this evaluation)."""
+    stats = StreamingStats(cold_start=cold_start)
+    totals = np.bincount(choice, weights=lags.astype(np.float64),
+                         minlength=C)
+    mean = totals.mean()
+    stats.max_mean_imbalance = float(totals.max() / mean) if mean else 1.0
+    stats.imbalance_bound = count_constrained_bound(lags, C)
+    counts = np.bincount(choice, minlength=C)
+    stats.count_spread = int(counts.max() - counts.min())
+    if prev is not None and prev.shape[0] == choice.shape[0]:
+        stats.churn = int((choice != prev).sum())
+    return stats
+
+
+def _snake_fallback(lags, C: int, prev):
+    """Emergency host-side assignment when the device solve fails or times
+    out mid-stream: partitions in descending-lag order dealt boustrophedon
+    (round r even -> slot j, odd -> C-1-j), count spread <= 1.  Returns
+    (choice int32[P], StreamingStats-shaped stats)."""
+    P = lags.shape[0]
+    ranks = np.empty(P, np.int64)
+    ranks[np.argsort(-lags, kind="stable")] = np.arange(P)
+    r, j = np.divmod(ranks, C)
+    choice = np.where(r % 2 == 0, j, C - 1 - j).astype(np.int32)
+    return choice, _host_choice_stats(choice, lags, C, prev, cold_start=True)
+
+
+def _parse_lag_delta(delta: Any):
+    """Type-validate ``params.lag_delta``; returns (pids int64[n], values
+    int64[n], base_epoch).  Whether the delta can APPLY is decided against
+    the stream's stored base under its lock."""
+    if not isinstance(delta, dict):
+        raise ValueError("params.lag_delta must be a JSON object")
+    idx = delta.get("indices")
+    vals = delta.get("values")
+    base = delta.get("base_epoch")
+    if not isinstance(idx, list) or not isinstance(vals, list):
+        raise ValueError(
+            "params.lag_delta.indices/values must be lists"
+        )
+    if len(idx) != len(vals):
+        raise ValueError(
+            "params.lag_delta.indices and values differ in length"
+        )
+    if isinstance(base, bool) or not isinstance(base, int) or base < 0:
+        raise ValueError(
+            "params.lag_delta.base_epoch must be a non-negative integer"
+        )
+    d_pids = np.fromiter((int(p) for p in idx), np.int64, count=len(idx))
+    d_vals = np.fromiter((int(v) for v in vals), np.int64, count=len(vals))
+    if d_vals.size and int(d_vals.min()) < 0:
+        raise ValueError("params.lag_delta contains negative lag values")
+    if np.unique(d_pids).size != d_pids.size:
+        raise ValueError(
+            "params.lag_delta.indices contains duplicate partition ids"
+        )
+    return d_pids, d_vals, base
+
+
+def _parse_assign_ack(params: Dict[str, Any]) -> Optional[int]:
+    """Type-validate ``params.assign_ack``: the assignment epoch whose dense
+    view the client holds, opting this request into a delta answer."""
+    ack = params.get("assign_ack")
+    if ack is None:
+        return None
+    if isinstance(ack, bool) or not isinstance(ack, int) or ack < 0:
+        raise ValueError(
+            "params.assign_ack must be a non-negative integer"
+        )
+    return ack
+
+
+def _parse_accept_encoding(params: Dict[str, Any]) -> Optional[str]:
+    """Type-validate ``params.accept_encoding`` (compressed DENSE answers:
+    ``assignments_encoded`` as base64(zlib(JSON)))."""
+    enc = params.get("accept_encoding")
+    if enc is None:
+        return None
+    if enc not in _LAG_ENCODINGS:
+        raise ValueError(
+            f"unknown accept_encoding {enc!r}; supported: "
+            f"{list(_LAG_ENCODINGS)}"
+        )
+    return enc
+
+
+def _decode_wire_lags(params: Dict[str, Any]):
+    """Resolve ``params.lags`` honoring ``params.encoding``; returns the
+    plain ``[[pid, lag], ...]`` rows.  ``encoding: "zlib"`` bytes are
+    counted both ways in ``klba_wire_lag_bytes_total{encoding}``; the
+    inflate is bounded by ``MAX_LINE_BYTES``."""
+    rows = params.get("lags")
+    enc = params.get("encoding")
+    if enc is None or rows in (None, []):
+        return rows or []
+    if enc not in _LAG_ENCODINGS:
+        raise ValueError(
+            f"unknown encoding {enc!r}; supported: "
+            f"{list(_LAG_ENCODINGS)} — resend params.lags as plain JSON"
+        )
+    if not isinstance(rows, str):
+        raise ValueError(
+            "params.lags must be a base64 string when params.encoding "
+            "is set"
+        )
+    import base64
+    import zlib
+
+    try:
+        blob = base64.b64decode(rows.encode("ascii"), validate=True)
+    except (ValueError, UnicodeEncodeError) as exc:
+        raise ValueError(f"params.lags is not valid base64: {exc}")
+    d = zlib.decompressobj()
+    try:
+        plain = d.decompress(blob, MAX_LINE_BYTES + 1)
+    except zlib.error as exc:
+        raise ValueError(f"params.lags failed to decompress: {exc}")
+    if len(plain) > MAX_LINE_BYTES or d.unconsumed_tail:
+        raise ValueError(
+            f"decoded lag payload exceeds {MAX_LINE_BYTES} bytes"
+        )
+    metrics.REGISTRY.counter(
+        "klba_wire_lag_bytes_total", {"encoding": "zlib"}
+    ).inc(len(blob))
+    metrics.REGISTRY.counter(
+        "klba_wire_lag_bytes_total", {"encoding": "plain"}
+    ).inc(len(plain))
+    decoded = json.loads(plain)
+    if not isinstance(decoded, list):
+        raise ValueError("decoded params.lags must be a JSON list")
+    return decoded
+
+
+def encode_lags_zlib(rows) -> str:
+    """Client half of the ``encoding: "zlib"`` wire shape (the JVM shim
+    mirrors this): base64(zlib(JSON rows))."""
+    import base64
+    import zlib
+
+    return base64.b64encode(
+        zlib.compress(json.dumps(rows).encode())
+    ).decode("ascii")
+
+
+def _encode_dense_assignments(
+    assignments, resp_enc: Optional[str]
+) -> Dict[str, Any]:
+    """Wrap a dense assignments dict for the wire, honoring the client's
+    ``accept_encoding``; both sizes feed
+    ``klba_wire_assign_bytes_total{encoding}``."""
+    if resp_enc != "zlib":
+        return {"assignments": assignments}
+    plain = json.dumps(assignments)
+    encoded = encode_lags_zlib(assignments)
+    metrics.REGISTRY.counter(
+        "klba_wire_assign_bytes_total", {"encoding": "plain"}
+    ).inc(len(plain))
+    metrics.REGISTRY.counter(
+        "klba_wire_assign_bytes_total", {"encoding": "zlib"}
+    ).inc(len(encoded))
+    return {
+        "assignments_encoded": encoded,
+        "assignments_encoding": "zlib",
+    }
+
+
+def decode_wire_assignments(result: Dict[str, Any]) -> Dict[str, Any]:
+    """Client half of the dense-answer encoding: inflate
+    ``assignments_encoded`` back into a plain ``assignments`` key (bounded
+    like :func:`_decode_wire_lags`).  Results without it pass through."""
+    blob = result.get("assignments_encoded")
+    if blob is None:
+        return result
+    enc = result.get("assignments_encoding")
+    if enc not in _LAG_ENCODINGS:
+        raise ValueError(f"unknown assignments_encoding {enc!r}")
+    import base64
+    import zlib
+
+    raw = base64.b64decode(blob.encode("ascii"), validate=True)
+    d = zlib.decompressobj()
+    plain = d.decompress(raw, MAX_LINE_BYTES + 1)
+    if len(plain) > MAX_LINE_BYTES or d.unconsumed_tail:
+        raise ValueError(
+            f"decoded assignments exceed {MAX_LINE_BYTES} bytes"
+        )
+    out = dict(result)
+    out.pop("assignments_encoded")
+    out.pop("assignments_encoding")
+    out["assignments"] = json.loads(plain)
+    return out
+
+
+def _parse_lag_rows(rows):
+    """THE dense-lag row validation: non-empty, no negative lags, no
+    duplicate pids.  Returns ``(pids_sorted int64[P], lags int64[P])`` in
+    ascending-pid order (the row order warm state is keyed on)."""
+    if not rows:
+        raise ValueError("params.lags must be a non-empty list")
+    pids = np.fromiter(
+        (int(p) for p, _ in rows), np.int64, count=len(rows)
+    )
+    lags_in = np.fromiter(
+        (int(lag) for _, lag in rows), np.int64, count=len(rows)
+    )
+    if lags_in.size and int(lags_in.min()) < 0:
+        raise ValueError("params.lags contains negative lag values")
+    order = np.argsort(pids, kind="stable")
+    pids_sorted = pids[order]
+    lags = lags_in[order]
+    if pids_sorted.size and (np.diff(pids_sorted) == 0).any():
+        raise ValueError("params.lags contains duplicate partition ids")
+    return pids_sorted, lags
+
+
+def _serve_previous(prev, lags, C: int):
+    """The kept-previous answer: the stream's last served choice plus
+    host-computed stats for it (zero churn, no device work).  Callers check
+    :func:`_keepable` first."""
+    return prev, _host_choice_stats(prev, lags, C, prev, cold_start=False)
+
+
+def _keepable(prev, P: int, C: int) -> bool:
+    """True when the previous choice is directly servable for this epoch:
+    complete, in range, and count-balanced for the current member set."""
+    if prev is None or prev.shape[0] != P or P == 0:
+        return False
+    if int(prev.min()) < 0 or int(prev.max()) >= C:
+        return False
+    counts = np.bincount(prev, minlength=C)
+    return int(counts.max() - counts.min()) <= 1
+
+
+class _Stream:
+    """Warm per-stream solver state."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.engine: Optional[StreamingAssignor] = None
+        self.members: List[str] = []
+        self.pids = None  # np.int64[P], sorted — the row order contract
+        self.flight: Optional[metrics.FlightRecorder] = None
+        self.klass = "standard"  # effective SLO class of the last epoch
+        # (time_s, total_lag) per served epoch — the recommend window.
+        self.history = deque(maxlen=STREAM_HISTORY)
+        # Delta-epoch wire state: the last accepted full lag vector (in
+        # st.pids order) and its monotone epoch, the base a lag_delta
+        # applies to.  Dies with the stream (poison/reset), so a client's
+        # next delta answers resync and re-seeds it dense.
+        self.lag_epoch = 0
+        self.last_lags = None
+        # Assignment-delta wire state: the last SERVED dense answer
+        # (members, pids, choice) and its monotone epoch.
+        self.assign_epoch = 0
+        self.last_served = None
+        # Resident-state quarantine strikes (utils/scrub): forgiven only
+        # after FORGIVE_AFTER consecutive clean epochs; at ESCALATE_AFTER
+        # the stream breaker is tripped.
+        self.scrub_strikes = 0
+        self.clean_epochs = 0
+
+
+def _stream_ring() -> metrics.FlightRecorder:
+    """One stream's private flight ring: small and in memory only."""
+    return metrics.FlightRecorder(
+        capacity=STREAM_FLIGHT_CAPACITY, dump_dir=""
+    )
+
+
+def _fresh_engine(
+    C: int,
+    flight: metrics.FlightRecorder,
+    delta_opts: Optional[Dict[str, Any]] = None,
+    device: DeviceLike = None,
+) -> StreamingAssignor:
+    """THE service-default engine construction (guardrail ON at 1.25,
+    unlike the library default, plus the stream's flight ring, the
+    service's delta-epoch knobs and its device): every site that makes an
+    engine (first epoch, the ladder's cold rung) goes through here."""
+    return StreamingAssignor(
+        num_consumers=C, imbalance_guardrail=1.25, flight=flight,
+        device=device, **(delta_opts or {}),
+    )
+
+
+def _apply_stream_opts(engine, opts: Dict[str, Any]) -> None:
+    """Apply validated stream options to a LIVE engine — the one update
+    block every epoch (and every ladder rung) uses."""
+    if "refine_iters" in opts:
+        engine.refine_iters = opts["refine_iters"]
+    if "guardrail" in opts:
+        engine.imbalance_guardrail = opts["guardrail"]
+    if "refine_threshold" in opts:
+        engine.refine_threshold = opts["refine_threshold"]
+
+
+def _in_context(cuda_context, fn):
+    """``fn`` run inside ``cuda_context`` — the watchdog worker's entry into
+    the handler thread's CUDA device and stream."""
+    def run(*args):
+        with cuda_context():
+            return fn(*args)
+    return run
+
+
+def _solve(
+    topics, subscriptions, solver, watchdog=None, host_fallback=True,
+    options=None, deadline=None, device: DeviceLike = None,
+):
+    """One stateless ``assign``: rows validated (no negative lag), the
+    device solve under the watchdog (breaker key = the solver, deadline =
+    the request's remaining budget) with the host greedy as its rung, then
+    the :class:`RebalanceStats` record."""
+    def _row(topic, pid, lag):
+        lag = int(lag)
+        if lag < 0:
+            raise ValueError("params.topics contains negative lag values")
+        return TopicPartitionLag(topic, int(pid), lag)
+
+    lag_map = {
+        topic: [_row(topic, pid, lag) for pid, lag in rows]
+        for topic, rows in topics.items()
+    }
+    if solver == "global" and (options or {}).get("refine_iters"):
+        # A client error at the wire boundary, before the ladder could
+        # answer an unrefined assignment with the option echoed as applied.
+        raise ValueError(
+            "options.refine_iters is per-topic and not valid with "
+            "solver 'global'"
+        )
+    subs = {m: list(ts) for m, ts in subscriptions.items()}
+    device = resolve_device(device)
+    stats = RebalanceStats(
+        solver=solver,
+        num_topics=len(lag_map),
+        num_partitions=sum(len(v) for v in lag_map.values()),
+        num_members=len(subs),
+    )
+    with metrics.span("assign.solve"):
+        raw = solve_on_ladder(
+            solver, lag_map, subs, stats, watchdog=watchdog,
+            host_fallback=host_fallback, options=options, device=device,
+            timeout_s=None if deadline is None else deadline.remaining(),
+        )
+    answered_here = not stats.fallback_used
+    stats.device = (
+        device.type if solver in DEVICE_SOLVERS and answered_here else None
+    )
+    stats.refine_iters = (
+        (options or {}).get("refine_iters")
+        if solver in ("rounds", "scan", "sinkhorn") and answered_here
+        else None
+    )
+    lag_by_tp = {
+        (r.topic, r.partition): r.lag for rows in lag_map.values() for r in rows
+    }
+    stats.total_lag = sum(lag_by_tp.values())
+    summarize_assignment(
+        stats, raw, {tp: lag_by_tp.get((tp.topic, tp.partition), 0)
+                     for tps in raw.values() for tp in tps}
+    )
+    assignments = {
+        m: [[tp.topic, tp.partition] for tp in tps] for m, tps in raw.items()
+    }
+    return assignments, stats
+
+
+class _Handler(socketserver.StreamRequestHandler):
+    def handle(self):
+        app = self.server.app  # type: ignore[attr-defined]
+        while True:
+            # Bounded read: an oversized "line" surfaces as a chunk with no
+            # trailing newline instead of an unbounded buffer.
+            line = self.rfile.readline(MAX_LINE_BYTES + 1)
+            if not line:
+                break
+            try:
+                # Fault point: a failed socket read surfaces as a dropped
+                # connection (the client's reconnect-once policy recovers).
+                faults.fire("wire.read")
+            except faults.FaultError:
+                LOGGER.warning("injected wire.read fault; dropping connection")
+                break
+            if len(line) > MAX_LINE_BYTES and not line.endswith(b"\n"):
+                response = app.reject_oversized()
+                self.wfile.write(response + b"\n")
+                self.wfile.flush()
+                if not self._drain_line():
+                    break
+                continue
+            line = line.strip()
+            if not line:
+                continue
+            response = app.handle_line(line)
+            self.wfile.write(response + b"\n")
+            self.wfile.flush()
+
+    def _drain_line(self) -> bool:
+        """Discard the rest of an oversized line in bounded chunks;
+        returns False on EOF."""
+        while True:
+            chunk = self.rfile.readline(MAX_LINE_BYTES)
+            if not chunk:
+                return False
+            if chunk.endswith(b"\n"):
+                return True
+
+
+class AssignorService:
+    """The request processor + TCP front end."""
+
+    def __init__(
+        self,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        # The plugin's default (utils/config): room for a first request's
+        # kernel builds (about 40 s for the round scan's source).
+        solve_timeout_s: Optional[float] = 120.0,
+        host_fallback: bool = True,
+        # Circuit-breaker policy (utils/watchdog): per-solver breakers.
+        breaker_cooldown_s: float = 300.0,
+        breaker_failures: int = 3,
+        # Delta epochs (ops/streaming): sparse lag uploads onto the
+        # device-resident lag buffer when at most max_fraction of the
+        # partitions changed, a pow2 K ladder of delta_buckets rungs, and
+        # the per-stream adaptive cutoff.
+        delta_enabled: bool = True,
+        delta_max_fraction: float = 0.125,
+        delta_buckets: int = 6,
+        delta_adaptive: bool = True,
+        # Quality-mode plane (ops/dispatch): dense Sinkhorn vs the
+        # linear-space path, and the linear mode's tile; installed
+        # process-wide at start().
+        quality_mode: str = "auto",
+        quality_tile: int = 1024,
+        # Opt-in plain-HTTP /metrics listener (0 = ephemeral port).
+        metrics_port: Optional[int] = None,
+        # SLO classes + overload control (utils/overload).
+        slo_classes: Optional[Dict[str, str]] = None,
+        slo_deadline_s: Optional[Dict[str, float]] = None,
+        overload_latency_budget_ms: float = 0.0,
+        overload_depth_high: float = 24.0,
+        overload_cooldown_s: float = 1.0,
+        # Uptime/budget clock (injectable, monotonic).
+        clock: Callable[[], float] = time.monotonic,
+        # The device every solve and engine runs on (default the card).
+        device: DeviceLike = None,
+    ):
+        # The device and the knobs are validated BEFORE the socket is
+        # bound: a bad knob fails the boot loudly, not every request.
+        self.device = resolve_device(device)
+        if not 0.0 < float(delta_max_fraction) <= 1.0:
+            raise ValueError(
+                f"delta_max_fraction={delta_max_fraction} must be in "
+                "(0, 1]"
+            )
+        if int(delta_buckets) < 0:
+            raise ValueError(
+                f"delta_buckets={delta_buckets} must be >= 0"
+            )
+        self._quality_mode = normalize_quality_mode(quality_mode)
+        self._quality_tile = validate_quality_tile(quality_tile)
+        self._slo = SloPolicy(
+            classes=slo_classes, deadline_s=slo_deadline_s
+        )
+        self._watchdog = Watchdog(
+            solve_timeout_s,
+            cooldown_s=breaker_cooldown_s,
+            failure_threshold=breaker_failures,
+        )
+        self._overload = OverloadController(
+            latency_budget_ms=(
+                overload_latency_budget_ms if overload_latency_budget_ms > 0
+                else (solve_timeout_s or 120.0) * 500.0
+            ),
+            depth_high=overload_depth_high,
+            cooldown_s=overload_cooldown_s,
+            breaker_open=lambda: self._watchdog.state("stream") == "open",
+        )
+        self._tcp = socketserver.ThreadingTCPServer(
+            (host, port), _Handler, bind_and_activate=True
+        )
+        self._tcp.daemon_threads = True
+        self._tcp.app = self  # type: ignore[attr-defined]
+        self._thread: Optional[threading.Thread] = None
+        self._host_fallback = host_fallback
+        self._streams: Dict[str, _Stream] = {}
+        self._streams_lock = threading.Lock()
+        # Last-answered choice per POISONED stream: the next epoch
+        # warm-restarts from what the clients run.  Bounded by MAX_STREAMS;
+        # consumed on use or stream_reset.
+        self._snapshots: Dict[str, Tuple] = {}
+        self._delta_opts = {
+            "delta_enabled": bool(delta_enabled),
+            "delta_max_fraction": float(delta_max_fraction),
+            "delta_buckets": int(delta_buckets),
+            "delta_adaptive": bool(delta_adaptive),
+        }
+        self._metrics_port = metrics_port
+        self._metrics_http = None
+        # Weighted in-flight stream-request depth (the controller's queue
+        # signal), under its own leaf lock.
+        self._inflight_lock = threading.Lock()
+        self._inflight_weight = 0.0
+        # The wire ``stats`` counters are a DELTA VIEW over the registry
+        # series, baselined at construction (the registry is process-wide).
+        self._stats_base = {
+            "requests_served": _counter_total("klba_requests_total"),
+            "errors": _counter_total("klba_request_errors_total"),
+            "fallbacks": _counter_total("klba_fallbacks_total"),
+        }
+        self._clock = clock
+        self._started = clock()
+        self._stop_lock = threading.Lock()
+        self._stopped = False
+        self._stopped_event = threading.Event()
+
+    @property
+    def requests_served(self) -> int:
+        """Wire requests answered since THIS service was constructed (a
+        registry view; with two services alive in one process each also
+        counts the other's traffic)."""
+        return (
+            _counter_total("klba_requests_total")
+            - self._stats_base["requests_served"]
+        )
+
+    @property
+    def errors(self) -> int:
+        return (
+            _counter_total("klba_request_errors_total")
+            - self._stats_base["errors"]
+        )
+
+    @property
+    def fallbacks(self) -> int:
+        """Answers given by a host-side fallback rung."""
+        return (
+            _counter_total("klba_fallbacks_total")
+            - self._stats_base["fallbacks"]
+        )
+
+    @classmethod
+    def from_config(
+        cls,
+        configs,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        **overrides,
+    ) -> "AssignorService":
+        """Build a sidecar from a Kafka-style consumer config map, reading
+        the keys this sidecar serves (utils/config.parse_config):
+        ``solve.timeout.ms``, ``host.fallback``, ``breaker.*``,
+        ``delta.*``, ``quality.*``, ``slo.class.<stream>`` /
+        ``slo.deadline.ms.<class>`` / ``overload.*`` and ``metrics.port``.
+        Explicit ``overrides`` win (``device``, or a test pinning
+        ``metrics_port=0``)."""
+        from .utils.config import parse_config
+
+        cfg = parse_config(configs)
+        kwargs = {
+            "solve_timeout_s": cfg.solve_timeout_s,
+            "host_fallback": cfg.host_fallback,
+            "breaker_cooldown_s": cfg.breaker_cooldown_s,
+            "breaker_failures": cfg.breaker_failures,
+            "delta_enabled": cfg.delta_enabled,
+            "delta_max_fraction": cfg.delta_max_fraction,
+            "delta_buckets": cfg.delta_buckets,
+            "delta_adaptive": cfg.delta_adaptive,
+            "quality_mode": cfg.quality_mode,
+            "quality_tile": cfg.quality_tile,
+            "metrics_port": cfg.metrics_port,
+            "slo_classes": cfg.slo_classes,
+            "slo_deadline_s": cfg.slo_deadline_s,
+            "overload_latency_budget_ms": cfg.overload_latency_budget_ms,
+            "overload_depth_high": cfg.overload_depth_high,
+        }
+        kwargs.update(overrides)
+        return cls(host, port, **kwargs)
+
+    @property
+    def address(self) -> Tuple[str, int]:
+        return self._tcp.server_address  # type: ignore[return-value]
+
+    # -- request processing ------------------------------------------------
+
+    def reject_oversized(self) -> bytes:
+        metrics.REGISTRY.counter(
+            "klba_request_errors_total", {"method": "oversized"}
+        ).inc()
+        LOGGER.warning("rejected oversized request line (> %d bytes)",
+                       MAX_LINE_BYTES)
+        return json.dumps(
+            {
+                "id": None,
+                "request_id": metrics.mint_request_id(),
+                "error": {
+                    "message": f"request line exceeds {MAX_LINE_BYTES} bytes"
+                },
+            }
+        ).encode()
+
+    def handle_line(self, line: bytes) -> bytes:
+        """One wire request: a request scope (adopting the caller's
+        ``traceparent``), a ``wire.<method>`` span,
+        ``klba_requests_total`` / ``klba_request_errors_total`` and the
+        deadline-budget consumption."""
+        # Parse BEFORE opening the scope: the trace context rides the line
+        # (top-level ``traceparent``, or inside ``params``).
+        req: Dict[str, Any] = {}
+        parse_error: Optional[Exception] = None
+        try:
+            req = json.loads(line)
+            if not isinstance(req, dict):
+                req, parse_error = {}, TypeError(
+                    f"request must be a JSON object, got "
+                    f"{type(req).__name__}"
+                )
+        except Exception as exc:  # noqa: BLE001 — answered in-scope below
+            parse_error = exc
+        traceparent = req.get("traceparent")
+        if traceparent is None:
+            params = req.get("params")
+            if isinstance(params, dict):
+                traceparent = params.get("traceparent")
+        with metrics.request_scope(traceparent=traceparent) as rid:
+            trace_id = metrics.current_trace_id()
+            req_id = req.get("id")
+            label = "unknown"
+            try:
+                if parse_error is not None:
+                    raise parse_error
+                method = req.get("method")
+                if method in _KNOWN_METHODS:
+                    label = method
+                with metrics.span(f"wire.{label}"):
+                    result, budget = self._dispatch(method, req)
+                metrics.REGISTRY.counter(
+                    "klba_requests_total", {"method": label}
+                ).inc()
+                if budget is not None and budget.total_s is not None:
+                    metrics.REGISTRY.histogram(
+                        "klba_deadline_budget_consumed_ms",
+                        {"method": label},
+                    ).observe(budget.consumed_ms())
+                return json.dumps(
+                    {
+                        "id": req_id, "request_id": rid,
+                        "trace_id": trace_id, "result": result,
+                    }
+                ).encode()
+            except ShedReject as exc:
+                # An overload shed is a DECISION, not a failure: counted as
+                # a served request and answered as a structured error.
+                metrics.REGISTRY.counter(
+                    "klba_requests_total", {"method": label}
+                ).inc()
+                LOGGER.warning("request shed: %s", exc)
+                return json.dumps(
+                    {
+                        "id": req_id,
+                        "request_id": rid,
+                        "trace_id": trace_id,
+                        "error": {
+                            "message": str(exc),
+                            "shed": {
+                                "class": exc.klass,
+                                "rung": exc.rung,
+                                "retry_after_ms": exc.retry_after_ms,
+                            },
+                        },
+                    }
+                ).encode()
+            except Exception as exc:  # noqa: BLE001 — wire boundary
+                trace_mod.mark("error")
+                metrics.REGISTRY.counter(
+                    "klba_request_errors_total", {"method": label}
+                ).inc()
+                LOGGER.warning("service request failed", exc_info=True)
+                return json.dumps(
+                    {
+                        "id": req_id,
+                        "request_id": rid,
+                        "trace_id": trace_id,
+                        "error": {"message": str(exc)},
+                    }
+                ).encode()
+
+    def _dispatch(
+        self, method: Any, req: Dict[str, Any]
+    ) -> Tuple[Any, Optional[_DeadlineBudget]]:
+        """Route one parsed request; returns (result, deadline budget)."""
+        handler = {
+            "ping": self._ping,
+            "stats": self._stats,
+            "metrics": self._metrics,
+            "trace": self._trace,
+            "assign": self._assign,
+            "stream_assign": self._stream_assign_request,
+            "stream_reset": self._stream_reset,
+            "recommend": self._recommend,
+            "stream_flight": self._stream_flight,
+        }.get(method) if isinstance(method, str) else None
+        if handler is None:
+            raise ValueError(f"unknown method {method!r}")
+        return handler(req.get("params") or {})
+
+    def _ping(self, params):
+        return "pong", None
+
+    def _stats(self, params):
+        result: Dict[str, Any] = {
+            "requests_served": self.requests_served,
+            "errors": self.errors,
+            "fallbacks": self.fallbacks,
+            "uptime_s": self._clock() - self._started,
+        }
+        with self._streams_lock:
+            result["live_streams"] = len(self._streams)
+            result["poisoned_snapshots"] = len(self._snapshots)
+        # Per-solver circuit-breaker states + trip counters.
+        result["breakers"] = self._watchdog.stats()
+        # The shed ladder's position + pressure signals.
+        result["overload"] = self._overload.snapshot()
+        # The JAX service's sections for features this sidecar does not
+        # run yet, answered as a disabled feature is.
+        for section in ("coalesce", "lifecycle", "scrub", "federation",
+                        "mesh"):
+            result[section] = None
+        result["quality"] = quality_status(self.device)
+        # The active fault drill's seed + per-point {calls, fired}.
+        inj = faults.active()
+        result["faults"] = (
+            None if inj is None
+            else {
+                "seed": inj.seed,
+                "epoch": inj.epoch,
+                "points": inj.snapshot(),
+            }
+        )
+        return result, None
+
+    def _metrics(self, params):
+        # The registry both ways (structured JSON, Prometheus text) plus
+        # the flight recorder; ``params.view`` trims to one section.
+        view = params.get("view")
+        if view not in (None, "json", "prometheus", "flight"):
+            raise ValueError(
+                f"unknown metrics view {view!r}; valid: "
+                "['flight', 'json', 'prometheus']"
+            )
+        result: Dict[str, Any] = {}
+        if view in (None, "json", "prometheus"):
+            snap = metrics.REGISTRY.snapshot()
+            if view in (None, "json"):
+                result["json"] = snap
+            if view in (None, "prometheus"):
+                result["prometheus"] = metrics.REGISTRY.prometheus(snap)
+        if view in (None, "flight"):
+            last = metrics.FLIGHT.last_dump()
+            result["flight"] = {
+                "records": len(metrics.FLIGHT.records()),
+                "dumps": metrics.FLIGHT.dump_count(),
+                "last_dump_reason": last["reason"] if last else None,
+                "last_dump": last,
+            }
+        return result, None
+
+    def _trace(self, params):
+        # The tail sampler's view: retention stats plus kept traces,
+        # narrowed by ``params.trace_id`` and capped by ``params.limit``.
+        want = params.get("trace_id")
+        if want is not None and not isinstance(want, str):
+            raise ValueError(
+                f"trace_id must be a string, got "
+                f"{type(want).__name__}"
+            )
+        limit = params.get("limit", 8)
+        limit = None if limit is None else int(limit)
+        coll = trace_mod.COLLECTOR
+        return {
+            "stats": coll.stats(),
+            "traces": coll.traces(trace_id=want, limit=limit),
+        }, None
+
+    def _assign(self, params):
+        solver = params.get("solver", "rounds")
+        if solver not in VALID_SOLVERS:
+            raise ValueError(
+                f"unknown solver {solver!r}; valid: {list(VALID_SOLVERS)}"
+            )
+        options = _validate_options(params.get("options") or {})
+        budget = _DeadlineBudget(
+            self._watchdog.timeout_s, clock=self._clock
+        )
+        assignments, stats = _solve(
+            params.get("topics") or {},
+            params.get("subscriptions") or {},
+            solver,
+            watchdog=self._watchdog,
+            host_fallback=self._host_fallback,
+            options=options,
+            deadline=budget,
+            device=self.device,
+        )
+        rung = "host_greedy" if stats.fallback_used else "none"
+        metrics.REGISTRY.counter(
+            "klba_ladder_rung_total", {"method": "assign", "rung": rung}
+        ).inc()
+        metrics.FLIGHT.record(
+            "wire_assign",
+            {
+                "solver": solver,
+                "rung": rung,
+                "num_partitions": stats.num_partitions,
+                "num_members": stats.num_members,
+                "total_lag": stats.total_lag,
+                "quality_ratio": stats.quality_ratio,
+                "fallback_used": stats.fallback_used,
+                "breaker_state": stats.breaker_state,
+            },
+        )
+        if stats.fallback_used:
+            metrics.REGISTRY.counter(
+                "klba_fallbacks_total", {"method": "assign"}
+            ).inc()
+            trace_mod.mark("ladder")
+            metrics.FLIGHT.auto_dump(
+                "ladder",
+                {"method": "assign", "rung": rung, "solver": solver},
+            )
+        return {
+            "assignments": assignments,
+            "stats": json.loads(stats.to_json()),
+            # Effective (quantized) option values actually used.
+            "options": options,
+        }, budget
+
+    def _stream_assign_request(self, params):
+        # SLO class: wire override > config map > "standard"; the class's
+        # deadline budget (if configured) caps this request's budget.
+        klass = self._slo.resolve(
+            params.get("stream_id"), params.get("slo_class")
+        )
+        budget = _DeadlineBudget(
+            self._slo.budget_s(klass, self._watchdog.timeout_s),
+            clock=self._clock,
+        )
+        result = self._stream_assign(params, budget, klass)
+        s = result["stream"]
+        rung = s["degraded_rung"]
+        metrics.REGISTRY.counter(
+            "klba_ladder_rung_total",
+            {"method": "stream_assign", "rung": rung},
+        ).inc()
+        if s["fallback_used"]:
+            metrics.REGISTRY.counter(
+                "klba_fallbacks_total", {"method": "stream_assign"}
+            ).inc()
+        metrics.FLIGHT.record(
+            "wire_stream",
+            {
+                "rung": rung,
+                "cold_start": s["cold_start"],
+                "refined": s["refined"],
+                "guardrail_tripped": s["guardrail_tripped"],
+                "churn": s["churn"],
+                "quality_ratio": s["quality_ratio"],
+                "warm_restart": s["warm_restart"],
+                "fallback_used": s["fallback_used"],
+                "slo_class": s["slo_class"],
+                "shed": s["shed"],
+            },
+        )
+        if rung != "none":
+            # Past the first ladder rung: a flight-recorder incident.
+            trace_mod.mark("ladder")
+            metrics.FLIGHT.auto_dump(
+                "ladder", {"method": "stream_assign", "rung": rung}
+            )
+        return result, budget
+
+    def _stream_reset(self, params):
+        sid = params.get("stream_id")
+        with self._streams_lock:
+            dropped = self._streams.pop(sid, None) is not None
+            self._snapshots.pop(sid, None)
+        return {"dropped": dropped}, None
+
+    def _recommend(self, params):
+        # The elasticity loop: per-stream consumer-count recommendations
+        # from the lag-trend windows, plus the overload state;
+        # params.stream_id narrows to one stream.
+        only = params.get("stream_id")
+        horizon = params.get("horizon_s", 60.0)
+        if isinstance(horizon, bool) or not isinstance(
+            horizon, (int, float)
+        ) or not 1.0 <= float(horizon) <= 86400.0:
+            raise ValueError(
+                "params.horizon_s must be a number in [1, 86400]"
+            )
+        with self._streams_lock:
+            items = list(self._streams.items())
+        streams: Dict[str, Any] = {}
+        for sid, st in items:
+            if only is not None and sid != only:
+                continue
+            # A monitoring read without the stream lock (the history deque
+            # appends are GIL-atomic).
+            samples = list(st.history)
+            streams[sid] = {
+                "slo_class": st.klass,
+                "consumers": len(st.members),
+                "partitions": (
+                    int(st.pids.shape[0]) if st.pids is not None else 0
+                ),
+                "samples": samples,
+            }
+        return recommend_payload(
+            streams, self._overload.snapshot(),
+            horizon_s=float(horizon),
+        ), None
+
+    def _stream_flight(self, params):
+        # One stream's private flight ring, dumped (and optionally cleared).
+        sid = params.get("stream_id")
+        with self._streams_lock:
+            st = self._streams.get(sid)
+            ring = st.flight if st is not None else None
+        if ring is None:
+            raise ValueError(f"unknown stream {sid!r}")
+        records = ring.snapshot()  # redacted copies, oldest first
+        cleared = bool(params.get("clear", False))
+        if cleared:
+            ring.clear()
+        return {
+            "stream_id": sid,
+            "records": records,
+            "cleared": cleared,
+        }, None
+
+    def _stream_assign(
+        self,
+        params: Dict[str, Any],
+        budget: Optional[_DeadlineBudget] = None,
+        klass: str = "standard",
+    ) -> Dict[str, Any]:
+        if budget is None:
+            budget = _DeadlineBudget(self._watchdog.timeout_s)
+
+        sid = params.get("stream_id")
+        if not isinstance(sid, str) or not sid:
+            raise ValueError("params.stream_id must be a non-empty string")
+        topic = params.get("topic", "t0")
+        rows = _decode_wire_lags(params)
+        delta_params = params.get("lag_delta")
+        members = params.get("members") or []
+        if not isinstance(members, list) or not members:
+            raise ValueError("params.members must be a non-empty list")
+        members_sorted = sorted(str(m) for m in members)
+        if len(set(members_sorted)) != len(members_sorted):
+            raise ValueError("params.members contains duplicates")
+        C = len(members_sorted)
+        opts = _validate_stream_options(params.get("options") or {})
+        ack = _parse_assign_ack(params)
+        resp_enc = _parse_accept_encoding(params)
+
+        if delta_params is not None and rows:
+            raise ValueError(
+                "params.lags and params.lag_delta are mutually exclusive"
+            )
+        if delta_params is not None:
+            # Type validation only: the delta applies against the stream's
+            # stored base under its lock, inside the admitted path.
+            delta = _parse_lag_delta(delta_params)
+            lags = None
+            pids_sorted = None
+        else:
+            delta = None
+            pids_sorted, lags = _parse_lag_rows(rows)
+
+        # Overload admission decides this request's fate BEFORE any stream
+        # state is touched.
+        decision = self._admit_solve_work(klass, stream_id=sid)
+
+        with self._inflight(klass):
+            return self._stream_assign_admitted(
+                budget, klass, decision,
+                sid, topic, lags, pids_sorted, members_sorted, C, opts,
+                delta=delta, ack=ack, resp_enc=resp_enc,
+            )
+
+    @contextmanager
+    def _inflight(self, klass: str):
+        """The weighted in-flight depth bracket: add this request's class
+        weight, feed the controller the new depth, and ALWAYS release."""
+        weight = CLASS_WEIGHTS.get(klass, 1.0)
+        with self._inflight_lock:
+            self._inflight_weight += weight
+            depth = self._inflight_weight
+        self._overload.note_depth(depth)
+        try:
+            yield
+        finally:
+            with self._inflight_lock:
+                self._inflight_weight -= weight
+
+    def _admit_solve_work(
+        self, klass: str, stream_id: Optional[str] = None
+    ):
+        """THE overload admission: feed the CURRENT in-flight depth before
+        deciding (so an all-shed class mix cannot freeze the depth EWMA at
+        its peak), decide FAIL-OPEN (the ``shed.decide`` fault point or a
+        controller bug must never take healthy traffic down), and raise
+        the structured reject.  Returns the decision (None when the
+        decision path failed open)."""
+        with self._inflight_lock:
+            depth_now = self._inflight_weight
+        self._overload.note_depth(depth_now)
+        decision = None
+        try:
+            decision = self._overload.admission(klass)
+        except Exception:
+            LOGGER.warning(
+                "overload admission decision failed; failing open "
+                "(admit)", exc_info=True,
+            )
+        if decision is not None and decision.action == "reject":
+            self._overload.note_shed(
+                klass, decision.rung_name, "rejected",
+                stream_id=stream_id,
+            )
+            raise ShedReject(
+                klass, decision.rung_name, decision.retry_after_ms
+            )
+        return decision
+
+    def _acquire_stream(self, sid: str) -> Tuple[_Stream, bool]:
+        """The stream's state, created when absent (at most MAX_STREAMS),
+        with its lock HELD; ``created`` says whether this request made it.
+        A stream poisoned or reset while this request waited on its lock is
+        re-validated under the lock and the loop starts over."""
+        created = False
+        while True:
+            with self._streams_lock:
+                st = self._streams.get(sid)
+                if st is None:
+                    if len(self._streams) >= MAX_STREAMS:
+                        raise ValueError(
+                            f"too many live streams (max {MAX_STREAMS}); "
+                            "stream_reset unused ones"
+                        )
+                    st = self._streams[sid] = _Stream()
+                    created = True
+            st.lock.acquire()
+            with self._streams_lock:
+                if self._streams.get(sid) is st:
+                    return st, created
+            st.lock.release()
+
+    def _stream_assign_admitted(
+        self, budget, klass, decision,
+        sid, topic, lags, pids_sorted, members_sorted, C, opts,
+        delta=None, ack=None, resp_enc=None,
+    ) -> Dict[str, Any]:
+        """The admitted remainder of a stream_assign: stream state, the
+        solve (or the degrade rung's kept_previous), the ladder."""
+        st, created = self._acquire_stream(sid)
+        try:
+            warm_restart = False
+            if delta is not None:
+                # Apply the sparse delta against the stored base.  Any
+                # reason it cannot apply forces a dense RE-SYNC: the
+                # previous assignment is served with ``resync: true`` when
+                # servable, else the request errors asking for full lags.
+                resolved = self._apply_wire_delta(st, delta)
+                if isinstance(resolved, str):
+                    return self._resync(st, created, sid, resolved, topic,
+                                        members_sorted, C, opts, klass,
+                                        ack, resp_enc)
+                lags, pids_sorted = resolved
+            if st.engine is None:
+                st.flight = _stream_ring()
+                st.engine = _fresh_engine(C, st.flight, self._delta_opts,
+                                          self.device)
+                st.members = members_sorted
+                # Poisoned-stream recovery: if the last epoch for this sid
+                # died on the snake rung, warm-restart from what the
+                # clients were handed, unless the roster moved on.
+                with self._streams_lock:
+                    snap = self._snapshots.pop(sid, None)
+                if snap is not None:
+                    snap_members, snap_pids, snap_choice = snap
+                    if snap_members == members_sorted and np.array_equal(
+                        snap_pids, pids_sorted
+                    ):
+                        st.engine.seed_choice(snap_choice)
+                        st.pids = snap_pids
+                        warm_restart = True
+            elif st.members != members_sorted:
+                # Membership change: remap by NAME so survivors keep their
+                # partitions (the engine's repair pass re-seats orphans).
+                new_rank = {m: i for i, m in enumerate(members_sorted)}
+                old_to_new = np.fromiter(
+                    (new_rank.get(m, -1) for m in st.members),
+                    np.int32, count=len(st.members),
+                )
+                st.engine.remap_members(old_to_new, C)
+                st.members = members_sorted
+            # A different partition-id set at the SAME count would misbind
+            # warm rows to new pids: force a cold solve (a count change
+            # already does, through the engine's shape check).
+            if st.pids is not None and not np.array_equal(
+                st.pids, pids_sorted
+            ):
+                st.engine.reset()
+            st.pids = pids_sorted
+            _apply_stream_opts(st.engine, opts)
+
+            prev = st.engine._prev_choice
+            if (
+                decision is not None
+                and decision.action == "degrade"
+                and _keepable(prev, lags.shape[0], C)
+            ):
+                # Shed ladder (degrade rung): serve the PREVIOUS assignment
+                # (zero churn, no device work); not a fallback.  A stream
+                # with nothing servable is admitted instead.
+                choice, s = _serve_previous(prev, lags, C)
+                self._overload.note_shed(
+                    klass, decision.rung_name, "kept_previous",
+                    stream_id=sid,
+                )
+                shed_info = {
+                    "rung": decision.rung_name,
+                    "served": "kept_previous",
+                }
+                self._note_epoch(st, klass, lags)
+                a_delta, a_epoch = self._note_assignment(
+                    st, ack, topic, members_sorted, pids_sorted, choice
+                )
+                return self._stream_result(
+                    topic, members_sorted, pids_sorted, choice, s,
+                    fallback_used=False, degraded_rung="none",
+                    warm_restart=warm_restart, opts=opts, klass=klass,
+                    shed=shed_info, lag_epoch=st.lag_epoch,
+                    assign_delta=a_delta, assign_epoch=a_epoch,
+                    resp_enc=resp_enc,
+                )
+            choice, s, degraded_rung, fallback_used = self._solve_epoch(
+                sid, st, lags, C, opts, prev, budget, members_sorted,
+                pids_sorted,
+            )
+            # Advance the delta bases UNDER the stream lock: a concurrent
+            # delta or ack validates against them inside this same lock.
+            self._note_epoch(st, klass, lags)
+            lag_epoch_out = st.lag_epoch
+            a_delta, a_epoch = self._note_assignment(
+                st, ack, topic, members_sorted, pids_sorted, choice
+            )
+        finally:
+            st.lock.release()
+
+        return self._stream_result(
+            topic, members_sorted, pids_sorted, choice, s,
+            fallback_used=fallback_used, degraded_rung=degraded_rung,
+            warm_restart=warm_restart, opts=opts, klass=klass,
+            shed=None, lag_epoch=lag_epoch_out,
+            assign_delta=a_delta, assign_epoch=a_epoch,
+            resp_enc=resp_enc,
+        )
+
+    def _resync(self, st, created, sid, reason, topic, members_sorted, C,
+                opts, klass, ack, resp_enc):
+        """A delta that cannot apply (caller holds ``st.lock``): serve the
+        previous assignment with ``resync: true`` when it is servable for
+        the UNCHANGED roster, else raise asking for full lags."""
+        trace_mod.mark("resync")
+        metrics.REGISTRY.counter(
+            "klba_delta_epochs_total", {"outcome": "resync"}
+        ).inc()
+        base = st.last_lags
+        prev = st.engine._prev_choice if st.engine is not None else None
+        servable = (
+            prev is not None
+            and st.members == members_sorted
+            and st.pids is not None
+            and st.pids.shape[0] == prev.shape[0]
+            and _keepable(prev, prev.shape[0], C)
+        )
+        if not servable:
+            if created and st.engine is None:
+                # Don't leave an engine-less husk holding a MAX_STREAMS
+                # slot: this stream was minted by a delta that cannot seed.
+                with self._streams_lock:
+                    if self._streams.get(sid) is st:
+                        self._streams.pop(sid)
+            raise ValueError(
+                f"params.lag_delta cannot apply ({reason}); resync: "
+                "resend full params.lags"
+            )
+        LOGGER.warning(
+            "stream %r lag_delta forced a resync (%s); serving the "
+            "previous assignment", sid, reason,
+        )
+        stats_lags = (
+            base if base is not None
+            else np.zeros(prev.shape[0], dtype=np.int64)
+        )
+        choice, s = _serve_previous(prev, stats_lags, C)
+        a_delta, a_epoch = self._note_assignment(
+            st, ack, topic, members_sorted, st.pids, choice
+        )
+        return self._stream_result(
+            topic, members_sorted, st.pids, choice, s,
+            fallback_used=False, degraded_rung="none",
+            warm_restart=False, opts=opts, klass=klass,
+            shed=None, lag_epoch=st.lag_epoch, resync=True,
+            assign_delta=a_delta, assign_epoch=a_epoch,
+            resp_enc=resp_enc,
+        )
+
+    def _solve_epoch(self, sid, st, lags, C, opts, prev, budget,
+                     members_sorted, pids_sorted):
+        """Ladder rung 1, the warm engine under the stream breaker with the
+        request's REMAINING budget, and the rungs below it.  Returns
+        ``(choice, stats, degraded_rung, fallback_used)``."""
+        try:
+            choice = self._watchdog.call(
+                _in_context(carry_cuda_context(self.device),
+                            st.engine.rebalance),
+                lags, key="stream", timeout_s=budget.remaining(),
+                budget_total_s=budget.total_s,
+            )
+            # Strike forgiveness: only a RUN of clean epochs clears the
+            # quarantine strikes.
+            st.clean_epochs += 1
+            if (
+                st.scrub_strikes
+                and st.clean_epochs >= scrub_lib.FORGIVE_AFTER
+            ):
+                st.scrub_strikes = 0
+            return choice, st.engine.last_stats, "none", False
+        except SolveRejected as rej:
+            # FAIL-FAST rejection (breaker open, budget spent, or a failed
+            # integrity check): the warm engine is still valid (a
+            # quarantined one heals on its next epoch), so degrade
+            # host-side for this request only: the previous assignment
+            # when servable, else the snake, seeded into the engine.
+            if isinstance(rej, scrub_lib.CorruptStateDetected):
+                self._note_quarantine(sid, st, rej.buffers)
+            if not self._host_fallback:
+                raise
+            LOGGER.warning(
+                "stream %r solve rejected without running; keeping warm "
+                "state and answering host-side", sid, exc_info=True,
+            )
+            if _keepable(prev, lags.shape[0], C):
+                choice, s = _serve_previous(prev, lags, C)
+                return choice, s, "kept_previous", True
+            choice, s = _snake_fallback(lags, C, prev)
+            st.engine.seed_choice(np.asarray(choice))
+            return choice, s, "host_snake", True
+        except Exception:
+            # An abandoned watchdog worker may STILL be running the
+            # engine's rebalance and mutate its warm state later: the
+            # stream is POISONED (dropped) so no future epoch touches the
+            # orphaned engine, and the answer descends the ladder within
+            # what is left of the SAME budget.
+            with self._streams_lock:
+                self._streams.pop(sid, None)
+            if not self._host_fallback:
+                raise
+            LOGGER.warning(
+                "stream %r warm solve failed; poisoning state and "
+                "descending the degraded-mode ladder",
+                sid, exc_info=True,
+            )
+            return self._stream_degraded(
+                sid, lags, C, opts, prev, budget, members_sorted,
+                pids_sorted,
+            )
+
+    def _note_epoch(self, st: _Stream, klass: str, lags) -> None:
+        """Record one served epoch's (time, total lag) sample and class,
+        and advance the stream's delta base: ``lags`` becomes the vector a
+        ``lag_delta`` naming the NEW ``lag_epoch`` applies to.  Caller
+        holds ``st.lock``."""
+        st.klass = klass
+        st.history.append(
+            (self._clock(), int(lags.sum(dtype="int64")))
+        )
+        st.last_lags = lags
+        st.lag_epoch += 1
+
+    def _note_assignment(
+        self, st: _Stream, ack, topic, members_sorted, pids_sorted,
+        choice,
+    ):
+        """Advance the stream's assignment-delta base and decide this
+        answer's encoding (caller holds ``st.lock``).  The delta is served
+        only when the client's ack names the CURRENT epoch AND the roster
+        is unchanged; every other case answers dense, which re-seeds the
+        client's base.  Outcomes: ``klba_assign_delta_epochs_total``.
+        Returns ``(assignment_delta or None, new assign_epoch)``."""
+        choice = np.asarray(choice, dtype=np.int32)
+        pids = np.asarray(pids_sorted, dtype=np.int64)
+        prev = st.last_served
+        delta_out = None
+        if ack is not None:
+            servable = (
+                prev is not None
+                and ack == st.assign_epoch
+                and prev[0] == list(members_sorted)
+                and prev[1].shape == pids.shape
+                and np.array_equal(prev[1], pids)
+                and prev[2].shape == choice.shape
+            )
+            if servable:
+                changed = np.flatnonzero(prev[2] != choice)
+                delta_out = {
+                    "base_epoch": st.assign_epoch,
+                    "epoch": st.assign_epoch + 1,
+                    "topic": topic,
+                    "indices": pids[changed].tolist(),
+                    # Owner = index into the sorted member list the client
+                    # sent (stable: served only on an unchanged roster).
+                    "owners": choice[changed].tolist(),
+                }
+                outcome = "applied"
+            elif prev is None or ack != st.assign_epoch:
+                outcome = "resync"
+            else:
+                outcome = "fallback"
+            metrics.REGISTRY.counter(
+                "klba_assign_delta_epochs_total", {"outcome": outcome}
+            ).inc()
+        st.assign_epoch += 1
+        st.last_served = (
+            list(members_sorted), pids.copy(), choice.copy()
+        )
+        return delta_out, st.assign_epoch
+
+    def _apply_wire_delta(self, st: _Stream, delta):
+        """Apply a parsed ``lag_delta`` to the stream's stored base (caller
+        holds ``st.lock``).  Returns ``(lags, pids_sorted)``, or a REASON
+        string when the delta cannot apply and the stream must re-sync."""
+        d_pids, d_vals, base = delta
+        if st.last_lags is None or st.pids is None:
+            return "no dense base held for this stream"
+        if base != st.lag_epoch:
+            return (
+                f"base_epoch {base} does not match the stream's "
+                f"current lag_epoch {st.lag_epoch}"
+            )
+        pos = np.searchsorted(st.pids, d_pids)
+        pos = np.clip(pos, 0, max(st.pids.shape[0] - 1, 0))
+        if d_pids.size and not np.array_equal(st.pids[pos], d_pids):
+            return "delta names partition ids outside the stream's set"
+        lags = st.last_lags.copy()
+        lags[pos] = d_vals
+        return lags, st.pids
+
+    def _stream_result(
+        self, topic, members_sorted, pids_sorted, choice, s, *,
+        fallback_used: bool, degraded_rung: str, warm_restart: bool,
+        opts: Dict[str, Any], klass: str,
+        shed: Optional[Dict[str, Any]],
+        lag_epoch: int = 0, resync: bool = False,
+        assign_delta: Optional[Dict[str, Any]] = None,
+        assign_epoch: int = 0,
+        resp_enc: Optional[str] = None,
+    ) -> Dict[str, Any]:
+        if assign_delta is not None:
+            # Delta answer: only the changed rows cross the wire; the O(P)
+            # dense dict is never built.
+            out: Dict[str, Any] = {"assignment_delta": assign_delta}
+        else:
+            choice_l = np.asarray(choice).tolist()
+            pids_l = pids_sorted.tolist()
+            assignments: Dict[str, List[List[Any]]] = {
+                m: [] for m in members_sorted
+            }
+            for row, consumer in enumerate(choice_l):
+                assignments[members_sorted[consumer]].append(
+                    [topic, pids_l[row]]
+                )
+            out = _encode_dense_assignments(assignments, resp_enc)
+        return {
+            **out,
+            "stream": {
+                "cold_start": s.cold_start,
+                "refined": s.refined,
+                "guardrail_tripped": s.guardrail_tripped,
+                "churn": s.churn,
+                "repaired_rows": s.repaired_rows,
+                "max_mean_imbalance": s.max_mean_imbalance,
+                "imbalance_bound": s.imbalance_bound,
+                "quality_ratio": s.quality_ratio,
+                "count_spread": s.count_spread,
+                "fallback_used": fallback_used,
+                # none (warm engine) | kept_previous | cold_device |
+                # host_snake, and whether this epoch warm-restarted from a
+                # poisoned-stream snapshot.
+                "degraded_rung": degraded_rung,
+                "warm_restart": warm_restart,
+                # The request's effective class and, when the shed ladder
+                # degraded it, which rung shed it and what was served.
+                "slo_class": klass,
+                "shed": shed,
+                # The monotone base a lag_delta must name, and whether
+                # THIS answer demands a dense re-send.
+                "lag_epoch": lag_epoch,
+                "resync": resync,
+                # The epoch a client's next assign_ack names.
+                "assign_epoch": assign_epoch,
+                "delta_effective_fraction": s.delta_effective_fraction,
+                "sharded_solve": s.sharded_solve,
+            },
+            "options": opts,
+        }
+
+    def _stream_degraded(
+        self, sid, lags, C, opts, prev, budget, members_sorted, pids_sorted
+    ):
+        """Rungs 2-3 of the ladder after the warm engine was poisoned: a
+        COLD solve on a FRESH engine within the remaining budget, then the
+        host snake.  Returns ``(choice, stats, degraded_rung,
+        fallback_used)``."""
+        ring = _stream_ring()
+        fresh = _fresh_engine(C, ring, self._delta_opts, self.device)
+        _apply_stream_opts(fresh, opts)
+        try:
+            choice = self._watchdog.call(
+                _in_context(carry_cuda_context(self.device),
+                            fresh.rebalance),
+                lags, key="stream", timeout_s=budget.remaining(),
+            )
+        except Exception:
+            # Rung 3: the snake answers from the host, and the choice the
+            # clients now run is SNAPSHOTTED for the next epoch's warm
+            # restart.
+            LOGGER.warning(
+                "stream %r cold retry failed; answering with host snake",
+                sid, exc_info=True,
+            )
+            choice, s = _snake_fallback(lags, C, prev)
+            with self._streams_lock:
+                if len(self._snapshots) >= MAX_STREAMS:
+                    self._snapshots.pop(next(iter(self._snapshots)))
+                self._snapshots[sid] = (
+                    list(members_sorted),
+                    pids_sorted.copy(),
+                    np.asarray(choice, dtype=np.int32),
+                )
+            return choice, s, "host_snake", True
+        # The cold rung recovered: install the fresh engine as the stream's
+        # new warm state (unless a concurrent request re-registered it).
+        with self._streams_lock:
+            if sid not in self._streams and len(self._streams) < MAX_STREAMS:
+                nst = _Stream()
+                nst.engine = fresh
+                nst.flight = ring
+                nst.members = list(members_sorted)
+                nst.pids = pids_sorted
+                self._streams[sid] = nst
+        return choice, fresh.last_stats, "cold_device", False
+
+    def _note_quarantine(
+        self, sid: str, st: _Stream, buffers: List[str]
+    ) -> None:
+        """Strike accounting for one quarantined stream (caller holds
+        ``st.lock``): at ESCALATE_AFTER strikes the stream breaker trips —
+        a single flipped bit heals silently, a device corrupting state
+        faster than the heal path restores it is sidelined."""
+        st.clean_epochs = 0
+        st.scrub_strikes += 1
+        if st.scrub_strikes >= scrub_lib.ESCALATE_AFTER:
+            # A direct trip: the healing epoch between strikes succeeds
+            # and would reset a consecutive-failure count.
+            self._watchdog.trip_breaker("stream")
+            scrub_lib.record_quarantine(
+                buffers, "escalated", stream_id=sid, source="strikes"
+            )
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self) -> "AssignorService":
+        # Process-wide telemetry hooks: the compile counter sees the
+        # kernel builds, and request-thread log lines carry the request id.
+        install_compile_counter()
+        metrics.install_log_request_ids()
+        # Quality-plane knobs installed process-wide before serving.
+        set_quality_mode(self._quality_mode)
+        set_quality_tile(self._quality_tile)
+        with self._stop_lock:
+            if self._stopped:
+                LOGGER.warning("start() after stop(); not opening the listener")
+                return self
+            if self._metrics_port is not None:
+                from .utils.metrics_http import MetricsHTTPServer
+
+                self._metrics_http = MetricsHTTPServer(
+                    self.address[0], self._metrics_port
+                ).start()
+            self._thread = threading.Thread(
+                target=self._tcp.serve_forever, name="klba-service",
+                daemon=True,
+            )
+            self._thread.start()
+        LOGGER.info("assignor service listening on %s:%d", *self.address)
+        return self
+
+    @property
+    def metrics_address(self) -> Optional[Tuple[str, int]]:
+        """(host, port) of the HTTP /metrics listener, None if disabled or
+        not started."""
+        if self._metrics_http is None:
+            return None
+        return self._metrics_http.address
+
+    def stop(self) -> None:
+        """Close the listener and the metrics listener (idempotent).
+        In-flight requests on open connections finish on their daemon
+        handler threads."""
+        with self._stop_lock:
+            if self._stopped:
+                return
+            self._stopped = True
+        if self._thread is not None:
+            self._tcp.shutdown()
+            self._thread.join()
+        self._tcp.server_close()
+        if self._metrics_http is not None:
+            self._metrics_http.stop()
+            self._metrics_http = None
+        self._stopped_event.set()
+
+    def wait_stopped(self, timeout_s: Optional[float] = None) -> bool:
+        """Block until :meth:`stop` ran; True when it did."""
+        return self._stopped_event.wait(timeout_s)
+
+    def install_signal_handlers(self) -> None:
+        """SIGTERM/SIGINT stop the service (main thread only — a Python
+        signal-handler constraint)."""
+        import signal
+
+        def _handler(signum, frame):
+            LOGGER.warning("signal %d: stopping", signum)
+            threading.Thread(target=self.stop, name="klba-stop",
+                             daemon=True).start()
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, _handler)
+
+    def __enter__(self) -> "AssignorService":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+
+class AssignorServiceClient:
+    """Blocking line-protocol client (what the JVM plugin side
+    implements)."""
+
+    # Methods the reconnect-once policy must NOT auto-resend: they mutate
+    # server-side warm state, so a request that timed out mid-response may
+    # already have been applied.
+    NON_IDEMPOTENT_METHODS = frozenset({"stream_assign"})
+
+    def __init__(self, host: str, port: int, timeout_s: float = 60.0):
+        self._host = host
+        self._port = port
+        self._timeout_s = timeout_s
+        self._next_id = 0
+        self._lock = threading.Lock()
+        # Reconnect-once events: a timeout or drop mid-request leaves the
+        # socket in an undefined state, so it is rebuilt, never reused.
+        self.reconnects = 0
+        # Trace id echoed by the LAST response envelope.
+        self.last_trace_id: Optional[str] = None
+        self._connect()
+
+    def _connect(self) -> None:
+        self._sock = socket.create_connection(
+            (self._host, self._port), timeout=self._timeout_s
+        )
+        self._file = self._sock.makefile("rwb")
+
+    def _close_quietly(self) -> None:
+        for close in (self._file.close, self._sock.close):
+            try:
+                close()
+            except OSError:
+                pass  # already torn down — the rebuild is the point
+
+    def _round_trip(self, payload: bytes) -> bytes:
+        self._file.write(payload)
+        self._file.flush()
+        line = self._file.readline()
+        if not line:
+            raise ConnectionError("service closed the connection")
+        return line
+
+    def request(self, method: str, params: Optional[Dict] = None) -> Any:
+        # Echo the caller's causal context so the sidecar's segment joins
+        # the caller's trace.
+        traceparent = metrics.current_traceparent()
+        with self._lock:
+            self._next_id += 1
+            req = {"id": self._next_id, "method": method}
+            if params is not None:
+                req["params"] = params
+            if traceparent is not None:
+                req["traceparent"] = traceparent
+            payload = json.dumps(req).encode() + b"\n"
+            if self._file.closed:
+                # A previous reconnect died inside _connect(): rebuild
+                # before sending (does not consume this request's retry).
+                self._connect()
+                self.reconnects += 1
+            try:
+                line = self._round_trip(payload)
+            except OSError as exc:
+                # Close and reconnect ONCE; resend only idempotent methods.
+                LOGGER.warning(
+                    "request failed (%s: %s); reconnecting once",
+                    type(exc).__name__, exc,
+                )
+                self._close_quietly()
+                self._connect()
+                self.reconnects += 1
+                if method in self.NON_IDEMPOTENT_METHODS:
+                    raise ConnectionError(
+                        f"connection failed mid-{method}; the request may "
+                        "or may not have been applied server-side — not "
+                        "resending a non-idempotent method (the connection "
+                        "has been rebuilt for subsequent requests)"
+                    ) from exc
+                line = self._round_trip(payload)
+        resp = json.loads(line)
+        self.last_trace_id = resp.get("trace_id")
+        if "error" in resp:
+            shed = resp["error"].get("shed")
+            if shed is not None:
+                # The typed rejection, so callers back off from fields.
+                exc = ShedReject(
+                    shed["class"], shed["rung"],
+                    int(shed["retry_after_ms"]),
+                )
+                exc.trace_id = resp.get("trace_id")
+                raise exc
+            raise RuntimeError(resp["error"]["message"])
+        result = resp["result"]
+        if isinstance(result, dict) and "assignments_encoded" in result:
+            result = decode_wire_assignments(result)
+        return result
+
+    def ping(self) -> bool:
+        return self.request("ping") == "pong"
+
+    def assign(
+        self,
+        topics: Dict[str, List[Tuple[int, int]]],
+        subscriptions: Dict[str, List[str]],
+        solver: str = "rounds",
+    ) -> Dict[str, List[Tuple[str, int]]]:
+        result = self.request(
+            "assign",
+            {
+                "topics": topics,
+                "subscriptions": subscriptions,
+                "solver": solver,
+            },
+        )
+        return {
+            m: [(t, int(p)) for t, p in tps]
+            for m, tps in result["assignments"].items()
+        }
+
+    def stream_assign(
+        self,
+        stream_id: str,
+        topic: str,
+        lags: Optional[List[Tuple[int, int]]],
+        members: List[str],
+        options: Optional[Dict[str, Any]] = None,
+        lag_delta: Optional[Dict[str, Any]] = None,
+        encoding: Optional[str] = None,
+    ) -> Dict[str, Any]:
+        """One warm-start epoch; returns the raw result dict.  Pass
+        ``lag_delta`` (and ``lags=None``) for a sparse delta epoch
+        (:class:`..lag.LagDeltaTracker` produces both shapes).
+        ``encoding="zlib"`` compresses a DENSE lag payload; a server that
+        does not know the encoding answers an error and the request falls
+        back to plain JSON."""
+        params: Dict[str, Any] = {
+            "stream_id": stream_id,
+            "topic": topic,
+            "members": members,
+        }
+        if lags is not None:
+            if encoding == "zlib":
+                params["lags"] = encode_lags_zlib(lags)
+                params["encoding"] = "zlib"
+            else:
+                params["lags"] = lags
+        if lag_delta is not None:
+            params["lag_delta"] = lag_delta
+        if options is not None:
+            params["options"] = options
+        try:
+            return self.request("stream_assign", params)
+        except ShedReject:
+            # The server's decision, not an encoding problem.
+            raise
+        except RuntimeError:
+            if params.get("encoding") is None:
+                raise
+            params.pop("encoding")
+            params["lags"] = lags
+            return self.request("stream_assign", params)
+
+    def stream_reset(self, stream_id: str) -> bool:
+        return self.request("stream_reset", {"stream_id": stream_id})[
+            "dropped"
+        ]
+
+    def close(self) -> None:
+        self._file.close()
+        self._sock.close()
+
+    def __enter__(self) -> "AssignorServiceClient":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def main() -> None:
+    """``python -m kafka_lag_based_assignor_tpu_torch.service [host] [port]
+    [--device cuda|cpu] [--metrics-port PORT] [--no-delta]
+    [--delta-max-fraction FRAC] [--delta-buckets N]
+    [--quality-mode MODE] [--quality-tile ROWS]`` — the JAX CLI's flags
+    for the knobs this sidecar serves.  Unknown flags are an error."""
+    import argparse
+
+    logging.basicConfig(level=logging.INFO)
+    parser = argparse.ArgumentParser(
+        prog="kafka_lag_based_assignor_tpu_torch.service",
+        description="CUDA assignor sidecar (newline-JSON over TCP)",
+    )
+    parser.add_argument("host", nargs="?", default="127.0.0.1")
+    parser.add_argument("port", nargs="?", type=int, default=7531)
+    parser.add_argument(
+        "--device", default="cuda", choices=("cuda", "cpu"),
+        help="where every solve runs (default cuda; raises without a card)",
+    )
+    parser.add_argument(
+        "--metrics-port", type=int, default=None, metavar="PORT",
+        help="serve the Prometheus text exposition over plain HTTP on "
+             "this port (GET /metrics); omit to disable",
+    )
+    parser.add_argument(
+        "--no-delta", action="store_true",
+        help="disable delta epochs (sparse lag updates onto the "
+             "device-resident lag buffer; every upload stays dense)",
+    )
+    parser.add_argument(
+        "--delta-max-fraction", type=float, default=0.125,
+        metavar="FRAC",
+        help="changed-partition fraction above which a warm epoch "
+             "uploads dense instead of a delta (default 0.125)",
+    )
+    parser.add_argument(
+        "--delta-buckets", type=int, default=6, metavar="N",
+        help="pow2 K-ladder rungs for delta uploads (16..16<<N-1; "
+             "default 6)",
+    )
+    parser.add_argument(
+        "--quality-mode", default="auto",
+        choices=("sinkhorn", "linear", "auto"),
+        help="quality-solve routing: dense sinkhorn, the linear-space "
+             "O(P + C) mirror-prox path, or auto (linear at scale; "
+             "default)",
+    )
+    parser.add_argument(
+        "--quality-tile", type=int, default=1024, metavar="ROWS",
+        help="linear quality mode's streamed tile size in rows (pow2; "
+             "default 1024)",
+    )
+    opts = parser.parse_args()
+    service = AssignorService(
+        opts.host, opts.port, device=opts.device,
+        metrics_port=opts.metrics_port,
+        delta_enabled=not opts.no_delta,
+        delta_max_fraction=opts.delta_max_fraction,
+        delta_buckets=opts.delta_buckets,
+        quality_mode=opts.quality_mode,
+        quality_tile=opts.quality_tile,
+    )
+    service.install_signal_handlers()
+    service.start()
+    print(f"listening on {service.address[0]}:{service.address[1]}", flush=True)
+    service.wait_stopped()
+
+
+if __name__ == "__main__":
+    main()

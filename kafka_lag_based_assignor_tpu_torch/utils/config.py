@@ -11,9 +11,12 @@ and consumes ``group.id`` (required, :107-113) and ``auto.offset.reset``
 prefix, with the JAX package's names, defaults and parse rules, so one
 consumer config drives either package and a value one package rejects the
 other rejects too; keys this package does not read pass through untouched,
-as the reference copies the whole map (:101-104).  Among those are the
-sidecar's, warm-up's and lifecycle's keys (``tpu.assignor.warmup.shapes``
-and the rest), which come with those slices.
+as the reference copies the whole map (:101-104).  The sidecar's keys
+that the port's sidecar serves (delta epochs, SLO classes and overload,
+the metrics port, the quality mode and tile) are read here; the rest of
+the JAX package's sidecar keys (the coalescer, snapshots and drain, the
+scrubber, the mesh, federation) and ``tpu.assignor.warmup.shapes`` pass
+through untouched until their slices come.
 """
 
 from __future__ import annotations
@@ -54,13 +57,38 @@ SINKHORN_ITERS_CONFIG = "tpu.assignor.sinkhorn.iters"  # int > 0
 # routes every quality solve: "sinkhorn" pins the dense implicit-plan
 # path, "linear" the O(P + C)-memory mirror-prox path, "auto" (default)
 # picks linear at large row counts.  ``quality.tile`` is the linear
-# mode's streamed tile size in rows (pow2).  Both are validated here, so
-# a malformed value fails at configure() as in the JAX package, but they
-# are not kept: the plugin does not install them (the JAX plugin does not
-# either; its sidecar does), and the router reads the process-wide knobs
-# of ops/dispatch.
+# mode's streamed tile size in rows (pow2).  The plugin does not install
+# them (the JAX plugin does not either); the sidecar installs them
+# process-wide when it starts, and the router reads the process-wide
+# knobs of ops/dispatch.
 QUALITY_MODE_CONFIG = "tpu.assignor.quality.mode"
 QUALITY_TILE_CONFIG = "tpu.assignor.quality.tile"
+
+# Delta epochs (ops/streaming, served by the sidecar): whether a warm
+# dispatch may scatter a sparse (indices, values) lag update onto the
+# device-resident lag buffer instead of re-uploading the full vector; the
+# changed-fraction ceiling above which the dense upload is used; the
+# number of pow2 K-ladder rungs (0 disables like enabled=false); and the
+# per-stream adaptive cutoff.
+DELTA_ENABLED_CONFIG = "tpu.assignor.delta.enabled"
+DELTA_MAX_FRACTION_CONFIG = "tpu.assignor.delta.max.fraction"
+DELTA_BUCKETS_CONFIG = "tpu.assignor.delta.buckets"
+DELTA_ADAPTIVE_CONFIG = "tpu.assignor.delta.adaptive"
+# SLO classes + overload control (utils/overload, served by the sidecar).
+# Per-stream class: "tpu.assignor.slo.class.<stream_id>" = critical |
+# standard | best_effort (a wire params.slo_class override wins per
+# request; unlisted streams are "standard").  Per-class deadline budget:
+# "tpu.assignor.slo.deadline.ms.<class>", which caps that class's request
+# budget below solve.timeout.ms.  The overload detector's knobs: the
+# epoch-latency level (ms) read as pressure 1.0 (0/unset = auto: half the
+# solve timeout) and the weighted in-flight depth read as pressure 1.0.
+SLO_CLASS_PREFIX = "tpu.assignor.slo.class."
+SLO_DEADLINE_PREFIX = "tpu.assignor.slo.deadline.ms."
+OVERLOAD_LATENCY_BUDGET_CONFIG = "tpu.assignor.overload.latency.budget.ms"
+OVERLOAD_DEPTH_HIGH_CONFIG = "tpu.assignor.overload.depth.high"
+# Opt-in plain-HTTP /metrics listener (utils/metrics_http): 0/unset
+# disables (the wire ``metrics`` method is always served).
+METRICS_PORT_CONFIG = "tpu.assignor.metrics.port"
 
 #: Valid ``quality.mode`` values (the router in ops/dispatch uses them).
 QUALITY_MODES = ("sinkhorn", "linear", "auto")
@@ -114,6 +142,25 @@ class AssignorConfig:
     lag_retry_backoff_s: float = 0.05
     refine_iters: Optional[int] = None
     sinkhorn_iters: int = 24
+    # Quality-mode routing + the linear mode's tile size (installed by the
+    # sidecar, read by ops/dispatch).
+    quality_mode: str = "auto"
+    quality_tile: int = 1024
+    # Delta epochs (ops/streaming): fraction ceiling, pow2 K ladder and
+    # the adaptive cutoff.
+    delta_enabled: bool = True
+    delta_max_fraction: float = 0.125
+    delta_buckets: int = 6
+    delta_adaptive: bool = True
+    # SLO classes + overload control (utils/overload): per-stream class
+    # map, per-class deadline budgets (seconds), and the detector's
+    # pressure normalizers (0 latency budget = auto).
+    slo_classes: Dict[str, str] = field(default_factory=dict)
+    slo_deadline_s: Dict[str, float] = field(default_factory=dict)
+    overload_latency_budget_ms: float = 0.0
+    overload_depth_high: float = 24.0
+    # Plain-HTTP /metrics port (utils/metrics_http); None = disabled.
+    metrics_port: Optional[int] = None
     consumer_group_props: Dict[str, Any] = field(default_factory=dict)
     metadata_consumer_props: Dict[str, Any] = field(default_factory=dict)
 
@@ -192,7 +239,7 @@ def parse_config(configs: Mapping[str, Any]) -> AssignorConfig:
         )
     raw_tile = consumer_group_props.get(QUALITY_TILE_CONFIG, 1024)
     try:
-        validate_quality_tile(raw_tile)
+        quality_tile = validate_quality_tile(raw_tile)
     except ValueError as exc:
         raise ValueError(f"{QUALITY_TILE_CONFIG}: {exc}")
 
@@ -226,6 +273,73 @@ def parse_config(configs: Mapping[str, Any]) -> AssignorConfig:
     if backoff_ms < 0:
         raise ValueError(f"{LAG_RETRY_BACKOFF_CONFIG}={backoff_ms} must be >= 0")
 
+    metrics_port = _as_int(METRICS_PORT_CONFIG, 0, 0)
+
+    # SLO class map + per-class deadline budgets: prefix-keyed entries,
+    # validated against the class roster (utils/overload).
+    from .overload import SLO_CLASSES
+
+    slo_classes: Dict[str, str] = {}
+    slo_deadline_s: Dict[str, float] = {}
+    for key, value in consumer_group_props.items():
+        if key.startswith(SLO_CLASS_PREFIX):
+            stream_id = key[len(SLO_CLASS_PREFIX):]
+            klass = str(value)
+            if not stream_id or klass not in SLO_CLASSES:
+                raise ValueError(
+                    f"{key}={value!r} invalid; classes: {list(SLO_CLASSES)}"
+                )
+            slo_classes[stream_id] = klass
+        elif key.startswith(SLO_DEADLINE_PREFIX):
+            klass = key[len(SLO_DEADLINE_PREFIX):]
+            if klass not in SLO_CLASSES:
+                raise ValueError(
+                    f"{key}: unknown class {klass!r}; "
+                    f"classes: {list(SLO_CLASSES)}"
+                )
+            secs = _as_ms(key, 0.0)  # ms-typed knob, seconds out
+            if secs <= 0:
+                raise ValueError(f"{key}={value!r} must be > 0 ms")
+            slo_deadline_s[klass] = secs
+
+    # Delta-epoch knobs: the fraction is a plain float in (0, 1]; the
+    # bucket count bounds the K ladder, capped at 16 rungs.
+    raw_frac = consumer_group_props.get(DELTA_MAX_FRACTION_CONFIG, 0.125)
+    try:
+        delta_max_fraction = float(raw_frac)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"{DELTA_MAX_FRACTION_CONFIG}={raw_frac!r} is not a number"
+        )
+    if not 0.0 < delta_max_fraction <= 1.0:
+        raise ValueError(
+            f"{DELTA_MAX_FRACTION_CONFIG}={delta_max_fraction} must be "
+            "in (0, 1]"
+        )
+    delta_buckets = _as_int(DELTA_BUCKETS_CONFIG, 6, 0)
+    if delta_buckets > 16:
+        raise ValueError(
+            f"{DELTA_BUCKETS_CONFIG}={delta_buckets} must be <= 16 "
+            "(each rung is one compiled executable per shape bucket)"
+        )
+
+    # The controller keeps this knob in ms (it normalizes a p99 measured
+    # in ms), so convert _as_ms's seconds back out once, here.
+    overload_latency_budget_ms = (
+        _as_ms(OVERLOAD_LATENCY_BUDGET_CONFIG, 0.0) * 1000.0
+    )
+    raw_depth = consumer_group_props.get(OVERLOAD_DEPTH_HIGH_CONFIG, 24.0)
+    try:
+        overload_depth_high = float(raw_depth)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"{OVERLOAD_DEPTH_HIGH_CONFIG}={raw_depth!r} is not a number"
+        )
+    if overload_depth_high <= 0:
+        raise ValueError(
+            f"{OVERLOAD_DEPTH_HIGH_CONFIG}={overload_depth_high} must be > 0"
+        )
+
     return AssignorConfig(
         group_id=str(group_id),
         auto_offset_reset=str(
@@ -241,6 +355,21 @@ def parse_config(configs: Mapping[str, Any]) -> AssignorConfig:
         lag_retry_backoff_s=backoff_ms / 1000.0,
         refine_iters=refine_iters,
         sinkhorn_iters=sinkhorn_iters,
+        quality_mode=quality_mode,
+        quality_tile=quality_tile,
+        delta_enabled=_as_bool(
+            consumer_group_props.get(DELTA_ENABLED_CONFIG, True)
+        ),
+        delta_max_fraction=delta_max_fraction,
+        delta_buckets=delta_buckets,
+        delta_adaptive=_as_bool(
+            consumer_group_props.get(DELTA_ADAPTIVE_CONFIG, True)
+        ),
+        slo_classes=slo_classes,
+        slo_deadline_s=slo_deadline_s,
+        overload_latency_budget_ms=overload_latency_budget_ms,
+        overload_depth_high=overload_depth_high,
+        metrics_port=metrics_port if metrics_port > 0 else None,
         consumer_group_props=consumer_group_props,
         metadata_consumer_props=metadata_consumer_props,
     )

@@ -12,9 +12,9 @@ valid for one package is valid for the other.  The points the port's code
 fires today:
 
 ========================  =============================================
-``device.solve``          entry of the accelerated solve
-                          (:meth:`..assignor.LagBasedPartitionAssignor.
-                          _solve_accelerated`)
+``device.solve``          entry of the accelerated solve the plugin
+                          and the sidecar share
+                          (:func:`..assignor.solve_accelerated`)
 ``device.compile``        per-group kernel dispatch, where a first-use
                           kernel build would occur
                           (:func:`..ops.dispatch.assign_group_device`)
@@ -41,12 +41,17 @@ fires today:
 ``lag.begin``             the ListOffsets(beginning) broker RPC (:mod:`..lag`)
 ``lag.end``               the ListOffsets(end) broker RPC
 ``lag.committed``         the OffsetFetch broker RPC
+``wire.read``             the sidecar's socket read (:mod:`..service`):
+                          a failure drops the connection
+``shed.decide``           the overload admission decision
+                          (:meth:`..utils.overload.OverloadController.
+                          admission`); the sidecar fails open (admits)
 ========================  =============================================
 
-The other points (``coalesce.*``, ``admit.park``, ``shed.decide``,
-``mesh.collective``, ``peer.*``, ``snapshot.*``, ``backend.*``,
-``drain.flush``, ``wire.read``) belong to modules the port has not taken
-yet: a plan for them is accepted and never fires.
+The other points (``coalesce.*``, ``admit.park``, ``mesh.collective``,
+``peer.*``, ``snapshot.*``, ``backend.*``, ``drain.flush``) belong to
+modules the port has not taken yet: a plan for them is accepted and never
+fires.
 
 Fault modes: ``raise`` (raise :class:`FaultError`), ``hang`` (bounded
 sleep of ``delay_s`` then raise — simulates a wedged transport that the

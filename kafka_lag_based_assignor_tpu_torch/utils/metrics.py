@@ -808,7 +808,11 @@ def _tag_record(
     prefix: str = "kafka_lag_based_assignor_tpu_torch",
 ) -> logging.LogRecord:
     rid = current_request_id()
-    record.request_id = rid or "-"
+    # Outside a scope of this package, a ``request_id`` another factory in
+    # the chain already set (the JAX package's, in a process that runs
+    # both) stays: the factories of both packages compose in either order.
+    if rid is not None or not hasattr(record, "request_id"):
+        record.request_id = rid or "-"
     if (
         rid is not None
         and record.name.startswith(prefix)

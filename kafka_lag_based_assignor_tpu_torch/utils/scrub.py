@@ -1,8 +1,9 @@
 """Resident-state integrity: the digest's host truths and quarantine.
 
 A copy of ``DIGEST_LEN``, ``CorruptStateDetected``, ``digest_failures``,
-``flip_bit``, ``CORRUPT_POINTS``, ``corruption_plan`` and
-``record_quarantine`` from ``kafka_lag_based_assignor_tpu/utils/scrub.py``.  Every
+``flip_bit``, ``CORRUPT_POINTS``, ``corruption_plan``, ``record_quarantine``
+and the strike constants ``ESCALATE_AFTER`` / ``FORGIVE_AFTER`` (which the
+sidecar's strike accounting reads) from ``kafka_lag_based_assignor_tpu/utils/scrub.py``.  Every
 refine dispatch of the streaming engine computes a digest of the resident
 state it starts from (``ops/refine.state_digest``, the K6 kernel on the
 card):
@@ -51,6 +52,17 @@ CORRUPT_POINTS = {
 
 #: Quarantine outcomes (the ``klba_quarantine_total`` label values).
 QUARANTINE_OUTCOMES = ("quarantined", "healed", "resynced", "escalated")
+
+#: Quarantine strikes on ONE stream before each further failure is also
+#: charged to the stream breaker (utils/watchdog.trip_breaker): a single
+#: flipped bit heals silently, a device that keeps corrupting state is as
+#: dead as one that keeps raising.
+ESCALATE_AFTER = 2
+
+#: Consecutive CLEAN served epochs that forgive a stream's strikes: more
+#: than one, since a corrupt -> heal -> corrupt flip-flop serves a clean
+#: healing epoch between every detection and must still escalate.
+FORGIVE_AFTER = 3
 
 
 class CorruptStateDetected(SolveRejected):

@@ -217,13 +217,13 @@ def test_sinkhorn_solver_runs():
 )
 def test_config_matches_jax(raw):
     got, want = config.parse_config(raw), jax_config.parse_config(raw)
+    # quality.mode / .tile are kept as the JAX config keeps them: the
+    # plugin does not install them, the sidecar does when it starts.
     for key in ("group_id", "auto_offset_reset", "solver", "lag_retries",
                 "lag_retry_backoff_s", "refine_iters", "client_id",
-                "metadata_consumer_props", "sinkhorn_iters"):
+                "metadata_consumer_props", "sinkhorn_iters", "quality_mode",
+                "quality_tile"):
         assert getattr(got, key) == getattr(want, key), key
-    # quality.mode / .tile are validated but not kept: nothing in the
-    # plugin installs them (the router reads ops.dispatch's knobs).
-    assert not hasattr(got, "quality_mode") and not hasattr(got, "quality_tile")
 
 
 @pytest.mark.parametrize(

@@ -152,6 +152,40 @@ def test_log_lines_carry_the_request_id():
     assert records[0] == records[1] == ("msg a request_id=req-7", "req-7")
 
 
+@pytest.mark.parametrize("order", [("jax", "port"), ("port", "jax")])
+def test_log_record_factory_keeps_the_jax_request_id(order):
+    """With both packages' record factories installed (a process that runs
+    both sidecars), in either order, the port's factory never erases the
+    JAX package's ``request_id``: a JAX-scoped record keeps it.  Each
+    package's scope suffixes its own records; the port's ``request_id``
+    attribute survives where the port's factory runs last (the JAX
+    factory, when it runs last, sets "-" outside its own scopes)."""
+    saved = logging.getLogRecordFactory()
+    flags = {n: m._factory_installed[0] for n, (m, _, _) in MODS.items()}
+    try:
+        for m, _, _ in MODS.values():
+            m._factory_installed[0] = False
+        for name in order:
+            MODS[name][0].install_log_request_ids()
+        got = {}
+        for name, (m, _, _) in MODS.items():
+            logger = "kafka_lag_based_assignor_tpu" + ("_torch" if name == "port" else "")
+            with m.request_scope(request_id=f"req-{name}"):
+                got[name] = logging.getLogger(logger).makeRecord(
+                    logger, logging.INFO, __file__, 1, "msg", (), None)
+            assert got[name].getMessage() == f"msg request_id=req-{name}"
+        assert got["jax"].request_id == "req-jax"
+        if order[-1] == "port":
+            assert got["port"].request_id == "req-port"
+        outside = logging.getLogger("other").makeRecord(
+            "other", logging.INFO, __file__, 1, "msg", (), None)
+        assert outside.request_id == "-" and outside.getMessage() == "msg"
+    finally:
+        logging.setLogRecordFactory(saved)
+        for name, (m, _, _) in MODS.items():
+            m._factory_installed[0] = flags[name]
+
+
 # -- flight recorder -----------------------------------------------------
 
 

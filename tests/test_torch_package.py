@@ -4,8 +4,9 @@
   imports ``jax`` or ``kafka_lag_based_assignor_tpu`` — by an AST walk, and
   by importing every module in a fresh interpreter;
 * every module of the streaming slice, of the solver surface (the scan
-  kernel's wrapper, the native core's loader) and of the fault ladder and
-  telemetry is covered by both checks;
+  kernel's wrapper, the native core's loader), of the fault ladder and
+  telemetry and of the sidecar (the service, overload control, the
+  ``/metrics`` listener) is covered by both checks;
 * no module but ``utils/observability`` imports ``torch.profiler`` at
   import time, and that one only inside ``profile_trace``;
 * entry points default to the CUDA card and raise without one;
@@ -89,6 +90,14 @@ LADDER_SLICE = ("utils/trace.py", "utils/snapshot.py", "utils/metrics.py",
                 "models/greedy.py", "lag.py", "ops/dispatch.py", "ops/streaming.py",
                 "ops/linear_ot.py", "models/sinkhorn.py", "ops/_build.py",
                 "assignor.py")
+
+
+SIDECAR_SLICE = ("service.py", "utils/overload.py", "utils/metrics_http.py")
+
+
+def test_import_checks_cover_the_sidecar():
+    walked = {p.relative_to(PORT).as_posix() for p in port_sources() if PORT in p.parents}
+    assert set(SIDECAR_SLICE) <= walked
 
 
 def test_import_checks_cover_the_ladder_slice():

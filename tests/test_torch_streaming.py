@@ -340,3 +340,31 @@ def test_corrupt_lag_row_resyncs_dense():
     assert engine.rb_delta_epochs["fallback"] == before[1]["fallback"] + 1
     assert not engine.quarantined
     np.testing.assert_array_equal(got, twin.rebalance(lags))
+
+
+def test_flight_ring_and_step_trace_match_jax():
+    """The engine's own flight ring gets a copy of every epoch record, as
+    the JAX engine's does (the sidecar's ``stream_flight``), and
+    ``step_trace`` names each epoch in a profile without changing a bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kafka_lag_based_assignor_tpu_torch.utils import metrics as port_metrics
+
+    rng = np.random.default_rng(6)
+    lags = zipf_lags(rng, 2000)
+    rings = (metrics.FlightRecorder(capacity=8, dump_dir=""),
+             port_metrics.FlightRecorder(capacity=8, dump_dir=""))
+    jax_engine = JaxEngine(mesh_backend=None, flight=rings[0], **KW)
+    traced = StreamingAssignor(device="cpu", flight=rings[1], step_trace=True, **KW)
+    plain = StreamingAssignor(device="cpu", **KW)
+    for epoch in range(3):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            got = traced.rebalance(lags)
+        names = {e.key for e in prof.key_averages()}
+        assert f"klba_stream_epoch:{epoch + 1}" in names
+        np.testing.assert_array_equal(got, plain.rebalance(lags))
+        np.testing.assert_array_equal(got, jax_engine.rebalance(lags))
+        lags = (lags * rng.lognormal(0, 0.3, lags.size)).astype(np.int64)
+    records = [r.snapshot() for r in rings]
+    assert len(records[1]) == 3
+    assert records[1] == records[0]
