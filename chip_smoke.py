@@ -163,6 +163,33 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       server's ``wire.assign`` and ``assign.solve`` spans and the stream
       epoch walls by type against phase 4c's; ``stop()`` leaves no service
       thread.  The sequential legs' launches count into the kernels line;
+   g. boot and restart, at config 5's streaming shape (P 100,000, C 1,000,
+      resident B 131,072), the host rung off: (a) in a fresh process,
+      ``warmup(max_partitions=100_000, consumers=[1000], solvers=("rounds",
+      "scan", "global", "stream", "sinkhorn"), device="cuda")`` returns a
+      row for every job (the rows and seconds printed), and that process's
+      first config-5 ``rounds`` ``assign()`` builds nothing
+      (``compile_count()`` moves by 0); its wall is printed beside the first
+      ``assign()`` of a second fresh process without the warm-up, and
+      the warm-up launches every kernel, and raises ``ValueError`` for
+      ``coalesce_max_batch=2`` and for a mesh manager; (b)
+      sidecar A (``snapshot_path`` in a temporary directory) serves two
+      streams through phase 4c's first 10 epochs (each equal to phase 4c's
+      choice), ``drain`` over the wire writes the final snapshot and a
+      request during the drain is answered ``DrainReject``; sidecar B boots
+      on the same snapshot with ``recovery_prestack`` and
+      ``recovery_warmup``: ``stats.lifecycle`` reports both streams
+      recovered and pre-stacked, load outcome ``ok``, and each stream's next
+      epoch equals phase 4c's epoch 11 bit for bit with no round-scan launch,
+      one digest launch and no build; the boot's walls (recovery, pre-stack,
+      recovery warm-up) and the first epochs' walls beside phase 4c's are
+      printed; (c) on B, with the scrubber every 100 ms, one flipped bit of
+      an idle stream's resident choice is caught by the scrubber's audit
+      (``klba_scrub_failures_total{buffer="choice"}`` + 1, the stream
+      quarantined), and its next epoch equals the uncorrupted stream's on
+      the same lags; the audit's wall at B 131,072 (median of 5).  The
+      phase's launches (both processes of (a) included) count into the
+      kernels line;
 5. times, with CUDA events, medians of 30 runs after warm-up: each kernel
    alone at its main-path shape, its plain version on the card, the
    library yardstick where there is one, and its bound; the device time
@@ -186,7 +213,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 
 It prints the card's name and power limit, one JSON ``ladder`` line (phase
 4e's legs, drill and watchdog cost), one JSON ``sidecar`` line (phase 4f's
-walls and bytes), one JSON ``profiler`` line (the profiler's clock skew
+walls and bytes), one JSON ``lifecycle`` line (phase 4g's warm-up rows,
+boot, first epochs and scrub walls, and its launches), one JSON
+``profiler`` line (the profiler's clock skew
 after the builds, around phase 4f and after phase 5, and its sessions
 recorded and discarded), one JSON ``kernels`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
@@ -194,7 +223,9 @@ result.
 
 ``python3 chip_smoke.py --sidecar`` runs phase 4f alone (after the builds,
 phase 4a and one phase-4c run it is held to) and prints its ``sidecar``
-line.  ``--profiler-probe`` runs ``profiler_probe`` (torch.profiler's
+line; ``--lifecycle`` runs phase 4g alone (after the builds and one
+phase-4c run) and prints its ``lifecycle`` line (``--lifecycle-child warm
+|cold`` is the fresh process of its step (a)).  ``--profiler-probe`` runs ``profiler_probe`` (torch.profiler's
 device records in a fresh process; no build) and prints it as JSON.  Six
 more modes time kernels alone::
 
@@ -2141,6 +2172,358 @@ def sidecar_path(device, answers: dict, reference: StreamRun) -> tuple:
     return launches, {"config": 5, "device": name, "concurrent": concurrent, **times_}
 
 
+# -- phase 4g --------------------------------------------------------------
+
+# The warm-up phase 4g runs at config 5's shape: the solvers, and the rows
+# it must return (the stream job, one delta epoch at each K = 16..512 of
+# the default ladder, the dense and the linear quality solve, the three
+# batched solves).
+LIFECYCLE_SOLVERS = ("rounds", "scan", "global", "stream", "sinkhorn")
+LIFECYCLE_ROWS = (["stream"] + ["stream_delta"] * 6
+                  + ["sinkhorn", "linear", "rounds", "scan", "global"])
+# Phase 4c's epochs each stream of sidecar A serves before the drain; the
+# restart's first epoch is phase 4c's next one.
+LIFECYCLE_EPOCHS = 10
+LIFECYCLE_SIDS = ("config5-a", "config5-b")
+# The scrubber's cadence on sidecar B.
+LIFECYCLE_SCRUB_MS = 100.0
+
+
+def lifecycle_child(mode: str, device: str = "cuda") -> dict:
+    """``--lifecycle-child warm|cold``, in a fresh process: with ``warm``
+    the warm-up at config 5's shape first (every job must return a row),
+    then the process's first config-5 ``rounds`` ``assign()``: its wall,
+    its launches and the builds it paid (``compile_count()`` delta)."""
+    from kafka_lag_based_assignor_tpu_torch.utils.observability import (
+        compile_count,
+        install_compile_counter,
+    )
+    from kafka_lag_based_assignor_tpu_torch.warmup import warmup
+
+    out = {"mode": mode}
+    install_compile_counter()
+    if mode == "warm":
+        # No hidden fallback: the jobs the port cannot run yet raise at the
+        # call, before any device work, on the card as on the CPU.
+        for unported in ({"coalesce_max_batch": 2}, {"mesh_manager": object()}):
+            try:
+                warmup(max_partitions=STREAM_P, consumers=[STREAM_C], device=device,
+                       **unported)
+            except ValueError:
+                continue
+            raise AssertionError(f"warm-up: {unported} did not raise")
+        reset_counts()
+        t0 = time.perf_counter()
+        rows = warmup(max_partitions=STREAM_P, consumers=[STREAM_C],
+                      solvers=LIFECYCLE_SOLVERS, device=device)
+        out["warmup_s"] = time.perf_counter() - t0
+        out["warmup_launches"] = read_counts()
+        if device == "cuda" and not all(out["warmup_launches"].values()):
+            raise AssertionError(f"warm-up: a kernel never launched: "
+                                 f"{out['warmup_launches']}")
+        out["rows"] = [list(r) for r in rows]
+        if [r[0] for r in rows] != LIFECYCLE_ROWS:
+            raise AssertionError(f"warm-up: rows {[r[0] for r in rows]}, expected "
+                                 f"{LIFECYCLE_ROWS} (a job failed and was skipped)")
+    lags, members = baseline_workload(5)
+    builds = compile_count()
+    reset_counts()
+    t0 = time.perf_counter()
+    _, stats = assign_once(lags, members, "rounds", torch.device(device))
+    # The assign() call's own wall (its RebalanceStats), and with the
+    # plugin's set-up (a 100k-partition FakeBroker and configure()).
+    out["first_assign_ms"] = stats.wall_ms
+    out["first_assign_with_setup_ms"] = (time.perf_counter() - t0) * 1e3
+    out["first_assign_stats"] = {"lag_read_ms": stats.lag_read_ms, "solve_ms": stats.solve_ms}
+    out["launches"] = read_counts()
+    out["builds"] = compile_count() - builds
+    if mode == "warm" and out["builds"] != 0:
+        raise AssertionError(f"warm-up: the first assign() after it built {out['builds']} "
+                             "kernels")
+    return out
+
+
+def lifecycle_child_run(mode: str) -> dict:
+    argv = [sys.executable, os.path.abspath(__file__), "--lifecycle-child", mode]
+    done = subprocess.run(argv, capture_output=True, text=True, timeout=400)
+    lines = done.stdout.strip().splitlines()
+    if done.returncode != 0 or not lines:
+        raise AssertionError(f"lifecycle child {mode} exited {done.returncode}: "
+                             f"{done.stdout[-3000:]}{done.stderr[-3000:]}")
+    return json.loads(lines[-1])["lifecycle_child"]
+
+
+def lifecycle_warmup() -> tuple:
+    """4g (a): the warm-up in a fresh process and, in another, the first
+    ``assign()`` without it.  Returns (the launches of both, the report)."""
+    warm = lifecycle_child_run("warm")
+    cold = lifecycle_child_run("cold")
+    for row in warm["rows"]:
+        log(f"lifecycle warm-up {row[0]:12s} T={row[1]:<4d} P={row[2]} C={row[3]} "
+            f"{row[4]:.3f} s")
+    log(f"lifecycle warm-up: {warm['warmup_s']:.3f} s in all; the first config-5 rounds "
+        f"assign() after it {warm['first_assign_ms']:.3f} ms ({warm['builds']} builds), "
+        f"without it {cold['first_assign_ms']:.3f} ms ({cold['builds']} builds; the "
+        "libraries phase 2 built are on disk in both)")
+    launches = {k: warm["warmup_launches"][k] + warm["launches"][k] + cold["launches"][k]
+                for k in warm["launches"]}
+    log(f"lifecycle warm-up launches {warm['warmup_launches']}")
+    return launches, {"warm": warm, "cold": cold}
+
+
+def reference_lags(reference: StreamRun, n: int) -> list:
+    """The lags of phase 4c's first ``n`` epochs (the cold start, then
+    bench.py's drift under the choice each epoch served)."""
+    rng, lags0 = stream_lags0(STREAM_P)
+    out, lags = [lags0], lags0.astype(np.float64)
+    for e in range(n - 1):
+        lags = stream_drift(rng, lags, e, reference.records[e][2], STREAM_C)
+        out.append(lags.astype(np.int64))
+    return out
+
+
+def epoch_span_ms() -> tuple:
+    from kafka_lag_based_assignor_tpu_torch.utils import metrics
+
+    h = metrics.REGISTRY.histogram("klba_span_duration_ms", {"span": "stream.epoch"})
+    return h.count, h.sum
+
+
+class LifecycleClient:
+    """One client of a phase-4g sidecar: dense config-5 stream epochs,
+    each checked against the choice it must give, its launches counted
+    and its walls kept (the round trip, and the engine's epoch from the
+    server's ``stream.epoch`` span)."""
+
+    def __init__(self, svc, launches: dict):
+        from kafka_lag_based_assignor_tpu_torch import service
+
+        self.device = svc.device
+        self.client = service.AssignorServiceClient(*svc.address, timeout_s=600)
+        self.members = [f"c{i:04d}" for i in range(STREAM_C)]
+        self.launches = launches
+
+    def epoch(self, sid: str, lags, want, label: str, expect=None) -> dict:
+        n0, s0 = epoch_span_ms()
+        t0 = time.perf_counter()
+        result, grew = counted(lambda: self.client.stream_assign(
+            sid, "t0", wire_rows(lags), self.members, options=SIDECAR_STREAM_OPTS))
+        wall = (time.perf_counter() - t0) * 1e3
+        n1, s1 = epoch_span_ms()
+        add_counts(self.launches, grew)
+        choice = wire_choice(result["assignments"], self.members)
+        s = result["stream"]
+        if want is not None and not np.array_equal(choice, want):
+            raise AssertionError(f"{label} {sid}: differs from the choice it must give")
+        if s["fallback_used"] or (expect is not None and self.device.type == "cuda" and {
+                k: grew[k] for k in expect} != expect):
+            raise AssertionError(f"{label} {sid}: launches {grew}, expected {expect}; {s}")
+        epoch_ms = (s1 - s0) if n1 == n0 + 1 else None
+        log(f"{label} {sid}: wall {wall:9.3f} ms (engine epoch {epoch_ms!r} ms) "
+            f"cold_start {s['cold_start']} refined {s['refined']} warm_restart "
+            f"{s['warm_restart']} churn {s['churn']} launches {grew}")
+        return {"wall_ms": wall, "epoch_ms": epoch_ms, "choice": choice, "stream": s}
+
+    def close(self) -> None:
+        self.client.close()
+
+
+def timed(fn, into: list):
+    def run(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            into.append((time.perf_counter() - t0) * 1e3)
+    return run
+
+
+def lifecycle_restart(device, reference: StreamRun, root: str) -> tuple:
+    """4g (b) and (c): sidecar A serves two streams through phase 4c's first
+    10 epochs and drains over the wire; sidecar B boots on its snapshot
+    (pre-stack and recovery warm-up on), and each stream's next epoch is
+    phase 4c's epoch 11, bit for bit, with no cold chain and one digest;
+    then B's scrubber catches a flipped bit of an idle stream's resident
+    choice and the next epoch heals.  Returns (the launches, the report)."""
+    from kafka_lag_based_assignor_tpu_torch import service
+    from kafka_lag_based_assignor_tpu_torch import warmup as warmup_mod
+    from kafka_lag_based_assignor_tpu_torch.utils import metrics
+    from kafka_lag_based_assignor_tpu_torch.utils.observability import compile_count
+    from kafka_lag_based_assignor_tpu_torch.utils.overload import ShedReject
+
+    launches = {name: 0 for name, _ in COUNTERS}
+    path = os.path.join(root, "snapshot.json")
+    lags = reference_lags(reference, LIFECYCLE_EPOCHS + 2)
+    rec = reference.records
+    if not rec[LIFECYCLE_EPOCHS][3].refined:
+        raise AssertionError("phase 4c's epoch 11 is not a refine: the restart check needs one")
+    knobs = dict(port=0, device=device, host_fallback=False, snapshot_path=path,
+                 snapshot_interval_s=3600.0)
+    report = {}
+    # (b) 1: sidecar A through phase 4c's first 10 epochs, then the drain.
+    a = service.AssignorService(scrub_interval_ms=0, **knobs).start()
+    client = LifecycleClient(a, launches)
+    try:
+        for k in range(LIFECYCLE_EPOCHS):
+            for sid in LIFECYCLE_SIDS:
+                client.epoch(sid, lags[k], rec[k][2], f"lifecycle A epoch {k}")
+        t0 = time.perf_counter()
+        drain = client.client.request("drain")
+        if drain != {"state": "draining", "initiated": True}:
+            raise AssertionError(f"lifecycle drain answered {drain}")
+        try:
+            client.client.stream_assign(LIFECYCLE_SIDS[0], "t0", wire_rows(lags[0]),
+                                        client.members, options=SIDECAR_STREAM_OPTS)
+            raise AssertionError("lifecycle: a request during the drain was admitted")
+        except ShedReject as exc:
+            if exc.rung != "draining":
+                raise
+            rejected = {"class": exc.klass, "rung": exc.rung,
+                        "retry_after_ms": exc.retry_after_ms}
+        if not a.wait_stopped(120):
+            raise AssertionError("lifecycle: sidecar A did not finish its drain")
+        report["drain_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        client.close()
+        a.stop()
+    with open(path, "rb") as f:
+        doc = json.loads(f.read())
+    if sorted(doc["sections"]["streams"]["body"]) != sorted(LIFECYCLE_SIDS):
+        raise AssertionError("lifecycle: the final snapshot lacks a stream")
+    report["snapshot_bytes"] = os.path.getsize(path)
+    log(f"lifecycle: drained in {report['drain_ms']:.3f} ms; a request during the drain "
+        f"was rejected {rejected}; final snapshot {report['snapshot_bytes']} bytes")
+    # (b) 2: sidecar B on the same snapshot, its boot phases timed.
+    b = service.AssignorService(scrub_interval_ms=LIFECYCLE_SCRUB_MS, recovery_prestack=True,
+                                recovery_warmup=True, **knobs)
+    prestack_ms, warmup_ms = [], []
+    b._prestack_recovered = timed(b._prestack_recovered, prestack_ms)
+    real_warmup = warmup_mod.warmup
+    warmup_mod.warmup = timed(real_warmup, warmup_ms)
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        b.start()
+        boot_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        warmup_mod.warmup = real_warmup
+    add_counts(launches, read_counts())
+    client = LifecycleClient(b, launches)
+    try:
+        lc = client.client.request("stats")["lifecycle"]
+        recovery = lc["recovery"]
+        if (recovery["outcome"], recovery["streams_recovered"],
+                recovery.get("streams_prestacked")) != ("ok", 2, 2):
+            raise AssertionError(f"lifecycle: B recovered {recovery}")
+        report["boot"] = {"start_ms": boot_ms, "recovery_ms": recovery["duration_ms"],
+                          "prestack_ms": prestack_ms[0], "recovery_warmup_ms": warmup_ms[0],
+                          "recovery": recovery}
+        log(f"lifecycle B boot: start() {boot_ms:.3f} ms: recovery "
+            f"{recovery['duration_ms']:.3f} ms, prestack {prestack_ms[0]:.3f} ms, recovery "
+            f"warm-up {warmup_ms[0]:.3f} ms; {recovery}")
+        # (b) 4: the next epoch of each stream is phase 4c's epoch 11.
+        builds = compile_count()
+        ref = rec[LIFECYCLE_EPOCHS]
+        first = {}
+        for sid in LIFECYCLE_SIDS:
+            got = client.epoch(sid, lags[LIFECYCLE_EPOCHS], ref[2],
+                               f"lifecycle B epoch {LIFECYCLE_EPOCHS}",
+                               expect={"rounds_scan": 0, "state_digest": 1})
+            if not got["stream"]["warm_restart"] or got["stream"]["cold_start"]:
+                raise AssertionError(f"lifecycle B {sid}: not a warm restart: {got['stream']}")
+            first[sid] = {"wall_ms": got["wall_ms"], "epoch_ms": got["epoch_ms"]}
+        if compile_count() != builds:
+            raise AssertionError("lifecycle B: the first epochs after the restart built "
+                                 f"{compile_count() - builds} kernels")
+        warm = [r[6] for r in rec if r[1] == "refine"]
+        report["first_epochs"] = first
+        report["phase_4c"] = {"warm_refine_p50_ms": statistics.median(warm),
+                              "cold_ms": rec[0][6], "epoch_11_ms": ref[6]}
+        log(f"lifecycle B: first epochs after the restart {first}, bit-equal to phase 4c's "
+            f"epoch {LIFECYCLE_EPOCHS + 1}, no build; phase 4c in-process: warm refine p50 "
+            f"{report['phase_4c']['warm_refine_p50_ms']:.3f} ms, cold "
+            f"{rec[0][6]:.3f} ms, its epoch {LIFECYCLE_EPOCHS + 1} {ref[6]:.3f} ms")
+        report["scrub"] = lifecycle_scrub(b, client, lags[LIFECYCLE_EPOCHS + 1], metrics)
+    finally:
+        client.close()
+        b.stop()
+    return launches, report
+
+
+def lifecycle_scrub(svc, client: LifecycleClient, lags, metrics) -> dict:
+    """4g (c): one flipped bit of the idle stream ``config5-b``'s resident
+    choice; B's scrubber must count it in ``klba_scrub_failures_total{buffer=
+    "choice"}`` and quarantine the stream, whose next epoch then equals the
+    uncorrupted ``config5-a``'s on the same lags.  Also the audit's wall at
+    B 131,072 on the clean stream (median of 5)."""
+    from kafka_lag_based_assignor_tpu_torch.utils import scrub as scrub_lib
+
+    sid_ok, sid_bad = LIFECYCLE_SIDS
+    failures = metrics.REGISTRY.counter("klba_scrub_failures_total", {"buffer": "choice"})
+    st = svc._streams[sid_bad]
+    before = failures.value
+    with st.lock:
+        resident = st.engine._resident[0]
+        host = resident[:STREAM_P].cpu().numpy()
+        resident[:STREAM_P].copy_(torch.from_numpy(scrub.flip_bit(host, seed=5)))
+        sync(resident.device)
+        t0 = time.perf_counter()
+    while failures.value == before and time.perf_counter() - t0 < 30:
+        time.sleep(0.005)
+    detect_ms = (time.perf_counter() - t0) * 1e3
+    with st.lock:  # the audit quarantines under the lock, after counting
+        quarantined_now = st.engine.quarantined
+    if failures.value != before + 1 or not quarantined_now:
+        raise AssertionError(f"lifecycle scrub: failures {failures.value - before}, "
+                             f"quarantined {st.engine.quarantined}")
+    quarantined = svc.scrub_stats()["quarantined_streams"]
+    healthy = client.epoch(sid_ok, lags, None, "lifecycle B heal leg",
+                           expect={"rounds_scan": 0})
+    healed = client.epoch(sid_bad, lags, healthy["choice"], "lifecycle B heal leg",
+                          expect={"rounds_scan": 0})
+    if st.engine.quarantined or svc.scrub_stats()["quarantined_streams"] != 0:
+        raise AssertionError("lifecycle scrub: the epoch after the audit did not heal")
+    audits = []
+    st_ok = svc._streams[sid_ok]
+    for _ in range(5):
+        with st_ok.lock:
+            t0 = time.perf_counter()
+            audited, fails = scrub_lib.audit_engine(st_ok.engine)
+            audits.append((time.perf_counter() - t0) * 1e3)
+        if not audited or fails:
+            raise AssertionError(f"lifecycle scrub: the clean stream audited {fails}")
+    out = {"detect_ms": detect_ms, "quarantined_streams": quarantined,
+           "heal_wall_ms": healed["wall_ms"], "heal_epoch_ms": healed["epoch_ms"],
+           "audit_ms": statistics.median(audits), "audit_ms_all": audits,
+           "interval_ms": LIFECYCLE_SCRUB_MS}
+    log(f"lifecycle scrub: the flipped choice bit caught {detect_ms:.3f} ms after the flip "
+        f"(cadence {LIFECYCLE_SCRUB_MS} ms), stream quarantined, healed to the uncorrupted "
+        f"stream's bits; audit at B {pad_bucket(STREAM_P)} {out['audit_ms']:.3f} ms "
+        f"(median of 5: {audits})")
+    return out
+
+
+def lifecycle_path(device, reference: StreamRun) -> tuple:
+    """Phase 4g, boot and restart: (a) the warm-up, (b) the restart, (c)
+    the scrub.  Every leg counts its launches from 0; the sum is the
+    phase's.  The process-wide quality knobs are restored after it (the
+    warm-up sizes the tile from the card's free memory).  Returns (the
+    launches, the ``lifecycle`` line)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with dispatch.quality_scope(dispatch.quality_mode(), dispatch.quality_tile()):
+        launches, warm = lifecycle_warmup()
+        with tempfile.TemporaryDirectory(prefix="klba-lifecycle-") as root:
+            restart_launches, restart = lifecycle_restart(device, reference, root)
+    add_counts(launches, restart_launches)
+    seconds = time.perf_counter() - t0
+    log(f"main path (boot and restart): launches {launches}; {seconds:.3f} s")
+    return launches, {"warmup": warm, **restart, "launches": launches, "seconds": seconds,
+                      "device": torch.cuda.get_device_name(0)}
+
+
+
 # -- phase 5 ---------------------------------------------------------------
 
 
@@ -3063,6 +3446,14 @@ def main() -> int:
         launches, sidecar = sidecar_path(device, answers, StreamRun(device).run())
         log(json.dumps({"sidecar": sidecar, "launches": launches, "device": name}))
         return 0
+    if sys.argv[1:] == ["--lifecycle"]:
+        build()
+        launches, lifecycle = lifecycle_path(device, StreamRun(device).run())
+        log(json.dumps({"lifecycle": lifecycle, "device": name}, default=str))
+        return 0
+    if sys.argv[1:2] == ["--lifecycle-child"]:
+        log(json.dumps({"lifecycle_child": lifecycle_child(sys.argv[2])}))
+        return 0
     if sys.argv[1:2] == ["--device-share"]:
         cfg, solver, refine_iters = int(sys.argv[2]), sys.argv[3], int(sys.argv[4]) or None
         log(json.dumps({"device_share": profiled_assign(cfg, solver, refine_iters, device)}))
@@ -3085,6 +3476,7 @@ def main() -> int:
     skew.append(profiler_skew("before phase 4f"))
     sidecar_launches, sidecar = sidecar_path(device, answers, stream_run)
     skew.append(profiler_skew("after phase 4f"))
+    lifecycle_launches, lifecycle = lifecycle_path(device, stream_run)
     launches["rounds_scan"] += (rounds_launches + stream_launches["rounds_scan"]
                                 + solver_launches["rounds_scan"]
                                 + ladder_launches["rounds_scan"])
@@ -3092,6 +3484,8 @@ def main() -> int:
                                 + ladder_launches["state_digest"])
     launches["scan_greedy"] = solver_launches["scan_greedy"]
     for k, v in sidecar_launches.items():
+        launches[k] += v
+    for k, v in lifecycle_launches.items():
         launches[k] += v
     k1 = times(device)
     quality = quality_times(device)
@@ -3107,6 +3501,7 @@ def main() -> int:
     line.append(kernel_line("scan_greedy", launches["scan_greedy"], scan_err, k7))
     log(json.dumps({"ladder": ladder}))
     log(json.dumps({"sidecar": sidecar}))
+    log(json.dumps({"lifecycle": lifecycle}, default=str))
     log(json.dumps({"profiler": {"skew": skew, "sessions": SESSIONS,
                                  "pad_s": PROFILER_PAD_S, "skew_pad_s": SKEW_PAD_S}}))
     log(json.dumps({"kernels": line}))

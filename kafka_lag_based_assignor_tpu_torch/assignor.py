@@ -51,8 +51,11 @@ deadline, about 40 s for the round scan's source: a ``solve.timeout.ms``
 below that can time it out, trip the breaker and answer that rebalance
 from the host, as a cold XLA compile does in the JAX plugin.  The build
 finishes in the abandoned worker and is reused.  The configure-time
-warm-up (``tpu.assignor.warmup.shapes``) that avoids this comes with the
-port's warm-up slice; the key is accepted and not read yet.
+warm-up avoids this: with ``tpu.assignor.warmup.shapes`` set,
+``configure()`` builds every kernel and runs the configured device solver
+once at each listed shape (:func:`.warmup.warmup`), so the first
+rebalance builds nothing.  ``native`` and ``host`` have no device work and
+warm nothing; a failed warm-up is logged and the consumer starts anyway.
 """
 
 from __future__ import annotations
@@ -241,6 +244,36 @@ class LagBasedPartitionAssignor:
                 )
             ),
         )
+        # Optional warm-up at consumer startup (tpu.assignor.warmup.shapes),
+        # the sidecar's --warmup semantics: only the configured solver, and
+        # only a device solver.  Best effort: a failing warm-up is logged
+        # and never stops the consumer from starting.
+        solver = self._config.solver
+        if self._config.warmup_shapes and solver in DEVICE_SOLVERS:
+            try:
+                from .warmup import warmup
+
+                for max_p, consumers, topics in self._config.warmup_shapes:
+                    warmup(
+                        max_partitions=max_p,
+                        consumers=[consumers],
+                        topics=[topics],
+                        solvers=(solver,),
+                        sinkhorn_iters=self._config.sinkhorn_iters,
+                        refine_iters=self._config.refine_iters,
+                        device=self.device,
+                    )
+            except Exception:
+                LOGGER.warning(
+                    "configure-time warm-up failed; continuing without it "
+                    "(first rebalance may pay the kernel builds)",
+                    exc_info=True,
+                )
+        elif self._config.warmup_shapes:
+            LOGGER.info(
+                "solver %r has no device executables; warmup.shapes ignored",
+                self._config.solver,
+            )
 
     # -- ConsumerPartitionAssignor SPI ------------------------------------
 

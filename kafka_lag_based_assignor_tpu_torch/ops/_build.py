@@ -14,6 +14,10 @@ watchdog abandons in the middle of a build leaves the build running in its
 worker; the build finishes, the library is kept, and the next call reuses
 it.  Every fresh build is counted (``utils/observability.compile_count``),
 after its lock is released.
+
+Every kernel wrapper counts its launches through :func:`count_launch`,
+which holds one lock around the increment, so launches from several
+threads at once all count.
 """
 
 from __future__ import annotations
@@ -40,6 +44,18 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 # Guards _LOCKS; each source's own lock guards its build and load.
 _LOCK = threading.Lock()
 _LOCKS: Dict[str, threading.Lock] = {}
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add ``n`` to a kernel wrapper's ``launches`` under one process-wide
+    lock.  The sidecar's handler threads, the watchdog's workers and the
+    scrubber launch from several threads at once, and ``+=`` on an
+    attribute is a read and a write that a thread switch can split."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += n
 
 
 def _lock_for(name: str) -> threading.Lock:

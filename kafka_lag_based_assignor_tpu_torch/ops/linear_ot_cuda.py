@@ -31,6 +31,7 @@ import math
 import torch
 
 from . import linear_ot
+from ._build import count_launch
 from .rounds_cuda import MAX_SLOTS
 
 #: Largest consumer count the kernel takes: the round scan's, so every
@@ -119,7 +120,7 @@ def superblock_partials(ws_b, cnt_b, A, B):
         return linear_ot._superblock_partials(ws_b, cnt_b, A, B)
     out = _call("klba_superblock_partials", (2, ws_b.shape[0], A.shape[0]),
                 ws_b, cnt_b, A, B)
-    superblock_partials.launches += 1
+    count_launch(superblock_partials)
     return out
 
 
@@ -151,8 +152,8 @@ def mirror_prox_step(ws_b, cnt_b, A, B, sc, prev_spread, eta: float):
         return mirror_prox_step_torch(ws_b, cnt_b, A, B, sc, prev_spread, eta)
     out = _call("klba_mirror_prox_step", (3, A.shape[0]), ws_b, cnt_b, A, B, sc.data_ptr(),
                 prev_spread.data_ptr(), ctypes.c_float(eta))
-    mirror_prox_step.launches += 1
-    superblock_partials.launches += 2
+    count_launch(mirror_prox_step)
+    count_launch(superblock_partials, 2)
     return out
 
 

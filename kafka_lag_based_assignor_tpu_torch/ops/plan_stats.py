@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from ._build import count_launch
 from .rounds_cuda import MAX_SLOTS
 
 # Hash-noise amplitude: large enough to break the symmetric fixpoint of
@@ -155,7 +156,7 @@ def plan_stats(ws_u, count_u, wsum_u, A, B, need: str = "both"):
     from .plan_stats_cuda import launch
 
     out = launch(ws_u, count_u, wsum_u, A, B, need)
-    plan_stats.launches += 1
+    count_launch(plan_stats)
     return out
 
 

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import torch
 
+from ._build import count_launch
 from .packing import table_rows
 from .sortops import (
     bincount_sorted,
@@ -704,7 +705,7 @@ def state_digest(lags_p, choice_p, counts, num_consumers: int, row_tab=None):
     from .state_digest_cuda import launch
 
     out = launch(lags_p, choice_p, counts, num_consumers, row_tab)
-    state_digest.launches += 1
+    count_launch(state_digest)
     return out if row_tab is not None else out[:4]
 
 

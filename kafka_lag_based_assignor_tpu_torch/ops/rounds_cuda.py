@@ -26,6 +26,8 @@ import ctypes
 
 import torch
 
+from ._build import count_launch
+
 #: Largest padded consumer count: 16384 slots, 16 a thread over 1,024
 #: threads, whose two-key exchange buffer (12 B a slot) is 192 KiB of
 #: shared memory (Hopper gives a block up to 227 KB).
@@ -202,7 +204,7 @@ def _launch(gains, valid, totals0, carry_across_topics: bool, rank_bits: int):
             "rounds_scan kernel launch failed: "
             + lib.klba_cuda_error_string(err).decode()
         )
-    rounds_scan.launches += 1
+    count_launch(rounds_scan)
     return choice, totals
 
 

@@ -25,6 +25,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ._build import count_launch
 from .rounds_cuda import MAX_SLOTS, rank_bits_for
 from .scan_kernel import _argmin_consumer
 
@@ -168,7 +169,7 @@ def _launch(sorted_lags, sorted_valid, num_consumers: int, eligible, rank_bits=N
             err = fn(*args)
     if err != 0:
         raise RuntimeError(f"scan_greedy kernel launch failed: {error_string(err).decode()}")
-    scan_greedy.launches += 1
+    count_launch(scan_greedy)
     return choice, counts, totals
 
 

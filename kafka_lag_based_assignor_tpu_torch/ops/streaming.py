@@ -69,7 +69,7 @@ import torch
 from ..utils import faults, metrics
 from ..utils import scrub as scrub_mod
 from ..utils import trace as trace_mod
-from ..utils.device import DeviceLike, resolve_device
+from ..utils.device import DeviceLike, fetch as _fetch, resolve_device
 from ..utils.observability import count_constrained_bound
 from .batched import _narrow_choice, assign_stream, stream_payload
 from .delta import apply_assignment_delta, compact_changed, readback_k
@@ -265,16 +265,6 @@ def _warm_fused_delta(idx, vals, lags_p, choice, row_tab, counts, limit,
         limit, P, num_consumers, iters, max_pairs, exchange_budget, bulk=True,
         delta_k=delta_k,
     )
-
-
-def _fetch(*tensors):
-    """Numpy copies of device tensors, with one synchronisation for all of
-    them on the card."""
-    if tensors[0].device.type == "cpu":
-        return tuple(t.numpy() for t in tensors)
-    host = [t.to("cpu", non_blocking=True) for t in tensors]
-    torch.cuda.current_stream(tensors[0].device).synchronize()
-    return tuple(t.numpy() for t in host)
 
 
 class StreamingAssignor:

@@ -47,7 +47,9 @@ Methods served:
   warm-restarts from the last answered choice;
 * ``stream_reset``, ``stream_flight`` (one stream's own flight ring) and
   ``recommend`` (a per-stream consumer-count recommendation from the lag
-  trend and the overload state).
+  trend and the overload state);
+* ``drain`` -> a graceful drain (below), answered at once with the
+  lifecycle state.
 
 Every stream request first passes the overload admission
 (:mod:`.utils.overload`): its SLO class (config
@@ -57,13 +59,30 @@ a structured ``shed`` object; a degrade serves the previous assignment),
 and the weighted in-flight depth.  ``metrics_port`` serves the Prometheus
 exposition over plain HTTP (``GET /metrics``, :mod:`.utils.metrics_http`).
 
+Lifecycle (the JAX service's): ``start()`` boots in one sequence under the
+lifecycle lock: it takes the snapshot's writer lease (fenced backends),
+recovers the streams of the last snapshot (``_recover``: each stream's
+engine seeded with its choice; breaker and overload state restored), with
+``recovery_prestack`` rebuilds their resident state off the serving path,
+runs the warm-up of ``warmup_shapes`` and, with ``recovery_warmup``, of
+the recovered shapes (:mod:`.warmup`), then starts the snapshot writer,
+the resident-state scrubber (:class:`.utils.scrub.StateScrubber`), the
+metrics listener and the accept loop.  ``drain`` (or SIGTERM) stops
+admissions with a structured :class:`DrainReject`, waits for in-flight
+requests up to ``drain_timeout_s``, writes the final snapshot, releases
+the writer lease and closes the listener; the next boot on the same
+snapshot recovers from it.  A recovered stream's first epoch is paced
+(``resync_max_inflight`` concurrent dense rebuilds) and reports
+``warm_restart``; a drifted roster discards its state.  The snapshot
+format is the JAX package's byte for byte (:mod:`.utils.snapshot`), so
+either package recovers from the other's file.  ``stats.lifecycle`` and
+``stats.scrub`` answer as the JAX service's.
+
 What the JAX service does that this one does not do yet: the megabatch
 coalescer (every stream epoch runs inline, as the JAX service with
-``coalesce_max_batch=1``), the resident-state scrubber, snapshots with
-recovery, drain and the resync pacer, warm-up shapes, the device mesh and
-federation.  Their knobs are absent; ``drain``, ``peer_sync``,
-``federation`` and ``federated_assign`` answer the JAX "unknown method"
-error, and the ``stats`` sections ``coalesce``, ``lifecycle``, ``scrub``,
+``coalesce_max_batch=1``), the device mesh and federation.  Their knobs are
+absent; ``peer_sync``, ``federation`` and ``federated_assign`` answer the
+JAX "unknown method" error, and the ``stats`` sections ``coalesce``,
 ``federation`` and ``mesh`` answer None.
 
 Device: every solve and every stream engine runs on ``device`` (default
@@ -93,6 +112,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import socket
 import socketserver
 import threading
@@ -121,10 +141,12 @@ from .utils.observability import (
 )
 from .utils.overload import (
     CLASS_WEIGHTS,
+    SLO_CLASSES,
     OverloadController,
     ShedReject,
     SloPolicy,
     recommend_payload,
+    record_shed,
 )
 from .utils.watchdog import SolveRejected, Watchdog
 
@@ -169,6 +191,18 @@ _LAG_ENCODINGS = ("zlib",)
 
 # Per-stream lag-trend window for ``recommend``: (time, total_lag) samples.
 STREAM_HISTORY = 64
+
+# Lifecycle states, as the ``klba_lifecycle_state`` gauge's values.
+_LIFECYCLE_STATES = ("serving", "draining", "stopped")
+
+# The takeover-warming TTL: a recovered stream that never sends its first
+# post-boot epoch stops holding the overload controller's standing pressure
+# after this long.
+TAKEOVER_WARMING_TTL_S = 300.0
+
+# Per-process instance sequence for lease owner ids: two services in one
+# process (restart drills) must be told apart by the fencing protocol.
+_OWNER_SEQ = iter(range(1, 1 << 30))
 
 
 def _counter_total(name: str) -> int:
@@ -498,6 +532,23 @@ def _keepable(prev, P: int, C: int) -> bool:
     return int(counts.max() - counts.min()) <= 1
 
 
+class DrainReject(ShedReject):
+    """A request rejected because the sidecar is draining: the wire shape of
+    an overload shed (class, rung ``"draining"``, ``retry_after_ms``), so
+    clients reuse one backoff path; the hint means "retry another
+    instance"."""
+
+    def __init__(self, klass: str, retry_after_ms: int):
+        RuntimeError.__init__(
+            self,
+            f"draining: new {klass!r} work is not admitted; retry "
+            f"another instance after {retry_after_ms} ms",
+        )
+        self.klass = klass
+        self.rung = "draining"
+        self.retry_after_ms = retry_after_ms
+
+
 class _Stream:
     """Warm per-stream solver state."""
 
@@ -508,6 +559,10 @@ class _Stream:
         self.pids = None  # np.int64[P], sorted — the row order contract
         self.flight: Optional[metrics.FlightRecorder] = None
         self.klass = "standard"  # effective SLO class of the last epoch
+        # True between snapshot recovery and the stream's first post-restart
+        # epoch, which re-validates the roster: a drifted membership or pid
+        # set discards this stream's recovered state (a cold start).
+        self.recovered = False
         # (time_s, total_lag) per served epoch — the recommend window.
         self.history = deque(maxlen=STREAM_HISTORY)
         # Delta-epoch wire state: the last accepted full lag vector (in
@@ -632,6 +687,54 @@ def _solve(
     return assignments, stats
 
 
+class _ResyncPacer:
+    """Post-restart resync pacing: a restart wave's first epochs all need a
+    dense rebuild of their resident state, and this caps how many run at
+    once.  Excess epochs wait their turn, bounded by the request's own
+    budget; on timeout the epoch proceeds unpaced (fail-open).  Each wait is
+    counted in ``klba_resync_paced_total``."""
+
+    def __init__(
+        self,
+        max_inflight: int,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        if max_inflight <= 0:
+            raise ValueError(f"max_inflight={max_inflight} must be > 0")
+        self.max_inflight = int(max_inflight)
+        self._cond = threading.Condition()
+        self._active = 0
+        self._clock = clock
+        # High-water mark of concurrent paced rebuilds (<= max_inflight).
+        self.high_water = 0
+        self._m_paced = metrics.REGISTRY.counter("klba_resync_paced_total")
+
+    def acquire(self, timeout_s: Optional[float]) -> bool:
+        """Take a rebuild slot; True when one was taken (the caller must
+        :meth:`release`), False when the wait timed out and the caller
+        proceeds unpaced."""
+        deadline = self._clock() + (
+            min(timeout_s, 30.0) if timeout_s is not None else 30.0
+        )
+        with self._cond:
+            if self._active >= self.max_inflight:
+                self._m_paced.inc()
+                while self._active >= self.max_inflight:
+                    remaining = deadline - self._clock()
+                    if remaining <= 0:
+                        return False  # fail open: dispatch unpaced
+                    self._cond.wait(min(remaining, 0.05))
+            self._active += 1
+            if self._active > self.high_water:
+                self.high_water = self._active
+            return True
+
+    def release(self) -> None:
+        with self._cond:
+            self._active -= 1
+            self._cond.notify()
+
+
 class _Handler(socketserver.StreamRequestHandler):
     def handle(self):
         app = self.server.app  # type: ignore[attr-defined]
@@ -708,6 +811,46 @@ class AssignorService:
         overload_latency_budget_ms: float = 0.0,
         overload_depth_high: float = 24.0,
         overload_cooldown_s: float = 1.0,
+        # (max_partitions, num_consumers[, topics]) shapes warmed in
+        # start() before the accept loop (:mod:`.warmup`), for the solvers
+        # in ``warmup_solvers``: the first request at a warmed shape builds
+        # no kernel.
+        warmup_shapes: Optional[List[Tuple[int, int]]] = None,
+        warmup_solvers: Tuple[str, ...] = (
+            "rounds", "stream", "global", "sinkhorn",
+        ),
+        # Lifecycle snapshots + graceful drain (utils/snapshot).
+        # ``snapshot_path`` names the snapshot (None disables snapshots and
+        # recovery); the interval is the periodic cadence (churn writes
+        # early, debounced); max_age is the boot-time staleness guard;
+        # drain_timeout bounds the drain's wait for in-flight work.
+        snapshot_path: Optional[str] = None,
+        snapshot_interval_s: float = 30.0,
+        snapshot_max_age_s: float = 900.0,
+        drain_timeout_s: float = 10.0,
+        # Cross-host hand-off: "file" (the local file), or the
+        # object-store-shaped "memory" / "object" backends with versioned
+        # CAS.  A lease ttl > 0 engages epoch fencing: boot acquires the
+        # writer lease (waiting up to lease_wait, 0 = 2x ttl + 1 s), every
+        # save carries its token, and a fenced-off predecessor's writes
+        # are rejected.  A failed acquisition serves with writes denied.
+        snapshot_backend: str = "file",
+        snapshot_lease_ttl_s: float = 0.0,
+        snapshot_lease_wait_s: float = 0.0,
+        # At most this many concurrent post-restart dense rebuilds; excess
+        # epochs wait their turn (klba_resync_paced_total).  <= 0 disables.
+        resync_max_inflight: int = 8,
+        # Rebuild each recovered stream's resident state at boot, off the
+        # serving path (StreamingAssignor.prestack_resident).
+        recovery_prestack: bool = False,
+        # The resident-state scrubber's cadence (utils/scrub): idle streams'
+        # resident tensors audited against their host mirrors, the lock
+        # taken non-blocking, the pass skipped at overload rung >= 2; a
+        # failed audit quarantines the stream.  <= 0 disables.
+        scrub_interval_ms: float = 30_000.0,
+        # False skips the warm-up of the recovered shapes in start() (tests
+        # that assert recovery without paying the warm-up).
+        recovery_warmup: bool = True,
         # Uptime/budget clock (injectable, monotonic).
         clock: Callable[[], float] = time.monotonic,
         # The device every solve and engine runs on (default the card).
@@ -724,6 +867,18 @@ class AssignorService:
         if int(delta_buckets) < 0:
             raise ValueError(
                 f"delta_buckets={delta_buckets} must be >= 0"
+            )
+        from .utils.snapshot import BACKEND_KINDS
+
+        if snapshot_backend not in BACKEND_KINDS:
+            raise ValueError(
+                f"snapshot_backend={snapshot_backend!r} invalid; "
+                f"choose one of {list(BACKEND_KINDS)}"
+            )
+        if float(snapshot_lease_ttl_s) < 0:
+            raise ValueError(
+                f"snapshot_lease_ttl_s={snapshot_lease_ttl_s} must be "
+                ">= 0"
             )
         self._quality_mode = normalize_quality_mode(quality_mode)
         self._quality_tile = validate_quality_tile(quality_tile)
@@ -778,9 +933,91 @@ class AssignorService:
         }
         self._clock = clock
         self._started = clock()
-        self._stop_lock = threading.Lock()
-        self._stopped = False
+        # Normalize (P, C) -> (P, C, topics=1).
+        self._warmup_shapes = [
+            (s[0], s[1], s[2] if len(s) > 2 else 1)
+            for s in (warmup_shapes or [])
+        ]
+        self._warmup_solvers = tuple(warmup_solvers)
+        # What the warm-up drives: 0 delta rungs when delta mode is off.
+        self._warm_delta_buckets = int(delta_buckets) if delta_enabled else 0
+        # Lifecycle: the serving/draining/stopped state (read on every
+        # admission as a plain attribute, written under the lifecycle
+        # lock), the snapshot store and writer, the drain bookkeeping.
+        self._lifecycle = "serving"
+        self._lifecycle_lock = threading.Lock()
+        self._listener_closed = False
+        self._drain_timeout_s = float(drain_timeout_s)
+        self._drain_thread: Optional[threading.Thread] = None
         self._stopped_event = threading.Event()
+        self._active_cond = threading.Condition()
+        self._active_requests = 0
+        self._last_recovery: Optional[Dict[str, Any]] = None
+        # (P, C) of the recovered streams, warmed in start() off the
+        # serving path; appended only during boot recovery (at most
+        # MAX_STREAMS).
+        self._recovery_shapes: List[Tuple[int, int]] = []
+        self._snapshot_max_age_s = float(snapshot_max_age_s)
+        self._recovery_warmup = bool(recovery_warmup)
+        self._m_lifecycle = metrics.REGISTRY.gauge("klba_lifecycle_state")
+        self._m_lifecycle.set(0)
+        # The boot-time lease handshake's outcome (stats lifecycle.handoff).
+        self._last_handoff: Optional[Dict[str, Any]] = None
+        self._lease_wait_s = (
+            float(snapshot_lease_wait_s)
+            if snapshot_lease_wait_s > 0
+            else float(snapshot_lease_ttl_s) * 2.0 + 1.0
+        )
+        self._recovery_prestack = bool(recovery_prestack)
+        # Takeover warming: each recovered stream's class weight, parked as
+        # the overload controller's standing pressure until its first
+        # post-boot epoch is served (or it is reset, discarded or poisoned,
+        # or the TTL passes).  Guarded by _streams_lock.
+        self._takeover_warming: Dict[str, float] = {}
+        self._takeover_deadline: Optional[float] = None
+        # The device and stream the scrubber's reads run on: those of the
+        # thread that builds the service.
+        self._cuda_context = carry_cuda_context(self.device)
+        if scrub_interval_ms and float(scrub_interval_ms) > 0:
+            self._scrubber = scrub_lib.StateScrubber(
+                targets=self._scrub_targets,
+                interval_s=float(scrub_interval_ms) / 1000.0,
+                suppress=lambda: self._overload.rung() >= 2,
+            )
+        else:
+            self._scrubber = None
+        self._resync_pacer = (
+            _ResyncPacer(int(resync_max_inflight), clock=clock)
+            if int(resync_max_inflight) > 0 else None
+        )
+        if snapshot_path:
+            from .utils.snapshot import (
+                SnapshotStore,
+                SnapshotWriter,
+                build_backend,
+            )
+
+            self._snapshot_store = SnapshotStore(
+                backend=build_backend(snapshot_backend, snapshot_path)
+            )
+            if snapshot_lease_ttl_s > 0:
+                # Unique per INSTANCE: two services in one process must be
+                # told apart by the fencing protocol.
+                owner = (
+                    f"{socket.gethostname()}:{os.getpid()}:"
+                    f"{next(_OWNER_SEQ)}"
+                )
+                self._snapshot_store.attach_lease(
+                    owner, float(snapshot_lease_ttl_s)
+                )
+            self._snapshot_writer = SnapshotWriter(
+                self._snapshot_store,
+                self._snapshot_sections,
+                interval_s=float(snapshot_interval_s),
+            )
+        else:
+            self._snapshot_store = None
+            self._snapshot_writer = None
 
     @property
     def requests_served(self) -> int:
@@ -819,7 +1056,9 @@ class AssignorService:
         the keys this sidecar serves (utils/config.parse_config):
         ``solve.timeout.ms``, ``host.fallback``, ``breaker.*``,
         ``delta.*``, ``quality.*``, ``slo.class.<stream>`` /
-        ``slo.deadline.ms.<class>`` / ``overload.*`` and ``metrics.port``.
+        ``slo.deadline.ms.<class>`` / ``overload.*``, ``metrics.port``,
+        ``snapshot.*`` / ``drain.timeout.ms``, ``resync.max.inflight``,
+        ``recovery.prestack``, ``scrub.interval.ms`` and ``warmup.shapes``.
         Explicit ``overrides`` win (``device``, or a test pinning
         ``metrics_port=0``)."""
         from .utils.config import parse_config
@@ -841,6 +1080,17 @@ class AssignorService:
             "slo_deadline_s": cfg.slo_deadline_s,
             "overload_latency_budget_ms": cfg.overload_latency_budget_ms,
             "overload_depth_high": cfg.overload_depth_high,
+            "snapshot_path": cfg.snapshot_path,
+            "snapshot_interval_s": cfg.snapshot_interval_s,
+            "snapshot_max_age_s": cfg.snapshot_max_age_s,
+            "drain_timeout_s": cfg.drain_timeout_s,
+            "snapshot_backend": cfg.snapshot_backend,
+            "snapshot_lease_ttl_s": cfg.snapshot_lease_ttl_s,
+            "snapshot_lease_wait_s": cfg.snapshot_lease_wait_s,
+            "resync_max_inflight": cfg.resync_max_inflight,
+            "recovery_prestack": cfg.recovery_prestack,
+            "scrub_interval_ms": cfg.scrub_interval_s * 1000.0,
+            "warmup_shapes": cfg.warmup_shapes or None,
         }
         kwargs.update(overrides)
         return cls(host, port, **kwargs)
@@ -871,7 +1121,18 @@ class AssignorService:
         """One wire request: a request scope (adopting the caller's
         ``traceparent``), a ``wire.<method>`` span,
         ``klba_requests_total`` / ``klba_request_errors_total`` and the
-        deadline-budget consumption."""
+        deadline-budget consumption.  Counted in flight for the drain,
+        which waits for the count to reach zero."""
+        with self._active_cond:
+            self._active_requests += 1
+        try:
+            return self._handle_line_counted(line)
+        finally:
+            with self._active_cond:
+                self._active_requests -= 1
+                self._active_cond.notify_all()
+
+    def _handle_line_counted(self, line: bytes) -> bytes:
         # Parse BEFORE opening the scope: the trace context rides the line
         # (top-level ``traceparent``, or inside ``params``).
         req: Dict[str, Any] = {}
@@ -967,6 +1228,7 @@ class AssignorService:
             "stream_reset": self._stream_reset,
             "recommend": self._recommend,
             "stream_flight": self._stream_flight,
+            "drain": self._drain,
         }.get(method) if isinstance(method, str) else None
         if handler is None:
             raise ValueError(f"unknown method {method!r}")
@@ -974,6 +1236,13 @@ class AssignorService:
 
     def _ping(self, params):
         return "pong", None
+
+    def _drain(self, params):
+        # Graceful drain over the wire (SIGTERM's path): answered at once
+        # with the lifecycle state; the drain runs on its own thread, so
+        # this connection gets its reply before the listener goes away.
+        initiated = self.begin_drain()
+        return {"state": self._lifecycle, "initiated": initiated}, None
 
     def _stats(self, params):
         result: Dict[str, Any] = {
@@ -991,9 +1260,13 @@ class AssignorService:
         result["overload"] = self._overload.snapshot()
         # The JAX service's sections for features this sidecar does not
         # run yet, answered as a disabled feature is.
-        for section in ("coalesce", "lifecycle", "scrub", "federation",
-                        "mesh"):
+        for section in ("coalesce", "federation", "mesh"):
             result[section] = None
+        # Lifecycle: serving/draining/stopped, the snapshot store, the last
+        # recovery, the writer lease and the boot's hand-off.
+        result["lifecycle"] = self.lifecycle_stats()
+        # The scrubber's coverage and quarantine counts; None when off.
+        result["scrub"] = self.scrub_stats()
         result["quality"] = quality_status(self.device)
         # The active fault drill's seed + per-point {calls, fired}.
         inj = faults.active()
@@ -1051,6 +1324,7 @@ class AssignorService:
         }, None
 
     def _assign(self, params):
+        self._reject_if_draining("standard")
         solver = params.get("solver", "rounds")
         if solver not in VALID_SOLVERS:
             raise ValueError(
@@ -1109,6 +1383,7 @@ class AssignorService:
         klass = self._slo.resolve(
             params.get("stream_id"), params.get("slo_class")
         )
+        self._reject_if_draining(klass)
         budget = _DeadlineBudget(
             self._slo.budget_s(klass, self._watchdog.timeout_s),
             clock=self._clock,
@@ -1152,6 +1427,9 @@ class AssignorService:
         with self._streams_lock:
             dropped = self._streams.pop(sid, None) is not None
             self._snapshots.pop(sid, None)
+        if dropped:
+            self._mark_churn()
+            self._release_takeover(sid)
         return {"dropped": dropped}, None
 
     def _recommend(self, params):
@@ -1284,6 +1562,7 @@ class AssignorService:
         with self._inflight_lock:
             depth_now = self._inflight_weight
         self._overload.note_depth(depth_now)
+        self._expire_takeover_warming()
         decision = None
         try:
             decision = self._overload.admission(klass)
@@ -1333,6 +1612,10 @@ class AssignorService:
         """The admitted remainder of a stream_assign: stream state, the
         solve (or the degrade rung's kept_previous), the ladder."""
         st, created = self._acquire_stream(sid)
+        if created:
+            # Roster churn: a new tenant reaches the snapshot ahead of the
+            # periodic cadence (debounced).
+            self._mark_churn()
         try:
             warm_restart = False
             if delta is not None:
@@ -1364,6 +1647,29 @@ class AssignorService:
                         st.engine.seed_choice(snap_choice)
                         st.pids = snap_pids
                         warm_restart = True
+            elif st.recovered and (
+                st.members != members_sorted
+                or st.pids is None
+                or st.pids.shape[0] != pids_sorted.shape[0]
+                or not np.array_equal(st.pids, pids_sorted)
+            ):
+                # Recovered-stream drift guard: the snapshot predates
+                # whatever moved this roster, so its state is discarded
+                # (a cold start on an engine sized for the NEW roster);
+                # every other recovered stream keeps its seed.
+                LOGGER.warning(
+                    "recovered stream %r arrived with a drifted roster; "
+                    "discarding its snapshot state (cold start)", sid,
+                )
+                st.engine = _fresh_engine(C, st.flight, self._delta_opts,
+                                          self.device)
+                st.members = members_sorted
+                st.pids = None
+                metrics.REGISTRY.counter(
+                    "klba_recovery_streams_total",
+                    {"outcome": "discarded_drift"},
+                ).inc()
+                self._mark_churn()
             elif st.members != members_sorted:
                 # Membership change: remap by NAME so survivors keep their
                 # partitions (the engine's repair pass re-seats orphans).
@@ -1374,6 +1680,7 @@ class AssignorService:
                 )
                 st.engine.remap_members(old_to_new, C)
                 st.members = members_sorted
+                self._mark_churn()
             # A different partition-id set at the SAME count would misbind
             # warm rows to new pids: force a cold solve (a count change
             # already does, through the engine's shape check).
@@ -1382,6 +1689,12 @@ class AssignorService:
             ):
                 st.engine.reset()
             st.pids = pids_sorted
+            if st.recovered:
+                # The first post-restart epoch on intact recovered state
+                # reports a warm restart; its takeover share is released
+                # only once the epoch has run (in _solve_epoch).
+                warm_restart = st.engine._prev_choice is not None
+                st.recovered = False
             _apply_stream_opts(st.engine, opts)
 
             prev = st.engine._prev_choice
@@ -1414,10 +1727,22 @@ class AssignorService:
                     assign_delta=a_delta, assign_epoch=a_epoch,
                     resp_enc=resp_enc,
                 )
-            choice, s, degraded_rung, fallback_used = self._solve_epoch(
-                sid, st, lags, C, opts, prev, budget, members_sorted,
-                pids_sorted,
+            # Resync pacing: an epoch that must rebuild its resident state
+            # with a dense upload (the post-restart first epoch, a
+            # churn-invalidated resident) takes one of the bounded slots.
+            paced = (
+                self._resync_pacer is not None
+                and st.engine.needs_dense_resync
+                and self._resync_pacer.acquire(budget.remaining())
             )
+            try:
+                choice, s, degraded_rung, fallback_used = self._solve_epoch(
+                    sid, st, lags, C, opts, prev, budget, members_sorted,
+                    pids_sorted,
+                )
+            finally:
+                if paced:
+                    self._resync_pacer.release()
             # Advance the delta bases UNDER the stream lock: a concurrent
             # delta or ack validates against them inside this same lock.
             self._note_epoch(st, klass, lags)
@@ -1499,6 +1824,10 @@ class AssignorService:
                 lags, key="stream", timeout_s=budget.remaining(),
                 budget_total_s=budget.total_s,
             )
+            # A recovered stream's warming dispatch succeeded: its takeover
+            # share is released (one empty-dict check in steady state).
+            if self._takeover_warming:
+                self._release_takeover(sid)
             # Strike forgiveness: only a RUN of clean epochs clears the
             # quarantine strikes.
             st.clean_epochs += 1
@@ -1536,6 +1865,8 @@ class AssignorService:
             # what is left of the SAME budget.
             with self._streams_lock:
                 self._streams.pop(sid, None)
+            self._mark_churn()
+            self._release_takeover(sid)
             if not self._host_fallback:
                 raise
             LOGGER.warning(
@@ -1720,6 +2051,7 @@ class AssignorService:
                     pids_sorted.copy(),
                     np.asarray(choice, dtype=np.int32),
                 )
+            self._mark_churn()
             return choice, s, "host_snake", True
         # The cold rung recovered: install the fresh engine as the stream's
         # new warm state (unless a concurrent request re-registered it).
@@ -1731,6 +2063,7 @@ class AssignorService:
                 nst.members = list(members_sorted)
                 nst.pids = pids_sorted
                 self._streams[sid] = nst
+        self._mark_churn()
         return choice, fresh.last_stats, "cold_device", False
 
     def _note_quarantine(
@@ -1750,20 +2083,509 @@ class AssignorService:
                 buffers, "escalated", stream_id=sid, source="strikes"
             )
 
+    # -- resident-state scrubbing (utils/scrub) ----------------------------
+
+    def _scrub_targets(self) -> List[Tuple[str, Callable[[], str]]]:
+        """The scrubber's audit jobs, one per live stream."""
+        with self._streams_lock:
+            items = list(self._streams.items())
+        return [
+            (sid, lambda sid=sid, st=st: self._audit_stream(sid, st))
+            for sid, st in items
+        ]
+
+    def _audit_stream(self, sid: str, st: _Stream) -> str:
+        """One audit: the stream lock taken NON-blocking (idle streams only:
+        the scrubber never parks behind a serving epoch), the resident state
+        read on the service's CUDA device and stream and diffed against the
+        host mirror, and a quarantine on a mismatch."""
+        if not st.lock.acquire(blocking=False):
+            return "busy"
+        try:
+            with self._streams_lock:
+                if self._streams.get(sid) is not st:
+                    return "skipped"  # reset or poisoned while queued
+            if st.engine is None:
+                return "skipped"
+            with self._cuda_context():
+                audited, fails = scrub_lib.audit_engine(st.engine)
+            if not audited:
+                return "skipped"
+            if fails:
+                for buffer in fails:
+                    metrics.REGISTRY.counter(
+                        "klba_scrub_failures_total", {"buffer": buffer}
+                    ).inc()
+                LOGGER.warning(
+                    "scrub audit of stream %r FAILED (%s); quarantining",
+                    sid, ",".join(fails),
+                )
+                st.engine.quarantine_resident(fails, source="scrub")
+                self._note_quarantine(sid, st, fails)
+            return "audited"
+        finally:
+            st.lock.release()
+
+    def scrub_stats(self) -> Optional[Dict[str, Any]]:
+        """The wire ``stats.scrub`` section; None with the scrubber off.
+        ``wedged``: no audit progress for three intervals while streams are
+        live."""
+        if self._scrubber is None:
+            return None
+        out = self._scrubber.stats()
+        with self._streams_lock:
+            items = list(self._streams.items())
+        out["wedged"] = bool(out.get("stalled")) and bool(items)
+        out["quarantined_streams"] = sum(
+            1 for _sid, st in items
+            if st.engine is not None and st.engine.quarantined
+        )
+        return out
+
+    # -- takeover warming --------------------------------------------------
+
+    def _release_takeover(self, sid: Any) -> None:
+        """One recovered stream finished warming (first post-boot epoch
+        served, reset, discarded or poisoned): release its share of the
+        standing pressure."""
+        with self._streams_lock:
+            weight = self._takeover_warming.pop(sid, None)
+        if weight:
+            self._overload.release_standing_pressure(weight)
+
+    def _expire_takeover_warming(self) -> None:
+        """TTL backstop, checked on the admission path: shares whose streams
+        never came back are released together."""
+        if not self._takeover_warming or (
+            self._takeover_deadline is None
+            or self._clock() < self._takeover_deadline
+        ):
+            return
+        with self._streams_lock:
+            stale, self._takeover_warming = dict(self._takeover_warming), {}
+        total = sum(stale.values())
+        if total:
+            LOGGER.warning(
+                "takeover warm-up TTL expired with %d stream(s) never seen "
+                "(%s); releasing their standing pressure",
+                len(stale), sorted(stale),
+            )
+            self._overload.release_standing_pressure(total)
+
     # -- lifecycle ---------------------------------------------------------
 
+    def _set_lifecycle(self, state: str) -> None:
+        with self._lifecycle_lock:
+            self._lifecycle = state
+        self._m_lifecycle.set(_LIFECYCLE_STATES.index(state))
+
+    def _mark_churn(self) -> None:
+        """Roster churn (a stream joined, left or was poisoned, a membership
+        moved): nudge the snapshot writer ahead of its cadence."""
+        if self._snapshot_writer is not None:
+            self._snapshot_writer.mark_churn()
+
+    def _reject_if_draining(self, klass: str) -> None:
+        """The drain's admission stop: new solve work gets a structured
+        reject (rung ``"draining"``) with a retry hint sized to the drain
+        window.  Observability methods stay served."""
+        if self._lifecycle == "serving":
+            return
+        retry_ms = int(
+            min(60_000.0, max(500.0, self._drain_timeout_s * 1000.0))
+        )
+        record_shed(klass, "draining", "rejected")
+        raise DrainReject(klass, retry_ms)
+
+    def _snapshot_sections(self) -> Dict[str, Any]:
+        """Every host-recoverable section: per stream ``{members, pids,
+        choice, slo_class, history}``, the breakers, the overload rung.
+        History times are stored as ages at the write (the monotonic clock
+        dies with the process).  A stream mid-epoch (lock contended for half
+        a second) is skipped this cadence."""
+        with self._streams_lock:
+            items = list(self._streams.items())
+        now = self._clock()
+        streams: Dict[str, Any] = {}
+        for sid, st in items:
+            if not st.lock.acquire(timeout=0.5):
+                continue  # mid-epoch; the next cadence catches it
+            try:
+                if st.engine is None or st.pids is None:
+                    continue
+                choice = st.engine.export_state()
+                if choice is None or choice.shape[0] != st.pids.shape[0]:
+                    continue
+                P = int(st.pids.shape[0])
+                dense = bool(np.array_equal(st.pids, np.arange(P)))
+                streams[sid] = {
+                    "members": list(st.members),
+                    # A dense pid set (the common case) compacts to its count.
+                    "pids": P if dense else [int(p) for p in st.pids],
+                    "choice": [int(c) for c in choice],
+                    "slo_class": st.klass,
+                    "history": [
+                        [max(0.0, now - t), int(lag)]
+                        for t, lag in list(st.history)
+                    ],
+                }
+            finally:
+                st.lock.release()
+        return {
+            "streams": streams,
+            "breakers": self._watchdog.export_state(),
+            "overload": self._overload.export_state(),
+        }
+
+    def snapshot_now(self) -> Dict[str, Any]:
+        """One synchronous snapshot write (operator action, drills);
+        ``{"ok": False, "error": "snapshots disabled"}`` without a path."""
+        if self._snapshot_writer is None:
+            return {"ok": False, "error": "snapshots disabled"}
+        return self._snapshot_writer.write_now()
+
+    def _final_snapshot(self) -> None:
+        """The drain's final write.  A live stream the collector had to skip
+        (a solve the drain timed out on) carries its record forward from
+        the previous snapshot instead of vanishing from the file."""
+        try:
+            sections = self._snapshot_sections()
+            with self._streams_lock:
+                live = set(self._streams)
+            missing = live - set(sections.get("streams") or {})
+            if missing:
+                prev = self._snapshot_store.load()
+                prev_streams = (
+                    prev.sections.get("streams") or {}
+                    if prev.sections else {}
+                )
+                carried = 0
+                for sid in missing:
+                    body = prev_streams.get(sid)
+                    if body is not None:
+                        sections["streams"][sid] = body
+                        carried += 1
+                LOGGER.warning(
+                    "final snapshot: %d stream(s) still lock-held at drain "
+                    "timeout; carried %d forward from the previous snapshot",
+                    len(missing), carried,
+                )
+            self._snapshot_store.save(sections)
+        except Exception:  # noqa: BLE001 — the drain must complete
+            LOGGER.warning(
+                "final snapshot collection failed; skipping the write",
+                exc_info=True,
+            )
+
+    def lifecycle_stats(self) -> Dict[str, Any]:
+        """The wire ``stats.lifecycle`` section."""
+        store = self._snapshot_store
+        return {
+            "state": self._lifecycle,
+            "snapshot": store.stats() if store is not None else None,
+            "recovery": self._last_recovery,
+            "lease": store.lease_stats() if store is not None else None,
+            "handoff": self._last_handoff,
+        }
+
+    def _acquire_writer_lease(self) -> None:
+        """The boot side of the takeover protocol: acquire the fenced writer
+        lease (fencing on) and record the hand-off.  Never raises; a failed
+        acquisition serves with snapshot writes denied."""
+        store = self._snapshot_store
+        if store is None or not store.fencing_enabled:
+            return
+        res = store.acquire_lease(wait_s=self._lease_wait_s)
+        mode = (
+            "fresh" if res.get("previous_holder") is None
+            else "takeover_crash" if res.get("previous_expired")
+            else "takeover_drain"
+        )
+        self._last_handoff = {
+            "acquired": bool(res.get("ok")),
+            "mode": mode,
+            "token": res.get("token"),
+            "waited_ms": res.get("waited_ms"),
+            "previous_holder": res.get("previous_holder"),
+            "error": res.get("error"),
+        }
+        metrics.FLIGHT.record(
+            "lifecycle", {"event": "handoff", **self._last_handoff}
+        )
+        LOGGER.warning(
+            "writer lease %s (mode=%s, token=%s, waited %.0f ms, previous "
+            "holder %r)",
+            "acquired" if res.get("ok") else "NOT acquired", mode,
+            res.get("token"), res.get("waited_ms") or 0.0,
+            res.get("previous_holder"),
+        )
+
+    def _prestack_recovered(self) -> None:
+        """Rebuild each recovered stream's resident state from its seeded
+        choice (a zero-lag table build: the choice unchanged), off the
+        serving path.  Best effort per stream: a failed pre-stack leaves the
+        stream on the inline dense rebuild it would have taken anyway."""
+        with self._streams_lock:
+            items = list(self._streams.items())
+        built = 0
+        for sid, st in items:
+            if not st.lock.acquire(timeout=5.0):
+                continue
+            try:
+                if st.recovered and st.engine is not None:
+                    if st.engine.prestack_resident():
+                        built += 1
+            except Exception:  # noqa: BLE001 — per-stream best effort
+                LOGGER.warning(
+                    "pre-stack of recovered stream %r failed; it will "
+                    "rebuild inline on its first epoch", sid, exc_info=True,
+                )
+            finally:
+                st.lock.release()
+        if built:
+            metrics.REGISTRY.counter("klba_recovery_prestacked_total").inc(built)
+            if self._last_recovery is not None:
+                self._last_recovery["streams_prestacked"] = built
+        LOGGER.info("pre-stacked %d/%d recovered stream(s)", built, len(items))
+
+    def _recover(self) -> None:
+        """Boot-time warm-restart recovery (before the warm-up and the
+        accept loop): load the snapshot fail-open, restore the breaker and
+        overload state, and seed one engine per stream.  Never raises; the
+        worst outcome is a counted cold start."""
+        t0 = metrics.REGISTRY.clock()
+        load = self._snapshot_store.load()
+        info: Dict[str, Any] = {
+            "outcome": load.outcome,
+            "age_s": load.age_s,
+            "sections_skipped": list(load.skipped),
+            "streams_recovered": 0,
+            "streams_discarded": 0,
+        }
+        stale = (
+            load.age_s is not None and load.age_s > self._snapshot_max_age_s
+        )
+        if stale and load.outcome in ("ok", "partial"):
+            # Rosters and lag trends older than the max age are
+            # misinformation: cold start, loudly.
+            LOGGER.warning(
+                "snapshot is %.0fs old (> max age %.0fs); rehydrating "
+                "nothing", load.age_s, self._snapshot_max_age_s,
+            )
+            info["outcome"] = "stale"
+        elif load.sections:
+            breakers = load.sections.get("breakers")
+            if breakers is not None:
+                self._watchdog.restore_state(breakers)
+            overload = load.sections.get("overload")
+            if overload is not None:
+                self._overload.restore_state(overload)
+            recovered, discarded, weight = self._rehydrate_streams(
+                load.sections.get("streams") or {}
+            )
+            info["streams_recovered"] = recovered
+            info["streams_discarded"] = discarded
+            if recovered:
+                # The recovered streams will all send their next epoch at
+                # once: seed the depth EWMA with that weight now, and park
+                # it as standing pressure until each stream has warmed.
+                self._overload.seed_recovery_depth(weight)
+                info["seeded_depth"] = weight
+                self._overload.add_standing_pressure(weight)
+                self._takeover_deadline = self._clock() + TAKEOVER_WARMING_TTL_S
+                info["standing_pressure"] = weight
+        info["duration_ms"] = (metrics.REGISTRY.clock() - t0) * 1000.0
+        self._last_recovery = info
+        metrics.REGISTRY.gauge("klba_recovery_duration_ms").set(
+            info["duration_ms"]
+        )
+        metrics.FLIGHT.record("lifecycle", {"event": "recovery", **info})
+        LOGGER.info(
+            "recovery: outcome=%s streams_recovered=%d discarded=%d in "
+            "%.1f ms", info["outcome"], info["streams_recovered"],
+            info["streams_discarded"], info["duration_ms"],
+        )
+
+    def _rehydrate_streams(self, bodies: Dict[str, Any]) -> Tuple[int, int, float]:
+        """Seed one engine per snapshot stream; a malformed or unservable
+        record is discarded alone (counted).  Returns ``(recovered,
+        discarded, weighted_depth)``, the weight summed over the recovered
+        streams' classes."""
+        recovered = discarded = 0
+        weight = 0.0
+        m_rec = metrics.REGISTRY.counter(
+            "klba_recovery_streams_total", {"outcome": "recovered"}
+        )
+        m_disc = metrics.REGISTRY.counter(
+            "klba_recovery_streams_total", {"outcome": "discarded"}
+        )
+        now = self._clock()
+        for sid, body in dict(bodies).items():
+            try:
+                members = sorted(str(m) for m in body["members"])
+                if not members or len(set(members)) != len(members):
+                    raise ValueError("bad member roster")
+                C = len(members)
+                pids_raw = body["pids"]
+                pids = (
+                    np.arange(int(pids_raw), dtype=np.int64)
+                    if isinstance(pids_raw, int)
+                    else np.asarray([int(p) for p in pids_raw], dtype=np.int64)
+                )
+                choice = np.asarray(
+                    [int(c) for c in body["choice"]], dtype=np.int32
+                )
+                if (
+                    choice.shape[0] != pids.shape[0]
+                    or not _keepable(choice, choice.shape[0], C)
+                ):
+                    raise ValueError("choice not servable for roster")
+                klass = body.get("slo_class", "standard")
+                if klass not in SLO_CLASSES:
+                    klass = "standard"
+                st = _Stream()
+                st.flight = _stream_ring()
+                st.engine = _fresh_engine(C, st.flight, self._delta_opts,
+                                          self.device)
+                # The recovery contract: the first warm epoch is the one an
+                # engine seeded with the SAME choice gives (seed_choice
+                # leaves the resident state stale; both sides rebuild it
+                # from this host vector).
+                st.engine.seed_choice(choice)
+                st.members = members
+                st.pids = pids
+                st.klass = klass
+                st.recovered = True
+                for age, lag in body.get("history") or []:
+                    st.history.append((now - float(age), int(lag)))
+                with self._streams_lock:
+                    if len(self._streams) >= MAX_STREAMS:
+                        raise ValueError("stream cap reached")
+                    self._streams[str(sid)] = st
+                    self._takeover_warming[str(sid)] = (
+                        CLASS_WEIGHTS.get(klass, 1.0)
+                    )
+                self._recovery_shapes.append((int(pids.shape[0]), C))
+                recovered += 1
+                weight += CLASS_WEIGHTS.get(klass, 1.0)
+                m_rec.inc()
+            except Exception:  # noqa: BLE001 — discard THIS stream only
+                LOGGER.warning(
+                    "discarding unrecoverable snapshot stream %r", sid,
+                    exc_info=True,
+                )
+                discarded += 1
+                m_disc.inc()
+        return recovered, discarded, weight
+
+    def begin_drain(self) -> bool:
+        """Start a graceful drain (idempotent): stop admissions, then, on
+        the drain thread, wait out in-flight requests, write the final
+        snapshot and close the listener.  False when already draining or
+        stopped."""
+        with self._lifecycle_lock:
+            if self._lifecycle != "serving":
+                return False
+            self._lifecycle = "draining"
+        self._m_lifecycle.set(_LIFECYCLE_STATES.index("draining"))
+        if self._snapshot_writer is not None:
+            # Stop the cadence; the drain worker owns the final write.
+            self._snapshot_writer.close()
+        metrics.FLIGHT.record("lifecycle", {"event": "drain"})
+        LOGGER.warning(
+            "drain initiated: admissions stopped, flushing in-flight work "
+            "(timeout %.1fs)", self._drain_timeout_s,
+        )
+        self._drain_thread = threading.Thread(
+            target=self._drain_worker, name="klba-drain", daemon=True
+        )
+        self._drain_thread.start()
+        return True
+
+    def _drain_worker(self) -> None:
+        deadline = self._clock() + self._drain_timeout_s
+        # 1. In-flight requests finish, or the timeout fires (a solve in
+        #    the watchdog's worker is abandoned by its own deadline).
+        with self._active_cond:
+            while self._active_requests > 0:
+                remaining = deadline - self._clock()
+                if remaining <= 0:
+                    LOGGER.warning(
+                        "drain timeout with %d request(s) in flight; "
+                        "proceeding", self._active_requests,
+                    )
+                    break
+                self._active_cond.wait(min(0.05, remaining))
+        # 2. The final snapshot, then the lease released, so a replacement
+        #    adopts at once (a crash never releases: the TTL fences it).
+        if self._snapshot_writer is not None:
+            self._final_snapshot()
+        if self._snapshot_store is not None:
+            self._snapshot_store.release_lease()
+        # 3. The listener closes; the process may exit.
+        self._close_listener()
+        self._set_lifecycle("stopped")
+        metrics.FLIGHT.record("lifecycle", {"event": "drained"})
+        LOGGER.warning("drain complete: listener closed")
+        self._stopped_event.set()
+
     def start(self) -> "AssignorService":
-        # Process-wide telemetry hooks: the compile counter sees the
-        # kernel builds, and request-thread log lines carry the request id.
+        # Process-wide telemetry hooks BEFORE the warm-up: the compile
+        # counter sees the builds of interest, and request-thread log lines
+        # carry the request id.
         install_compile_counter()
         metrics.install_log_request_ids()
-        # Quality-plane knobs installed process-wide before serving.
+        # Quality-plane knobs installed process-wide before the warm-up,
+        # whose quality jobs route through them.
         set_quality_mode(self._quality_mode)
         set_quality_tile(self._quality_tile)
-        with self._stop_lock:
-            if self._stopped:
-                LOGGER.warning("start() after stop(); not opening the listener")
+        if self._snapshot_store is not None:
+            # The takeover handshake first (the fencing epoch turns over
+            # before the state is read), then recovery, whose streams give
+            # the warm-up below their shapes.
+            self._acquire_writer_lease()
+            self._recover()
+            if self._recovery_prestack:
+                self._prestack_recovered()
+        if self._warmup_shapes:
+            # Connections arriving meanwhile queue in the TCP backlog.
+            from .warmup import warmup
+
+            for max_p, consumers, topics in self._warmup_shapes:
+                warmup(
+                    max_partitions=max_p,
+                    consumers=[consumers],
+                    topics=[topics],
+                    solvers=self._warmup_solvers,
+                    delta_buckets=self._warm_delta_buckets,
+                    device=self.device,
+                )
+        if self._recovery_shapes and self._recovery_warmup:
+            # The stream engine's jobs at the recovered shapes.
+            from .warmup import warmup
+
+            for max_p, consumers in sorted(set(self._recovery_shapes)):
+                warmup(
+                    max_partitions=max_p,
+                    consumers=[consumers],
+                    solvers=("stream",),
+                    delta_buckets=self._warm_delta_buckets,
+                    device=self.device,
+                )
+        # The serving surfaces come up under the lifecycle lock: a drain or
+        # stop that raced the recovery or warm-up has closed the socket,
+        # and _close_listener flips ``_listener_closed`` under this lock.
+        with self._lifecycle_lock:
+            if self._lifecycle != "serving" or self._listener_closed:
+                LOGGER.warning(
+                    "start() aborted: drain/stop arrived before serving; "
+                    "not opening the listener"
+                )
                 return self
+            if self._snapshot_writer is not None:
+                self._snapshot_writer.start()
+            if self._scrubber is not None:
+                self._scrubber.start()
             if self._metrics_port is not None:
                 from .utils.metrics_http import MetricsHTTPServer
 
@@ -1786,36 +2608,51 @@ class AssignorService:
             return None
         return self._metrics_http.address
 
-    def stop(self) -> None:
-        """Close the listener and the metrics listener (idempotent).
-        In-flight requests on open connections finish on their daemon
-        handler threads."""
-        with self._stop_lock:
-            if self._stopped:
+    def _close_listener(self) -> None:
+        """Close the accept loop, the scrubber and the metrics listener
+        (once).  In-flight requests on open connections finish on their
+        daemon handler threads."""
+        with self._lifecycle_lock:
+            if self._listener_closed:
                 return
-            self._stopped = True
+            self._listener_closed = True
         if self._thread is not None:
             self._tcp.shutdown()
             self._thread.join()
         self._tcp.server_close()
+        if self._scrubber is not None:
+            self._scrubber.close()
         if self._metrics_http is not None:
             self._metrics_http.stop()
             self._metrics_http = None
+
+    def stop(self) -> None:
+        """Stop at once, without a drain: no admission wind-down and no
+        final snapshot (the file holds what the cadence last wrote: the
+        crash-equivalent the restart drills rely on).  Idempotent; a no-op
+        after a completed drain."""
+        if self._snapshot_writer is not None:
+            self._snapshot_writer.close()
+        self._close_listener()
+        self._set_lifecycle("stopped")
         self._stopped_event.set()
 
     def wait_stopped(self, timeout_s: Optional[float] = None) -> bool:
-        """Block until :meth:`stop` ran; True when it did."""
+        """Block until a drain or :meth:`stop` finished; True when it did."""
         return self._stopped_event.wait(timeout_s)
 
     def install_signal_handlers(self) -> None:
-        """SIGTERM/SIGINT stop the service (main thread only — a Python
-        signal-handler constraint)."""
+        """SIGTERM/SIGINT drain gracefully (main thread only, a Python
+        signal-handler constraint); a second signal during the drain stops
+        at once, without the final snapshot."""
         import signal
 
         def _handler(signum, frame):
-            LOGGER.warning("signal %d: stopping", signum)
-            threading.Thread(target=self.stop, name="klba-stop",
-                             daemon=True).start()
+            LOGGER.warning("signal %d: draining", signum)
+            if not self.begin_drain():
+                LOGGER.warning("signal %d during drain: forcing stop", signum)
+                threading.Thread(target=self.stop, name="klba-stop",
+                                 daemon=True).start()
 
         for sig in (signal.SIGTERM, signal.SIGINT):
             signal.signal(sig, _handler)
@@ -2007,13 +2844,30 @@ class AssignorServiceClient:
 
 def main() -> None:
     """``python -m kafka_lag_based_assignor_tpu_torch.service [host] [port]
-    [--device cuda|cpu] [--metrics-port PORT] [--no-delta]
-    [--delta-max-fraction FRAC] [--delta-buckets N]
+    [--device cuda|cpu] [--warmup P:C[:T][,...]] [--metrics-port PORT]
+    [--no-delta] [--delta-max-fraction FRAC] [--delta-buckets N]
+    [--snapshot-path FILE] [--snapshot-interval-ms MS]
+    [--snapshot-max-age-ms MS] [--drain-timeout-ms MS]
+    [--snapshot-backend KIND] [--snapshot-lease-ttl-ms MS]
+    [--snapshot-lease-wait-ms MS] [--resync-max-inflight N]
+    [--scrub-interval-ms MS] [--recovery-prestack]
     [--quality-mode MODE] [--quality-tile ROWS]`` — the JAX CLI's flags
-    for the knobs this sidecar serves.  Unknown flags are an error."""
+    for the knobs this sidecar serves.  ``--warmup`` builds every kernel
+    and runs the default device solvers at the listed shapes before the
+    service answers.  SIGTERM/SIGINT drain gracefully.  Unknown flags are
+    an error."""
     import argparse
 
     logging.basicConfig(level=logging.INFO)
+
+    def warmup_spec(text: str):
+        from .utils.config import parse_warmup_shapes
+
+        try:
+            return parse_warmup_shapes(text)
+        except ValueError as exc:
+            raise argparse.ArgumentTypeError(str(exc))
+
     parser = argparse.ArgumentParser(
         prog="kafka_lag_based_assignor_tpu_torch.service",
         description="CUDA assignor sidecar (newline-JSON over TCP)",
@@ -2023,6 +2877,12 @@ def main() -> None:
     parser.add_argument(
         "--device", default="cuda", choices=("cuda", "cpu"),
         help="where every solve runs (default cuda; raises without a card)",
+    )
+    parser.add_argument(
+        "--warmup", type=warmup_spec, default=None,
+        metavar="P:C[:T][,P:C[:T]...]",
+        help="build the kernels and run the device solvers at these "
+             "(max_partitions:num_consumers[:topics]) shapes before serving",
     )
     parser.add_argument(
         "--metrics-port", type=int, default=None, metavar="PORT",
@@ -2046,6 +2906,67 @@ def main() -> None:
              "default 6)",
     )
     parser.add_argument(
+        "--snapshot-path", default=None, metavar="FILE",
+        help="crash-safe lifecycle snapshot file (atomic writes); "
+             "enables warm-restart recovery at boot; omit to disable",
+    )
+    parser.add_argument(
+        "--snapshot-interval-ms", type=float, default=30_000.0,
+        metavar="MS",
+        help="periodic snapshot cadence (churn writes happen sooner; "
+             "default 30000)",
+    )
+    parser.add_argument(
+        "--snapshot-max-age-ms", type=float, default=900_000.0,
+        metavar="MS",
+        help="boot-time staleness guard: an older snapshot rehydrates "
+             "nothing (default 900000)",
+    )
+    parser.add_argument(
+        "--drain-timeout-ms", type=float, default=10_000.0, metavar="MS",
+        help="graceful-drain window for in-flight requests (default 10000)",
+    )
+    parser.add_argument(
+        "--snapshot-backend", default="file",
+        choices=["file", "memory", "object"], metavar="KIND",
+        help="where the snapshot lives: 'file' (per-instance local "
+             "file), 'memory', or 'object' (object-store-shaped, "
+             "versioned CAS; the path is then the store directory)",
+    )
+    parser.add_argument(
+        "--snapshot-lease-ttl-ms", type=float, default=0.0,
+        metavar="MS",
+        help="epoch-fenced writer lease TTL; > 0 engages fencing "
+             "(boot acquires the lease, saves carry its token, a "
+             "fenced-off predecessor's writes are rejected); 0 "
+             "disables (default)",
+    )
+    parser.add_argument(
+        "--snapshot-lease-wait-ms", type=float, default=0.0,
+        metavar="MS",
+        help="how long boot waits for a crashed predecessor's lease "
+             "to expire before serving WITHOUT it (writes denied); "
+             "0 = auto (2x ttl + 1s)",
+    )
+    parser.add_argument(
+        "--resync-max-inflight", type=int, default=8, metavar="N",
+        help="cap on concurrent post-restart dense resync rebuilds "
+             "(excess epochs wait, counted klba_resync_paced_total); "
+             "0 disables pacing (default 8)",
+    )
+    parser.add_argument(
+        "--scrub-interval-ms", type=float, default=30_000.0,
+        metavar="MS",
+        help="resident-state scrubber cadence (background audit of "
+             "device buffers against host truth; quarantine and heal on "
+             "a mismatch); <= 0 disables (default 30000)",
+    )
+    parser.add_argument(
+        "--recovery-prestack", action="store_true",
+        help="rebuild the recovered streams' resident state at boot, "
+             "off the serving path",
+    )
+    parser.add_argument(
         "--quality-mode", default="auto",
         choices=("sinkhorn", "linear", "auto"),
         help="quality-solve routing: dense sinkhorn, the linear-space "
@@ -2060,13 +2981,26 @@ def main() -> None:
     opts = parser.parse_args()
     service = AssignorService(
         opts.host, opts.port, device=opts.device,
+        warmup_shapes=opts.warmup,
         metrics_port=opts.metrics_port,
         delta_enabled=not opts.no_delta,
         delta_max_fraction=opts.delta_max_fraction,
         delta_buckets=opts.delta_buckets,
+        snapshot_path=opts.snapshot_path,
+        snapshot_interval_s=max(opts.snapshot_interval_ms, 1.0) / 1000.0,
+        snapshot_max_age_s=max(opts.snapshot_max_age_ms, 1.0) / 1000.0,
+        drain_timeout_s=max(opts.drain_timeout_ms, 0.0) / 1000.0,
+        snapshot_backend=opts.snapshot_backend,
+        snapshot_lease_ttl_s=max(opts.snapshot_lease_ttl_ms, 0.0) / 1000.0,
+        snapshot_lease_wait_s=max(opts.snapshot_lease_wait_ms, 0.0) / 1000.0,
+        resync_max_inflight=opts.resync_max_inflight,
+        recovery_prestack=opts.recovery_prestack,
+        scrub_interval_ms=opts.scrub_interval_ms,
         quality_mode=opts.quality_mode,
         quality_tile=opts.quality_tile,
     )
+    # SIGTERM/SIGINT drain: admissions stop with a structured retry-after
+    # reject, the final snapshot lands, the listener closes.
     service.install_signal_handlers()
     service.start()
     print(f"listening on {service.address[0]}:{service.address[1]}", flush=True)

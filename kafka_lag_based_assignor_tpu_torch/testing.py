@@ -196,3 +196,48 @@ def stream_drift(rng: np.random.Generator, lags: np.ndarray, epoch: int,
         mid = np.argsort(totals)[num_consumers // 2]
         lags[choice == mid] *= 1.5
     return lags
+
+
+# -- checks shared by the restart tests and chip_smoke.py -------------------
+
+
+def shed_totals_by_class() -> Dict[Optional[str], float]:
+    """Current ``klba_shed_total`` value per class, summed over rungs."""
+    from .utils import metrics
+
+    out: Dict[Optional[str], float] = {}
+    for counter in metrics.REGISTRY.series("klba_shed_total"):
+        klass = counter.labels.get("class")
+        out[klass] = out.get(klass, 0) + counter.value
+    return out
+
+
+def assert_valid_assignment(assignments, expect_partitions: int) -> None:
+    """Count-balanced (max - min <= 1), complete, no duplicates."""
+    sizes = [len(v) for v in assignments.values()]
+    got = [tuple(tp) for tps in assignments.values() for tp in tps]
+    assert sorted(got) == sorted(set(got)), "duplicate partitions"
+    assert len(got) == expect_partitions, (len(got), expect_partitions)
+    assert max(sizes) - min(sizes) <= 1, sizes
+
+
+def choice_from_assignments(assignments, members, partitions: int) -> np.ndarray:
+    """Decode a wire ``assignments`` dict back into the dense
+    partition->consumer-index vector the engine reasons in (int32[P], -1
+    for unassigned)."""
+    midx = {m: j for j, m in enumerate(members)}
+    choice = np.full(partitions, -1, np.int32)
+    for m, tps in assignments.items():
+        for _t, p in tps:
+            choice[p] = midx[m]
+    return choice
+
+
+def moved_fraction(prev_choice, choice) -> float:
+    """Fraction of partitions whose owner changed between two epochs'
+    decoded choice vectors (the wire-level churn observable)."""
+    prev = np.asarray(prev_choice)
+    cur = np.asarray(choice)
+    if prev.shape != cur.shape or prev.size == 0:
+        return 1.0
+    return float(np.count_nonzero(prev != cur)) / prev.size

@@ -13,10 +13,11 @@ consumer config drives either package and a value one package rejects the
 other rejects too; keys this package does not read pass through untouched,
 as the reference copies the whole map (:101-104).  The sidecar's keys
 that the port's sidecar serves (delta epochs, SLO classes and overload,
-the metrics port, the quality mode and tile) are read here; the rest of
-the JAX package's sidecar keys (the coalescer, snapshots and drain, the
-scrubber, the mesh, federation) and ``tpu.assignor.warmup.shapes`` pass
-through untouched until their slices come.
+the metrics port, the quality mode and tile, snapshots and drain, the
+writer lease, the resync pacer, the scrubber and the recovery pre-stack)
+and ``tpu.assignor.warmup.shapes`` are read here; the rest of the JAX
+package's sidecar keys (the coalescer, the mesh, federation) pass through
+untouched until their slices come.
 """
 
 from __future__ import annotations
@@ -89,6 +90,71 @@ OVERLOAD_DEPTH_HIGH_CONFIG = "tpu.assignor.overload.depth.high"
 # Opt-in plain-HTTP /metrics listener (utils/metrics_http): 0/unset
 # disables (the wire ``metrics`` method is always served).
 METRICS_PORT_CONFIG = "tpu.assignor.metrics.port"
+# Lifecycle snapshots + graceful drain (utils/snapshot, served by the
+# sidecar).  ``snapshot.path`` names the snapshot file (empty/unset
+# disables snapshots and recovery); ``snapshot.interval.ms`` is the periodic
+# write cadence (churn writes early, debounced); ``snapshot.max.age.ms`` is
+# the boot-time staleness guard (an older snapshot rehydrates nothing);
+# ``drain.timeout.ms`` bounds how long a drain waits for in-flight requests
+# before the final snapshot and the listener close.
+SNAPSHOT_PATH_CONFIG = "tpu.assignor.snapshot.path"
+SNAPSHOT_INTERVAL_CONFIG = "tpu.assignor.snapshot.interval.ms"
+SNAPSHOT_MAX_AGE_CONFIG = "tpu.assignor.snapshot.max.age.ms"
+DRAIN_TIMEOUT_CONFIG = "tpu.assignor.drain.timeout.ms"
+# Cross-host hand-off: where the snapshot lives ("file", or the
+# object-store-shaped "memory" / "object" with versioned CAS writes); a
+# lease ttl > 0 engages epoch-fenced writer leases, boot waiting up to
+# ``snapshot.lease.wait.ms`` for a crashed predecessor's (0 = auto, 2x ttl
+# + 1 s).
+SNAPSHOT_BACKEND_CONFIG = "tpu.assignor.snapshot.backend"
+SNAPSHOT_LEASE_TTL_CONFIG = "tpu.assignor.snapshot.lease.ttl.ms"
+SNAPSHOT_LEASE_WAIT_CONFIG = "tpu.assignor.snapshot.lease.wait.ms"
+# Post-restart resync pacing: at most this many concurrent stale-resident
+# dense rebuilds; excess epochs wait (``klba_resync_paced_total``).  0
+# disables.
+RESYNC_MAX_INFLIGHT_CONFIG = "tpu.assignor.resync.max.inflight"
+# The resident-state scrubber's cadence (utils/scrub); 0 disables it (the
+# per-dispatch digests stay on either way).
+SCRUB_INTERVAL_CONFIG = "tpu.assignor.scrub.interval.ms"
+# Rebuild each recovered stream's resident state at boot, off the serving
+# path (``StreamingAssignor.prestack_resident``).
+RECOVERY_PRESTACK_CONFIG = "tpu.assignor.recovery.prestack"
+# "P:C[:T][,P:C[:T]...]": shapes to warm at configure() time (consumer
+# startup, not on a rebalance's critical path): each entry builds every
+# kernel and runs the configured solver once at max_partitions P /
+# num_consumers C / a topic batch of T (default 1).  Shared parser with the
+# sidecar's --warmup flag (parse_warmup_shapes).  Empty/unset skips it.
+WARMUP_SHAPES_CONFIG = "tpu.assignor.warmup.shapes"
+
+
+def parse_warmup_shapes(text: str) -> list:
+    """THE parser for warm-up shape lists, used by this config key and the
+    sidecar's ``--warmup`` flag.  Returns [(max_partitions, num_consumers,
+    topics), ...]; raises ValueError on malformed or non-positive
+    entries."""
+    shapes = []
+    for pair in str(text).split(","):
+        parts = pair.split(":")
+        if len(parts) not in (2, 3):
+            raise ValueError(
+                f"warmup shape {pair!r} must be "
+                "'max_partitions:num_consumers[:topics]'"
+            )
+        try:
+            nums = [int(p) for p in parts]
+        except ValueError:
+            raise ValueError(
+                f"warmup shape {pair!r} must be "
+                "'max_partitions:num_consumers[:topics]'"
+            )
+        if len(nums) == 2:
+            nums.append(1)
+        if any(n < 1 for n in nums):
+            raise ValueError(
+                f"warmup shape entries must be positive, got {pair!r}"
+            )
+        shapes.append(tuple(nums))
+    return shapes
 
 #: Valid ``quality.mode`` values (the router in ops/dispatch uses them).
 QUALITY_MODES = ("sinkhorn", "linear", "auto")
@@ -161,6 +227,23 @@ class AssignorConfig:
     overload_depth_high: float = 24.0
     # Plain-HTTP /metrics port (utils/metrics_http); None = disabled.
     metrics_port: Optional[int] = None
+    # Lifecycle snapshots + drain (utils/snapshot; None path disables).
+    snapshot_path: Optional[str] = None
+    snapshot_interval_s: float = 30.0
+    snapshot_max_age_s: float = 900.0
+    drain_timeout_s: float = 10.0
+    # Cross-host hand-off: backend kind + epoch-fenced writer lease (ttl 0
+    # = fencing off) + boot lease wait (0 = auto).
+    snapshot_backend: str = "file"
+    snapshot_lease_ttl_s: float = 0.0
+    snapshot_lease_wait_s: float = 0.0
+    # Post-restart resync pacing + boot-time roster pre-stacking.
+    resync_max_inflight: int = 8
+    recovery_prestack: bool = False
+    # Resident-state scrubber cadence (utils/scrub); 0 disables.
+    scrub_interval_s: float = 30.0
+    # (max_partitions, num_consumers, topics) shapes to warm at configure().
+    warmup_shapes: list = field(default_factory=list)
     consumer_group_props: Dict[str, Any] = field(default_factory=dict)
     metadata_consumer_props: Dict[str, Any] = field(default_factory=dict)
 
@@ -243,6 +326,14 @@ def parse_config(configs: Mapping[str, Any]) -> AssignorConfig:
     except ValueError as exc:
         raise ValueError(f"{QUALITY_TILE_CONFIG}: {exc}")
 
+    raw_shapes = consumer_group_props.get(WARMUP_SHAPES_CONFIG, "")
+    warmup_shapes = []
+    if raw_shapes not in (None, ""):
+        try:
+            warmup_shapes = parse_warmup_shapes(raw_shapes)
+        except ValueError as exc:
+            raise ValueError(f"{WARMUP_SHAPES_CONFIG}: {exc}")
+
     raw_timeout = consumer_group_props.get(SOLVE_TIMEOUT_CONFIG, 120_000)
     try:
         timeout_ms = float(raw_timeout) if raw_timeout not in ("", None) else 0.0
@@ -274,6 +365,36 @@ def parse_config(configs: Mapping[str, Any]) -> AssignorConfig:
         raise ValueError(f"{LAG_RETRY_BACKOFF_CONFIG}={backoff_ms} must be >= 0")
 
     metrics_port = _as_int(METRICS_PORT_CONFIG, 0, 0)
+
+    raw_snap_path = consumer_group_props.get(SNAPSHOT_PATH_CONFIG, "")
+    snapshot_path = (
+        str(raw_snap_path) if raw_snap_path not in (None, "") else None
+    )
+    snapshot_interval_s = _as_ms(SNAPSHOT_INTERVAL_CONFIG, 30_000.0)
+    if snapshot_interval_s <= 0:
+        raise ValueError(
+            f"{SNAPSHOT_INTERVAL_CONFIG} must be > 0 ms"
+        )
+    snapshot_max_age_s = _as_ms(SNAPSHOT_MAX_AGE_CONFIG, 900_000.0)
+    if snapshot_max_age_s <= 0:
+        raise ValueError(f"{SNAPSHOT_MAX_AGE_CONFIG} must be > 0 ms")
+    drain_timeout_s = _as_ms(DRAIN_TIMEOUT_CONFIG, 10_000.0)
+    # The backend kind against the roster utils/snapshot ships: a typo
+    # fails at configure() time, not at the first snapshot write.
+    from .snapshot import BACKEND_KINDS
+
+    snapshot_backend = str(
+        consumer_group_props.get(SNAPSHOT_BACKEND_CONFIG, "file")
+    )
+    if snapshot_backend not in BACKEND_KINDS:
+        raise ValueError(
+            f"{SNAPSHOT_BACKEND_CONFIG}={snapshot_backend!r} invalid; "
+            f"choose one of {list(BACKEND_KINDS)}"
+        )
+    snapshot_lease_ttl_s = _as_ms(SNAPSHOT_LEASE_TTL_CONFIG, 0.0)
+    snapshot_lease_wait_s = _as_ms(SNAPSHOT_LEASE_WAIT_CONFIG, 0.0)
+    resync_max_inflight = _as_int(RESYNC_MAX_INFLIGHT_CONFIG, 8, 0)
+    scrub_interval_s = _as_ms(SCRUB_INTERVAL_CONFIG, 30_000.0)
 
     # SLO class map + per-class deadline budgets: prefix-keyed entries,
     # validated against the class roster (utils/overload).
@@ -370,6 +491,19 @@ def parse_config(configs: Mapping[str, Any]) -> AssignorConfig:
         overload_latency_budget_ms=overload_latency_budget_ms,
         overload_depth_high=overload_depth_high,
         metrics_port=metrics_port if metrics_port > 0 else None,
+        snapshot_path=snapshot_path,
+        snapshot_interval_s=snapshot_interval_s,
+        snapshot_max_age_s=snapshot_max_age_s,
+        drain_timeout_s=drain_timeout_s,
+        snapshot_backend=snapshot_backend,
+        snapshot_lease_ttl_s=snapshot_lease_ttl_s,
+        snapshot_lease_wait_s=snapshot_lease_wait_s,
+        resync_max_inflight=resync_max_inflight,
+        scrub_interval_s=scrub_interval_s,
+        recovery_prestack=_as_bool(
+            consumer_group_props.get(RECOVERY_PRESTACK_CONFIG, False)
+        ),
+        warmup_shapes=warmup_shapes,
         consumer_group_props=consumer_group_props,
         metadata_consumer_props=metadata_consumer_props,
     )

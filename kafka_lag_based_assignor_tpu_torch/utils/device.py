@@ -31,6 +31,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def fetch(*tensors):
+    """Numpy copies of tensors on one device, with one synchronisation for
+    all of them on the card (the calling thread's current stream)."""
+    if tensors[0].device.type == "cpu":
+        return tuple(t.numpy() for t in tensors)
+    host = [t.to("cpu", non_blocking=True) for t in tensors]
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    return tuple(t.numpy() for t in host)
+
+
 def carry_cuda_context(device: torch.device) -> Callable[[], ContextManager]:
     """Capture, on the calling thread, the CUDA device a call on ``device``
     runs on (its index, or the thread's current device) and that device's

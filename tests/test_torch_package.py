@@ -5,8 +5,9 @@
   by importing every module in a fresh interpreter;
 * every module of the streaming slice, of the solver surface (the scan
   kernel's wrapper, the native core's loader), of the fault ladder and
-  telemetry and of the sidecar (the service, overload control, the
-  ``/metrics`` listener) is covered by both checks;
+  telemetry, of the sidecar (the service, overload control, the
+  ``/metrics`` listener) and of its boot and restart (the warm-up, the
+  snapshots, the scrubber) is covered by both checks;
 * no module but ``utils/observability`` imports ``torch.profiler`` at
   import time, and that one only inside ``profile_trace``;
 * entry points default to the CUDA card and raise without one;
@@ -93,6 +94,15 @@ LADDER_SLICE = ("utils/trace.py", "utils/snapshot.py", "utils/metrics.py",
 
 
 SIDECAR_SLICE = ("service.py", "utils/overload.py", "utils/metrics_http.py")
+
+
+LIFECYCLE_SLICE = ("warmup.py", "utils/snapshot.py", "utils/scrub.py", "service.py",
+                   "testing.py", "utils/config.py", "assignor.py")
+
+
+def test_import_checks_cover_the_lifecycle_slice():
+    walked = {p.relative_to(PORT).as_posix() for p in port_sources() if PORT in p.parents}
+    assert set(LIFECYCLE_SLICE) <= walked
 
 
 def test_import_checks_cover_the_sidecar():

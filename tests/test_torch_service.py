@@ -73,7 +73,7 @@ NOT_COMPARED = frozenset({"klba_compile_total", "klba_trace_total",
                           "klba_static_drift_total"})
 # The JAX service's stats sections for features the port's sidecar does
 # not run yet (the port answers None for each).
-UNPORTED = ("coalesce", "lifecycle", "scrub", "federation", "mesh")
+UNPORTED = ("coalesce", "federation", "mesh")
 
 
 def strip(x):
@@ -138,9 +138,9 @@ class Twin:
                                                          quality_tile))
         self.clock = Clock()
         knobs = dict(quality_mode=quality_mode, quality_tile=quality_tile,
-                     clock=self.clock, **kw)
+                     clock=self.clock, scrub_interval_ms=0, **kw)
         self.jax = self._stack.enter_context(jax_service.AssignorService(
-            port=0, coalesce_max_batch=1, scrub_interval_ms=0, **knobs))
+            port=0, coalesce_max_batch=1, **knobs))
         self.port = self._stack.enter_context(
             service.AssignorService(port=0, device="cpu", **knobs))
         self.files = []
@@ -233,7 +233,7 @@ def test_wire_conformance(port_service, fixture):
         assert max(sizes) - min(sizes) <= fixture["expect_count_spread_max"]
 
 
-@pytest.mark.parametrize("method", ["drain", "peer_sync", "federation",
+@pytest.mark.parametrize("method", ["peer_sync", "federation",
                                     "federated_assign"])
 def test_unported_methods_answer_unknown_method(port_service, method):
     """The JAX service's methods for features the port does not run yet
