@@ -171,8 +171,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       first config-5 ``rounds`` ``assign()`` builds nothing
       (``compile_count()`` moves by 0); its wall is printed beside the first
       ``assign()`` of a second fresh process without the warm-up, and
-      the warm-up launches every kernel, and raises ``ValueError`` for
-      ``coalesce_max_batch=2`` and for a mesh manager; (b)
+      the warm-up launches every kernel, and raises ``ValueError`` for a
+      mesh manager; (b)
       sidecar A (``snapshot_path`` in a temporary directory) serves two
       streams through phase 4c's first 10 epochs (each equal to phase 4c's
       choice), ``drain`` over the wire writes the final snapshot and a
@@ -189,7 +189,33 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       quarantined), and its next epoch equals the uncorrupted stream's on
       the same lags; the audit's wall at B 131,072 (median of 5).  The
       phase's launches (both processes of (a) included) count into the
-      kernels line;
+      kernels line.  Phases 4f and 4g run their sidecars with
+      ``coalesce_max_batch=1`` (every epoch inline); phase 4h drives the
+      coalescer;
+   h. the megabatch coalescer, the host rung off: (a) ``bench.py``'s
+      ``multistream_32g`` shape (32 streams, P 4,096, C 16, ``refine_iters``
+      64, ``refine_threshold=None``, lags from seeds 6000 + g): 32 serial
+      engines inline, then 32 engines through one ``MegabatchCoalescer``
+      (batch cap 32): 2 warm-up waves, 6 timed waves, a locked delta wave
+      (every row a delta), a ``coalesce.flush`` fault wave (every row
+      re-run on the card's single-stream dispatch); every row equal to the
+      serial engine's epoch, the roster locked after the first wave
+      (re-stacks flat, roster hits counting), one batched K6 launch a wave,
+      no build in the timed loop, serial and coalesced epochs/s and the
+      mean batch size, and one profiled locked wave's device busy time and
+      idle share; (b) the batched K6 at config 5's resident shape (4 rows
+      of B 131,072, C 1,000, M 133) bit for bit against four single-row
+      launches and the plain version, clean and with each corruption class
+      in one row, and timed (event, alone, plain, bound); then four engines
+      at config 5 (``refine_iters`` 512, guardrail 1.25) in one locked wave:
+      every row equal to its inline twin, one K6 launch for the wave, its
+      wall and idle share profiled; (c) the port's sidecar with
+      ``coalesce_max_batch=32`` and four concurrent streams: every answer
+      equal to an inline sidecar's, ``stats.coalesce`` filled in; (d)
+      ``assign_stream_batch`` and ``assign_stream_global`` at config 3
+      equal to the plugin's ``rounds`` / ``global`` answers, one K1
+      launch each.  Its launches count into the kernels line, and it prints
+      a JSON ``coalesce`` line;
 5. times, with CUDA events, medians of 30 runs after warm-up: each kernel
    alone at its main-path shape, its plain version on the card, the
    library yardstick where there is one, and its bound; the device time
@@ -215,13 +241,16 @@ It prints the card's name and power limit, one JSON ``ladder`` line (phase
 4e's legs, drill and watchdog cost), one JSON ``sidecar`` line (phase 4f's
 walls and bytes), one JSON ``lifecycle`` line (phase 4g's warm-up rows,
 boot, first epochs and scrub walls, and its launches), one JSON
+``coalesce`` line (phase 4h's rates, walls, idle shares and K6 times), one JSON
 ``profiler`` line (the profiler's clock skew
 after the builds, around phase 4f and after phase 5, and its sessions
 recorded and discarded), one JSON ``kernels`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
 result.
 
-``python3 chip_smoke.py --sidecar`` runs phase 4f alone (after the builds,
+``python3 chip_smoke.py --coalesce`` runs phase 4h alone (after the builds)
+and prints its ``coalesce`` line.  ``python3 chip_smoke.py --sidecar`` runs
+phase 4f alone (after the builds,
 phase 4a and one phase-4c run it is held to) and prints its ``sidecar``
 line; ``--lifecycle`` runs phase 4g alone (after the builds and one
 phase-4c run) and prints its ``lifecycle`` line (``--lifecycle-child warm
@@ -263,6 +292,7 @@ import subprocess
 import sys
 import threading
 import time
+from contextlib import ExitStack
 
 import numpy as np
 import torch
@@ -331,6 +361,9 @@ PROFILER_PAD_S = 0.1
 SKEW_PAD_S = 2.0
 # Profiler sessions recorded and discarded (lost records) in this process.
 SESSIONS = {"recorded": 0, "discarded": 0}
+# nvidia-smi's name and power limit of the card, printed again beside the
+# results (the build logs push the first print out of a short tail).
+CARD = []
 T_START = time.perf_counter()
 # Dynamic shared memory a block may use on the H100 (227 KB).
 SMEM_PER_BLOCK = 232448
@@ -349,6 +382,7 @@ COUNTERS = (
     ("mirror_prox_step", linear_ot_cuda.mirror_prox_step),
     ("state_digest", refine.state_digest),
     ("scan_greedy", scan_cuda.scan_greedy),
+    ("state_digest_rows", refine.state_digest_rows),
 )
 # The name each kernel has in the profiler (a substring of it): K5 is the
 # pass K4 launches twice; K3's two forms are klba_plan_stats_cluster and
@@ -360,6 +394,7 @@ KERNEL_NAMES = {
     "mirror_prox_step": "klba_linear_ot_pass",
     "state_digest": "digest_",
     "scan_greedy": "scan_greedy_kernel",
+    "state_digest_rows": "digest_",
 }
 # The streaming engine at BASELINE config 5, as bench.py drives it: P
 # partitions, C consumers, and the warm epoch's exchange budget.
@@ -400,6 +435,7 @@ def environment() -> str:
     log(f"device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda},"
         f" {torch.cuda.device_count()} visible)")
     log(smi)
+    CARD.append(smi)
     return name
 
 
@@ -2040,7 +2076,8 @@ def sidecar_concurrency(svc, clients: int = 4) -> dict:
         return answers
 
     want = run(svc.address, "alone")
-    on_cpu = service.AssignorService(port=0, device="cpu", host_fallback=False).start()
+    on_cpu = service.AssignorService(port=0, device="cpu", host_fallback=False,
+                                     coalesce_max_batch=1).start()
     try:
         same_as_cpu(plan, lags, want, run(on_cpu.address, "alone", "cpu"))
     finally:
@@ -2146,8 +2183,9 @@ def sidecar_path(device, answers: dict, reference: StreamRun) -> tuple:
     from kafka_lag_based_assignor_tpu_torch import service
 
     launches = {name: 0 for name, _ in COUNTERS}
+    # Every epoch inline (phase 4h drives the coalescer).
     svc = service.AssignorService(port=0, device=device, host_fallback=False,
-                                  metrics_port=0).start()
+                                  metrics_port=0, coalesce_max_batch=1).start()
     try:
         with service.AssignorServiceClient(*svc.address, timeout_s=900) as client:
             if not client.ping():
@@ -2205,7 +2243,7 @@ def lifecycle_child(mode: str, device: str = "cuda") -> dict:
     if mode == "warm":
         # No hidden fallback: the jobs the port cannot run yet raise at the
         # call, before any device work, on the card as on the CPU.
-        for unported in ({"coalesce_max_batch": 2}, {"mesh_manager": object()}):
+        for unported in ({"mesh_manager": object()},):
             try:
                 warmup(max_partitions=STREAM_P, consumers=[STREAM_C], device=device,
                        **unported)
@@ -2218,7 +2256,10 @@ def lifecycle_child(mode: str, device: str = "cuda") -> dict:
                       solvers=LIFECYCLE_SOLVERS, device=device)
         out["warmup_s"] = time.perf_counter() - t0
         out["warmup_launches"] = read_counts()
-        if device == "cuda" and not all(out["warmup_launches"].values()):
+        # The batched K6 runs only in coalesced waves, which this warm-up
+        # (coalesce_max_batch=1) does not drive.
+        if device == "cuda" and not all(v for k, v in out["warmup_launches"].items()
+                                        if k != "state_digest_rows"):
             raise AssertionError(f"warm-up: a kernel never launched: "
                                  f"{out['warmup_launches']}")
         out["rows"] = [list(r) for r in rows]
@@ -2358,7 +2399,7 @@ def lifecycle_restart(device, reference: StreamRun, root: str) -> tuple:
     if not rec[LIFECYCLE_EPOCHS][3].refined:
         raise AssertionError("phase 4c's epoch 11 is not a refine: the restart check needs one")
     knobs = dict(port=0, device=device, host_fallback=False, snapshot_path=path,
-                 snapshot_interval_s=3600.0)
+                 snapshot_interval_s=3600.0, coalesce_max_batch=1)
     report = {}
     # (b) 1: sidecar A through phase 4c's first 10 epochs, then the drain.
     a = service.AssignorService(scrub_interval_ms=0, **knobs).start()
@@ -2525,6 +2566,460 @@ def lifecycle_path(device, reference: StreamRun) -> tuple:
 
 
 # -- phase 5 ---------------------------------------------------------------
+
+
+# -- phase 4h: the megabatch coalescer --------------------------------------
+
+# bench.py's multistream_32g shape: streams, partitions, consumers, the warm
+# exchange budget, and the warm-up and timed waves.
+MS_G, MS_P, MS_C, MS_BUDGET = 32, 4096, 16, 64
+MS_WARM, MS_TIMED = 2, 6
+# Config 5's resident shape in one locked wave of four streams.
+C5_ROWS = 4
+
+
+def ms_lags(rng) -> np.ndarray:
+    """bench.py's stable int32 payload range (the upload dtype is part of the
+    coalescer's shape key)."""
+    return rng.integers(10**6, 10**8, MS_P).astype(np.int64)
+
+
+def coalesce_series() -> dict:
+    from kafka_lag_based_assignor_tpu_torch.utils import metrics
+
+    reg = metrics.REGISTRY
+    out = {name: reg.counter(f"klba_coalesce_{name}_total").value
+           for name in ("roster_hits", "restack", "roster_invalidations", "dead_rows",
+                        "deadline_reroutes")}
+    for path in ("megabatch", "single", "fallback"):
+        out[f"flushes_{path}"] = reg.counter("klba_coalesce_flushes_total",
+                                             {"path": path}).value
+    for outcome in ("applied", "fallback"):
+        out[f"delta_{outcome}"] = reg.counter("klba_delta_epochs_total",
+                                              {"outcome": outcome}).value
+    h = reg.histogram("klba_coalesce_batch_size").state()
+    out["batch_count"], out["batch_sum"] = h["count"], h["sum"]
+    return out
+
+
+def series_moved(before: dict) -> dict:
+    return {k: v - before[k] for k, v in coalesce_series().items()}
+
+
+def submit_wave(engines, lags_list, coal) -> tuple:
+    """Every engine's ``submit_epoch`` at once, one thread each; returns
+    (choices, wall ms).  A failed epoch raises."""
+    out, errs = [None] * len(engines), [None] * len(engines)
+
+    def run(i):
+        try:
+            out[i] = engines[i].submit_epoch(lags_list[i], coal)
+        except Exception as exc:  # noqa: BLE001 — raised below
+            errs[i] = exc
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(engines))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            raise AssertionError("a coalesced epoch did not complete")
+    wall = (time.perf_counter() - t0) * 1e3
+    for e in errs:
+        if e is not None:
+            raise e
+    return out, wall
+
+
+def profiled_wave(engines, make_lags, coal) -> dict:
+    """One wave under torch.profiler: its wall, the device's busy time (every
+    op it enqueued) and idle share, the K6 kernels' time and count.  A
+    session that lost the digest kernel's record is repeated (up to five in
+    all), each try a fresh wave of ``make_lags()``; ``epochs`` lists every
+    wave's lags, in order, for the caller's inline twins to replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    epochs = []
+    for attempt in range(5):
+        lags_list = make_lags()
+        epochs.append(lags_list)
+        SESSIONS["recorded"] += 1
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad_for(attempt))
+            got, wall = submit_wave(engines, lags_list, coal)
+            torch.cuda.synchronize()
+            time.sleep(pad_for(attempt))
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "Activity Buffer" not in e.key]
+        digest = [e for e in events if KERNEL_NAMES["state_digest"] in e.key]
+        if digest:
+            busy = sum(e.self_device_time_total for e in events) / 1e3
+            return {"choices": got, "epochs": epochs, "wall_ms": wall, "busy_ms": busy,
+                    "idle_share": 1 - busy / wall,
+                    "digest_ms": sum(e.self_device_time_total for e in digest) / 1e3,
+                    "digest_kernels": sum(e.count for e in digest),
+                    "top": [(e.key[:48], e.self_device_time_total / 1e3, e.count)
+                            for e in sorted(events, key=lambda e: -e.self_device_time_total)[:5]]}
+        SESSIONS["discarded"] += 1
+    raise AssertionError("profiled wave: no session recorded the digest kernel")
+
+
+def multistream(device) -> tuple:
+    """4h (a): 32 serial engines against 32 through one coalescer, the same
+    seeded lags; returns (launches of the coalesced waves, the report)."""
+    from kafka_lag_based_assignor_tpu_torch.ops.coalesce import MegabatchCoalescer
+    from kafka_lag_based_assignor_tpu_torch.utils import faults
+    from kafka_lag_based_assignor_tpu_torch.utils.observability import (
+        compile_count,
+        install_compile_counter,
+    )
+
+    install_compile_counter()
+
+    def engines():
+        return [streaming.StreamingAssignor(num_consumers=MS_C, refine_iters=MS_BUDGET,
+                                            refine_threshold=None, device=device)
+                for _ in range(MS_G)]
+
+    # The epochs: cold, the warm-up waves, the timed waves, a delta wave
+    # (every row eight lags changed) and the flush-fault wave, the same
+    # seeded lags for both engine sets; a profiled wave after them.
+    rngs = [np.random.default_rng(6000 + g) for g in range(MS_G)]
+    epochs = [[ms_lags(r) for r in rngs] for _ in range(1 + MS_WARM + MS_TIMED)]
+    epochs.append([lg + (np.arange(MS_P) < 8) * (1 + np.arange(MS_P) % 5)
+                   for lg in epochs[-1]])
+    epochs.append([ms_lags(r) for r in rngs])
+    profiled_lags = [ms_lags(r) for r in rngs]
+
+    serial = engines()
+    want = []
+    walls = []
+    for e, lags_list in enumerate(epochs):
+        t0 = time.perf_counter()
+        want.append([eng.rebalance(lg) for eng, lg in zip(serial, lags_list)])
+        walls.append((time.perf_counter() - t0) * 1e3)
+    timed = slice(1 + MS_WARM, 1 + MS_WARM + MS_TIMED)
+    serial_eps = MS_G * MS_TIMED / (sum(walls[timed]) / 1e3)
+
+    co = engines()
+    coal = MegabatchCoalescer(window_s=2.0, max_batch=MS_G, lock_waves=1, device=device)
+    report = {}
+    try:
+        for eng, lg in zip(co, epochs[0]):
+            eng.rebalance(lg)
+        reset_counts()
+        base = coalesce_series()
+        wave_walls = []
+        builds = None
+        for e in range(1, len(epochs)):
+            if e == timed.start:
+                builds = compile_count()
+            if e == len(epochs) - 1:
+                with faults.injected(faults.FaultInjector().plan("coalesce.flush", times=1)):
+                    got, wall = submit_wave(co, epochs[e], coal)
+            else:
+                got, wall = submit_wave(co, epochs[e], coal)
+            wave_walls.append(wall)
+            for g in range(MS_G):
+                if not np.array_equal(got[g], want[e][g]):
+                    raise AssertionError(f"coalesce 4h(a): wave {e} stream {g} differs from "
+                                         "its serial engine")
+            if e == 1:
+                moved = series_moved(base)
+                if (moved["restack"], moved["roster_hits"]) != (1, 0):
+                    raise AssertionError(f"coalesce 4h(a): the first wave did not re-stack "
+                                         f"once: {moved}")
+                if not all(type(eng._resident).__name__ == "ResidentRow" for eng in co):
+                    raise AssertionError("coalesce 4h(a): the roster did not lock")
+            if e == timed.stop - 1 and compile_count() != builds:
+                raise AssertionError("coalesce 4h(a): the timed loop built a kernel")
+            if e == timed.stop:
+                moved = series_moved(base)
+                if moved["delta_applied"] != MS_G:
+                    raise AssertionError(f"coalesce 4h(a): the delta wave applied "
+                                         f"{moved['delta_applied']} of {MS_G} rows")
+        launches = read_counts()
+        moved = series_moved(base)
+        locked_waves = MS_WARM - 1 + MS_TIMED + 1
+        if (moved["restack"], moved["roster_hits"], moved["flushes_fallback"]) != (
+                1, locked_waves, 1):
+            raise AssertionError(f"coalesce 4h(a): roster series {moved}")
+        if launches["state_digest_rows"] != 1 + locked_waves:
+            raise AssertionError(f"coalesce 4h(a): {launches['state_digest_rows']} batched "
+                                 f"K6 launches for {1 + locked_waves} batched waves")
+        if launches["state_digest"] != MS_G or launches["rounds_scan"] != 0:
+            raise AssertionError(f"coalesce 4h(a): the fault wave's single dispatches: "
+                                 f"{launches}")
+        # After the fault wave the roster re-stacks; the next wave locks it
+        # again and is the profiled one.
+        submit_wave(co, profiled_lags, coal)
+        prof = profiled_wave(co, lambda: [ms_lags(r) for r in rngs], coal)
+    finally:
+        coal.close(timeout_s=60)
+    co_eps = MS_G * MS_TIMED / (sum(wave_walls[timed.start - 1:timed.stop - 1]) / 1e3)
+    report = {
+        "serial_epochs_per_s": serial_eps, "coalesced_epochs_per_s": co_eps,
+        "speedup": co_eps / serial_eps,
+        "mean_batch": moved["batch_sum"] / moved["batch_count"],
+        "serial_wave_ms": walls[timed], "coalesced_wave_ms": wave_walls[timed.start - 1:
+                                                                      timed.stop - 1],
+        "delta_wave_ms": wave_walls[timed.stop - 1], "fault_wave_ms": wave_walls[-1],
+        "series": moved, "launches": launches,
+        "profiled_wave": {k: v for k, v in prof.items() if k not in ("choices", "epochs")},
+    }
+    log(f"coalesce 4h(a) multistream_32g: {MS_G} streams x P {MS_P} x C {MS_C}, budget "
+        f"{MS_BUDGET}: serial {serial_eps!r} epochs/s, coalesced {co_eps!r} epochs/s "
+        f"({co_eps / serial_eps!r}x), mean batch {report['mean_batch']!r}; every row equal "
+        f"to its serial engine; series {moved}; launches {launches}; profiled locked wave "
+        f"wall {prof['wall_ms']!r} ms, device busy {prof['busy_ms']!r} ms, idle share "
+        f"{prof['idle_share']!r}, K6 {prof['digest_ms']!r} ms x{prof['digest_kernels']}")
+    return launches, report
+
+
+def digest_rows_check(device) -> tuple:
+    """4h (b) first half: the batched K6 at config 5's resident shape, four
+    rows, against four single-row launches and the plain version, clean and
+    with each corruption class in one row; then its times.  Returns (max
+    |diff|, the times)."""
+    B = pad_bucket(STREAM_P)
+    rows = [resident_case(B, STREAM_P, STREAM_C, device, seed) for seed in range(C5_ROWS)]
+    worst = 0
+    for kind in DIGEST_KINDS:
+        victim = len(kind) % C5_ROWS
+        bufs = [corrupted(kind, *r, STREAM_C) if n == victim else r
+                for n, r in enumerate(rows)]
+        lags, choice, counts, tab = (torch.stack([b[k] for b in bufs]).contiguous()
+                                     for k in range(4))
+        got = refine.state_digest_rows(lags, choice, counts, STREAM_C, tab)
+        again = refine.state_digest_rows(lags, choice, counts, STREAM_C, tab)
+        single = torch.stack([refine.state_digest(*b[:3], STREAM_C, row_tab=b[3])
+                              for b in bufs])
+        plain = torch.stack([digest_plain(*b[:3], STREAM_C, b[3]) for b in bufs])
+        err = int((got - plain).abs().max())
+        worst = max(worst, err)
+        if err or not torch.equal(got, single) or not torch.equal(got, again):
+            raise AssertionError(f"state_digest_rows disagrees at config 5 ({kind})")
+        for n, b in enumerate(bufs):
+            fails = scrub.digest_failures(got[n].cpu().numpy(), STREAM_P,
+                                          int(b[0].sum()))
+            if (n == victim and kind not in ("clean", "lag sum wraps")) != bool(fails):
+                raise AssertionError(f"state_digest_rows {kind} row {n}: host check {fails}")
+        log(f"kernel vs plain  state_digest_rows config5 x{C5_ROWS} {kind:30s} (row {victim}): "
+            f"equal to {C5_ROWS} single launches and the plain version, two runs equal")
+    lags, choice, counts, tab = (torch.stack([r[k] for r in rows]).contiguous()
+                                 for k in range(4))
+    t = op_times(lambda: refine.state_digest_rows(lags, choice, counts, STREAM_C, tab),
+                 KERNEL_NAMES["state_digest"])
+    plain = median_event_ms(lambda: [digest_plain(*r[:3], STREAM_C, r[3]) for r in rows])
+    singles = median_event_ms(lambda: [refine.state_digest(*r[:3], STREAM_C, row_tab=r[3])
+                                       for r in rows])
+    M = tab.shape[2]
+    slots = int(torch.clamp(counts, max=M).sum())
+    moved = C5_ROWS * (8 * B + 4 * (B + STREAM_C + STREAM_C * M) + 8 * 5) + 4 * slots
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    if t["launches"] != 1:
+        raise AssertionError(f"state_digest_rows enqueued {t['launches']} kernels a call")
+    out = dict(ms=t["event_ms"], alone_ms=t["alone_ms"], all_ops_ms=t["all_ops_ms"],
+               plain_ms=plain, four_single_launches_ms=singles, bound_ms=bound,
+               bound_by="bytes", library_ms=None, rows=C5_ROWS)
+    log(f"times  state_digest_rows at {C5_ROWS} x (B={B} C={STREAM_C} M={M}): event "
+        f"{t['event_ms']!r} ms, alone {t['alone_ms']!r} ms ({t['kernels']} kernel, "
+        f"{t['memsets']} memsets), four single launches {singles!r} ms, plain version "
+        f"{plain!r} ms, bound {bound!r} ms ({moved} bytes), {t['event_ms'] / bound:.1f}x")
+    return worst, out
+
+
+def config5_wave(device) -> tuple:
+    """4h (b) second half: four engines at config 5 in one locked wave, each
+    row equal to its inline twin, one batched K6 launch and nothing else for
+    the wave, its wall and idle share profiled."""
+    from kafka_lag_based_assignor_tpu_torch.ops.coalesce import MegabatchCoalescer
+
+    def engines():
+        return [streaming.StreamingAssignor(num_consumers=STREAM_C, refine_iters=STREAM_BUDGET,
+                                            imbalance_guardrail=1.25, device=device)
+                for _ in range(C5_ROWS)]
+
+    # Each warm epoch: a 5 % drift, then one consumer heated past the refine
+    # threshold (``heat``), so that every row refines and none trips the
+    # guardrail.  The inline engines make the epochs; the coalesced ones
+    # replay them.
+    rng = np.random.default_rng(55)
+    base = [zipf_lags(np.random.default_rng(500 + n), STREAM_P) for n in range(C5_ROWS)]
+    inline, co = engines(), engines()
+
+    def warm_lags(which):
+        return [heat((lg * rng.lognormal(0.0, 0.05, STREAM_P)).astype(np.int64),
+                     eng.export_state(), STREAM_C) for lg, eng in zip(base, which)]
+
+    epochs = [base]
+    want = [[eng.rebalance(lg) for eng, lg in zip(inline, base)]]
+    for _ in range(2):
+        lags = warm_lags(inline)
+        epochs.append(lags)
+        want.append([eng.rebalance(lg) for eng, lg in zip(inline, lags)])
+        if not all(eng.last_stats.refined and not eng.last_stats.guardrail_tripped
+                   for eng in inline):
+            raise AssertionError("coalesce 4h(b): an inline epoch did not refine warm")
+    coal = MegabatchCoalescer(window_s=2.0, max_batch=C5_ROWS, lock_waves=1, device=device)
+    try:
+        for eng, lg in zip(co, epochs[0]):
+            eng.rebalance(lg)
+        submit_wave(co, epochs[1], coal)  # re-stack, lock
+        reset_counts()
+        got, wall = submit_wave(co, epochs[2], coal)
+        launches = read_counts()
+        wave_stats = ([eng.last_stats.refine_rounds for eng in co],
+                      [eng.last_stats.refine_exchanges for eng in co])
+        if not all(wave_stats[0]):
+            raise AssertionError(f"coalesce 4h(b): a row ran no refine round: {wave_stats}")
+        if launches != {**{k: 0 for k in launches}, "state_digest_rows": 1}:
+            raise AssertionError(f"coalesce 4h(b): a locked config-5 wave launched {launches}")
+        for n in range(C5_ROWS):
+            if not np.array_equal(got[n], want[2][n]):
+                raise AssertionError(f"coalesce 4h(b): row {n} differs from inline")
+        prof = profiled_wave(co, lambda: warm_lags(co), coal)
+        for lags in prof["epochs"]:
+            last = [eng.rebalance(lg) for eng, lg in zip(inline, lags)]
+        for n in range(C5_ROWS):
+            if not np.array_equal(prof["choices"][n], last[n]):
+                raise AssertionError(f"coalesce 4h(b): profiled row {n} differs from inline")
+    finally:
+        coal.close(timeout_s=60)
+    out = {"wave_ms": wall, "rounds": wave_stats[0], "exchanges": wave_stats[1],
+           "launches": launches,
+           "profiled_wave": {k: v for k, v in prof.items() if k not in ("choices", "epochs")}}
+    log(f"coalesce 4h(b) config 5 x{C5_ROWS}: locked wave {wall!r} ms (rounds "
+        f"{out['rounds']}, exchanges {out['exchanges']}), one batched K6 launch, rows equal "
+        f"to inline; profiled wave {prof['wall_ms']!r} ms, busy {prof['busy_ms']!r} ms, "
+        f"idle share {prof['idle_share']!r}, K6 {prof['digest_ms']!r} ms "
+        f"x{prof['digest_kernels']}")
+    return launches, out
+
+
+def coalesced_sidecar(device) -> tuple:
+    """4h (c): a sidecar with ``coalesce_max_batch=32`` and four concurrent
+    streams against an inline sidecar; every answer equal, ``stats.coalesce``
+    filled in.  Returns (launches, report)."""
+    from kafka_lag_based_assignor_tpu_torch import service
+
+    opts = {"refine_iters": MS_BUDGET, "guardrail": None, "refine_threshold": None}
+    rng = np.random.default_rng(77)
+    epochs = [[ms_lags(rng) for _ in range(4)] for _ in range(5)]
+    members = [f"m{i:02d}" for i in range(MS_C)]
+
+    def serve(svc):
+        answers = []
+        with ExitStack() as stack:
+            clients = [stack.enter_context(service.AssignorServiceClient(*svc.address,
+                                                                         timeout_s=600))
+                       for _ in range(4)]
+            for lags_list in epochs:
+                got = [None] * 4
+
+                def run(i):
+                    got[i] = clients[i].stream_assign(f"s{i}", "t0", wire_rows(lags_list[i]),
+                                                      members, options=opts)
+
+                threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+                answers.append([wire_answer(g) for g in got])
+                for g in got:
+                    if g is None or g["stream"]["degraded_rung"] != "none":
+                        raise AssertionError(f"coalesce 4h(c): stream answer {g and g['stream']}")
+            stats = clients[0].request("stats")
+        return answers, stats
+
+    inline = service.AssignorService(port=0, device=device, host_fallback=False,
+                                     coalesce_max_batch=1, scrub_interval_ms=0).start()
+    try:
+        want, _ = serve(inline)
+    finally:
+        inline.stop()
+    svc = service.AssignorService(port=0, device=device, host_fallback=False,
+                                  coalesce_max_batch=32, coalesce_window_ms=50.0,
+                                  scrub_interval_ms=0).start()
+    try:
+        base = coalesce_series()
+        reset_counts()
+        got, stats = serve(svc)
+        launches = read_counts()
+        moved = series_moved(base)
+    finally:
+        svc.stop()
+    if got != want:
+        raise AssertionError("coalesce 4h(c): the coalesced sidecar's answers differ")
+    co = stats.get("coalesce")
+    if not isinstance(co, dict) or set(co) != {
+            "locked_rosters", "stream_sharded_rosters", "roster_hits", "restack_flushes",
+            "roster_invalidations", "dead_rows_dropped"}:
+        raise AssertionError(f"coalesce 4h(c): stats.coalesce {co}")
+    if moved["batch_count"] < 1 or moved["flushes_fallback"]:
+        raise AssertionError(f"coalesce 4h(c): series {moved}")
+    log(f"coalesce 4h(c) sidecar coalesce_max_batch=32, 4 streams x {len(epochs)} epochs: "
+        f"answers equal to the inline sidecar's; stats.coalesce {co}; series {moved}; "
+        f"launches {launches}")
+    return launches, {"stats_coalesce": co, "series": moved}
+
+
+def dense_stream_paths(device) -> tuple:
+    """4h (d): ``assign_stream_batch`` / ``assign_stream_global`` at config 3
+    equal to the plugin's ``rounds`` / ``global`` answers, one K1 launch
+    each.  Returns (launches, report)."""
+    lags, members = baseline_workload(3)
+    topics = sorted(lags)
+    table = np.stack([lags[t] for t in topics])
+    order = sorted(members)
+    report = {}
+    total = {name: 0 for name, _ in COUNTERS}
+    for solver, fn in (("rounds", lambda: batched.assign_stream_batch(table, 64, device)),
+                       ("global", lambda: batched.assign_stream_global(table, 64, device)[0])):
+        want, _ = assign_once(lags, members, solver, device)
+        reset_counts()
+        t0 = time.perf_counter()
+        choice = fn().cpu().numpy()
+        wall = (time.perf_counter() - t0) * 1e3
+        grew = read_counts()
+        if grew["rounds_scan"] != 1 or sum(grew.values()) != 1:
+            raise AssertionError(f"coalesce 4h(d): {solver} dense path launched {grew}")
+        add_counts(total, grew)
+        got = {m: set() for m in order}
+        for t, topic in enumerate(topics):
+            for p in range(table.shape[1]):
+                got[order[choice[t, p]]].add((topic, p))
+        if any(got[m] != set(want[m]) for m in order):
+            raise AssertionError(f"coalesce 4h(d): the dense {solver} path differs from the "
+                                 "plugin's answer")
+        report[solver] = {"wall_ms": wall}
+        log(f"coalesce 4h(d) config 3 dense {solver}: equal to the plugin's answer, one K1 "
+            f"launch, {wall!r} ms on the host clock (upload and readback included)")
+    return total, report
+
+
+def coalesce_path(device) -> tuple:
+    """Phase 4h: (a) multistream_32g, (b) config 5's batched K6 and locked
+    wave, (c) the coalesced sidecar, (d) the dense stream paths.  Returns
+    (the launches of the driven paths, the batched K6's max |diff|, its
+    times, the ``coalesce`` line)."""
+    launches = {name: 0 for name, _ in COUNTERS}
+    report = {}
+    grew, report["multistream_32g"] = multistream(device)
+    add_counts(launches, grew)
+    digest_err, digest_times = digest_rows_check(device)
+    grew, report["config5_wave"] = config5_wave(device)
+    add_counts(launches, grew)
+    grew, report["sidecar"] = coalesced_sidecar(device)
+    add_counts(launches, grew)
+    grew, report["dense_paths"] = dense_stream_paths(device)
+    add_counts(launches, grew)
+    report["state_digest_rows"] = digest_times
+    log(f"coalesce path launches {launches}")
+    return launches, digest_err, digest_times, report
 
 
 def median_event_ms(fn) -> float:
@@ -3274,6 +3769,9 @@ SOURCES = {
     "superblock_partials": ("csrc/linear_ot.cu", "ops/linear_ot_pallas.py:169"),
     "mirror_prox_step": ("csrc/linear_ot.cu", "ops/linear_ot_pallas.py:226"),
     "state_digest": ("csrc/state_digest.cu", "ops/linear_ot_pallas.py:350"),
+    # The same kernel over a wave's rows: the JAX package vmaps the Pallas
+    # call over the wave (ops/coalesce.py::_epoch_rows).
+    "state_digest_rows": ("csrc/state_digest.cu", "ops/linear_ot_pallas.py:350"),
     # No Pallas kernel: the JAX package's lax.scan in this function.
     "scan_greedy": ("csrc/scan_greedy.cu", None),
 }
@@ -3446,6 +3944,13 @@ def main() -> int:
         launches, sidecar = sidecar_path(device, answers, StreamRun(device).run())
         log(json.dumps({"sidecar": sidecar, "launches": launches, "device": name}))
         return 0
+    if sys.argv[1:] == ["--coalesce"]:
+        build()
+        launches, digest_err, _, report = coalesce_path(device)
+        log(f"card: {CARD[0]}")
+        log(json.dumps({"coalesce": report, "launches": launches,
+                        "max_abs_err": digest_err, "device": name}, default=str))
+        return 0
     if sys.argv[1:] == ["--lifecycle"]:
         build()
         launches, lifecycle = lifecycle_path(device, StreamRun(device).run())
@@ -3477,6 +3982,7 @@ def main() -> int:
     sidecar_launches, sidecar = sidecar_path(device, answers, stream_run)
     skew.append(profiler_skew("after phase 4f"))
     lifecycle_launches, lifecycle = lifecycle_path(device, stream_run)
+    coalesce_launches, digest_rows_err, digest_rows_t, coalesce = coalesce_path(device)
     launches["rounds_scan"] += (rounds_launches + stream_launches["rounds_scan"]
                                 + solver_launches["rounds_scan"]
                                 + ladder_launches["rounds_scan"])
@@ -3486,6 +3992,10 @@ def main() -> int:
     for k, v in sidecar_launches.items():
         launches[k] += v
     for k, v in lifecycle_launches.items():
+        launches[k] += v
+    # Phase 4h: the coalesced waves' batched K6, their single-stream
+    # dispatches and the dense stream paths' K1.
+    for k, v in coalesce_launches.items():
         launches[k] += v
     k1 = times(device)
     quality = quality_times(device)
@@ -3499,11 +4009,15 @@ def main() -> int:
         line.append(kernel_line(k, launches[k], f32_err[k], t))
     line.append(kernel_line("state_digest", launches["state_digest"], digest_err, digest))
     line.append(kernel_line("scan_greedy", launches["scan_greedy"], scan_err, k7))
+    line.append(kernel_line("state_digest_rows", launches["state_digest_rows"],
+                            digest_rows_err, digest_rows_t))
     log(json.dumps({"ladder": ladder}))
     log(json.dumps({"sidecar": sidecar}))
     log(json.dumps({"lifecycle": lifecycle}, default=str))
+    log(json.dumps({"coalesce": coalesce}, default=str))
     log(json.dumps({"profiler": {"skew": skew, "sessions": SESSIONS,
                                  "pad_s": PROFILER_PAD_S, "skew_pad_s": SKEW_PAD_S}}))
+    log(f"card: {CARD[0]}")
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

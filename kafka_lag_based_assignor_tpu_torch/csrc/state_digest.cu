@@ -19,6 +19,13 @@
 // 0, so padding is neutral), counts int32[C], row_tab int32[C, M] (or none,
 // M = 0; lane 4 is then meaningless and the wrapper drops it).
 //
+// klba_state_digest_rows digests N such states in one launch (the
+// coalescer's wave: the JAX package vmaps state_digest_pallas over it): the
+// inputs are [N, B], [N, B], [N, C] and [N, C, M], the rows on the grid's y
+// axis, each row with its own scratch (accumulators, ticket, histogram) and
+// its own int64[5] of the [N, 5] output.  No block reads another row's data,
+// so each row's lanes are the one-row launch's, bit for bit.
+//
 // What bounds it: bytes, and at the streaming engine's shapes the latency.
 // At 100k partitions / 1k consumers (B = 131,072, M = 133) it reads 2.5 MB
 // (lags 1 MB, choice 0.5 MB, the table 0.53 MB, the gathered choices of the
@@ -101,6 +108,17 @@ __global__ void __launch_bounds__(kThreads) klba_state_digest_kernel(
     const int* __restrict__ counts, const int* __restrict__ row_tab, int B, int C, int M,
     unsigned long long* __restrict__ acc, long long* __restrict__ out) {
   extern __shared__ unsigned sh_hist[];  // int32[C]
+  // This block's row of a batched launch (0 for one state): its inputs,
+  // scratch and output lanes.
+  {
+    const size_t row = blockIdx.y;
+    lags += row * B;
+    choice += row * B;
+    counts += row * C;
+    if (row_tab != nullptr) row_tab += row * C * static_cast<size_t>(M);
+    acc += row * (kAccWords + (static_cast<size_t>(C) + 1) / 2);
+    out += row * 5;
+  }
   __shared__ unsigned long long part[kNumAcc][kWarps];
   __shared__ bool last;
   const cg::cluster_group cluster = cg::this_cluster();
@@ -294,19 +312,19 @@ cudaError_t resident_clusters(size_t smem, int* clusters) {
   return cudaSuccess;
 }
 
-}  // namespace
-
-// Launches the digest on `stream`; returns the first CUDA error (0 = ok).
-// row_tab may be null with M = 0.  scratch: 64 + 4 * C bytes, the sums and
-// the ticket, then the histogram (ops/state_digest_cuda.scratch_bytes), zero
-// at the call and left zero.  out: int64[5].  The grid: a thread for four
-// rows and a warp for a table row, in whole clusters, at most as many as
-// fit on the card at once (the grid-stride loops take the rest).
-extern "C" int klba_state_digest(const void* lags, const void* choice, const void* counts,
-                                 const void* row_tab, long long B, int C, int M, void* scratch,
-                                 void* out, void* stream) {
-  if (B < 1 || B >= (1LL << 31) || C < 1 || C > kMaxConsumers || M < 0 ||
-      (M > 0 && row_tab == nullptr) || static_cast<long long>(C) * M >= (1LL << 31))
+// Launches the digest of N states on `stream` (see the header); returns the
+// first CUDA error (0 = ok).  row_tab may be null with M = 0.  scratch: N
+// rows of 8 * (8 + ceil(C / 2)) bytes, each the sums and the ticket, then
+// the histogram (ops/state_digest_cuda.scratch_bytes), zero at the call and
+// left zero.  out: int64[N, 5].  The grid: for each row a thread for four
+// rows and a warp for a table row, in whole clusters, the rows together at
+// most as many clusters as fit on the card at once (the grid-stride loops
+// take the rest; a row gets at least one cluster).
+int launch_rows(const void* lags, const void* choice, const void* counts, const void* row_tab,
+                long long B, int C, int M, int N, void* scratch, void* out, void* stream) {
+  if (B < 1 || B >= (1LL << 31) || C < 1 || C > kMaxConsumers || M < 0 || N < 1 ||
+      N > 65535 || (M > 0 && row_tab == nullptr) ||
+      static_cast<long long>(C) * M >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(C) * sizeof(unsigned);
   int fit = 0;
@@ -314,14 +332,15 @@ extern "C" int klba_state_digest(const void* lags, const void* choice, const voi
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long work = (B + 3) / 4 > 32LL * C ? (B + 3) / 4 : 32LL * C;
   long long clusters = (work + kThreads * kCluster - 1) / (kThreads * kCluster);
-  if (clusters > fit) clusters = fit;
+  const long long share = fit / N > 1 ? fit / N : 1;
+  if (clusters > share) clusters = share;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = kCluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(clusters * kCluster));
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * kCluster), static_cast<unsigned>(N));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -333,6 +352,22 @@ extern "C" int klba_state_digest(const void* lags, const void* choice, const voi
                            static_cast<unsigned long long*>(scratch), static_cast<long long*>(out));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// One state: the digest into out int64[5].
+extern "C" int klba_state_digest(const void* lags, const void* choice, const void* counts,
+                                 const void* row_tab, long long B, int C, int M, void* scratch,
+                                 void* out, void* stream) {
+  return launch_rows(lags, choice, counts, row_tab, B, C, M, 1, scratch, out, stream);
+}
+
+// N states of one shape in one launch: out int64[N, 5].
+extern "C" int klba_state_digest_rows(const void* lags, const void* choice, const void* counts,
+                                      const void* row_tab, long long B, int C, int M, int N,
+                                      void* scratch, void* out, void* stream) {
+  return launch_rows(lags, choice, counts, row_tab, B, C, M, N, scratch, out, stream);
 }
 
 extern "C" const char* klba_cuda_error_string(int err) {

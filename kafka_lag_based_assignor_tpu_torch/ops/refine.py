@@ -39,6 +39,7 @@ on the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ._build import count_launch
@@ -588,6 +589,191 @@ def refine_rounds_resident(
     return choice, row_tab, counts, totals, it, ex
 
 
+def _row_gather(a, idx):
+    """``a[n, idx[n, ...]]`` along axis 1 for each row n of a [N, X] tensor."""
+    return a.gather(1, idx.reshape(idx.shape[0], -1)).reshape(idx.shape)
+
+
+def refine_rounds_resident_rows(
+    lags,
+    choice,
+    row_tab,
+    counts,
+    totals,
+    num_consumers: int,
+    iters: int,
+    max_pairs: int | None = None,
+    patience: int = 8,
+    exchange_budget: int = 0,
+    quality_limits=None,
+    fan: int = 8,
+):
+    """The warm engine's bulk rounds over N independent rows at once: the
+    counterpart of the JAX package's ``vmap`` of the warm core's
+    ``while_loop`` (``ops/coalesce.py::_epoch_rows``).
+
+    Args: lags int64[N, B], choice int32[N, B] (-1 unassigned), row_tab
+    int32[N, C, M], counts int32[N, C], totals int64[N, C];
+    ``quality_limits`` f64[N] (a negative entry: no target for that row;
+    None: none for any); the rest as :func:`refine_rounds_resident`, whose
+    ``bulk_transfer=True`` round every row runs with a partner ``fan``.
+
+    Each row keeps its own round count, patience and exchange budget, and
+    stops on its own exits; the loop runs until every row has stopped, and
+    a stopped row is never changed.  No data crosses rows: the gathers and
+    sorts run along each row's own axes, the scatters into a flat buffer
+    with a row offset.  One host read a round: the [N] stop mask and the
+    exchanges so far.  Each row's result equals, bit for bit, a single-row
+    :func:`refine_rounds_resident` on the same inputs.
+
+    Returns (choice, row_tab, counts, totals, rounds int64[N], exchanges
+    int64[N]), the last two as numpy arrays; the inputs are never written.
+    """
+    C = int(num_consumers)
+    N, P = lags.shape
+    M = row_tab.shape[2]
+    K = max(1, min(C // 2, max_pairs if max_pairs is not None else C // 2))
+    none = np.zeros(N, dtype=np.int64)
+    if C < 2 or iters <= 0 or N == 0:
+        return choice, row_tab, counts, totals, none, none.copy()
+    dev = lags.device
+    f64 = torch.float64
+    choice = choice.to(torch.int32)
+    n_light = C - K
+    kk = torch.arange(K, device=dev)
+    mslots = torch.arange(M, device=dev)
+    nrow = torch.arange(N, device=dev)[:, None]  # [N, 1]
+    limit = (torch.full((N,), -1.0, dtype=f64, device=dev) if quality_limits is None
+             else torch.as_tensor(quality_limits, dtype=f64, device=dev).reshape(N))
+    has_limit = limit >= 0
+    lim2 = limit[:, None]
+    budget = int(exchange_budget)
+    fan_eff = max(1, min(int(fan), K))
+    big64 = _INT64_MAX
+    Ms = -(-M // fan_eff)
+    jj = torch.arange(Ms, device=dev)
+    gidx = jj[None, :] * fan_eff + (kk[:, None] % fan_eff)  # [K, Ms]
+    in_seg = gidx < M
+    gidx = torch.clamp(gidx, max=M - 1).expand(N, K, Ms)
+
+    def body(it, since, ex_done, choice, tab, counts, totals):
+        order = torch.argsort(totals, dim=1, stable=True)  # [N, C]
+        light = order[:, (kk + it % n_light) % n_light]  # [N, K]
+        heavy = order[:, C - 1 - kk // fan_eff]
+        tot_h = totals.gather(1, heavy)
+        tot_l = totals.gather(1, light)
+        diff = tot_h - tot_l
+        delta = diff >> 1
+        heavy_f = tot_h.to(f64)
+        active = heavy_f > lim2
+        # Both forms of the budget per row, the target's where it has one
+        # (the single-row body's two branches, element for element).
+        needed = torch.where(
+            has_limit[:, None],
+            torch.ceil((heavy_f - lim2) / fan_eff).to(torch.int64),
+            delta // fan_eff + 1,
+        )
+        headroom = torch.where(
+            has_limit[:, None],
+            torch.floor(lim2 - tot_l.to(f64)).to(torch.int64),
+            big64,
+        )
+        cap = torch.minimum(delta, torch.clamp(headroom, min=0))
+
+        rows_h = tab.gather(1, heavy[:, :, None].expand(N, K, M))  # [N, K, M]
+        rows_l = tab.gather(1, light[:, :, None].expand(N, K, M))
+        hvalid = mslots < counts.gather(1, heavy)[:, :, None]
+        lvalid = mslots < counts.gather(1, light)[:, :, None]
+        lag_h = torch.where(hvalid, _row_gather(lags, torch.clamp(rows_h.long(), 0, P - 1)), -1)
+        lag_l = torch.where(lvalid, _row_gather(lags, torch.clamp(rows_l.long(), 0, P - 1)),
+                            big64)
+        perm_h = lexsort(-lag_h, rows_h, dim=-1)
+        nh = (-lag_h).gather(-1, perm_h)
+        hs_row = rows_h.gather(-1, perm_h)
+        perm_l = lexsort(lag_l, rows_l, dim=-1)
+        la = lag_l.gather(-1, perm_l)
+        ls_row = rows_l.gather(-1, perm_l)
+        nh_s = nh.gather(-1, gidx)
+        hs_row_s = hs_row.gather(-1, gidx)
+        hs_slot_s = perm_h.gather(-1, gidx)
+        ls_lag = la[..., :Ms]
+        ls_row_s = ls_row[..., :Ms]
+        ls_slot_s = perm_l[..., :Ms]
+        rank_ok = in_seg & (nh_s <= 0) & (ls_lag < big64) & active[:, :, None]
+        d = torch.where(rank_ok, -nh_s - ls_lag, 0)
+        perm_d = lexsort(-d, hs_row_s, dim=-1)
+        ds = d.gather(-1, perm_d)
+        dh_row = hs_row_s.gather(-1, perm_d)
+        dh_slot = hs_slot_s.gather(-1, perm_d)
+        dl_row = ls_row_s.gather(-1, perm_d)
+        dl_slot = ls_slot_s.gather(-1, perm_d)
+        fit = (ds > 0) & (ds <= cap[:, :, None])
+        cum = torch.cumsum(torch.where(fit, ds, 0), dim=-1)
+        sel = fit & (cum <= cap[:, :, None]) & ((cum - ds) < needed[:, :, None])
+        if budget:
+            flat_sel = sel.reshape(N, K * Ms)
+            quota = (budget - ex_done)[:, None]
+            sel = (flat_sel & (torch.cumsum(flat_sel.to(torch.int64), dim=1) <= quota)
+                   ).reshape(N, K, Ms)
+
+        transfer = torch.where(sel, ds, 0).sum(dim=-1)  # [N, K]
+        new_totals = totals.clone()
+        flat_tot = new_totals.view(N * C)
+        flat_tot.index_add_(0, (nrow * C + heavy).reshape(-1), -transfer.reshape(-1))
+        flat_tot.index_add_(0, (nrow * C + light).reshape(-1), transfer.reshape(-1))
+        r3 = nrow[:, :, None]
+        drop_p = N * P
+        h_rows = torch.where(sel, r3 * P + dh_row.long(), drop_p).reshape(-1)
+        l_rows = torch.where(sel, r3 * P + dl_row.long(), drop_p).reshape(-1)
+        ext = torch.cat([choice.reshape(-1), choice.new_zeros(1)])
+        ext = _drop_set(ext, h_rows, light[:, :, None].expand(N, K, Ms).reshape(-1))
+        ext = _drop_set(ext, l_rows, heavy[:, :, None].expand(N, K, Ms).reshape(-1))
+        drop_t = N * C * M
+        flat = torch.cat([tab.reshape(-1), tab.new_zeros(1)])
+        hidx = torch.where(sel, r3 * (C * M) + heavy[:, :, None] * M + dh_slot, drop_t)
+        lidx = torch.where(sel, r3 * (C * M) + light[:, :, None] * M + dl_slot, drop_t)
+        flat = _drop_set(flat, hidx.reshape(-1), dl_row.reshape(-1))
+        flat = _drop_set(flat, lidx.reshape(-1), dh_row.reshape(-1))
+
+        old_peak = totals.amax(dim=1).to(f64)
+        new_peak = new_totals.amax(dim=1).to(f64)
+        min_step = torch.where(has_limit, (old_peak - limit) / 16.0, 0.0)
+        good = (old_peak - new_peak) > torch.clamp(min_step, min=0.0)
+        new_since = torch.where(good, 0, since + 1)
+        new_ex = ex_done + sel.to(torch.int64).sum(dim=(1, 2))
+        return (new_since, new_ex, ext[:drop_p].reshape(N, P),
+                flat[:drop_t].reshape(N, C, M), counts, new_totals)
+
+    since = torch.zeros(N, dtype=torch.int64, device=dev)
+    ex_done = torch.zeros(N, dtype=torch.int64, device=dev)
+
+    def going():
+        """Each row's loop test and its exchanges so far, in one host read."""
+        go = (since < patience) & (totals.amax(dim=1).to(f64) > limit)
+        if budget:
+            go &= ex_done < budget
+        both = torch.stack([go.to(torch.int64), ex_done]).cpu().numpy()
+        return both[0].astype(bool), both[1]
+
+    rounds = np.zeros(N, dtype=np.int64)
+    go, ex = going()
+    it = 0
+    while go.any() and it < iters:
+        mask = torch.from_numpy(go).to(dev)
+        out = body(it, since, ex_done, choice, row_tab, counts, totals)
+        m1 = mask[:, None]
+        since = torch.where(mask, out[0], since)
+        ex_done = torch.where(mask, out[1], ex_done)
+        choice = torch.where(m1, out[2], choice)
+        row_tab = torch.where(mask[:, None, None], out[3], row_tab)
+        totals = torch.where(m1, out[5], totals)
+        rounds += go
+        it += 1
+        nxt, ex = going()
+        go = go & nxt
+    return choice, row_tab, counts, totals, rounds, ex
+
+
 def refine_assignment_resident(lags, valid, choice, num_consumers: int,
                                iters: int = 16, max_pairs: int | None = None,
                                patience: int = 8, exchange_budget: int = 0,
@@ -710,3 +896,49 @@ def state_digest(lags_p, choice_p, counts, num_consumers: int, row_tab=None):
 
 
 state_digest.launches = 0
+
+
+def state_digest_rows(lags, choice, counts, num_consumers: int, row_tab):
+    """The integrity digest of N resident states of one shape: int64[N, 5],
+    row n equal to ``state_digest(lags[n], choice[n], counts[n],
+    num_consumers, row_tab=row_tab[n])``.
+
+    Args: lags int64[N, B], choice int32[N, B], counts int32[N, C], row_tab
+    int32[N, C, M]; N >= 1, the limits of :func:`state_digest` per row.  A
+    CUDA tensor launches the batched K6 kernel once for all N rows (one
+    count in ``state_digest_rows.launches``) or raises; a CPU tensor runs
+    the plain version row by row.  Both raise ``ValueError`` on the same
+    inputs.
+    """
+    if lags.dim() != 2 or lags.shape[0] < 1:
+        raise ValueError(f"lags must be int64[N, B] with N >= 1, got {list(lags.shape)}")
+    N = lags.shape[0]
+    if not 1 <= N <= 65535:
+        raise ValueError(f"state_digest_rows takes 1 to 65535 rows, got {N}")
+    shapes = [("choice", choice, 2), ("counts", counts, 2), ("row_tab", row_tab, 3)]
+    for name, t, dims in shapes:
+        if t.dim() != dims or t.shape[0] != N:
+            raise ValueError(f"{name} must have {dims} axes and {N} rows, got "
+                             f"{list(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not lags.is_contiguous():
+        raise ValueError("lags must be contiguous")
+    _check_digest(lags[0], choice[0], counts[0], num_consumers, row_tab[0])
+    if lags.device.type == "cpu":
+        return torch.stack([
+            torch.cat([
+                _state_digest_torch(lags[n], choice[n], counts[n], num_consumers),
+                _row_tab_lane_torch(lags[n], choice[n], row_tab[n], counts[n],
+                                    num_consumers)[None],
+            ])
+            for n in range(N)
+        ])
+    from .state_digest_cuda import launch_rows
+
+    out = launch_rows(lags, choice, counts, num_consumers, row_tab)
+    count_launch(state_digest_rows)
+    return out
+
+
+state_digest_rows.launches = 0

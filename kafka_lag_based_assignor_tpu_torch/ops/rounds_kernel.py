@@ -127,6 +127,31 @@ def assign_topic_rounds(
     )
 
 
+def assign_presorted_rounds(sorted_lags: torch.Tensor, perm: torch.Tensor,
+                            num_consumers: int):
+    """Round decomposition over a host-presorted dense topic: every row
+    valid, the exact shape (no pad), so the scan runs the minimum
+    ceil(P / C) rounds.
+
+    Args: sorted_lags [P] in processing order (lag descending, ties by
+    partition id), perm int[P] the permutation that produced it.  Returns
+    (choice int32[P] in input order, counts int32[C], totals int64[C]).
+    """
+    P = sorted_lags.shape[0]
+    C = int(num_consumers)
+    dev = sorted_lags.device
+    totals0 = torch.zeros((C,), dtype=torch.int64, device=dev)
+    totals, sorted_choice = _rounds_scan(
+        sorted_lags.to(torch.int64), torch.ones((P,), dtype=torch.bool, device=dev),
+        totals0, C,
+    )
+    return (
+        unsort(perm.to(torch.int64), sorted_choice),
+        bincount_sorted(sorted_choice, C),
+        totals,
+    )
+
+
 def assign_global_rounds(
     lags: torch.Tensor,
     partition_ids: torch.Tensor,

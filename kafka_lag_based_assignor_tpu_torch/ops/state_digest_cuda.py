@@ -4,7 +4,10 @@ The kernel replaces ``kafka_lag_based_assignor_tpu/ops/linear_ot_pallas.py::
 state_digest_pallas`` and the XLA row-table lane beside it; the source says
 what bounds it.  :func:`launch` is called by :func:`.refine.state_digest`
 for CUDA tensors only, after that wrapper has checked the inputs; it
-allocates the output and raises if the launch fails.
+allocates the output and raises if the launch fails.  :func:`launch_rows`
+is the batched entry (``klba_state_digest_rows``) that
+:func:`.refine.state_digest_rows` calls: one launch for a coalescer wave's
+N states, the rows on the grid's y axis, a scratch row each.
 
 The kernel's accumulators, ticket and histogram live in a scratch buffer
 that is zeroed once for each (device, stream) and grown when a call needs
@@ -23,6 +26,7 @@ import torch
 ACC_WORDS = 8
 
 _fn = None
+_fn_rows = None
 _scratch: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -32,12 +36,20 @@ def scratch_bytes(num_consumers: int) -> int:
     return 8 * ACC_WORDS + 4 * int(num_consumers)
 
 
-def scratch_for(device: torch.device, stream: int, num_consumers: int) -> torch.Tensor:
+def scratch_row_bytes(num_consumers: int) -> int:
+    """Bytes between two rows' scratch in a batched call: a row's scratch
+    rounded up to whole 64-bit words."""
+    return 8 * (ACC_WORDS + (int(num_consumers) + 1) // 2)
+
+
+def scratch_for(device: torch.device, stream: int, num_consumers: int,
+                rows: int = 1) -> torch.Tensor:
     """The scratch for (device, stream), holding at least ``num_consumers``
-    bins: zeroed when made (or grown), then kept (the kernel leaves it
-    zero)."""
+    bins for each of ``rows`` states: zeroed when made (or grown), then kept
+    (the kernel leaves it zero)."""
     key = (device.index if device.index is not None else -1, stream)
-    need = scratch_bytes(num_consumers)
+    need = (scratch_bytes(num_consumers) if rows <= 1
+            else int(rows) * scratch_row_bytes(num_consumers))
     buf = _scratch.get(key)
     if buf is None or buf.numel() < need:
         buf = torch.zeros(need, dtype=torch.uint8, device=device)
@@ -59,6 +71,42 @@ def _bind():
         lib.klba_cuda_error_string.restype = ctypes.c_char_p
         _fn = fn, lib.klba_cuda_error_string
     return _fn
+
+
+def _bind_rows():
+    global _fn_rows
+    if _fn_rows is None:
+        from ._build import load
+
+        lib = load("state_digest")
+        fn = lib.klba_state_digest_rows
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
+        fn.restype = ctypes.c_int
+        _fn_rows = fn
+    return _fn_rows
+
+
+def launch_rows(lags, choice, counts, num_consumers: int, row_tab):
+    """int64[N, 5] digests of N states in one launch, on the inputs' card:
+    lags int64[N, B], choice int32[N, B], counts int32[N, C], row_tab
+    int32[N, C, M]."""
+    N, B = lags.shape
+    C = int(num_consumers)
+    M = int(row_tab.shape[2])
+    fn = _bind_rows()
+    _, error_string = _bind()
+    dev = lags.device
+    out = torch.empty((N, 5), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        err = fn(lags.data_ptr(), choice.data_ptr(), counts.data_ptr(),
+                 row_tab.data_ptr(), B, C, M, N,
+                 scratch_for(dev, stream, C, rows=N).data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"state_digest_rows kernel launch failed: {error_string(err).decode()}")
+    return out
 
 
 def launch(lags_p, choice_p, counts, num_consumers: int, row_tab=None):

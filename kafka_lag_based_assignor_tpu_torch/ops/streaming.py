@@ -1,7 +1,7 @@
 """Streaming rebalance with warm start: the BASELINE config-5 loop.
 
 Counterpart of ``kafka_lag_based_assignor_tpu/ops/streaming.py`` for one
-device and an inline dispatch.  :class:`StreamingAssignor` keeps the
+device.  :class:`StreamingAssignor` keeps the
 previous choice vector as a warm start across rebalances of one topic:
 
 * **cold start / shape change / guardrail trip** — the cold chain: the
@@ -28,6 +28,13 @@ previous choice vector as a warm start across rebalances of one topic:
   quarantines the engine (the resident state is dropped) and raises
   :class:`..utils.scrub.CorruptStateDetected`; the next epoch rebuilds the
   resident state from the host and so heals;
+* **megabatch** — :meth:`StreamingAssignor.submit_epoch` routes a warm
+  epoch's resident refine through a :class:`.coalesce.MegabatchCoalescer`:
+  the epoch parks on a future, and the coalescer runs it with every
+  concurrent stream's epoch of the same shape as one batched dispatch.
+  While a stream's roster is locked its resident state is a
+  :class:`.coalesce.ResidentRow` handle into the coalescer's stacked batch;
+  an inline dispatch materializes it first;
 * **membership change** — :meth:`StreamingAssignor.remap_members` keeps
   every surviving member's partitions; a host repair pass re-seats orphans
   and count overflow.
@@ -341,6 +348,11 @@ class StreamingAssignor:
         self.last_effective_delta_fraction = self.delta_max_fraction
         ladder = delta_k_ladder(self.delta_buckets)
         self._delta_kmax = ladder[-1] if self.delta_enabled else 0
+        # Set by submit_epoch for one epoch: the resident warm dispatch then
+        # parks on this coalescer (ops/coalesce) instead of running inline,
+        # with this SLO placement (class, rank, absolute deadline).
+        self._coalescer = None
+        self._slo_submit = ("standard", 1, None)
         self._epoch_num = 0
         self.h2d_bytes = {"dense": 0, "delta": 0}
         self.d2h_bytes = {"dense": 0, "delta": 0}
@@ -365,7 +377,8 @@ class StreamingAssignor:
         self._prev_choice: Optional[np.ndarray] = None
         # The resident state between dispatches: (padded int32 choice[B],
         # row table int32[C, M], counts int32[C], padded int64 lags[B]) on
-        # the engine's device, or None while stale.
+        # the engine's device, a ResidentRow handle while this stream's
+        # roster is locked in a coalescer, or None while stale.
         self._resident = None
         # Host mirror of the resident lag buffer's first P entries (the base
         # the delta differ diffs against); lives and dies with the resident.
@@ -422,6 +435,35 @@ class StreamingAssignor:
                 "guardrail", {"epoch": self._epoch_num, "quality_ratio": ratio}
             )
         return choice
+
+    def submit_epoch(
+        self,
+        lags: np.ndarray,
+        coalescer,
+        slo_class: str = "standard",
+        rank: int = 1,
+        deadline_at: Optional[float] = None,
+    ) -> np.ndarray:
+        """One rebalance epoch whose warm resident dispatch, if the epoch
+        needs one, goes through ``coalescer``
+        (:class:`.coalesce.MegabatchCoalescer`) instead of running inline:
+        the epoch parks on a future and is batched with every concurrent
+        stream's epoch of the same shape.  Everything else is
+        :meth:`rebalance`: the host quality gate still skips balanced
+        epochs, cold solves and table-building dispatches stay inline, and a
+        flush failure surfaces on this stream only.
+
+        ``slo_class`` / ``rank`` / ``deadline_at`` place the submission
+        (:mod:`..utils.overload`): rank orders the flush, and
+        ``deadline_at`` (absolute, on the registry clock) lets the flush
+        re-route or shed a row whose budget cannot survive a wave."""
+        self._coalescer = coalescer
+        self._slo_submit = (str(slo_class), int(rank), deadline_at)
+        try:
+            return self.rebalance(lags)
+        finally:
+            self._coalescer = None
+            self._slo_submit = ("standard", 1, None)
 
     def _note_delta(self, outcome: str) -> None:
         self.delta_epochs[outcome] += 1
@@ -521,13 +563,14 @@ class StreamingAssignor:
         point has healed: the successors were rebuilt from host truth
         (counted per buffer).  The ``device.corrupt.*`` fault points fire
         here, so a drill can flip bits in the freshly adopted tensors (host
-        mirror left intact) and exercise the detect/quarantine/heal path."""
+        mirror left intact) and exercise the detect/quarantine/heal path.  A
+        :class:`.coalesce.ResidentRow` handle is installed as it is."""
         if self._quarantined is not None:
             scrub_mod.record_quarantine(
                 self._quarantined, "healed", source="rebuild"
             )
             self._quarantined = None
-        self._resident = self._corrupt_resident(tuple(resident), lags.shape[0])
+        self._resident = self._corrupt_resident(resident, lags.shape[0])
         self._lag_mirror = np.array(lags, dtype=np.int64, copy=True)
 
     def _corrupt_resident(self, resident, P: int):
@@ -536,7 +579,11 @@ class StreamingAssignor:
         fires, one seeded bit of the named resident tensor is flipped — the
         host mirror is deliberately NOT updated, so the device state
         silently diverges as a real memory fault would.  One global load
-        when no injector is active."""
+        when no injector is active.  A locked roster's handle is skipped:
+        the coalescer owns that injection site."""
+        if hasattr(resident, "materialize"):
+            return resident
+        resident = tuple(resident)
         if faults.active() is None:
             return resident
         plan = scrub_mod.corruption_plan(limit=P)
@@ -696,12 +743,27 @@ class StreamingAssignor:
         resident = self._resident
         warm = dict(num_consumers=C, iters=budget, max_pairs=pairs,
                     exchange_budget=budget)
+        # The resident state is the engine's own tensors or, while its
+        # roster is locked in a coalescer, a ResidentRow handle.
+        handle_matches = getattr(resident, "matches", None)
         if resident is not None and (
-            resident[0].shape[0] == B
-            and tuple(resident[1].shape) == (C, table_rows(B, C))
+            handle_matches(B, C, table_rows(B, C))
+            if handle_matches is not None
+            else (resident[0].shape[0] == B
+                  and tuple(resident[1].shape) == (C, table_rows(B, C)))
         ):
             out = None
             delta = self._delta_plan(lags, payload)
+            if self._coalescer is not None:
+                done = self._submit_to_coalescer(
+                    lags, payload, resident, limit, delta, lag_sum, B, warm, stats)
+                if done is not None:
+                    return done
+            if handle_matches is not None:
+                # An inline dispatch needs the stream's own tensors: leaving
+                # the roster materializes its row (the next coalesced wave
+                # re-stacks and re-locks).
+                resident = resident.materialize()
             if delta is not None:
                 out = self._dispatch_delta(delta, resident, limit, P, warm, rb_k)
                 if out is None:
@@ -783,6 +845,39 @@ class StreamingAssignor:
         self._adopt_resident(successors, lags)
         self._fill_stats_from_device(stats, totals_np, counts_np, rounds, ex)
         return narrow_np.astype(np.int32)
+
+    def _submit_to_coalescer(self, lags, payload, resident, limit, delta,
+                             lag_sum: int, B: int, warm: dict, stats):
+        """Park this epoch's resident refine on the coalescer; returns the
+        choice, or None when the flush re-routed the row to the inline path
+        (:class:`.coalesce.DeadlineReroute`: this parked thread dispatches
+        it).  A row whose readback digest failed quarantines the engine and
+        raises :class:`..utils.scrub.CorruptStateDetected`."""
+        from ..utils.watchdog import capture_abandon_check
+        from .coalesce import DeadlineReroute, EpochSubmission
+
+        klass, rank, deadline_at = self._slo_submit
+        try:
+            r = self._coalescer.submit(EpochSubmission(
+                payload=payload, bucket=B, resident=resident, limit=limit,
+                scope=metrics.capture_scope(), owner=self,
+                abandoned=capture_abandon_check(), klass=klass, rank=rank,
+                deadline_at=deadline_at,
+                delta_idx=delta[0][: delta[3]] if delta is not None else None,
+                delta_vals=delta[1][: delta[3]] if delta is not None else None,
+                lag_sum=lag_sum, **warm,
+            )).result()
+        except DeadlineReroute:
+            return None
+        except scrub_mod.CorruptStateDetected as exc:
+            # The wave found this row diverged: the coalescer evicted the
+            # roster; the handle points into the frozen corrupt batch and
+            # must never be used again.
+            self.quarantine_resident(exc.buffers, source="wave")
+            raise
+        self._adopt_resident(r.resident, lags)
+        self._fill_stats_from_device(stats, r.totals, r.counts, r.rounds, r.exchanges)
+        return r.narrow[: lags.shape[0]].astype(np.int32)
 
     def _effective_delta_fraction(self) -> float:
         """The delta/dense cutoff for the next epoch: the global knob until

@@ -78,12 +78,20 @@ format is the JAX package's byte for byte (:mod:`.utils.snapshot`), so
 either package recovers from the other's file.  ``stats.lifecycle`` and
 ``stats.scrub`` answer as the JAX service's.
 
-What the JAX service does that this one does not do yet: the megabatch
-coalescer (every stream epoch runs inline, as the JAX service with
-``coalesce_max_batch=1``), the device mesh and federation.  Their knobs are
-absent; ``peer_sync``, ``federation`` and ``federated_assign`` answer the
-JAX "unknown method" error, and the ``stats`` sections ``coalesce``,
-``federation`` and ``mesh`` answer None.
+Megabatch coalescing (:mod:`.ops.coalesce`, the JAX service's): with
+``coalesce_max_batch`` > 1 (default 32) and more than one live stream,
+every warm epoch's resident refine parks on the coalescer
+(:meth:`.ops.streaming.StreamingAssignor.submit_epoch`) and runs batched
+with the concurrent streams' epochs of the same shape; a lone stream keeps
+the inline path.  The overload controller's per-class window scales shrink
+its admission window, the drain flushes its waves, ``stats.coalesce``
+reports its rosters (absent when coalescing is off, as in the JAX
+service), and the warm-up drives its waves.
+
+What the JAX service does that this one does not do yet: the device mesh
+and federation.  Their knobs are absent; ``peer_sync``, ``federation`` and
+``federated_assign`` answer the JAX "unknown method" error, and the
+``stats`` sections ``federation`` and ``mesh`` answer None.
 
 Device: every solve and every stream engine runs on ``device`` (default
 the CUDA card; :func:`.utils.device.resolve_device` raises without one, and
@@ -145,6 +153,7 @@ from .utils.overload import (
     OverloadController,
     ShedReject,
     SloPolicy,
+    class_rank,
     recommend_payload,
     record_shed,
 )
@@ -619,9 +628,9 @@ def _apply_stream_opts(engine, opts: Dict[str, Any]) -> None:
 def _in_context(cuda_context, fn):
     """``fn`` run inside ``cuda_context`` — the watchdog worker's entry into
     the handler thread's CUDA device and stream."""
-    def run(*args):
+    def run(*args, **kwargs):
         with cuda_context():
-            return fn(*args)
+            return fn(*args, **kwargs)
     return run
 
 
@@ -790,6 +799,14 @@ class AssignorService:
         # Circuit-breaker policy (utils/watchdog): per-solver breakers.
         breaker_cooldown_s: float = 300.0,
         breaker_failures: int = 3,
+        # Megabatch coalescer (ops/coalesce): the admission window and the
+        # per-shape batch cap (<= 1 disables coalescing; a lone live stream
+        # bypasses it either way), the waves before a roster locks, and the
+        # readback pipeline (False: strict serial).
+        coalesce_window_ms: float = 0.5,
+        coalesce_max_batch: int = 32,
+        coalesce_lock_waves: int = 1,
+        coalesce_pipeline: bool = True,
         # Delta epochs (ops/streaming): sparse lag uploads onto the
         # device-resident lag buffer when at most max_fraction of the
         # partitions changed, a pow2 K ladder of delta_buckets rungs, and
@@ -912,6 +929,26 @@ class AssignorService:
         # warm-restarts from what the clients run.  Bounded by MAX_STREAMS;
         # consumed on use or stream_reset.
         self._snapshots: Dict[str, Tuple] = {}
+        from .ops.streaming import delta_k_ladder
+
+        ladder = delta_k_ladder(delta_buckets) if delta_enabled else []
+        # The device and stream the scrubber's reads and the coalescer's
+        # waves run on: those of the thread that builds the service.
+        self._cuda_context = carry_cuda_context(self.device)
+        if int(coalesce_max_batch) > 1:
+            from .ops.coalesce import MegabatchCoalescer
+
+            self._coalescer = MegabatchCoalescer(
+                window_s=max(float(coalesce_window_ms), 0.0) / 1000.0,
+                max_batch=int(coalesce_max_batch),
+                lock_waves=int(coalesce_lock_waves),
+                pipeline=bool(coalesce_pipeline),
+                delta_k=ladder[-1] if ladder else 0,
+                device=self.device,
+                cuda_context=self._cuda_context,
+            )
+        else:
+            self._coalescer = None
         self._delta_opts = {
             "delta_enabled": bool(delta_enabled),
             "delta_max_fraction": float(delta_max_fraction),
@@ -975,9 +1012,6 @@ class AssignorService:
         # or the TTL passes).  Guarded by _streams_lock.
         self._takeover_warming: Dict[str, float] = {}
         self._takeover_deadline: Optional[float] = None
-        # The device and stream the scrubber's reads run on: those of the
-        # thread that builds the service.
-        self._cuda_context = carry_cuda_context(self.device)
         if scrub_interval_ms and float(scrub_interval_ms) > 0:
             self._scrubber = scrub_lib.StateScrubber(
                 targets=self._scrub_targets,
@@ -1055,7 +1089,7 @@ class AssignorService:
         """Build a sidecar from a Kafka-style consumer config map, reading
         the keys this sidecar serves (utils/config.parse_config):
         ``solve.timeout.ms``, ``host.fallback``, ``breaker.*``,
-        ``delta.*``, ``quality.*``, ``slo.class.<stream>`` /
+        ``coalesce.*``, ``delta.*``, ``quality.*``, ``slo.class.<stream>`` /
         ``slo.deadline.ms.<class>`` / ``overload.*``, ``metrics.port``,
         ``snapshot.*`` / ``drain.timeout.ms``, ``resync.max.inflight``,
         ``recovery.prestack``, ``scrub.interval.ms`` and ``warmup.shapes``.
@@ -1069,6 +1103,10 @@ class AssignorService:
             "host_fallback": cfg.host_fallback,
             "breaker_cooldown_s": cfg.breaker_cooldown_s,
             "breaker_failures": cfg.breaker_failures,
+            "coalesce_window_ms": cfg.coalesce_window_s * 1000.0,
+            "coalesce_max_batch": cfg.coalesce_max_batch,
+            "coalesce_lock_waves": cfg.coalesce_lock_waves,
+            "coalesce_pipeline": cfg.coalesce_pipeline,
             "delta_enabled": cfg.delta_enabled,
             "delta_max_fraction": cfg.delta_max_fraction,
             "delta_buckets": cfg.delta_buckets,
@@ -1258,9 +1296,13 @@ class AssignorService:
         result["breakers"] = self._watchdog.stats()
         # The shed ladder's position + pressure signals.
         result["overload"] = self._overload.snapshot()
+        if self._coalescer is not None:
+            # Roster tracking: locked rosters and the hit / re-stack /
+            # invalidation / dead-row counters.
+            result["coalesce"] = self._coalescer.stats()
         # The JAX service's sections for features this sidecar does not
         # run yet, answered as a disabled feature is.
-        for section in ("coalesce", "federation", "mesh"):
+        for section in ("federation", "mesh"):
             result[section] = None
         # Lifecycle: serving/draining/stopped, the snapshot store, the last
         # recovery, the writer lease and the boot's hand-off.
@@ -1571,6 +1613,10 @@ class AssignorService:
                 "overload admission decision failed; failing open "
                 "(admit)", exc_info=True,
             )
+        if decision is not None and self._coalescer is not None:
+            # Rung 1 and up shrink the admission window per class:
+            # best_effort waves first, the critical window last.
+            self._coalescer.set_window_scales(decision.window_scales)
         if decision is not None and decision.action == "reject":
             self._overload.note_shed(
                 klass, decision.rung_name, "rejected",
@@ -1738,7 +1784,7 @@ class AssignorService:
             try:
                 choice, s, degraded_rung, fallback_used = self._solve_epoch(
                     sid, st, lags, C, opts, prev, budget, members_sorted,
-                    pids_sorted,
+                    pids_sorted, klass,
                 )
             finally:
                 if paced:
@@ -1813,17 +1859,39 @@ class AssignorService:
         )
 
     def _solve_epoch(self, sid, st, lags, C, opts, prev, budget,
-                     members_sorted, pids_sorted):
+                     members_sorted, pids_sorted, klass="standard"):
         """Ladder rung 1, the warm engine under the stream breaker with the
-        request's REMAINING budget, and the rungs below it.  Returns
+        request's REMAINING budget, and the rungs below it.  ``klass`` is the
+        request's SLO class (the coalesced submission's placement).  Returns
         ``(choice, stats, degraded_rung, fallback_used)``."""
+        # With more than one live stream the warm dispatch parks on the
+        # coalescer; a lone stream keeps the inline path.
+        coalescer = self._coalescer
+        if coalescer is not None:
+            with self._streams_lock:
+                if len(self._streams) <= 1:
+                    coalescer = None
         try:
-            choice = self._watchdog.call(
-                _in_context(carry_cuda_context(self.device),
-                            st.engine.rebalance),
-                lags, key="stream", timeout_s=budget.remaining(),
-                budget_total_s=budget.total_s,
-            )
+            if coalescer is not None:
+                # The submission's deadline: the request's remaining budget
+                # on the coalescer's (registry) clock.
+                rem = budget.remaining()
+                choice = self._watchdog.call(
+                    _in_context(carry_cuda_context(self.device),
+                                st.engine.submit_epoch),
+                    lags, coalescer, key="stream", timeout_s=rem,
+                    budget_total_s=budget.total_s, slo_class=klass,
+                    rank=class_rank(klass),
+                    deadline_at=(metrics.REGISTRY.clock() + rem
+                                 if rem is not None else None),
+                )
+            else:
+                choice = self._watchdog.call(
+                    _in_context(carry_cuda_context(self.device),
+                                st.engine.rebalance),
+                    lags, key="stream", timeout_s=budget.remaining(),
+                    budget_total_s=budget.total_s,
+                )
             # A recovered stream's warming dispatch succeeded: its takeover
             # share is released (one empty-dict check in steady state).
             if self._takeover_warming:
@@ -2516,13 +2584,26 @@ class AssignorService:
                     )
                     break
                 self._active_cond.wait(min(0.05, remaining))
-        # 2. The final snapshot, then the lease released, so a replacement
+        # 2. The coalescer's parked waves and their readbacks flush, so no
+        #    future is abandoned mid-wave.  Fault point drain.flush fires
+        #    inside; a failure is logged and the drain goes on.
+        if self._coalescer is not None:
+            try:
+                if not self._coalescer.drain(
+                    timeout_s=max(0.0, deadline - self._clock())
+                ):
+                    LOGGER.warning("coalescer did not quiesce within the "
+                                   "drain window; proceeding")
+            except Exception:  # noqa: BLE001 — the drain must complete
+                LOGGER.warning("coalescer drain failed; proceeding with the "
+                               "final snapshot", exc_info=True)
+        # 3. The final snapshot, then the lease released, so a replacement
         #    adopts at once (a crash never releases: the TTL fences it).
         if self._snapshot_writer is not None:
             self._final_snapshot()
         if self._snapshot_store is not None:
             self._snapshot_store.release_lease()
-        # 3. The listener closes; the process may exit.
+        # 4. The listener and the coalescer close; the process may exit.
         self._close_listener()
         self._set_lifecycle("stopped")
         metrics.FLIGHT.record("lifecycle", {"event": "drained"})
@@ -2547,6 +2628,11 @@ class AssignorService:
             self._recover()
             if self._recovery_prestack:
                 self._prestack_recovered()
+        # With coalescing on, the warm-up also drives one multi-stream wave
+        # set per batch bucket, so the first coalesced waves build nothing.
+        coalesce_batch = (
+            self._coalescer.max_batch if self._coalescer is not None else 1
+        )
         if self._warmup_shapes:
             # Connections arriving meanwhile queue in the TCP backlog.
             from .warmup import warmup
@@ -2557,6 +2643,7 @@ class AssignorService:
                     consumers=[consumers],
                     topics=[topics],
                     solvers=self._warmup_solvers,
+                    coalesce_max_batch=coalesce_batch,
                     delta_buckets=self._warm_delta_buckets,
                     device=self.device,
                 )
@@ -2569,6 +2656,7 @@ class AssignorService:
                     max_partitions=max_p,
                     consumers=[consumers],
                     solvers=("stream",),
+                    coalesce_max_batch=coalesce_batch,
                     delta_buckets=self._warm_delta_buckets,
                     device=self.device,
                 )
@@ -2622,6 +2710,8 @@ class AssignorService:
         self._tcp.server_close()
         if self._scrubber is not None:
             self._scrubber.close()
+        if self._coalescer is not None:
+            self._coalescer.close(timeout_s=10.0)
         if self._metrics_http is not None:
             self._metrics_http.stop()
             self._metrics_http = None

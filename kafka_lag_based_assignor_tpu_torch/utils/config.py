@@ -12,12 +12,12 @@ prefix, with the JAX package's names, defaults and parse rules, so one
 consumer config drives either package and a value one package rejects the
 other rejects too; keys this package does not read pass through untouched,
 as the reference copies the whole map (:101-104).  The sidecar's keys
-that the port's sidecar serves (delta epochs, SLO classes and overload,
-the metrics port, the quality mode and tile, snapshots and drain, the
-writer lease, the resync pacer, the scrubber and the recovery pre-stack)
-and ``tpu.assignor.warmup.shapes`` are read here; the rest of the JAX
-package's sidecar keys (the coalescer, the mesh, federation) pass through
-untouched until their slices come.
+that the port's sidecar serves (the megabatch coalescer, delta epochs, SLO
+classes and overload, the metrics port, the quality mode and tile,
+snapshots and drain, the writer lease, the resync pacer, the scrubber and
+the recovery pre-stack) and ``tpu.assignor.warmup.shapes`` are read here;
+the rest of the JAX package's sidecar keys (the mesh, federation) pass
+through untouched until their slices come.
 """
 
 from __future__ import annotations
@@ -87,6 +87,15 @@ SLO_CLASS_PREFIX = "tpu.assignor.slo.class."
 SLO_DEADLINE_PREFIX = "tpu.assignor.slo.deadline.ms."
 OVERLOAD_LATENCY_BUDGET_CONFIG = "tpu.assignor.overload.latency.budget.ms"
 OVERLOAD_DEPTH_HIGH_CONFIG = "tpu.assignor.overload.depth.high"
+# Megabatch coalescer knobs (ops/coalesce, served by the sidecar): the
+# admission window in ms and the per-shape batch cap (<= 1 disables
+# cross-stream coalescing); the consecutive identical-stream-set waves
+# before a roster locks; and whether readback overlaps the next wave's
+# upload (false: strict serial).
+COALESCE_WINDOW_CONFIG = "tpu.assignor.coalesce.window.ms"
+COALESCE_MAX_BATCH_CONFIG = "tpu.assignor.coalesce.max_batch"
+COALESCE_LOCK_WAVES_CONFIG = "tpu.assignor.coalesce.roster.lock.waves"
+COALESCE_PIPELINE_CONFIG = "tpu.assignor.coalesce.pipeline"
 # Opt-in plain-HTTP /metrics listener (utils/metrics_http): 0/unset
 # disables (the wire ``metrics`` method is always served).
 METRICS_PORT_CONFIG = "tpu.assignor.metrics.port"
@@ -212,6 +221,12 @@ class AssignorConfig:
     # sidecar, read by ops/dispatch).
     quality_mode: str = "auto"
     quality_tile: int = 1024
+    # Megabatch coalescer (ops/coalesce): admission window, batch cap,
+    # roster lock streak and the readback pipeline.
+    coalesce_window_s: float = 0.0005
+    coalesce_max_batch: int = 32
+    coalesce_lock_waves: int = 1
+    coalesce_pipeline: bool = True
     # Delta epochs (ops/streaming): fraction ceiling, pow2 K ladder and
     # the adaptive cutoff.
     delta_enabled: bool = True
@@ -478,6 +493,12 @@ def parse_config(configs: Mapping[str, Any]) -> AssignorConfig:
         sinkhorn_iters=sinkhorn_iters,
         quality_mode=quality_mode,
         quality_tile=quality_tile,
+        coalesce_window_s=_as_ms(COALESCE_WINDOW_CONFIG, 0.5),
+        coalesce_max_batch=_as_int(COALESCE_MAX_BATCH_CONFIG, 32, 1),
+        coalesce_lock_waves=_as_int(COALESCE_LOCK_WAVES_CONFIG, 1, 1),
+        coalesce_pipeline=_as_bool(
+            consumer_group_props.get(COALESCE_PIPELINE_CONFIG, True)
+        ),
         delta_enabled=_as_bool(
             consumer_group_props.get(DELTA_ENABLED_CONFIG, True)
         ),

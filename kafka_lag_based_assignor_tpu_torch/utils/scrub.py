@@ -200,7 +200,8 @@ def audit_engine(engine) -> Tuple[bool, List[str]]:
     under the stream lock, idle streams only) and, on the card, has entered
     the engine's CUDA device and stream.  The resident tuple is the
     engine's ``(choice int32[B], row_tab int32[C, M], counts int32[C], lags
-    int64[B])``, the order of the JAX engine's buffers."""
+    int64[B])``, the order of the JAX engine's buffers, or a locked
+    roster's handle into the coalescer's batch."""
     prev = getattr(engine, "_prev_choice", None)
     resident = getattr(engine, "_resident", None)
     if prev is None or resident is None:
@@ -210,7 +211,11 @@ def audit_engine(engine) -> Tuple[bool, List[str]]:
     if P == 0 or int(prev.min()) < 0 or int(prev.max()) >= C:
         # Host state mid-repair (orphans): nothing trustworthy to diff.
         return False, []
-    choice_d, row_tab, counts_d, lags_d = fetch(*resident[:4])
+    # A locked roster's handle materializes its row (one gather a buffer;
+    # the fault point ``coalesce.gather`` fires there).
+    materialize = getattr(resident, "materialize", None)
+    bufs = materialize() if materialize is not None else resident
+    choice_d, row_tab, counts_d, lags_d = fetch(*bufs[:4])
     fails: List[str] = []
     if choice_d.shape[0] < P or not np.array_equal(choice_d[:P], prev):
         fails.append("choice")
@@ -305,8 +310,13 @@ class StateScrubber:
             self._thread.start()
         return self
 
-    def close(self) -> None:
+    def close(self, timeout_s: float = 10.0) -> None:
+        """Stop the cadence and wait (up to ``timeout_s``) for a pass in
+        progress to end, so that a closed scrubber moves no series."""
         self._stop.set()
+        thread = self._thread
+        if thread is not None and thread is not threading.current_thread():
+            thread.join(timeout_s)
 
     def _run(self) -> None:
         while not self._stop.wait(self.interval_s):

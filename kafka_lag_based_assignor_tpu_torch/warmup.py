@@ -24,9 +24,13 @@ Usage (at startup, not inside a rebalance)::
     from kafka_lag_based_assignor_tpu_torch.warmup import warmup
     rows = warmup(max_partitions=100_000, consumers=[1000], topics=[1])
 
-The JAX warm-up's megabatch waves (``coalesce_max_batch > 1``) and its
-sharded jobs (a ``mesh_manager``) need the coalescer and ``sharded/``,
-which the port does not have yet: asking for either raises ``ValueError``.
+With ``coalesce_max_batch > 1`` the "stream" solver also drives the
+megabatch coalescer (:mod:`.ops.coalesce`): for each pow2 batch size up to
+the cap, one re-stack wave that locks the roster, one locked dense wave and
+one locked delta wave, so the first coalesced waves of a deployment build
+nothing and touch no fresh path.  The JAX warm-up's sharded jobs (a
+``mesh_manager``) need ``sharded/``, which the port does not have yet:
+asking for them raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -82,6 +86,65 @@ def _build_kernels(device: torch.device) -> None:
         LOGGER.warning("warmup: building the native core failed", exc_info=True)
 
 
+def _coalesce_waves(lags1d: np.ndarray, C: int, n: int, refine_iters: int,
+                    delta_buckets: int, dev: torch.device):
+    """The megabatch job: ``n`` engines through one coalescer (window 2 s,
+    batch cap ``n``, roster lock on the first wave).  Wave 1 re-stacks and
+    locks, wave 2 runs locked and dense, wave 3 (every row a small change of
+    wave 2's, so every engine plans a delta) locked and delta, when the
+    service's delta ladder is on.  The rows submit under alternating SLO
+    classes with far deadlines, so the ordered flush runs too.  Returns the
+    last wave's lags."""
+    import threading
+
+    from .ops.coalesce import MegabatchCoalescer
+    from .ops.streaming import StreamingAssignor, delta_k_ladder
+    from .utils.metrics import REGISTRY
+    from .utils.overload import SLO_CLASSES, class_rank
+
+    rng = np.random.default_rng(n)
+    engines = [
+        StreamingAssignor(num_consumers=C, refine_iters=refine_iters,
+                          refine_threshold=None, delta_max_fraction=1.0,
+                          delta_buckets=max(delta_buckets, 1), device=dev)
+        for _ in range(n)
+    ]
+    for eng in engines:
+        eng.rebalance(lags1d)
+    ladder = delta_k_ladder(delta_buckets)
+    coal = MegabatchCoalescer(window_s=2.0, max_batch=n, lock_waves=1,
+                              delta_k=ladder[-1] if ladder else 0, device=dev)
+    arrs = None
+    try:
+        for wave in range(3 if ladder else 2):
+            if wave < 2:
+                arrs = [rng.integers(0, 1000, lags1d.shape[0]).astype(np.int64)
+                        for _ in engines]
+            else:
+                arrs = [a + (np.arange(a.shape[0]) < 8) for a in arrs]
+            errs = []
+
+            def run(eng, arr, i):
+                klass = SLO_CLASSES[i % len(SLO_CLASSES)]
+                try:
+                    eng.submit_epoch(arr, coal, slo_class=klass, rank=class_rank(klass),
+                                     deadline_at=REGISTRY.clock() + 600.0)
+                except Exception as exc:  # noqa: BLE001 — re-raised below
+                    errs.append(exc)
+
+            threads = [threading.Thread(target=run, args=(eng, arr, i))
+                       for i, (eng, arr) in enumerate(zip(engines, arrs))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            if errs:
+                raise errs[0]
+    finally:
+        coal.close(timeout_s=30.0)
+    return arrs
+
+
 def warmup(
     max_partitions: int,
     consumers: Sequence[int],
@@ -117,8 +180,8 @@ def warmup(
         ``quarantine_resident(..., record=False)``, lags above 2**32
         through ``assign_stream`` and the engine, ``reset`` and a wide
         cold chain.
-      coalesce_max_batch: must be 1 (the megabatch coalescer is not
-        ported); more raises ``ValueError``.
+      coalesce_max_batch: > 1 adds the megabatch waves ("coalesce" rows,
+        T the batch size) for every pow2 batch size from 2 up to it.
       delta_buckets: > 0 adds one delta epoch at each K of
         ``delta_k_ladder(delta_buckets)`` up to P ("stream_delta" rows).
       mesh_manager: must be None (``sharded/`` is not ported).
@@ -129,12 +192,6 @@ def warmup(
     A failing job is logged and skipped: the warm-up must never take a
     deployment down.
     """
-    if int(coalesce_max_batch) > 1:
-        raise ValueError(
-            f"coalesce_max_batch={coalesce_max_batch}: the megabatch "
-            "coalescer (ops/coalesce) is not ported yet, so there are no "
-            "megabatch waves to warm; pass 1"
-        )
     if mesh_manager is not None:
         raise ValueError(
             "mesh_manager: the sharded backends (sharded/) are not ported "
@@ -242,6 +299,16 @@ def warmup(
                         return eng.rebalance(nxt)
 
                     jobs.append(("stream_delta", K, delta_job))
+            if "stream" in solvers and coalesce_max_batch > 1:
+                n = 2
+                while n <= coalesce_max_batch:
+
+                    def coalesce_job(lags1d=lags1d, C=C, n=n):
+                        return _coalesce_waves(lags1d, C, n, stream_refine_iters,
+                                               delta_buckets, dev)
+
+                    jobs.append(("coalesce", n, coalesce_job))
+                    n *= 2
             if "sinkhorn" in solvers or "linear" in solvers:
                 from .models.sinkhorn import assign_topic_sinkhorn
                 from .ops import dispatch as dispatch_mod

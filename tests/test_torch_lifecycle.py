@@ -72,7 +72,7 @@ def boot(pkg, path, clock, wall, **kw):
     if pkg == "jax":
         svc = jax_service.AssignorService(coalesce_max_batch=1, **knobs)
     else:
-        svc = service.AssignorService(device="cpu", **knobs)
+        svc = service.AssignorService(device="cpu", coalesce_max_batch=1, **knobs)
     svc._snapshot_store._wall = wall
     return svc.start()
 

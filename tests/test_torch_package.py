@@ -18,6 +18,7 @@
 import ast
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -32,6 +33,7 @@ from kafka_lag_based_assignor_tpu_torch.assignor import (  # noqa: E402
 )
 from kafka_lag_based_assignor_tpu_torch.models import sinkhorn  # noqa: E402
 from kafka_lag_based_assignor_tpu_torch.ops import (  # noqa: E402
+    batched,
     dispatch,
     linear_ot,
     linear_ot_cuda,
@@ -41,6 +43,7 @@ from kafka_lag_based_assignor_tpu_torch.ops import (  # noqa: E402
     rounds_cuda,
     scan_cuda,
 )
+from kafka_lag_based_assignor_tpu_torch.ops.coalesce import MegabatchCoalescer  # noqa: E402
 from kafka_lag_based_assignor_tpu_torch.ops.streaming import (  # noqa: E402
     StreamingAssignor,
 )
@@ -208,13 +211,14 @@ def test_default_device_is_the_card(monkeypatch):
     assert resolve_device() == torch.device("cuda")
     assert LagBasedPartitionAssignor().device == torch.device("cuda")
     assert StreamingAssignor(4).device == torch.device("cuda")
+    assert MegabatchCoalescer().device == torch.device("cuda")
 
 
 def launch_counts():
     return (rounds_cuda.rounds_scan.launches, plan_stats.plan_stats.launches,
             linear_ot_cuda.superblock_partials.launches,
             linear_ot_cuda.mirror_prox_step.launches, refine.state_digest.launches,
-            scan_cuda.scan_greedy.launches)
+            scan_cuda.scan_greedy.launches, refine.state_digest_rows.launches)
 
 
 def test_cpu_tensors_never_count_a_launch():
@@ -234,6 +238,25 @@ def test_cpu_tensors_never_count_a_launch():
     for scale in (1, 3):
         engine.rebalance(lags["t0"] * scale)
     assert engine.last_stats.refined
+    dense = np.stack([lags["t0"][:64] * k for k in (1, 2, 3)])
+    batched.assign_stream_batch(dense, 8, device="cpu")
+    batched.assign_stream_global(dense, 8, device="cpu")
+    # A coalesced wave: two engines' warm epochs through one CPU coalescer.
+    coal = MegabatchCoalescer(window_s=60.0, max_batch=2, device="cpu")
+    engines = [StreamingAssignor(8, refine_threshold=None, device="cpu")
+               for _ in range(2)]
+    try:
+        for eng in engines:
+            eng.rebalance(lags["t0"])
+        threads = [threading.Thread(target=eng.submit_epoch, args=(lags["t0"] * 2, coal))
+                   for eng in engines]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert all(eng.last_stats.refined for eng in engines)
+    finally:
+        coal.close(timeout_s=60)
     assert launch_counts() == before
 
 

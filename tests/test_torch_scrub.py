@@ -157,7 +157,8 @@ def test_sidecar_scrub_quarantines_and_heals_as_jax():
     clock = Clock()
     kw = dict(port=0, scrub_interval_ms=3_600_000.0, clock=clock)
     svcs = {"jax": jax_service.AssignorService(coalesce_max_batch=1, **kw).start(),
-            "port": service.AssignorService(device="cpu", **kw).start()}
+            "port": service.AssignorService(device="cpu", coalesce_max_batch=1,
+                                            **kw).start()}
     base = {"stream_id": "s0", "topic": "t0", "members": ["A", "B", "C"],
             "options": {"refine_threshold": None}}
     got = {}

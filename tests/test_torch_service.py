@@ -73,7 +73,7 @@ NOT_COMPARED = frozenset({"klba_compile_total", "klba_trace_total",
                           "klba_static_drift_total"})
 # The JAX service's stats sections for features the port's sidecar does
 # not run yet (the port answers None for each).
-UNPORTED = ("coalesce", "federation", "mesh")
+UNPORTED = ("federation", "mesh")
 
 
 def strip(x):
@@ -127,10 +127,12 @@ class Clock:
 
 class Twin:
     """A JAX service and a port service (``device="cpu"``) with the same
-    knobs and clock, one connection to each, the process-wide quality knobs
+    knobs and clock (coalescing off in both unless ``coalesce_max_batch``
+    says otherwise), one connection to each, the process-wide quality knobs
     of both packages restored on close."""
 
-    def __init__(self, quality_mode="auto", quality_tile=1024, **kw):
+    def __init__(self, quality_mode="auto", quality_tile=1024, coalesce_max_batch=1,
+                 **kw):
         self._stack = contextlib.ExitStack()
         self._stack.enter_context(jax_dispatch.quality_scope(quality_mode,
                                                              quality_tile))
@@ -138,9 +140,10 @@ class Twin:
                                                          quality_tile))
         self.clock = Clock()
         knobs = dict(quality_mode=quality_mode, quality_tile=quality_tile,
-                     clock=self.clock, scrub_interval_ms=0, **kw)
+                     clock=self.clock, scrub_interval_ms=0,
+                     coalesce_max_batch=coalesce_max_batch, **kw)
         self.jax = self._stack.enter_context(jax_service.AssignorService(
-            port=0, coalesce_max_batch=1, **knobs))
+            port=0, **knobs))
         self.port = self._stack.enter_context(
             service.AssignorService(port=0, device="cpu", **knobs))
         self.files = []
@@ -191,8 +194,12 @@ def twin():
 
 @pytest.fixture(scope="module")
 def port_service():
+    # No scrubber: this service lives for the whole module, and a pass of
+    # its 30 s scrubber would move the port's scrub series inside a twin
+    # test's counter diff (the twins run beside it in the same process).
     with dispatch.quality_scope("auto", 1024):
-        with service.AssignorService(port=0, device="cpu") as svc:
+        with service.AssignorService(port=0, device="cpu",
+                                     scrub_interval_ms=0) as svc:
             yield svc
 
 

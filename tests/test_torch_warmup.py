@@ -6,7 +6,7 @@
 * ``warmup``: the same rows minus seconds for the solvers the port serves
   (every job the JAX warm-up builds but the megabatch and sharded ones), the
   ``stream`` job's returned choice equal, a failing job logged and skipped
-  in both; ``coalesce_max_batch=2`` and a mesh manager raise in the port;
+  in both; a mesh manager raises in the port;
 * the plugin's configure-time warm-up: the same ``warmup`` calls for a
   device solver, none for ``native``.
 """
@@ -116,11 +116,11 @@ def test_failing_job_is_skipped_as_in_jax(monkeypatch, caplog):
     assert len(skipped) == 3 and all(r.exc_info for r in skipped)
 
 
-@pytest.mark.parametrize("kw", [{"coalesce_max_batch": 2},
-                                {"mesh_manager": object()}])
+@pytest.mark.parametrize("kw", [{"mesh_manager": object()}])
 def test_unported_jobs_raise(kw):
-    """The megabatch waves and the sharded jobs need slices the port does
-    not have: asking for them raises at the call, before any job runs."""
+    """The sharded jobs need a slice the port does not have: asking for
+    them raises at the call, before any job runs.  (The megabatch waves are
+    ported: tests/test_torch_service_coalesce.py runs them.)"""
     with pytest.raises(ValueError, match="not ported"):
         warmup.warmup(16, [2], solvers=("stream",), device="cpu", **kw)
 
