@@ -171,8 +171,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       first config-5 ``rounds`` ``assign()`` builds nothing
       (``compile_count()`` moves by 0); its wall is printed beside the first
       ``assign()`` of a second fresh process without the warm-up, and
-      the warm-up launches every kernel, and raises ``ValueError`` for a
-      mesh manager; (b)
+      the warm-up launches every kernel (its sharded job, with a mesh
+      manager, is phase 4i's); (b)
       sidecar A (``snapshot_path`` in a temporary directory) serves two
       streams through phase 4c's first 10 epochs (each equal to phase 4c's
       choice), ``drain`` over the wire writes the final snapshot and a
@@ -216,6 +216,40 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       equal to the plugin's ``rounds`` / ``global`` answers, one K1
       launch each.  Its launches count into the kernels line, and it prints
       a JSON ``coalesce`` line;
+   i. the P-sharded solve on virtual shards of the card (every shard's
+      tensors on ``cuda:0``; every line says "virtual"): (a) K5 at Sb = 8,
+      4, 2 and 1 superblocks (a shard of a 1-, 2-, 4- and 8-way mesh) on
+      config 5's blocks at the duals its loop ends with, against its plain
+      version and with each superblock's partial bit-equal to the Sb = 8
+      launch's, each shape timed; (b) config 5's cold solve (``bench.py``'s
+      100,000 x 1,000, Zipf 1.1, seed 5) at D = 1 (``solve_linear_sharded``
+      on a one-shard mesh), 2 and 4 (``StreamingAssignor(num_consumers=
+      1000, mesh_backend=manager)``): the linear duals' choices bit-equal
+      across D, with 2 x D x rounds K5 launches and one K1 a solve, held to
+      the card's single-device linear cold solve (equal, or every partition
+      once, count spread <= 1, the additive bound and both quality ratios
+      reported); the exchange program (the mode pinned to ``sinkhorn``) at
+      D = 1 bit-equal to ``seed_reference`` + ``refine_assignment`` at the
+      same budget, at D = 2 and 4 count spread <= 1 and quality within 10 %
+      of the single-device cold chain's; at 65,536 x 256 the card's
+      exchange program equal to the port's CPU run at D = 2 and 4; every
+      engine leg fails if its manager degrades, ``sharded_solve`` is False
+      or ``klba_sharded_dispatch_total`` does not move; (c) config 3's
+      [256, 64] table through ``sharded.topics.assign_sharded`` on
+      (topics, members) = (4, 1) and (2, 2), without and with a 16-round
+      refine, bit-equal to ``assign_batched_rounds``, one K1 launch a shard;
+      (d) the port's ``AssignorService(device="cuda", host_fallback=False,
+      mesh_devices=4)`` on 4 virtual shards: a config-5 ``stream_assign``
+      cold epoch answers ``sharded_solve: true`` equal to (b)'s D = 4
+      linear choice, 3 warm epochs follow, ``stats.mesh`` is filled in;
+      then under a ``mesh.collective`` fault the manager degrades one rung
+      (the series move) and the stream's cold epoch is single-device and
+      valid; (e) the config-5 cold solves on the host clock (median of 3) at
+      D = 1, 2, 4 for both programs beside the single-device cold solves,
+      and one profiled D = 4 linear solve (device busy, idle share).  These
+      are virtual shards on one card: the times measure the host loop over
+      shards, not multi-GPU scaling.  Its launches of (b)-(d) count into the
+      kernels line, and it prints a JSON ``sharded`` line;
 5. times, with CUDA events, medians of 30 runs after warm-up: each kernel
    alone at its main-path shape, its plain version on the card, the
    library yardstick where there is one, and its bound; the device time
@@ -241,7 +275,9 @@ It prints the card's name and power limit, one JSON ``ladder`` line (phase
 4e's legs, drill and watchdog cost), one JSON ``sidecar`` line (phase 4f's
 walls and bytes), one JSON ``lifecycle`` line (phase 4g's warm-up rows,
 boot, first epochs and scrub walls, and its launches), one JSON
-``coalesce`` line (phase 4h's rates, walls, idle shares and K6 times), one JSON
+``coalesce`` line (phase 4h's rates, walls, idle shares and K6 times), one
+JSON ``sharded`` line (phase 4i's checks, K5 times by superblock count,
+walls and idle share), one JSON
 ``profiler`` line (the profiler's clock skew
 after the builds, around phase 4f and after phase 5, and its sessions
 recorded and discarded), one JSON ``kernels`` line, and as its last line
@@ -249,7 +285,8 @@ recorded and discarded), one JSON ``kernels`` line, and as its last line
 result.
 
 ``python3 chip_smoke.py --coalesce`` runs phase 4h alone (after the builds)
-and prints its ``coalesce`` line.  ``python3 chip_smoke.py --sidecar`` runs
+and prints its ``coalesce`` line; ``--sharded`` runs phase 4i alone (after
+the builds) and prints its ``sharded`` line.  ``python3 chip_smoke.py --sidecar`` runs
 phase 4f alone (after the builds,
 phase 4a and one phase-4c run it is held to) and prints its ``sidecar``
 line; ``--lifecycle`` runs phase 4g alone (after the builds and one
@@ -2241,15 +2278,6 @@ def lifecycle_child(mode: str, device: str = "cuda") -> dict:
     out = {"mode": mode}
     install_compile_counter()
     if mode == "warm":
-        # No hidden fallback: the jobs the port cannot run yet raise at the
-        # call, before any device work, on the card as on the CPU.
-        for unported in ({"mesh_manager": object()},):
-            try:
-                warmup(max_partitions=STREAM_P, consumers=[STREAM_C], device=device,
-                       **unported)
-            except ValueError:
-                continue
-            raise AssertionError(f"warm-up: {unported} did not raise")
         reset_counts()
         t0 = time.perf_counter()
         rows = warmup(max_partitions=STREAM_P, consumers=[STREAM_C],
@@ -3020,6 +3048,396 @@ def coalesce_path(device) -> tuple:
     report["state_digest_rows"] = digest_times
     log(f"coalesce path launches {launches}")
     return launches, digest_err, digest_times, report
+
+
+# -- phase 4i: the P-sharded solve on virtual shards --------------------------
+
+# Mesh sizes of the sharded cold solve, and the engine's cold refine budget
+# (StreamingAssignor's cold_refine_iters default, which the sidecar's
+# engines keep).
+SHARDED_SIZES = (1, 2, 4)
+SHARDED_BUDGET = 64
+# Host-clock repeats of each timed cold solve (phase 4i (e)).
+SHARDED_REPEATS = 3
+
+
+def virtual_mesh(D: int, device):
+    """A ("p",) mesh of ``D`` virtual shards on ``device``."""
+    from kafka_lag_based_assignor_tpu_torch.sharded.mesh import Mesh
+
+    return Mesh([device] * D, ("p",))
+
+
+def sharded_series() -> dict:
+    from kafka_lag_based_assignor_tpu_torch.utils import metrics
+
+    reg = metrics.REGISTRY
+    out = {f"dispatch_{p}": reg.counter("klba_sharded_dispatch_total", {"path": p}).value
+           for p in ("solve", "linear", "rounding")}
+    out["degrade_1d_single"] = reg.counter("klba_mesh_degrade_total",
+                                           {"from": "1d", "to": "single"}).value
+    out["degraded_solve"] = reg.counter("klba_mesh_degraded_total", {"reason": "solve"}).value
+    return out
+
+
+def assignment_facts(label: str, lags: np.ndarray, choice: np.ndarray, C: int,
+                     linear: bool) -> dict:
+    """Every partition once (a consumer in [0, C)), count spread <= 1, with
+    ``linear`` the additive bound; returns the quality ratio and peak."""
+    choice = np.asarray(choice)
+    if choice.shape != lags.shape or choice.min() < 0 or choice.max() >= C:
+        raise AssertionError(f"sharded 4i {label}: not every partition assigned once")
+    counts = np.bincount(choice, minlength=C)
+    totals = np.bincount(choice, weights=lags, minlength=C)
+    if counts.max() - counts.min() > 1:
+        raise AssertionError(f"sharded 4i {label}: count spread {counts.max() - counts.min()}")
+    bound = linear_ot.additive_bound(lags, np.ones(lags.shape[0], bool), C)
+    if linear and totals.max() > bound * (1 + 1e-6) + 0.5:
+        raise AssertionError(f"sharded 4i {label}: peak {totals.max()} above the additive "
+                             f"bound {bound}")
+    ratio = float(totals.max() / totals.mean()) / max(count_constrained_bound(lags, C), 1.0)
+    return {"quality_ratio": ratio, "peak": float(totals.max()), "additive_bound": bound}
+
+
+def k5_superblock_shapes(device) -> dict:
+    """4i (a): K5 at Sb = 8, 4, 2, 1 (a shard of a 1-, 2-, 4- or 8-way
+    mesh) on config 5's blocks at the duals the linear loop ends with:
+    against its plain version, and each superblock's partial with the same
+    bits whatever Sb it was launched with.  Each shape's event time."""
+    (ws_b, cnt_b), C = blocks_case(5, device)
+    A, B = loop_duals(ws_b, cnt_b, C, device)
+    full = linear_ot_cuda.superblock_partials(ws_b, cnt_b, A, B)
+    worst, times = 0.0, {}
+    for Sb in (8, 4, 2, 1):
+        for d in range(8 // Sb):
+            w, c = (x[d * Sb:(d + 1) * Sb].contiguous() for x in (ws_b, cnt_b))
+            got = linear_ot_cuda.superblock_partials(w, c, A, B)
+            again = linear_ot_cuda.superblock_partials(w, c, A, B)
+            want = linear_ot._superblock_partials(w, c, A, B)
+            worst = max(worst, f32_check("superblock_partials",
+                                         f"4i Sb={Sb} shard {d} of {8 // Sb} (virtual)",
+                                         got, want, again))
+            for g, f in zip(got, full):
+                if not torch.equal(g, f[d * Sb:(d + 1) * Sb]):
+                    raise AssertionError(f"sharded 4i(a): K5's superblock partials at Sb={Sb} "
+                                         "differ from the same superblocks at Sb=8")
+        w, c = ws_b[:Sb].contiguous(), cnt_b[:Sb].contiguous()
+        call = lambda: linear_ot_cuda.superblock_partials(w, c, A, B)  # noqa: E731
+        times[Sb] = {"event_ms": median_event_ms(call),
+                     "alone_ms": device_ms(call, KERNEL_NAMES["superblock_partials"])[0]}
+        log(f"sharded 4i(a) K5 at Sb={Sb} [{Sb}, {ws_b.shape[1]}, {ws_b.shape[2]}] C={C}: "
+            f"{times[Sb]} ms; every superblock's partial bit-equal to Sb=8's")
+    return {"max_abs_err": worst, "ms_by_sb": times}
+
+
+def sharded_cold_solves(device, lags: np.ndarray, launches: dict) -> dict:
+    """4i (b): config 5's cold solve P-sharded at D = 1, 2, 4 on virtual
+    shards, the linear duals (D = 1 direct, 2 and 4 through the engine with
+    the manager as its backend) and the exchange program (the mode pinned to
+    "sinkhorn"), each held as the module docstring says."""
+    from kafka_lag_based_assignor_tpu_torch.sharded import solve as sharded_solve
+    from kafka_lag_based_assignor_tpu_torch.sharded.mesh import MeshManager
+
+    C = STREAM_C
+    report = {}
+
+    def engine_cold(D: int):
+        mgr = MeshManager(devices=D).configure()
+        if not (mgr.active and mgr.virtual and mgr.size == D):
+            raise AssertionError(f"sharded 4i: a {D}-shard manager did not come up: "
+                                 f"{mgr.status()}")
+        engine = streaming.StreamingAssignor(num_consumers=C, mesh_backend=mgr,
+                                             device=device)
+        before = sharded_series()
+        choice, grew = counted(lambda: engine.rebalance(lags))
+        moved = {k: v - before[k] for k, v in sharded_series().items()}
+        if (not engine.last_stats.sharded_solve or not mgr.active
+                or not any(moved[k] for k in ("dispatch_solve", "dispatch_linear"))):
+            raise AssertionError(f"sharded 4i: the D={D} cold epoch did not run sharded "
+                                 f"({mgr.status()}, {moved})")
+        return choice, grew
+
+    def check_linear_launches(label, grew, D):
+        rounds = linear_ot.last_solve_info()["duals_rounds"]
+        if (grew["superblock_partials"] != 2 * D * rounds or grew["rounds_scan"] != 1
+                or grew["mirror_prox_step"] != 0):
+            raise AssertionError(f"sharded 4i(b) {label}: launches {grew} for {rounds} "
+                                 f"duals rounds on {D} shards")
+
+    linear = {}
+    (linear[1], _, _, _), grew = counted(lambda: sharded_solve.solve_linear_sharded(
+        virtual_mesh(1, device), lags, C, refine_iters=SHARDED_BUDGET))
+    check_linear_launches("linear D=1", grew, 1)
+    add_counts(launches, grew)
+    for D in (2, 4):
+        linear[D], grew = engine_cold(D)
+        check_linear_launches(f"linear D={D}", grew, D)
+        add_counts(launches, grew)
+        if not np.array_equal(linear[D], linear[1]):
+            raise AssertionError(f"sharded 4i(b): the linear choice at D={D} differs from D=1")
+    with dispatch.quality_scope("linear"):
+        single = stream_engine(device)
+        single.mesh_backend = None
+        single_choice = single.rebalance(lags)
+    same = bool(np.array_equal(single_choice, linear[1]))
+    facts = {label: assignment_facts(label, lags, ch, C, True)
+             for label, ch in (("sharded linear", linear[1]),
+                               ("single-device linear", single_choice))}
+    report["linear"] = {"equal_across_D": True, "equal_to_single_device": same,
+                        "rows_differing_from_single_device":
+                            int((single_choice != linear[1]).sum()), **facts}
+    log(f"sharded 4i(b) linear: D=1, 2, 4 bit-equal (virtual shards); against the card's "
+        f"single-device linear cold solve: {'equal' if same else 'differs'} "
+        f"({report['linear']['rows_differing_from_single_device']} rows); {facts}")
+
+    exchange = {}
+    (exchange[1], _, _, rounds), grew = counted(lambda: sharded_solve.solve_sharded(
+        virtual_mesh(1, device), lags, C, refine_iters=SHARDED_BUDGET))
+    add_counts(launches, grew)
+    dev_lags = torch.from_numpy(lags).to(device)
+    twin = refine.refine_assignment(
+        dev_lags, torch.ones_like(dev_lags, dtype=torch.bool),
+        torch.from_numpy(sharded_solve.seed_reference(lags, C)).to(device), C,
+        iters=SHARDED_BUDGET)[0].cpu().numpy()
+    if not np.array_equal(exchange[1], twin):
+        raise AssertionError("sharded 4i(b): the D=1 exchange program differs from "
+                             "seed_reference + refine_assignment")
+    cold_chain = stream_engine(device)
+    cold_chain.mesh_backend = None
+    chain_q = assignment_facts("single-device cold chain", lags, cold_chain.rebalance(lags),
+                               C, False)["quality_ratio"]
+    ex_facts = {}
+    with dispatch.quality_scope("sinkhorn"):
+        for D in (2, 4):
+            exchange[D], grew = engine_cold(D)
+            add_counts(launches, grew)
+            ex_facts[D] = assignment_facts(f"exchange D={D}", lags, exchange[D], C, False)
+            if ex_facts[D]["quality_ratio"] > max(1.1, 1.1 * chain_q):
+                raise AssertionError(f"sharded 4i(b): exchange D={D} quality "
+                                     f"{ex_facts[D]['quality_ratio']} against the cold "
+                                     f"chain's {chain_q}")
+    report["exchange"] = {"d1_equal_to_twin": True, "d1_rounds": rounds,
+                          "cold_chain_quality_ratio": chain_q,
+                          **{f"D{D}": f for D, f in ex_facts.items()}}
+    log(f"sharded 4i(b) exchange: D=1 bit-equal to seed_reference + refine_assignment "
+        f"({rounds} rounds); D=2, 4 {ex_facts}; single-device cold chain quality {chain_q!r}")
+
+    # The card's exchange program against the port's CPU run of it, where
+    # both pick the same padded bucket (65,536 rows).
+    small = zipf_lags(np.random.default_rng(13), 65_536)
+    for D in (2, 4):
+        got, grew = counted(lambda: sharded_solve.solve_sharded(
+            virtual_mesh(D, device), small, 256, refine_iters=SHARDED_BUDGET))
+        add_counts(launches, grew)
+        want = sharded_solve.solve_sharded(virtual_mesh(D, torch.device("cpu")), small, 256,
+                                           refine_iters=SHARDED_BUDGET)
+        for g, w in zip(got, want):
+            if not np.array_equal(np.asarray(g), np.asarray(w)):
+                raise AssertionError(f"sharded 4i(b): the exchange program at 65,536 x 256, "
+                                     f"D={D}, differs between the card and the CPU")
+    log("sharded 4i(b) exchange at 65,536 x 256: the card equals the CPU at D=2 and 4")
+    report["exchange"]["card_equals_cpu_65536x256"] = True
+    return report, linear[4]
+
+
+def sharded_topics(device, launches: dict) -> dict:
+    """4i (c): config 3's [256, 64] table (64 consumers) through
+    ``assign_sharded`` on (topics, members) = (4, 1) and (2, 2), without and
+    with the per-topic refine: bit-equal to the single-device batched solve,
+    one K1 launch a shard."""
+    from kafka_lag_based_assignor_tpu_torch.sharded import topics
+
+    lags, _ = baseline_workload(3)
+    table = np.stack([lags[t] for t in sorted(lags)])
+    pids = np.tile(np.arange(table.shape[1], dtype=np.int32), (table.shape[0], 1))
+    valid = np.ones(table.shape, bool)
+    on_card = [torch.from_numpy(a).to(device) for a in (table, pids, valid)]
+    report = {}
+    for shape in ((4, 1), (2, 2)):
+        mesh = topics.make_mesh([device] * 4, *shape)
+        for refine_iters in (0, REFINE_ITERS):
+            got, grew = counted(lambda: topics.assign_sharded(
+                mesh, table, pids, valid, 64, refine_iters=refine_iters))
+            add_counts(launches, grew)
+            want = batched.assign_batched_rounds(*on_card, num_consumers=64,
+                                                 refine_iters=refine_iters)
+            same = all(torch.equal(g, w) for g, w in zip(got[:3], want))
+            if (not same or not torch.equal(got[3], want[2].sum(dim=0))
+                    or grew["rounds_scan"] != 4):
+                raise AssertionError(f"sharded 4i(c) {shape} refine {refine_iters}: equal "
+                                     f"{same}, launches {grew}")
+            report[f"{shape[0]}x{shape[1]}_refine{refine_iters}"] = grew["rounds_scan"]
+            log(f"sharded 4i(c) config 3 on (topics, members) = {shape} (virtual), refine "
+                f"{refine_iters}: equal to the single-device batched solve, one K1 launch "
+                "a shard")
+    return report
+
+
+def sharded_sidecar(device, lags0: np.ndarray, want4: np.ndarray, launches: dict) -> dict:
+    """4i (d): the port's sidecar with ``mesh_devices=4`` on 4 virtual shards
+    (floor 65,536): a config-5 ``stream_assign`` cold epoch answers
+    ``sharded_solve: true`` equal to (b)'s D=4 linear choice, 3 warm epochs
+    follow, ``stats.mesh`` is filled in; then a ``mesh.collective`` fault
+    degrades the manager one rung, the series move, and the next stream's
+    cold epoch is single-device and valid."""
+    from kafka_lag_based_assignor_tpu_torch import service
+    from kafka_lag_based_assignor_tpu_torch.utils import faults
+
+    members = [f"c{i:04d}" for i in range(STREAM_C)]
+    svc = service.AssignorService(port=0, device=device, host_fallback=False,
+                                  mesh_devices=4, coalesce_max_batch=1,
+                                  scrub_interval_ms=0).start()
+    report = {}
+    try:
+        client = service.AssignorServiceClient(*svc.address)
+
+        def epoch(sid, lags):
+            before = sharded_series()
+            t0 = time.perf_counter()
+            result, grew = counted(lambda: client.request("stream_assign", {
+                "stream_id": sid, "topic": "t0", "members": members,
+                "lags": wire_rows(lags)}))
+            wall = (time.perf_counter() - t0) * 1e3
+            add_counts(launches, grew)
+            moved = {k: v - before[k] for k, v in sharded_series().items()}
+            choice = wire_choice(result["assignments"], members)
+            assignment_facts(f"sidecar {sid}", lags, choice, STREAM_C, False)
+            return result["stream"], choice, moved, wall
+
+        s, choice, moved, wall = epoch("mesh5", lags0)
+        if not s["sharded_solve"] or not moved["dispatch_linear"] or svc._mesh.rung != "1d":
+            raise AssertionError(f"sharded 4i(d): the cold epoch was not sharded: {s}, "
+                                 f"{moved}, {svc._mesh.status()}")
+        if not np.array_equal(choice, want4):
+            raise AssertionError("sharded 4i(d): the sidecar's cold epoch differs from (b)'s "
+                                 "D=4 linear choice")
+        walls, lags = [wall], lags0
+        for e in range(3):
+            # One consumer heated past the refine threshold (not the
+            # guardrail): every warm epoch refines, the first rebuilding the
+            # resident state from the sharded cold epoch's choice.
+            lags = heat(lags, choice, STREAM_C)
+            s, choice, _, wall = epoch("mesh5", lags)
+            walls.append(wall)
+            # counted() zeroed the counts at the epoch's start: one K6.
+            if (s["cold_start"] or s["fallback_used"] or not s["refined"]
+                    or refine.state_digest.launches != 1):
+                raise AssertionError(f"sharded 4i(d): warm epoch {e} answered {s}")
+        mesh_stats = client.request("stats", {})["mesh"]
+        if not (mesh_stats["active"] and mesh_stats["devices"] == 4 and mesh_stats["virtual"]):
+            raise AssertionError(f"sharded 4i(d): stats.mesh {mesh_stats}")
+        log(f"sharded 4i(d) sidecar: cold epoch sharded (virtual, 4 shards) and equal to "
+            f"(b)'s D=4 choice; 3 warm epochs; walls {walls} ms; stats.mesh {mesh_stats}")
+        with faults.injected(faults.FaultInjector(5).plan("mesh.collective", "raise",
+                                                          times=1)):
+            s, _, moved, _ = epoch("mesh5-fault", lags0)
+        if (s["sharded_solve"] or svc._mesh.rung != "single"
+                or moved["degrade_1d_single"] != 1 or moved["degraded_solve"] != 1):
+            raise AssertionError(f"sharded 4i(d): the fault leg answered {s}, moved {moved}, "
+                                 f"{svc._mesh.status()}")
+        log(f"sharded 4i(d) mesh.collective fault: degraded 1d -> single, the stream's cold "
+            f"epoch single-device and valid; {svc._mesh.status()}")
+        report = {"cold_and_warm_walls_ms": walls, "stats_mesh": mesh_stats,
+                  "after_fault": svc._mesh.status()}
+    finally:
+        svc.stop()
+    return report
+
+
+def sharded_times(device, lags: np.ndarray) -> dict:
+    """4i (e): the config-5 cold solve on the host clock, median of
+    SHARDED_REPEATS, at D = 1, 2, 4 for both programs, against the
+    single-device cold solves (the linear one on K4, and the greedy cold
+    chain); then one profiled D=4 linear solve (device busy, idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kafka_lag_based_assignor_tpu_torch.sharded import solve as sharded_solve
+
+    C = STREAM_C
+
+    def wall(fn) -> float:
+        out = []
+        for _ in range(SHARDED_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    def single(mode):
+        def run():
+            with dispatch.quality_scope(mode):
+                eng = stream_engine(device)
+                eng.mesh_backend = None
+                eng.rebalance(lags)
+        return run
+
+    times = {"single_linear_ms": wall(single("linear")),
+             "single_cold_chain_ms": wall(single("auto"))}
+    for D in SHARDED_SIZES:
+        mesh = virtual_mesh(D, device)
+        times[f"linear_D{D}_ms"] = wall(lambda: sharded_solve.solve_linear_sharded(
+            mesh, lags, C, refine_iters=SHARDED_BUDGET))
+        times[f"exchange_D{D}_ms"] = wall(lambda: sharded_solve.solve_sharded(
+            mesh, lags, C, refine_iters=SHARDED_BUDGET))
+    log(f"sharded 4i(e) config-5 cold solves on the host clock (virtual shards on one card, "
+        f"median of {SHARDED_REPEATS}): {json.dumps(times)}")
+    mesh = virtual_mesh(4, device)
+    for attempt in range(5):
+        SESSIONS["recorded"] += 1
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad_for(attempt))
+            t0 = time.perf_counter()
+            sharded_solve.solve_linear_sharded(mesh, lags, C, refine_iters=SHARDED_BUDGET)
+            torch.cuda.synchronize()
+            span = (time.perf_counter() - t0) * 1e3
+            time.sleep(pad_for(attempt))
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "Activity Buffer" not in e.key]
+        k5 = [e for e in events if KERNEL_NAMES["superblock_partials"] in e.key]
+        if k5:
+            busy = sum(e.self_device_time_total for e in events) / 1e3
+            times["profiled_linear_D4"] = {
+                "wall_ms": span, "busy_ms": busy, "idle_share": 1 - busy / span,
+                "k5_ms": sum(e.self_device_time_total for e in k5) / 1e3,
+                "k5_kernels": sum(e.count for e in k5),
+                "top": [(e.key[:48], e.self_device_time_total / 1e3, e.count)
+                        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:5]],
+            }
+            log(f"sharded 4i(e) profiled D=4 linear solve: {times['profiled_linear_D4']}")
+            return times
+        SESSIONS["discarded"] += 1
+    raise AssertionError("sharded 4i(e): no profiler session recorded K5")
+
+
+def sharded_path(device) -> tuple:
+    """Phase 4i: (a) K5 at every superblock count a shard takes, (b) config
+    5's sharded cold solves, (c) the topic-axis backend, (d) the sidecar
+    with ``mesh_devices=4``, (e) times.  Every shard is a virtual shard on
+    the card.  Returns (the launches of the driven paths (b)-(d), K5's max
+    |diff| at the shard shapes, the ``sharded`` line)."""
+    from kafka_lag_based_assignor_tpu_torch.sharded import mesh as mesh_mod
+
+    t0 = time.perf_counter()
+    launches = {name: 0 for name, _ in COUNTERS}
+    report = {"shards": "virtual: every shard's tensors on cuda:0"}
+    k5 = k5_superblock_shapes(device)
+    report["k5_ms_by_sb"] = k5["ms_by_sb"]
+    _, lags = stream_lags0(STREAM_P)
+    mesh_mod.set_virtual_shards(4, device)
+    try:
+        report["cold"], want4 = sharded_cold_solves(device, lags, launches)
+        report["topics"] = sharded_topics(device, launches)
+        report["sidecar"] = sharded_sidecar(device, lags, want4, launches)
+        report["times"] = sharded_times(device, lags)
+    finally:
+        mesh_mod.set_virtual_shards(None)
+    report["launches"] = dict(launches)
+    report["seconds"] = time.perf_counter() - t0
+    log(f"sharded path launches {launches} in {report['seconds']!r} s")
+    return launches, k5["max_abs_err"], report
 
 
 def median_event_ms(fn) -> float:
@@ -3951,6 +4369,13 @@ def main() -> int:
         log(json.dumps({"coalesce": report, "launches": launches,
                         "max_abs_err": digest_err, "device": name}, default=str))
         return 0
+    if sys.argv[1:] == ["--sharded"]:
+        build()
+        launches, k5_err, report = sharded_path(device)
+        log(f"card: {CARD[0]}")
+        log(json.dumps({"sharded": report, "launches": launches, "max_abs_err": k5_err,
+                        "device": name}, default=str))
+        return 0
     if sys.argv[1:] == ["--lifecycle"]:
         build()
         launches, lifecycle = lifecycle_path(device, StreamRun(device).run())
@@ -3983,6 +4408,7 @@ def main() -> int:
     skew.append(profiler_skew("after phase 4f"))
     lifecycle_launches, lifecycle = lifecycle_path(device, stream_run)
     coalesce_launches, digest_rows_err, digest_rows_t, coalesce = coalesce_path(device)
+    sharded_launches, k5_shard_err, sharded = sharded_path(device)
     launches["rounds_scan"] += (rounds_launches + stream_launches["rounds_scan"]
                                 + solver_launches["rounds_scan"]
                                 + ladder_launches["rounds_scan"])
@@ -3997,6 +4423,11 @@ def main() -> int:
     # dispatches and the dense stream paths' K1.
     for k, v in coalesce_launches.items():
         launches[k] += v
+    # Phase 4i: K5 on each virtual shard, K1 in the sharded solves' tails and
+    # the topic-axis backend, and the sidecar's warm epochs' K6.
+    for k, v in sharded_launches.items():
+        launches[k] += v
+    f32_err["superblock_partials"] = max(f32_err["superblock_partials"], k5_shard_err)
     k1 = times(device)
     quality = quality_times(device)
     digest = stream_times(stream_run)
@@ -4015,6 +4446,7 @@ def main() -> int:
     log(json.dumps({"sidecar": sidecar}))
     log(json.dumps({"lifecycle": lifecycle}, default=str))
     log(json.dumps({"coalesce": coalesce}, default=str))
+    log(json.dumps({"sharded": sharded}, default=str))
     log(json.dumps({"profiler": {"skew": skew, "sessions": SESSIONS,
                                  "pad_s": PROFILER_PAD_S, "skew_pad_s": SKEW_PAD_S}}))
     log(f"card: {CARD[0]}")

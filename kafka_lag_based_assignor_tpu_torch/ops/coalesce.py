@@ -88,9 +88,10 @@ Telemetry: the JAX coalescer's ``klba_coalesce_*`` series, the
 wave-rooted trace linked to every submitting request, and the
 ``coalesce_flush`` flight record.
 
-Not ported: the stream-axis mesh placement of locked batches
-(``sharded/megabatch``); a mesh manager passed in raises
-``NotImplementedError`` (see ``ROADMAP.md``).
+Not ported: the stream-axis and 2-D mesh placement of locked batches
+(``sharded/megabatch``).  A mesh manager passed in is accepted and kept, and
+every batch stays on the coalescer's device: the JAX placement moves bytes
+only, so the rows' values are the same (see ``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -419,8 +420,8 @@ class MegabatchCoalescer:
     back inline on the flusher.  ``delta_k`` is the stacked delta wave's K
     (0: every wave stages dense).  ``device`` is where the waves run
     (default the CUDA card, raising without one; ``"cpu"`` the plain path).
-    ``mesh_manager`` must be None or ``"auto"`` (single-device placement):
-    the stream-axis mesh of the JAX coalescer is not ported.
+    ``mesh_manager`` (None, ``"auto"`` or a :class:`..sharded.mesh.
+    MeshManager`) is kept but places nothing: batches stay on ``device``.
     ``cuda_context`` is the context factory the flusher and readback
     threads enter (:func:`..utils.device.carry_cuda_context`); None captures
     the first submitting thread's.  The flusher is a daemon thread started
@@ -446,11 +447,7 @@ class MegabatchCoalescer:
             raise ValueError(f"lock_waves={lock_waves} must be >= 1")
         if delta_k < 0:
             raise ValueError(f"delta_k={delta_k} must be >= 0")
-        if mesh_manager is not None and mesh_manager != "auto":
-            raise NotImplementedError(
-                "the megabatch coalescer's stream-axis mesh (sharded/) is not "
-                "ported to PyTorch yet (see ROADMAP.md); pass mesh_manager=None"
-            )
+        self.mesh_manager = mesh_manager
         self.device = resolve_device(device)
         self.window_s = float(window_s)
         self.max_batch = int(max_batch)
@@ -558,7 +555,7 @@ class MegabatchCoalescer:
             locked = sum(1 for r in self._rosters.values() if r.batch is not None)
         return {
             "locked_rosters": locked,
-            "stream_sharded_rosters": 0,  # no stream-axis mesh on one card
+            "stream_sharded_rosters": 0,  # the stream-axis placement is not ported
             "roster_hits": self._m_hits.value,
             "restack_flushes": self._m_restack.value,
             "roster_invalidations": self._m_invalid.value,

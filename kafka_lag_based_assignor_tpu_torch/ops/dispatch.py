@@ -15,6 +15,12 @@ Member-rank convention: per group, subscribed members sorted
 lexicographically map to dense kernel indices, so the kernel's integer
 tie-break reproduces the reference's member-id string compare (:259).
 
+Backend selection (multi-device): :func:`sharded_solve_manager` is the one
+place a large single solve is routed to the P-axis-sharded backend
+(:mod:`..sharded.solve`): the active mesh manager, its health and its
+single-device-wins row floor gate here.  Single-device is the default and
+the degradation target.
+
 The quality router (``tpu.assignor.quality.mode``), the quality tile's
 autotune and the per-topic host orchestration of the quality solvers
 (:func:`assign_per_topic`) live here too, as in the JAX module.  The knobs
@@ -355,6 +361,18 @@ def quality_scope(mode, tile: Optional[int] = None):
     finally:
         with _QUALITY_LOCK:
             _QUALITY.update(prev)
+
+
+def sharded_solve_manager(num_rows: int, num_consumers: int):
+    """The active :class:`..sharded.mesh.MeshManager` when the P-axis-sharded
+    backend should serve one P-row solve, else None (single device).  One
+    global load and a few int compares on the unconfigured path."""
+    from ..sharded import mesh as mesh_mod
+
+    mgr = mesh_mod.active_manager()
+    if mgr is None or int(num_consumers) < 2:
+        return None
+    return mgr if mgr.should_shard_solve(num_rows) else None
 
 
 def resolve_quality_mode(num_rows: int, num_consumers: int) -> str:

@@ -37,6 +37,8 @@ from .rounds_cuda import MAX_SLOTS
 #: Largest consumer count the kernel takes: the round scan's, so every
 #: solver admits the same consumer groups.
 MAX_CONSUMERS = MAX_SLOTS
+#: Work items a tile at most (``kMaxSplit`` in ``csrc/row_tiles.cuh``).
+_MAX_SPLIT = 8
 
 
 def _check(ws_b, cnt_b, A, B, scalars=()) -> None:
@@ -62,6 +64,25 @@ def _check(ws_b, cnt_b, A, B, scalars=()) -> None:
         raise ValueError(
             f"the linear-OT kernels take 1 to {MAX_CONSUMERS} consumers, got {C}"
         )
+
+
+def admit_sharded(rows_per_shard: int, num_consumers: int, tile: int) -> None:
+    """Per-shard admission of the sharded linear duals (the counterpart of
+    ``linear_pallas_admit_sharded``): each shard launches K5 over its own
+    ``rows_per_shard`` rows in tiles of ``tile``, so K5's limits apply to
+    that slice.  Raises ``ValueError`` outside them, on either device (the
+    same shapes the kernel's own check refuses)."""
+    rows, C, tile = int(rows_per_shard), int(num_consumers), int(tile)
+    if not 1 <= C <= MAX_CONSUMERS:
+        raise ValueError(
+            f"the linear-OT kernels take 1 to {MAX_CONSUMERS} consumers, got {C}"
+        )
+    if tile < 1 or rows < tile or rows % tile:
+        raise ValueError(
+            f"a shard of {rows} rows does not split into tiles of {tile}"
+        )
+    if rows > (1 << 31) or (rows // tile) * _MAX_SPLIT > (1 << 30):
+        raise ValueError(f"a shard of {rows} rows is past the K5 kernel's limits")
 
 
 def _bind():

@@ -37,7 +37,17 @@ previous choice vector as a warm start across rebalances of one topic:
   an inline dispatch materializes it first;
 * **membership change** — :meth:`StreamingAssignor.remap_members` keeps
   every surviving member's partitions; a host repair pass re-seats orphans
-  and count overflow.
+  and count overflow;
+* **sharded cold solve** — when the mesh manager elects the P-axis-sharded
+  backend for the shape (``mesh_backend``; :func:`.dispatch.
+  sharded_solve_manager`), ONE sharded dispatch (:mod:`..sharded.solve`)
+  serves the cold solve: the linear-OT duals unless the quality mode is
+  pinned to "sinkhorn", then the seed + exchange program.  Its choice seeds
+  the next warm epoch as :meth:`StreamingAssignor.seed_choice` does (the
+  resident state is rebuilt from it); a sharded failure degrades the
+  manager and the single-device chain serves the same epoch.  The resident
+  buffers stay on the engine's device: the JAX engine's P-sharded resident
+  placement (``sharded/resident``) is not ported, and it moves bytes only.
 
 **Telemetry and drills** (the JAX engine's series, spans and fault
 points): every epoch runs under the ``stream.epoch`` span (inside it
@@ -127,7 +137,7 @@ class StreamingStats:
     refine_exchanges: int = 0  # exchanges it applied (churn <= 2x this)
     # The delta/dense cutoff in force this epoch.
     delta_effective_fraction: float = 0.0
-    sharded_solve: bool = False  # always False: one device
+    sharded_solve: bool = False  # this epoch's cold solve ran P-sharded
 
     @property
     def quality_ratio(self) -> float:
@@ -316,9 +326,18 @@ class StreamingAssignor:
         delta_max_fraction: float = 0.125,
         delta_buckets: int = 6,
         delta_adaptive: bool = True,
+        # Multi-device backend selection for COLD solves (sharded/): "auto"
+        # follows the process-wide active mesh manager through ops/dispatch;
+        # an explicit MeshManager pins this engine to it; None pins the
+        # engine single-device (a mesh-off sidecar's engines must not adopt
+        # a co-resident instance's mesh).
+        mesh_backend="auto",
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
+        self.mesh_backend = mesh_backend
+        # True when the LAST cold solve was served by the sharded backend.
+        self._cold_was_sharded = False
         self.num_consumers = int(num_consumers)
         self.refine_iters = int(refine_iters)
         self.cold_refine_iters = int(cold_refine_iters)
@@ -500,6 +519,7 @@ class StreamingAssignor:
         if prev is None or prev.shape[0] != P:
             stats.cold_start = True
             choice = self._cold_solve(lags)
+            stats.sharded_solve = self._cold_was_sharded
             prev_for_churn = None
             self._fill_quality_stats(stats, choice, lags, bound, exact_bincount)
         else:
@@ -535,6 +555,7 @@ class StreamingAssignor:
                 stats.guardrail_tripped = True
                 stats.cold_start = True
                 choice = self._cold_solve(lags)
+                stats.sharded_solve = self._cold_was_sharded
                 self._fill_quality_stats(stats, choice, lags, bound, exact_bincount)
 
         if prev_for_churn is not None:
@@ -643,13 +664,63 @@ class StreamingAssignor:
 
     def _cold_solve(self, lags: np.ndarray) -> np.ndarray:
         """Fresh greedy solve + parity refine (budget ``cold_refine_iters``,
-        0 disables), or the linear-OT solve when the quality mode is pinned
-        to "linear"."""
+        0 disables), the sharded backend when the mesh manager elects it
+        (:meth:`_sharded_cold_solve`), or the linear-OT solve when the
+        quality mode is pinned to "linear"."""
+        self._cold_was_sharded = False
         with metrics.span("stream.cold_solve"):
             return self._cold_solve_inner(lags)
 
+    def _sharded_cold_solve(self, lags: np.ndarray):
+        """The P-axis-sharded cold backend: when the mesh manager elects to
+        shard this shape, ONE sharded dispatch replaces the single-device
+        chain, and the resident state is left stale for the next warm epoch
+        to rebuild from this choice.  Returns None when the single-device
+        backend should serve: the mesh unconfigured or degraded, the shape
+        below the floor, or a sharded dispatch failing (which also degrades
+        the manager, so every later selection falls back too)."""
+        mb = self.mesh_backend
+        if mb is None:
+            return None  # pinned single-device
+        if mb == "auto":
+            from .dispatch import sharded_solve_manager
+
+            mgr = sharded_solve_manager(lags.shape[0], self.num_consumers)
+        else:
+            mgr = mb if (
+                mb.active
+                and self.num_consumers >= 2
+                and mb.should_shard_solve(lags.shape[0])
+            ) else None
+        if mgr is None:
+            return None
+        # Under "auto" (and a pinned "linear") the cold solve runs the
+        # mirror-prox duals P-sharded; a pinned "sinkhorn" keeps the
+        # seed + exchange program.
+        from ..sharded.solve import solve_linear_sharded, solve_sharded
+        from .dispatch import quality_mode
+
+        solver = solve_sharded if quality_mode() == "sinkhorn" else solve_linear_sharded
+        try:
+            with metrics.span("stream.sharded_solve"):
+                choice = solver(mgr.solve_mesh(), lags, self.num_consumers,
+                                refine_iters=self.cold_refine_iters)[0]
+        except Exception:
+            LOGGER.warning(
+                "sharded cold solve failed; degrading to the single-device "
+                "backend", exc_info=True,
+            )
+            mgr.degrade("solve")
+            return None
+        self._cold_was_sharded = True
+        self._drop_resident()
+        return np.asarray(choice).astype(np.int32)
+
     def _cold_solve_inner(self, lags: np.ndarray) -> np.ndarray:
         C = self.num_consumers
+        sharded = self._sharded_cold_solve(lags)
+        if sharded is not None:
+            return sharded
         linear = self._linear_cold_solve(lags)
         if linear is not None:
             return linear

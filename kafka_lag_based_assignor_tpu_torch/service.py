@@ -88,10 +88,20 @@ its admission window, the drain flushes its waves, ``stats.coalesce``
 reports its rosters (absent when coalescing is off, as in the JAX
 service), and the warm-up drives its waves.
 
-What the JAX service does that this one does not do yet: the device mesh
-and federation.  Their knobs are absent; ``peer_sync``, ``federation`` and
-``federated_assign`` answer the JAX "unknown method" error, and the
-``stats`` sections ``federation`` and ``mesh`` answer None.
+Device mesh (:mod:`.sharded`): ``mesh_devices`` ("off" default, "auto" or
+a device count), ``mesh_solve_min_rows`` and ``mesh_shape`` build one
+:class:`.sharded.mesh.MeshManager`, configured and activated at
+:meth:`AssignorService.start` and deactivated at :meth:`AssignorService.stop`.
+A ``stream_assign`` whose partition count reaches the floor runs its cold
+epoch P-sharded (``stream.sharded_solve: true``), and ``stats.mesh`` is the
+manager's status.  Resident buffers and coalesced batches stay on the
+sidecar's device: the JAX sidecar's P-sharded and stream-axis placements are
+not ported.
+
+What the JAX service does that this one does not do yet: federation.  Its
+knobs are absent; ``peer_sync``, ``federation`` and ``federated_assign``
+answer the JAX "unknown method" error, and ``stats.federation`` answers
+None.
 
 Device: every solve and every stream engine runs on ``device`` (default
 the CUDA card; :func:`.utils.device.resolve_device` raises without one, and
@@ -603,14 +613,17 @@ def _fresh_engine(
     flight: metrics.FlightRecorder,
     delta_opts: Optional[Dict[str, Any]] = None,
     device: DeviceLike = None,
+    mesh_backend: Any = None,
 ) -> StreamingAssignor:
     """THE service-default engine construction (guardrail ON at 1.25,
     unlike the library default, plus the stream's flight ring, the
-    service's delta-epoch knobs and its device): every site that makes an
-    engine (first epoch, the ladder's cold rung) goes through here."""
+    service's delta-epoch knobs, its device and ITS mesh backend — explicit,
+    so a mesh-off sidecar's engines never adopt a co-resident instance's
+    activated mesh): every site that makes an engine (first epoch, the
+    ladder's cold rung) goes through here."""
     return StreamingAssignor(
         num_consumers=C, imbalance_guardrail=1.25, flight=flight,
-        device=device, **(delta_opts or {}),
+        mesh_backend=mesh_backend, device=device, **(delta_opts or {}),
     )
 
 
@@ -815,6 +828,15 @@ class AssignorService:
         delta_max_fraction: float = 0.125,
         delta_buckets: int = 6,
         delta_adaptive: bool = True,
+        # Multi-device sharding (sharded/): the mesh spec discovered and
+        # validated ONCE at start() — "off" (default), "auto" or a device
+        # count — the partition floor of the P-sharded solve, and the (S, D)
+        # ("streams", "p") factorization.  A degrade (lost device, a
+        # mesh.collective fault, a sharded dispatch failing) falls back to
+        # the single-device backend process-wide.
+        mesh_devices: Any = "off",
+        mesh_solve_min_rows: int = 65536,
+        mesh_shape: Any = "off",
         # Quality-mode plane (ops/dispatch): dense Sinkhorn vs the
         # linear-space path, and the linear mode's tile; installed
         # process-wide at start().
@@ -935,6 +957,15 @@ class AssignorService:
         # The device and stream the scrubber's reads and the coalescer's
         # waves run on: those of the thread that builds the service.
         self._cuda_context = carry_cuda_context(self.device)
+        # The mesh manager: built here (cheap and inert), discovered and
+        # activated in start() (never per request).  None when "off".
+        from .sharded.mesh import MeshManager, _parse_spec
+
+        self._mesh = (
+            MeshManager(devices=mesh_devices,
+                        solve_min_rows=int(mesh_solve_min_rows), shape=mesh_shape)
+            if _parse_spec(mesh_devices) != "off" else None
+        )
         if int(coalesce_max_batch) > 1:
             from .ops.coalesce import MegabatchCoalescer
 
@@ -944,6 +975,7 @@ class AssignorService:
                 lock_waves=int(coalesce_lock_waves),
                 pipeline=bool(coalesce_pipeline),
                 delta_k=ladder[-1] if ladder else 0,
+                mesh_manager=self._mesh,
                 device=self.device,
                 cuda_context=self._cuda_context,
             )
@@ -1089,7 +1121,8 @@ class AssignorService:
         """Build a sidecar from a Kafka-style consumer config map, reading
         the keys this sidecar serves (utils/config.parse_config):
         ``solve.timeout.ms``, ``host.fallback``, ``breaker.*``,
-        ``coalesce.*``, ``delta.*``, ``quality.*``, ``slo.class.<stream>`` /
+        ``coalesce.*``, ``delta.*``, ``mesh.*``, ``quality.*``,
+        ``slo.class.<stream>`` /
         ``slo.deadline.ms.<class>`` / ``overload.*``, ``metrics.port``,
         ``snapshot.*`` / ``drain.timeout.ms``, ``resync.max.inflight``,
         ``recovery.prestack``, ``scrub.interval.ms`` and ``warmup.shapes``.
@@ -1111,6 +1144,9 @@ class AssignorService:
             "delta_max_fraction": cfg.delta_max_fraction,
             "delta_buckets": cfg.delta_buckets,
             "delta_adaptive": cfg.delta_adaptive,
+            "mesh_devices": cfg.mesh_devices,
+            "mesh_solve_min_rows": cfg.mesh_solve_min_rows,
+            "mesh_shape": cfg.mesh_shape,
             "quality_mode": cfg.quality_mode,
             "quality_tile": cfg.quality_tile,
             "metrics_port": cfg.metrics_port,
@@ -1300,10 +1336,10 @@ class AssignorService:
             # Roster tracking: locked rosters and the hit / re-stack /
             # invalidation / dead-row counters.
             result["coalesce"] = self._coalescer.stats()
-        # The JAX service's sections for features this sidecar does not
-        # run yet, answered as a disabled feature is.
-        for section in ("federation", "mesh"):
-            result[section] = None
+        # Federation is not ported: answered as a disabled feature is.
+        result["federation"] = None
+        # The device mesh; None when mesh_devices is "off".
+        result["mesh"] = self._mesh.status() if self._mesh is not None else None
         # Lifecycle: serving/draining/stopped, the snapshot store, the last
         # recovery, the writer lease and the boot's hand-off.
         result["lifecycle"] = self.lifecycle_stats()
@@ -1678,7 +1714,7 @@ class AssignorService:
             if st.engine is None:
                 st.flight = _stream_ring()
                 st.engine = _fresh_engine(C, st.flight, self._delta_opts,
-                                          self.device)
+                                          self.device, self._mesh)
                 st.members = members_sorted
                 # Poisoned-stream recovery: if the last epoch for this sid
                 # died on the snake rung, warm-restart from what the
@@ -1708,7 +1744,7 @@ class AssignorService:
                     "discarding its snapshot state (cold start)", sid,
                 )
                 st.engine = _fresh_engine(C, st.flight, self._delta_opts,
-                                          self.device)
+                                          self.device, self._mesh)
                 st.members = members_sorted
                 st.pids = None
                 metrics.REGISTRY.counter(
@@ -2094,7 +2130,7 @@ class AssignorService:
         host snake.  Returns ``(choice, stats, degraded_rung,
         fallback_used)``."""
         ring = _stream_ring()
-        fresh = _fresh_engine(C, ring, self._delta_opts, self.device)
+        fresh = _fresh_engine(C, ring, self._delta_opts, self.device, self._mesh)
         _apply_stream_opts(fresh, opts)
         try:
             choice = self._watchdog.call(
@@ -2514,7 +2550,7 @@ class AssignorService:
                 st = _Stream()
                 st.flight = _stream_ring()
                 st.engine = _fresh_engine(C, st.flight, self._delta_opts,
-                                          self.device)
+                                          self.device, self._mesh)
                 # The recovery contract: the first warm epoch is the one an
                 # engine seeded with the SAME choice gives (seed_choice
                 # leaves the resident state stale; both sides rebuild it
@@ -2620,6 +2656,14 @@ class AssignorService:
         # whose quality jobs route through them.
         set_quality_mode(self._quality_mode)
         set_quality_tile(self._quality_tile)
+        if self._mesh is not None:
+            # Mesh discovery once, before the warm-up (which warms the
+            # sharded cold solve with the manager active); a spec the
+            # visible devices cannot satisfy degrades to single-device here.
+            from .sharded import mesh as mesh_mod
+
+            self._mesh.configure()
+            mesh_mod.activate(self._mesh)
         if self._snapshot_store is not None:
             # The takeover handshake first (the fencing epoch turns over
             # before the state is read), then recovery, whose streams give
@@ -2645,6 +2689,7 @@ class AssignorService:
                     solvers=self._warmup_solvers,
                     coalesce_max_batch=coalesce_batch,
                     delta_buckets=self._warm_delta_buckets,
+                    mesh_manager=self._mesh,
                     device=self.device,
                 )
         if self._recovery_shapes and self._recovery_warmup:
@@ -2658,6 +2703,7 @@ class AssignorService:
                     solvers=("stream",),
                     coalesce_max_batch=coalesce_batch,
                     delta_buckets=self._warm_delta_buckets,
+                    mesh_manager=self._mesh,
                     device=self.device,
                 )
         # The serving surfaces come up under the lifecycle lock: a drain or
@@ -2724,6 +2770,11 @@ class AssignorService:
         if self._snapshot_writer is not None:
             self._snapshot_writer.close()
         self._close_listener()
+        if self._mesh is not None:
+            # Uninstall OUR manager only: a replacement's stays.
+            from .sharded import mesh as mesh_mod
+
+            mesh_mod.deactivate(self._mesh)
         self._set_lifecycle("stopped")
         self._stopped_event.set()
 
@@ -2941,6 +2992,7 @@ def main() -> None:
     [--snapshot-backend KIND] [--snapshot-lease-ttl-ms MS]
     [--snapshot-lease-wait-ms MS] [--resync-max-inflight N]
     [--scrub-interval-ms MS] [--recovery-prestack]
+    [--mesh-devices SPEC] [--mesh-solve-min-rows N] [--mesh-shape SxD]
     [--quality-mode MODE] [--quality-tile ROWS]`` — the JAX CLI's flags
     for the knobs this sidecar serves.  ``--warmup`` builds every kernel
     and runs the default device solvers at the listed shapes before the
@@ -3057,6 +3109,24 @@ def main() -> None:
              "off the serving path",
     )
     parser.add_argument(
+        "--mesh-devices", default="off", metavar="SPEC",
+        help="device mesh for the sharded backends: 'off' (default, "
+             "single-device), 'auto' (all visible devices, or the "
+             "KLBA_VIRTUAL_SHARDS virtual shards), or a device count; "
+             "discovered and validated once at start",
+    )
+    parser.add_argument(
+        "--mesh-solve-min-rows", type=int, default=65536, metavar="N",
+        help="partition floor below which the P-sharded solve backend "
+             "is not selected (default 65536)",
+    )
+    parser.add_argument(
+        "--mesh-shape", default="off", metavar="SxD",
+        help="cross-axis ('streams','p') factorization of the mesh "
+             "pool: 'off' (default, 1-D rungs), 'auto' or 'SxD'; faults "
+             "degrade 2-D -> streams -> p -> single",
+    )
+    parser.add_argument(
         "--quality-mode", default="auto",
         choices=("sinkhorn", "linear", "auto"),
         help="quality-solve routing: dense sinkhorn, the linear-space "
@@ -3086,6 +3156,9 @@ def main() -> None:
         resync_max_inflight=opts.resync_max_inflight,
         recovery_prestack=opts.recovery_prestack,
         scrub_interval_ms=opts.scrub_interval_ms,
+        mesh_devices=opts.mesh_devices,
+        mesh_solve_min_rows=opts.mesh_solve_min_rows,
+        mesh_shape=opts.mesh_shape,
         quality_mode=opts.quality_mode,
         quality_tile=opts.quality_tile,
     )

@@ -15,9 +15,9 @@ as the reference copies the whole map (:101-104).  The sidecar's keys
 that the port's sidecar serves (the megabatch coalescer, delta epochs, SLO
 classes and overload, the metrics port, the quality mode and tile,
 snapshots and drain, the writer lease, the resync pacer, the scrubber and
-the recovery pre-stack) and ``tpu.assignor.warmup.shapes`` are read here;
-the rest of the JAX package's sidecar keys (the mesh, federation) pass
-through untouched until their slices come.
+the recovery pre-stack, the device mesh) and ``tpu.assignor.warmup.shapes``
+are read here; the rest of the JAX package's sidecar keys (federation) pass
+through untouched until their slice comes.
 """
 
 from __future__ import annotations
@@ -191,6 +191,20 @@ VALID_SOLVERS = ("rounds", "scan", "global", "sinkhorn", "native", "host")
 PARITY_SOLVERS = ("rounds", "scan", "native", "host")
 
 
+# Multi-device sharding (sharded/).  ``mesh.devices`` selects the device
+# mesh discovered and validated ONCE at sidecar start: "off" (default —
+# single-device), "auto" (all visible devices; single-device when only one
+# is visible), or an integer N (exactly N devices; fewer visible degrades to
+# single-device at boot, fail-open).  Virtual shards on one device come from
+# KLBA_VIRTUAL_SHARDS (sharded/mesh).  ``mesh.solve.min.rows`` is the
+# partition floor below which a single device wins and the P-sharded solve
+# is not selected.  ``mesh.shape`` factorizes the pool into an (S, D)
+# ("streams", "p") grid: "off" (default), "auto" or "SxD".
+MESH_DEVICES_CONFIG = "tpu.assignor.mesh.devices"
+MESH_SOLVE_MIN_ROWS_CONFIG = "tpu.assignor.mesh.solve.min.rows"
+MESH_SHAPE_CONFIG = "tpu.assignor.mesh.shape"
+
+
 @dataclass
 class AssignorConfig:
     """Validated view over the consumer config map."""
@@ -233,6 +247,11 @@ class AssignorConfig:
     delta_max_fraction: float = 0.125
     delta_buckets: int = 6
     delta_adaptive: bool = True
+    # Multi-device sharding (sharded/): mesh spec, the P-sharded-solve row
+    # floor, and the cross-axis (S, D) factorization ("off" = 1-D rungs).
+    mesh_devices: str = "off"
+    mesh_solve_min_rows: int = 65536
+    mesh_shape: str = "off"
     # SLO classes + overload control (utils/overload): per-stream class
     # map, per-class deadline budgets (seconds), and the detector's
     # pressure normalizers (0 latency budget = auto).
@@ -459,6 +478,24 @@ def parse_config(configs: Mapping[str, Any]) -> AssignorConfig:
             "(each rung is one compiled executable per shape bucket)"
         )
 
+    # Mesh knobs: the spec is validated HERE (the sharded/ parser) so a
+    # typo'd device count fails at configure() time, not at boot.
+    from ..sharded.mesh import _parse_shape as _parse_mesh_shape
+    from ..sharded.mesh import _parse_spec as _parse_mesh_spec
+
+    raw_mesh = consumer_group_props.get(MESH_DEVICES_CONFIG, "off")
+    try:
+        mesh_devices = str(_parse_mesh_spec(raw_mesh))
+    except ValueError as exc:
+        raise ValueError(f"{MESH_DEVICES_CONFIG}: {exc}")
+    mesh_solve_min_rows = _as_int(MESH_SOLVE_MIN_ROWS_CONFIG, 65536, 1)
+    raw_shape = consumer_group_props.get(MESH_SHAPE_CONFIG, "off")
+    try:
+        shape = _parse_mesh_shape(raw_shape)
+    except ValueError as exc:
+        raise ValueError(f"{MESH_SHAPE_CONFIG}: {exc}")
+    mesh_shape = shape if isinstance(shape, str) else f"{shape[0]}x{shape[1]}"
+
     # The controller keeps this knob in ms (it normalizes a p99 measured
     # in ms), so convert _as_ms's seconds back out once, here.
     overload_latency_budget_ms = (
@@ -507,6 +544,9 @@ def parse_config(configs: Mapping[str, Any]) -> AssignorConfig:
         delta_adaptive=_as_bool(
             consumer_group_props.get(DELTA_ADAPTIVE_CONFIG, True)
         ),
+        mesh_devices=mesh_devices,
+        mesh_solve_min_rows=mesh_solve_min_rows,
+        mesh_shape=mesh_shape,
         slo_classes=slo_classes,
         slo_deadline_s=slo_deadline_s,
         overload_latency_budget_ms=overload_latency_budget_ms,

@@ -28,9 +28,11 @@ With ``coalesce_max_batch > 1`` the "stream" solver also drives the
 megabatch coalescer (:mod:`.ops.coalesce`): for each pow2 batch size up to
 the cap, one re-stack wave that locks the roster, one locked dense wave and
 one locked delta wave, so the first coalesced waves of a deployment build
-nothing and touch no fresh path.  The JAX warm-up's sharded jobs (a
-``mesh_manager``) need ``sharded/``, which the port does not have yet:
-asking for them raises ``ValueError``.
+nothing and touch no fresh path.  With an active ``mesh_manager`` it also
+runs the sharded cold solve the engine's cold hook would (the "sharded_linear"
+job, or "sharded" when the quality mode is pinned to "sinkhorn").  The JAX
+warm-up's "sharded_resident" job (the P-sharded resident placement) has no
+counterpart yet: its row is reported with seconds None and a warning.
 """
 
 from __future__ import annotations
@@ -158,7 +160,7 @@ def warmup(
     delta_buckets: int = 6,
     mesh_manager=None,
     device: DeviceLike = None,
-) -> List[Tuple[str, int, int, int, float]]:
+) -> List[Tuple[str, int, int, int, Optional[float]]]:
     """Build the kernels and run every job for each shape the deployment
     will see.
 
@@ -184,19 +186,17 @@ def warmup(
         T the batch size) for every pow2 batch size from 2 up to it.
       delta_buckets: > 0 adds one delta epoch at each K of
         ``delta_k_ladder(delta_buckets)`` up to P ("stream_delta" rows).
-      mesh_manager: must be None (``sharded/`` is not ported).
+      mesh_manager: an active :class:`.sharded.mesh.MeshManager` adds the
+        sharded cold solve ("sharded_linear" / "sharded" rows, T the mesh
+        size) and, at or above its row floor, the "sharded_resident" row
+        that is not run (seconds None).
       device: where the jobs run; None means the CUDA card (raises
         without one), ``"cpu"`` the plain path.
 
-    Returns ``(solver, T, P_bucket, C, seconds)`` for each job that ran.
-    A failing job is logged and skipped: the warm-up must never take a
-    deployment down.
+    Returns ``(solver, T, P_bucket, C, seconds)`` for each job that ran,
+    and seconds None for a job that was not run.  A failing job is logged
+    and skipped: the warm-up must never take a deployment down.
     """
-    if mesh_manager is not None:
-        raise ValueError(
-            "mesh_manager: the sharded backends (sharded/) are not ported "
-            "yet, so there is no sharded job to warm; pass None"
-        )
     from .ops.batched import assign_batched_rounds, assign_batched_scan
     from .ops.dispatch import autotune_quality_tile
     from .ops.rounds_kernel import assign_global_rounds
@@ -221,7 +221,7 @@ def warmup(
     def on_dev(arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
-    done: List[Tuple[str, int, int, int, float]] = []
+    done: List[Tuple[str, int, int, int, Optional[float]]] = []
     rng = np.random.default_rng(0)
     for P in p_buckets:
         lags1d = rng.integers(0, 1000, size=P).astype(np.int64)
@@ -272,6 +272,32 @@ def warmup(
                     return out
 
                 jobs.append(("stream", 1, stream_job))
+            mesh_live = (
+                "stream" in solvers and mesh_manager is not None
+                and mesh_manager.active
+            )
+            if mesh_live:
+                from .ops import dispatch as _dispatch_mod
+
+                sharded_linear = _dispatch_mod.quality_mode() != "sinkhorn"
+
+                def sharded_job(lags1d=lags1d, C=C, linear=sharded_linear):
+                    # The cold hook's dispatch at the engine's cold budget:
+                    # the linear duals unless the mode is pinned "sinkhorn".
+                    from .ops.streaming import StreamingAssignor
+                    from .sharded.solve import solve_linear_sharded, solve_sharded
+
+                    budget = StreamingAssignor(num_consumers=C, device=dev).cold_refine_iters
+                    solver = solve_linear_sharded if linear else solve_sharded
+                    return solver(mesh_manager.solve_mesh(), lags1d, C,
+                                  refine_iters=budget)[0]
+
+                jobs.append(("sharded_linear" if sharded_linear else "sharded",
+                             mesh_manager.size, sharded_job))
+            if mesh_live and mesh_manager.should_shard_solve(P):
+                # The P-sharded resident placement is not ported: reported,
+                # not run.
+                jobs.append(("sharded_resident", mesh_manager.size, None))
             if "stream" in solvers and delta_buckets > 0:
                 from .ops.streaming import delta_k_ladder
 
@@ -368,6 +394,14 @@ def warmup(
                                  assign_global_rounds(*args, num_consumers=C,
                                                       pack_shift=shift)))
             for name, T, job in jobs:
+                if job is None:
+                    LOGGER.warning(
+                        "warmup %s T=%d P=%d C=%d not run: the P-sharded "
+                        "resident placement is not ported (ROADMAP.md)",
+                        name, T, P, C,
+                    )
+                    done.append((name, T, P, C, None))
+                    continue
                 ok = True
                 with stopwatch() as t:
                     try:

@@ -103,6 +103,16 @@ LIFECYCLE_SLICE = ("warmup.py", "utils/snapshot.py", "utils/scrub.py", "service.
                    "testing.py", "utils/config.py", "assignor.py")
 
 
+SHARDED_SLICE = ("sharded/__init__.py", "sharded/mesh.py", "sharded/collectives.py",
+                 "sharded/solve.py", "sharded/topics.py", "parallel/__init__.py",
+                 "parallel/mesh.py")
+
+
+def test_import_checks_cover_the_sharded_slice():
+    walked = {p.relative_to(PORT).as_posix() for p in port_sources() if PORT in p.parents}
+    assert set(SHARDED_SLICE) <= walked
+
+
 def test_import_checks_cover_the_lifecycle_slice():
     walked = {p.relative_to(PORT).as_posix() for p in port_sources() if PORT in p.parents}
     assert set(LIFECYCLE_SLICE) <= walked

@@ -73,7 +73,7 @@ NOT_COMPARED = frozenset({"klba_compile_total", "klba_trace_total",
                           "klba_static_drift_total"})
 # The JAX service's stats sections for features the port's sidecar does
 # not run yet (the port answers None for each).
-UNPORTED = ("federation", "mesh")
+UNPORTED = ("federation",)
 
 
 def strip(x):
@@ -95,6 +95,9 @@ def normalized(reply, method=None):
     if method == "stats" and isinstance(result, dict):
         for key in UNPORTED:
             result.pop(key, None)
+        # The port's mesh status has one key more: ``virtual``.
+        if result.get("mesh") is not None:
+            result["mesh"].pop("virtual")
         for key in ("last_linear_solve", "tile_source"):
             result["quality"].pop(key)
     return out

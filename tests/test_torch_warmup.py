@@ -6,7 +6,8 @@
 * ``warmup``: the same rows minus seconds for the solvers the port serves
   (every job the JAX warm-up builds but the megabatch and sharded ones), the
   ``stream`` job's returned choice equal, a failing job logged and skipped
-  in both; a mesh manager raises in the port;
+  in both; an inactive mesh manager adds no job (the sharded jobs are in
+  ``tests/test_torch_sharded.py``);
 * the plugin's configure-time warm-up: the same ``warmup`` calls for a
   device solver, none for ``native``.
 """
@@ -118,10 +119,18 @@ def test_failing_job_is_skipped_as_in_jax(monkeypatch, caplog):
 
 @pytest.mark.parametrize("kw", [{"mesh_manager": object()}])
 def test_unported_jobs_raise(kw):
-    """The sharded jobs need a slice the port does not have: asking for
-    them raises at the call, before any job runs.  (The megabatch waves are
-    ported: tests/test_torch_service_coalesce.py runs them.)"""
-    with pytest.raises(ValueError, match="not ported"):
+    """A mesh manager no longer raises: an inactive one adds no sharded job,
+    as in the JAX warm-up (tests/test_torch_sharded.py runs the sharded
+    jobs of an active one, and reports the P-sharded resident job, which
+    the port does not have, as not run)."""
+    from kafka_lag_based_assignor_tpu_torch.sharded.mesh import MeshManager
+
+    inactive = MeshManager(devices="off").configure()
+    rows = warmup.warmup(16, [2], solvers=("stream",), delta_buckets=0,
+                         device="cpu", mesh_manager=inactive)
+    assert [r[0] for r in rows] == ["stream"]
+    # Something that is not a manager fails as in the JAX warm-up.
+    with pytest.raises(AttributeError):
         warmup.warmup(16, [2], solvers=("stream",), device="cpu", **kw)
 
 
