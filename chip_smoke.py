@@ -111,9 +111,12 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    e. the fault ladder at BASELINE config 5: first the watchdog's cost,
       ``assign()`` at configs 5 and 3 ``rounds`` with the default deadline
       and with ``solve.timeout.ms=0`` (inline) in turns (medians of 6
-      each); then one assignor (``rounds``, host rung on,
+      each); then assignors (``rounds``, host rung on,
       ``breaker.failures=1``, an hour's cooldown, ``solve.timeout.ms`` 10x
-      the config-5 solve median, at least 1 s) through legs (a) no fault:
+      the config-5 solve median, at least 1 s) through legs (a)-(c) at
+      config 5 and (d)-(g) at config 5 cut to ``LADDER_P`` partitions (the
+      host rung's Python greedy takes ~18 s a leg at the full 100,000):
+      (a) no fault:
       K1 launches, the ``assign.solve`` span histogram grows by one; (b) a
       ``device.solve`` raise and (c) a ``device.compile`` raise: no K1
       launch, the host rung's answer equal to (a)'s, the rung counter +1,
@@ -121,10 +124,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       dumps (the breaker's trip and the ladder's)
       (the breaker, opened by the one failure, is reset after each); (d) a
       ``device.solve`` hang of twice the deadline: a solve timeout, the
-      breaker open, (a)'s answer from the host; (e) no fault with the
-      breaker open: rejected without running, no K1 launch, the host's
-      answer; (f) after ``reset_accelerator()``: K1 launches and gives
-      (a)'s bits; (g) ``host.fallback=false`` with a ``device.solve``
+      breaker open, the host's answer; (e) no fault with the breaker open:
+      rejected without running, no K1 launch, the host's answer; (f) after
+      ``reset_accelerator()``: K1 launches, and (d)'s and (e)'s host
+      answers equal its bits; (g) ``host.fallback=false`` with a ``device.solve``
       raise: ``assign()`` raises ``FaultError``.  Each abandoned worker is
       waited for.  Then the streaming engine at config 5 under a
       ``device.corrupt.choice`` plan: the cold epoch adopts a flipped
@@ -241,8 +244,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       (d) the port's ``AssignorService(device="cuda", host_fallback=False,
       mesh_devices=4)`` on 4 virtual shards: a config-5 ``stream_assign``
       cold epoch answers ``sharded_solve: true`` equal to (b)'s D = 4
-      linear choice, 3 warm epochs follow, ``stats.mesh`` is filled in;
-      then under a ``mesh.collective`` fault the manager degrades one rung
+      linear choice, 3 warm epochs follow (the first rebuilds and places the
+      resident state, one K6; the next two digest it with one K6 shard
+      launch a shard), ``stats.mesh`` is filled in; then under a ``mesh.collective`` fault the manager degrades one rung
       (the series move) and the stream's cold epoch is single-device and
       valid; (e) the config-5 cold solves on the host clock (median of 3) at
       D = 1, 2, 4 for both programs beside the single-device cold solves,
@@ -250,6 +254,47 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       are virtual shards on one card: the times measure the host loop over
       shards, not multi-GPU scaling.  Its launches of (b)-(d) count into the
       kernels line, and it prints a JSON ``sharded`` line;
+   j. placement on 4 virtual shards of the card: (a) K6's shard entry
+      (``state_digest_sharded``) on config 5's resident state at D = 1, 2,
+      4, 8, clean and with each corruption class, bit for bit against the
+      one-state K6 on the gathered state and its plain version, each
+      shard's partial lanes and histogram against the plain shard version,
+      C = 16,385 raising on both devices, and timed at D = 4 (event, alone,
+      plain, bound); (b) a config-5 stream through
+      ``StreamingAssignor(mesh_backend=manager)``: the sharded cold epoch,
+      phase 4c's 10-epoch drift and 3 delta epochs, every epoch after the
+      cold one bit-equal to a single-device engine seeded with the cold
+      choice, the state placed in 4 shards of B/4 rows, the placement
+      counter moved, one K6 shard launch a shard for each placed warm
+      epoch, then a ``device.corrupt.choice`` drill caught and healed; (c)
+      ``multistream_32g`` through a coalescer on a 4-way streams mesh and a
+      (2, 2) 2-D mesh: every row equal to its serial engine, the roster
+      placed 8 rows a device, the batched K6 once a device a locked wave,
+      one device's locked rows through the batched K6 against its plain
+      version (clean and one corrupted row), the locked waves' walls beside
+      phase 4h's; (d) a ``mesh.collective``
+      fault at the warm boundary degrades the manager and the epoch is
+      answered.  It prints a JSON ``placement`` line;
+   k. federation, three port sidecars
+      (``AssignorService(device="cuda", host_fallback=False)``) in full
+      mesh over loopback TCP: (a) ``bench.py``'s config 12 (3 shards x
+      2,048, C 8, seed 0xFED12, 16 rounds): rung ``global`` on all three,
+      quality within 5 % of the port's single-leader ``sinkhorn`` on the
+      6,144 rows, every captured ``peer_sync`` payload lag-free, a full
+      partition served ``last_good_global`` / ``local_only`` with zero
+      request errors, a heal re-converged within 16 rounds, stale and
+      fenced duals rejected and counted; every ``local_only`` answer of
+      (a)-(c) (K1) equal bit for bit to the plain ``rounds`` path on the
+      same rows (the port's CPU solve); (b) config 5 split round-robin by
+      partition id over the three sidecars: rung ``global``, each shard's
+      counts within floor / ceil, quality beside the single-leader
+      config-5 ``sinkhorn``'s, the walls of ``federated_assign`` and of one
+      exchange round, K3's event time and launches, ``round_local_shard``'s
+      wall and refine rounds; (c) capacity 1:2:1 over the members: each
+      shard's counts equal ``apportion_counts``; (d) K3 at the shards'
+      U_pad against its plain version.  It prints a JSON ``federation``
+      line.  The launches of 4j (b)-(d) and 4k (a)-(c) count into the
+      kernels line;
 5. times, with CUDA events, medians of 30 runs after warm-up: each kernel
    alone at its main-path shape, its plain version on the card, the
    library yardstick where there is one, and its bound; the device time
@@ -277,7 +322,8 @@ walls and bytes), one JSON ``lifecycle`` line (phase 4g's warm-up rows,
 boot, first epochs and scrub walls, and its launches), one JSON
 ``coalesce`` line (phase 4h's rates, walls, idle shares and K6 times), one
 JSON ``sharded`` line (phase 4i's checks, K5 times by superblock count,
-walls and idle share), one JSON
+walls and idle share), one JSON ``placement`` and one JSON ``federation``
+line (phases 4j and 4k), one JSON
 ``profiler`` line (the profiler's clock skew
 after the builds, around phase 4f and after phase 5, and its sessions
 recorded and discarded), one JSON ``kernels`` line, and as its last line
@@ -286,7 +332,8 @@ result.
 
 ``python3 chip_smoke.py --coalesce`` runs phase 4h alone (after the builds)
 and prints its ``coalesce`` line; ``--sharded`` runs phase 4i alone (after
-the builds) and prints its ``sharded`` line.  ``python3 chip_smoke.py --sidecar`` runs
+the builds) and prints its ``sharded`` line; ``--placement`` and
+``--federated`` run phases 4j and 4k alone (after the builds).  ``python3 chip_smoke.py --sidecar`` runs
 phase 4f alone (after the builds,
 phase 4a and one phase-4c run it is held to) and prints its ``sidecar``
 line; ``--lifecycle`` runs phase 4g alone (after the builds and one
@@ -420,6 +467,7 @@ COUNTERS = (
     ("state_digest", refine.state_digest),
     ("scan_greedy", scan_cuda.scan_greedy),
     ("state_digest_rows", refine.state_digest_rows),
+    ("state_digest_sharded", refine.state_digest_sharded),
 )
 # The name each kernel has in the profiler (a substring of it): K5 is the
 # pass K4 launches twice; K3's two forms are klba_plan_stats_cluster and
@@ -432,6 +480,7 @@ KERNEL_NAMES = {
     "state_digest": "digest_",
     "scan_greedy": "scan_greedy_kernel",
     "state_digest_rows": "digest_",
+    "state_digest_sharded": "state_digest_shard_kernel",
 }
 # The streaming engine at BASELINE config 5, as bench.py drives it: P
 # partitions, C consumers, and the warm epoch's exchange budget.
@@ -1535,6 +1584,12 @@ def streaming_path(device):
 
 # -- phase 4e --------------------------------------------------------------
 
+# Legs (d)-(g) of the ladder run config 5 cut to this many partitions: they
+# drill the watchdog's timeout, the open breaker, its reset and the strict
+# raise, and compare no kernel with the host rung (legs (a)-(c) do that at the
+# full 100,000); each host-rung leg at the full size costs ~18 s.
+LADDER_P = 20_000
+
 
 def join_abandoned_workers(timeout: float = 120.0) -> None:
     """Wait for the watchdog's abandoned ``klba-solve`` workers."""
@@ -1635,21 +1690,25 @@ def watchdog_cost(device, pairs: int = 6) -> dict:
 
 
 def ladder_legs(device, timeout_ms: int) -> dict:
-    """Legs (a)-(g) of the fault ladder at BASELINE config 5 through one
-    port assignor (``rounds``, host rung on, ``breaker.failures=1``, an
-    hour's cooldown, ``solve.timeout.ms`` = ``timeout_ms``), each checked
-    as it runs; returns each leg's outcome, launches and wall."""
+    """Legs (a)-(g) of the fault ladder through port assignors (``rounds``,
+    host rung on, ``breaker.failures=1``, an hour's cooldown,
+    ``solve.timeout.ms`` = ``timeout_ms``): (a)-(c) on one at BASELINE
+    config 5, (d)-(f) on one at config 5 cut to ``LADDER_P`` partitions,
+    (g) on a strict one at that size; each checked as it runs.  Returns
+    each leg's outcome, launches and wall."""
     from kafka_lag_based_assignor_tpu_torch.utils import faults, metrics
 
-    lags, members = baseline_workload(5)
-    ladder, cluster, group = plugin(lags, members, "rounds", device, **{
-        "tpu.assignor.host.fallback": "true", "tpu.assignor.breaker.failures": "1",
-        "tpu.assignor.breaker.cooldown.ms": "3600000",
-        "tpu.assignor.solve.timeout.ms": str(timeout_ms)})
+    knobs = {"tpu.assignor.host.fallback": "true", "tpu.assignor.breaker.failures": "1",
+             "tpu.assignor.breaker.cooldown.ms": "3600000",
+             "tpu.assignor.solve.timeout.ms": str(timeout_ms)}
+    full = plugin(*baseline_workload(5), "rounds", device, **knobs)
+    cut_lags, cut_members = baseline_workload(5, partitions=LADDER_P)
+    cut = plugin(cut_lags, cut_members, "rounds", device, **knobs)
     hang_s = 2 * timeout_ms / 1e3
     legs, answers = {}, {}
 
-    def leg(name, plan=None, assignor=ladder):
+    def leg(name, plan=None, run=full, ref="a"):
+        assignor, cluster, group = run
         inj = None
         if plan is not None:
             inj = faults.FaultInjector(seed=9).plan(plan[0], plan[1], **plan[2])
@@ -1672,11 +1731,13 @@ def ladder_legs(device, timeout_ms: int) -> dict:
         join_abandoned_workers()
         stats = assignor.last_stats
         rec = {"raised": raised, "wall_ms": wall,
+               "partitions": sum(len(v) for v in cluster.partitions_by_topic.values()),
                "k1_launches": rounds_cuda.rounds_scan.launches - k1,
                **{k: v - before[k] for k, v in ladder_series().items()}}
         if raised is None:
             rec.update(fallback_used=stats.fallback_used, breaker_state=stats.breaker_state,
-                       solve_ms=stats.solve_ms, same_as_a=answers[name] == answers.get("a"),
+                       solve_ms=stats.solve_ms, same_as=ref,
+                       same=answers[name] == answers[ref] if ref in answers else None,
                        flight_records=[(r["kind"], r.get("fallback_used"))
                                        for r in metrics.FLIGHT.records() if r["seq"] > seq])
         legs[name] = rec
@@ -1694,23 +1755,28 @@ def ladder_legs(device, timeout_ms: int) -> dict:
         r = leg(name, (point, "raise", {}))
         # The breaker trip dumps inside the request, the ladder's dump after
         # it (the JAX plugin's order): two dumps, one rebalance record.
-        expect(name, r["k1_launches"] == 0 and r["fallback_used"] and r["same_as_a"]
+        expect(name, r["k1_launches"] == 0 and r["fallback_used"] and r["same"]
                and r["rung"] == 1 and r["flight_dumps"] == 2
                and r["flight_records"] == [("rebalance", True)]
                and r["breaker_state"] == "open")  # breaker.failures=1
-        ladder.reset_accelerator()
-    r = leg("d", ("device.solve", "hang", {"delay_s": hang_s}))
-    expect("d", r["k1_launches"] == 0 and r["fallback_used"] and r["same_as_a"]
-           and r["timeouts"] == 1 and r["breaker_state"] == "open" and r["rung"] == 1)
-    r = leg("e")
-    expect("e", r["k1_launches"] == 0 and r["fallback_used"] and r["same_as_a"]
-           and r["rejected"] == 1 and r["breaker_state"] == "open")
-    ladder.reset_accelerator()
-    r = leg("f")
-    expect("f", r["k1_launches"] >= 1 and not r["fallback_used"] and r["same_as_a"]
+        full[0].reset_accelerator()
+    # (d) and (e) are answered by the host rung; (f), K1 after the reset, is
+    # the answer they are held to, checked once it has run.
+    r = leg("d", ("device.solve", "hang", {"delay_s": hang_s}), run=cut, ref="f")
+    expect("d", r["k1_launches"] == 0 and r["fallback_used"] and r["timeouts"] == 1
+           and r["breaker_state"] == "open" and r["rung"] == 1)
+    r = leg("e", run=cut, ref="f")
+    expect("e", r["k1_launches"] == 0 and r["fallback_used"] and r["rejected"] == 1
+           and r["breaker_state"] == "open")
+    cut[0].reset_accelerator()
+    r = leg("f", run=cut, ref="f")
+    expect("f", r["k1_launches"] >= 1 and not r["fallback_used"]
            and r["breaker_state"] == "closed" and r["rung"] == 0)
-    strict = plugin(lags, members, "rounds", device)[0]
-    r = leg("g", ("device.solve", "raise", {}), assignor=strict)
+    for name in ("d", "e"):
+        legs[name]["same"] = answers[name] == answers["f"]
+        expect(name, legs[name]["same"])
+    strict = plugin(cut_lags, cut_members, "rounds", device)
+    r = leg("g", ("device.solve", "raise", {}), run=strict)
     expect("g", r["raised"] == "FaultError" and r["k1_launches"] == 0 and r["rung"] == 0)
     return legs
 
@@ -1787,7 +1853,8 @@ def ladder_path(device) -> tuple:
     launches = read_counts()
     join_abandoned_workers()
     log(f"main path (ladder): launches {launches}")
-    return launches, {"config": 5, "solve_timeout_ms": timeout_ms, "legs": legs,
+    return launches, {"config": 5, "legs_partitions": {"a-c": 100_000, "d-g": LADDER_P},
+                      "solve_timeout_ms": timeout_ms, "legs": legs,
                       "stream_drill": drill, "watchdog_cost": cost}
 
 
@@ -2285,9 +2352,11 @@ def lifecycle_child(mode: str, device: str = "cuda") -> dict:
         out["warmup_s"] = time.perf_counter() - t0
         out["warmup_launches"] = read_counts()
         # The batched K6 runs only in coalesced waves, which this warm-up
-        # (coalesce_max_batch=1) does not drive.
-        if device == "cuda" and not all(v for k, v in out["warmup_launches"].items()
-                                        if k != "state_digest_rows"):
+        # (coalesce_max_batch=1) does not drive, and K6's shard entry only on
+        # a placed state, which it makes without a mesh manager neither.
+        if device == "cuda" and not all(
+                v for k, v in out["warmup_launches"].items()
+                if k not in ("state_digest_rows", "state_digest_sharded")):
             raise AssertionError(f"warm-up: a kernel never launched: "
                                  f"{out['warmup_launches']}")
         out["rows"] = [list(r) for r in rows]
@@ -3277,7 +3346,8 @@ def sharded_sidecar(device, lags0: np.ndarray, want4: np.ndarray, launches: dict
     """4i (d): the port's sidecar with ``mesh_devices=4`` on 4 virtual shards
     (floor 65,536): a config-5 ``stream_assign`` cold epoch answers
     ``sharded_solve: true`` equal to (b)'s D=4 linear choice, 3 warm epochs
-    follow, ``stats.mesh`` is filled in; then a ``mesh.collective`` fault
+    follow (the first rebuilds and places the resident state, the next two
+    digest it shard by shard), ``stats.mesh`` is filled in; then a ``mesh.collective`` fault
     degrades the manager one rung, the series move, and the next stream's
     cold epoch is single-device and valid."""
     from kafka_lag_based_assignor_tpu_torch import service
@@ -3319,9 +3389,13 @@ def sharded_sidecar(device, lags0: np.ndarray, want4: np.ndarray, launches: dict
             lags = heat(lags, choice, STREAM_C)
             s, choice, _, wall = epoch("mesh5", lags)
             walls.append(wall)
-            # counted() zeroed the counts at the epoch's start: one K6.
+            # counted() zeroed the counts at the epoch's start: the first
+            # rebuilds the state (one K6) and places it; the next digest the
+            # placed state with one K6 shard launch a shard.
+            want = (1, 0) if e == 0 else (0, 4)
             if (s["cold_start"] or s["fallback_used"] or not s["refined"]
-                    or refine.state_digest.launches != 1):
+                    or (refine.state_digest.launches,
+                        refine.state_digest_sharded.launches) != want):
                 raise AssertionError(f"sharded 4i(d): warm epoch {e} answered {s}")
         mesh_stats = client.request("stats", {})["mesh"]
         if not (mesh_stats["active"] and mesh_stats["devices"] == 4 and mesh_stats["virtual"]):
@@ -3438,6 +3512,774 @@ def sharded_path(device) -> tuple:
     report["seconds"] = time.perf_counter() - t0
     log(f"sharded path launches {launches} in {report['seconds']!r} s")
     return launches, k5["max_abs_err"], report
+
+
+# -- phase 4j: placement on virtual shards ----------------------------------
+
+# The mesh sizes K6's shard entry is held at (a shard of a 1-, 2-, 4- and
+# 8-way mesh), and the size of the placed paths (b)-(d).
+PLACEMENT_SIZES = (1, 2, 4, 8)
+PLACEMENT_D = 4
+
+
+def split_rows(lags, choice, D: int) -> tuple:
+    """(lag shards, choice shards, row offsets) of a state cut into D
+    contiguous row shards, each a tensor of its own (virtual shards)."""
+    ls = [t.clone() for t in torch.tensor_split(lags, D)]
+    cs = [t.clone() for t in torch.tensor_split(choice, D)]
+    offsets = np.cumsum([0] + [t.shape[0] for t in ls[:-1]]).tolist()
+    return ls, cs, offsets
+
+
+def digest_sharded_plain(ls, cs, counts, C: int, tab, offsets):
+    """The plain version of ``state_digest_sharded`` on the same tensors:
+    ``_state_digest_shard_torch`` a shard, then the same combine."""
+    B = sum(int(t.shape[0]) for t in ls)
+    parts = [refine._state_digest_shard_torch(l, c, counts, C, tab, lo, B, d == 0)
+             for d, (l, c, lo) in enumerate(zip(ls, cs, offsets))]
+    return refine.combine_shard_digests(sum(p for p, _ in parts),
+                                        sum(h.long() for _, h in parts), counts)
+
+
+def sharded_digest_check(device) -> tuple:
+    """4j (a): ``state_digest_sharded`` on config 5's resident state (B
+    131,072, C 1,000, M 133) at D = 1, 2, 4, 8, clean and under each
+    corruption class of ``digest_cases``: equal to the single-device K6 on
+    the gathered state and to its plain version, bit for bit; each shard's
+    partial lanes and histogram equal to the plain shard version; then its
+    times at D = 4.  Returns (max |diff| (0), the times)."""
+    B = pad_bucket(STREAM_P)
+    base = resident_case(B, STREAM_P, STREAM_C, device)
+    worst = 0
+    for kind in DIGEST_KINDS:
+        lags, choice, counts, tab = corrupted(kind, *base, STREAM_C)
+        single = refine.state_digest(lags, choice, counts, STREAM_C, row_tab=tab)
+        for D in PLACEMENT_SIZES:
+            ls, cs, offsets = split_rows(lags, choice, D)
+            got = refine.state_digest_sharded(ls, cs, counts, STREAM_C, tab, offsets)
+            again = refine.state_digest_sharded(ls, cs, counts, STREAM_C, tab, offsets)
+            plain = digest_sharded_plain(ls, cs, counts, STREAM_C, tab, offsets)
+            err = int((got - plain).abs().max())
+            worst = max(worst, err)
+            if err or not torch.equal(got, single) or not torch.equal(got, again):
+                raise AssertionError(f"placement 4j(a): state_digest_sharded D={D} {kind}: "
+                                     f"{got.tolist()} against one-state K6 {single.tolist()} "
+                                     f"and plain {plain.tolist()}")
+            for d in range(D):
+                args = (ls[d], cs[d], counts, STREAM_C, tab, offsets[d], B, d == 0)
+                part, hist = state_digest_cuda.launch_shard(*args)
+                p_part, p_hist = refine._state_digest_shard_torch(*args)
+                if not (torch.equal(part, p_part) and torch.equal(hist, p_hist)):
+                    raise AssertionError(f"placement 4j(a): shard {d} of {D} {kind}: partial "
+                                         f"{part.tolist()} against plain {p_part.tolist()}")
+        log(f"kernel vs plain  state_digest_sharded config5 {kind:30s}: D = 1, 2, 4, 8 equal to "
+            f"the one-state K6 {single.tolist()} and to the plain version")
+    for dev in (device, torch.device("cpu")):
+        z = torch.zeros(8, dtype=torch.int32, device=dev)
+        C = refine.DIGEST_MAX_CONSUMERS + 1
+        try:
+            refine.state_digest_sharded([z.long()], [z], torch.zeros(C, dtype=torch.int32,
+                                        device=dev), C, torch.zeros((C, 1), dtype=torch.int32,
+                                                                    device=dev), [0])
+        except ValueError:
+            continue
+        raise AssertionError(f"state_digest_sharded took C={C} on {dev}")
+    lags, choice, counts, tab = base
+    ls, cs, offsets = split_rows(lags, choice, PLACEMENT_D)
+    call = lambda: refine.state_digest_sharded(ls, cs, counts, STREAM_C, tab, offsets)  # noqa: E731
+    t = op_times(call, KERNEL_NAMES["state_digest_sharded"])
+    if t["launches"] != PLACEMENT_D:
+        raise AssertionError(f"state_digest_sharded launched {t['launches']} kernels for "
+                             f"{PLACEMENT_D} shards")
+    plain = median_event_ms(lambda: digest_sharded_plain(ls, cs, counts, STREAM_C, tab, offsets))
+    M = tab.shape[1]
+    slots = int(torch.clamp(counts, max=M).sum())
+    # The function's own bytes: the rows (lags, choice) once, the table and
+    # counts once, the choices of the valid slots, and the int64[5] digest.
+    # This design reads the replicated table and counts once a shard and
+    # writes a partial a shard on top of that (``design_bytes``).
+    moved = 12 * B + 4 * STREAM_C + 4 * STREAM_C * M + 4 * slots + 40
+    design = (12 * B + PLACEMENT_D * (4 * STREAM_C + 4 * STREAM_C * M + 40 + 4 * STREAM_C)
+              + 4 * slots)
+    out = dict(ms=t["event_ms"], alone_ms=t["alone_ms"], all_ops_ms=t["all_ops_ms"],
+               plain_ms=plain, bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               library_ms=None, shards=PLACEMENT_D, bytes=moved, design_bytes=design,
+               design_bound_ms=design / HBM_BYTES_PER_S * 1e3)
+    log(f"times  state_digest_sharded at D={PLACEMENT_D} (B={B} C={STREAM_C} M={M}): event "
+        f"{t['event_ms']!r} ms, alone {t['alone_ms']!r} ms ({t['launches']} launches, "
+        f"{t['kernels']} kernels, {t['memsets']} memsets), all ops {t['all_ops_ms']!r} ms, "
+        f"plain {plain!r} ms, bound {out['bound_ms']!r} ms ({moved} bytes; this design "
+        f"moves {design} bytes, {out['design_bound_ms']!r} ms)")
+    return worst, out
+
+
+def profiled_call(fn, kernel: str) -> tuple:
+    """(``fn()``, its profile): the call's wall, the device's busy time
+    (every op it enqueued) and idle share, and the time and launches of the
+    kernels named ``kernel``.  A session without a record of them is
+    repeated (up to five in all)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(5):
+        SESSIONS["recorded"] += 1
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad_for(attempt))
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            time.sleep(pad_for(attempt))
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "Activity Buffer" not in e.key]
+        hits = [e for e in events if kernel in e.key]
+        if hits:
+            busy = sum(e.self_device_time_total for e in events) / 1e3
+            return out, {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
+                         "kernel_ms": sum(e.self_device_time_total for e in hits) / 1e3,
+                         "kernel_launches": sum(e.count for e in hits),
+                         "top": [(e.key[:48], e.self_device_time_total / 1e3, e.count)
+                                 for e in sorted(events,
+                                                 key=lambda e: -e.self_device_time_total)[:5]]}
+        SESSIONS["discarded"] += 1
+    raise AssertionError(f"profiled call: no session recorded kernels named {kernel!r}")
+
+
+def placement_series() -> dict:
+    from kafka_lag_based_assignor_tpu_torch.utils import metrics
+
+    reg = metrics.REGISTRY
+    return {"placed": reg.counter("klba_resident_placed_total", {"axis": "p"}).value,
+            "degrade_1d_single": reg.counter("klba_mesh_degrade_total",
+                                             {"from": "1d", "to": "single"}).value}
+
+
+def placed_stream(device, launches: dict) -> dict:
+    """4j (b): config 5's stream through ``StreamingAssignor(mesh_backend=
+    manager)`` on 4 virtual shards: the sharded cold epoch, phase 4c's
+    10-epoch drift and 3 delta epochs.  The cold epoch is the sharded linear
+    solve (phase 4c's is the single-device cold chain), so the reference is
+    a single-device engine seeded with the cold choice: every later epoch's
+    choice is bit-equal to it.  Each shard holds B/4 rows of choice and
+    lags, the placement counter moves, the placed warm epochs digest with
+    K6's shard entry; then a ``device.corrupt.choice`` drill is caught and
+    healed."""
+    from kafka_lag_based_assignor_tpu_torch.sharded.mesh import MeshManager
+    from kafka_lag_based_assignor_tpu_torch.sharded.resident import PlacedResident
+    from kafka_lag_based_assignor_tpu_torch.utils import faults
+
+    mgr = MeshManager(devices=PLACEMENT_D).configure()
+    engine = streaming.StreamingAssignor(num_consumers=STREAM_C, refine_iters=STREAM_BUDGET,
+                                         imbalance_guardrail=1.25, mesh_backend=mgr,
+                                         device=device)
+    before = placement_series()
+    rng, lags0 = stream_lags0(STREAM_P)
+    reset_counts()
+    t0 = time.perf_counter()
+    choice = engine.rebalance(lags0)
+    walls = [(time.perf_counter() - t0) * 1e3]
+    if not engine.last_stats.sharded_solve:
+        raise AssertionError("placement 4j(b): the cold epoch was not sharded")
+    cold, epochs, choices, kinds = choice, [], [], []
+    digests = [0, 0]  # the K6 launches the epochs must make: one-state, shards
+    lags = lags0.astype(np.float64)
+    for e in range(13):
+        if e < 10:
+            lags = stream_drift(rng, lags, e, choice, STREAM_C)
+            cur = lags.astype(np.int64)
+        else:
+            cur = heat(epochs[-1], choice, STREAM_C)
+        placed_before = isinstance(engine._resident, PlacedResident)
+        t0 = time.perf_counter()
+        choice = engine.rebalance(cur)
+        sync(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        epochs.append(cur)
+        choices.append(choice)
+        s = engine.last_stats
+        kinds.append("cold" if s.cold_start and not s.refined else "noop" if not s.refined
+                     else "placed" if placed_before else "build")
+        # A refine on a placed state: one K6 shard launch a shard; on a
+        # rebuilt one: one K6; a cold epoch here is the sharded linear solve.
+        digests[0] += int(s.refined and not placed_before)
+        digests[1] += PLACEMENT_D * int(s.refined and placed_before)
+    grew = read_counts()
+    add_counts(launches, grew)
+    res = engine._resident
+    B = pad_bucket(STREAM_P)
+    if not isinstance(res, PlacedResident) or [int(s[0].shape[0]) for s in res.shards] != [
+            B // PLACEMENT_D] * PLACEMENT_D or [int(s[3].shape[0]) for s in res.shards] != [
+            B // PLACEMENT_D] * PLACEMENT_D:
+        raise AssertionError(f"placement 4j(b): the resident state is not placed in "
+                             f"{PLACEMENT_D} row shards: {type(res).__name__}")
+    moved = {k: v - before[k] for k, v in placement_series().items()}
+    if (moved["placed"] < 1 or kinds.count("placed") < 1 or (
+            device.type == "cuda"
+            and [grew["state_digest"], grew["state_digest_sharded"]] != digests)):
+        raise AssertionError(f"placement 4j(b): epochs {kinds}, series {moved}, launches {grew}")
+    ref = stream_engine(device)
+    ref.mesh_backend = None
+    ref.seed_choice(cold)
+    for e, (cur, got) in enumerate(zip(epochs, choices)):
+        if not np.array_equal(ref.rebalance(cur), got):
+            raise AssertionError(f"placement 4j(b): epoch {e + 1} differs from the "
+                                 "single-device engine seeded with the cold choice")
+    # The drill: the flip lands in the owning shard as the next state is
+    # adopted; the dispatch after it catches it and the one after heals.
+    cur = heat(epochs[-1], choice, STREAM_C)
+    with faults.injected(faults.FaultInjector(5).plan("device.corrupt.choice", times=1)):
+        choice = engine.rebalance(cur)
+    audited, fails = scrub.audit_engine(engine)
+    cur = heat(cur, choice, STREAM_C)
+    try:
+        engine.rebalance(cur)
+        raise AssertionError("placement 4j(b): the corrupted placed state was not caught")
+    except scrub.CorruptStateDetected as exc:
+        caught = list(exc.buffers)
+    healed = engine.rebalance(cur)
+    if (not audited or fails != ["choice"] or "choice" not in caught or engine.quarantined
+            or not isinstance(engine._resident, PlacedResident)):
+        raise AssertionError(f"placement 4j(b): drill audit {fails}, caught {caught}")
+    assignment_facts("placement 4j(b) healed", cur, healed, STREAM_C, False)
+    cur = heat(cur, healed, STREAM_C)
+    _, prof = profiled_call(lambda: engine.rebalance(cur),
+                            KERNEL_NAMES["state_digest_sharded"])
+    if not engine.last_stats.refined or prof["kernel_launches"] != PLACEMENT_D:
+        raise AssertionError(f"placement 4j(b): the profiled epoch {prof}")
+    report = {"epochs": kinds, "walls_ms": walls, "series": moved, "launches": grew,
+              "shard_rows": B // PLACEMENT_D, "drill": {"audit": fails, "caught": caught},
+              "profiled_placed_epoch": prof}
+    log(f"placement 4j(b) config-5 stream on {PLACEMENT_D} virtual shards: epochs {kinds}; "
+        f"every epoch after the sharded cold one equal to the single-device engine; walls "
+        f"{walls} ms; series {moved}; launches {grew}; the corrupt.choice drill caught and "
+        f"healed; one profiled placed warm epoch {prof}")
+    return report
+
+
+def placed_rows_digest(batch, label: str) -> int:
+    """4j (c): the rows of a locked placed batch on its first device, the
+    stacked state that device's batched K6 launch digests in the next wave
+    (8 x 4,096, C 16), through ``state_digest_rows`` against its plain
+    version, clean and with one corrupted row under a few corruption
+    classes; a corrupted row's digest must differ from its clean one.
+    Returns max |diff| (0)."""
+    with batch.lock:
+        rows = [tuple(t.parts[0][n].clone() for t in (batch.lags, batch.choice,
+                                                      batch.counts, batch.row_tab))
+                for n in range(batch.choice.parts[0].shape[0])]
+    worst, clean, victim = 0, None, 1
+    for kind in ("clean", "choice C", "counts +1", "table bit flip"):
+        bufs = [corrupted(kind, *r, MS_C) if n == victim else r for n, r in enumerate(rows)]
+        lags, choice, counts, tab = (torch.stack([b[k] for b in bufs]).contiguous()
+                                     for k in range(4))
+        got = refine.state_digest_rows(lags, choice, counts, MS_C, tab)
+        plain = torch.stack([digest_plain(*b[:3], MS_C, b[3]) for b in bufs])
+        err = int((got - plain).abs().max())
+        worst = max(worst, err)
+        clean = got[victim].clone() if clean is None else clean
+        if err or (kind != "clean") == torch.equal(got[victim], clean):
+            raise AssertionError(f"placement 4j(c) {label}: state_digest_rows on one "
+                                 f"device's {len(rows)} rows ({kind}) gave {got.tolist()}, "
+                                 f"the plain version {plain.tolist()}")
+    log(f"kernel vs plain  state_digest_rows {label} one device's {len(rows)} placed rows "
+        f"(B={rows[0][0].shape[0]} C={MS_C}): clean and one corrupted row (choice C, counts "
+        "+1, table bit flip) equal to the plain version")
+    return worst
+
+
+def placed_waves(device, launches: dict, unplaced_ms=None) -> dict:
+    """4j (c): ``multistream_32g`` (32 x 4,096, C 16, budget 64) through a
+    coalescer on a 4-way streams mesh and a (2, 2) 2-D mesh of virtual
+    shards: every row equal to its serial engine; the roster locks placed
+    (8 rows a device), each locked wave launches the batched K6 once a
+    device, and ``stream_sharded_rosters`` is 1; one device's locked rows
+    through the batched K6 against its plain version."""
+    from kafka_lag_based_assignor_tpu_torch.ops.coalesce import MegabatchCoalescer
+    from kafka_lag_based_assignor_tpu_torch.sharded.megabatch import RowShards
+    from kafka_lag_based_assignor_tpu_torch.sharded.mesh import MeshManager
+
+    def engines(mgr):
+        return [streaming.StreamingAssignor(num_consumers=MS_C, refine_iters=MS_BUDGET,
+                                            refine_threshold=None, mesh_backend=mgr,
+                                            device=device)
+                for _ in range(MS_G)]
+
+    rngs = [np.random.default_rng(6000 + g) for g in range(MS_G)]
+    epochs = [[ms_lags(r) for r in rngs] for _ in range(1 + MS_WARM + 3)]
+    epochs.append([lg + (np.arange(MS_P) < 8) * (1 + np.arange(MS_P) % 5)
+                   for lg in epochs[-1]])
+    serial = engines(None)
+    want = [[eng.rebalance(lg) for eng, lg in zip(serial, lags)] for lags in epochs]
+    report = {}
+    for spec in ("streams", "2x2"):
+        kw = {} if spec == "streams" else {"shape": spec}
+        mgr = MeshManager(devices=PLACEMENT_D, solve_min_rows=1 << 30, **kw).configure()
+        co = engines(mgr)
+        coal = MegabatchCoalescer(window_s=2.0, max_batch=MS_G, lock_waves=1,
+                                  mesh_manager=mgr, device=device)
+        walls = []
+        try:
+            for eng, lg in zip(co, epochs[0]):
+                eng.rebalance(lg)
+            reset_counts()
+            for e in range(1, len(epochs)):
+                got, wall = submit_wave(co, epochs[e], coal)
+                walls.append(wall)
+                for g in range(MS_G):
+                    if not np.array_equal(got[g], want[e][g]):
+                        raise AssertionError(f"placement 4j(c) {spec}: wave {e} stream {g} "
+                                             "differs from its serial engine")
+            grew = read_counts()
+            with coal._roster_lock:
+                batches = [r.batch for r in coal._rosters.values() if r.batch is not None]
+            stats = coal.stats()
+            rows_err = placed_rows_digest(batches[0], spec) if len(batches) == 1 else None
+            prof = profiled_wave(co, lambda: [ms_lags(r) for r in rngs], coal)
+        finally:
+            coal.close(timeout_s=60)
+        locked = len(epochs) - 2
+        batch = batches[0] if len(batches) == 1 else None
+        if (batch is None or batch.mesh is None or not isinstance(batch.choice, RowShards)
+                or [p.shape[0] for p in batch.choice.parts] != [MS_G // PLACEMENT_D] * 4
+                or stats["stream_sharded_rosters"] != 1 or (
+                    device.type == "cuda"
+                    and grew["state_digest_rows"] != 1 + PLACEMENT_D * locked)):
+            raise AssertionError(f"placement 4j(c) {spec}: batch {batch and batch.mesh}, "
+                                 f"stats {stats}, launches {grew}")
+        add_counts(launches, grew)
+        prof = {k: v for k, v in prof.items() if k not in ("choices", "epochs")}
+        report["rows_digest_err"] = max(report.get("rows_digest_err", 0), rows_err)
+        report[spec] = {"mesh": dict(batch.mesh.shape), "locked_wave_ms": walls[1:],
+                        "restack_wave_ms": walls[0], "stats": stats, "launches": grew,
+                        "profiled_wave": prof}
+        log(f"placement 4j(c) multistream_32g on the {spec} mesh ({dict(batch.mesh.shape)}, "
+            f"virtual): every row equal to its serial engine; locked waves {walls[1:]} ms "
+            f"(phase 4h's unplaced locked waves: {unplaced_ms} ms); stats {stats}; "
+            f"launches {grew}; one profiled placed wave {prof}")
+    return report
+
+
+def placed_fault(device, launches: dict) -> dict:
+    """4j (d): a ``mesh.collective`` fault at a placed stream's warm boundary
+    degrades the manager (1d -> single) and the epoch is still answered (cold,
+    single-device), valid."""
+    from kafka_lag_based_assignor_tpu_torch.sharded.mesh import MeshManager
+    from kafka_lag_based_assignor_tpu_torch.sharded.resident import PlacedResident
+    from kafka_lag_based_assignor_tpu_torch.utils import faults
+
+    mgr = MeshManager(devices=PLACEMENT_D).configure()
+    engine = streaming.StreamingAssignor(num_consumers=STREAM_C, refine_iters=STREAM_BUDGET,
+                                         refine_threshold=None, mesh_backend=mgr,
+                                         device=device)
+    _, lags = stream_lags0(STREAM_P)
+    reset_counts()
+    choice = engine.rebalance(lags)
+    lags = heat(lags, choice, STREAM_C)
+    choice = engine.rebalance(lags)
+    if not isinstance(engine._resident, PlacedResident):
+        raise AssertionError("placement 4j(d): the warm epoch did not place the state")
+    before = placement_series()
+    lags = heat(lags, choice, STREAM_C)
+    with faults.injected(faults.FaultInjector(9).plan("mesh.collective", "raise", times=1)):
+        choice = engine.rebalance(lags)
+    add_counts(launches, read_counts())
+    s = engine.last_stats
+    moved = {k: v - before[k] for k, v in placement_series().items()}
+    facts = assignment_facts("placement 4j(d)", lags, choice, STREAM_C, False)
+    if (mgr.rung != "single" or not s.cold_start or s.sharded_solve
+            or moved["degrade_1d_single"] != 1 or engine._resident is None
+            or isinstance(engine._resident, PlacedResident)):
+        raise AssertionError(f"placement 4j(d): the fault answered {s}, {mgr.status()}, "
+                             f"{moved}")
+    log(f"placement 4j(d) mesh.collective at the warm boundary: degraded 1d -> single, the "
+        f"epoch answered cold single-device, quality {facts['quality_ratio']!r}")
+    return {"after_fault": mgr.status(), "quality_ratio": facts["quality_ratio"]}
+
+
+def placement_path(device, unplaced_ms=None) -> tuple:
+    """Phase 4j: (a) K6's shard entry, (b) a placed config-5 stream, (c)
+    placed coalescer waves, (d) the warm-boundary fault.  Every shard a
+    virtual shard of the card.  Returns (the launches of (b)-(d), K6's
+    shard entry's max |diff|, its times, the ``placement`` line)."""
+    from kafka_lag_based_assignor_tpu_torch.sharded import mesh as mesh_mod
+
+    t0 = time.perf_counter()
+    launches = {name: 0 for name, _ in COUNTERS}
+    report = {"shards": f"virtual: {PLACEMENT_D} shards of cuda:0"}
+    err, report["state_digest_sharded"] = sharded_digest_check(device)
+    mesh_mod.set_virtual_shards(PLACEMENT_D, device)
+    try:
+        report["stream"] = placed_stream(device, launches)
+        report["waves"] = placed_waves(device, launches, unplaced_ms)
+        report["fault"] = placed_fault(device, launches)
+    finally:
+        mesh_mod.set_virtual_shards(None)
+        mesh_mod.deactivate()
+    report["launches"] = dict(launches)
+    report["seconds"] = time.perf_counter() - t0
+    log(f"placement path launches {launches} in {report['seconds']!r} s")
+    return launches, err, report["state_digest_sharded"], report
+
+
+# -- phase 4k: federation ----------------------------------------------------
+
+# bench.py's config 12: three shards of 2,048 lags, C 8, seed 0xFED12, and the
+# round budget.
+FED_N, FED_P, FED_C, FED_ROUNDS = 3, 2048, 8, 16
+# The weighted leg's per-consumer capacity, 1:2:1 over the members.
+FED_CAPACITY = [1.0, 2.0, 1.0, 1.0, 2.0, 1.0, 1.0, 2.0]
+
+
+def local_only_vs_plain(resp, lags: np.ndarray, members, pids, device) -> None:
+    """A ``local_only`` answer (the ``rounds`` solve, one K1 on the card)
+    against the same rows through the port's ``rounds`` solve on the CPU,
+    where the same packing feeds the plain version (``rounds_scan_torch``):
+    equal bit for bit, and answered on the card."""
+    from kafka_lag_based_assignor_tpu_torch import service
+
+    want, _ = service._solve({"t0": wire_rows(lags, pids)}, {m: ["t0"] for m in members},
+                             "rounds", host_fallback=False, device="cpu")
+    got = local_choice(resp, members, pids)
+    plain = local_choice({"assignments": want}, members, pids)
+    if resp["stats"]["device"] != device.type or not np.array_equal(got, plain):
+        raise AssertionError(f"federation 4k: a local_only answer on {resp['stats']['device']} "
+                             f"differs from the plain rounds path in "
+                             f"{int((got != plain).sum())} rows")
+
+
+class FedTrio:
+    """Three port sidecars on the card in full mesh over loopback TCP.  Every
+    answer at rung ``local_only`` is held to the plain ``rounds`` path
+    (``local_only_vs_plain``) and counted in ``local_only_checked``."""
+
+    def __init__(self, device, prefix: str, rounds: int = FED_ROUNDS, **kw):
+        import socket
+
+        from kafka_lag_based_assignor_tpu_torch import service
+
+        socks = [socket.socket() for _ in range(FED_N)]
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        ports = [s.getsockname()[1] for s in socks]
+        for s in socks:
+            s.close()
+        self.ids = [f"{prefix}{i}" for i in range(FED_N)]
+        self.device, self.local_only_checked = device, 0
+        self.svcs, self.clients = [], []
+        for i in range(FED_N):
+            peers = ",".join(f"{self.ids[j]}=127.0.0.1:{ports[j]}"
+                             for j in range(FED_N) if j != i)
+            svc = service.AssignorService(
+                port=ports[i], device=device, host_fallback=False, coalesce_max_batch=1,
+                scrub_interval_ms=0, breaker_cooldown_s=0.5, federation_self_id=self.ids[i],
+                federation_peers=peers, federation_rounds=rounds,
+                federation_sync_timeout_s=300.0, **kw).start()
+            self.svcs.append(svc)
+            self.clients.append(service.AssignorServiceClient(*svc.address, timeout_s=600.0))
+
+    def assign(self, i: int, lags: np.ndarray, members, pids=None) -> tuple:
+        t0 = time.perf_counter()
+        r = self.clients[i].federated_assign("t0", wire_rows(lags, pids), members)
+        wall = (time.perf_counter() - t0) * 1e3
+        if r["federation"]["rung"] == "local_only":
+            pids = np.arange(lags.shape[0]) if pids is None else pids
+            local_only_vs_plain(r, lags, members, pids, self.device)
+            self.local_only_checked += 1
+        return r, wall
+
+    def close(self) -> None:
+        for c in self.clients:
+            c.close()
+        for s in self.svcs:
+            s.stop()
+
+
+def local_choice(resp, members, pids) -> np.ndarray:
+    """A federated answer as each local row's member index."""
+    where = {int(p): k for k, p in enumerate(pids)}
+    choice = np.full(len(pids), -1, np.int32)
+    for j, m in enumerate(members):
+        for _, p in resp["assignments"][m]:
+            choice[where[int(p)]] = j
+    return choice
+
+
+def fed_quality(shards, choices, C: int) -> float:
+    totals = sum(np.bincount(ch, weights=s.astype(np.float64), minlength=C)
+                 for s, ch in zip(shards, choices))
+    return float(totals.max() / totals.mean())
+
+
+def capture_peer_wire():
+    """Record every peer_sync request and response a port sidecar sends or
+    receives (the encoded bytes), by wrapping the links' transport."""
+    from kafka_lag_based_assignor_tpu_torch.federated import peers, wire
+
+    captured = []
+    real = peers._PeerLink.request
+
+    def request(self, params):
+        captured.append(wire.encode(params))
+        resp = real(self, params)
+        captured.append(wire.encode(resp))
+        return resp
+
+    peers._PeerLink.request = request
+    return captured, lambda: setattr(peers._PeerLink, "request", real)
+
+
+def fed_config12(device, launches: dict) -> dict:
+    """4k (a): config 12 (3 shards x 2,048, C 8, seed 0xFED12, 16 rounds):
+    rung global on all three, quality within 5 % of the port's single-leader
+    ``sinkhorn`` on the 6,144 concatenated rows, every captured peer_sync
+    payload lag-free; a full partition serves last_good_global (and, with
+    the cache expired, local_only) with zero request errors, a heal
+    re-converges within 16 rounds; stale and fenced duals are rejected and
+    counted."""
+    from kafka_lag_based_assignor_tpu_torch.federated import wire
+    from kafka_lag_based_assignor_tpu_torch.utils import faults, metrics
+
+    members = [f"m{j}" for j in range(FED_C)]
+    rng = np.random.default_rng(0xFED12)
+    shards = [rng.integers(0, 10**6, FED_P).astype(np.int64) for _ in range(FED_N)]
+    pids = np.arange(FED_P)
+    trio = FedTrio(device, "dc")
+    captured, restore = capture_peer_wire()
+    report = {}
+    try:
+        reset_counts()
+        for i in range(FED_N):
+            trio.assign(i, shards[i], members)
+        out = [trio.assign(i, shards[i], members) for i in range(FED_N)]
+        grew = read_counts()
+        add_counts(launches, grew)
+        rungs = [r["federation"]["rung"] for r, _ in out]
+        if rungs != ["global"] * FED_N:
+            raise AssertionError(f"federation 4k(a): rungs {rungs}")
+        choices = [local_choice(r, members, pids) for r, _ in out]
+        fed_q = fed_quality(shards, choices, FED_C)
+        full = np.concatenate(shards)
+        lags_p, pids_p, valid = pad_topic_rows(full)
+        _, _, leader = sinkhorn.assign_topic_sinkhorn(lags_p, pids_p, valid, FED_C,
+                                                      device=device)
+        leader = np.asarray(torch.as_tensor(leader).cpu(), np.float64)
+        leader_q = float(leader.max() / leader.mean())
+        if not fed_q <= leader_q * 1.05:
+            raise AssertionError(f"federation 4k(a): quality {fed_q} against the leader's "
+                                 f"{leader_q}")
+        for payload in captured:
+            for s in shards:
+                wire.assert_lag_free(payload, s)
+        errors = [svc.errors for svc in trio.svcs]
+        reset_counts()
+        with faults.injected(faults.FaultInjector(13).plan("peer.partition", times=0)):
+            part = [trio.assign(i, shards[i], members)[0]["federation"]["rung"]
+                    for i in range(FED_N)]
+            fed0 = trio.svcs[0]._federation
+            with fed0._cache_lock:
+                fed0._last_good["at"] -= fed0.max_staleness_s + 1.0
+            part.append(trio.assign(0, shards[0], members)[0]["federation"]["rung"])
+        if (part != ["last_good_global"] * FED_N + ["local_only"]
+                or [svc.errors for svc in trio.svcs] != errors):
+            raise AssertionError(f"federation 4k(a): partition rungs {part}")
+        for svc in trio.svcs:
+            svc._watchdog.reset()
+        heal = [trio.assign(i, shards[i], members)[0]["federation"] for i in range(FED_N)]
+        if any(h["rung"] != "global" or h["rounds"] > FED_ROUNDS for h in heal):
+            raise AssertionError(f"federation 4k(a): the heal answered {heal}")
+        drill = read_counts()
+        add_counts(launches, drill)
+        if device.type == "cuda" and drill["rounds_scan"] < 1:
+            raise AssertionError(f"federation 4k(a): the local_only rung launched {drill}")
+
+        def stale(reason):
+            return metrics.REGISTRY.counter("klba_peer_stale_duals_total",
+                                            {"reason": reason}).value
+
+        fed = trio.svcs[1]._federation
+        before = {r: stale(r) for r in ("stale_epoch", "fenced")}
+        ok = fed.serve_sync(wire.sync_request("x", 9, 0, FED_C, scale=1.0, phase="hello",
+                                              fence_token=5))
+        old = fed.serve_sync(wire.sync_request("x", 3, 0, FED_C, scale=1.0, phase="hello",
+                                               fence_token=5))
+        fenced = fed.serve_sync(wire.sync_request("x", 10, 0, FED_C, scale=1.0,
+                                                  phase="hello", fence_token=3))
+        if ("rejected" in ok or old.get("rejected") != "stale_epoch"
+                or fenced.get("rejected") != "fenced"
+                or stale("stale_epoch") != before["stale_epoch"] + 1
+                or stale("fenced") != before["fenced"] + 1):
+            raise AssertionError(f"federation 4k(a): stale {old}, fenced {fenced}")
+        report = {"rungs": rungs, "rounds": [r["federation"]["rounds"] for r, _ in out],
+                  "walls_ms": [w for _, w in out], "quality": fed_q, "leader_quality": leader_q,
+                  "payloads_audited": len(captured), "partition_rungs": part,
+                  "heal_rounds": [h["rounds"] for h in heal], "launches": grew,
+                  "partition_launches": drill, "local_only_checked": trio.local_only_checked}
+        log(f"federation 4k(a) config 12 on 3 port sidecars (card): rungs {rungs}, rounds "
+            f"{report['rounds']}, walls {report['walls_ms']} ms, quality {fed_q!r} against the "
+            f"single-leader sinkhorn's {leader_q!r}; {len(captured)} peer_sync payloads "
+            f"lag-free; partition {part} with zero request errors; heal rounds "
+            f"{report['heal_rounds']}; stale and fenced duals rejected and counted; launches "
+            f"{grew}, in the partition and heal {drill}; {trio.local_only_checked} local_only "
+            "answers equal to the plain rounds path")
+    finally:
+        restore()
+        trio.close()
+    return report
+
+
+def fed_config5(device, launches: dict) -> dict:
+    """4k (b): config 5 (100,000 x 1,000, Zipf 1.1, seed 5) split round-robin
+    by partition id over the three sidecars: rung global, each shard's
+    counts within floor / ceil, the quality against the port's
+    single-leader config-5 ``sinkhorn``; the walls of ``federated_assign``
+    and of one exchange round, K3's event time and launches, and the
+    ``round_local_shard`` wall and refine rounds."""
+    from kafka_lag_based_assignor_tpu_torch.ops import fedsolve
+    from kafka_lag_based_assignor_tpu_torch.utils import metrics
+
+    lags_by_topic, members = baseline_workload(5)
+    full = lags_by_topic["t0"]
+    C = len(members)
+    pids = [np.arange(i, full.shape[0], FED_N) for i in range(FED_N)]
+    shards = [full[p] for p in pids]
+    trio = FedTrio(device, "c5")
+    span = metrics.REGISTRY.histogram("klba_span_duration_ms", {"span": "federation.round"})
+    try:
+        for i in range(FED_N):
+            trio.assign(i, shards[i], members, pids[i])
+        reset_counts()
+        h0 = span.state()
+        out = [trio.assign(i, shards[i], members, pids[i]) for i in range(FED_N)]
+        h1 = span.state()
+        grew = read_counts()
+        add_counts(launches, grew)
+        fed = [r["federation"] for r, _ in out]
+        if any(f["rung"] != "global" for f in fed):
+            raise AssertionError(f"federation 4k(b): {fed}")
+        choices = [local_choice(r, members, p) for (r, _), p in zip(out, pids)]
+        for i, ch in enumerate(choices):
+            counts = np.bincount(ch, minlength=C)
+            if ch.min() < 0 or counts.max() - counts.min() > 1:
+                raise AssertionError(f"federation 4k(b): shard {i} counts "
+                                     f"{counts.min()}..{counts.max()}")
+        fed_q = fed_quality(shards, choices, C)
+        lags_p, pids_p, valid = pad_topic_rows(full)
+        _, _, leader = sinkhorn.assign_topic_sinkhorn(lags_p, pids_p, valid, C, device=device)
+        leader = np.asarray(torch.as_tensor(leader).cpu(), np.float64)
+        leader_q = float(leader.max() / leader.mean())
+        rounds = sum(f["rounds"] for f in fed)
+        if device.type == "cuda" and grew["plan_stats"] < rounds:
+            raise AssertionError(f"federation 4k(b): {grew['plan_stats']} K3 launches for "
+                                 f"{rounds} exchange rounds")
+        round_ms = (h1["sum"] - h0["sum"]) / max(h1["count"] - h0["count"], 1)
+        cache = trio.svcs[0]._federation._last_good
+        scale, base = cache["scale"], cache["base_load"]
+        weights = fedsolve.shard_dedup(shards[0], np.ones(shards[0].shape[0], bool), scale)
+        k3 = median_event_ms(lambda: fedsolve.shard_marginals(*weights, cache["A"],
+                                                              cache["B"], device=device))
+        seen = []
+        real = refine.refine_rounds_resident
+
+        def spy(*a, **kw):
+            res = real(*a, **kw)
+            seen.append((res[4], res[5]))
+            return res
+
+        _, prof = profiled_call(lambda: trio.assign(0, shards[0], members, pids[0]),
+                                KERNEL_NAMES["plan_stats"])
+        refine.refine_rounds_resident = spy
+        try:
+            t0 = time.perf_counter()
+            fedsolve.round_local_shard(shards[0], C, cache["A"], cache["B"], scale, base,
+                                       device=device)
+            sync(device)
+            local_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            refine.refine_rounds_resident = real
+        report = {"rows": [int(s.shape[0]) for s in shards], "rounds": [f["rounds"] for f in fed],
+                  "converged": [f["converged"] for f in fed], "walls_ms": [w for _, w in out],
+                  "round_ms": round_ms, "quality": fed_q, "leader_quality": leader_q,
+                  "k3_event_ms": k3, "k3_launches": grew["plan_stats"],
+                  "round_local_shard_ms": local_ms, "refine_rounds_exchanges": seen,
+                  "launches": grew, "profiled_assign": prof}
+        log(f"federation 4k(b) config 5 split {report['rows']} over 3 sidecars (card): rung "
+            f"global, rounds {report['rounds']} (converged {report['converged']}), "
+            f"federated_assign walls {report['walls_ms']} ms, one exchange round {round_ms!r} "
+            f"ms (span mean), quality {fed_q!r} against the single-leader sinkhorn's "
+            f"{leader_q!r}; K3 event {k3!r} ms at the shard's U_pad {weights[0].shape[0]}, "
+            f"{grew['plan_stats']} launches; round_local_shard {local_ms!r} ms, refine "
+            f"(rounds, exchanges) {seen}; one profiled federated_assign {prof}")
+    finally:
+        trio.close()
+    return report
+
+
+def fed_weighted(device, launches: dict) -> dict:
+    """4k (c): three sidecars advertising capacity 1:2:1 over the members:
+    every shard's counts equal ``apportion_counts`` of its rows."""
+    from kafka_lag_based_assignor_tpu_torch.ops import fedsolve
+
+    members = [f"m{j}" for j in range(FED_C)]
+    rng = np.random.default_rng(0xFED13)
+    shards = [rng.integers(0, 10**6, FED_P).astype(np.int64) for _ in range(FED_N)]
+    trio = FedTrio(device, "w", federation_capacity=FED_CAPACITY)
+    try:
+        reset_counts()
+        for i in range(FED_N):
+            trio.assign(i, shards[i], members)
+        out = [trio.assign(i, shards[i], members)[0] for i in range(FED_N)]
+        add_counts(launches, read_counts())
+        frac = np.asarray(FED_CAPACITY) / sum(FED_CAPACITY)
+        target = fedsolve.apportion_counts(FED_P, frac)
+        for i, r in enumerate(out):
+            sizes = np.array([len(r["assignments"][m]) for m in members])
+            if r["federation"]["rung"] != "global" or not np.array_equal(sizes, target):
+                raise AssertionError(f"federation 4k(c): shard {i} {r['federation']}, "
+                                     f"counts {sizes} against {target}")
+        log(f"federation 4k(c) capacity {FED_CAPACITY}: rung global, every shard's counts "
+            f"{target.tolist()} = apportion_counts")
+        return {"counts": target.tolist()}
+    finally:
+        trio.close()
+
+
+def fed_k3_check(device) -> float:
+    """4k (d): K3 at the federated shards' U_pad (config 12's and config 5's
+    shard dedup under their global scales) against its plain version."""
+    from kafka_lag_based_assignor_tpu_torch.ops import fedsolve
+
+    worst = 0.0
+    rng = np.random.default_rng(0xFED12)
+    c12 = rng.integers(0, 10**6, FED_P).astype(np.int64)
+    full = baseline_workload(5)[0]["t0"]
+    for name, lags, C in (("config12 shard", c12, FED_C),
+                          ("config5 shard", full[0::FED_N], STREAM_C)):
+        w = fedsolve.shard_dedup(lags, np.ones(lags.shape[0], bool),
+                                 float(lags.sum()) * FED_N / C)
+        args = [torch.from_numpy(a).to(device) for a in w] + list(random_duals(C, device))
+        got = plan_stats.plan_stats(*args, need="both")
+        again = plan_stats.plan_stats(*args, need="both")
+        want = plan_stats.plan_stats_torch(*args, need="both")
+        worst = max(worst, f32_check("plan_stats", f"{name} U={w[0].shape[0]} C={C}",
+                                     got, want, again))
+    return worst
+
+
+def federation_path(device) -> tuple:
+    """Phase 4k: (a) config 12 on three sidecars, (b) config 5 split three
+    ways, (c) the weighted form, (d) K3 at the shards' shapes.  Returns (the
+    launches of (a)-(c), K3's max |diff|, the ``federation`` line)."""
+    t0 = time.perf_counter()
+    launches = {name: 0 for name, _ in COUNTERS}
+    report = {}
+    k3_err = fed_k3_check(device)
+    report["config12"] = fed_config12(device, launches)
+    report["config5"] = fed_config5(device, launches)
+    report["weighted"] = fed_weighted(device, launches)
+    report["launches"] = dict(launches)
+    report["seconds"] = time.perf_counter() - t0
+    log(f"federation path launches {launches} in {report['seconds']!r} s")
+    return launches, k3_err, report
 
 
 def median_event_ms(fn) -> float:
@@ -4190,6 +5032,9 @@ SOURCES = {
     # The same kernel over a wave's rows: the JAX package vmaps the Pallas
     # call over the wave (ops/coalesce.py::_epoch_rows).
     "state_digest_rows": ("csrc/state_digest.cu", "ops/linear_ot_pallas.py:350"),
+    # One shard of a placed state a launch: the JAX package runs the Pallas
+    # call on the gathered state (the partitioner's all-gather).
+    "state_digest_sharded": ("csrc/state_digest.cu", "ops/linear_ot_pallas.py:350"),
     # No Pallas kernel: the JAX package's lax.scan in this function.
     "scan_greedy": ("csrc/scan_greedy.cu", None),
 }
@@ -4213,7 +5058,7 @@ def kernel_line(name, launches, err, t: dict) -> dict:
         line["counterpart"] = COUNTERPARTS[name]
     for key in ("library_alone_ms", "depth", "rounds", "stages", "ns_a_step",
                 "plain_cpu_ms", "config3_ms", "config3_alone_ms", "config3_plain_ms",
-                "config3_bound_ms", "config3_plain_cpu_ms", "direct_api"):
+                "config3_bound_ms", "config3_plain_cpu_ms", "direct_api", "design_bound_ms"):
         if key in t:
             line[key] = t[key]
     return line
@@ -4376,6 +5221,20 @@ def main() -> int:
         log(json.dumps({"sharded": report, "launches": launches, "max_abs_err": k5_err,
                         "device": name}, default=str))
         return 0
+    if sys.argv[1:] == ["--placement"]:
+        build()
+        launches, err, times_, report = placement_path(device)
+        log(f"card: {CARD[0]}")
+        log(json.dumps({"placement": report, "launches": launches, "max_abs_err": err,
+                        "device": name}, default=str))
+        return 0
+    if sys.argv[1:] == ["--federated"]:
+        build()
+        launches, err, report = federation_path(device)
+        log(f"card: {CARD[0]}")
+        log(json.dumps({"federation": report, "launches": launches, "max_abs_err": err,
+                        "device": name}, default=str))
+        return 0
     if sys.argv[1:] == ["--lifecycle"]:
         build()
         launches, lifecycle = lifecycle_path(device, StreamRun(device).run())
@@ -4409,6 +5268,9 @@ def main() -> int:
     lifecycle_launches, lifecycle = lifecycle_path(device, stream_run)
     coalesce_launches, digest_rows_err, digest_rows_t, coalesce = coalesce_path(device)
     sharded_launches, k5_shard_err, sharded = sharded_path(device)
+    placement_launches, shard_digest_err, shard_digest_t, placement = placement_path(
+        device, coalesce["multistream_32g"]["coalesced_wave_ms"])
+    federation_launches, fed_k3_err, federation = federation_path(device)
     launches["rounds_scan"] += (rounds_launches + stream_launches["rounds_scan"]
                                 + solver_launches["rounds_scan"]
                                 + ladder_launches["rounds_scan"])
@@ -4427,7 +5289,14 @@ def main() -> int:
     # the topic-axis backend, and the sidecar's warm epochs' K6.
     for k, v in sharded_launches.items():
         launches[k] += v
+    # Phase 4j: K6's shard entry on placed states, the batched K6 a device of
+    # placed waves, K5 and K1 in the placed stream's sharded cold epochs.
+    # Phase 4k: K3 a federated exchange round, K1 on the local_only rung.
+    for k, v in (*placement_launches.items(), *federation_launches.items()):
+        launches[k] += v
     f32_err["superblock_partials"] = max(f32_err["superblock_partials"], k5_shard_err)
+    f32_err["plan_stats"] = max(f32_err["plan_stats"], fed_k3_err)
+    digest_rows_err = max(digest_rows_err, placement["waves"]["rows_digest_err"])
     k1 = times(device)
     quality = quality_times(device)
     digest = stream_times(stream_run)
@@ -4442,11 +5311,15 @@ def main() -> int:
     line.append(kernel_line("scan_greedy", launches["scan_greedy"], scan_err, k7))
     line.append(kernel_line("state_digest_rows", launches["state_digest_rows"],
                             digest_rows_err, digest_rows_t))
+    line.append(kernel_line("state_digest_sharded", launches["state_digest_sharded"],
+                            shard_digest_err, shard_digest_t))
     log(json.dumps({"ladder": ladder}))
     log(json.dumps({"sidecar": sidecar}))
     log(json.dumps({"lifecycle": lifecycle}, default=str))
     log(json.dumps({"coalesce": coalesce}, default=str))
     log(json.dumps({"sharded": sharded}, default=str))
+    log(json.dumps({"placement": placement}, default=str))
+    log(json.dumps({"federation": federation}, default=str))
     log(json.dumps({"profiler": {"skew": skew, "sessions": SESSIONS,
                                  "pad_s": PROFILER_PAD_S, "skew_pad_s": SKEW_PAD_S}}))
     log(f"card: {CARD[0]}")

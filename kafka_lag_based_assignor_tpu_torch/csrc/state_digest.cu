@@ -26,6 +26,30 @@
 // its own int64[5] of the [N, 5] output.  No block reads another row's data,
 // so each row's lanes are the one-row launch's, bit for bit.
 //
+// klba_state_digest_shard digests one row shard [lo, lo + Bs) of a state
+// whose B rows are split over the devices of a mesh (the engine's placed
+// resident state): lags int64[Bs] and choice int32[Bs] are the shard's own
+// rows, counts int32[C] and row_tab int32[C, M] the replicated tables.  It
+// writes the shard's PARTIAL lanes, int64[5]
+//
+//   part[0] = sum(lags of the shard)              part[1] = its violations
+//   part[2] = sum of the global row ids i with 0 <= choice[i] < C
+//   part[3] = sum(clamped valid-slot rows)        (lead shard only, else 0)
+//   part[4] = #{valid slots whose clamped row r lies in [lo, lo + Bs) and
+//              has choice[r] != c}
+//           + #{valid slots with r outside [0, B)} + #{empty slots not
+//              holding B}                          (these two: lead only)
+//
+// and the shard's occupancy histogram hist int32[C].  Summed over the
+// shards (ops/refine.state_digest_sharded), part and hist give every lane
+// of the one-device digest of the gathered state: out[0] = sum(counts),
+// out[1] = part[1], out[2] = part[0], out[3] = |hist - counts|_1 and
+// out[4] = part[4] + |part[3] - part[2]|.  Every clamped row falls in
+// exactly one shard, so each valid slot's owner is checked once.  The
+// kernel is the one-state kernel's body with the shard's row offset: the
+// same per-block histograms merged per cluster; its last block copies the
+// histogram out instead of taking the L1.
+//
 // What bounds it: bytes, and at the streaming engine's shapes the latency.
 // At 100k partitions / 1k consumers (B = 131,072, M = 133) it reads 2.5 MB
 // (lags 1 MB, choice 0.5 MB, the table 0.53 MB, the gathered choices of the
@@ -103,22 +127,18 @@ __device__ __forceinline__ void add_row(Rows& v, unsigned* hist, int i, long lon
   }
 }
 
-__global__ void __launch_bounds__(kThreads) klba_state_digest_kernel(
-    const long long* __restrict__ lags, const int* __restrict__ choice,
-    const int* __restrict__ counts, const int* __restrict__ row_tab, int B, int C, int M,
-    unsigned long long* __restrict__ acc, long long* __restrict__ out) {
+// The digest of B rows, or (kShard) the partial lanes of the row shard
+// [lo, lo + B) of a state of Bg rows; `lead` adds the replicated terms of
+// the table.  The one-state entry passes lo = 0, Bg = B, lead = true.
+template <bool kShard>
+__device__ __forceinline__ void digest_body(const long long* __restrict__ lags,
+                                            const int* __restrict__ choice,
+                                            const int* __restrict__ counts,
+                                            const int* __restrict__ row_tab, int B, int C, int M,
+                                            int lo, int Bg, bool lead,
+                                            unsigned long long* __restrict__ acc,
+                                            long long* __restrict__ out, int* __restrict__ hist_out) {
   extern __shared__ unsigned sh_hist[];  // int32[C]
-  // This block's row of a batched launch (0 for one state): its inputs,
-  // scratch and output lanes.
-  {
-    const size_t row = blockIdx.y;
-    lags += row * B;
-    choice += row * B;
-    counts += row * C;
-    if (row_tab != nullptr) row_tab += row * C * static_cast<size_t>(M);
-    acc += row * (kAccWords + (static_cast<size_t>(C) + 1) / 2);
-    out += row * 5;
-  }
   __shared__ unsigned long long part[kNumAcc][kWarps];
   __shared__ bool last;
   const cg::cluster_group cluster = cg::this_cluster();
@@ -149,30 +169,39 @@ __global__ void __launch_bounds__(kThreads) klba_state_digest_kernel(
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int j = j0 + 32 * u;
-        rt[u] = j < M ? __ldg(tab + j) : B;
+        rt[u] = j < M ? __ldg(tab + j) : Bg;
       }
       int owner[kBatch];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
-        const int r = rt[u] < 0 ? 0 : (rt[u] >= B ? B - 1 : rt[u]);
-        owner[u] = j0 + 32 * u < k ? __ldg(choice + r) : c;
+        const int r = rt[u] < 0 ? 0 : (rt[u] >= Bg ? Bg - 1 : rt[u]);
+        if constexpr (kShard) {
+          // Only the rows of this shard are checked here.
+          const bool mine = static_cast<unsigned>(r - lo) < static_cast<unsigned>(B);
+          owner[u] = j0 + 32 * u < k && mine ? __ldg(choice + (r - lo)) : c;
+        } else {
+          owner[u] = j0 + 32 * u < k ? __ldg(choice + r) : c;
+        }
       }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int j = j0 + 32 * u;
         if (j < k) {
-          const int r = rt[u] < 0 ? 0 : (rt[u] >= B ? B - 1 : rt[u]);
-          bad += static_cast<unsigned long long>(owner[u] != c) +
-                 static_cast<unsigned long long>(rt[u] < 0 || rt[u] >= B);
-          slot_sum += static_cast<unsigned long long>(r);
-        } else if (j < M) {
-          bad += static_cast<unsigned long long>(rt[u] != B);
+          const int r = rt[u] < 0 ? 0 : (rt[u] >= Bg ? Bg - 1 : rt[u]);
+          bad += static_cast<unsigned long long>(owner[u] != c);
+          if (!kShard || lead) {
+            bad += static_cast<unsigned long long>(rt[u] < 0 || rt[u] >= Bg);
+            slot_sum += static_cast<unsigned long long>(r);
+          }
+        } else if (j < M && (!kShard || lead)) {
+          bad += static_cast<unsigned long long>(rt[u] != Bg);
         }
       }
     }
   }
 
   __syncthreads();  // the block's bins are zero before any add
+  const int base = kShard ? lo : 0;  // the global id of the shard's row 0
   Rows v;
   for (int q = tid; q < quads; q += n_threads) {
     if (q != tid) {
@@ -180,13 +209,13 @@ __global__ void __launch_bounds__(kThreads) klba_state_digest_kernel(
       l0 = __ldg(reinterpret_cast<const longlong2*>(lags) + 2 * q);
       l1 = __ldg(reinterpret_cast<const longlong2*>(lags) + 2 * q + 1);
     }
-    add_row(v, sh_hist, 4 * q, l0.x, ch.x, C);
-    add_row(v, sh_hist, 4 * q + 1, l0.y, ch.y, C);
-    add_row(v, sh_hist, 4 * q + 2, l1.x, ch.z, C);
-    add_row(v, sh_hist, 4 * q + 3, l1.y, ch.w, C);
+    add_row(v, sh_hist, base + 4 * q, l0.x, ch.x, C);
+    add_row(v, sh_hist, base + 4 * q + 1, l0.y, ch.y, C);
+    add_row(v, sh_hist, base + 4 * q + 2, l1.x, ch.z, C);
+    add_row(v, sh_hist, base + 4 * q + 3, l1.y, ch.w, C);
   }
   for (int i = 4 * quads + tid; i < B; i += n_threads)
-    add_row(v, sh_hist, i, __ldg(lags + i), __ldg(choice + i), C);
+    add_row(v, sh_hist, base + i, __ldg(lags + i), __ldg(choice + i), C);
 
   // The sums: a warp's into shared memory, then the block's.
   unsigned long long sums[kNumAcc] = {v.lag_sum, v.viol, v.row_sum, slot_sum, bad};
@@ -234,6 +263,25 @@ __global__ void __launch_bounds__(kThreads) klba_state_digest_kernel(
 #pragma unroll
     for (int k = 0; k < kNumAcc; ++k) a[k] = __ldcg(acc + k);
   }
+  if constexpr (kShard) {
+    // The shard's partial lanes and its histogram; the sums over the
+    // shards finish the digest (see the header).
+    for (int c = threadIdx.x; c < C; c += kThreads) {
+      hist_out[c] = static_cast<int>(__ldcg(hist + c));
+      hist[c] = 0u;
+    }
+    if (threadIdx.x == 0) {
+      out[0] = static_cast<long long>(a[kLagSum]);
+      out[1] = static_cast<long long>(a[kViol]);
+      out[2] = static_cast<long long>(a[kRowSum]);
+      out[3] = static_cast<long long>(a[kSlotSum]);
+      out[4] = static_cast<long long>(a[kBad]);
+#pragma unroll
+      for (int k = 0; k < kNumAcc; ++k) acc[k] = 0ULL;
+      acc[kTicket] = 0ULL;
+    }
+    return;
+  }
   unsigned long long fin[2] = {0ULL, 0ULL};  // sum(counts), L1
 #pragma unroll 4
   for (int c = threadIdx.x; c < C; c += kThreads) {
@@ -270,11 +318,34 @@ __global__ void __launch_bounds__(kThreads) klba_state_digest_kernel(
   }
 }
 
-// Clusters of the kernel that fit on the current card at once with `smem`
+__global__ void __launch_bounds__(kThreads) klba_state_digest_kernel(
+    const long long* __restrict__ lags, const int* __restrict__ choice,
+    const int* __restrict__ counts, const int* __restrict__ row_tab, int B, int C, int M,
+    unsigned long long* __restrict__ acc, long long* __restrict__ out) {
+  // This block's row of a batched launch (0 for one state): its inputs,
+  // scratch and output lanes.
+  const size_t row = blockIdx.y;
+  digest_body<false>(lags + row * B, choice + row * B, counts + row * C,
+                     row_tab != nullptr ? row_tab + row * C * static_cast<size_t>(M) : nullptr,
+                     B, C, M, 0, B, true,
+                     acc + row * (kAccWords + (static_cast<size_t>(C) + 1) / 2), out + row * 5,
+                     nullptr);
+}
+
+__global__ void __launch_bounds__(kThreads) klba_state_digest_shard_kernel(
+    const long long* __restrict__ lags, const int* __restrict__ choice,
+    const int* __restrict__ counts, const int* __restrict__ row_tab, int Bs, int C, int M, int lo,
+    int Bg, int lead, unsigned long long* __restrict__ acc, long long* __restrict__ part,
+    int* __restrict__ hist) {
+  digest_body<true>(lags, choice, counts, row_tab, Bs, C, M, lo, Bg, lead != 0, acc, part, hist);
+}
+
+// Clusters of `kernel` that fit on the current card at once with `smem`
 // bytes of dynamic shared memory, found once a device and size (the first
 // query for a device also lets the kernel take the 64 KiB of a
-// 16,384-consumer histogram).
-cudaError_t resident_clusters(size_t smem, int* clusters) {
+// 16,384-consumer histogram).  Each kernel instantiates its own cache.
+template <typename Kernel>
+cudaError_t resident_clusters(Kernel kernel, size_t smem, int* clusters) {
   static std::mutex mu;
   static std::vector<std::pair<std::pair<int, size_t>, int>> known;
   int device = 0;
@@ -287,7 +358,7 @@ cudaError_t resident_clusters(size_t smem, int* clusters) {
     if (key.second == smem) return *clusters = n, cudaSuccess;
     seen = true;
   }
-  if (!seen && (err = cudaFuncSetAttribute(klba_state_digest_kernel,
+  if (!seen && (err = cudaFuncSetAttribute(kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            kMaxConsumers * static_cast<int>(sizeof(unsigned)))) !=
                    cudaSuccess)
@@ -304,7 +375,7 @@ cudaError_t resident_clusters(size_t smem, int* clusters) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int n = 0;
-  if ((err = cudaOccupancyMaxActiveClusters(&n, klba_state_digest_kernel, &cfg)) != cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg)) != cudaSuccess)
     return err;
   if (n < 1) return cudaErrorInvalidConfiguration;
   known.push_back({{device, smem}, n});
@@ -328,7 +399,7 @@ int launch_rows(const void* lags, const void* choice, const void* counts, const 
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(C) * sizeof(unsigned);
   int fit = 0;
-  cudaError_t err = resident_clusters(smem, &fit);
+  cudaError_t err = resident_clusters(klba_state_digest_kernel, smem, &fit);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long work = (B + 3) / 4 > 32LL * C ? (B + 3) / 4 : 32LL * C;
   long long clusters = (work + kThreads * kCluster - 1) / (kThreads * kCluster);
@@ -354,6 +425,44 @@ int launch_rows(const void* lags, const void* choice, const void* counts, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launches the partial digest of one row shard on `stream`: the grid of a
+// one-state launch of Bs rows (the whole table walked by every shard).
+// scratch as launch_rows' one row; part int64[5], hist int32[C].
+int launch_shard(const void* lags, const void* choice, const void* counts, const void* row_tab,
+                 long long Bs, long long lo, long long Bg, int C, int M, int lead, void* scratch,
+                 void* part, void* hist, void* stream) {
+  if (Bs < 1 || lo < 0 || Bg >= (1LL << 31) || lo + Bs > Bg || C < 1 || C > kMaxConsumers ||
+      M < 1 || row_tab == nullptr || static_cast<long long>(C) * M >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(C) * sizeof(unsigned);
+  int fit = 0;
+  cudaError_t err = resident_clusters(klba_state_digest_shard_kernel, smem, &fit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long work = (Bs + 3) / 4 > 32LL * C ? (Bs + 3) / 4 : 32LL * C;
+  long long clusters = (work + kThreads * kCluster - 1) / (kThreads * kCluster);
+  if (clusters > fit) clusters = fit;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * kCluster));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, klba_state_digest_shard_kernel,
+                           static_cast<const long long*>(lags), static_cast<const int*>(choice),
+                           static_cast<const int*>(counts), static_cast<const int*>(row_tab),
+                           static_cast<int>(Bs), C, M, static_cast<int>(lo), static_cast<int>(Bg),
+                           lead, static_cast<unsigned long long*>(scratch),
+                           static_cast<long long*>(part), static_cast<int*>(hist));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // One state: the digest into out int64[5].
@@ -368,6 +477,17 @@ extern "C" int klba_state_digest_rows(const void* lags, const void* choice, cons
                                       const void* row_tab, long long B, int C, int M, int N,
                                       void* scratch, void* out, void* stream) {
   return launch_rows(lags, choice, counts, row_tab, B, C, M, N, scratch, out, stream);
+}
+
+// One row shard [lo, lo + Bs) of a state of Bg rows: the partial lanes into
+// part int64[5] and the shard's histogram into hist int32[C] (lead != 0
+// adds the table's replicated terms; exactly one shard of a state is lead).
+extern "C" int klba_state_digest_shard(const void* lags, const void* choice, const void* counts,
+                                       const void* row_tab, long long Bs, long long lo,
+                                       long long Bg, int C, int M, int lead, void* scratch,
+                                       void* part, void* hist, void* stream) {
+  return launch_shard(lags, choice, counts, row_tab, Bs, lo, Bg, C, M, lead, scratch, part, hist,
+                      stream);
 }
 
 extern "C" const char* klba_cuda_error_string(int err) {

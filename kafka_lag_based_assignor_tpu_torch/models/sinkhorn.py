@@ -197,8 +197,14 @@ def sinkhorn_duals(lags, valid, num_consumers: int, iters: int = 24,
     return A, B, ws
 
 
-def _round_parallel(lags, ws, valid, A, B, C: int, floor_cap: int, extras: int):
+def _round_parallel(lags, ws, valid, A, B, C: int, floor_cap: int, extras: int,
+                    cap_vec=None, cap_max=None):
     """Parallel plan rounding (no per-partition scan).
+
+    ``cap_vec`` (int32[C] summing to the valid row count) replaces the
+    uniform floor/ceil capacities with explicit per-consumer seat counts
+    (the federated weighted rounding, :mod:`..ops.fedsolve`); ``cap_max``
+    must then bound its largest entry: it sizes the open-slot enumeration.
 
     1. each partition takes its noise-free plan-argmax consumer;
     2. capacity repair: within each consumer's takers (lag descending) the
@@ -206,11 +212,9 @@ def _round_parallel(lags, ws, valid, A, B, C: int, floor_cap: int, extras: int):
     3. the overflow re-seats positionally: the k-th largest-lag overflow
        row takes the k-th open slot, slots ordered round-robin over the
        consumers by ascending kept load.  Count spread <= 1 by
-       construction.
+       construction (each count equals its ``cap_vec`` entry with one).
 
-    (The JAX function's ``cap_vec`` / ``cap_max``, the federated slice's
-    per-consumer capacities, are not ported.)  Returns choice int32[P]
-    (input order, -1 for invalid rows).
+    Returns choice int32[P] (input order, -1 for invalid rows).
     """
     from ..ops.sortops import lexsort, unsort
 
@@ -218,7 +222,10 @@ def _round_parallel(lags, ws, valid, A, B, C: int, floor_cap: int, extras: int):
     dev = ws.device
     i64max = torch.iinfo(torch.int64).max
     i32max = torch.iinfo(torch.int32).max
-    cap = floor_cap + (torch.arange(C, device=dev) < extras).to(torch.int64)
+    if cap_vec is None:
+        cap = floor_cap + (torch.arange(C, device=dev) < extras).to(torch.int64)
+    else:
+        cap = torch.as_tensor(cap_vec, device=dev).to(torch.int64)
 
     jstar = implicit_plan_argmax(ws, valid, A, B, tie_noise=False).to(torch.int64)
     neg_lag = torch.where(valid, -lags, i64max)
@@ -238,7 +245,7 @@ def _round_parallel(lags, ws, valid, A, B, C: int, floor_cap: int, extras: int):
     # Open slots in (round, load-rank) order.
     load_rank = torch.empty(C, dtype=torch.int64, device=dev)
     load_rank[torch.argsort(kept_load, stable=True)] = torch.arange(C, device=dev)
-    cap_max = P // C + 1
+    cap_max = int(cap_max) if cap_max is not None else P // C + 1
     slot_r = torch.arange(cap_max, device=dev).repeat_interleave(C)
     slot_j = torch.arange(C, device=dev).repeat(cap_max)
     slot_open = slot_r < rem[slot_j]

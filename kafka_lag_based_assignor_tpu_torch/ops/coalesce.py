@@ -88,10 +88,19 @@ Telemetry: the JAX coalescer's ``klba_coalesce_*`` series, the
 wave-rooted trace linked to every submitting request, and the
 ``coalesce_flush`` flight record.
 
-Not ported: the stream-axis and 2-D mesh placement of locked batches
-(``sharded/megabatch``).  A mesh manager passed in is accepted and kept, and
-every batch stays on the coalescer's device: the JAX placement moves bytes
-only, so the rows' values are the same (see ``ROADMAP.md``).
+Mesh placement (:mod:`..sharded.megabatch`): with an active mesh manager a
+roster is placed once, when it locks: on the 2-D ("streams", "p") mesh when
+the manager is on that rung and the padded batch covers its S*D devices,
+else on the streams mesh, else not at all.  A placed batch holds N/D whole
+rows a device (:class:`..sharded.megabatch.RowShards`); a locked wave stages
+each row's upload on its device, and each device runs the batched refine on
+its own rows with one batched K6 launch for them: D launches a wave, every
+row bit-equal to the unplaced wave's.  A ``mesh.collective`` fault before a
+placed wave, or a failed placement, dispatch or readback, degrades the
+manager one rung (2-D -> streams -> single); the rows in flight resolve
+through the single-stream isolation path, and the next stable wave
+re-stacks on the placement the manager still offers.
+``stats()["stream_sharded_rosters"]`` counts the placed locked rosters.
 """
 
 from __future__ import annotations
@@ -106,6 +115,12 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..sharded.megabatch import (
+    RowShards,
+    place_rows,
+    shardable,
+    shardable2d,
+)
 from ..utils import faults, metrics, observability
 from ..utils import scrub as scrub_mod
 from ..utils.device import DeviceLike, carry_cuda_context, fetch, resolve_device
@@ -198,6 +213,26 @@ def _megabatch_fused_locked(lags, choice, row_tab, counts, limits,
     )
 
 
+def _placed_wave(fn, args, warm: dict):
+    """A locked wave on a placed batch: ``fn`` (a locked dispatch) runs on
+    each device's rows (``args`` are :class:`RowShards`, split alike), and
+    the host-facing outputs are concatenated in row order on the lead device
+    while the resident successors stay split.  Same outputs as ``fn`` on the
+    whole batch: every row's refine is its own."""
+    outs = [fn(*[a.parts[d] for a in args], **warm) for d in range(len(args[0].parts))]
+    lead = outs[0][0].device
+
+    def cat(i):
+        return torch.cat([o[i].to(lead) for o in outs])
+
+    def split(i):
+        return RowShards([o[i] for o in outs])
+
+    return (cat(0), split(1), split(2), split(3), split(4), cat(5),
+            np.concatenate([o[6] for o in outs]),
+            np.concatenate([o[7] for o in outs]), cat(8))
+
+
 def _megabatch_fused_locked_delta(idx, vals, lags, choice, row_tab, counts,
                                   limits, num_consumers: int, iters: int,
                                   max_pairs, exchange_budget: int):
@@ -235,12 +270,16 @@ class _ResidentBatch:
     ``lock`` serializes that rebinding against a :class:`ResidentRow`
     materializing its row from another thread.  ``valid`` False freezes the
     tensors (an invalidated batch is never rebound again); ``poisoned`` True
-    means a flush on it failed, and materialization fails loudly."""
+    means a flush on it failed, and materialization fails loudly.  ``mesh``
+    is the mesh the batch was placed on at lock time (its tensors are then
+    :class:`RowShards`), or None."""
 
     __slots__ = ("shape_key", "choice", "row_tab", "counts", "lags", "n_real",
-                 "valid", "poisoned", "lock")
+                 "valid", "poisoned", "lock", "mesh")
 
-    def __init__(self, shape_key, choice, row_tab, counts, lags, n_real: int):
+    def __init__(self, shape_key, choice, row_tab, counts, lags, n_real: int,
+                 mesh=None):
+        self.mesh = mesh
         self.shape_key = shape_key
         self.choice = choice
         self.row_tab = row_tab
@@ -420,8 +459,10 @@ class MegabatchCoalescer:
     back inline on the flusher.  ``delta_k`` is the stacked delta wave's K
     (0: every wave stages dense).  ``device`` is where the waves run
     (default the CUDA card, raising without one; ``"cpu"`` the plain path).
-    ``mesh_manager`` (None, ``"auto"`` or a :class:`..sharded.mesh.
-    MeshManager`) is kept but places nothing: batches stay on ``device``.
+    ``mesh_manager`` is the mesh locked rosters are placed over: ``"auto"``
+    (the process-wide active manager), a :class:`..sharded.mesh.MeshManager`
+    or None (no placement; a mesh-off service must not adopt a co-resident
+    instance's mesh).
     ``cuda_context`` is the context factory the flusher and readback
     threads enter (:func:`..utils.device.carry_cuda_context`); None captures
     the first submitting thread's.  The flusher is a daemon thread started
@@ -435,7 +476,7 @@ class MegabatchCoalescer:
         lock_waves: int = 1,
         pipeline: bool = True,
         delta_k: int = 512,
-        mesh_manager=None,
+        mesh_manager="auto",
         device: DeviceLike = None,
         cuda_context=None,
     ):
@@ -553,9 +594,11 @@ class MegabatchCoalescer:
         are process-wide registry reads."""
         with self._roster_lock:
             locked = sum(1 for r in self._rosters.values() if r.batch is not None)
+            sharded = sum(1 for r in self._rosters.values()
+                          if r.batch is not None and r.batch.mesh is not None)
         return {
             "locked_rosters": locked,
-            "stream_sharded_rosters": 0,  # the stream-axis placement is not ported
+            "stream_sharded_rosters": sharded,
             "roster_hits": self._m_hits.value,
             "restack_flushes": self._m_restack.value,
             "roster_invalidations": self._m_invalid.value,
@@ -839,6 +882,36 @@ class MegabatchCoalescer:
         m = getattr(resident, "materialize", None)
         return m() if m is not None else resident
 
+    # -- mesh placement (sharded/megabatch) --------------------------------
+
+    def _mesh_mgr(self):
+        if self.mesh_manager != "auto":
+            return self.mesh_manager  # an explicit manager, or None = off
+        from ..sharded import mesh as mesh_mod
+
+        return mesh_mod.active_manager()
+
+    def _batch_mesh(self, n_pad: int):
+        """The mesh a locking batch of ``n_pad`` rows is placed on, most
+        capable rung first: the 2-D mesh when the manager is on that rung
+        and the batch covers its S*D devices, else the streams mesh when it
+        divides the batch, else None."""
+        mgr = self._mesh_mgr()
+        if mgr is None or not mgr.active:
+            return None
+        if mgr.mesh2d_available and shardable2d(mgr.mesh2d(), n_pad):
+            return mgr.mesh2d()
+        if mgr.streams_available and shardable(mgr.streams_mesh(), n_pad):
+            return mgr.streams_mesh()
+        return None
+
+    def _degrade_mesh(self, reason: str) -> None:
+        """A placed wave failed: step the manager one rung down; the rows in
+        flight resolve through the single-stream path."""
+        mgr = self._mesh_mgr()
+        if mgr is not None:
+            mgr.degrade(reason)
+
     def _note_flush_cost(self, started: float, builds_before: int) -> None:
         """EWMA (alpha 0.3) of dispatch-to-readback wall time; a flush that
         built a kernel is left out (it predicts nothing of the next)."""
@@ -899,11 +972,13 @@ class MegabatchCoalescer:
         return outs
 
     def _stage_upload(self, rows: List[EpochSubmission], n_pad: int,
-                      row_of: Callable[[int], int]):
+                      row_of: Callable[[int], int], mesh=None):
         """Upload stage: fill a rotating staging slot (row placement by
         ``row_of``: wave order for re-stacks, the stable roster index for
         locked waves; pad rows stay zero-lag and 0.0-limit) and start the
-        copy.  Returns (slot, lags_dev, limits_dev)."""
+        copy; with a placed batch's ``mesh`` each row block goes straight to
+        its device (:func:`..sharded.megabatch.place_rows`).  Returns (slot,
+        lags_dev, limits_dev)."""
         s0 = rows[0]
         slot = self._staging_slot(s0.shape_key, n_pad, s0.bucket, s0.payload.dtype)
         with metrics.span("coalesce.upload"):
@@ -917,11 +992,14 @@ class MegabatchCoalescer:
                 lags_h[r, : s.payload.shape[0]] = s.payload
                 limits_h[r] = s.limit
             self._m_h2d_dense.inc(lags_h.nbytes)
-            lags_dev, limits_dev = self._h2d(slot, slot.lags, slot.limits)
+            if mesh is not None:
+                lags_dev, limits_dev = place_rows(mesh, slot.lags, slot.limits)
+            else:
+                lags_dev, limits_dev = self._h2d(slot, slot.lags, slot.limits)
         return slot, lags_dev, limits_dev
 
     def _stage_delta_upload(self, rows: List[EpochSubmission], n_pad: int,
-                            row_of: Callable[[int], int]):
+                            row_of: Callable[[int], int], mesh=None):
         """Delta upload stage (locked waves): fill the ``[n_pad, K]`` pair
         (a row's padding entries write index 0's new value, batch padding
         rows (0, 0)) and start the copy: O(N·K) bytes instead of O(N·B)."""
@@ -943,8 +1021,12 @@ class MegabatchCoalescer:
                 vals_h[r, :n] = s.delta_vals
                 limits_h[r] = s.limit
             self._m_h2d_delta.inc(idx_h.nbytes + vals_h.nbytes)
-            idx_dev, vals_dev, limits_dev = self._h2d(slot, slot.idx, slot.vals,
-                                                      slot.limits)
+            if mesh is not None:
+                idx_dev, vals_dev, limits_dev = place_rows(
+                    mesh, slot.idx, slot.vals, slot.limits)
+            else:
+                idx_dev, vals_dev, limits_dev = self._h2d(slot, slot.idx, slot.vals,
+                                                          slot.limits)
         return slot, idx_dev, vals_dev, limits_dev
 
     # -- the dispatch ------------------------------------------------------
@@ -1022,6 +1104,14 @@ class MegabatchCoalescer:
         row_of = lambda i: rows[i].resident.row  # noqa: E731
         warm = dict(num_consumers=C, iters=s0.iters, max_pairs=s0.max_pairs,
                     exchange_budget=s0.exchange_budget)
+        if batch.mesh is not None:
+            # The placed wave's dispatch boundary: a lost collective degrades
+            # the manager and raises before any staging, the batch intact;
+            # the flush's isolation path serves every row single-stream and
+            # the next stable wave re-stacks on the rung left.
+            mgr = self._mesh_mgr()
+            if mgr is not None:
+                mgr.check_collective()
         delta_wave = False
         if self._delta_wave_ok(rows):
             # The fault point fires before staging: a failure here (or in
@@ -1029,13 +1119,14 @@ class MegabatchCoalescer:
             try:
                 faults.fire("delta.apply")
                 _, idx_dev, vals_dev, limits_dev = self._stage_delta_upload(
-                    rows, batch.n_pad, row_of)
+                    rows, batch.n_pad, row_of, mesh=batch.mesh)
                 delta_wave = True
             except Exception:  # noqa: BLE001 — dense is the fallback
                 LOGGER.warning("stacked delta staging failed; staging this "
                                "wave dense", exc_info=True)
         if not delta_wave:
-            _, lags_dev, limits_dev = self._stage_upload(rows, batch.n_pad, row_of)
+            _, lags_dev, limits_dev = self._stage_upload(rows, batch.n_pad, row_of,
+                                                         mesh=batch.mesh)
             planned = sum(1 for s in rows if s.delta_idx is not None)
             if planned:
                 self._m_delta_fallback.inc(planned)
@@ -1043,18 +1134,22 @@ class MegabatchCoalescer:
             with metrics.span("coalesce.dispatch"):
                 with batch.lock:
                     if delta_wave:
-                        out = _megabatch_fused_locked_delta(
-                            idx_dev, vals_dev, batch.lags, batch.choice,
-                            batch.row_tab, batch.counts, limits_dev, **warm)
+                        fn = _megabatch_fused_locked_delta
+                        args = (idx_dev, vals_dev, batch.lags, batch.choice,
+                                batch.row_tab, batch.counts, limits_dev)
                     else:
-                        out = _megabatch_fused_locked(
-                            lags_dev, batch.choice, batch.row_tab, batch.counts,
-                            limits_dev, **warm)
+                        fn = _megabatch_fused_locked
+                        args = (lags_dev, batch.choice, batch.row_tab, batch.counts,
+                                limits_dev)
+                    out = (_placed_wave(fn, args, warm) if batch.mesh is not None
+                           else fn(*args, **warm))
                     (narrow, choice_b, tab_b, counts_b, lags_b, totals, rounds,
                      ex, digest) = out
                     batch.adopt_resident_buffers(choice_b, tab_b, counts_b, lags_b)
         except Exception:
             self._poison(batch)
+            if batch.mesh is not None:
+                self._degrade_mesh("dispatch")
             raise
         self._m_hits.inc()
         self._record_flush(rows, batch.n_pad, roster=True)
@@ -1065,7 +1160,9 @@ class MegabatchCoalescer:
                     with batch.lock:
                         with metrics.device_phase("megabatch"):
                             narrow_np, totals_np, counts_np, digest_np = fetch(
-                                narrow, totals, counts_b, digest)
+                                narrow, totals,
+                                counts_b.gather() if batch.mesh is not None else counts_b,
+                                digest)
                 for s in rows:
                     r = s.resident.row
                     if s.future.done():
@@ -1100,6 +1197,8 @@ class MegabatchCoalescer:
                 LOGGER.warning("locked megabatch readback failed; poisoning the "
                                "resident batch", exc_info=True)
                 self._poison(batch)
+                if batch.mesh is not None:
+                    self._degrade_mesh("readback")
                 for s in rows:
                     if not s.future.done():
                         if delta_wave:
@@ -1191,9 +1290,21 @@ class MegabatchCoalescer:
         handles: Optional[List[ResidentRow]] = None
         if lock_now:
             # The roster locks: this wave's stacked successors become the
-            # resident batch and the rows' ownership moves to it.
-            batch = _ResidentBatch(s0.shape_key, choice_b, tab_b, counts_b,
-                                   lags_b, n_real=N)
+            # resident batch and the rows' ownership moves to it.  With an
+            # active mesh they are placed over it here, once a lock (the 2-D
+            # mesh when the rung and the batch allow, else the streams mesh);
+            # a failed placement locks single-device and degrades the manager.
+            placed = (choice_b, tab_b, counts_b, lags_b)
+            mesh = self._batch_mesh(n_pad)
+            if mesh is not None:
+                try:
+                    placed = place_rows(mesh, *placed)
+                except Exception:  # noqa: BLE001 — single-device locks
+                    LOGGER.warning("placement on the %s mesh failed; locking the roster "
+                                   "on one device", dict(mesh.shape), exc_info=True)
+                    self._degrade_mesh("place")
+                    placed, mesh = (choice_b, tab_b, counts_b, lags_b), None
+            batch = _ResidentBatch(s0.shape_key, *placed, n_real=N, mesh=mesh)
             handles = [ResidentRow(batch, i) for i in range(N)]
             with self._roster_lock:
                 roster.batch = batch

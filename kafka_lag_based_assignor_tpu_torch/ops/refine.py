@@ -27,14 +27,17 @@ throughout: the port gives the JAX package's bits.
 
 The streaming engine's warm round type (``bulk_transfer`` with a partner
 ``fan``) and its exits (``quality_limit``, ``exchange_budget``) are ported
-too; ``allow_moves=False`` serves the federated slice and raises
-``NotImplementedError``.  The loop runs on the host and makes one read from
+too; ``allow_moves=False`` (the federated weighted rounding,
+:mod:`.fedsolve`) drops the parity body's count-changing moves, so the loop
+is swap-only.  The loop runs on the host and makes one read from
 the device a round: the stop test and the exchanges so far.
 
 :func:`state_digest` is the integrity digest of the streaming engine's
 resident state: the K6 kernel (``csrc/state_digest.cu``) on the card, its
 plain version (:func:`_state_digest_torch` + :func:`_row_tab_lane_torch`)
-on the CPU.
+on the CPU.  :func:`state_digest_rows` digests a coalescer wave's N states
+in one launch, and :func:`state_digest_sharded` a row-sharded (placed)
+state: one launch of K6's shard entry a shard, the partials summed.
 """
 
 from __future__ import annotations
@@ -309,7 +312,11 @@ def refine_rounds_resident(
     ``exchange_budget`` caps the applied exchanges (0: no cap);
     ``quality_limit`` is a peak-total target (None or negative: none) —
     a pair whose heavy consumer is at or below it applies nothing, and
-    the loop stops once the peak is.
+    the loop stops once the peak is.  ``allow_moves`` False drops the
+    count-changing MOVE candidates of the parity body, so every applied
+    exchange is a swap and the counts never change (the federated weighted
+    rounding seats capacity-weighted counts this way); the bulk rounds are
+    swap-only by construction.
 
     ``bulk_transfer`` selects the warm engine's round: each pair sorts the
     heavy consumer's rows lag-descending and the light one's
@@ -326,11 +333,6 @@ def refine_rounds_resident(
     audits it).  Returns (choice, row_tab, counts, totals, rounds_done,
     exchanges_done), the last two as ints.
     """
-    if not allow_moves:
-        raise NotImplementedError(
-            "refine_rounds_resident(allow_moves=False) serves the federated "
-            "path, which is not ported to PyTorch yet (see ROADMAP.md)"
-        )
     C = int(num_consumers)
     P = lags.shape[0]
     M = row_tab.shape[1]
@@ -361,6 +363,8 @@ def refine_rounds_resident(
         cnt_h = counts[heavy].to(torch.int64)
         cnt_l = counts[light].to(torch.int64)
         move_ok = cnt_h > cnt_l
+        if not allow_moves:
+            move_ok = torch.zeros_like(move_ok)
         delta = diff >> 1
         diff_q = diff >> pshift
         delta_q = delta >> pshift
@@ -942,3 +946,111 @@ def state_digest_rows(lags, choice, counts, num_consumers: int, row_tab):
 
 
 state_digest_rows.launches = 0
+
+
+def _state_digest_shard_torch(lags_s, choice_s, counts, num_consumers: int, row_tab,
+                              lo: int, total_rows: int, lead: bool):
+    """Plain version of one shard's partial digest (``csrc/state_digest.cu``,
+    ``klba_state_digest_shard``): ``(part int64[5], hist int32[C])`` of the
+    row shard ``[lo, lo + Bs)`` of a ``total_rows``-row state.  ``part`` is
+    ``[lag sum, range violations, sum of the assigned global row ids, sum of
+    the clamped valid-slot rows (lead only), owner failures of the valid
+    slots whose clamped row lies in the shard + the slot range and sentinel
+    failures (lead only)]``; ``hist`` the shard's occupancy histogram."""
+    C, B = int(num_consumers), int(total_rows)
+    Bs = lags_s.shape[0]
+    dev = lags_s.device
+    in_range = (choice_s >= 0) & (choice_s < C)
+    viol = ((choice_s < -1) | (choice_s >= C)).sum()
+    hist = torch.bincount(
+        torch.where(in_range, choice_s.long(), C), minlength=C + 1
+    )[:C].to(torch.int32)
+    rows = lo + torch.arange(Bs, device=dev)
+    row_sum = torch.where(in_range, rows, 0).sum()
+    M = row_tab.shape[1]
+    valid_slot = torch.arange(M, device=dev)[None, :] < torch.clamp(
+        counts.long(), max=M)[:, None]
+    r = torch.clamp(row_tab.long(), 0, B - 1)
+    mine = valid_slot & (r >= lo) & (r < lo + Bs)
+    owner = choice_s[torch.clamp(r - lo, 0, Bs - 1)]
+    bad = (mine & (owner != torch.arange(C, device=dev)[:, None])).sum()
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    slot_sum = zero
+    if lead:
+        bad = (bad + (valid_slot & ((row_tab < 0) | (row_tab >= B))).sum()
+               + (~valid_slot & (row_tab != B)).sum())
+        slot_sum = torch.where(valid_slot, r, 0).sum()
+    part = torch.stack([lags_s.long().sum(), viol, row_sum, slot_sum, bad])
+    return part, hist
+
+
+def state_digest_sharded(lag_shards, choice_shards, counts, num_consumers: int,
+                         row_tab, row_offsets):
+    """The integrity digest of a row-sharded resident state, int64[5] on the
+    lead shard's device: equal to :func:`state_digest` of the gathered state
+    (``row_tab`` given), without gathering its ``[B]`` rows.
+
+    Args: ``lag_shards`` / ``choice_shards`` the D shards' rows (int64[Bs]
+    and int32[Bs], each on its shard's device), ``counts`` int32[C] and
+    ``row_tab`` int32[C, M] (one tensor, or one replicated copy a shard),
+    ``row_offsets`` the global id of each shard's first row (``[0, B0, B0 +
+    B1, ...]``); 1 <= C <= 16384.  On a CUDA shard it launches K6's shard
+    entry once on that shard's device (one count a launch in
+    ``state_digest_sharded.launches``) or raises; a CPU shard runs the plain
+    version.  The partial lanes and histograms are summed with the mesh's
+    psum; the lead shard then adds the count terms.  Integer sums: the
+    result is exact whatever the split.  Raises ``ValueError`` on the same
+    inputs on both devices.
+    """
+    from ..sharded.collectives import psum
+
+    D = len(lag_shards)
+    if D < 1 or len(choice_shards) != D or len(row_offsets) != D:
+        raise ValueError("state_digest_sharded needs as many lag shards, choice "
+                         "shards and row offsets, at least one")
+    counts_l = list(counts) if isinstance(counts, (list, tuple)) else [counts] * D
+    tabs_l = list(row_tab) if isinstance(row_tab, (list, tuple)) else [row_tab] * D
+    if len(counts_l) != D or len(tabs_l) != D:
+        raise ValueError("state_digest_sharded takes one counts / row_tab copy "
+                         "a shard, or one for all")
+    total = sum(int(t.shape[0]) for t in lag_shards)
+    lo = 0
+    for d in range(D):
+        if int(row_offsets[d]) != lo:
+            raise ValueError(f"row_offsets must be the shards' first rows; shard "
+                             f"{d} starts at {lo}, not {int(row_offsets[d])}")
+        if tabs_l[d] is None or tabs_l[d].dim() != 2 or tabs_l[d].shape[1] < 1:
+            raise ValueError("state_digest_sharded needs the row table int32[C, M]")
+        _check_digest(lag_shards[d], choice_shards[d], counts_l[d], num_consumers,
+                      tabs_l[d])
+        lo += int(lag_shards[d].shape[0])
+    if total >= 2**31:
+        raise ValueError(f"state_digest_sharded takes up to 2**31 - 1 rows, got {total}")
+    parts, hists = [], []
+    for d in range(D):
+        args = (lag_shards[d], choice_shards[d], counts_l[d], num_consumers, tabs_l[d],
+                int(row_offsets[d]), total, d == 0)
+        if lag_shards[d].device.type == "cpu":
+            part, hist = _state_digest_shard_torch(*args)
+        else:
+            from .state_digest_cuda import launch_shard
+
+            part, hist = launch_shard(*args)
+            count_launch(state_digest_sharded)
+        parts.append(part)
+        hists.append(hist)
+    return combine_shard_digests(psum(parts)[0], psum(hists)[0], counts_l[0])
+
+
+def combine_shard_digests(part, hist, counts):
+    """The digest int64[5] from the shards' summed partial lanes ``part``
+    int64[5] and occupancy ``hist`` [C] (the lead shard's work): the count
+    lanes from ``counts``, the row-table lane's ``|slot sum - row sum|``."""
+    cnt = counts.to(part.device).long()
+    return torch.stack([
+        cnt.sum(), part[1], part[0], (hist.long() - cnt).abs().sum(),
+        part[4] + (part[3] - part[2]).abs(),
+    ])
+
+
+state_digest_sharded.launches = 0

@@ -8,6 +8,9 @@ allocates the output and raises if the launch fails.  :func:`launch_rows`
 is the batched entry (``klba_state_digest_rows``) that
 :func:`.refine.state_digest_rows` calls: one launch for a coalescer wave's
 N states, the rows on the grid's y axis, a scratch row each.
+:func:`launch_shard` is the per-shard entry (``klba_state_digest_shard``)
+that :func:`.refine.state_digest_sharded` calls once a shard of a placed
+resident state: the shard's partial lanes and occupancy histogram.
 
 The kernel's accumulators, ticket and histogram live in a scratch buffer
 that is zeroed once for each (device, stream) and grown when a call needs
@@ -27,6 +30,7 @@ ACC_WORDS = 8
 
 _fn = None
 _fn_rows = None
+_fn_shard = None
 _scratch: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -85,6 +89,45 @@ def _bind_rows():
         fn.restype = ctypes.c_int
         _fn_rows = fn
     return _fn_rows
+
+
+def _bind_shard():
+    global _fn_shard
+    if _fn_shard is None:
+        from ._build import load
+
+        lib = load("state_digest")
+        fn = lib.klba_state_digest_shard
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
+        fn.restype = ctypes.c_int
+        _fn_shard = fn
+    return _fn_shard
+
+
+def launch_shard(lags, choice, counts, num_consumers: int, row_tab, lo: int,
+                 total_rows: int, lead: bool):
+    """The partial lanes int64[5] and the histogram int32[C] of the row
+    shard ``[lo, lo + Bs)`` of a ``total_rows``-row state, on the shard's
+    card: lags int64[Bs], choice int32[Bs], counts int32[C], row_tab
+    int32[C, M] (the replicated copies on that card)."""
+    C = int(num_consumers)
+    fn = _bind_shard()
+    _, error_string = _bind()
+    dev = lags.device
+    part = torch.empty(5, dtype=torch.int64, device=dev)
+    hist = torch.empty(C, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        err = fn(lags.data_ptr(), choice.data_ptr(), counts.data_ptr(),
+                 row_tab.data_ptr(), lags.shape[0], int(lo), int(total_rows), C,
+                 int(row_tab.shape[1]), 1 if lead else 0,
+                 scratch_for(dev, stream, C).data_ptr(), part.data_ptr(),
+                 hist.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"state_digest_sharded kernel launch failed: {error_string(err).decode()}")
+    return part, hist
 
 
 def launch_rows(lags, choice, counts, num_consumers: int, row_tab):

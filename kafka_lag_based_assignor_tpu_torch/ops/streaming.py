@@ -45,9 +45,18 @@ previous choice vector as a warm start across rebalances of one topic:
   pinned to "sinkhorn", then the seed + exchange program.  Its choice seeds
   the next warm epoch as :meth:`StreamingAssignor.seed_choice` does (the
   resident state is rebuilt from it); a sharded failure degrades the
-  manager and the single-device chain serves the same epoch.  The resident
-  buffers stay on the engine's device: the JAX engine's P-sharded resident
-  placement (``sharded/resident``) is not ported, and it moves bytes only.
+  manager and the single-device chain serves the same epoch;
+* **resident placement** — under the same election, an adopted resident
+  state is placed over the ("p",) mesh (:mod:`..sharded.resident`): the
+  [B] choice and lags in D row shards, the table and counts replicated
+  (``klba_resident_placed_total{axis="p"}``).  A warm refine on a placed
+  state first probes the collective (``mesh.collective``; a lost collective
+  or a degraded manager drops the state and re-solves the epoch cold on the
+  current rung), then digests the state shard by shard
+  (:func:`.refine.state_digest_sharded`, K6's shard entry), gathers the rows
+  onto the lead device, runs the single-device refine and places the
+  successors again.  A delta epoch scatters each index into its owning
+  shard.  Every epoch and digest is bit-identical to the unplaced engine's.
 
 **Telemetry and drills** (the JAX engine's series, spans and fault
 points): every epoch runs under the ``stream.epoch`` span (inside it
@@ -83,6 +92,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..sharded import collectives
+from ..sharded.resident import PlacedResident, place_resident, shardable_rows
 from ..utils import faults, metrics
 from ..utils import scrub as scrub_mod
 from ..utils import trace as trace_mod
@@ -91,7 +102,12 @@ from ..utils.observability import count_constrained_bound
 from .batched import _narrow_choice, assign_stream, stream_payload
 from .delta import apply_assignment_delta, compact_changed, readback_k
 from .packing import pad_bucket, pad_chunk, table_rows
-from .refine import build_choice_tables, refine_rounds_resident, state_digest
+from .refine import (
+    build_choice_tables,
+    refine_rounds_resident,
+    state_digest,
+    state_digest_sharded,
+)
 
 LOGGER = logging.getLogger(__name__)
 
@@ -165,7 +181,7 @@ def _pad_lags(lags, B: int):
 def _refine_core(
     lags_p, choice_p, row_tab, counts, totals, limit, P: int,
     num_consumers: int, iters: int, max_pairs, exchange_budget: int,
-    bulk: bool = False, delta_k: int = 0,
+    bulk: bool = False, delta_k: int = 0, digest=None,
 ):
     """Shared tail of every refine dispatch: the digest, the resident round
     loop and the narrowed host-facing output.  Returns (narrow choice[P],
@@ -176,13 +192,16 @@ def _refine_core(
 
     ``delta_k > 0`` appends the O(changed) readback tail ``(d_idx
     int32[K], d_vals narrow[K], d_n int32)`` diffing the ENTRY choice
-    against the exit choice over ``[:P]``."""
+    against the exit choice over ``[:P]``.  ``digest`` is the entry state's
+    digest when the caller took it already (a placed state, shard by
+    shard)."""
     # The digest audits the state the epoch STARTED from (post-scatter for
     # delta epochs), not the refine's output: the rounds rewrite the choice
     # entries they move, so an output-side digest could read clean over a
     # corrupt input row the loop happened to touch.  Input-side, the first
     # dispatch over a corrupt buffer catches it, deterministically.
-    digest = state_digest(lags_p, choice_p, counts, num_consumers, row_tab=row_tab)
+    if digest is None:
+        digest = state_digest(lags_p, choice_p, counts, num_consumers, row_tab=row_tab)
     entry_choice = choice_p
     # The refine builds new tensors and never writes its inputs, so
     # ``entry_choice`` stays the entry state for the readback diff.
@@ -396,8 +415,9 @@ class StreamingAssignor:
         self._prev_choice: Optional[np.ndarray] = None
         # The resident state between dispatches: (padded int32 choice[B],
         # row table int32[C, M], counts int32[C], padded int64 lags[B]) on
-        # the engine's device, a ResidentRow handle while this stream's
-        # roster is locked in a coalescer, or None while stale.
+        # the engine's device, a PlacedResident while it is placed over the
+        # mesh's "p" axis, a ResidentRow handle while this stream's roster
+        # is locked in a coalescer, or None while stale.
         self._resident = None
         # Host mirror of the resident lag buffer's first P entries (the base
         # the delta differ diffs against); lives and dies with the resident.
@@ -584,15 +604,65 @@ class StreamingAssignor:
         point has healed: the successors were rebuilt from host truth
         (counted per buffer).  The ``device.corrupt.*`` fault points fire
         here, so a drill can flip bits in the freshly adopted tensors (host
-        mirror left intact) and exercise the detect/quarantine/heal path.  A
+        mirror left intact) and exercise the detect/quarantine/heal path, after
+        the state is placed over the mesh when the manager elects it.  A
         :class:`.coalesce.ResidentRow` handle is installed as it is."""
         if self._quarantined is not None:
             scrub_mod.record_quarantine(
                 self._quarantined, "healed", source="rebuild"
             )
             self._quarantined = None
+        resident = self._place_resident(resident, lags.shape[0])
         self._resident = self._corrupt_resident(resident, lags.shape[0])
         self._lag_mirror = np.array(lags, dtype=np.int64, copy=True)
+
+    def _resident_mesh_manager(self, num_rows: int):
+        """The mesh manager electing the P backend for ``num_rows`` rows, or
+        None: ``mesh_backend`` pinned or ``"auto"`` (through
+        :func:`.dispatch.sharded_solve_manager`), the ``solve_min_rows``
+        floor, two consumers at least.  The sharded cold solve and the
+        resident placement share it, so the state is placed exactly when
+        the cold path shards."""
+        mb = self.mesh_backend
+        if mb is None:
+            return None  # pinned single-device
+        if mb == "auto":
+            from .dispatch import sharded_solve_manager
+
+            return sharded_solve_manager(num_rows, self.num_consumers)
+        return mb if (
+            mb.active
+            and self.num_consumers >= 2
+            and mb.should_shard_solve(num_rows)
+        ) else None
+
+    def _place_resident(self, resident, P: int):
+        """The P-axis placement of a freshly adopted resident state
+        (:mod:`..sharded.resident`) when the manager elects it and the
+        bucket divides the mesh; values are unchanged.  A locked roster's
+        handle is kept as it is (the coalescer places rosters).  A failure
+        keeps the single-device tensors and degrades the manager."""
+        if hasattr(resident, "materialize"):
+            return resident
+        mgr = self._resident_mesh_manager(P)
+        if mgr is None:
+            return resident
+        try:
+            mesh = mgr.solve_mesh()
+            if not shardable_rows(mesh, int(resident[0].shape[0])):
+                return resident
+            placed = place_resident(mesh, resident)
+        except Exception:  # noqa: BLE001 — single-device is the fallback
+            LOGGER.warning(
+                "resident P-shard placement failed; keeping the single-device "
+                "tensors", exc_info=True,
+            )
+            mgr.degrade("resident")
+            return resident
+        metrics.REGISTRY.counter(
+            "klba_resident_placed_total", {"axis": "p"}
+        ).inc()
+        return placed
 
     def _corrupt_resident(self, resident, P: int):
         """The chaos injection site (fault points ``device.corrupt.choice``
@@ -601,16 +671,21 @@ class StreamingAssignor:
         host mirror is deliberately NOT updated, so the device state
         silently diverges as a real memory fault would.  One global load
         when no injector is active.  A locked roster's handle is skipped:
-        the coalescer owns that injection site."""
+        the coalescer owns that injection site.  On a placed state the bit
+        flips in the shard that owns the row (each replica of a replicated
+        tensor), the same bit the unplaced state would take."""
         if hasattr(resident, "materialize"):
             return resident
-        resident = tuple(resident)
+        if not isinstance(resident, PlacedResident):
+            resident = tuple(resident)
         if faults.active() is None:
             return resident
         plan = scrub_mod.corruption_plan(limit=P)
         if not plan:
             return resident
         slot = {"choice": 0, "row_tab": 1, "counts": 2, "lags": 3}
+        if isinstance(resident, PlacedResident):
+            return self._corrupt_placed(resident, plan, slot, P)
         bufs = list(resident)
         for buffer, seed in plan:
             i = slot[buffer]
@@ -625,6 +700,28 @@ class StreamingAssignor:
                 "injected device.corrupt.%s bit flip (seed %d)", buffer, seed,
             )
         return tuple(bufs)
+
+    @staticmethod
+    def _corrupt_placed(resident: PlacedResident, plan, slot, P: int) -> PlacedResident:
+        shards = [list(s) for s in resident.shards]
+        for buffer, seed in plan:
+            i = slot[buffer]
+            if buffer in ("counts", "row_tab"):
+                flipped = scrub_mod.flip_bit(shards[0][i].cpu().numpy(), seed)
+                for s in shards:
+                    s[i] = torch.from_numpy(flipped).to(s[i].device)
+            else:
+                whole = np.concatenate([s[i].cpu().numpy() for s in shards])
+                flipped = scrub_mod.flip_bit(whole, seed, limit=P)
+                d, _ = resident.owner(int(np.flatnonzero(whole != flipped)[0]))
+                lo = resident.row_offsets[d]
+                block = flipped[lo: lo + shards[d][i].shape[0]]
+                shards[d][i] = torch.from_numpy(block.copy()).to(shards[d][i].device)
+            LOGGER.warning(
+                "injected device.corrupt.%s bit flip (seed %d) into the placed "
+                "state", buffer, seed,
+            )
+        return PlacedResident(shards)
 
     def quarantine_resident(self, buffers, source: str = "scrub",
                             record: bool = True) -> None:
@@ -679,19 +776,7 @@ class StreamingAssignor:
         backend should serve: the mesh unconfigured or degraded, the shape
         below the floor, or a sharded dispatch failing (which also degrades
         the manager, so every later selection falls back too)."""
-        mb = self.mesh_backend
-        if mb is None:
-            return None  # pinned single-device
-        if mb == "auto":
-            from .dispatch import sharded_solve_manager
-
-            mgr = sharded_solve_manager(lags.shape[0], self.num_consumers)
-        else:
-            mgr = mb if (
-                mb.active
-                and self.num_consumers >= 2
-                and mb.should_shard_solve(lags.shape[0])
-            ) else None
+        mgr = self._resident_mesh_manager(lags.shape[0])
         if mgr is None:
             return None
         # Under "auto" (and a pinned "linear") the cold solve runs the
@@ -785,8 +870,33 @@ class StreamingAssignor:
         assignment's totals under the new lags, the quality test and the
         bulk exchange rounds with their three exits (target met, peak
         stagnant for ``patience`` rounds, exchange budget spent).  Fills
-        ``stats`` from the dispatch's own totals and counts."""
+        ``stats`` from the dispatch's own totals and counts.
+
+        On a placed state this is a sharded dispatch boundary, as the cold
+        solve's: the collective is probed (``mesh.collective``) before the
+        launch.  A lost collective, or a manager that degraded under another
+        stream, drops the resident state and re-solves the epoch cold on the
+        current rung: a valid answer, one rung down."""
         with metrics.span("stream.refine"):
+            if isinstance(self._resident, PlacedResident):
+                from ..sharded.mesh import MeshCollectiveError
+
+                mgr = self._resident_mesh_manager(lags.shape[0])
+                try:
+                    if mgr is None:
+                        raise MeshCollectiveError("the mesh no longer elects "
+                                                  "the P placement")
+                    mgr.check_collective()
+                except MeshCollectiveError:
+                    LOGGER.warning(
+                        "mesh collective lost at the warm-refine boundary; "
+                        "re-solving this epoch on the degraded placement"
+                    )
+                    self._drop_resident()
+                    stats.cold_start = True
+                    out = self._cold_solve(lags)
+                    stats.sharded_solve = self._cold_was_sharded
+                    return out
             return self._dispatch_warm_refine_inner(lags, choice, stats)
 
     def _dispatch_warm_refine_inner(
@@ -814,12 +924,15 @@ class StreamingAssignor:
         resident = self._resident
         warm = dict(num_consumers=C, iters=budget, max_pairs=pairs,
                     exchange_budget=budget)
-        # The resident state is the engine's own tensors or, while its
-        # roster is locked in a coalescer, a ResidentRow handle.
+        # The resident state is the engine's own tensors, a placed state or,
+        # while its roster is locked in a coalescer, a ResidentRow handle.
         handle_matches = getattr(resident, "matches", None)
+        placed = isinstance(resident, PlacedResident)
         if resident is not None and (
             handle_matches(B, C, table_rows(B, C))
             if handle_matches is not None
+            else (resident.bucket == B and resident.table_shape == (C, table_rows(B, C)))
+            if placed
             else (resident[0].shape[0] == B
                   and tuple(resident[1].shape) == (C, table_rows(B, C)))
         ):
@@ -827,7 +940,8 @@ class StreamingAssignor:
             delta = self._delta_plan(lags, payload)
             if self._coalescer is not None:
                 done = self._submit_to_coalescer(
-                    lags, payload, resident, limit, delta, lag_sum, B, warm, stats)
+                    lags, payload, resident.gather() if placed else resident,
+                    limit, delta, lag_sum, B, warm, stats)
                 if done is not None:
                     return done
             if handle_matches is not None:
@@ -873,10 +987,18 @@ class StreamingAssignor:
                     self._note_delta("applied")
             if out is None:
                 self._note_h2d("dense", payload.nbytes)
-                out = _warm_fused_resident(
-                    self._upload(payload), resident[0], resident[1], resident[2],
-                    limit, delta_k=rb_k, **warm,
-                )
+                if placed:
+                    lags_p = np.zeros(B, dtype=np.int64)
+                    lags_p[:P] = lags
+                    out = self._placed_refine(
+                        resident, collectives.split(lags_p, resident.devices),
+                        limit, P, warm, rb_k,
+                    )
+                else:
+                    out = _warm_fused_resident(
+                        self._upload(payload), resident[0], resident[1], resident[2],
+                        limit, delta_k=rb_k, **warm,
+                    )
         else:
             self._note_h2d("dense", payload.nbytes)
             out = _warm_fused_build(
@@ -1011,11 +1133,17 @@ class StreamingAssignor:
         try:
             faults.fire("delta.apply")
             with metrics.span("stream.h2d_delta"):
-                out = _warm_fused_delta(
-                    self._upload(idx), self._upload(vals), resident[3],
-                    resident[0], resident[1], resident[2], limit, P,
-                    delta_k=rb_k, **warm,
-                )
+                if isinstance(resident, PlacedResident):
+                    out = self._placed_refine(
+                        resident, self._scatter_placed(resident, idx, vals),
+                        limit, P, warm, rb_k,
+                    )
+                else:
+                    out = _warm_fused_delta(
+                        self._upload(idx), self._upload(vals), resident[3],
+                        resident[0], resident[1], resident[2], limit, P,
+                        delta_k=rb_k, **warm,
+                    )
         except Exception:  # noqa: BLE001 — dense re-sync is the contract
             LOGGER.warning(
                 "delta apply failed (%d changed); falling back to a dense "
@@ -1025,6 +1153,43 @@ class StreamingAssignor:
             return None
         self._note_h2d("delta", nbytes)
         return out
+
+    @staticmethod
+    def _scatter_placed(resident: PlacedResident, idx: np.ndarray, vals: np.ndarray):
+        """The delta's (index, value) pairs scattered into copies of the
+        placed lag shards, each pair into the shard that owns its row."""
+        out = []
+        for lo, t in zip(resident.row_offsets, resident.lag_shards):
+            sel = (idx >= lo) & (idx < lo + t.shape[0])
+            t = t.clone()
+            if sel.any():
+                t[torch.from_numpy(idx[sel] - lo).long().to(t.device)] = (
+                    torch.from_numpy(vals[sel]).to(t.device))
+            out.append(t)
+        return out
+
+    def _placed_refine(self, resident: PlacedResident, lag_shards, limit, P: int,
+                       warm: dict, rb_k: int):
+        """The warm refine of a placed state under the epoch's lag shards:
+        the digest shard by shard (K6's shard entry, one launch a shard),
+        the rows gathered onto the lead device, then the single-device warm
+        body.  Its successors are placed again when adopted.  Holds the
+        mesh's dispatch gate: the digest is a multi-shard program."""
+        from ..sharded.mesh import dispatch_gate
+
+        with dispatch_gate():
+            digest = state_digest_sharded(
+                lag_shards, resident.choice_shards, [s[2] for s in resident.shards],
+                warm["num_consumers"], [s[1] for s in resident.shards],
+                resident.row_offsets,
+            )
+            choice, row_tab, counts, _ = resident.gather()
+            lags_p = collectives.all_gather(lag_shards, tiled=True)[0]
+            return _refine_core(
+                lags_p, choice, row_tab, counts,
+                _resident_totals(lags_p, row_tab, counts), limit, P, bulk=True,
+                delta_k=rb_k, digest=digest, **warm,
+            )
 
     def _fill_stats_from_device(self, stats: StreamingStats, totals, counts,
                                 rounds, ex) -> None:

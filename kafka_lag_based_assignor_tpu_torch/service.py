@@ -94,14 +94,19 @@ a device count), ``mesh_solve_min_rows`` and ``mesh_shape`` build one
 :meth:`AssignorService.start` and deactivated at :meth:`AssignorService.stop`.
 A ``stream_assign`` whose partition count reaches the floor runs its cold
 epoch P-sharded (``stream.sharded_solve: true``), and ``stats.mesh`` is the
-manager's status.  Resident buffers and coalesced batches stay on the
-sidecar's device: the JAX sidecar's P-sharded and stream-axis placements are
-not ported.
+manager's status.  At or above the floor a stream's resident state is
+placed over the mesh's "p" axis between epochs, and the coalescer places
+locked rosters on the streams (or 2-D) mesh (:mod:`.sharded.resident`,
+:mod:`.sharded.megabatch`): bytes move, answers do not.
 
-What the JAX service does that this one does not do yet: federation.  Its
-knobs are absent; ``peer_sync``, ``federation`` and ``federated_assign``
-answer the JAX "unknown method" error, and ``stats.federation`` answers
-None.
+Federation (:mod:`.federated`): ``federation_self_id`` and
+``federation_peers`` make this sidecar one shard of a federated group.  It
+answers ``peer_sync`` over its registered local lag shard, ``federation``
+with the coordinator's status, and ``federated_assign`` by converging the
+global duals with every peer inside the request's deadline budget (rung
+``global``), else the last-good duals (``last_good_global``), else the
+single-cluster ``rounds`` solve (``local_only``, K1 on the card).  The wire
+is the JAX sidecar's, so a port sidecar peers with a JAX one.
 
 Device: every solve and every stream engine runs on ``device`` (default
 the CUDA card; :func:`.utils.device.resolve_device` raises without one, and
@@ -193,8 +198,7 @@ STREAM_FLIGHT_CAPACITY = 64
 
 # Wire methods, as metric label values: anything else is labeled
 # "unknown", so a client cannot mint unbounded label cardinality.  The
-# JAX service's set, whole (its unported methods are labeled by name and
-# answered "unknown method").
+# JAX service's set, whole.
 _KNOWN_METHODS = frozenset(
     {
         "ping", "stats", "metrics", "assign", "stream_assign",
@@ -887,6 +891,24 @@ class AssignorService:
         # taken non-blocking, the pass skipped at overload rung >= 2; a
         # failed audit quarantines the stream.  <= 0 disables.
         scrub_interval_ms: float = 30_000.0,
+        # Federated multi-cluster assignment (federated/): this sidecar's
+        # stable peer id and its peers ("id=host:port,..." or PeerSpec
+        # list).  With both set it answers peer_sync over its local lag
+        # shard and serves federated_assign by synchronized dual-exchange
+        # rounds inside the request's budget; only consumer-axis duals and
+        # marginals cross the wire.  Per-peer breakers ride the service
+        # watchdog (keys peer:<id>); an incomplete round degrades to the
+        # last-good duals, then local-only, bounded by
+        # federation_max_staleness_s.  federation_gossip_interval_s > 0
+        # keeps the duals warm in the background; federation_capacity is
+        # this cluster's per-consumer capacity weights (None: uniform).
+        federation_self_id: Optional[str] = None,
+        federation_peers: Any = None,
+        federation_rounds: int = 16,
+        federation_sync_timeout_s: float = 2.0,
+        federation_max_staleness_s: float = 300.0,
+        federation_gossip_interval_s: float = 0.0,
+        federation_capacity: Optional[List[float]] = None,
         # False skips the warm-up of the recovered shapes in start() (tests
         # that assert recovery without paying the warm-up).
         recovery_warmup: bool = True,
@@ -1084,6 +1106,33 @@ class AssignorService:
         else:
             self._snapshot_store = None
             self._snapshot_writer = None
+        # Federated peer coordination (federated/peers), built only when
+        # configured.  The per-peer breakers live on the service watchdog,
+        # so stats.breakers shows sidelined peers beside sidelined solvers;
+        # the fencing token is the snapshot writer lease's, read lazily.
+        if federation_self_id:
+            from .federated import FederationCoordinator, parse_peer_specs
+
+            specs = federation_peers or []
+            if isinstance(specs, str):
+                specs = parse_peer_specs(specs)
+            self._federation = FederationCoordinator(
+                self_id=str(federation_self_id),
+                peers=list(specs),
+                watchdog=self._watchdog,
+                max_rounds=int(federation_rounds),
+                sync_timeout_s=float(federation_sync_timeout_s),
+                max_staleness_s=float(federation_max_staleness_s),
+                fence_token=self._federation_fence_token,
+                clock=clock,
+                capacity=federation_capacity,
+                gossip_interval_s=float(federation_gossip_interval_s),
+                device=self.device,
+            )
+        else:
+            if federation_peers:
+                raise ValueError("federation_peers requires federation_self_id")
+            self._federation = None
 
     @property
     def requests_served(self) -> int:
@@ -1164,6 +1213,13 @@ class AssignorService:
             "resync_max_inflight": cfg.resync_max_inflight,
             "recovery_prestack": cfg.recovery_prestack,
             "scrub_interval_ms": cfg.scrub_interval_s * 1000.0,
+            "federation_self_id": cfg.federation_self_id,
+            "federation_peers": cfg.federation_peers or None,
+            "federation_rounds": cfg.federation_rounds,
+            "federation_sync_timeout_s": cfg.federation_sync_timeout_s,
+            "federation_max_staleness_s": cfg.federation_max_staleness_s,
+            "federation_gossip_interval_s": cfg.federation_gossip_interval_s,
+            "federation_capacity": cfg.federation_capacity,
             "warmup_shapes": cfg.warmup_shapes or None,
         }
         kwargs.update(overrides)
@@ -1303,6 +1359,9 @@ class AssignorService:
             "recommend": self._recommend,
             "stream_flight": self._stream_flight,
             "drain": self._drain,
+            "peer_sync": self._peer_sync,
+            "federation": self._federation_status,
+            "federated_assign": self._federated_assign_request,
         }.get(method) if isinstance(method, str) else None
         if handler is None:
             raise ValueError(f"unknown method {method!r}")
@@ -1336,8 +1395,9 @@ class AssignorService:
             # Roster tracking: locked rosters and the hit / re-stack /
             # invalidation / dead-row counters.
             result["coalesce"] = self._coalescer.stats()
-        # Federation is not ported: answered as a disabled feature is.
-        result["federation"] = None
+        result["federation"] = (
+            self._federation.status() if self._federation is not None else None
+        )
         # The device mesh; None when mesh_devices is "off".
         result["mesh"] = self._mesh.status() if self._mesh is not None else None
         # Lifecycle: serving/draining/stopped, the snapshot store, the last
@@ -1454,6 +1514,150 @@ class AssignorService:
             # Effective (quantized) option values actually used.
             "options": options,
         }, budget
+
+    # -- federated assignment (federated/) ---------------------------------
+
+    def _peer_sync(self, params):
+        """A peer's dual-exchange round over this sidecar's registered local
+        lag shard; every answer is built by the audited ``federated/wire``
+        serializer (consumer-axis aggregates only, never raw lags)."""
+        if self._federation is None:
+            raise ValueError("federation is not configured on this sidecar")
+        return self._federation.serve_sync(params), None
+
+    def _federation_status(self, params):
+        """The operator surface: peer links (breaker, last outcome, the
+        epoch / fence ledger), the rung and the last-good cache's age."""
+        if self._federation is None:
+            return {"enabled": False}, None
+        out = self._federation.status()
+        out["enabled"] = True
+        return out, None
+
+    def _federated_assign_request(self, params):
+        klass = self._slo.resolve(None, params.get("slo_class"))
+        self._reject_if_draining(klass)
+        budget = _DeadlineBudget(
+            self._slo.budget_s(klass, self._watchdog.timeout_s),
+            clock=self._clock,
+        )
+        result = self._federated_assign(params, budget, klass)
+        rung = result["federation"]["rung"]
+        metrics.REGISTRY.counter(
+            "klba_ladder_rung_total",
+            {"method": "federated_assign", "rung": rung},
+        ).inc()
+        if rung != "global":
+            trace_mod.mark("ladder")
+            metrics.FLIGHT.auto_dump(
+                "ladder", {"method": "federated_assign", "rung": rung},
+            )
+        return result, budget
+
+    def _federation_fence_token(self) -> Optional[int]:
+        """The fencing token stamped on peer-bound payloads: the snapshot
+        writer lease's token when fencing is on, else None (one token fences
+        a replaced instance's snapshot writes and its peer syncs)."""
+        store = self._snapshot_store
+        if store is None or not store.fencing_enabled:
+            return None
+        return store.lease_token
+
+    def _federated_assign(
+        self, params: Dict[str, Any], budget: _DeadlineBudget, klass: str
+    ) -> Dict[str, Any]:
+        """One federated epoch: register the local shard, run the exchange
+        rounds inside the remaining budget and serve the LOCAL shard's slice
+        of the converged global assignment, or degrade down the federation
+        ladder to the single-cluster stateless ``rounds`` solve.  The request
+        rides the overload admission and in-flight depth of
+        ``stream_assign``."""
+        if self._federation is None:
+            raise ValueError("federation is not configured on this sidecar")
+        topic = params.get("topic", "t0")
+        members = params.get("members") or []
+        if not isinstance(members, list) or not members:
+            raise ValueError("params.members must be a non-empty list")
+        members_sorted = sorted(str(m) for m in members)
+        if len(set(members_sorted)) != len(members_sorted):
+            raise ValueError("params.members contains duplicates")
+        C = len(members_sorted)
+        rows = _decode_wire_lags(params)
+        pids_sorted, lags = _parse_lag_rows(rows)
+        resp_enc = _parse_accept_encoding(params)
+
+        # A degrade decision skips the peer rounds: local-only is the cheap
+        # answer (a stateless solve has no previous choice to keep).
+        decision = self._admit_solve_work(klass)
+        force_local = False
+        if decision is not None and decision.action == "degrade":
+            self._overload.note_shed(klass, decision.rung_name, "local_only")
+            force_local = True
+
+        with self._inflight(klass):
+            if force_local:
+                fed = {
+                    "rung": "local_only", "choice": None, "rounds": 0,
+                    "peers_ok": 0, "staleness_s": None, "converged": False,
+                }
+            else:
+                fed = self._federation.assign(lags, C, budget.remaining)
+            if fed["choice"] is not None:
+                choice = fed["choice"]
+                s = _host_choice_stats(choice, lags, C, None, cold_start=True)
+                pids_l = pids_sorted.tolist()
+                assignments: Dict[str, List[List[Any]]] = {m: [] for m in members_sorted}
+                for row, consumer in enumerate(list(choice)):
+                    assignments[members_sorted[int(consumer)]].append(
+                        [topic, pids_l[row]])
+                stats_out = {
+                    "max_mean_imbalance": s.max_mean_imbalance,
+                    "imbalance_bound": s.imbalance_bound,
+                    "quality_ratio": s.quality_ratio,
+                    "count_spread": s.count_spread,
+                }
+            else:
+                # Rung local_only: the single-cluster behavior, unchanged —
+                # the stateless rounds solve (K1 on the card) with the host
+                # greedy as its rung, inside what is left of the SAME budget.
+                rows_plain = [[int(p), int(v)] for p, v in zip(pids_sorted, lags)]
+                assignments, rb_stats = _solve(
+                    {topic: rows_plain},
+                    {m: [topic] for m in members_sorted},
+                    "rounds",
+                    watchdog=self._watchdog,
+                    host_fallback=self._host_fallback,
+                    deadline=budget,
+                    device=self.device,
+                )
+                stats_out = json.loads(rb_stats.to_json())
+            fed_out = {
+                "rung": fed["rung"],
+                "rounds": fed["rounds"],
+                "converged": fed["converged"],
+                "peers_ok": fed["peers_ok"],
+                "staleness_s": fed["staleness_s"],
+                # True when the gossip daemon's warm duals served this
+                # assign in one local round (no synchronous peer RTT).
+                "warm_cache": bool(fed.get("warm_cache", False)),
+                "epoch": self._federation.local_epoch,
+            }
+            metrics.FLIGHT.record(
+                "federation_assign",
+                {
+                    "rung": fed["rung"],
+                    "rounds": fed["rounds"],
+                    "converged": fed["converged"],
+                    "num_partitions": int(lags.shape[0]),
+                    "num_members": C,
+                    "slo_class": klass,
+                },
+            )
+            return {
+                **_encode_dense_assignments(assignments, resp_enc),
+                "federation": fed_out,
+                "stats": stats_out,
+            }
 
     def _stream_assign_request(self, params):
         # SLO class: wire override > config map > "standard"; the class's
@@ -2335,11 +2539,16 @@ class AssignorService:
                 }
             finally:
                 st.lock.release()
-        return {
+        sections = {
             "streams": streams,
             "breakers": self._watchdog.export_state(),
             "overload": self._overload.export_state(),
         }
+        if self._federation is not None:
+            # The monotone local epoch, the per-peer ledger and the last-good
+            # duals survive a restart, fenced like every other section.
+            sections["federation"] = self._federation.export_state()
+        return sections
 
     def snapshot_now(self) -> Dict[str, Any]:
         """One synchronous snapshot write (operator action, drills);
@@ -2484,6 +2693,9 @@ class AssignorService:
             overload = load.sections.get("overload")
             if overload is not None:
                 self._overload.restore_state(overload)
+            federation = load.sections.get("federation")
+            if federation is not None and self._federation is not None:
+                self._federation.restore_state(federation)
             recovered, discarded, weight = self._rehydrate_streams(
                 load.sections.get("streams") or {}
             )
@@ -2761,6 +2973,8 @@ class AssignorService:
         if self._metrics_http is not None:
             self._metrics_http.stop()
             self._metrics_http = None
+        if self._federation is not None:
+            self._federation.close()
 
     def stop(self) -> None:
         """Stop at once, without a drain: no admission wind-down and no
@@ -2967,6 +3181,27 @@ class AssignorServiceClient:
             params["lags"] = lags
             return self.request("stream_assign", params)
 
+    def federated_assign(
+        self,
+        topic: str,
+        lags: List[Tuple[int, int]],
+        members: List[str],
+        slo_class: Optional[str] = None,
+    ) -> Dict[str, Any]:
+        """One federated epoch: the server converges a global assignment
+        with its peers and answers its LOCAL shard's slice; the
+        ``federation`` section reports the rung actually served."""
+        params: Dict[str, Any] = {
+            "topic": topic, "lags": lags, "members": members,
+        }
+        if slo_class is not None:
+            params["slo_class"] = slo_class
+        return self.request("federated_assign", params)
+
+    def federation(self) -> Dict[str, Any]:
+        """The federation operator surface (peer links, rung, cache)."""
+        return self.request("federation")
+
     def stream_reset(self, stream_id: str) -> bool:
         return self.request("stream_reset", {"stream_id": stream_id})[
             "dropped"
@@ -2992,6 +3227,10 @@ def main() -> None:
     [--snapshot-backend KIND] [--snapshot-lease-ttl-ms MS]
     [--snapshot-lease-wait-ms MS] [--resync-max-inflight N]
     [--scrub-interval-ms MS] [--recovery-prestack]
+    [--federation-self-id ID] [--federation-peers ID=HOST:PORT,...]
+    [--federation-rounds N] [--federation-sync-timeout-ms MS]
+    [--federation-max-staleness-ms MS] [--federation-gossip-interval-ms MS]
+    [--federation-capacity W,W,...]
     [--mesh-devices SPEC] [--mesh-solve-min-rows N] [--mesh-shape SxD]
     [--quality-mode MODE] [--quality-tile ROWS]`` — the JAX CLI's flags
     for the knobs this sidecar serves.  ``--warmup`` builds every kernel
@@ -3104,6 +3343,45 @@ def main() -> None:
              "a mismatch); <= 0 disables (default 30000)",
     )
     parser.add_argument(
+        "--federation-self-id", default=None, metavar="ID",
+        help="this sidecar's stable federation peer id (enables the "
+             "federated assignment plane)",
+    )
+    parser.add_argument(
+        "--federation-peers", default=None, metavar="ID=HOST:PORT,...",
+        help="peer sidecars for federated assignment "
+             "('id=host:port,id=host:port'); requires --federation-self-id",
+    )
+    parser.add_argument(
+        "--federation-rounds", type=int, default=16, metavar="N",
+        help="max dual-exchange rounds per federated_assign (default 16)",
+    )
+    parser.add_argument(
+        "--federation-sync-timeout-ms", type=float, default=2_000.0,
+        metavar="MS",
+        help="per-peer sync RPC deadline (also bounded by the request "
+             "budget; default 2000)",
+    )
+    parser.add_argument(
+        "--federation-max-staleness-ms", type=float, default=300_000.0,
+        metavar="MS",
+        help="how old the last-good-global dual cache may be and still "
+             "serve the middle federation rung (default 300000)",
+    )
+    parser.add_argument(
+        "--federation-gossip-interval-ms", type=float, default=0.0,
+        metavar="MS",
+        help="cadence of the background dual-gossip daemon (0 = off; > 0 "
+             "serves federated_assign from the warm dual cache in one "
+             "local round)",
+    )
+    parser.add_argument(
+        "--federation-capacity", default=None, metavar="W,W,...",
+        help="this cluster's per-consumer capacity weight vector "
+             "(comma-separated positive floats) for the weighted federated "
+             "count marginal; unset = uniform",
+    )
+    parser.add_argument(
         "--recovery-prestack", action="store_true",
         help="rebuild the recovered streams' resident state at boot, "
              "off the serving path",
@@ -3139,6 +3417,10 @@ def main() -> None:
              "default 1024)",
     )
     opts = parser.parse_args()
+    federation_capacity = (
+        [float(v) for v in opts.federation_capacity.split(",")]
+        if opts.federation_capacity else None
+    )
     service = AssignorService(
         opts.host, opts.port, device=opts.device,
         warmup_shapes=opts.warmup,
@@ -3156,6 +3438,17 @@ def main() -> None:
         resync_max_inflight=opts.resync_max_inflight,
         recovery_prestack=opts.recovery_prestack,
         scrub_interval_ms=opts.scrub_interval_ms,
+        federation_self_id=opts.federation_self_id,
+        federation_peers=opts.federation_peers,
+        federation_rounds=opts.federation_rounds,
+        # No silent clamp: a non-positive timeout fails the boot (the
+        # coordinator validates), as the config key does.
+        federation_sync_timeout_s=opts.federation_sync_timeout_ms / 1000.0,
+        federation_max_staleness_s=max(
+            opts.federation_max_staleness_ms, 0.0) / 1000.0,
+        federation_gossip_interval_s=max(
+            opts.federation_gossip_interval_ms, 0.0) / 1000.0,
+        federation_capacity=federation_capacity,
         mesh_devices=opts.mesh_devices,
         mesh_solve_min_rows=opts.mesh_solve_min_rows,
         mesh_shape=opts.mesh_shape,

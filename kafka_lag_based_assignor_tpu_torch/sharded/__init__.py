@@ -10,11 +10,15 @@ Counterpart of ``kafka_lag_based_assignor_tpu/sharded/``:
 * :mod:`.solve` — the P-axis-sharded solves (seed + exchange refine, plan
   stats, the linear-OT duals and rounding tail).
 * :mod:`.topics` — the topic-axis batch backend.
+* :mod:`.resident` — the P-axis placement of a stream's resident warm state
+  (row shards over "p", the consumer-axis tables replicated).
+* :mod:`.megabatch` — the stream-axis and 2-D placement of a locked
+  megabatch roster (whole rows a device).
 
 Backend selection lives in :mod:`..ops.dispatch` (``sharded_solve_manager``):
-single-device is the default and the degradation target.  Not ported yet:
-the JAX package's ``resident`` (P-sharded resident buffers) and
-``megabatch`` (stream-axis placement) modules, which move bytes only.
+single-device is the default and the degradation target.  Placement moves
+bytes only: every epoch, wave and digest is bit-identical to the unplaced
+run.
 """
 
 from .mesh import (
@@ -25,6 +29,7 @@ from .mesh import (
     deactivate,
     managed,
 )
+from . import megabatch, resident
 from .solve import (
     plan_stats_sharded,
     refine_sharded,
@@ -39,8 +44,10 @@ __all__ = [
     "active_manager",
     "deactivate",
     "managed",
+    "megabatch",
     "plan_stats_sharded",
     "refine_sharded",
+    "resident",
     "seed_reference",
     "solve_sharded",
 ]

@@ -26,10 +26,9 @@ decisions those paths share:
 * **Cross-axis composition** (``tpu.assignor.mesh.shape``): the device set
   can also factor as a 2-D ("streams", "p") mesh; ``"auto"`` picks the most
   square (S, D) split favouring "p", ``"SxD"`` pins it, and a shape the
-  device count cannot satisfy falls back to the 1-D rung at boot.  The port
-  keeps this rung's bookkeeping (:meth:`MeshManager.mesh2d`, the ladder and
-  :meth:`MeshManager.status` match the JAX package) but places nothing on
-  it yet: the stream-axis and 2-D placements are not ported.
+  device count cannot satisfy falls back to the 1-D rung at boot.  The
+  coalescer places locked rosters on it (:mod:`.megabatch`), and a stream's
+  resident state goes over its "p" axis (:mod:`.resident`).
 * **Single-device is the default AND the degradation target**, reached down
   :data:`LADDER` one rung at a time on a lost device, a ``mesh.collective``
   fault or a sharded dispatch that raises; 1-D configurations drop straight
@@ -402,16 +401,14 @@ class MeshManager:
         return m
 
     def streams_mesh(self) -> Mesh:
-        """The 1-D ("streams",) mesh (bookkeeping only: the stream-axis
-        placement is not ported)."""
+        """The 1-D ("streams",) mesh of the megabatch placement."""
         m = self._streams_mesh
         if m is None or not self.active:
             raise RuntimeError("mesh manager is not active")
         return m
 
     def mesh2d(self) -> Mesh:
-        """The 2-D ("streams", "p") mesh (the "2d" rung only; bookkeeping,
-        as :meth:`streams_mesh`)."""
+        """The 2-D ("streams", "p") mesh (the "2d" rung only)."""
         m = self._mesh2d
         if m is None or not self.active:
             raise RuntimeError("mesh manager is not on the 2-D rung")

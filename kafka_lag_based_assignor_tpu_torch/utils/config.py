@@ -15,9 +15,8 @@ as the reference copies the whole map (:101-104).  The sidecar's keys
 that the port's sidecar serves (the megabatch coalescer, delta epochs, SLO
 classes and overload, the metrics port, the quality mode and tile,
 snapshots and drain, the writer lease, the resync pacer, the scrubber and
-the recovery pre-stack, the device mesh) and ``tpu.assignor.warmup.shapes``
-are read here; the rest of the JAX package's sidecar keys (federation) pass
-through untouched until their slice comes.
+the recovery pre-stack, the device mesh, federation) and
+``tpu.assignor.warmup.shapes`` are read here.
 """
 
 from __future__ import annotations
@@ -203,6 +202,37 @@ PARITY_SOLVERS = ("rounds", "scan", "native", "host")
 MESH_DEVICES_CONFIG = "tpu.assignor.mesh.devices"
 MESH_SOLVE_MIN_ROWS_CONFIG = "tpu.assignor.mesh.solve.min.rows"
 MESH_SHAPE_CONFIG = "tpu.assignor.mesh.shape"
+# Federated multi-cluster assignment (federated/; DEPLOYMENT.md
+# "Federated assignment").  ``federation.self.id`` is this sidecar's
+# stable peer identity (empty/unset disables the whole plane);
+# ``federation.peers`` lists the peer sidecars as
+# "id=host:port,id=host:port".  ``federation.rounds`` bounds the
+# dual-exchange rounds per federated_assign; ``sync.timeout.ms`` is
+# the per-peer RPC deadline (also bounded by the request budget);
+# ``max.staleness.ms`` bounds how old the last-good-global dual cache
+# may be and still serve the middle degradation rung.
+FEDERATION_SELF_ID_CONFIG = "tpu.assignor.federation.self.id"
+FEDERATION_PEERS_CONFIG = "tpu.assignor.federation.peers"
+FEDERATION_ROUNDS_CONFIG = "tpu.assignor.federation.rounds"
+FEDERATION_SYNC_TIMEOUT_CONFIG = "tpu.assignor.federation.sync.timeout.ms"
+FEDERATION_MAX_STALENESS_CONFIG = (
+    "tpu.assignor.federation.max.staleness.ms"
+)
+# Async gossip duals: cadence of the background dual-
+# convergence daemon.  0 (the default) disables gossip — every
+# federated_assign pays the synchronous exchange; > 0 keeps the duals
+# warm so assigns serve rung global from cache in one local round.
+FEDERATION_GOSSIP_INTERVAL_CONFIG = (
+    "tpu.assignor.federation.gossip.interval.ms"
+)
+# Weighted shards (ROADMAP federated (c)): this cluster's per-consumer
+# capacity weight vector as comma-separated positive floats (length =
+# the consumer count federated_assign serves).  Exchanged in the hello
+# handshake through the audited federated/wire serializer and summed
+# into the global count-marginal target — consumers with more capacity
+# take proportionally more partitions.  Empty/unset contributes
+# uniform weights (the n/C marginal when no cluster is weighted).
+FEDERATION_CAPACITY_CONFIG = "tpu.assignor.federation.capacity"
 
 
 @dataclass
@@ -252,6 +282,17 @@ class AssignorConfig:
     mesh_devices: str = "off"
     mesh_solve_min_rows: int = 65536
     mesh_shape: str = "off"
+    # Federated multi-cluster assignment (federated/): peer identity,
+    # peer set (validated "id=host:port" list), round/timeout bounds,
+    # the last-good dual cache's staleness window, the gossip cadence and
+    # this cluster's capacity weights.
+    federation_self_id: Optional[str] = None
+    federation_peers: str = ""
+    federation_rounds: int = 16
+    federation_sync_timeout_s: float = 2.0
+    federation_max_staleness_s: float = 300.0
+    federation_gossip_interval_s: float = 0.0
+    federation_capacity: Optional[list] = None
     # SLO classes + overload control (utils/overload): per-stream class
     # map, per-class deadline budgets (seconds), and the detector's
     # pressure normalizers (0 latency budget = auto).
@@ -496,6 +537,62 @@ def parse_config(configs: Mapping[str, Any]) -> AssignorConfig:
         raise ValueError(f"{MESH_SHAPE_CONFIG}: {exc}")
     mesh_shape = shape if isinstance(shape, str) else f"{shape[0]}x{shape[1]}"
 
+    # Federation knobs: the peer list is PARSED here so a typo'd spec
+    # fails at configure() time, not at the first peer round.
+    raw_self_id = consumer_group_props.get(FEDERATION_SELF_ID_CONFIG, "")
+    federation_self_id = (
+        str(raw_self_id) if raw_self_id not in (None, "") else None
+    )
+    federation_peers = str(
+        consumer_group_props.get(FEDERATION_PEERS_CONFIG, "") or ""
+    )
+    if federation_peers:
+        if federation_self_id is None:
+            raise ValueError(
+                f"{FEDERATION_PEERS_CONFIG} requires "
+                f"{FEDERATION_SELF_ID_CONFIG}"
+            )
+        from ..federated.peers import parse_peer_specs
+
+        try:
+            parse_peer_specs(federation_peers)
+        except ValueError as exc:
+            raise ValueError(f"{FEDERATION_PEERS_CONFIG}: {exc}")
+    federation_rounds = _as_int(FEDERATION_ROUNDS_CONFIG, 16, 1)
+    federation_sync_timeout_s = _as_ms(
+        FEDERATION_SYNC_TIMEOUT_CONFIG, 2_000.0
+    )
+    if federation_sync_timeout_s <= 0:
+        raise ValueError(f"{FEDERATION_SYNC_TIMEOUT_CONFIG} must be > 0 ms")
+    federation_max_staleness_s = _as_ms(
+        FEDERATION_MAX_STALENESS_CONFIG, 300_000.0
+    )
+    federation_gossip_interval_s = _as_ms(
+        FEDERATION_GOSSIP_INTERVAL_CONFIG, 0.0
+    )
+    if federation_gossip_interval_s < 0:
+        raise ValueError(
+            f"{FEDERATION_GOSSIP_INTERVAL_CONFIG} must be >= 0 ms"
+        )
+    raw_capacity = consumer_group_props.get(
+        FEDERATION_CAPACITY_CONFIG, ""
+    )
+    federation_capacity = None
+    if raw_capacity not in (None, ""):
+        try:
+            federation_capacity = [
+                float(v) for v in str(raw_capacity).split(",")
+            ]
+        except ValueError:
+            raise ValueError(
+                f"{FEDERATION_CAPACITY_CONFIG}={raw_capacity!r} must be "
+                "comma-separated numbers"
+            )
+        if any(v <= 0 for v in federation_capacity):
+            raise ValueError(
+                f"{FEDERATION_CAPACITY_CONFIG} entries must be > 0"
+            )
+
     # The controller keeps this knob in ms (it normalizes a p99 measured
     # in ms), so convert _as_ms's seconds back out once, here.
     overload_latency_budget_ms = (
@@ -547,6 +644,13 @@ def parse_config(configs: Mapping[str, Any]) -> AssignorConfig:
         mesh_devices=mesh_devices,
         mesh_solve_min_rows=mesh_solve_min_rows,
         mesh_shape=mesh_shape,
+        federation_self_id=federation_self_id,
+        federation_peers=federation_peers,
+        federation_rounds=federation_rounds,
+        federation_sync_timeout_s=federation_sync_timeout_s,
+        federation_max_staleness_s=federation_max_staleness_s,
+        federation_gossip_interval_s=federation_gossip_interval_s,
+        federation_capacity=federation_capacity,
         slo_classes=slo_classes,
         slo_deadline_s=slo_deadline_s,
         overload_latency_budget_ms=overload_latency_budget_ms,

@@ -200,7 +200,8 @@ def audit_engine(engine) -> Tuple[bool, List[str]]:
     under the stream lock, idle streams only) and, on the card, has entered
     the engine's CUDA device and stream.  The resident tuple is the
     engine's ``(choice int32[B], row_tab int32[C, M], counts int32[C], lags
-    int64[B])``, the order of the JAX engine's buffers, or a locked
+    int64[B])``, the order of the JAX engine's buffers, a state placed over
+    the mesh (:class:`..sharded.resident.PlacedResident`), or a locked
     roster's handle into the coalescer's batch."""
     prev = getattr(engine, "_prev_choice", None)
     resident = getattr(engine, "_resident", None)
@@ -212,9 +213,12 @@ def audit_engine(engine) -> Tuple[bool, List[str]]:
         # Host state mid-repair (orphans): nothing trustworthy to diff.
         return False, []
     # A locked roster's handle materializes its row (one gather a buffer;
-    # the fault point ``coalesce.gather`` fires there).
+    # the fault point ``coalesce.gather`` fires there); a state placed over
+    # the mesh gathers its row shards.
     materialize = getattr(resident, "materialize", None)
-    bufs = materialize() if materialize is not None else resident
+    gather = getattr(resident, "gather", None)
+    bufs = (materialize() if materialize is not None
+            else gather() if gather is not None else resident)
     choice_d, row_tab, counts_d, lags_d = fetch(*bufs[:4])
     fails: List[str] = []
     if choice_d.shape[0] < P or not np.array_equal(choice_d[:P], prev):

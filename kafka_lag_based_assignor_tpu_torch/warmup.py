@@ -30,9 +30,12 @@ the cap, one re-stack wave that locks the roster, one locked dense wave and
 one locked delta wave, so the first coalesced waves of a deployment build
 nothing and touch no fresh path.  With an active ``mesh_manager`` it also
 runs the sharded cold solve the engine's cold hook would (the "sharded_linear"
-job, or "sharded" when the quality mode is pinned to "sinkhorn").  The JAX
-warm-up's "sharded_resident" job (the P-sharded resident placement) has no
-counterpart yet: its row is reported with seconds None and a warning.
+job, or "sharded" when the quality mode is pinned to "sinkhorn"), and at or
+above its row floor the "sharded_resident" job: an engine pinned to the
+manager through a cold, a dense warm and a delta epoch, so the placed
+resident state's path (K6's shard entry included) is built and touched.
+While the manager is the process-active one, the "coalesce" waves lock onto
+the stream-axis (or 2-D) placement as production waves do.
 """
 
 from __future__ import annotations
@@ -188,14 +191,14 @@ def warmup(
         ``delta_k_ladder(delta_buckets)`` up to P ("stream_delta" rows).
       mesh_manager: an active :class:`.sharded.mesh.MeshManager` adds the
         sharded cold solve ("sharded_linear" / "sharded" rows, T the mesh
-        size) and, at or above its row floor, the "sharded_resident" row
-        that is not run (seconds None).
+        size) and, at or above its row floor, the placed resident epochs
+        ("sharded_resident" rows).
       device: where the jobs run; None means the CUDA card (raises
         without one), ``"cpu"`` the plain path.
 
-    Returns ``(solver, T, P_bucket, C, seconds)`` for each job that ran,
-    and seconds None for a job that was not run.  A failing job is logged
-    and skipped: the warm-up must never take a deployment down.
+    Returns ``(solver, T, P_bucket, C, seconds)`` for each job that ran.  A
+    failing job is logged and skipped: the warm-up must never take a
+    deployment down.
     """
     from .ops.batched import assign_batched_rounds, assign_batched_scan
     from .ops.dispatch import autotune_quality_tile
@@ -295,9 +298,31 @@ def warmup(
                 jobs.append(("sharded_linear" if sharded_linear else "sharded",
                              mesh_manager.size, sharded_job))
             if mesh_live and mesh_manager.should_shard_solve(P):
-                # The P-sharded resident placement is not ported: reported,
-                # not run.
-                jobs.append(("sharded_resident", mesh_manager.size, None))
+
+                def resident_job(lags1d=lags1d, C=C):
+                    # The placed resident state (sharded/resident): cold,
+                    # a dense warm and a delta epoch with the manager as the
+                    # engine's backend, the placement the adopt hook applies.
+                    from .ops.streaming import StreamingAssignor
+
+                    eng = StreamingAssignor(
+                        num_consumers=C, refine_iters=stream_refine_iters,
+                        refine_threshold=None, delta_enabled=delta_buckets > 0,
+                        delta_max_fraction=1.0,
+                        delta_buckets=max(delta_buckets, 1),
+                        mesh_backend=mesh_manager, device=dev,
+                    )
+                    cur = lags1d.copy()
+                    eng.rebalance(cur)
+                    cur = cur + 1
+                    out = eng.rebalance(cur)
+                    if delta_buckets > 0:
+                        nxt = cur.copy()
+                        nxt[:8] = nxt[:8] + 1 + (np.arange(8) % 7)
+                        out = eng.rebalance(nxt)
+                    return out
+
+                jobs.append(("sharded_resident", mesh_manager.size, resident_job))
             if "stream" in solvers and delta_buckets > 0:
                 from .ops.streaming import delta_k_ladder
 
@@ -394,14 +419,6 @@ def warmup(
                                  assign_global_rounds(*args, num_consumers=C,
                                                       pack_shift=shift)))
             for name, T, job in jobs:
-                if job is None:
-                    LOGGER.warning(
-                        "warmup %s T=%d P=%d C=%d not run: the P-sharded "
-                        "resident placement is not ported (ROADMAP.md)",
-                        name, T, P, C,
-                    )
-                    done.append((name, T, P, C, None))
-                    continue
                 ok = True
                 with stopwatch() as t:
                     try:

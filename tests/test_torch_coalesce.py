@@ -131,8 +131,8 @@ def test_constructor_validation_and_close(coal):
                       ({"lock_waves": 0}, "lock_waves"), ({"delta_k": -1}, "delta_k")):
         with pytest.raises(ValueError, match=match):
             MegabatchCoalescer(device="cpu", **kw)
-    # A mesh manager is kept and places nothing (the stream-axis placement
-    # is not ported): the coalescer runs on its own device.
+    # A mesh manager is kept (it places locked rosters; none is locked
+    # yet): the coalescer runs on its own device.
     kept = object()
     placed = MegabatchCoalescer(device="cpu", mesh_manager=kept)
     assert placed.mesh_manager is kept and placed.device.type == "cpu"

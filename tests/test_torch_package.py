@@ -7,7 +7,8 @@
   kernel's wrapper, the native core's loader), of the fault ladder and
   telemetry, of the sidecar (the service, overload control, the
   ``/metrics`` listener) and of its boot and restart (the warm-up, the
-  snapshots, the scrubber) is covered by both checks;
+  snapshots, the scrubber), of the sharded backend and its placements, and
+  of federation is covered by both checks;
 * no module but ``utils/observability`` imports ``torch.profiler`` at
   import time, and that one only inside ``profile_trace``;
 * entry points default to the CUDA card and raise without one;
@@ -106,6 +107,16 @@ LIFECYCLE_SLICE = ("warmup.py", "utils/snapshot.py", "utils/scrub.py", "service.
 SHARDED_SLICE = ("sharded/__init__.py", "sharded/mesh.py", "sharded/collectives.py",
                  "sharded/solve.py", "sharded/topics.py", "parallel/__init__.py",
                  "parallel/mesh.py")
+
+
+PLACEMENT_FEDERATION_SLICE = ("sharded/resident.py", "sharded/megabatch.py",
+                              "federated/__init__.py", "federated/wire.py",
+                              "federated/peers.py", "ops/fedsolve.py")
+
+
+def test_import_checks_cover_placement_and_federation():
+    walked = {p.relative_to(PORT).as_posix() for p in port_sources() if PORT in p.parents}
+    assert set(PLACEMENT_FEDERATION_SLICE) <= walked
 
 
 def test_import_checks_cover_the_sharded_slice():

@@ -150,18 +150,29 @@ def test_refine_rounds_resident_matches_jax(seed, P, C, kind, max_pairs):
      {"exchange_budget": 5}, {}],
 )
 def test_unported_refine_options_raise(kwargs):
-    """``allow_moves=False`` (the federated slice) raises with any of the
-    warm options beside it; the warm options alone are ported
-    (tests/test_torch_delta.py holds them to the JAX package)."""
+    """``allow_moves=False`` (the federated weighted rounding) with each
+    warm option beside it: the port runs it, bit-equal to the JAX package,
+    and no count moves (the loop is swap-only)."""
     lags, valid, choice = case(1, 64, 4, "ties")
+    M = packing.table_rows(64, 4)
     tab, counts, totals = refine.build_choice_tables(
-        T(lags), T(valid), T(choice), 4, packing.table_rows(64, 4)
+        T(lags), T(valid), T(choice), 4, M
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        refine.refine_rounds_resident(
-            T(lags), T(choice), tab, counts, totals, 4, iters=3,
-            allow_moves=False, **kwargs
-        )
+    got = refine.refine_rounds_resident(
+        T(lags), T(choice), tab, counts, totals, 4, iters=3,
+        allow_moves=False, **kwargs
+    )
+    jtab, jcounts, jtotals = jax_refine.build_choice_tables(
+        jnp.asarray(lags), jnp.asarray(valid), jnp.asarray(choice), 4, M
+    )
+    want = jax_refine.refine_rounds_resident(
+        jnp.asarray(lags), jnp.asarray(choice), jtab, jcounts, jtotals, 4,
+        iters=3, allow_moves=False, **kwargs
+    )
+    for name, g, w in zip(("choice", "row_tab", "counts", "totals"), got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    assert (got[4], got[5]) == (int(want[4]), int(want[5]))
+    np.testing.assert_array_equal(got[2].numpy(), counts.numpy())
 
 
 # -- the oracle refinement and its primitives -------------------------------

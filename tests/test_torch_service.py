@@ -246,15 +246,19 @@ def test_wire_conformance(port_service, fixture):
 @pytest.mark.parametrize("method", ["peer_sync", "federation",
                                     "federated_assign"])
 def test_unported_methods_answer_unknown_method(port_service, method):
-    """The JAX service's methods for features the port does not run yet
-    get its "unknown method" error, counted under their own label."""
+    """The federation methods on a sidecar without federation answer as the
+    JAX sidecar's do: ``federation`` reports ``{"enabled": false}``, the
+    other two the "not configured" error, counted under their own label."""
     label = ("klba_request_errors_total", {"method": method})
     before = metrics.REGISTRY.counter(*label).value
     with service.AssignorServiceClient(*port_service.address) as c:
-        with pytest.raises(RuntimeError, match=f"unknown method '{method}'"):
-            c.request(method, {})
+        if method == "federation":
+            assert c.request(method, {}) == {"enabled": False}
+        else:
+            with pytest.raises(RuntimeError, match="federation is not configured"):
+                c.request(method, {})
         assert c.ping()
-    assert metrics.REGISTRY.counter(*label).value == before + 1
+    assert metrics.REGISTRY.counter(*label).value == before + (method != "federation")
 
 
 # -- the twin replay ------------------------------------------------------

@@ -563,7 +563,7 @@ def test_warmup_runs_the_sharded_cold_solve():
     got = warmup.warmup(mesh_manager=mgrs[1], device="cpu", **kw)
     assert [r[:4] for r in got] == [r[:4] for r in want]
     names = {r[0]: r[4] for r in got}
-    assert names["sharded_linear"] > 0 and names["sharded_resident"] is None
+    assert names["sharded_linear"] > 0 and names["sharded_resident"] > 0
     assert mgrs[1].active
 
 
