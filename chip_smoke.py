@@ -17,8 +17,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    same inputs, at every shape the main paths give it and at edge shapes:
    the round scan bit for bit (integers: tolerance 0), also at the quality
    solver's greedy-leg shapes of configs 2, 4 and 5, at every slot count
-   1, 2, 4, ..., 16,384 (C not a power of two above 2) with small lags and
-   with lags that force the two-key form, at config 5's shape forced into
+   1, 2, 4, ..., 16,384 and at the wide form's 32,768, 65,536 and 131,072
+   (C not a power of two above 2) with small lags and with lags that force
+   the two-key form, at 16,385 consumers and on the ``global`` solve's
+   carried rounds at 20,000, at config 5's shape forced into
    the two-key form (lags near 2^40), at the cold chain of phase 4f's
    config-3-shaped streams (16,384 rows, 64 slots) and with negative gains;
    each case in
@@ -39,22 +41,26 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    the plain linear loop holds after its last step at config 5, also at
    edge shapes (C = 1, 2, not a multiple of 128, and 1,025, 2,000 and
    16,384 in that order; trailing tiles all padding, all-zero weights);
-   C = 16,385 raising in both
-   linear-OT wrappers on both devices; and torch's argmin / argmax on the
+   K3, K4 and K5 at C = 16,385 (the tile in shared memory) and 60,000 (in
+   device scratch, the form the card must take where not one row fits
+   shared memory); and torch's argmin / argmax on the
    card take the first index among ties, as the JAX package's do; the
    resident-state digest (K6) bit for bit, each case launched twice to the
    same bits, at BASELINE config 5's resident shape (B 131,072, C 1,000,
    M 133), clean and with each corruption class, at phase 4f's
    config-3-shaped streams' (B 16,384, C 64), at B = 7 and 8, B = 1,027
    (not a multiple of 4), C = 1, C = 16,384, M = 0 and a wrapping lag sum,
-   and C = 16,385 raising on both devices; from the profiler, one call of
+   C = 20,000 (the histogram in shared memory) and 100,000 (in the
+   scratch), there also through the batched and shard entries; from the
+   profiler, one call of
    K3 (configs 2 and 4, ``need`` load and colsum) and of K6 (config 5)
    enqueues one kernel and no memset; the streaming engine's bulk
    refine on the card bit for bit against the port's CPU path from a
    drifted config-5 resident state; the P-step scan (K7) bit for bit
    against its plain version on the card, each case launched twice to the
    same bits, and a case the packed key admits also in the two-key form,
-   at C = 1, 2, 31, 32, 33, 1,000, 1,024, 1,025 and 16,384, with
+   at C = 1, 2, 31, 32, 33, 1,000, 1,024, 1,025, 16,384, 16,385 and
+   20,000 (and 20,000 eligible of 24,000: the wide form), with
    all-zero lags, lags near 2^62 (wrapping totals), an eligible mask and a
    mask with none eligible, padding rows (at the end and in the middle),
    config 3's 256 topics x 64 rows, E = 1, 2 and 33 eligible of 1,000
@@ -62,8 +68,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    with padding in the middle, then the main path's own inputs at configs
    5 (131,072 padded rows, 100k valid, C 1,000) and 3 bit for bit against
    the plain version on CPU copies (timed on the host clock), also as the
-   main path calls it (the lags' range from the host, the same plan), and C =
-   16,385 raising on both devices; ``refine_batched`` (16 rounds) on the
+   main path calls it (the lags' range from the host, the same plan);
+   ``refine_batched`` (16 rounds) on the
    card bit for bit against the port's CPU path at config 3, at its shape
    with 16 consumers and on the config-5 topic; and
    ``native.assign_native`` at config 5 equal to the ``rounds`` solve on
@@ -259,7 +265,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       4, 8, clean and with each corruption class, bit for bit against the
       one-state K6 on the gathered state and its plain version, each
       shard's partial lanes and histogram against the plain shard version,
-      C = 16,385 raising on both devices, and timed at D = 4 (event, alone,
+      C = 16,385 answered alike on both devices, and timed at D = 4 (event, alone,
       plain, bound); (b) a config-5 stream through
       ``StreamingAssignor(mesh_backend=manager)``: the sharded cold epoch,
       phase 4c's 10-epoch drift and 3 delta epochs, every epoch after the
@@ -295,6 +301,21 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       U_pad against its plain version.  It prints a JSON ``federation``
       line.  The launches of 4j (b)-(d) and 4k (a)-(c) count into the
       kernels line;
+   l. wide groups: one topic of 200,000 partitions (uniform lags, seed 0)
+      subscribed by 20,000 members, above the 16,384 slots of K1's
+      register network, through ``assign()`` with the host rung off:
+      ``rounds`` (K1's wide form) and ``global`` equal to the port's CPU
+      solve (the plain version), ``scan`` (K7's wide form) equal to
+      ``rounds``, ``sinkhorn`` in linear mode (K4, K5, K1) with every
+      partition once, count spread <= 1, a peak no worse than ``rounds``'
+      and within total / C + max lag; a streaming cold epoch and two warm
+      epochs (K1 cold, K6 in each refine) equal to the port's CPU engine;
+      then every kernel held to its plain version at those shapes (K1 and
+      K6, on the engine's resident state, bit for bit; K3, K4, K5 to the
+      f32 tolerance) and timed there (event and device time alone, the
+      plain version, the bound).  Its launches count into the kernels
+      line, its differences into the kernels line's ``max_abs_err``, and
+      it prints a JSON ``wide`` line;
 5. times, with CUDA events, medians of 30 runs after warm-up: each kernel
    alone at its main-path shape, its plain version on the card, the
    library yardstick where there is one, and its bound; the device time
@@ -322,13 +343,14 @@ walls and bytes), one JSON ``lifecycle`` line (phase 4g's warm-up rows,
 boot, first epochs and scrub walls, and its launches), one JSON
 ``coalesce`` line (phase 4h's rates, walls, idle shares and K6 times), one
 JSON ``sharded`` line (phase 4i's checks, K5 times by superblock count,
-walls and idle share), one JSON ``placement`` and one JSON ``federation``
-line (phases 4j and 4k), one JSON
+walls and idle share), one JSON ``placement``, one JSON ``federation``
+and one JSON ``wide`` line (phases 4j, 4k and 4l), one JSON
 ``profiler`` line (the profiler's clock skew
 after the builds, around phase 4f and after phase 5, and its sessions
 recorded and discarded), one JSON ``kernels`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
-result.
+result.  ``python3 chip_smoke.py --wide`` runs, after the builds, phase 3's
+checks past 16,384 consumers and phase 4l, and prints the ``wide`` line.
 
 ``python3 chip_smoke.py --coalesce`` runs phase 4h alone (after the builds)
 and prints its ``coalesce`` line; ``--sharded`` runs phase 4i alone (after
@@ -561,17 +583,26 @@ def round_inputs(lags: np.ndarray, n_valid: np.ndarray, C: int, device,
     )
 
 
-def slot_class_cases(rng):
-    """Two cases at each slot count N = 1, 2, 4, ..., 16,384 (C not a power
-    of two where C > 2, so every class has pad slots): small lags, which
-    admit the packed key, and lags from 2 to 4 times 2^(61 - rank_bits)
-    over the rows, which force the two-key form.  The odd C of these takes
-    the kernel's slot-at-a-time loads from 4,096 slots up; the ``_vector``
-    cases, at 4,096 and 8,192 slots (4 and 8 a thread), have a C that is a
-    multiple of that and must take its 16-byte loads and stores."""
+#: log2 of the slot counts of the wide form that phase 3 checks: 32,768,
+#: 65,536 and 131,072 slots, their keys in device scratch.
+WIDE_LOG_SLOTS = (15, 16, 17)
+
+
+def slot_class_cases(rng, logs=tuple(range(15)) + WIDE_LOG_SLOTS):
+    """Two cases at each slot count N = 1, 2, 4, ..., 16,384 and at the wide
+    form's 32,768, 65,536 and 131,072 (C not a power of two where C > 2, so
+    every class has pad slots): small lags, which admit the packed key, and
+    lags from 2 to 4 times 2^(61 - rank_bits) over the rows, which force the
+    two-key form.  The odd C of these takes the kernel's slot-at-a-time
+    loads from 4,096 slots up; the ``_vector`` cases, at 4,096, 8,192 and
+    32,768 slots (4, 8 and 16 a thread), have a C that is a multiple of that
+    and must take its 16-byte loads and stores."""
     shapes = [(f"slots{1 << n}", {1: 1, 2: 2, 4: 3}.get(1 << n, (1 << n) // 2 + (1 << n) // 8 + 1))
-              for n in range(15)]
-    for name, C in shapes + [("slots4096_vector", 3000), ("slots8192_vector", 6000)]:
+              for n in logs]
+    vector = [("slots4096_vector", 3000), ("slots8192_vector", 6000),
+              ("slots32768_vector", 20000)]
+    vector = [(n, c) for n, c in vector if rounds_cuda.slots_for(c).bit_length() - 1 in logs]
+    for name, C in shapes + vector:
         P = 3 * C + 5
         lo = 2 ** (62 - max(1, (C - 1).bit_length())) // P
         yield (f"{name}_packed", rng.integers(0, 10**6, (2, P)), np.full(2, P), C, False,
@@ -611,9 +642,9 @@ def kernel_cases():
     yield ("fewer_rows_than_consumers", rng.integers(0, 10**6, (3, 128)),
            np.array([100, 7, 1]), 700, False, None, None)
     yield "ties", rng.integers(0, 3, (8, 5000)), full(8, 5000), 300, False, None, None
-    yield ("max_slots", rng.integers(0, 10**9, (2, 40_000)), full(2, 40_000),
-           rounds_cuda.MAX_SLOTS, False, None, None)
-    yield from slot_class_cases(rng)
+    yield ("register_slots", rng.integers(0, 10**9, (2, 40_000)), full(2, 40_000),
+           rounds_cuda.REGISTER_SLOTS, False, None, None)
+    yield from wide_kernel_cases(rng, logs=tuple(range(15)) + WIDE_LOG_SLOTS)
     # Config 5's shape with lags near 2^40: the sum, about 2^56.6, passes
     # 2^51 (rank_bits 10) but stays below the 2^63 sentinel.
     yield ("config5_two_key", rng.integers(2**40 - 2**36, 2**40, (1, 100_000)),
@@ -622,20 +653,34 @@ def kernel_cases():
            False, None, "two-key")
 
 
+def wide_kernel_cases(rng, logs=WIDE_LOG_SLOTS):
+    """The slot classes ``logs`` (by default the wide form's), then K1's
+    wide form on the ``global`` solve's carried rounds (4 topics of 30,000
+    rows, 20,000 consumers) and at one consumer above the register
+    network's 16,384 slots."""
+    yield from slot_class_cases(rng, logs)
+    yield ("wide_global", rng.integers(0, 10**6, (4, 30_000)), np.full(4, 30_000), 20_000,
+           True, None, None)
+    yield ("register_slots_plus_one", rng.integers(0, 10**9, (2, 40_000)),
+           np.full(2, 40_000), rounds_cuda.REGISTER_SLOTS + 1, False, None, None)
+
+
 def scan_diff(got, want) -> int:
     """max |diff| over the (choice, totals) of two round scans."""
     return max(int((got[0].long() - want[0].long()).abs().max()),
                int((got[1] - want[1]).abs().max()))
 
 
-def kernels_vs_plain(device) -> int:
-    """K1 bit for bit against its plain version: every case in the form
-    ``packed_rank_bits`` gives it (through the wrapper) and, where that is
-    the packed key, in the two-key form too; each launch twice, to the same
-    bits.  Logs whether each launch moved its rows with vector loads or a
-    slot at a time.  Returns max |diff| (0)."""
+def kernels_vs_plain(device, cases=None) -> int:
+    """K1 bit for bit against its plain version: every case (of
+    ``kernel_cases`` unless given) in the form ``packed_rank_bits`` gives it
+    (through the wrapper) and, where that is the packed key, in the two-key
+    form too; each launch twice, to the same bits.  Logs whether each launch
+    moved its rows with vector loads or a slot at a time.  Returns max
+    |diff| (0)."""
     worst = 0
-    for name, lags, n_valid, C, carry, rows, form in kernel_cases():
+    for name, lags, n_valid, C, carry, rows, form in (kernel_cases() if cases is None
+                                                       else cases):
         gains, valid, totals0 = round_inputs(lags.astype(np.int64), n_valid, C, device,
                                              rows)
         rb = rounds_cuda.packed_rank_bits(gains, valid, totals0, carry)
@@ -681,6 +726,7 @@ def scan_cases():
 
     for C in (1, 2, 31, 32, 33, 1000, 1024, 1025, 16384):
         yield f"C{C}", *rows(2, min(3 * C + 7, 3000)), C, None
+    yield from wide_scan_cases(rng)
     yield "all_zero_lags", *rows(2, 2000, 0, 1), 300, None
     # 12 rows of about 2^62 a consumer: the totals wrap past 2^63.
     yield "near_2^62", *rows(2, 600, 2**62 - 2**40, 2**62), 50, None
@@ -701,21 +747,31 @@ def scan_cases():
     yield "padded_batch", lags, valid & (rng.random((4, 4096)) < 0.8), 100, None
 
 
-def scan_vs_plain(device) -> tuple:
+def wide_scan_cases(rng=None):
+    """K7's wide form (more than 16,384 eligible consumers): 20,000
+    consumers over two rounds and a part (packed key) and over one and a
+    part (two-key form), one consumer above the register network, and
+    20,000 eligible of 24,000."""
+    rng = np.random.default_rng(18) if rng is None else rng
+
+    def rows(T, P, lo=0, hi=10**6):
+        return -np.sort(-rng.integers(lo, hi, (T, P)), axis=1), np.ones((T, P), bool)
+
+    yield "C20000", *rows(2, 2 * 20_000 + 7), 20_000, None
+    yield "C20000_two_key", *rows(1, 20_000 + 7, 2**62 - 2**40, 2**62), 20_000, None
+    yield "C16385", *rows(1, 16_385 + 9), 16_385, None
+    mask = np.zeros(24_000, bool)
+    mask[rng.choice(24_000, 20_000, replace=False)] = True
+    yield "E20000_of_C24000", *rows(1, 20_011), 24_000, mask
+
+
+def scan_vs_plain(device, wide_only: bool = False) -> tuple:
     """K7 bit for bit against its plain version, each case launched twice
     to the same bits: the ``scan_cases`` against the plain version on the
     card, then the main path's inputs at configs 5 and 3 (``k7_cases``)
-    against the plain version on CPU copies, timed on the host clock; C =
-    16,385 raises on both devices; any difference raises.  Returns (the
-    max |diff|, 0, {config: the CPU plain version's ms})."""
-    for dev in (device, torch.device("cpu")):
-        z = torch.zeros((1, 4), dtype=torch.int64, device=dev)
-        try:
-            scan_cuda.scan_greedy(z, z.to(torch.uint8), scan_cuda.MAX_SLOTS + 1)
-        except ValueError:
-            pass
-        else:
-            raise AssertionError(f"scan_greedy took 16,385 consumers on {dev}")
+    against the plain version on CPU copies, timed on the host clock; any
+    difference raises.  ``wide_only``: the wide form's cases alone.
+    Returns (the max |diff|, {config: the CPU plain version's ms})."""
 
     def check(name, L, V, C, E, want, where, lag_range=None):
         n_eligible, rb = scan_cuda.scan_plan(L, V, C, E)
@@ -741,19 +797,18 @@ def scan_vs_plain(device) -> tuple:
             f"{' (and in the two-key form)' if rb else ''}, two runs equal, "
             f"{int((first[0] >= 0).sum())} rows assigned")
 
-    for name, lags, valid, C, elig in scan_cases():
+    for name, lags, valid, C, elig in (wide_scan_cases() if wide_only else scan_cases()):
         L = torch.from_numpy(lags.astype(np.int64)).to(device)
         V = torch.from_numpy(valid.astype(np.uint8)).to(device)
         E = None if elig is None else torch.from_numpy(elig.astype(np.uint8)).to(device)
         check(name, L, V, C, E, scan_cuda.scan_greedy_torch(L, V, C, E), "on the card")
     cpu_ms = {}
-    for name, sl, sv, C, lag_range in k7_cases(device):
+    for name, sl, sv, C, lag_range in ([] if wide_only else k7_cases(device)):
         start = time.perf_counter()
         want = scan_cuda.scan_greedy(sl.cpu(), sv.cpu(), C)
         cpu_ms[name] = (time.perf_counter() - start) * 1e3
         check(f"main path {name}", sl, sv, C, None, want,
               f"on the CPU ({cpu_ms[name]!r} ms there)", lag_range)
-    log("scan_greedy: 16,385 consumers raise ValueError on the card and on the CPU")
     return 0, cpu_ms
 
 
@@ -856,7 +911,7 @@ def plan_stats_cases(device):
     configs 2 and 4, config 5's (the dedup cap), two of config 3's topics
     (phase 4f's concurrent ``sinkhorn`` requests), every U = 1, 17, 1,024,
     4,096 at every C = 1, 16, 31, 512, 1,000, 1,024, 1,025, 2,000, 16,384
-    (C ascending), and all-zero weights."""
+    (C ascending), ``wide_plan_stats_cases`` and all-zero weights."""
     g = torch.Generator().manual_seed(1)
     for config in (2, 4, 5):
         (ws, cnt, wsum), C = dedup_case(config, device)
@@ -873,17 +928,32 @@ def plan_stats_cases(device):
             cnt[0] = 1.0  # at least one live row
             yield (f"random U={U} C={C}", *(x.to(device) for x in (ws, cnt, ws * cnt)),
                    *random_duals(C, device, U + C))
+    yield from wide_plan_stats_cases(device)
     zeros = torch.zeros(64, device=device)
     yield "all-zero weights U=64 C=100", zeros, zeros, zeros, *random_duals(100, device)
 
 
-def plan_stats_vs_plain(device) -> float:
+def wide_plan_stats_cases(device):
+    """K3's pass form past 16,384 consumers: C = 16,385 (two rows of the
+    tile in shared memory) and 60,000 (the tile in device scratch), at U =
+    17 and 1,024."""
+    g = torch.Generator().manual_seed(4)
+    for C in (16385, 60000):
+        for U in (17, 1024):
+            ws = torch.rand(U, generator=g).mul_(4.0)
+            cnt = torch.randint(0, 5, (U,), generator=g).float()
+            cnt[0] = 1.0
+            yield (f"random U={U} C={C}", *(x.to(device) for x in (ws, cnt, ws * cnt)),
+                   *random_duals(C, device, U + C))
+
+
+def plan_stats_vs_plain(device, cases=None) -> float:
     """K3 against its plain version at every case of ``plan_stats_cases``,
     in each ``need`` and each form that takes the shape, every launch twice
     to the same bits, and the marginal asked for alone equal bit for bit to
     its ``need="both"`` value.  Returns max |kernel - plain|."""
     worst = 0.0
-    for name, *args in plan_stats_cases(device):
+    for name, *args in (plan_stats_cases(device) if cases is None else cases):
         U, C = args[0].shape[0], args[3].shape[0]
         forms = ["cluster", "pass"] if C <= plan_stats_cuda.REG_COLS else ["pass"]
         chosen = plan_stats_cuda.form_for(U, C)
@@ -951,7 +1021,7 @@ def linear_cases(device):
            *loop_duals(ws_b, cnt_b, C, device))
     yield f"config5 {list(ws_b.shape)} C=16", ws_b, cnt_b, *random_duals(16, device, 16)
     for shape, C in (((8, 2, 8), 2), ((8, 4, 64), 130), ((8, 1, 8), 1), ((8, 1, 8), 1025),
-                     ((8, 2, 8), 2000), ((8, 1, 8), linear_ot_cuda.MAX_CONSUMERS)):
+                     ((8, 2, 8), 2000), ((8, 1, 8), 16384)):
         ws = torch.rand(shape, generator=g).mul_(3.0)
         cnt = (torch.rand(shape, generator=g) < 0.8).float()
         yield (f"random {list(shape)} C={C}", ws.to(device), cnt.to(device),
@@ -966,30 +1036,54 @@ def linear_cases(device):
     yield "all-zero weights [8, 1, 8] C=5", zeros, zeros, *random_duals(5, device)
 
 
-def linear_limits(device) -> None:
-    """C = 16,385 raises ValueError from both linear-OT wrappers on the card
-    and on the CPU; the row-tile pass's shared memory fits a block at every
-    C it takes."""
-    C = linear_ot_cuda.MAX_CONSUMERS + 1
-    for dev in (device, torch.device("cpu")):
-        ws = torch.ones((8, 1, 8), device=dev)
-        A, B = torch.zeros(C, device=dev), torch.zeros(C, device=dev)
-        scalars = (torch.tensor(1.0, device=dev), torch.tensor(0.0, device=dev))
-        for name, call in (
-                ("superblock_partials", lambda: linear_ot_cuda.superblock_partials(ws, ws, A, B)),
-                ("mirror_prox_step", lambda: linear_ot_cuda.mirror_prox_step(
-                    ws, ws, A, B, *scalars, eta=linear_ot.MIRROR_PROX_ETA))):
-            try:
-                call()
-            except ValueError:
-                continue
-            raise AssertionError(f"{name} took C={C} on {dev}")
+def tile_form(C: int) -> str:
+    """Where the built row-tile pass of K3, K4 and K5 keeps the plan's tile
+    at C consumers: ``"scratch"`` where ``klba_row_tile_x_floats`` gives it
+    device memory, else ``"shared"``."""
+    return "scratch" if linear_ot_cuda._bind().klba_row_tile_x_floats(C) > 0 else "shared"
+
+
+def linear_limits(device) -> dict:
+    """Both linear-OT wrappers past 16,384 consumers against their plain
+    versions: C = 16,385 (two rows of the tile in shared memory) and 60,000
+    (the tile in device scratch), each run twice to the same bits.  The
+    row-tile pass's shared memory fits a block at every C, and the card
+    takes the shared form up to some width and the scratch form at every
+    width past it, with 16,385 on the shared side and 60,000 on the
+    scratch side.  Returns max |diff| by kernel."""
     lib = linear_ot_cuda._bind()
-    smem = {c: lib.klba_row_tile_smem_bytes(c) for c in (1, 2, 16, 130, 1000, 1024, 1025, C - 1)}
+    widths = (1, 2, 16, 130, 1000, 1024, 1025, 16384, 16385, 38000, 57000, 57300, 60000,
+              100000)
+    smem = {c: lib.klba_row_tile_smem_bytes(c) for c in widths}
     if max(smem.values()) > SMEM_PER_BLOCK:
         raise AssertionError(f"row-tile shared memory {smem} above {SMEM_PER_BLOCK} bytes")
-    log(f"linear-OT wrappers raise ValueError at C={C} on both devices; row-tile shared "
-        f"memory by C (bytes): {smem}")
+    forms = {c: tile_form(c) for c in widths}
+    order = [forms[c] for c in widths]
+    if (order != sorted(order, key="shared scratch".split().index)
+            or forms[16385] != "shared" or forms[60000] != "scratch"):
+        raise AssertionError(f"row-tile forms {forms}")
+    log(f"row-tile shared memory by C (bytes): {smem}; form by C: {forms}")
+    g = torch.Generator().manual_seed(5)
+    worst = {"superblock_partials": 0.0, "mirror_prox_step": 0.0}
+    for shape, C in (((8, 1, 8), 16385), ((8, 2, 64), 16385), ((8, 1, 8), 60000),
+                     ((8, 2, 64), 60000)):
+        ws = torch.rand(shape, generator=g).mul_(3.0).to(device)
+        cnt = (torch.rand(shape, generator=g) < 0.8).float().to(device)
+        A, B = random_duals(C, device, C)
+        name = f"random {list(shape)} C={C} ({forms[C]} tile)"
+        got = linear_ot_cuda.superblock_partials(ws, cnt, A, B)
+        again = linear_ot_cuda.superblock_partials(ws, cnt, A, B)
+        want = linear_ot._superblock_partials(ws, cnt, A, B)
+        worst["superblock_partials"] = max(worst["superblock_partials"], f32_check(
+            "superblock_partials", name, got, want, again))
+        scalars = (torch.tensor(1.0, device=device), torch.tensor(float("inf"), device=device))
+        step = (ws, cnt, A, B, *scalars)
+        got = linear_ot_cuda.mirror_prox_step(*step, eta=linear_ot.MIRROR_PROX_ETA)
+        again = linear_ot_cuda.mirror_prox_step(*step, eta=linear_ot.MIRROR_PROX_ETA)
+        want = linear_ot_cuda.mirror_prox_step_torch(*step, eta=linear_ot.MIRROR_PROX_ETA)
+        worst["mirror_prox_step"] = max(worst["mirror_prox_step"], f32_check(
+            "mirror_prox_step", name, got, want, again))
+    return worst
 
 
 def first_index_ties(device) -> None:
@@ -1032,7 +1126,8 @@ def quality_kernels_vs_plain(device) -> dict:
                           got, want, again),
             )
     torch.cuda.synchronize()
-    linear_limits(device)
+    for k, v in linear_limits(device).items():
+        worst[k] = max(worst[k], v)
     return worst
 
 
@@ -1108,6 +1203,20 @@ def digest_cases(device):
     lags, choice, counts, _ = resident_case(1024, 1000, 24, device, 5)
     tab = torch.empty((24, 0), dtype=torch.int32, device=device)
     yield "B=1024 C=24 M=0 clean", lags, choice, counts, 24, tab, 1000
+    yield from wide_digest_cases(device)
+
+
+def wide_digest_cases(device):
+    """K6 past 16,384 consumers: C = 20,000 (the histogram in shared
+    memory) and 100,000 (in the scratch), clean and corrupted."""
+    for B, P, C, kinds in ((65536, 60000, 20000, ("clean", "choice C+5", "counts +1",
+                                                   "table sentinel")),
+                           (262144, 250000, 100000, ("clean", "choice C", "table bit flip",
+                                                     "lag sum wraps"))):
+        base = resident_case(B, P, C, device, C)
+        for kind in kinds:
+            lags, choice, counts, tab = corrupted(kind, *base, C)
+            yield (f"B={B} C={C} M={tab.shape[1]} {kind}", lags, choice, counts, C, tab, P)
 
 
 def digest_plain(lags, choice, counts, C: int, tab):
@@ -1115,10 +1224,13 @@ def digest_plain(lags, choice, counts, C: int, tab):
     return torch.cat([base, refine._row_tab_lane_torch(lags, choice, tab, counts, C)[None]])
 
 
-def digest_vs_plain(device) -> int:
-    """K6 against its plain version, bit for bit; returns max |diff| (0)."""
+def digest_vs_plain(device, wide_only: bool = False) -> int:
+    """K6 against its plain version, bit for bit (``wide_only``: the cases
+    past 16,384 consumers alone); at those, its batched and shard entries
+    too; returns max |diff| (0)."""
     worst = 0
-    for name, lags, choice, counts, C, tab, P in digest_cases(device):
+    for name, lags, choice, counts, C, tab, P in (wide_digest_cases(device) if wide_only
+                                                  else digest_cases(device)):
         got = refine.state_digest(lags, choice, counts, C, row_tab=tab)
         again = refine.state_digest(lags, choice, counts, C, row_tab=tab)
         four = refine.state_digest(lags, choice, counts, C)
@@ -1137,15 +1249,36 @@ def digest_vs_plain(device) -> int:
         fails = scrub.digest_failures(got.cpu().numpy(), P, int(lags.sum()))
         if ("clean" in name or "wraps" in name) != (fails == []):
             raise AssertionError(f"state_digest on {name}: host check gave {fails}")
-    for dev in (device, torch.device("cpu")):
-        C = refine.DIGEST_MAX_CONSUMERS + 1
-        z = torch.zeros(8, dtype=torch.int32, device=dev)
-        try:
-            refine.state_digest(z.long(), z, torch.zeros(C, dtype=torch.int32, device=dev), C)
-        except ValueError:
-            continue
-        raise AssertionError(f"state_digest took C={C} on {dev}")
-    log(f"state_digest raises ValueError at C={refine.DIGEST_MAX_CONSUMERS + 1} on both devices")
+    return max(worst, wide_digest_entries(device))
+
+
+def wide_digest_entries(device) -> int:
+    """K6's batched and shard entries past 16,384 consumers, bit for bit:
+    ``state_digest_rows`` over a clean and a corrupted state and
+    ``state_digest_sharded`` over 2 and 4 row shards, against the plain
+    version, at C = 20,000 (the histogram in shared memory) and 100,000 (in
+    the scratch).  Returns max |diff| (0)."""
+    worst = 0
+    for B, P, C in ((65536, 60000, 20000), (262144, 250000, 100000)):
+        clean = resident_case(B, P, C, device, C)
+        bad = corrupted("choice C+5", *clean, C)
+        want = torch.stack([digest_plain(*x[:3], C, x[3]) for x in (clean, bad)])
+        got = refine.state_digest_rows(*(torch.stack([a, b]) for a, b in
+                                        zip(clean[:3], bad[:3])), C,
+                                       torch.stack([clean[3], bad[3]]))
+        sync(device)
+        err = int((got - want).abs().max())
+        for D in (2, 4):
+            offsets = [B // D * d for d in range(D)]
+            shards = [torch.tensor_split(t, D) for t in clean[:2]]
+            part = refine.state_digest_sharded(shards[0], shards[1], clean[2], C, clean[3],
+                                               offsets)
+            err = max(err, int((part.to(device) - want[0]).abs().max()))
+        worst = max(worst, err)
+        log(f"kernel vs plain  state_digest_rows / _sharded (D 2, 4) B={B} C={C}: "
+            f"max |diff| {err}")
+        if err:
+            raise AssertionError(f"K6's batched or shard entry disagrees at C={C}")
     return worst
 
 
@@ -3574,16 +3707,16 @@ def sharded_digest_check(device) -> tuple:
                                          f"{part.tolist()} against plain {p_part.tolist()}")
         log(f"kernel vs plain  state_digest_sharded config5 {kind:30s}: D = 1, 2, 4, 8 equal to "
             f"the one-state K6 {single.tolist()} and to the plain version")
+    wide = []
     for dev in (device, torch.device("cpu")):
         z = torch.zeros(8, dtype=torch.int32, device=dev)
-        C = refine.DIGEST_MAX_CONSUMERS + 1
-        try:
-            refine.state_digest_sharded([z.long()], [z], torch.zeros(C, dtype=torch.int32,
-                                        device=dev), C, torch.zeros((C, 1), dtype=torch.int32,
-                                                                    device=dev), [0])
-        except ValueError:
-            continue
-        raise AssertionError(f"state_digest_sharded took C={C} on {dev}")
+        C = 16385  # one above the register network's slots: answered alike
+        wide.append(refine.state_digest_sharded(
+            [z.long()], [z], torch.zeros(C, dtype=torch.int32, device=dev), C,
+            torch.zeros((C, 1), dtype=torch.int32, device=dev), [0]).cpu())
+    if not torch.equal(*wide):
+        raise AssertionError(f"state_digest_sharded at C=16385: card {wide[0].tolist()}, "
+                             f"CPU {wide[1].tolist()}")
     lags, choice, counts, tab = base
     ls, cs, offsets = split_rows(lags, choice, PLACEMENT_D)
     call = lambda: refine.state_digest_sharded(ls, cs, counts, STREAM_C, tab, offsets)  # noqa: E731
@@ -4282,11 +4415,11 @@ def federation_path(device) -> tuple:
     return launches, k3_err, report
 
 
-def median_event_ms(fn) -> float:
+def median_event_ms(fn, repeats: int = REPEATS) -> float:
     for _ in range(3):
         fn()
     times = []
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -4644,17 +4777,17 @@ def profiler_probe() -> dict:
     return {"probes": probes, "sessions": SESSIONS}
 
 
-def device_profile(fn, kernel: str) -> dict:
+def device_profile(fn, kernel: str, repeats: int = REPEATS) -> dict:
     """What one ``fn()`` enqueues on the device, from torch.profiler's CUDA
-    activity over REPEATS calls, divided by REPEATS: ``alone_ms``, the time
+    activity over ``repeats`` (REPEATS) calls, divided by their count: ``alone_ms``, the time
     in the CUDA kernels whose name holds ``kernel`` (one of KERNEL_NAMES),
     and ``launches``, their count; ``all_ops_ms``, the time of everything
     the call enqueued (kernels, memsets and copies); ``kernels`` and
     ``memsets``, the counts of each.  Unlike the CUDA-event time it leaves
-    out the host's launch gaps.  A session first runs REPEATS calls with
+    out the host's launch gaps.  A session first runs ``repeats`` calls with
     the profiler warming up (their records are dropped), then records
-    REPEATS calls.  A session that lost records (an op counted a number of
-    times that is not a multiple of REPEATS) or gave the named kernels no
+    as many.  A session that lost records (an op counted a number of
+    times that is not a multiple of ``repeats``) or gave the named kernels no
     time is repeated, up to five in all; raises when none was whole, so that
     neither a renamed kernel nor a lost record can read as a cheaper call.
     Each step's calls sit between two idle pads (``pad_for``)."""
@@ -4670,7 +4803,7 @@ def device_profile(fn, kernel: str) -> dict:
                      on_trace_ready=lambda p: sessions.append(p.key_averages())) as prof:
             for _ in range(2):
                 time.sleep(pad_for(attempt))
-                for _ in range(REPEATS):
+                for _ in range(repeats):
                     fn()
                 torch.cuda.synchronize()
                 time.sleep(pad_for(attempt))
@@ -4679,13 +4812,13 @@ def device_profile(fn, kernel: str) -> dict:
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and "Activity Buffer" not in e.key]
         hits = [e for e in cuda if kernel in e.key]
-        lost = [(e.key[:40], e.count) for e in cuda if e.count % REPEATS]
+        lost = [(e.key[:40], e.count) for e in cuda if e.count % repeats]
         if hits and sum(e.self_device_time_total for e in hits) > 0 and not lost:
             def ms(events):
-                return sum(e.self_device_time_total for e in events) / REPEATS / 1e3
+                return sum(e.self_device_time_total for e in events) / repeats / 1e3
 
             def count(events):
-                return sum(e.count for e in events) // REPEATS
+                return sum(e.count for e in events) // repeats
 
             return {
                 "alone_ms": ms(hits),
@@ -4708,10 +4841,11 @@ def device_ms(fn, kernel: str) -> tuple:
     return prof["alone_ms"], prof["launches"]
 
 
-def op_times(fn, kernel: str) -> dict:
-    """CUDA-event time of ``fn()`` (median of REPEATS) beside its
+def op_times(fn, kernel: str, repeats: int = REPEATS) -> dict:
+    """CUDA-event time of ``fn()`` (median of ``repeats``) beside its
     ``device_profile``."""
-    return {"event_ms": median_event_ms(fn), **device_profile(fn, kernel)}
+    return {"event_ms": median_event_ms(fn, repeats),
+            **device_profile(fn, kernel, repeats)}
 
 
 def call_plan_stats(args, need: str):
@@ -5023,6 +5157,251 @@ def stream_times(run: StreamRun):
                 plain_ms=plain, bound_ms=bound, bound_by="bytes", library_ms=None)
 
 
+# -- phase 4l: wide groups ---------------------------------------------------
+
+#: One topic of WIDE_P partitions subscribed by WIDE_C members: a group above
+#: the 16,384 slots of K1's register network, which the JAX package answers.
+WIDE_P = 200_000
+WIDE_C = 20_000
+#: The wide streaming engine's refine budget.
+WIDE_REFINE = 32
+#: Timed calls of K4 and K5 (and their plain versions) at the wide group:
+#: a call there takes 0.1-0.25 s.
+WIDE_SLOW_REPEATS = 5
+
+
+def wide_workload():
+    """Phase 4l's group: WIDE_P uniform lags in [0, 10^6) from seed 0 and
+    WIDE_C members."""
+    lags = {"t0": np.random.default_rng(0).integers(0, 10**6, WIDE_P)}
+    return lags, [f"m{i:05d}" for i in range(WIDE_C)]
+
+
+def wide_engine(device):
+    return streaming.StreamingAssignor(num_consumers=WIDE_C, refine_iters=WIDE_REFINE,
+                                       imbalance_guardrail=1.25, device=device)
+
+
+def wide_stream(device) -> tuple:
+    """A streaming cold epoch and two warm epochs (each heated so that its
+    kept assignment needs a refine) at the wide group, on the card and on
+    the port's CPU engine at the card's bucket: every epoch equal, count
+    spread <= 1, K1 in the cold chain and K6 in each warm refine.  Returns
+    (the card's engine, {epoch: wall ms})."""
+    arr = wide_workload()[0]["t0"]
+    card, cpu = wide_engine(device), wide_engine(torch.device("cpu"))
+    cpu._bucket = pad_bucket
+    lags, walls = arr, {}
+    for epoch in ("cold", "warm 1", "warm 2"):
+        before = read_counts()
+        start = time.perf_counter()
+        got = card.rebalance(lags)
+        walls[epoch] = (time.perf_counter() - start) * 1e3
+        grew = {k: v - before[k] for k, v in read_counts().items()}
+        s = card.last_stats
+        want = cpu.rebalance(lags)
+        if not np.array_equal(np.asarray(got), np.asarray(want)):
+            raise AssertionError(f"wide stream {epoch}: the card's epoch differs from the CPU's")
+        counts = np.bincount(np.asarray(got), minlength=WIDE_C)
+        if counts.max() - counts.min() > 1 or np.asarray(got).min() < 0:
+            raise AssertionError(f"wide stream {epoch}: count spread or an unassigned row")
+        need = "rounds_scan" if epoch == "cold" else "state_digest"
+        if grew[need] < 1 or (epoch != "cold" and not s.refined):
+            raise AssertionError(f"wide stream {epoch}: {need} launched {grew[need]} times, "
+                                 f"refined {s.refined}")
+        log(f"wide stream {epoch}: equal to the CPU engine, cold {s.cold_start}, refined "
+            f"{s.refined} in {s.refine_rounds} rounds, launches {grew}, wall "
+            f"{walls[epoch]!r} ms")
+        lags = heat(lags, np.asarray(got), WIDE_C)
+    return card, walls
+
+
+def held_exact(kind: str, got, want, again) -> int:
+    """Hold one integer kernel output to its plain version and to a second
+    run, bit for bit; returns max |kernel - plain| (0)."""
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError(f"{kind} at the wide group: two runs differ")
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+    log(f"kernel vs plain  {kind:19s} at the wide group: max |diff| {err}, two runs equal")
+    if err:
+        raise AssertionError(f"{kind} disagrees with its plain version at the wide group")
+    return err
+
+
+def wide_times(device, engine) -> dict:
+    """Each kernel at the wide group's shapes (K3 at U 1,024 beside them,
+    in its pass form): first held to its plain version on the same inputs
+    (K1 and K6 bit for bit, K6 on the wide engine's own resident state,
+    whose digest must also pass the host check; K3, K4 and K5 to F32_TOL,
+    each also run twice to the same bits; K7 is held at this shape by
+    ``wide_path``'s ``scan`` = ``rounds``), then timed: CUDA-event time
+    (median of 30) and device time alone, the plain version's event time
+    and the bound.  Returns {kernel: times and ``max_abs_err``}."""
+    arr = wide_workload()[0]["t0"]
+    out = {}
+    gains, valid, totals0 = round_inputs(arr[None], np.array([WIDE_P]), WIDE_C, device)
+    T, R, C = gains.shape
+    rb = rounds_cuda.packed_rank_bits(gains, valid, totals0)
+    err = held_exact("rounds_scan", rounds_cuda.rounds_scan(gains, valid, totals0),
+                     rounds_cuda.rounds_scan_torch(gains, valid, totals0, False, rb),
+                     rounds_cuda.rounds_scan(gains, valid, totals0))
+    bound, by, _ = bound_ms(T, R, C)
+    out["rounds_scan"] = dict(
+        op_times(lambda: rounds_cuda.rounds_scan(gains, valid, totals0),
+                 KERNEL_NAMES["rounds_scan"]),
+        plain_ms=median_event_ms(
+            lambda: rounds_cuda.rounds_scan_torch(gains, valid, totals0, False, rb)),
+        bound_ms=bound, bound_by=by, max_abs_err=err,
+        shape=f"T {T} R {R} C {C}, rank_bits {rb}")
+    table = pad_topic_rows(arr)[0][None]
+    Pp = table.shape[1]
+    L = torch.from_numpy(table).to(device)
+    pids = torch.arange(Pp, dtype=torch.int32, device=device).expand(1, Pp)
+    V = torch.arange(Pp, device=device)[None, :] < WIDE_P
+    _, sl, sv = sort_partitions_with(L, pids, V, pack_shift_for(int(table.max()), Pp - 1))
+    sl, sv = sl.contiguous(), sv.to(torch.uint8).contiguous()
+    lag_range = scan_cuda.host_lag_range(table, np.array([WIDE_P]))
+    bound, by = k7_bound(1, Pp, WIDE_C, WIDE_C, [WIDE_P])
+    out["scan_greedy"] = dict(
+        op_times(lambda: scan_cuda.scan_greedy(sl, sv, WIDE_C, lag_range=lag_range),
+                 KERNEL_NAMES["scan_greedy"]),
+        plain_ms=None, bound_ms=bound, bound_by=by,
+        shape=f"T 1 P {Pp} ({WIDE_P} valid) E {WIDE_C}")
+    choice_p, row_tab, counts, lags_p = engine._resident
+    M = row_tab.shape[1]
+    got = refine.state_digest(lags_p, choice_p, counts, WIDE_C, row_tab=row_tab)
+    err = held_exact("state_digest", [got],
+                     [digest_plain(lags_p, choice_p, counts, WIDE_C, row_tab)],
+                     [refine.state_digest(lags_p, choice_p, counts, WIDE_C, row_tab=row_tab)])
+    fails = scrub.digest_failures(got.cpu().numpy(), WIDE_P, int(lags_p.sum()))
+    if fails:
+        raise AssertionError(f"state_digest of the wide engine's state: host check gave {fails}")
+    valid_slots = int(torch.clamp(counts, max=M).sum())
+    moved = 8 * lags_p.numel() + 4 * (choice_p.numel() + WIDE_C + WIDE_C * M + valid_slots) + 40
+    out["state_digest"] = dict(
+        op_times(lambda: refine.state_digest(lags_p, choice_p, counts, WIDE_C, row_tab=row_tab),
+                 KERNEL_NAMES["state_digest"]),
+        plain_ms=median_event_ms(lambda: digest_plain(lags_p, choice_p, counts, WIDE_C,
+                                                      row_tab)),
+        bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes", max_abs_err=err,
+        shape=f"B {lags_p.numel()} C {WIDE_C} M {M} (the engine's resident state)")
+    lags_p, _, valid_p = pad_topic_rows(arr)
+    P2, t, _ = linear_ot.plan_shape(lags_p.shape[0], 1024)
+    ws, cnt = linear_ot._ws_cnt(torch.from_numpy(lags_p).to(device),
+                                torch.from_numpy(valid_p).to(device),
+                                sinkhorn._scale_np(lags_p, valid_p, WIDE_C))
+    ws_b, cnt_b = linear_ot._to_blocks(ws, P2, 8, t), linear_ot._to_blocks(cnt, P2, 8, t)
+    A, B = random_duals(WIDE_C, device)
+    rows = int(((ws_b != 0) | (cnt_b != 0)).sum())
+    load_rows = int((ws_b != 0).sum())
+    Sb = ws_b.shape[0]
+    sc, prev = torch.tensor(1.0, device=device), torch.tensor(float("inf"), device=device)
+    eta = linear_ot.MIRROR_PROX_ETA
+    form = tile_form(WIDE_C)
+    name = f"{list(ws_b.shape)} C {WIDE_C}, {form} tile"
+    err = f32_check("superblock_partials", f"wide group {name}",
+                    linear_ot_cuda.superblock_partials(ws_b, cnt_b, A, B),
+                    linear_ot._superblock_partials(ws_b, cnt_b, A, B),
+                    linear_ot_cuda.superblock_partials(ws_b, cnt_b, A, B))
+    bound, by = exp_bound(rows * WIDE_C, 4 * (2 * ws_b.numel() + 2 * WIDE_C + 2 * Sb * WIDE_C))
+    slow = WIDE_SLOW_REPEATS
+    out["superblock_partials"] = dict(
+        op_times(lambda: linear_ot_cuda.superblock_partials(ws_b, cnt_b, A, B),
+                 KERNEL_NAMES["superblock_partials"], slow),
+        plain_ms=median_event_ms(lambda: linear_ot._superblock_partials(ws_b, cnt_b, A, B),
+                                 slow),
+        bound_ms=bound, bound_by=by, max_abs_err=err,
+        shape=f"{list(ws_b.shape)} ({rows} rows with weight) C {WIDE_C}, {form} tile")
+    step = (ws_b, cnt_b, A, B, sc, prev)
+    err = f32_check("mirror_prox_step", f"wide group {name}",
+                    linear_ot_cuda.mirror_prox_step(*step, eta=eta),
+                    linear_ot_cuda.mirror_prox_step_torch(*step, eta=eta),
+                    linear_ot_cuda.mirror_prox_step(*step, eta=eta))
+    bound, by = exp_bound((rows + load_rows) * WIDE_C,
+                          4 * (2 * ws_b.numel() + 2 * WIDE_C + 2 + 3 * WIDE_C))
+    out["mirror_prox_step"] = dict(
+        op_times(lambda: linear_ot_cuda.mirror_prox_step(*step, eta=eta),
+                 KERNEL_NAMES["mirror_prox_step"], slow),
+        plain_ms=median_event_ms(lambda: linear_ot_cuda.mirror_prox_step_torch(
+            *step, eta=eta), slow),
+        bound_ms=bound, bound_by=by, max_abs_err=err, shape=name)
+    g = torch.Generator().manual_seed(6)
+    U = 1024
+    ws_u = torch.rand(U, generator=g).mul_(4.0).to(device)
+    cnt_u = torch.randint(1, 5, (U,), generator=g).float().to(device)
+    args = (ws_u, cnt_u, ws_u * cnt_u, *random_duals(WIDE_C, device))
+    k3_name = (f"U {U} C {WIDE_C}, need=load, {plan_stats_cuda.form_for(U, WIDE_C)} form, "
+               f"{form} tile")
+    err = f32_check("plan_stats", f"wide group {k3_name}",
+                    plan_stats.plan_stats(*args, need="load")[:1],
+                    plan_stats.plan_stats_torch(*args, need="load")[:1],
+                    plan_stats.plan_stats(*args, need="load")[:1])
+    bound, by = exp_bound(U * WIDE_C, 4 * (2 * U + 3 * WIDE_C))
+    out["plan_stats"] = dict(
+        op_times(lambda: plan_stats.plan_stats(*args, need="load"), KERNEL_NAMES["plan_stats"]),
+        plain_ms=median_event_ms(lambda: plan_stats.plan_stats_torch(*args, need="load")),
+        bound_ms=bound, bound_by=by, max_abs_err=err, shape=k3_name)
+    for name, t in out.items():
+        log(f"times at the wide group  {name:19s} {t['shape']}: event {t['event_ms']!r} ms, "
+            f"device time alone {t['alone_ms']!r} ms ({t['launches']} launches), plain "
+            f"{t['plain_ms']!r} ms, bound {t['bound_ms']!r} ms ({t['bound_by']})")
+    return out
+
+
+def wide_path(device) -> tuple:
+    """Phase 4l: the wide group (one topic, WIDE_P partitions, WIDE_C
+    members) through ``assign()`` with the host rung off: ``rounds`` (K1's
+    wide form) equal to the port's CPU solve, which runs K1's plain
+    version; ``scan`` (K7's wide form) equal to ``rounds``; ``global``
+    equal to the CPU solve; ``sinkhorn`` in linear mode (K4, K5 and K1)
+    with every partition once, count spread <= 1, a peak no worse than
+    ``rounds``' and within total / C + max lag; then ``wide_stream`` and
+    ``wide_times``.  Returns (launches from just before the path to just
+    after its assign() and stream legs, the report)."""
+    lags, members = wide_workload()
+    start_path = time.perf_counter()
+    reset_counts()
+    got, walls, cpu = {}, {}, torch.device("cpu")
+    need = {"rounds": ["rounds_scan"], "scan": ["scan_greedy"], "global": ["rounds_scan"],
+            "sinkhorn": ["mirror_prox_step", "superblock_partials", "rounds_scan"]}
+    for solver, kernels in need.items():
+        before = read_counts()
+        start = time.perf_counter()
+        got[solver], stats = assign_once(lags, members, solver, device)
+        walls[solver] = (time.perf_counter() - start) * 1e3
+        grew = {k: v - before[k] for k, v in read_counts().items()}
+        if any(grew[k] < 1 for k in kernels):
+            raise AssertionError(f"wide {solver}: launches {grew}, expected {kernels}")
+        log(f"wide group {solver:8s}: assign() {walls[solver]!r} ms (solve {stats.solve_ms!r} "
+            f"ms), quality_ratio {stats.quality_ratio!r}, launches {grew}")
+    for solver in ("rounds", "global"):
+        if got[solver] != assign_once(lags, members, solver, cpu)[0]:
+            raise AssertionError(f"wide {solver}: differs from the plain path (CPU)")
+    if got["scan"] != got["rounds"]:
+        raise AssertionError("wide scan: differs from rounds")
+    arr = lags["t0"]
+    peak = greedy_peak(lags, got["rounds"])
+    for solver in ("rounds", "global"):
+        counts = [len(got[solver].get(m, [])) for m in members]
+        if max(counts) - min(counts) > 1:
+            raise AssertionError(f"wide {solver}: count spread > 1")
+    q_peak = check_quality("wide sinkhorn", lags, members, got["sinkhorn"], peak, True)
+    if q_peak > arr.sum() / WIDE_C + arr.max():
+        raise AssertionError(f"wide sinkhorn: peak {q_peak} above total / C + max lag")
+    engine, stream_walls = wide_stream(device)
+    launches = read_counts()
+    path_s = time.perf_counter() - start_path
+    log(f"wide group: rounds and global equal to the CPU path, scan equal to rounds, "
+        f"sinkhorn peak {q_peak} (rounds {peak}, total / C + max lag "
+        f"{arr.sum() / WIDE_C + arr.max():.1f}); assign() and stream legs {path_s:.1f} s")
+    kernel_times = wide_times(device, engine)
+    report = {"P": WIDE_P, "C": WIDE_C, "assign_ms": walls, "stream_ms": stream_walls,
+              "sinkhorn_peak": q_peak, "rounds_peak": peak, "legs_s": path_s,
+              "times": kernel_times, "card": CARD[0] if CARD else None,
+              "phase_s": time.perf_counter() - start_path}
+    return launches, report
+
+
 SOURCES = {
     "rounds_scan": ("csrc/rounds_scan.cu", "ops/rounds_pallas.py:194"),
     "plan_stats": ("csrc/plan_stats.cu", "ops/plan_stats.py:184"),
@@ -5235,6 +5614,17 @@ def main() -> int:
         log(json.dumps({"federation": report, "launches": launches, "max_abs_err": err,
                         "device": name}, default=str))
         return 0
+    if sys.argv[1:] == ["--wide"]:
+        build()
+        kernels_vs_plain(device, wide_kernel_cases(np.random.default_rng(7)))
+        scan_vs_plain(device, wide_only=True)
+        digest_vs_plain(device, wide_only=True)
+        plan_stats_vs_plain(device, wide_plan_stats_cases(device))
+        linear_limits(device)
+        launches, report = wide_path(device)
+        log(f"card: {CARD[0]}")
+        log(json.dumps({"wide": report, "launches": launches, "device": name}, default=str))
+        return 0
     if sys.argv[1:] == ["--lifecycle"]:
         build()
         launches, lifecycle = lifecycle_path(device, StreamRun(device).run())
@@ -5271,6 +5661,7 @@ def main() -> int:
     placement_launches, shard_digest_err, shard_digest_t, placement = placement_path(
         device, coalesce["multistream_32g"]["coalesced_wave_ms"])
     federation_launches, fed_k3_err, federation = federation_path(device)
+    wide_launches, wide = wide_path(device)
     launches["rounds_scan"] += (rounds_launches + stream_launches["rounds_scan"]
                                 + solver_launches["rounds_scan"]
                                 + ladder_launches["rounds_scan"])
@@ -5292,11 +5683,18 @@ def main() -> int:
     # Phase 4j: K6's shard entry on placed states, the batched K6 a device of
     # placed waves, K5 and K1 in the placed stream's sharded cold epochs.
     # Phase 4k: K3 a federated exchange round, K1 on the local_only rung.
-    for k, v in (*placement_launches.items(), *federation_launches.items()):
+    # Phase 4l: K1, K7, K4, K5 and K6 at the wide group (20,000 members).
+    for k, v in (*placement_launches.items(), *federation_launches.items(),
+                 *wide_launches.items()):
         launches[k] += v
     f32_err["superblock_partials"] = max(f32_err["superblock_partials"], k5_shard_err)
     f32_err["plan_stats"] = max(f32_err["plan_stats"], fed_k3_err)
     digest_rows_err = max(digest_rows_err, placement["waves"]["rows_digest_err"])
+    wide_err = {k: t["max_abs_err"] for k, t in wide["times"].items() if "max_abs_err" in t}
+    max_err = max(max_err, wide_err.pop("rounds_scan"))
+    digest_err = max(digest_err, wide_err.pop("state_digest"))
+    for k, v in wide_err.items():
+        f32_err[k] = max(f32_err[k], v)
     k1 = times(device)
     quality = quality_times(device)
     digest = stream_times(stream_run)
@@ -5320,6 +5718,7 @@ def main() -> int:
     log(json.dumps({"sharded": sharded}, default=str))
     log(json.dumps({"placement": placement}, default=str))
     log(json.dumps({"federation": federation}, default=str))
+    log(json.dumps({"wide": wide}, default=str))
     log(json.dumps({"profiler": {"skew": skew, "sessions": SESSIONS,
                                  "pad_s": PROFILER_PAD_S, "skew_pad_s": SKEW_PAD_S}}))
     log(f"card: {CARD[0]}")

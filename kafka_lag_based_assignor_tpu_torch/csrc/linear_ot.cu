@@ -12,7 +12,9 @@
 //
 // Layout: ws, cnt float[Sb, tpb, tile] (rows; padding rows carry weight 0);
 // A, B float[C]; scratch float[klba_linear_ot_scratch(...)]: the item rows,
-// the tile rows, the superblock rows, A_half and the tickets.
+// the tile rows, the superblock rows, A_half, the scratch form's x (C above
+// about 57,000: row_tiles.cuh; both passes of a step use it in turn) and
+// the tickets.
 //
 // Design.  The TPU kernels walked all tiles in order inside one grid-less
 // invocation.  Here each pass is row_tiles.cuh's single launch: at
@@ -98,7 +100,7 @@ template <int KW>
 __global__ void __launch_bounds__(klba::kThreads, 2)
     klba_linear_ot_pass(klba::Pass p, Mirror m) {
   if (klba::row_tile_pass<KW>(p) && m.a_half) {
-    const klba::Smem s = klba::smem_layout(klba::chunk_rows(p.C), klba::row_stride(p.C));
+    const klba::Smem s = klba::pass_smem(p);
     mirror_step(p.total_load, p.C, m, s.scratch);
   }
 }
@@ -108,14 +110,14 @@ const Kernel kKernels[] = KLBA_PASS_TABLE(klba_linear_ot_pass);
 
 // Scratch layout (floats): item rows for the load and the colsum
 // [n_tiles * split * C] each when split > 1, tile rows [n_tiles * C] each,
-// superblock rows [n_sb * C] each, A_half [C], then the two passes'
-// tickets.
+// superblock rows [n_sb * C] each, A_half [C], the x of the scratch form
+// [x_floats] (0 in the shared form), then the two passes' tickets.
 struct Scratch {
-  float *item_load, *item_col, *part_load, *part_col, *sb_load, *sb_col, *a_half;
+  float *item_load, *item_col, *part_load, *part_col, *sb_load, *sb_col, *a_half, *x;
   unsigned* tickets;
 };
 
-Scratch carve(void* scratch, int n_sb, int tpb, int C, int split) {
+Scratch carve(void* scratch, int n_sb, int tpb, int C, int split, long long x_floats) {
   float* f = static_cast<float*>(scratch);
   const size_t tiles = static_cast<size_t>(n_sb) * tpb * C, sb = static_cast<size_t>(n_sb) * C;
   const size_t items = split > 1 ? tiles * split : 0;
@@ -127,7 +129,8 @@ Scratch carve(void* scratch, int n_sb, int tpb, int C, int split) {
   s.sb_load = s.part_col + tiles;
   s.sb_col = s.sb_load + sb;
   s.a_half = s.sb_col + sb;
-  s.tickets = reinterpret_cast<unsigned*>(s.a_half + C);
+  s.x = x_floats > 0 ? s.a_half + C : nullptr;
+  s.tickets = reinterpret_cast<unsigned*>(s.a_half + C + x_floats);
   if (split == 1) s.item_load = s.part_load, s.item_col = s.part_col;
   return s;
 }
@@ -142,6 +145,7 @@ klba::Pass base_pass(const void* ws, const void* cnt, const void* A, const void*
   p.item_load = s.item_load;
   p.part_load = s.part_load;
   p.tickets = s.tickets;
+  p.x_scratch = s.x;
   p.rows = static_cast<long long>(n_sb) * tpb * tile;
   p.tile = tile;
   p.split = split;
@@ -159,7 +163,7 @@ void with_colsum(klba::Pass& p, const Scratch& s) {
 }
 
 bool bad_shape(int n_sb, int tpb, int tile, int C) {
-  return n_sb < 1 || tpb < 1 || tile < 1 || C < 1 || C > klba::kMaxConsumers ||
+  return n_sb < 1 || tpb < 1 || tile < 1 || C < 1 ||
          static_cast<long long>(n_sb) * tpb * tile > (1LL << 31) ||
          static_cast<long long>(n_sb) * tpb * klba::kMaxSplit > (1LL << 30);
 }
@@ -172,11 +176,14 @@ cudaError_t launch(const klba::Pass& p, const Mirror& m, cudaStream_t stream) {
 
 }  // namespace
 
-// Floats of scratch either entry point needs.
+// Floats of scratch either entry point needs on the current card; -1 on a
+// CUDA error.
 extern "C" long long klba_linear_ot_scratch(int n_sb, int tpb, int tile, int C) {
   const long long tiles = static_cast<long long>(n_sb) * tpb;
   const int sp = klba::auto_split(tile);
-  return (2 * tiles * (sp > 1 ? sp : 0) + 2 * tiles + 2LL * n_sb + 1) * C +
+  long long x_floats = 0;
+  if (klba::x_scratch_floats(C, &x_floats) != cudaSuccess) return -1;
+  return (2 * tiles * (sp > 1 ? sp : 0) + 2 * tiles + 2LL * n_sb + 1) * C + x_floats +
          2LL * tickets(n_sb, tpb);
 }
 
@@ -189,8 +196,11 @@ extern "C" int klba_superblock_partials(const void* ws, const void* cnt, const v
   if (bad_shape(n_sb, tpb, tile, C)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int split = klba::auto_split(tile);
-  const Scratch s = carve(scratch, n_sb, tpb, C, split);
-  cudaError_t err = cudaMemsetAsync(s.tickets, 0, tickets(n_sb, tpb) * sizeof(unsigned), st);
+  long long x_floats = 0;
+  cudaError_t err = klba::x_scratch_floats(C, &x_floats);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Scratch s = carve(scratch, n_sb, tpb, C, split, x_floats);
+  err = cudaMemsetAsync(s.tickets, 0, tickets(n_sb, tpb) * sizeof(unsigned), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   klba::Pass p = base_pass(ws, cnt, A, B, s, n_sb, tpb, tile, C, split);
   with_colsum(p, s);
@@ -209,8 +219,11 @@ extern "C" int klba_mirror_prox_step(const void* ws, const void* cnt, const void
   if (bad_shape(n_sb, tpb, tile, C)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int split = klba::auto_split(tile);
-  const Scratch s = carve(scratch, n_sb, tpb, C, split);
-  cudaError_t err = cudaMemsetAsync(s.tickets, 0, 2 * tickets(n_sb, tpb) * sizeof(unsigned), st);
+  long long x_floats = 0;
+  cudaError_t err = klba::x_scratch_floats(C, &x_floats);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Scratch s = carve(scratch, n_sb, tpb, C, split, x_floats);
+  err = cudaMemsetAsync(s.tickets, 0, 2 * tickets(n_sb, tpb) * sizeof(unsigned), st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   klba::Pass pred = base_pass(ws, cnt, A, B, s, n_sb, tpb, tile, C, split);

@@ -34,11 +34,12 @@
 //   is the launch, a few dependent round trips and, at C = 512, the exps of
 //   16 SMs' multi-function units: the whole card's ordered sums cost more
 //   below 4,096 value rows (PERF.md §6).
-// * the pass form (any C up to 16,384): row_tiles.cuh's persistent
-//   row-tile pass over value tiles of `tile` rows on the whole card, the
-//   tiles in groups of `per` (about sqrt(tiles)), the ordered sums finished
-//   by the last block to arrive.  Its tickets live in a scratch buffer the
-//   wrapper zeroes once; the last block to leave re-zeroes the ones it
+// * the pass form (any C): row_tiles.cuh's persistent row-tile pass over
+//   value tiles of `tile` rows on the whole card, the tiles in groups of
+//   `per` (about sqrt(tiles)), the ordered sums finished by the last block
+//   to arrive; above about 57,000 consumers its x lives in device scratch
+//   (row_tiles.cuh's scratch form).  Its tickets live in a scratch buffer
+//   the wrapper zeroes once; the last block to leave re-zeroes the ones it
 //   used, so no call needs a memset.
 //
 // No float atomics: every sum runs in a fixed order, so two runs give the
@@ -150,7 +151,7 @@ template <int KW>
 __global__ void __launch_bounds__(klba::kThreads, 2)
     klba_plan_stats_pass(klba::Pass p, int n_tickets) {
   klba::row_tile_pass<KW>(p);
-  const klba::Smem s = klba::smem_layout(klba::chunk_rows(p.C), klba::row_stride(p.C));
+  const klba::Smem s = klba::pass_smem(p);
   if (klba::last_to_arrive(p.tickets + n_tickets - 1, gridDim.x, s))
     for (int i = threadIdx.x; i < n_tickets; i += klba::kThreads) p.tickets[i] = 0u;
 }
@@ -213,14 +214,14 @@ long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 // One launch on `stream`; returns the CUDA error (0 = ok).  w2 and out2 are
 // null for one marginal.  tickets null: the cluster form (C <= 1024); else
 // the pass form over tiles of `tile` rows in groups of `per` tiles, with
-// `n_tickets` zero tickets and `n_rows` floats of partial rows, at least
-// what the shape takes (ops/plan_stats_cuda.pass_geometry computes the
-// same sizes).
+// `n_tickets` zero tickets and `n_rows` floats of partial rows and, in the
+// scratch form, x (klba_row_tile_x_floats), at least what the shape takes
+// (ops/plan_stats_cuda.pass_geometry computes the same sizes).
 extern "C" int klba_plan_stats(const void* ws, const void* w1, const void* w2, const void* A,
                                const void* B, void* out1, void* out2, void* tickets,
                                int n_tickets, void* rows, long long n_rows, int U, int C,
                                int tile, int per, void* stream) {
-  if (U < 1 || C < 1 || C > klba::kMaxConsumers || (w2 == nullptr) != (out2 == nullptr))
+  if (U < 1 || C < 1 || (w2 == nullptr) != (out2 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool two = w2 != nullptr;
@@ -243,11 +244,15 @@ extern "C" int klba_plan_stats(const void* ws, const void* w1, const void* w2, c
   const int tiles = static_cast<int>(cdiv(U, tile)), groups = static_cast<int>(cdiv(tiles, per));
   const int used = klba::pass_tickets(tiles, groups) + 1;
   const size_t tile_rows = static_cast<size_t>(tiles) * C, grp = static_cast<size_t>(groups) * C;
-  const size_t needed = 2 * tile_rows + (groups > 1 ? 2 * grp : 0);
-  if (n_tickets < used || n_rows < static_cast<long long>(needed))
+  const size_t partials = 2 * tile_rows + (groups > 1 ? 2 * grp : 0);
+  long long x_floats = 0;
+  const cudaError_t err = klba::x_scratch_floats(C, &x_floats);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_tickets < used || n_rows < static_cast<long long>(partials) + x_floats)
     return static_cast<int>(cudaErrorInvalidValue);
   float* f = static_cast<float*>(rows);
   p.tickets = static_cast<unsigned*>(tickets);
+  p.x_scratch = x_floats > 0 ? f + partials : nullptr;
   p.item_load = p.part_load = f;
   p.item_col = p.part_col = two ? f + tile_rows : nullptr;
   p.group_load = groups > 1 ? f + 2 * tile_rows : nullptr;

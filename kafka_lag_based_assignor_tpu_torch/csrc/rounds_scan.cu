@@ -31,7 +31,13 @@
 // - The sort is slot_sort.cuh's network: keys in registers, shuffles for
 //   the short strides, shared memory (one barrier each) only for the long
 //   ones.  The kernel is a template on log2(N), one instantiation for each
-//   power of two up to 16,384.
+//   power of two up to 16,384.  Above that (rounds_scan_kernel_wide, one
+//   instantiation a key form for every N) the slots live in a per-block
+//   scratch of device memory and each round is slot_sort.cuh's wide_sort;
+//   the round is seated on the last level's chunks while their keys are
+//   still in registers (gain j added at position j, the choice row
+//   written), and the totals are scattered back by id at the end.  The
+//   wrapper allocates the scratch, T * N * 12 bytes.
 // - One key where it is admissible: the packed int64 (total << rank_bits) |
 //   id, whose order is the (total, id) order, so a stage compares and moves
 //   one 64-bit word instead of a word and an id; the gain is added as gain
@@ -67,7 +73,9 @@ namespace {
 using klba::Exchange;
 using klba::kMaxLogSlots;
 using klba::kMaxSlots;
-using klba::slots_per_thread;
+
+// Most slots a call takes: the ids are int32 and the pad ids reach N - 1.
+constexpr int kMaxLogWide = 30;
 
 constexpr int kMaxDevices = 64;
 
@@ -245,39 +253,106 @@ __global__ void __launch_bounds__(Plan<kLogN, kPacked>::kThreads, 1)
   }
 }
 
-using KernelFn = void (*)(const long long*, const unsigned char*, const long long*, int*,
-                          long long*, int, int, int, int);
+// The round scan over N = 2^log_n > kMaxSlots slots, kept in the block's
+// scratch (keys [T, N], ids [T, N]): the same rounds as
+// rounds_scan_kernel, each sorted by wide_sort and seated on the chunks of
+// its last level.
+template <bool kPacked>
+__global__ void __launch_bounds__(klba::ChunkPlan<kPacked>::kThreads, 1)
+    rounds_scan_kernel_wide(const long long* __restrict__ gains,
+                            const unsigned char* __restrict__ valid,
+                            const long long* __restrict__ totals0, int* __restrict__ choice,
+                            long long* __restrict__ totals_out, int R, int C, int rank_bits,
+                            int vec, int log_n, long long* scratch_key, int* scratch_id) {
+  using P = klba::ChunkPlan<kPacked>;
+  constexpr int K = P::kK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int buffers = P::kDouble ? 2 : 1;
+  Exchange x{reinterpret_cast<long long*>(smem),
+             reinterpret_cast<int*>(smem + static_cast<size_t>(buffers) * P::kSlots * 8), 0};
+  const long long N = 1LL << log_n;
+  const klba::WideSlots w{scratch_key + static_cast<long long>(blockIdx.x) * N,
+                          scratch_id + static_cast<long long>(blockIdx.x) * N, log_n};
+  const long long id_mask = (1LL << rank_bits) - 1;
+  for (long long j = threadIdx.x; j < N; j += blockDim.x) {
+    if constexpr (kPacked) {
+      w.key[j] = j < C ? (totals0[j] << rank_bits) | j
+                       : ((LLONG_MAX >> rank_bits) << rank_bits) | j;
+    } else {
+      w.key[j] = j < C ? totals0[j] : LLONG_MAX;
+      w.id[j] = static_cast<int>(j);
+    }
+  }
+
+  const long long first = static_cast<long long>(blockIdx.x) * R;  // first row
+  for (int r = 0; r < R; ++r) {
+    const long long row = (first + r) * C;
+    klba::wide_sort<kPacked>(w, x, [&](long long chunk, long long (&key)[K], int (&id)[K]) {
+      // Positions chunk * kMaxSlots + t * K + k, all below N <= 2^30.
+      const int i0 = static_cast<int>(chunk * P::kSlots) + static_cast<int>(threadIdx.x) * K;
+      RowLoad<K> cur;
+      fetch<K>(gains + row, valid + row, i0, C, vec != 0, cur);
+      long long gain[K];
+      const unsigned mask = decode<K>(cur, vec != 0, gain);
+      int cv[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int who = kPacked ? static_cast<int>(key[k] & id_mask) : id[k];
+        cv[k] = (mask >> k) & 1 ? who : -1;
+        key[k] += kPacked ? gain[k] << rank_bits : gain[k];
+      }
+      store_choice<K>(choice + row, i0, C, vec != 0, cv);
+    });
+  }
+
+  // Positions < C hold the real slots, in the last round's order.
+  __syncthreads();
+  long long* out = totals_out + static_cast<long long>(blockIdx.x) * C;
+  for (long long j = threadIdx.x; j < C; j += blockDim.x) {
+    const long long k = w.key[j];
+    if constexpr (kPacked) {
+      out[k & id_mask] = k >> rank_bits;
+    } else {
+      out[w.id[j]] = k;
+    }
+  }
+}
 
 struct Instance {
-  KernelFn fn;
+  const void* fn;
   int threads;
   int k;
   int smem;
 };
 
+// One instantiation a slot count 2^0 ... 2^14, then the wide form's.
 template <bool kPacked, int... Ls>
 const Instance* instances(std::integer_sequence<int, Ls...>) {
+  using W = Plan<kMaxLogSlots, kPacked>;  // the wide form's chunk network
   static const Instance table[] = {
-      {rounds_scan_kernel<Ls, kPacked>, Plan<Ls, kPacked>::kThreads,
-       Plan<Ls, kPacked>::kK, Plan<Ls, kPacked>::kSmem}...};
+      {reinterpret_cast<const void*>(rounds_scan_kernel<Ls, kPacked>),
+       Plan<Ls, kPacked>::kThreads, Plan<Ls, kPacked>::kK, Plan<Ls, kPacked>::kSmem}...,
+      {reinterpret_cast<const void*>(rounds_scan_kernel_wide<kPacked>), W::kThreads, W::kK,
+       W::kSmem}};
   return table;
 }
 
+// The instantiation for 2^log_n slots: the wide form above kMaxLogSlots.
 const Instance& instance(int log_n, bool packed) {
   constexpr auto all = std::make_integer_sequence<int, kMaxLogSlots + 1>{};
-  return packed ? instances<true>(all)[log_n] : instances<false>(all)[log_n];
+  const int i = log_n > kMaxLogSlots ? kMaxLogSlots + 1 : log_n;
+  return packed ? instances<true>(all)[i] : instances<false>(all)[i];
 }
 
 // Raise every instantiation's dynamic shared-memory limit to what it uses,
 // once a device, whatever C the first call has.
 cudaError_t set_smem_limits() {
   for (int packed = 0; packed < 2; ++packed) {
-    for (int log_n = 0; log_n <= kMaxLogSlots; ++log_n) {
+    for (int log_n = 0; log_n <= kMaxLogSlots + 1; ++log_n) {
       const Instance& in = instance(log_n, packed != 0);
       if (in.smem <= 48 * 1024) continue;
       const cudaError_t err = cudaFuncSetAttribute(
-          reinterpret_cast<const void*>(in.fn),
-          cudaFuncAttributeMaxDynamicSharedMemorySize, in.smem);
+          in.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, in.smem);
       if (err != cudaSuccess) return err;
     }
   }
@@ -294,6 +369,10 @@ bool aligned(const void* p, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+bool bad_slots(int C, int c_pad) {
+  return C < 1 || c_pad < C || c_pad > (1 << kMaxLogWide) || (c_pad & (c_pad - 1));
+}
+
 // Whether a launch moves its rows with vector loads and stores: C a multiple
 // of the slots a thread and every row aligned for them.
 int vector_io(int k, const void* gains, const void* valid, const void* choice, int C) {
@@ -304,16 +383,18 @@ int vector_io(int k, const void* gains, const void* valid, const void* choice, i
 }  // namespace
 
 // Launches the round scan on `stream`; returns the CUDA error (0 = ok).
-// T blocks, each over R rounds of C consumers; c_pad = next_pow2(C) <= 16384.
+// T blocks, each over R rounds of C consumers; c_pad = next_pow2(C).
 // rank_bits > 0 runs the packed key (the caller has checked that the
 // shifted totals fit, and c_pad <= 2^rank_bits), 0 the two-key network.
+// Above 16,384 slots `scratch` holds T * c_pad * 12 bytes (the keys, then
+// the ids), which the kernel overwrites; below it is not read.
 extern "C" int klba_rounds_scan(const void* gains, const void* valid,
                                 const void* totals0, void* choice,
                                 void* totals_out, int T, int R, int C,
-                                int c_pad, int rank_bits, void* stream) {
-  if (T < 1 || R < 0 || C < 1 || c_pad < C || c_pad > kMaxSlots ||
-      (c_pad & (c_pad - 1)) || rank_bits < 0 || rank_bits > 61 ||
-      (rank_bits > 0 && c_pad > (1LL << rank_bits)))
+                                int c_pad, int rank_bits, void* scratch, void* stream) {
+  if (T < 1 || R < 0 || bad_slots(C, c_pad) || rank_bits < 0 || rank_bits > 61 ||
+      (rank_bits > 0 && c_pad > (1LL << rank_bits)) ||
+      (c_pad > kMaxSlots && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -324,16 +405,21 @@ extern "C" int klba_rounds_scan(const void* gains, const void* valid,
   std::call_once(once[device], [device] { limits[device] = set_smem_limits(); });
   if (limits[device] != cudaSuccess) return static_cast<int>(limits[device]);
 
-  const Instance& in = instance(log2_of(c_pad), rank_bits > 0);
+  int log_n = log2_of(c_pad);
+  const Instance& in = instance(log_n, rank_bits > 0);
   int vec = vector_io(in.k, gains, valid, choice, C);
   const long long* g = static_cast<const long long*>(gains);
   const unsigned char* v = static_cast<const unsigned char*>(valid);
   const long long* t0 = static_cast<const long long*>(totals0);
   int* ch = static_cast<int*>(choice);
   long long* out = static_cast<long long*>(totals_out);
-  void* args[] = {&g, &v, &t0, &ch, &out, &R, &C, &rank_bits, &vec};
-  err = cudaLaunchKernel(reinterpret_cast<const void*>(in.fn), dim3(T), dim3(in.threads),
-                         args, in.smem, static_cast<cudaStream_t>(stream));
+  long long* sk = static_cast<long long*>(scratch);
+  int* si = log_n > kMaxLogSlots ? reinterpret_cast<int*>(sk + static_cast<long long>(T) * c_pad)
+                                 : nullptr;
+  void* args[] = {&g, &v, &t0, &ch, &out, &R, &C, &rank_bits, &vec, &log_n, &sk, &si};
+  void* narrow[] = {&g, &v, &t0, &ch, &out, &R, &C, &rank_bits, &vec};
+  err = cudaLaunchKernel(in.fn, dim3(T), dim3(in.threads), log_n > kMaxLogSlots ? args : narrow,
+                         in.smem, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -341,8 +427,8 @@ extern "C" int klba_rounds_scan(const void* gains, const void* valid,
 // loads and stores, 0 where it moves one slot at a time, -1 for a bad c_pad.
 extern "C" int klba_rounds_scan_vector_io(const void* gains, const void* valid,
                                           const void* choice, int C, int c_pad) {
-  if (C < 1 || c_pad < C || c_pad > kMaxSlots || (c_pad & (c_pad - 1))) return -1;
-  return vector_io(slots_per_thread(log2_of(c_pad)), gains, valid, choice, C);
+  if (bad_slots(C, c_pad)) return -1;
+  return vector_io(instance(log2_of(c_pad), false).k, gains, valid, choice, C);
 }
 
 extern "C" const char* klba_cuda_error_string(int err) {

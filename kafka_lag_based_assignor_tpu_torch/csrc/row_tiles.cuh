@@ -26,10 +26,19 @@
 //     MUFU.EX2: this departs from the plain version's rounding (its logit is
 //     a rounded product, then a rounded sum) by about |w * A| * 2^-24 an
 //     entry, relative 2e-6 at BASELINE config 5's largest weights, within
-//     the 1e-5 the kernels are held to.  Above 1024 consumers (up to
-//     16,384) A and B come through L1/L2, the logit is rounded as the plain
-//     version rounds it, x takes up to the 227 KB a block may use (R = 3 at
-//     C = 16,384) and the accumulators live in the item's row.
+//     the 1e-5 the kernels are held to.  Above 1024 consumers A and B come
+//     through L1/L2, the logit is rounded as the plain version rounds it, x
+//     takes up to the 227 KB a block may use (R = 3 at C = 16,384, down to
+//     R = 1 near C = 57,000) and the accumulators live in the item's row.
+//   * the scratch form, where not even one row of x fits shared memory
+//     (C above about 57,000): x is kScratchRows rows in a per-block
+//     scratch of device memory ([grid][R][ldx], which the wrapper sizes
+//     with klba_row_tile_x_floats), written by the row phase and read back
+//     with __ldcg in the column phase; the grid is at most one block an SM,
+//     so the scratch stays at SMs x R x C floats.  The row count R and the
+//     place of x change no sum: each entry is the same exp, and each
+//     column's accumulator takes the item's live rows one after the other,
+//     in row order, however they are chunked.
 //   * no padding rows.  Rows whose weights are both 0 (only the load weight
 //     when the pass has no colsum) add exact zeros to non-negative sums, so
 //     a block first compacts the live rows of its next 256 in order (a
@@ -63,10 +72,10 @@
 
 namespace klba {
 
-constexpr int kMaxConsumers = 16384;
 constexpr int kThreads = 256;          // every block of the pass
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxChunk = 16;          // rows of x a chunk (R) at most
+constexpr int kScratchRows = kWarps;   // rows of x a chunk in the scratch form
 constexpr int kRegCols = 1024;         // C up to this: A, B and logits in registers
 constexpr int kMaxSplit = 8;           // work items a tile at most
 constexpr int kSmemLimit = 232448;     // dynamic shared memory a block may use
@@ -91,6 +100,7 @@ struct Pass {
   float* total_load;  // [C]
   float* total_col;
   unsigned* tickets;  // [pass_tickets(n_tiles, groups)], zero at launch
+  float* x_scratch;   // the scratch form's x, [grid][kScratchRows][ldx]; else null
   long long rows;
   int tile, split, per, groups, n_tiles, C;
 };
@@ -109,27 +119,46 @@ __host__ __device__ inline int row_stride(int C) {
   return kw ? 32 * kw : (C + 31) / 32 * 32;
 }
 
-// Rows a chunk: kMaxChunk, or as many as fit in shared memory.
-__host__ __device__ inline int chunk_rows(int C) {
-  const int fit = (kSmemLimit - kSmemFixed) / (row_stride(C) * 4 + 8);
+// Rows of x that shared memory holds: kMaxChunk, or as many as fit (0:
+// not one).  32-bit arithmetic, as the kernels compute it once a block.
+__host__ __device__ inline int shared_rows(int C) {
+  const int ldx = row_stride(C);
+  if (ldx > kSmemLimit / 4) return 0;
+  const int fit = (kSmemLimit - kSmemFixed) / (ldx * 4 + 8);
   return fit < kMaxChunk ? fit : kMaxChunk;
 }
 
-inline size_t smem_bytes(int C) {
-  return static_cast<size_t>(chunk_rows(C)) * (row_stride(C) * 4 + 8) + kSmemFixed;
+// Whether x lives in device scratch: not one row of it fits shared memory.
+__host__ __device__ inline bool scratch_form(int C) { return shared_rows(C) < 1; }
+
+// Rows a chunk.
+__host__ __device__ inline int chunk_rows(int C) {
+  return scratch_form(C) ? kScratchRows : shared_rows(C);
 }
 
+inline size_t smem_bytes(int C) {
+  const size_t x_row = scratch_form(C) ? 0 : static_cast<size_t>(row_stride(C)) * 4;
+  return static_cast<size_t>(chunk_rows(C)) * (x_row + 8) + kSmemFixed;
+}
+
+// The KW of the scratch form's kernel instantiation.
+constexpr int kScratchKW = -1;
+
 // Index of the kernel instantiation for C in a table built with
-// KLBA_PASS_TABLE: KW = 0, 1, 2, 4, 8, 16, 32.
+// KLBA_PASS_TABLE: KW = 0, 1, 2, 4, 8, 16, 32, then the scratch form's.
 inline int kw_index(int C) {
+  if (scratch_form(C)) return 7;
   const int kw = reg_cols(C);
   int i = 0;
   while (kw >> i) ++i;
   return i;
 }
 
-#define KLBA_PASS_TABLE(kernel) \
-  { kernel<0>, kernel<1>, kernel<2>, kernel<4>, kernel<8>, kernel<16>, kernel<32> }
+#define KLBA_PASS_TABLE(kernel)                                                      \
+  {                                                                                 \
+    kernel<0>, kernel<1>, kernel<2>, kernel<4>, kernel<8>, kernel<16>, kernel<32>, \
+        kernel<klba::kScratchKW>                                                    \
+  }
 
 __device__ __forceinline__ float logit(float w, float a, float b) {
   // -w * a + b with each operation rounded on its own (no fused
@@ -177,6 +206,14 @@ __device__ __forceinline__ Smem smem_layout(int R, int ldx) {
   s.misc = reinterpret_cast<int*>(s.live_count + Threads);
   s.scratch = reinterpret_cast<float*>(s.misc + 16);
   return s;
+}
+
+// The shared-memory layout of a pass block (no x in the scratch form, whose
+// x lives in device scratch: row_tile_pass points s.x there).  Every
+// pointer derives from the shared base, so the compiler keeps shared-memory
+// accesses for them.
+__device__ __forceinline__ Smem pass_smem(const Pass& p) {
+  return smem_layout(chunk_rows(p.C), scratch_form(p.C) ? 0 : row_stride(p.C));
 }
 
 // Writes, in order, the weights of the live rows of [r0, r1) (r1 - r0 <=
@@ -283,9 +320,13 @@ __device__ __forceinline__ void row_exps_any(const Pass& p, const RowW& rw, floa
   if (lane == 0) row_coef(rw, s, c);
 }
 
-template <int N>
+// kCg: x lives in device scratch; read it past L1 (__ldcg).
+template <int N, bool kCg = false>
 __device__ __forceinline__ void load_cols(const float* src, float (&v)[N]) {
-  if constexpr (N == 4) {
+  if constexpr (kCg) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] = __ldcg(src + k);
+  } else if constexpr (N == 4) {
     const float4 q = *reinterpret_cast<const float4*>(src);
     v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
   } else if constexpr (N == 2) {
@@ -298,8 +339,8 @@ __device__ __forceinline__ void load_cols(const float* src, float (&v)[N]) {
 }
 
 // The column phase over n rows of a chunk (x, coef): the thread's CPT
-// columns from col0.
-template <int CPT>
+// columns from col0 (kCg: x in device scratch).
+template <int CPT, bool kCg = false>
 __device__ __forceinline__ void columns(const float* x, const float2* coef, int n, int ldx,
                                         int col0, bool col, float (&al)[CPT],
                                         float (&ac)[CPT]) {
@@ -308,7 +349,7 @@ __device__ __forceinline__ void columns(const float* x, const float2* coef, int 
 #pragma unroll 4
     for (int r = 0; r < n; ++r) {
       const float2 c = coef[r];
-      load_cols(x + static_cast<size_t>(r) * ldx + col0, v);
+      load_cols<CPT, kCg>(x + static_cast<size_t>(r) * ldx + col0, v);
 #pragma unroll
       for (int k = 0; k < CPT; ++k) {
         al[k] = fmaf(c.x, v[k], al[k]);
@@ -319,7 +360,7 @@ __device__ __forceinline__ void columns(const float* x, const float2* coef, int 
 #pragma unroll 4
     for (int r = 0; r < n; ++r) {
       const float cl = coef[r].x;
-      load_cols(x + static_cast<size_t>(r) * ldx + col0, v);
+      load_cols<CPT, kCg>(x + static_cast<size_t>(r) * ldx + col0, v);
 #pragma unroll
       for (int k = 0; k < CPT; ++k) al[k] = fmaf(cl, v[k], al[k]);
     }
@@ -330,7 +371,7 @@ __device__ __forceinline__ void columns(const float* x, const float2* coef, int 
 // tile's rows, summed in row order into item row u (for KW > 0 from
 // register accumulators; for KW = 0 in place).  a, b hold the lane's
 // columns of A and B (KW > 0).
-template <int KW, int CPT>
+template <int KW, int CPT, bool kScratch>
 __device__ __forceinline__ void item_rows(const Pass& p, const Smem& s, int R, int ldx, int u,
                                           const float (&a)[KW > 0 ? KW : 1],
                                           const float (&b)[KW > 0 ? KW : 1]) {
@@ -372,7 +413,7 @@ __device__ __forceinline__ void item_rows(const Pass& p, const Smem& s, int R, i
       } else {
         for (int j = t; j < p.C; j += kThreads) {
           float l1[1] = {row_l[j]}, c1[1] = {col ? row_c[j] : 0.f};
-          columns<1>(s.x, s.coef, n, ldx, j, col, l1, c1);
+          columns<1, kScratch>(s.x, s.coef, n, ldx, j, col, l1, c1);
           row_l[j] = l1[0];
           if (col) row_c[j] = c1[0];
         }
@@ -465,14 +506,19 @@ __device__ __forceinline__ bool finish_item(const Pass& p, const Smem& s, int u)
   return true;
 }
 
-// The whole pass: each block takes work items in order from the queue
-// ticket until none is left.  Returns true in the one block that wrote
-// total_load / total_col (after a __syncthreads, so the block may read
-// them); false in every other block and when the pass has no totals.
-template <int KW>
-__device__ bool row_tile_pass(const Pass& p) {
-  const int ldx = row_stride(p.C), R = chunk_rows(p.C);
-  const Smem s = smem_layout(R, ldx);
+// The whole pass in one form (kScratch: x in the block's rows of the device
+// scratch, KW = 0 only): each block takes work items in order from the
+// queue ticket until none is left.  The form is fixed a kernel
+// instantiation, so that each addresses x in one memory space (a pointer
+// that may be either is a generic one: that slowed the shared form by
+// 20-70 %) and keeps its own registers.
+template <int KW, bool kScratch>
+__device__ bool row_tile_pass_in(const Pass& p) {
+  static_assert(KW == 0 || !kScratch, "the scratch form has no register columns");
+  const int ldx = row_stride(p.C);
+  const int R = kScratch ? kScratchRows : shared_rows(p.C);
+  Smem s = smem_layout(R, kScratch ? 0 : ldx);
+  if constexpr (kScratch) s.x = p.x_scratch + static_cast<size_t>(blockIdx.x) * R * ldx;
   constexpr int CPT = KW >= 8 ? KW / 8 : 1;  // columns a thread in the column phase
   float a[KW > 0 ? KW : 1], b[KW > 0 ? KW : 1];
   if constexpr (KW > 0) {
@@ -492,10 +538,24 @@ __device__ bool row_tile_pass(const Pass& p) {
     __syncthreads();
     const int u = s.misc[10];
     if (u >= n_items) break;
-    item_rows<KW, CPT>(p, s, R, ldx, u, a, b);
+    item_rows<KW, CPT, kScratch>(p, s, R, ldx, u, a, b);
     wrote_totals |= finish_item(p, s, u);
   }
   return wrote_totals;
+}
+
+// The whole pass of the instantiation KW (kScratchKW: the scratch form,
+// taken where not one row of x fits shared memory; kw_index picks).
+// Returns true in the one block that wrote total_load / total_col (after a
+// __syncthreads, so the block may read them); false in every other block
+// and when the pass has no totals.
+template <int KW>
+__device__ bool row_tile_pass(const Pass& p) {
+  if constexpr (KW == kScratchKW) {
+    return row_tile_pass_in<0, true>(p);
+  } else {
+    return row_tile_pass_in<KW, false>(p);
+  }
 }
 
 // Tickets a pass needs: one a tile, one a group, the last group's and the
@@ -536,6 +596,26 @@ inline cudaError_t resident_blocks(void (*kernel)(Params...), size_t smem, int* 
   return cudaSuccess;
 }
 
+// The current card's SM count.
+inline cudaError_t sm_count(int* sms) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+}
+
+// Floats of the scratch form's x at C consumers on the current card (one
+// block an SM, kScratchRows rows of ldx floats each); 0 in the shared form.
+inline cudaError_t x_scratch_floats(int C, long long* floats) {
+  *floats = 0;
+  if (!scratch_form(C)) return cudaSuccess;
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  *floats = static_cast<long long>(sms) * kScratchRows * row_stride(C);
+  return cudaSuccess;
+}
+
 // Launches `kernel` (an instantiation picked with kw_index) on `stream`:
 // as many blocks as fit on the card at once, at most one a work item.  The
 // caller has zeroed the tickets on the same stream.  Returns the launch's
@@ -548,6 +628,13 @@ inline cudaError_t launch_pass(void (*kernel)(Params...), const Pass& p, cudaStr
   cudaError_t err = resident_blocks(kernel, smem, &fit);
   if (err != cudaSuccess) return err;
   const long long items = static_cast<long long>(p.n_tiles) * p.split;
+  if (scratch_form(p.C)) {
+    // One block an SM at most: the scratch holds that many blocks' x.
+    int sms = 0;
+    if ((err = sm_count(&sms)) != cudaSuccess) return err;
+    if (p.x_scratch == nullptr) return cudaErrorInvalidValue;
+    fit = fit < sms ? fit : sms;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(items < fit ? items : fit));
   cfg.blockDim = dim3(kThreads);
@@ -575,4 +662,11 @@ extern "C" const char* klba_cuda_error_string(int err) {
 // Shared memory a pass block takes at C consumers (bytes).
 extern "C" long long klba_row_tile_smem_bytes(int C) {
   return static_cast<long long>(klba::smem_bytes(C));
+}
+
+// Floats of device scratch the pass's x takes at C consumers on the
+// current card: 0 where x fits shared memory, -1 on a CUDA error.
+extern "C" long long klba_row_tile_x_floats(int C) {
+  long long floats = 0;
+  return klba::x_scratch_floats(C, &floats) == cudaSuccess ? floats : -1;
 }

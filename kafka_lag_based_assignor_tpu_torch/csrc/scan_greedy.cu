@@ -57,6 +57,13 @@
 //   over.  Counts need no register: after n valid rows every eligible
 //   consumer holds n / E of them, plus one for the n % E positions seated
 //   in the last round.
+// - Above 16,384 eligible consumers (scan_greedy_kernel_wide, one
+//   instantiation a key form for every N) the slots live in a per-block
+//   scratch of device memory, as K1's wide form keeps them: a round's sort
+//   is slot_sort.cuh's wide_sort, the compacted eligible ids go straight
+//   into the scratch's id column, and the block's threads seat the round's
+//   positions there in turn.  The rows are staged as above.  The wrapper
+//   allocates the scratch, T * N * 12 bytes.
 // - Up to 64 slots the network is one warp's shuffles: the block is one
 //   warp and a round has no barrier.  With one slot (E <= 1) there are no
 //   rounds to keep apart: the one eligible consumer takes every valid row,
@@ -311,25 +318,166 @@ __global__ void __launch_bounds__(Plan<kLogN, kPacked>::kBlock, 1)
   }
 }
 
-using KernelFn = void (*)(const long long*, const unsigned char*, const unsigned char*, int*,
-                          int*, long long*, int, int, int, int);
+// The wide form's staging: the 16,384-slot network's exchange buffer
+// (the ids go to the scratch), then the tile's ranked lags and row indices.
+template <bool kPacked>
+struct WidePlan {
+  using Net = klba::ChunkPlan<kPacked>;
+  static constexpr int kBlock = Net::kThreads;
+  static constexpr int kRows = 2048 / kBlock;
+  static constexpr int kTile = kBlock * kRows;
+  static constexpr int kHead = (Net::kExchangeBytes + 15) / 16 * 16;
+  static constexpr int kSmem = kHead + kTile * (8 + 4);
+  static_assert(kSmem + 32 * 4 <= klba::kSmemPerBlock, "shared memory of a block");
+};
+
+// The scan with N = 2^log_n > kMaxSlots slots for E > kMaxSlots eligible
+// consumers, the slots in the block's scratch (keys [T, N], ids [T, N]);
+// otherwise scan_greedy_kernel's rounds.
+template <bool kPacked>
+__global__ void __launch_bounds__(WidePlan<kPacked>::kBlock, 1)
+    scan_greedy_kernel_wide(const long long* __restrict__ lags,
+                            const unsigned char* __restrict__ valid,
+                            const unsigned char* __restrict__ eligible,
+                            int* __restrict__ choice, int* __restrict__ counts_out,
+                            long long* __restrict__ totals_out, int P, int C, int E,
+                            int rank_bits, int log_n, long long* scratch_key,
+                            int* scratch_id) {
+  using Pl = WidePlan<kPacked>;
+  using Net = typename Pl::Net;
+  constexpr int R = Pl::kRows;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int warp_sums[32];
+  Exchange x{reinterpret_cast<long long*>(smem),
+             reinterpret_cast<int*>(smem + static_cast<size_t>(Net::kDouble ? 2 : 1) *
+                                              Net::kSlots * 8),
+             0};
+  long long* tile_lag = reinterpret_cast<long long*>(smem + Pl::kHead);
+  int* tile_row = reinterpret_cast<int*>(smem + Pl::kHead + Pl::kTile * 8);
+
+  const int t = threadIdx.x;
+  const long long N = 1LL << log_n;
+  const klba::WideSlots w{scratch_key + static_cast<long long>(blockIdx.x) * N,
+                          scratch_id + static_cast<long long>(blockIdx.x) * N, log_n};
+  const long long row0 = static_cast<long long>(blockIdx.x) * P;
+  const long long* g = lags + row0;
+  const unsigned char* v = valid + row0;
+  int* ch = choice + row0;
+  int* cnt_out = counts_out + static_cast<long long>(blockIdx.x) * C;
+  long long* tot_out = totals_out + static_cast<long long>(blockIdx.x) * C;
+
+  // The eligible consumers' ids in index order, into the id column.
+  if (eligible != nullptr) {
+    const int per = (C + blockDim.x - 1) / blockDim.x;
+    const int c0 = min(t * per, C);
+    const int c1 = min(c0 + per, C);
+    int mine = 0;
+    for (int c = c0; c < c1; ++c) mine += eligible[c] != 0;
+    int total;
+    int rank = block_scan(mine, warp_sums, total);
+    for (int c = c0; c < c1; ++c) {
+      if (eligible[c]) {
+        if (rank < E) w.id[rank] = c;
+        ++rank;
+      } else {
+        cnt_out[c] = 0;
+        tot_out[c] = 0;
+      }
+    }
+    __syncthreads();
+  }
+  for (long long p = t; p < N; p += Pl::kBlock) {
+    const int pi = static_cast<int>(p);
+    const int who = pi < E ? (eligible != nullptr ? w.id[pi] : pi) : C + pi;
+    if constexpr (kPacked) {
+      w.key[p] = pi < E ? who : ((LLONG_MAX >> rank_bits) << rank_bits) | p;
+    } else {
+      w.key[p] = pi < E ? 0 : LLONG_MAX;
+      w.id[p] = who;
+    }
+  }
+
+  Rows<R> next;
+  fetch_rows<R>(g, v, t * R, P, next);
+  const long long id_mask = (1LL << rank_bits) - 1;
+  const auto no_seat = [](long long, long long(&)[Net::kK], int(&)[Net::kK]) {};
+  int pos = 0;     // the current round's next position
+  int seated = 0;  // valid rows seated so far
+  for (int s0 = 0; s0 < P; s0 += Pl::kTile) {
+    const Rows<R> cur = next;
+    int mine = 0;
+#pragma unroll
+    for (int i = 0; i < R; ++i) mine += cur.ok[i] != 0;
+    int m;
+    // Its barrier also ends the previous tile's rounds.
+    int rank = block_scan(mine, warp_sums, m);
+    const int first = s0 + t * R;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int r = first + i;
+      if (r < P && cur.ok[i] != 0) {
+        tile_lag[rank] = cur.lag[i];
+        tile_row[rank] = r;
+        ++rank;
+      } else if (r < P) {
+        ch[r] = -1;
+      }
+    }
+    __syncthreads();
+    if (s0 + Pl::kTile < P) fetch_rows<R>(g, v, s0 + Pl::kTile + t * R, P, next);
+
+    for (int q = 0; q < m;) {
+      const int take = min(E - pos, m - q);
+      if (pos == 0) klba::wide_sort<kPacked>(w, x, no_seat);
+      for (int j = t; j < take; j += Pl::kBlock) {
+        const long long p = pos + j;
+        const long long k = w.key[p];
+        const long long lag = tile_lag[q + j];
+        ch[tile_row[q + j]] = kPacked ? static_cast<int>(k & id_mask) : w.id[p];
+        w.key[p] = kPacked ? k + (lag << rank_bits)
+                           : static_cast<long long>(static_cast<unsigned long long>(k) +
+                                                    static_cast<unsigned long long>(lag));
+      }
+      q += take;
+      pos += take;
+      if (pos == E) pos = 0;
+    }
+    seated += m;
+  }
+
+  __syncthreads();
+  const int full = seated / E;
+  const int part = seated % E;  // positions seated in the last round
+  for (int p = t; p < E; p += Pl::kBlock) {
+    const long long k = w.key[p];
+    const int who = kPacked ? static_cast<int>(k & id_mask) : w.id[p];
+    cnt_out[who] = full + (p < part ? 1 : 0);
+    tot_out[who] = kPacked ? k >> rank_bits : k;
+  }
+}
 
 struct Instance {
-  KernelFn fn;
+  const void* fn;
   int threads;
   int smem;
 };
 
+// One instantiation a slot count 2^0 ... 2^14, then the wide form's.
 template <bool kPacked, int... Ls>
 const Instance* instances(std::integer_sequence<int, Ls...>) {
-  static const Instance table[] = {{scan_greedy_kernel<Ls, kPacked>,
-                                    Plan<Ls, kPacked>::kBlock, Plan<Ls, kPacked>::kSmem}...};
+  static const Instance table[] = {
+      {reinterpret_cast<const void*>(scan_greedy_kernel<Ls, kPacked>),
+       Plan<Ls, kPacked>::kBlock, Plan<Ls, kPacked>::kSmem}...,
+      {reinterpret_cast<const void*>(scan_greedy_kernel_wide<kPacked>),
+       WidePlan<kPacked>::kBlock, WidePlan<kPacked>::kSmem}};
   return table;
 }
 
+// The instantiation for 2^log_n slots: the wide form above kMaxLogSlots.
 const Instance& instance(int log_n, bool packed) {
   constexpr auto all = std::make_integer_sequence<int, kMaxLogSlots + 1>{};
-  return packed ? instances<true>(all)[log_n] : instances<false>(all)[log_n];
+  const int i = log_n > kMaxLogSlots ? kMaxLogSlots + 1 : log_n;
+  return packed ? instances<true>(all)[i] : instances<false>(all)[i];
 }
 
 // Set every instantiation's dynamic shared-memory limit to what it uses,
@@ -337,11 +485,10 @@ const Instance& instance(int log_n, bool packed) {
 // against the default limit too).
 cudaError_t set_smem_limits() {
   for (int packed = 0; packed < 2; ++packed) {
-    for (int log_n = 0; log_n <= kMaxLogSlots; ++log_n) {
+    for (int log_n = 0; log_n <= kMaxLogSlots + 1; ++log_n) {
       const Instance& in = instance(log_n, packed != 0);
-      const cudaError_t err = cudaFuncSetAttribute(
-          reinterpret_cast<const void*>(in.fn),
-          cudaFuncAttributeMaxDynamicSharedMemorySize, in.smem);
+      const cudaError_t err =
+          cudaFuncSetAttribute(in.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, in.smem);
       if (err != cudaSuccess) return err;
     }
   }
@@ -357,17 +504,19 @@ int log2_of(int n) {
 }  // namespace
 
 // Launches the scan on `stream`; returns the CUDA error (0 = ok).  T blocks,
-// each over P rows of C <= 16,384 consumers, E of them eligible (all C when
+// each over P rows of C consumers, E of them eligible (all C when
 // `eligible` is null: the count of its nonzero bytes otherwise), sorted in
 // next_pow2(E) slots.  rank_bits > 0 runs the packed key (the caller has
 // checked that each topic's valid lags are >= 0 and their shifted sum
-// fits, and C <= 2^rank_bits), 0 the two-key network.
+// fits, and C <= 2^rank_bits), 0 the two-key network.  Above 16,384 slots
+// `scratch` holds T * next_pow2(E) * 12 bytes (the keys, then the ids),
+// which the kernel overwrites; below it is not read.
 extern "C" int klba_scan_greedy(const void* lags, const void* valid, const void* eligible,
                                 void* choice, void* counts, void* totals, int T, int P, int C,
-                                int E, int rank_bits, void* stream) {
-  if (T < 0 || P < 0 || C < 1 || C > kMaxSlots || E < 0 || E > C ||
+                                int E, int rank_bits, void* scratch, void* stream) {
+  if (T < 0 || P < 0 || C < 1 || C > (1 << 30) || E < 0 || E > C ||
       (eligible == nullptr && E != C) || rank_bits < 0 || rank_bits > 61 ||
-      (rank_bits > 0 && C > (1LL << rank_bits)))
+      (rank_bits > 0 && C > (1LL << rank_bits)) || (E > kMaxSlots && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (T == 0) return 0;
   int device = 0;
@@ -379,15 +528,20 @@ extern "C" int klba_scan_greedy(const void* lags, const void* valid, const void*
   std::call_once(once[device], [device] { limits[device] = set_smem_limits(); });
   if (limits[device] != cudaSuccess) return static_cast<int>(limits[device]);
 
-  const Instance& in = instance(log2_of(E), rank_bits > 0);
+  int log_n = log2_of(E);
+  const Instance& in = instance(log_n, rank_bits > 0);
   const long long* g = static_cast<const long long*>(lags);
   const unsigned char* v = static_cast<const unsigned char*>(valid);
   const unsigned char* e = static_cast<const unsigned char*>(eligible);
   int* ch = static_cast<int*>(choice);
   int* cn = static_cast<int*>(counts);
   long long* tt = static_cast<long long*>(totals);
-  void* args[] = {&g, &v, &e, &ch, &cn, &tt, &P, &C, &E, &rank_bits};
-  err = cudaLaunchKernel(reinterpret_cast<const void*>(in.fn), dim3(T), dim3(in.threads), args,
+  long long* sk = static_cast<long long*>(scratch);
+  int* si = log_n > kMaxLogSlots ? reinterpret_cast<int*>(sk + (static_cast<long long>(T) << log_n))
+                                 : nullptr;
+  void* args[] = {&g, &v, &e, &ch, &cn, &tt, &P, &C, &E, &rank_bits, &log_n, &sk, &si};
+  void* narrow[] = {&g, &v, &e, &ch, &cn, &tt, &P, &C, &E, &rank_bits};
+  err = cudaLaunchKernel(in.fn, dim3(T), dim3(in.threads), log_n > kMaxLogSlots ? args : narrow,
                          in.smem, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

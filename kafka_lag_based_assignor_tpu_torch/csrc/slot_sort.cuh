@@ -21,6 +21,17 @@
 // network through shared memory; at 64 slots (one warp) no barrier at all.
 // Every register index is a constant after unrolling: the network is a
 // template on log2(N).
+//
+// Above kMaxSlots (16,384) slots a block's registers cannot hold them: the
+// wide form (wide_sort) keeps a block's N slots in a scratch of device
+// memory (int64 keys, int32 ids: 12 B a slot, 1.5 MB at 2^17, which stays
+// in the 50 MB L2) and runs the same all-ascending network in three kinds
+// of step.  Each 16,384-slot chunk is loaded into the registers of the
+// 16,384-slot network and sorted there (the levels of merge size up to
+// 2^14 never leave a chunk); each stage of stride 2^14 or more is a
+// compare-exchange pass over the scratch, one barrier after it; and each
+// level ends with a merge-only entry into the register network, its last
+// 14 stages, one chunk at a time.  Every index into the scratch is 64-bit.
 
 #pragma once
 
@@ -232,6 +243,110 @@ __device__ __forceinline__ void sort_slots(long long (&key)[P::kK], int (&id)[P:
       stage<P, ls, ls - 1 - decltype(b)::value>(key, id, x);
     });
   });
+}
+
+// The last P::kLog stages of a merge larger than P::kSlots (strides
+// P::kSlots / 2 down to 1, none a mirror): what is left of a level of the
+// wide form once its long strides have run over the scratch.
+template <class P>
+__device__ __forceinline__ void merge_slots(long long (&key)[P::kK], int (&id)[P::kK],
+                                            Exchange& x) {
+  static_for<P::kLog>([&](auto b) {
+    stage<P, P::kLog + 1, P::kLog - 1 - decltype(b)::value>(key, id, x);
+  });
+}
+
+// The wide form's chunk network: the 16,384-slot plan, 16 slots a thread
+// over 1,024 threads.
+template <bool kPacked>
+using ChunkPlan = SlotPlan<kMaxLogSlots, kPacked>;
+
+// A block's slots in the wide form: key[N] and (two-key form) id[N] in
+// device memory, N = 2^log_n > kMaxSlots.  In the packed form the id is
+// the key's low bits and `id` is not read.
+struct WideSlots {
+  long long* key;
+  int* id;
+  int log_n;
+};
+
+template <class P>
+__device__ __forceinline__ void load_chunk(const WideSlots& w, long long chunk,
+                                           long long (&key)[P::kK], int (&id)[P::kK]) {
+  const long long at = chunk * P::kSlots + static_cast<long long>(threadIdx.x) * P::kK;
+  get_keys<P::kK>(w.key + at, key);
+  if constexpr (!P::kPacked) get_ids<P::kK>(w.id + at, id);
+}
+
+template <class P>
+__device__ __forceinline__ void store_chunk(const WideSlots& w, long long chunk,
+                                            const long long (&key)[P::kK],
+                                            const int (&id)[P::kK]) {
+  const long long at = chunk * P::kSlots + static_cast<long long>(threadIdx.x) * P::kK;
+  put_keys<P::kK>(w.key + at, key);
+  if constexpr (!P::kPacked) put_ids<P::kK>(w.id + at, id);
+}
+
+// One stage of stride 2^lj >= kMaxSlots over the scratch, in the
+// all-ascending form of `stage` (the first stage of merge size 2^ls pairs
+// slot i with its mirror): the block's threads take the N / 2 pairs in
+// turn, the lower slot keeping the smaller key.
+template <bool kPacked>
+__device__ __forceinline__ void wide_stage(const WideSlots& w, int ls, int lj) {
+  const long long half = 1LL << (w.log_n - 1);
+  const long long stride = 1LL << lj;
+  const long long flip = lj + 1 == ls ? (1LL << ls) - 1 : stride;
+  for (long long q = threadIdx.x; q < half; q += blockDim.x) {
+    const long long lo = ((q >> lj) << (lj + 1)) | (q & (stride - 1));
+    const long long hi = lo ^ flip;
+    const long long kl = w.key[lo], kh = w.key[hi];
+    const int il = kPacked ? 0 : w.id[lo], ih = kPacked ? 0 : w.id[hi];
+    if (less<kPacked>(kh, ih, kl, il)) {
+      w.key[lo] = kh;
+      w.key[hi] = kl;
+      if constexpr (!kPacked) {
+        w.id[lo] = ih;
+        w.id[hi] = il;
+      }
+    }
+  }
+}
+
+// The ascending sort of a block's 2^log_n > kMaxSlots slots in the scratch
+// (see the header), run by all 1,024 threads of the block.  The slots may
+// have been written by any thread before the call; after it every thread
+// sees the sorted scratch.  at_end(chunk, key, id) runs on each chunk of
+// the last level with its keys at their final positions (thread t holds
+// positions chunk * kMaxSlots + t * 16 + k) before they are stored back,
+// so that the caller can seat a round there without another pass.
+template <bool kPacked, class AtEnd>
+__device__ __forceinline__ void wide_sort(const WideSlots& w, Exchange& x, AtEnd&& at_end) {
+  using P = ChunkPlan<kPacked>;
+  const long long chunks = 1LL << (w.log_n - P::kLog);
+  long long key[P::kK];
+  int id[P::kK];
+#pragma unroll
+  for (int k = 0; k < P::kK; ++k) id[k] = 0;
+  __syncthreads();
+  for (long long c = 0; c < chunks; ++c) {
+    load_chunk<P>(w, c, key, id);
+    sort_slots<P>(key, id, x);
+    store_chunk<P>(w, c, key, id);
+  }
+  for (int ls = P::kLog + 1; ls <= w.log_n; ++ls) {
+    for (int lj = ls - 1; lj >= P::kLog; --lj) {
+      __syncthreads();
+      wide_stage<kPacked>(w, ls, lj);
+    }
+    __syncthreads();
+    for (long long c = 0; c < chunks; ++c) {
+      load_chunk<P>(w, c, key, id);
+      merge_slots<P>(key, id, x);
+      if (ls == w.log_n) at_end(c, key, id);
+      store_chunk<P>(w, c, key, id);
+    }
+  }
+  __syncthreads();
 }
 
 }  // namespace klba

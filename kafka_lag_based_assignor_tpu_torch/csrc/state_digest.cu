@@ -78,12 +78,20 @@
 //     arrival, so no cluster barrier waits for one to complete.
 //     (Adding each row straight into the bin's owner block through
 //     distributed shared memory was slower on the H100: PERF.md §6.)
+//   * above kMaxSharedBins consumers (57,856: an int32 bin each no longer
+//     fits the 227 KB of shared memory a block may use) the histogram is
+//     the global one in the scratch, which every row adds to with a global
+//     atomic; there is no shared histogram and no cluster merge.  At that
+//     width the rows spread over so many bins that the atomics rarely meet.
+//     Every entry (one state, N rows, a shard) takes the same form at the
+//     same C: the wrapper picks nothing, the launch picks by C alone.
 // Integer addition is exact in any order, so the atomics give the same bits
 // on every run; every sum is taken as unsigned long long, which wraps
 // exactly as the JAX package's and numpy's int64 sums do.
 
 #include <cstdint>
 #include <mutex>
+#include <tuple>
 #include <utility>
 #include <vector>
 
@@ -94,7 +102,9 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kMaxConsumers = 16384;
+// Most consumers whose int32 histogram a block's shared memory holds (the
+// 227 KB a block may use, less 1 KB for the static shared memory).
+constexpr int kMaxSharedBins = (232448 - 1024) / 4;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kCluster = 8;
@@ -130,7 +140,9 @@ __device__ __forceinline__ void add_row(Rows& v, unsigned* hist, int i, long lon
 // The digest of B rows, or (kShard) the partial lanes of the row shard
 // [lo, lo + B) of a state of Bg rows; `lead` adds the replicated terms of
 // the table.  The one-state entry passes lo = 0, Bg = B, lead = true.
-template <bool kShard>
+// kShared: the histogram in each block's shared memory, merged per
+// cluster; else the rows add straight into the global one.
+template <bool kShard, bool kShared>
 __device__ __forceinline__ void digest_body(const long long* __restrict__ lags,
                                             const int* __restrict__ choice,
                                             const int* __restrict__ counts,
@@ -144,7 +156,10 @@ __device__ __forceinline__ void digest_body(const long long* __restrict__ lags,
   const cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   unsigned* hist = reinterpret_cast<unsigned*>(acc + kAccWords);
-  for (int c = threadIdx.x; c < C; c += kThreads) sh_hist[c] = 0u;
+  unsigned* bins = kShared ? sh_hist : hist;  // where the rows add
+  if constexpr (kShared) {
+    for (int c = threadIdx.x; c < C; c += kThreads) sh_hist[c] = 0u;
+  }
 
   const int tid = blockIdx.x * kThreads + threadIdx.x, n_threads = gridDim.x * kThreads;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -209,13 +224,13 @@ __device__ __forceinline__ void digest_body(const long long* __restrict__ lags,
       l0 = __ldg(reinterpret_cast<const longlong2*>(lags) + 2 * q);
       l1 = __ldg(reinterpret_cast<const longlong2*>(lags) + 2 * q + 1);
     }
-    add_row(v, sh_hist, base + 4 * q, l0.x, ch.x, C);
-    add_row(v, sh_hist, base + 4 * q + 1, l0.y, ch.y, C);
-    add_row(v, sh_hist, base + 4 * q + 2, l1.x, ch.z, C);
-    add_row(v, sh_hist, base + 4 * q + 3, l1.y, ch.w, C);
+    add_row(v, bins, base + 4 * q, l0.x, ch.x, C);
+    add_row(v, bins, base + 4 * q + 1, l0.y, ch.y, C);
+    add_row(v, bins, base + 4 * q + 2, l1.x, ch.z, C);
+    add_row(v, bins, base + 4 * q + 3, l1.y, ch.w, C);
   }
   for (int i = 4 * quads + tid; i < B; i += n_threads)
-    add_row(v, sh_hist, base + i, __ldg(lags + i), __ldg(choice + i), C);
+    add_row(v, bins, base + i, __ldg(lags + i), __ldg(choice + i), C);
 
   // The sums: a warp's into shared memory, then the block's.
   unsigned long long sums[kNumAcc] = {v.lag_sum, v.viol, v.row_sum, slot_sum, bad};
@@ -228,14 +243,16 @@ __device__ __forceinline__ void digest_body(const long long* __restrict__ lags,
   // Block `rank` of the cluster owns the bins c = rank (mod kCluster): it
   // sums them over the cluster's blocks into its own slots, which no other
   // block reads.
-  for (int c = rank + kCluster * threadIdx.x; c < C; c += kCluster * kThreads) {
-    unsigned h[kCluster];
+  if constexpr (kShared) {
+    for (int c = rank + kCluster * threadIdx.x; c < C; c += kCluster * kThreads) {
+      unsigned h[kCluster];
 #pragma unroll
-    for (int q = 0; q < kCluster; ++q) h[q] = *cluster.map_shared_rank(sh_hist + c, q);
-    unsigned total = 0;
+      for (int q = 0; q < kCluster; ++q) h[q] = *cluster.map_shared_rank(sh_hist + c, q);
+      unsigned total = 0;
 #pragma unroll
-    for (int q = 0; q < kCluster; ++q) total += h[q];
-    sh_hist[c] = total;
+      for (int q = 0; q < kCluster; ++q) total += h[q];
+      sh_hist[c] = total;
+    }
   }
   // Done reading the other blocks' shared memory; the global atomics come
   // after this arrival, so the cluster barriers never wait for them.
@@ -245,8 +262,10 @@ __device__ __forceinline__ void digest_body(const long long* __restrict__ lags,
     for (int w = 0; w < kWarps; ++w) t += part[threadIdx.x][w];
     if (t) atomicAdd(&acc[threadIdx.x], t);
   }
-  for (int c = rank + kCluster * threadIdx.x; c < C; c += kCluster * kThreads)
-    if (sh_hist[c]) atomicAdd(&hist[c], sh_hist[c]);
+  if constexpr (kShared) {
+    for (int c = rank + kCluster * threadIdx.x; c < C; c += kCluster * kThreads)
+      if (sh_hist[c]) atomicAdd(&hist[c], sh_hist[c]);
+  }
 
   // The last block to arrive finishes the digest and re-zeroes the scratch.
   __threadfence();
@@ -318,6 +337,7 @@ __device__ __forceinline__ void digest_body(const long long* __restrict__ lags,
   }
 }
 
+template <bool kShared>
 __global__ void __launch_bounds__(kThreads) klba_state_digest_kernel(
     const long long* __restrict__ lags, const int* __restrict__ choice,
     const int* __restrict__ counts, const int* __restrict__ row_tab, int B, int C, int M,
@@ -325,42 +345,44 @@ __global__ void __launch_bounds__(kThreads) klba_state_digest_kernel(
   // This block's row of a batched launch (0 for one state): its inputs,
   // scratch and output lanes.
   const size_t row = blockIdx.y;
-  digest_body<false>(lags + row * B, choice + row * B, counts + row * C,
+  digest_body<false, kShared>(lags + row * B, choice + row * B, counts + row * C,
                      row_tab != nullptr ? row_tab + row * C * static_cast<size_t>(M) : nullptr,
                      B, C, M, 0, B, true,
                      acc + row * (kAccWords + (static_cast<size_t>(C) + 1) / 2), out + row * 5,
                      nullptr);
 }
 
+template <bool kShared>
 __global__ void __launch_bounds__(kThreads) klba_state_digest_shard_kernel(
     const long long* __restrict__ lags, const int* __restrict__ choice,
     const int* __restrict__ counts, const int* __restrict__ row_tab, int Bs, int C, int M, int lo,
     int Bg, int lead, unsigned long long* __restrict__ acc, long long* __restrict__ part,
     int* __restrict__ hist) {
-  digest_body<true>(lags, choice, counts, row_tab, Bs, C, M, lo, Bg, lead != 0, acc, part, hist);
+  digest_body<true, kShared>(lags, choice, counts, row_tab, Bs, C, M, lo, Bg, lead != 0, acc, part, hist);
 }
 
 // Clusters of `kernel` that fit on the current card at once with `smem`
-// bytes of dynamic shared memory, found once a device and size (the first
-// query for a device also lets the kernel take the 64 KiB of a
-// 16,384-consumer histogram).  Each kernel instantiates its own cache.
+// bytes of dynamic shared memory, found once a kernel, device and size (the
+// first query for a kernel and device also lets the kernel take the
+// largest shared histogram, kMaxSharedBins bins).
 template <typename Kernel>
 cudaError_t resident_clusters(Kernel kernel, size_t smem, int* clusters) {
   static std::mutex mu;
-  static std::vector<std::pair<std::pair<int, size_t>, int>> known;
+  static std::vector<std::tuple<const void*, int, size_t, int>> known;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   const std::lock_guard<std::mutex> lock(mu);
+  const void* fn = reinterpret_cast<const void*>(kernel);
   bool seen = false;
-  for (const auto& [key, n] : known) {
-    if (key.first != device) continue;
-    if (key.second == smem) return *clusters = n, cudaSuccess;
+  for (const auto& [k, d, b, n] : known) {
+    if (k != fn || d != device) continue;
+    if (b == smem) return *clusters = n, cudaSuccess;
     seen = true;
   }
   if (!seen && (err = cudaFuncSetAttribute(kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           kMaxConsumers * static_cast<int>(sizeof(unsigned)))) !=
+                                           kMaxSharedBins * static_cast<int>(sizeof(unsigned)))) !=
                    cudaSuccess)
     return err;
   cudaLaunchAttribute attr[1];
@@ -378,7 +400,7 @@ cudaError_t resident_clusters(Kernel kernel, size_t smem, int* clusters) {
   if ((err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg)) != cudaSuccess)
     return err;
   if (n < 1) return cudaErrorInvalidConfiguration;
-  known.push_back({{device, smem}, n});
+  known.emplace_back(fn, device, smem, n);
   *clusters = n;
   return cudaSuccess;
 }
@@ -393,13 +415,15 @@ cudaError_t resident_clusters(Kernel kernel, size_t smem, int* clusters) {
 // take the rest; a row gets at least one cluster).
 int launch_rows(const void* lags, const void* choice, const void* counts, const void* row_tab,
                 long long B, int C, int M, int N, void* scratch, void* out, void* stream) {
-  if (B < 1 || B >= (1LL << 31) || C < 1 || C > kMaxConsumers || M < 0 || N < 1 ||
+  if (B < 1 || B >= (1LL << 31) || C < 1 || M < 0 || N < 1 ||
       N > 65535 || (M > 0 && row_tab == nullptr) ||
       static_cast<long long>(C) * M >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(C) * sizeof(unsigned);
+  const bool shared = C <= kMaxSharedBins;
+  const auto kernel = shared ? klba_state_digest_kernel<true> : klba_state_digest_kernel<false>;
+  const size_t smem = shared ? static_cast<size_t>(C) * sizeof(unsigned) : 0;
   int fit = 0;
-  cudaError_t err = resident_clusters(klba_state_digest_kernel, smem, &fit);
+  cudaError_t err = resident_clusters(kernel, smem, &fit);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long work = (B + 3) / 4 > 32LL * C ? (B + 3) / 4 : 32LL * C;
   long long clusters = (work + kThreads * kCluster - 1) / (kThreads * kCluster);
@@ -417,7 +441,7 @@ int launch_rows(const void* lags, const void* choice, const void* counts, const 
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, klba_state_digest_kernel, static_cast<const long long*>(lags),
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const long long*>(lags),
                            static_cast<const int*>(choice), static_cast<const int*>(counts),
                            static_cast<const int*>(row_tab), static_cast<int>(B), C, M,
                            static_cast<unsigned long long*>(scratch), static_cast<long long*>(out));
@@ -431,12 +455,15 @@ int launch_rows(const void* lags, const void* choice, const void* counts, const 
 int launch_shard(const void* lags, const void* choice, const void* counts, const void* row_tab,
                  long long Bs, long long lo, long long Bg, int C, int M, int lead, void* scratch,
                  void* part, void* hist, void* stream) {
-  if (Bs < 1 || lo < 0 || Bg >= (1LL << 31) || lo + Bs > Bg || C < 1 || C > kMaxConsumers ||
+  if (Bs < 1 || lo < 0 || Bg >= (1LL << 31) || lo + Bs > Bg || C < 1 ||
       M < 1 || row_tab == nullptr || static_cast<long long>(C) * M >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(C) * sizeof(unsigned);
+  const bool shared = C <= kMaxSharedBins;
+  const auto kernel =
+      shared ? klba_state_digest_shard_kernel<true> : klba_state_digest_shard_kernel<false>;
+  const size_t smem = shared ? static_cast<size_t>(C) * sizeof(unsigned) : 0;
   int fit = 0;
-  cudaError_t err = resident_clusters(klba_state_digest_shard_kernel, smem, &fit);
+  cudaError_t err = resident_clusters(kernel, smem, &fit);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long work = (Bs + 3) / 4 > 32LL * C ? (Bs + 3) / 4 : 32LL * C;
   long long clusters = (work + kThreads * kCluster - 1) / (kThreads * kCluster);
@@ -453,7 +480,7 @@ int launch_shard(const void* lags, const void* choice, const void* counts, const
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, klba_state_digest_shard_kernel,
+  err = cudaLaunchKernelEx(&cfg, kernel,
                            static_cast<const long long*>(lags), static_cast<const int*>(choice),
                            static_cast<const int*>(counts), static_cast<const int*>(row_tab),
                            static_cast<int>(Bs), C, M, static_cast<int>(lo), static_cast<int>(Bg),

@@ -20,7 +20,9 @@ version for a CPU tensor:
   twice in ``superblock_partials.launches``.
 
 Each card call allocates its outputs and the kernel's scratch in one
-tensor.
+tensor.  Both take any consumer count: where not even one row of the
+plan's tile fits a block's shared memory (about 57,000 consumers and up;
+``klba_row_tile_x_floats`` gives its size), the tile lives in that scratch.
 """
 
 from __future__ import annotations
@@ -32,15 +34,9 @@ import torch
 
 from . import linear_ot
 from ._build import count_launch
-from .rounds_cuda import MAX_SLOTS
 
-#: Largest consumer count the kernel takes: the round scan's, so every
-#: solver admits the same consumer groups.
-MAX_CONSUMERS = MAX_SLOTS
 #: Work items a tile at most (``kMaxSplit`` in ``csrc/row_tiles.cuh``).
 _MAX_SPLIT = 8
-
-
 def _check(ws_b, cnt_b, A, B, scalars=()) -> None:
     if ws_b.device.type not in ("cuda", "cpu"):
         raise ValueError(f"the linear-OT kernels run on cuda or cpu, not {ws_b.device}")
@@ -60,10 +56,8 @@ def _check(ws_b, cnt_b, A, B, scalars=()) -> None:
         raise ValueError("ws_b, cnt_b, A and B must be contiguous")
     if ws_b.numel() == 0:
         raise ValueError("the linear-OT kernels need at least one row")
-    if not 1 <= C <= MAX_CONSUMERS:
-        raise ValueError(
-            f"the linear-OT kernels take 1 to {MAX_CONSUMERS} consumers, got {C}"
-        )
+    if C < 1:
+        raise ValueError(f"the linear-OT kernels take 1 or more consumers, got {C}")
 
 
 def admit_sharded(rows_per_shard: int, num_consumers: int, tile: int) -> None:
@@ -73,10 +67,8 @@ def admit_sharded(rows_per_shard: int, num_consumers: int, tile: int) -> None:
     that slice.  Raises ``ValueError`` outside them, on either device (the
     same shapes the kernel's own check refuses)."""
     rows, C, tile = int(rows_per_shard), int(num_consumers), int(tile)
-    if not 1 <= C <= MAX_CONSUMERS:
-        raise ValueError(
-            f"the linear-OT kernels take 1 to {MAX_CONSUMERS} consumers, got {C}"
-        )
+    if C < 1:
+        raise ValueError(f"the linear-OT kernels take 1 or more consumers, got {C}")
     if tile < 1 or rows < tile or rows % tile:
         raise ValueError(
             f"a shard of {rows} rows does not split into tiles of {tile}"
@@ -99,6 +91,8 @@ def _bind():
     lib.klba_linear_ot_scratch.restype = ctypes.c_longlong
     lib.klba_row_tile_smem_bytes.argtypes = [i32]
     lib.klba_row_tile_smem_bytes.restype = ctypes.c_longlong
+    lib.klba_row_tile_x_floats.argtypes = [i32]
+    lib.klba_row_tile_x_floats.restype = ctypes.c_longlong
     lib.klba_cuda_error_string.argtypes = [i32]
     lib.klba_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -113,10 +107,12 @@ def _call(name: str, shape, ws_b, cnt_b, A, B, *args):
     lib = _bind()
     dev = ws_b.device
     n = math.prod(shape)
-    buf = torch.empty(n + lib.klba_linear_ot_scratch(Sb, tpb, tile, C),
-                      dtype=torch.float32, device=dev)
-    outs = buf[:n].view(shape).unbind(0)
     with torch.cuda.device(dev):
+        scratch = lib.klba_linear_ot_scratch(Sb, tpb, tile, C)
+        if scratch < 0:
+            raise RuntimeError(f"{name}: the card's SM count could not be read")
+        buf = torch.empty(n + scratch, dtype=torch.float32, device=dev)
+        outs = buf[:n].view(shape).unbind(0)
         err = getattr(lib, name)(
             ws_b.data_ptr(), cnt_b.data_ptr(), A.data_ptr(), B.data_ptr(), *args,
             buf[n:].data_ptr(), *(o.data_ptr() for o in outs),
@@ -132,7 +128,7 @@ def superblock_partials(ws_b, cnt_b, A, B):
     """Per-superblock partial marginals of the implicit plan.
 
     Args: ws_b, cnt_b float32[Sb, tpb, tile] (scaled lags and validity
-    weights by row, padding rows 0); A, B float32[C], 1 <= C <= 16384.
+    weights by row, padding rows 0); A, B float32[C], C >= 1.
     Returns (load float32[Sb, C], colsum float32[Sb, C]), each superblock's
     tiles summed in tile order.
     """

@@ -9,7 +9,8 @@ launch fails.
 The kernel has two forms with the same arithmetic, chosen by shape
 (:func:`form_for`): ``"cluster"``, one launch of one thread-block cluster
 that needs no scratch, and ``"pass"``, the row-tile pass over the whole card
-(:func:`pass_geometry`), whose tickets and partial rows live in scratch.
+(:func:`pass_geometry`), whose tickets and partial rows (and, above about
+57,000 consumers, the plan's tile) live in scratch.
 That scratch is kept for each (device, stream) and grown when a call needs
 more (:func:`scratch_for`); the tickets are zeroed when made and the kernel
 leaves them zero, so no call at a shape seen before allocates scratch or
@@ -80,9 +81,11 @@ def _bind():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr] * 8 + [i32, ptr, ctypes.c_longlong] + [i32] * 4 + [ptr]
         fn.restype = i32
+        lib.klba_row_tile_x_floats.argtypes = [i32]
+        lib.klba_row_tile_x_floats.restype = ctypes.c_longlong
         lib.klba_cuda_error_string.argtypes = [i32]
         lib.klba_cuda_error_string.restype = ctypes.c_char_p
-        _fn = fn, lib.klba_cuda_error_string
+        _fn = fn, lib.klba_cuda_error_string, lib.klba_row_tile_x_floats
     return _fn
 
 
@@ -94,7 +97,7 @@ def launch(ws_u, count_u, wsum_u, A, B, need: str = "both", form: str | None = N
     form = form_for(U, C) if form is None else form
     if need not in _NEEDS or form not in ("cluster", "pass"):
         raise ValueError(f"need {need!r} / form {form!r}")
-    fn, error_string = _bind()
+    fn, error_string, x_floats = _bind()
     dev = ws_u.device
     w1, w2 = {"both": (wsum_u, count_u), "load": (wsum_u, None),
               "colsum": (count_u, None)}[need]
@@ -103,6 +106,13 @@ def launch(ws_u, count_u, wsum_u, A, B, need: str = "both", form: str | None = N
     scratch, tile, per = (None, 0, None, 0), 0, 0
     if form == "pass":
         tile, per, n_tickets, n_floats = pass_geometry(U, C)
+        # The plan's tile lives after the partial rows where it does not fit
+        # shared memory (0 floats where it does).
+        with torch.cuda.device(dev):
+            x = x_floats(C)
+        if x < 0:
+            raise RuntimeError("plan_stats: the card's SM count could not be read")
+        n_floats += x
         tickets, rows = scratch_for(dev, stream, n_tickets, n_floats)
         scratch = (tickets.data_ptr(), tickets.numel(), rows.data_ptr(), rows.numel())
     at = out.data_ptr()

@@ -59,9 +59,6 @@ _PAIR_BITS = 14
 _VBITS = 63 - _PAIR_BITS - 1  # quantized-lag field width (48)
 _SBIG = 1 << 60  # score sentinel; (x << 1) | 1 fits int64
 _INT64_MAX = torch.iinfo(torch.int64).max
-#: Most consumers the digest kernel takes: an int32 histogram of 16,384
-#: consumers is 64 KiB of shared memory a block (``rounds_cuda.MAX_SLOTS``).
-DIGEST_MAX_CONSUMERS = 16384
 
 
 def _quant_shift(lags, assigned):
@@ -853,10 +850,8 @@ def _check_digest(lags_p, choice_p, counts, num_consumers: int, row_tab) -> None
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"state_digest runs on cuda or cpu, not {dev}")
     C = int(num_consumers)
-    if not 1 <= C <= DIGEST_MAX_CONSUMERS:
-        raise ValueError(
-            f"state_digest takes 1 to {DIGEST_MAX_CONSUMERS} consumers, got {C}"
-        )
+    if C < 1:
+        raise ValueError(f"state_digest takes 1 or more consumers, got {C}")
     B = lags_p.shape[0]
     want = [("lags_p", lags_p, torch.int64, (B,)),
             ("choice_p", choice_p, torch.int32, (B,)),
@@ -880,10 +875,12 @@ def state_digest(lags_p, choice_p, counts, num_consumers: int, row_tab=None):
     with the row-table lane when ``row_tab`` is given.
 
     Args: lags_p int64[B], choice_p int32[B] (-1 on padding), counts
-    int32[C], row_tab int32[C, M]; 1 <= C <= 16384.  A CUDA tensor
-    launches the K6 kernel (one count in ``state_digest.launches``), which
-    computes all five lanes in one call, or raises; a CPU tensor runs the
-    plain version.  Both raise ``ValueError`` on the same inputs.
+    int32[C], row_tab int32[C, M]; C >= 1.  A CUDA tensor launches the K6
+    kernel (one count in ``state_digest.launches``; its histogram in shared
+    memory up to 57,856 consumers, in its scratch above), which computes
+    all five lanes in one call, or raises; a
+    CPU tensor runs the plain version.  Both raise ``ValueError`` on the
+    same inputs.
     """
     _check_digest(lags_p, choice_p, counts, num_consumers, row_tab)
     if lags_p.device.type == "cpu":
@@ -994,7 +991,7 @@ def state_digest_sharded(lag_shards, choice_shards, counts, num_consumers: int,
     and int32[Bs], each on its shard's device), ``counts`` int32[C] and
     ``row_tab`` int32[C, M] (one tensor, or one replicated copy a shard),
     ``row_offsets`` the global id of each shard's first row (``[0, B0, B0 +
-    B1, ...]``); 1 <= C <= 16384.  On a CUDA shard it launches K6's shard
+    B1, ...]``); C >= 1.  On a CUDA shard it launches K6's shard
     entry once on that shard's device (one count a launch in
     ``state_digest_sharded.launches``) or raises; a CPU shard runs the plain
     version.  The partial lanes and histograms are summed with the mesh's

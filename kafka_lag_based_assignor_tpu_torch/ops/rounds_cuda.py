@@ -5,8 +5,10 @@ Counterpart of ``kafka_lag_based_assignor_tpu/ops/rounds_pallas.py``: the
 kernel in ``csrc/rounds_scan.cu`` replaces the TPU kernels
 ``_rounds_kernel`` (int32 totals) and ``_rounds_kernel_wide`` (int64 totals
 as two int32 planes).  It is one int64 kernel, one thread block per topic,
-with every consumer's slot kept in registers across the rounds; see the
-source for what bounds it.
+with every consumer's slot kept in registers across the rounds up to
+:data:`REGISTER_SLOTS` slots, and in a per-block scratch of device memory
+above (the wide form, :func:`wide_scratch`); see the source for what bounds
+it.  Both forms take any consumer count, as the JAX package does.
 
 It has two key forms, chosen per call from the input's range as the JAX
 package chooses its round body (``totals_rank_bits_for``): the packed int64
@@ -28,10 +30,12 @@ import torch
 
 from ._build import count_launch
 
-#: Largest padded consumer count: 16384 slots, 16 a thread over 1,024
-#: threads, whose two-key exchange buffer (12 B a slot) is 192 KiB of
-#: shared memory (Hopper gives a block up to 227 KB).
-MAX_SLOTS = 16384
+#: Most slots the register network holds (16 a thread over 1,024 threads,
+#: whose two-key exchange buffer, 12 B a slot, is 192 KiB of shared memory);
+#: above it K1 and K7 sort in their wide form, the slots in device scratch.
+REGISTER_SLOTS = 16384
+#: Bytes of a slot in the wide form's scratch: an int64 key, an int32 id.
+_WIDE_SLOT_BYTES = 12
 _INT64_MAX = torch.iinfo(torch.int64).max
 
 
@@ -63,11 +67,6 @@ def _check(gains, valid, totals0, carry_across_topics: bool) -> tuple:
         raise ValueError("gains, valid and totals0 must be contiguous")
     if C < 1:
         raise ValueError("the round scan needs at least one consumer")
-    if slots_for(C) > MAX_SLOTS:
-        raise ValueError(
-            f"{C} consumers pad to {slots_for(C)} slots, above the round "
-            f"scan's limit of {MAX_SLOTS} (192 KiB of shared memory a block)"
-        )
     f64 = torch.float64
     if gains.numel():
         live = torch.where(valid.bool(), gains, 0)
@@ -158,12 +157,22 @@ def _packed_rounds(gains, valid, totals0, rank_bits: int):
     return choice, totals.scatter_(1, real & id_mask, real >> rank_bits)
 
 
+def wide_scratch(blocks: int, slots: int, device):
+    """The wide form's scratch for ``blocks`` blocks of ``slots`` slots
+    (int64 keys, then int32 ids), or None at or below
+    :data:`REGISTER_SLOTS` slots, where the kernel keeps its slots in
+    registers.  The kernel writes every slot before it reads it."""
+    if slots <= REGISTER_SLOTS:
+        return None
+    return torch.empty(blocks * slots * _WIDE_SLOT_BYTES, dtype=torch.uint8, device=device)
+
+
 def _bind():
     from ._build import load
 
     lib = load("rounds_scan")
     fn = lib.klba_rounds_scan
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     lib.klba_rounds_scan_vector_io.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
     lib.klba_rounds_scan_vector_io.restype = ctypes.c_int
@@ -192,11 +201,13 @@ def _launch(gains, valid, totals0, carry_across_topics: bool, rank_bits: int):
     if n_blocks == 0:
         return choice, totals
     lib = _bind()
+    scratch = wide_scratch(n_blocks, slots_for(C), gains.device)
     with torch.cuda.device(gains.device):
         err = lib.klba_rounds_scan(
             gains.data_ptr(), valid.data_ptr(), totals0.data_ptr(),
             choice.data_ptr(), totals.data_ptr(),
             n_blocks, n_rounds, C, slots_for(C), rank_bits,
+            None if scratch is None else scratch.data_ptr(),
             torch.cuda.current_stream(gains.device).cuda_stream,
         )
     if err != 0:

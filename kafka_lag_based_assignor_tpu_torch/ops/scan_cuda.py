@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ._build import count_launch
-from .rounds_cuda import MAX_SLOTS, rank_bits_for
+from .rounds_cuda import rank_bits_for, slots_for, wide_scratch
 from .scan_kernel import _argmin_consumer
 
 _fn = None
@@ -45,9 +45,6 @@ def _check(sorted_lags, sorted_valid, num_consumers: int, eligible) -> int:
     C = int(num_consumers)
     if C < 1:
         raise ValueError("the greedy scan needs at least one consumer")
-    if C > MAX_SLOTS:
-        raise ValueError(f"{C} consumers are above the greedy scan's limit of "
-                         f"{MAX_SLOTS} (16 slots a thread over 1,024 threads)")
     tensors = [sorted_lags, sorted_valid]
     if eligible is not None:
         if eligible.dtype != torch.uint8 or tuple(eligible.shape) != (C,):
@@ -135,7 +132,7 @@ def _bind():
 
         lib = load("scan_greedy")
         fn = lib.klba_scan_greedy
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
         lib.klba_cuda_error_string.argtypes = [ctypes.c_int]
         lib.klba_cuda_error_string.restype = ctypes.c_char_p
@@ -158,10 +155,12 @@ def _launch(sorted_lags, sorted_valid, num_consumers: int, eligible, rank_bits=N
     E, planned = scan_plan(sorted_lags, sorted_valid, C, eligible, lag_range)
     rank_bits = planned if rank_bits is None else rank_bits
     fn, error_string = _bind()
+    scratch = wide_scratch(T, slots_for(E), dev)
     args = (sorted_lags.data_ptr(), sorted_valid.data_ptr(),
             None if eligible is None else eligible.data_ptr(),
             choice.data_ptr(), counts.data_ptr(), totals.data_ptr(), T, P, C,
-            E, rank_bits, torch._C._cuda_getCurrentRawStream(dev.index))
+            E, rank_bits, None if scratch is None else scratch.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(dev.index))
     if dev.index == torch.cuda.current_device():
         err = fn(*args)
     else:
@@ -180,7 +179,8 @@ def scan_greedy(sorted_lags, sorted_valid, num_consumers: int, eligible=None,
     Args:
       sorted_lags: int64[T, P] — each topic's lags in processing order.
       sorted_valid: uint8[T, P] — their validity (0 = padding).
-      num_consumers: C, at most ``MAX_SLOTS``.
+      num_consumers: C >= 1 (above 16,384 eligible consumers the kernel
+        sorts in its wide form, :func:`..ops.rounds_cuda.wide_scratch`).
       eligible: uint8[C] or None (every consumer eligible).
       lag_range: None, or (least lag, bound on any topic's sum of |valid
         lags|) as the caller knows them on the host (:func:`host_lag_range`);

@@ -27,7 +27,6 @@ import torch
 
 #: 64-bit words before the histogram: five sums, then the ticket.
 ACC_WORDS = 8
-
 _fn = None
 _fn_rows = None
 _fn_shard = None

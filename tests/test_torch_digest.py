@@ -129,10 +129,9 @@ def test_one_consumer():
 def test_digest_limits_raise_on_the_cpu(bad):
     lags, choice, tab, counts = (T(a) for a in resident_state(1, 64, 60, 4))
     C = 4
-    if bad == "consumers":
-        C = refine.DIGEST_MAX_CONSUMERS + 1
-        counts = torch.zeros(C, dtype=torch.int32)
-        tab = torch.zeros((C, 2), dtype=torch.int32)
+    if bad == "consumers":  # counts and the table for another consumer count
+        counts = torch.zeros(C + 1, dtype=torch.int32)
+        tab = torch.zeros((C + 1, 2), dtype=torch.int32)
     elif bad == "dtype":
         choice = choice.long()
     elif bad == "shape":

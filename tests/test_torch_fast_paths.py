@@ -172,12 +172,17 @@ def test_batch_equals_assign_batched_rounds():
 
 
 def test_outside_the_kernel_limits_raises_on_the_cpu():
-    """The kernel's consumer limit raises ValueError on both devices, so the
-    CPU refuses what the card would."""
+    """20,000 consumers, above the register network's 16,384 slots (once
+    refused on both devices), are answered as the JAX package answers
+    them."""
     lags = dense_case(2, 2, 8)
-    for fn in (batched.assign_stream_batch, batched.assign_stream_global):
-        with pytest.raises(ValueError, match="consumers pad to"):
-            fn(lags, 20000, device="cpu")
+    got = batched.assign_stream_batch(lags, 20000, device="cpu").numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jax_batched.assign_stream_batch(lags, num_consumers=20000)))
+    choice, totals = batched.assign_stream_global(lags, 20000, device="cpu")
+    want_choice, want_totals = jax_batched.assign_stream_global(lags, num_consumers=20000)
+    np.testing.assert_array_equal(choice.numpy(), np.asarray(want_choice))
+    np.testing.assert_array_equal(totals.numpy(), np.asarray(want_totals))
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

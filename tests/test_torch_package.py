@@ -305,10 +305,13 @@ def test_other_devices_never_reach_the_plain_version():
 @pytest.mark.parametrize(
     "call",
     [
-        # more consumers than the kernels take (16384)
-        lambda z: plan_stats.plan_stats(z(4), z(4), z(4), z(16385), z(16385)),
+        # totals that could reach the round scan's int64 sentinel, and a
+        # device that is neither cuda nor cpu (consumer counts have no cap)
+        lambda z: rounds_cuda.rounds_scan(
+            torch.full((1, 2, 2), 2**62, dtype=torch.int64),
+            torch.ones((1, 2, 2), dtype=torch.uint8), torch.zeros(2, dtype=torch.int64)),
         lambda z: linear_ot_cuda.superblock_partials(
-            z(8, 1, 8), z(8, 1, 8), z(16385), z(16385)),
+            *(x.to("meta") for x in (z(8, 1, 8), z(8, 1, 8), z(16385), z(16385)))),
         # mismatched shapes, dtypes and scalars
         lambda z: plan_stats.plan_stats(z(4), z(3), z(4), z(2), z(2)),
         lambda z: plan_stats.plan_stats(z(4), z(4), z(4), z(2), z(2).double()),
@@ -321,6 +324,37 @@ def test_other_devices_never_reach_the_plain_version():
 def test_kernel_limits_raise_on_the_cpu_too(call):
     with pytest.raises(ValueError):
         call(lambda *shape: torch.zeros(shape, dtype=torch.float32))
+
+
+def pyproject():
+    import tomllib
+
+    return tomllib.loads((REPO / "pyproject.toml").read_text(encoding="utf-8"))
+
+
+def test_packaging_lists_every_port_subpackage():
+    """Every directory of the port with an ``__init__.py`` is in
+    pyproject's explicit package list, so an installed port has it."""
+    declared = set(pyproject()["tool"]["setuptools"]["packages"])
+    on_disk = {str(init.parent.relative_to(REPO)).replace("/", ".")
+               for init in PORT.rglob("__init__.py")}
+    assert on_disk <= declared, sorted(on_disk - declared)
+    assert {"kafka_lag_based_assignor_tpu_torch.federated",
+            "kafka_lag_based_assignor_tpu_torch.native"} <= on_disk
+
+
+def test_packaging_ships_every_port_source():
+    """Every CUDA source and header (built by ``ops/_build``) and C++ source
+    (``native/greedy.cpp``, built by ``native``) of the port matches the
+    port's package-data, so an installed port can build its kernels."""
+    import fnmatch
+
+    globs = pyproject()["tool"]["setuptools"]["package-data"][PORT.name]
+    sources = [p.relative_to(PORT).as_posix() for ext in ("*.cu", "*.cuh", "*.cpp")
+               for p in PORT.rglob(ext)]
+    assert {"csrc/rounds_scan.cu", "csrc/slot_sort.cuh", "native/greedy.cpp"} <= set(sources)
+    unshipped = [s for s in sources if not any(fnmatch.fnmatch(s, g) for g in globs)]
+    assert not unshipped, unshipped
 
 
 def test_group_tensors_round_trips_a_jax_topic_group():

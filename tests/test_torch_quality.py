@@ -329,7 +329,7 @@ def edge_blocks(name):
     else:
         blocks = [rng.gamma(0.5, 2.0, (8, 1, 8)).astype(np.float32),
                   (rng.random((8, 1, 8)) < 0.8).astype(np.float32)]
-        C = linear_ot_cuda.MAX_CONSUMERS
+        C = 16384
     A = rng.normal(0, 0.5, C).astype(np.float32)
     B = rng.normal(0, 0.1, C).astype(np.float32)
     return blocks[0], blocks[1], A, B
@@ -363,15 +363,27 @@ def test_mirror_prox_step_matches_jax_at_edge_shapes(name, sc, prev_spread):
 
 @pytest.mark.parametrize("wrapper", ["superblock_partials", "mirror_prox_step"])
 def test_linear_ot_wrappers_refuse_one_consumer_too_many(wrapper):
-    C = linear_ot_cuda.MAX_CONSUMERS + 1
-    ws = torch.ones((8, 1, 8))
-    A, B = torch.zeros(C), torch.zeros(C)
-    with pytest.raises(ValueError, match="consumers"):
-        if wrapper == "superblock_partials":
-            linear_ot_cuda.superblock_partials(ws, ws, A, B)
-        else:
-            linear_ot_cuda.mirror_prox_step(ws, ws, A, B, torch.tensor(1.0),
-                                            torch.tensor(0.0), eta=8.0)
+    """16,385 consumers, once refused, are answered: both wrappers hold the
+    JAX functions' values to the module's tolerance; zero consumers still
+    raise."""
+    C = 16385
+    rng = np.random.default_rng(16385)
+    ws = rng.gamma(0.5, 2.0, (8, 1, 8)).astype(np.float32)
+    cnt = (rng.random((8, 1, 8)) < 0.8).astype(np.float32)
+    A = rng.normal(0, 0.5, C).astype(np.float32)
+    B = rng.normal(0, 0.1, C).astype(np.float32)
+    if wrapper == "superblock_partials":
+        got = linear_ot_cuda.superblock_partials(T(ws), T(cnt), T(A), T(B))
+        want = jax_linear._superblock_partials(*(jnp.asarray(x) for x in (ws, cnt, A, B)))
+    else:
+        got = linear_ot_cuda.mirror_prox_step(T(ws), T(cnt), T(A), T(B), torch.tensor(1.0),
+                                              torch.tensor(0.0), eta=8.0)
+        want = jax_step(ws, cnt, A, B, np.float32(1.0), np.float32(0.0))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert_close(g.numpy(), w)
+    with pytest.raises(ValueError, match="consumer"):
+        linear_ot_cuda.superblock_partials(T(ws), T(cnt), torch.zeros(0), torch.zeros(0))
 
 
 def test_sinkhorn_duals_track_jax():

@@ -334,21 +334,23 @@ def test_topic_solve_matches_jax(pack_shift):
 
 
 def test_wrapper_rejects_too_many_consumers():
-    C = rounds_cuda.MAX_SLOTS + 1
-    with pytest.raises(ValueError, match="limit of 16384"):
-        rounds_cuda.rounds_scan(
-            torch.zeros((1, 1, C), dtype=torch.int64),
-            torch.ones((1, 1, C), dtype=torch.uint8),
-            torch.zeros(C, dtype=torch.int64),
-        )
-    # The largest admissible width runs.
-    C = rounds_cuda.MAX_SLOTS
-    choice, _ = rounds_cuda.rounds_scan(
-        torch.arange(C, dtype=torch.int64).flip(0)[None, None].contiguous(),
-        torch.ones((1, 1, C), dtype=torch.uint8),
-        torch.zeros(C, dtype=torch.int64),
-    )
-    assert choice[0, 0].tolist() == list(range(C))
+    """One consumer above the register network's 16,384 slots used to be
+    refused; the wrapper now answers it (the kernel's wide form on the
+    card), in both key forms, bit for bit as the JAX round scan does."""
+    C = rounds_cuda.REGISTER_SLOTS + 1
+    lags, valid, n_valid = sorted_case(11, 2 * C + 5)
+    gains, ok = kernel_rows(lags, valid, C)
+    zeros = torch.zeros(C, dtype=torch.int64)
+    rb = rounds_cuda.packed_rank_bits(gains, ok, zeros)
+    assert rb == 15
+    choice, totals = rounds_cuda.rounds_scan(gains, ok, zeros)
+    for form in (rb, 0):
+        want_t, want_c = jax_scan(lags, valid, C, None, form)
+        got_c, got_t = rounds_cuda.rounds_scan_torch(gains, ok, zeros, False, form)
+        np.testing.assert_array_equal(got_c.reshape(-1)[: lags.size].numpy(), want_c)
+        np.testing.assert_array_equal(got_t[0].numpy(), want_t)
+    np.testing.assert_array_equal(choice.reshape(-1)[: lags.size].numpy(), want_c)
+    np.testing.assert_array_equal(totals[0].numpy(), want_t)
 
 
 @pytest.mark.parametrize("carry", [False, True])

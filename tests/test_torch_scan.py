@@ -6,8 +6,9 @@ plain version of the scan kernel (``scan_cuda.scan_greedy_torch``, which
 the wrapper runs for CPU tensors) are held bit for bit against
 ``kafka_lag_based_assignor_tpu.ops.scan_kernel`` / ``ops.batched``: integer
 arithmetic, so the tolerance is exact equality.  Inputs are made with
-numpy from a seed.  The kernel itself runs on the card only; its limit
-(16,384 consumers) raises on the CPU too.
+numpy from a seed.  The kernel itself runs on the card only; above 16,384
+eligible consumers it sorts in its wide form, and the CPU takes those
+groups too.
 
 The kernel computes the scan as rounds of E valid rows (E the eligible
 consumers); that round form, built here from the port's round scan
@@ -168,13 +169,15 @@ def test_scan_greedy_torch_is_the_step_loop(eligible):
 
 
 def test_scan_limits_raise_on_the_cpu():
+    """Bad inputs raise; one consumer above the register network's 16,384
+    slots (once refused) is answered as the JAX scan answers it."""
     z = torch.zeros((2, 8), dtype=torch.int64)
     v = torch.ones((2, 8), dtype=torch.uint8)
-    with pytest.raises(ValueError, match="16384"):
-        scan_cuda.scan_greedy(z, v, scan_cuda.MAX_SLOTS + 1)
-    with pytest.raises(ValueError, match="16384"):
-        scan_kernel.assign_topic_scan(z, z.to(torch.int32), v.bool(), 16385)
-    scan_cuda.scan_greedy(z, v, scan_cuda.MAX_SLOTS)  # the limit itself runs
+    C = rounds_cuda.REGISTER_SLOTS + 1
+    lags, pids, valid = topic(3, 3 * C // 2, C, "zipf")
+    assert_equal(scan_kernel.assign_topic_scan(T(lags), T(pids), T(valid), C),
+                 jax_topic_scan(lags, pids, valid, C))
+    scan_cuda.scan_greedy(z, v, C)
     for bad in (
         lambda: scan_cuda.scan_greedy(z, v, 0),
         lambda: scan_cuda.scan_greedy(z.int(), v, 4),

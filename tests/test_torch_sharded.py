@@ -426,8 +426,10 @@ def test_linear_sharded_rejects_bad_meshes_and_shards():
                      (port_solve.solve_linear_sharded, pmesh(3))):
         with pytest.raises(ValueError, match="pow2 mesh size"):
             fn(mesh, lags, 4)
+    # 16,385 consumers, once refused, are answered; zero consumers raise.
+    valid_assignment(port_solve.solve_linear_sharded(pmesh(2), lags, 16385)[0], 300, 16385)
     with pytest.raises(ValueError, match="consumers"):
-        port_solve.solve_linear_sharded(pmesh(2), lags, linear_ot_cuda.MAX_CONSUMERS + 1)
+        port_solve.solve_linear_sharded(pmesh(2), lags, 0)
     with pytest.raises(ValueError, match="tiles"):
         linear_ot_cuda.admit_sharded(100, 4, 64)
 
