@@ -32,18 +32,18 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    bits: the plan statistics (K3) at the dedup shapes of configs 2, 4 and
    5 and of two of config 3's topics (C 64) and at every U = 1, 17,
    1,024, 4,096 and C = 1, 16, 31, 512, 1,000, 1,024, 1,025, 2,000,
-   16,384 (C ascending, the generic kernel's shared
-   memory growing in one process), in each ``need`` (both, load, colsum;
-   the marginal asked for alone equal bit for bit to its ``need="both"``
-   value) and in each kernel form that takes the shape (the cluster form
-   up to C = 1,024, the pass form at every C); superblock partials and
-   the mirror-prox step at config 5 with C 1000 and 16, and at the duals
-   the plain linear loop holds after its last step at config 5, also at
-   edge shapes (C = 1, 2, not a multiple of 128, and 1,025, 2,000 and
-   16,384 in that order; trailing tiles all padding, all-zero weights);
-   K3, K4 and K5 at C = 16,385 (the tile in shared memory) and 60,000 (in
-   device scratch, the form the card must take where not one row fits
-   shared memory); and torch's argmin / argmax on the
+   16,384 (C ascending), in each ``need`` (both, load, colsum; the
+   marginal asked for alone equal bit for bit to its ``need="both"``
+   value) and in each kernel form that takes the shape (the cluster and
+   pass forms up to C = 1,024, the column form above); superblock
+   partials and the mirror-prox step at config 5 with C 1000 and 16, and
+   at the duals the plain linear loop holds after its last step at config
+   5, also at edge shapes (C = 1, 2, not a multiple of 128, and 1,025,
+   2,000 and 16,384; trailing tiles all padding and all-zero weights, at
+   a register width and at a column width); K3, K4 and K5 at C = 16,385
+   (the last column tile one consumer wide), 20,000 and 60,000, after the
+   forms by width (registers up to 1,024 consumers, ceil(C / 1,024)
+   column tiles above); and torch's argmin / argmax on the
    card take the first index among ties, as the JAX package's do; the
    resident-state digest (K6) bit for bit, each case launched twice to the
    same bits, at BASELINE config 5's resident shape (B 131,072, C 1,000,
@@ -313,7 +313,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       then every kernel held to its plain version at those shapes (K1 and
       K6, on the engine's resident state, bit for bit; K3, K4, K5 to the
       f32 tolerance) and timed there (event and device time alone, the
-      plain version, the bound).  Its launches count into the kernels
+      plain version, the bound; for K3 and K5 the library yardstick, K5's
+      one superblock at a time).  Its launches count into the kernels
       line, its differences into the kernels line's ``max_abs_err``, and
       it prints a JSON ``wide`` line;
 5. times, with CUDA events, medians of 30 runs after warm-up: each kernel
@@ -332,7 +333,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    one profiled warm-refine epoch; K7 alone at configs 5 and 3 and at the
    direct API's ``K7_TIMED`` shapes (event and device time, time a row,
    rounds x stages, bound; its plain version on the card, a median at
-   config 3 and one call at config 5, equal to the kernel), the
+   config 3 and one call on the first 10,000 rows of config 5's processing
+   order, equal to the kernel there and beside its time), the
    ``assign()`` walls of ``scan`` and ``rounds`` + 16 refine rounds at
    config 5 (medians of 10), and the device shares of those cells at
    configs 5 and 3.
@@ -361,7 +363,7 @@ phase 4a and one phase-4c run it is held to) and prints its ``sidecar``
 line; ``--lifecycle`` runs phase 4g alone (after the builds and one
 phase-4c run) and prints its ``lifecycle`` line (``--lifecycle-child warm
 |cold`` is the fresh process of its step (a)).  ``--profiler-probe`` runs ``profiler_probe`` (torch.profiler's
-device records in a fresh process; no build) and prints it as JSON.  Six
+device records in a fresh process; no build) and prints it as JSON.  Eight
 more modes time kernels alone::
 
     python3 chip_smoke.py --k1-times           # phase 5's K1 times only
@@ -370,14 +372,23 @@ more modes time kernels alone::
     python3 chip_smoke.py --k7-ab ROOT [ROOT ...]
     python3 chip_smoke.py --k36-times          # K3 and K6 (and K4, K5 alone)
     python3 chip_smoke.py --k36-ab ROOT [ROOT ...]
+    python3 chip_smoke.py --wide-times         # K3, K4, K5 wide and at configs 4, 5
+    python3 chip_smoke.py --wide-ab ROOT [ROOT ...]
 
 ``--k36-times`` times K3 at the dedup shapes of configs 2 and 4 (``need``
 load and colsum, through the public wrapper; a package without ``need``
 computes both) and its library yardstick, K6 at config 5's resident
 state, K4 and K5 alone at config 5, and the quality ratio of the dense
 ``sinkhorn`` cells (configs 2 and 4); where the package has two K3 forms,
-each form alone at U = 1,024, 2,048, 4,096 and C = 16, 512, 1,024.  The
-``-ab`` modes run the matching ``-times`` mode once for each checkout ROOT,
+each form alone at U = 1,024, 2,048, 4,096 and C = 16, 512, 1,024.
+``--wide-times`` times K5 and K4 at phase 4l's blocks and K3 (``need=load``,
+beside its plain version) at U 1,024 by 20,000 consumers, and the control
+shapes K3 at config 4 (each ``need``) and K4, K5 at config 5, each with a
+digest of its output's bits, then phase 4l's ``sinkhorn`` ``assign()``
+(three walls on the host clock, and one profiled call's K4 and K5 device
+time, with a digest of its assignment); ``--wide-ab`` fails if two
+checkouts' control digests differ, or one checkout's digests at any shape.  The ``-ab``
+modes run the matching ``-times`` mode once for each checkout ROOT,
 in that order, each in a process that imports the port's package from
 that ROOT (its kernels build under ROOT), for example a parent commit
 unpacked with ``git archive`` beside this one: ``--k36-ab parent . .
@@ -389,6 +400,7 @@ cell's profiler sessions in its own process all lost their records.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import inspect
 import json
 import math
@@ -492,8 +504,10 @@ COUNTERS = (
     ("state_digest_sharded", refine.state_digest_sharded),
 )
 # The name each kernel has in the profiler (a substring of it): K5 is the
-# pass K4 launches twice; K3's two forms are klba_plan_stats_cluster and
-# klba_plan_stats_pass.
+# pass K4 launches twice; K3's forms are klba_plan_stats_cluster,
+# klba_plan_stats_pass and, above 1,024 consumers, klba_plan_stats_rows and
+# _cols (the column form's two launches, as klba_linear_ot_pass_rows and
+# _cols are K4's and K5's).
 KERNEL_NAMES = {
     "rounds_scan": "rounds_scan_kernel",
     "plan_stats": "klba_plan_stats_",
@@ -911,7 +925,8 @@ def plan_stats_cases(device):
     configs 2 and 4, config 5's (the dedup cap), two of config 3's topics
     (phase 4f's concurrent ``sinkhorn`` requests), every U = 1, 17, 1,024,
     4,096 at every C = 1, 16, 31, 512, 1,000, 1,024, 1,025, 2,000, 16,384
-    (C ascending), ``wide_plan_stats_cases`` and all-zero weights."""
+    (C ascending), ``wide_plan_stats_cases`` and all-zero weights (at 100
+    and at 2,000 consumers)."""
     g = torch.Generator().manual_seed(1)
     for config in (2, 4, 5):
         (ws, cnt, wsum), C = dedup_case(config, device)
@@ -930,15 +945,16 @@ def plan_stats_cases(device):
                    *random_duals(C, device, U + C))
     yield from wide_plan_stats_cases(device)
     zeros = torch.zeros(64, device=device)
-    yield "all-zero weights U=64 C=100", zeros, zeros, zeros, *random_duals(100, device)
+    for C in (100, 2000):
+        yield f"all-zero weights U=64 C={C}", zeros, zeros, zeros, *random_duals(C, device)
 
 
 def wide_plan_stats_cases(device):
-    """K3's pass form past 16,384 consumers: C = 16,385 (two rows of the
-    tile in shared memory) and 60,000 (the tile in device scratch), at U =
-    17 and 1,024."""
+    """K3's column form past 16,384 consumers: C = 16,385 (17 column tiles,
+    the last one consumer wide), 20,000 (phase 4l's group) and 60,000, at U
+    = 17 and 1,024."""
     g = torch.Generator().manual_seed(4)
-    for C in (16385, 60000):
+    for C in (16385, 20000, 60000):
         for U in (17, 1024):
             ws = torch.rand(U, generator=g).mul_(4.0)
             cnt = torch.randint(0, 5, (U,), generator=g).float()
@@ -955,7 +971,7 @@ def plan_stats_vs_plain(device, cases=None) -> float:
     worst = 0.0
     for name, *args in (plan_stats_cases(device) if cases is None else cases):
         U, C = args[0].shape[0], args[3].shape[0]
-        forms = ["cluster", "pass"] if C <= plan_stats_cuda.REG_COLS else ["pass"]
+        forms = ["cluster", "pass"] if C <= plan_stats_cuda.REG_COLS else ["columns"]
         chosen = plan_stats_cuda.form_for(U, C)
         ratios = {}
         for form in forms:
@@ -1011,9 +1027,9 @@ def linear_cases(device):
     """(name, ws_b, cnt_b, A, B): config 5's blocks with C 1000 (its main
     path) at random duals and at the duals its loop ends with, and with C
     16; then edge shapes: C = 1, 2, 130, then 1,025, 2,000 and 16,384 (the
-    largest, the fewest rows a chunk) in that order, so that the generic
-    kernel's shared memory grows from call to call in one process; trailing
-    tiles all padding (65 real rows in [8, 8, 64]) and all-zero weights."""
+    column form, 2, 2 and 16 column tiles); trailing tiles all padding (65
+    real rows in [8, 8, 64]) and all-zero weights, each at a register width
+    and at a column width."""
     g = torch.Generator().manual_seed(2)
     (ws_b, cnt_b), C = blocks_case(5, device)
     yield f"config5 {list(ws_b.shape)} C={C}", ws_b, cnt_b, *random_duals(C, device)
@@ -1030,47 +1046,51 @@ def linear_cases(device):
     cnt = torch.zeros((8, 8, 64))
     ws.view(-1)[:65] = torch.rand(65, generator=g).mul_(3.0)
     cnt.view(-1)[:65] = 1.0
-    yield ("65 real rows in [8, 8, 64] C=100", ws.to(device), cnt.to(device),
-           *random_duals(100, device, 100))
+    for C in (100, 2000):
+        yield (f"65 real rows in [8, 8, 64] C={C}", ws.to(device), cnt.to(device),
+               *random_duals(C, device, C))
     zeros = torch.zeros((8, 1, 8), device=device)
-    yield "all-zero weights [8, 1, 8] C=5", zeros, zeros, *random_duals(5, device)
+    for C in (5, 2000):
+        yield f"all-zero weights [8, 1, 8] C={C}", zeros, zeros, *random_duals(C, device)
 
 
 def tile_form(C: int) -> str:
-    """Where the built row-tile pass of K3, K4 and K5 keeps the plan's tile
-    at C consumers: ``"scratch"`` where ``klba_row_tile_x_floats`` gives it
-    device memory, else ``"shared"``."""
-    return "scratch" if linear_ot_cuda._bind().klba_row_tile_x_floats(C) > 0 else "shared"
+    """The form the built row-tile pass of K3, K4 and K5 takes at C
+    consumers: ``"registers"`` (A and B in a lane's registers) or ``"N
+    column tiles"`` (the column form), from ``klba_row_tile_col_tiles``."""
+    n = linear_ot_cuda._bind().klba_row_tile_col_tiles(C)
+    return f"{n} column tiles" if n else "registers"
 
 
 def linear_limits(device) -> dict:
     """Both linear-OT wrappers past 16,384 consumers against their plain
-    versions: C = 16,385 (two rows of the tile in shared memory) and 60,000
-    (the tile in device scratch), each run twice to the same bits.  The
-    row-tile pass's shared memory fits a block at every C, and the card
-    takes the shared form up to some width and the scratch form at every
-    width past it, with 16,385 on the shared side and 60,000 on the
-    scratch side.  Returns max |diff| by kernel."""
+    versions: C = 16,385 (the last column tile one consumer wide), 20,000
+    and 60,000, each run twice to the same bits.  Before that, the forms by
+    width: the register forms up to 1,024 consumers, each within a block's
+    shared memory, and the column form above with ceil(C / 1,024) column
+    tiles, as ``plan_stats_cuda``'s geometry mirrors them.  Returns max
+    |diff| by kernel."""
     lib = linear_ot_cuda._bind()
-    widths = (1, 2, 16, 130, 1000, 1024, 1025, 16384, 16385, 38000, 57000, 57300, 60000,
-              100000)
+    widths = (1, 2, 16, 130, 1000, 1024, 1025, 2000, 16384, 16385, 20000, 38000, 57300,
+              60000, 100000)
     smem = {c: lib.klba_row_tile_smem_bytes(c) for c in widths}
+    tiles = {c: lib.klba_row_tile_col_tiles(c) for c in widths}
     if max(smem.values()) > SMEM_PER_BLOCK:
         raise AssertionError(f"row-tile shared memory {smem} above {SMEM_PER_BLOCK} bytes")
-    forms = {c: tile_form(c) for c in widths}
-    order = [forms[c] for c in widths]
-    if (order != sorted(order, key="shared scratch".split().index)
-            or forms[16385] != "shared" or forms[60000] != "scratch"):
-        raise AssertionError(f"row-tile forms {forms}")
-    log(f"row-tile shared memory by C (bytes): {smem}; form by C: {forms}")
+    want = {c: 0 if c <= plan_stats_cuda.REG_COLS else -(-c // plan_stats_cuda.COL_TILE)
+            for c in widths}
+    if tiles != want or any((smem[c] > 0) != (tiles[c] == 0) for c in widths):
+        raise AssertionError(f"row-tile forms: column tiles {tiles}, smem {smem}; "
+                             f"plan_stats_cuda's geometry expects {want}")
+    log(f"row-tile shared memory by C (bytes): {smem}; column tiles by C: {tiles}")
     g = torch.Generator().manual_seed(5)
     worst = {"superblock_partials": 0.0, "mirror_prox_step": 0.0}
-    for shape, C in (((8, 1, 8), 16385), ((8, 2, 64), 16385), ((8, 1, 8), 60000),
-                     ((8, 2, 64), 60000)):
+    for shape, C in (((8, 1, 8), 16385), ((8, 2, 64), 16385), ((8, 1, 8), 20000),
+                     ((8, 2, 64), 20000), ((8, 1, 8), 60000), ((8, 2, 64), 60000)):
         ws = torch.rand(shape, generator=g).mul_(3.0).to(device)
         cnt = (torch.rand(shape, generator=g) < 0.8).float().to(device)
         A, B = random_duals(C, device, C)
-        name = f"random {list(shape)} C={C} ({forms[C]} tile)"
+        name = f"random {list(shape)} C={C} ({tile_form(C)})"
         got = linear_ot_cuda.superblock_partials(ws, cnt, A, B)
         again = linear_ot_cuda.superblock_partials(ws, cnt, A, B)
         want = linear_ot._superblock_partials(ws, cnt, A, B)
@@ -4601,6 +4621,10 @@ def once_event_ms(fn) -> tuple:
     return start.elapsed_time(end), out
 
 
+# Rows of config 5's processing order that K7's plain version runs on the
+# card in phase 5: its loop is one torch step a row, and all 100,000 took
+# about 35 s of the script.
+K7_PLAIN_ROWS = 10_000
 # The direct-API cases of ``scan_cases`` that ``k7_times`` times beside
 # the main path's: E small against C, and padding in the middle.
 K7_TIMED = ("E1_of_C1000", "E33_of_C1000", "E2_of_C16384", "padded_batch")
@@ -4656,23 +4680,30 @@ def k7_times(device) -> dict:
 
 def solver_times(device, plain_cpu_ms: dict) -> dict:
     """K7's times (``k7_times``), its plain version on the card at configs 5
-    (one call, a 100k-step torch loop, whose output must equal the
-    kernel's) and 3 (median), and the ``assign()`` walls of ``scan`` and of
-    ``rounds`` + 16 refine rounds at config 5, medians of 10.  Returns the
-    kernels-line fields: the standard ones at config 5, where K7 spends its
-    time; config 3's under ``config3_*``; the CPU plain version's time from
-    phase 3 under ``plain_cpu_ms``."""
+    (one call on the first K7_PLAIN_ROWS rows of the processing order, a
+    torch loop of as many steps, whose output must equal the kernel's on
+    the same rows, and the kernel's time there) and 3 (median), and the
+    ``assign()`` walls of ``scan`` and of ``rounds`` + 16 refine rounds at
+    config 5, medians of 10.  Returns the kernels-line fields: the standard
+    ones at config 5, where K7 spends its time (``plain_ms`` on the cut
+    rows, beside the kernel's ``plain_rows_ms`` there); config 3's under
+    ``config3_*``; the CPU plain version's time from phase 3 (all config
+    5's rows) under ``plain_cpu_ms``."""
     k7 = k7_times(device)
     for name, sl, sv, C, _ in k7_cases(device):
         if name == "config 3":
             plain = median_event_ms(lambda: scan_cuda.scan_greedy_torch(sl, sv, C))
         else:
+            sl, sv = sl[:, :K7_PLAIN_ROWS].contiguous(), sv[:, :K7_PLAIN_ROWS].contiguous()
             plain, want = once_event_ms(lambda: scan_cuda.scan_greedy_torch(sl, sv, C))
             if not all(torch.equal(a, b) for a, b in zip(scan_cuda.scan_greedy(sl, sv, C), want)):
                 raise AssertionError(f"scan_greedy disagrees with its plain version at {name}")
+            k7[name]["plain_rows"] = K7_PLAIN_ROWS
+            k7[name]["plain_rows_ms"] = median_event_ms(lambda: scan_cuda.scan_greedy(sl, sv, C))
         k7[name]["plain_ms"] = plain
         log(f"times  scan_greedy's plain version on the card at {name}: {plain!r} ms"
-            + (" (one call)" if name == "config 5" else ""))
+            + (f" (one call on the first {K7_PLAIN_ROWS} rows; the kernel there "
+               f"{k7[name]['plain_rows_ms']!r} ms)" if name == "config 5" else ""))
     for solver, refine_iters in (("scan", None), ("rounds", REFINE_ITERS)):
         wall, lag_read, solve, fastest = assign_walls(5, solver, device, 10, refine_iters)
         log(f"assign() at config 5 {solver} refine {refine_iters}, medians of 10 (host "
@@ -4682,7 +4713,8 @@ def solver_times(device, plain_cpu_ms: dict) -> dict:
     return dict(ms=c5["event_ms"], alone_ms=c5["alone_ms"], plain_ms=c5["plain_ms"],
                 bound_ms=c5["bound_ms"], bound_by=c5["bound_by"], library_ms=None,
                 depth=c5["depth"], rounds=c5["rounds"], stages=c5["stages"],
-                ns_a_step=c5["ns_a_step"], plain_cpu_ms=plain_cpu_ms["config 5"],
+                ns_a_step=c5["ns_a_step"], plain_rows=c5["plain_rows"],
+                plain_rows_ms=c5["plain_rows_ms"], plain_cpu_ms=plain_cpu_ms["config 5"],
                 config3_ms=c3["event_ms"], config3_alone_ms=c3["alone_ms"],
                 config3_plain_ms=c3["plain_ms"], config3_bound_ms=c3["bound_ms"],
                 config3_plain_cpu_ms=plain_cpu_ms["config 3"],
@@ -4709,6 +4741,13 @@ def superblock_library(ws_b, cnt_b, A, B):
     Sb = ws_b.shape[0]
     x = torch.softmax(-ws_b.reshape(-1)[:, None] * A + B, dim=1).reshape(Sb, -1, A.shape[0])
     return [torch.matmul(w.reshape(Sb, 1, -1), x) for w in (ws_b, cnt_b)]
+
+
+def superblock_library_each(ws_b, cnt_b, A, B):
+    """``superblock_library`` one superblock at a time: at the wide group
+    the whole plan is 21 GB, one superblock's 2.6 GB."""
+    return [superblock_library(ws_b[s:s + 1], cnt_b[s:s + 1], A, B)
+            for s in range(ws_b.shape[0])]
 
 
 
@@ -4783,7 +4822,8 @@ def device_profile(fn, kernel: str, repeats: int = REPEATS) -> dict:
     in the CUDA kernels whose name holds ``kernel`` (one of KERNEL_NAMES),
     and ``launches``, their count; ``all_ops_ms``, the time of everything
     the call enqueued (kernels, memsets and copies); ``kernels`` and
-    ``memsets``, the counts of each.  Unlike the CUDA-event time it leaves
+    ``memsets``, the counts of each; ``by_kernel``, ``alone_ms`` split by
+    kernel name.  Unlike the CUDA-event time it leaves
     out the host's launch gaps.  A session first runs ``repeats`` calls with
     the profiler warming up (their records are dropped), then records
     as many.  A session that lost records (an op counted a number of
@@ -4822,6 +4862,7 @@ def device_profile(fn, kernel: str, repeats: int = REPEATS) -> dict:
 
             return {
                 "alone_ms": ms(hits),
+                "by_kernel": {e.key[:60]: ms([e]) for e in hits},
                 "launches": count(hits),
                 "all_ops_ms": ms(cuda),
                 "kernels": count(e for e in cuda
@@ -5285,66 +5326,169 @@ def wide_times(device, engine) -> dict:
                                                       row_tab)),
         bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes", max_abs_err=err,
         shape=f"B {lags_p.numel()} C {WIDE_C} M {M} (the engine's resident state)")
-    lags_p, _, valid_p = pad_topic_rows(arr)
-    P2, t, _ = linear_ot.plan_shape(lags_p.shape[0], 1024)
-    ws, cnt = linear_ot._ws_cnt(torch.from_numpy(lags_p).to(device),
-                                torch.from_numpy(valid_p).to(device),
-                                sinkhorn._scale_np(lags_p, valid_p, WIDE_C))
-    ws_b, cnt_b = linear_ot._to_blocks(ws, P2, 8, t), linear_ot._to_blocks(cnt, P2, 8, t)
-    A, B = random_duals(WIDE_C, device)
+    ws_b, cnt_b, A, B = wide_blocks(device)
     rows = int(((ws_b != 0) | (cnt_b != 0)).sum())
     load_rows = int((ws_b != 0).sum())
     Sb = ws_b.shape[0]
     sc, prev = torch.tensor(1.0, device=device), torch.tensor(float("inf"), device=device)
     eta = linear_ot.MIRROR_PROX_ETA
     form = tile_form(WIDE_C)
-    name = f"{list(ws_b.shape)} C {WIDE_C}, {form} tile"
+    name = f"{list(ws_b.shape)} C {WIDE_C}, {form}"
     err = f32_check("superblock_partials", f"wide group {name}",
                     linear_ot_cuda.superblock_partials(ws_b, cnt_b, A, B),
                     linear_ot._superblock_partials(ws_b, cnt_b, A, B),
                     linear_ot_cuda.superblock_partials(ws_b, cnt_b, A, B))
-    bound, by = exp_bound(rows * WIDE_C, 4 * (2 * ws_b.numel() + 2 * WIDE_C + 2 * Sb * WIDE_C))
+    moved = 4 * (2 * ws_b.numel() + 2 * WIDE_C + 2 * Sb * WIDE_C)
+    bound, by = exp_bound(rows * WIDE_C, moved)
     slow = WIDE_SLOW_REPEATS
+
+    def k5_library():
+        return superblock_library_each(ws_b, cnt_b, A, B)
+
     out["superblock_partials"] = dict(
         op_times(lambda: linear_ot_cuda.superblock_partials(ws_b, cnt_b, A, B),
                  KERNEL_NAMES["superblock_partials"], slow),
         plain_ms=median_event_ms(lambda: linear_ot._superblock_partials(ws_b, cnt_b, A, B),
                                  slow),
-        bound_ms=bound, bound_by=by, max_abs_err=err,
-        shape=f"{list(ws_b.shape)} ({rows} rows with weight) C {WIDE_C}, {form} tile")
+        library_ms=median_event_ms(k5_library, slow),
+        library_alone_ms=device_profile(k5_library, "", slow)["all_ops_ms"],
+        bound_ms=bound, bound_by=by, bound_2exp_ms=exp_bound(2 * rows * WIDE_C, moved)[0],
+        max_abs_err=err,
+        shape=f"{list(ws_b.shape)} ({rows} rows with weight) C {WIDE_C}, {form}")
     step = (ws_b, cnt_b, A, B, sc, prev)
     err = f32_check("mirror_prox_step", f"wide group {name}",
                     linear_ot_cuda.mirror_prox_step(*step, eta=eta),
                     linear_ot_cuda.mirror_prox_step_torch(*step, eta=eta),
                     linear_ot_cuda.mirror_prox_step(*step, eta=eta))
-    bound, by = exp_bound((rows + load_rows) * WIDE_C,
-                          4 * (2 * ws_b.numel() + 2 * WIDE_C + 2 + 3 * WIDE_C))
+    moved = 4 * (2 * ws_b.numel() + 2 * WIDE_C + 2 + 3 * WIDE_C)
+    bound, by = exp_bound((rows + load_rows) * WIDE_C, moved)
     out["mirror_prox_step"] = dict(
         op_times(lambda: linear_ot_cuda.mirror_prox_step(*step, eta=eta),
                  KERNEL_NAMES["mirror_prox_step"], slow),
         plain_ms=median_event_ms(lambda: linear_ot_cuda.mirror_prox_step_torch(
             *step, eta=eta), slow),
-        bound_ms=bound, bound_by=by, max_abs_err=err, shape=name)
-    g = torch.Generator().manual_seed(6)
-    U = 1024
-    ws_u = torch.rand(U, generator=g).mul_(4.0).to(device)
-    cnt_u = torch.randint(1, 5, (U,), generator=g).float().to(device)
-    args = (ws_u, cnt_u, ws_u * cnt_u, *random_duals(WIDE_C, device))
-    k3_name = (f"U {U} C {WIDE_C}, need=load, {plan_stats_cuda.form_for(U, WIDE_C)} form, "
-               f"{form} tile")
+        library_ms=None, bound_ms=bound, bound_by=by,
+        bound_2exp_ms=exp_bound(2 * (rows + load_rows) * WIDE_C, moved)[0],
+        max_abs_err=err, shape=name)
+    args = wide_k3_args(device)
+    ws_u, wsum_u = args[0], args[2]
+    U = ws_u.shape[0]
+    k3_name = f"U {U} C {WIDE_C}, need=load, {plan_stats_cuda.form_for(U, WIDE_C)} form, {form}"
     err = f32_check("plan_stats", f"wide group {k3_name}",
                     plan_stats.plan_stats(*args, need="load")[:1],
                     plan_stats.plan_stats_torch(*args, need="load")[:1],
                     plan_stats.plan_stats(*args, need="load")[:1])
-    bound, by = exp_bound(U * WIDE_C, 4 * (2 * U + 3 * WIDE_C))
+    moved = 4 * (2 * U + 3 * WIDE_C)
+    bound, by = exp_bound(U * WIDE_C, moved)
+
+    def k3_library():
+        return softmax_library(ws_u, args[3], args[4], (wsum_u,))
+
     out["plan_stats"] = dict(
         op_times(lambda: plan_stats.plan_stats(*args, need="load"), KERNEL_NAMES["plan_stats"]),
         plain_ms=median_event_ms(lambda: plan_stats.plan_stats_torch(*args, need="load")),
-        bound_ms=bound, bound_by=by, max_abs_err=err, shape=k3_name)
+        library_ms=median_event_ms(k3_library),
+        library_alone_ms=device_profile(k3_library, "")["all_ops_ms"],
+        bound_ms=bound, bound_by=by, bound_2exp_ms=exp_bound(2 * U * WIDE_C, moved)[0],
+        max_abs_err=err, shape=k3_name)
     for name, t in out.items():
         log(f"times at the wide group  {name:19s} {t['shape']}: event {t['event_ms']!r} ms, "
-            f"device time alone {t['alone_ms']!r} ms ({t['launches']} launches), plain "
-            f"{t['plain_ms']!r} ms, bound {t['bound_ms']!r} ms ({t['bound_by']})")
+            f"device time alone {t['alone_ms']!r} ms ({t['launches']} launches: "
+            f"{t['by_kernel']}), plain "
+            f"{t['plain_ms']!r} ms, library yardstick {t.get('library_ms')!r} ms (all its ops "
+            f"{t.get('library_alone_ms')!r} ms), bound {t['bound_ms']!r} ms ({t['bound_by']}; "
+            f"two exps an entry {t.get('bound_2exp_ms')!r} ms)")
+    return out
+
+
+def wide_blocks(device):
+    """Phase 4l's linear blocks (ws_b, cnt_b [8, 32, 1024] of the wide
+    group's lags, as the linear path makes them) and random duals (A, B)
+    at WIDE_C."""
+    arr = wide_workload()[0]["t0"]
+    lags_p, _, valid_p = pad_topic_rows(arr)
+    P2, t, _ = linear_ot.plan_shape(lags_p.shape[0], 1024)
+    ws, cnt = linear_ot._ws_cnt(torch.from_numpy(lags_p).to(device),
+                                torch.from_numpy(valid_p).to(device),
+                                sinkhorn._scale_np(lags_p, valid_p, WIDE_C))
+    return (linear_ot._to_blocks(ws, P2, 8, t), linear_ot._to_blocks(cnt, P2, 8, t),
+            *random_duals(WIDE_C, device))
+
+
+def wide_k3_args(device):
+    """K3's inputs beside the wide group: U 1,024 value rows (seed 6) and
+    random duals at WIDE_C."""
+    g = torch.Generator().manual_seed(6)
+    U = 1024
+    ws_u = torch.rand(U, generator=g).mul_(4.0).to(device)
+    cnt_u = torch.randint(1, 5, (U,), generator=g).float().to(device)
+    return (ws_u, cnt_u, ws_u * cnt_u, *random_duals(WIDE_C, device))
+
+
+def bits(out) -> str:
+    """A digest of a kernel call's output tensors' bits (None entries
+    skipped)."""
+    h = hashlib.sha256()
+    for t in out:
+        if t is not None:
+            h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def wide_ab_times(device) -> dict:
+    """K3, K4 and K5 at the wide group's shapes (``wide_blocks``,
+    ``wide_k3_args``; K3's plain version beside it) and, as the control, at
+    config 4 (K3, each ``need``) and config 5 (K4, K5): CUDA-event time and
+    device time alone of each, and a digest of each output's bits
+    (``bits``); then phase 4l's ``sinkhorn`` ``assign()``: three walls on
+    the host clock and one profiled call (K4's and K5's device time alone,
+    and all its device work), with a digest of its assignment.  Uses only
+    interfaces this change's parent has too."""
+    ws_b, cnt_b, A, B = wide_blocks(device)
+    args = wide_k3_args(device)
+    (ws5, cnt5), C5 = blocks_case(5, device)
+    A5, B5 = random_duals(C5, device)
+    (ws4, cnt4, wsum4), C4 = dedup_case(4, device)
+    args4 = (ws4, cnt4, wsum4, *random_duals(C4, device))
+    sc, prev = torch.tensor(1.0, device=device), torch.tensor(float("inf"), device=device)
+    eta = linear_ot.MIRROR_PROX_ETA
+    k5, k4 = linear_ot_cuda.superblock_partials, linear_ot_cuda.mirror_prox_step
+    # The controls first: a card that has just run the parent's 0.1 s
+    # wide launches may hold other clocks than one that has idled.
+    calls = {
+        "K5 config 5": ("superblock_partials", REPEATS, lambda: k5(ws5, cnt5, A5, B5)),
+        "K4 config 5": ("mirror_prox_step", REPEATS,
+                        lambda: k4(ws5, cnt5, A5, B5, sc, prev, eta=eta)),
+    }
+    for need in ("load", "colsum", "both"):
+        calls[f"K3 config 4 {need}"] = (
+            "plan_stats", REPEATS, lambda need=need: plan_stats.plan_stats(*args4, need=need))
+    calls.update({
+        "K5 wide": ("superblock_partials", WIDE_SLOW_REPEATS, lambda: k5(ws_b, cnt_b, A, B)),
+        "K4 wide": ("mirror_prox_step", WIDE_SLOW_REPEATS,
+                    lambda: k4(ws_b, cnt_b, A, B, sc, prev, eta=eta)),
+        "K3 wide load": ("plan_stats", REPEATS, lambda: plan_stats.plan_stats(*args, need="load")),
+    })
+    out = {}
+    for name, (kernel, repeats, fn) in calls.items():
+        out[name] = dict(op_times(fn, KERNEL_NAMES[kernel], repeats), bits=bits(fn()))
+    out["K3 wide load"]["plain_ms"] = median_event_ms(
+        lambda: plan_stats.plan_stats_torch(*args, need="load"))
+    lags, members = wide_workload()
+
+    def assign():
+        return assign_once(lags, members, "sinkhorn", device)
+
+    walls = []
+    for _ in range(3):
+        start = time.perf_counter()
+        got = assign()[0]
+        walls.append((time.perf_counter() - start) * 1e3)
+    prof = device_profile(assign, KERNEL_NAMES["mirror_prox_step"], 1)
+    out["sinkhorn wide assign"] = dict(
+        walls_ms=walls, alone_ms=prof["alone_ms"], launches=prof["launches"],
+        all_ops_ms=prof["all_ops_ms"],
+        bits=hashlib.sha256(json.dumps(sorted(got.items())).encode()).hexdigest()[:16])
     return out
 
 
@@ -5435,8 +5579,8 @@ def kernel_line(name, launches, err, t: dict) -> dict:
     }
     if name in COUNTERPARTS:
         line["counterpart"] = COUNTERPARTS[name]
-    for key in ("library_alone_ms", "depth", "rounds", "stages", "ns_a_step",
-                "plain_cpu_ms", "config3_ms", "config3_alone_ms", "config3_plain_ms",
+    for key in ("library_alone_ms", "depth", "rounds", "stages", "ns_a_step", "plain_rows",
+                "plain_rows_ms", "plain_cpu_ms", "config3_ms", "config3_alone_ms", "config3_plain_ms",
                 "config3_bound_ms", "config3_plain_cpu_ms", "direct_api", "design_bound_ms"):
         if key in t:
             line[key] = t[key]
@@ -5532,6 +5676,23 @@ def ab(mode: str, roots) -> None:
             sys.stderr.write(proc.stderr)
             raise AssertionError(f"{mode} times of {root} exited {proc.returncode}")
         runs.append({"root": root, **json.loads(proc.stdout.strip().splitlines()[-1])})
+    if mode == "wide":
+        by_root = {}
+        for run in runs:
+            by_root.setdefault(run["root"], []).append(run)
+            log(f"wide a/b  {run['root']}: " + "; ".join(
+                f"{name} " + ", ".join(f"{k} {t[k]!r}" for k in (
+                    "alone_ms", "event_ms", "plain_ms", "walls_ms", "all_ops_ms", "bits")
+                    if k in t) for name, t in run["wide_times"].items()))
+        for name in runs[0]["wide_times"]:
+            control = "config" in name
+            for root, same in by_root.items():
+                if len({r["wide_times"][name]["bits"] for r in same}) > 1:
+                    raise AssertionError(f"wide a/b: {name} differs between runs of {root}")
+            if control and len({r["wide_times"][name]["bits"] for r in runs}) > 1:
+                raise AssertionError(f"wide a/b: {name} has other bits in another checkout")
+        log(json.dumps({"wide_ab": runs}))
+        return
     for run in runs:
         if mode in ("k1", "k7"):
             log(f"{mode} a/b  {run['root']}: " + "; ".join(
@@ -5561,7 +5722,7 @@ def main() -> int:
               "port on the card", file=sys.stderr)
         return 1
     device = torch.device("cuda")
-    for mode in ("k1", "k7", "k36"):
+    for mode in ("k1", "k7", "k36", "wide"):
         if sys.argv[1:2] == [f"--{mode}-ab"]:
             ab(mode, sys.argv[2:])
             return 0
@@ -5575,6 +5736,9 @@ def main() -> int:
     if sys.argv[1:] == ["--k36-times"]:
         _build.build_all()
         log(json.dumps({"k36_times": k36_times(device), "device": name}))
+        return 0
+    if sys.argv[1:] == ["--wide-times"]:
+        log(json.dumps({"wide_times": wide_ab_times(device), "device": name}))
         return 0
     if sys.argv[1:] == ["--profiler-probe"]:
         log(json.dumps({"profiler_probe": profiler_probe(), "device": name,

@@ -12,30 +12,35 @@
 //
 // Layout: ws, cnt float[Sb, tpb, tile] (rows; padding rows carry weight 0);
 // A, B float[C]; scratch float[klba_linear_ot_scratch(...)]: the item rows,
-// the tile rows, the superblock rows, A_half, the scratch form's x (C above
-// about 57,000: row_tiles.cuh; both passes of a step use it in turn) and
-// the tickets.
+// the tile rows, the superblock rows, A_half, above 1,024 consumers the
+// column form's row data and tile statistics (row_tiles.cuh; both passes
+// of a step use them in turn), then the tickets.
 //
 // Design.  The TPU kernels walked all tiles in order inside one grid-less
-// invocation.  Here each pass is row_tiles.cuh's single launch: at
-// BASELINE config 5 ([8, 16, 1024] rows by 1000 consumers) 264 blocks, two
-// an SM, take the 512 work items of 256 rows in order (the 24 % of them
-// that are padding end at once), then the last item of each tile sums the
-// tile, the last tile of each superblock the superblock and the last
-// superblock their total (left to right from the first, JAX's
-// _ordered_sum).  K5 is one pass with both marginals.  K4 is two launches:
-// the predictor pass (the load only, so rows with ws = 0 are skipped too),
-// whose final block goes on to the step (the predictor load's max, min and
-// sum over the real consumers, the damping from sc and prev_spread, the
-// padded-lane mean and A_half); then the corrector pass at (A_half, B)
-// with both marginals.  One host call zeroes both passes' tickets and
-// launches both.
+// invocation.  Here each pass is row_tiles.cuh's pass: at BASELINE config
+// 5 ([8, 16, 1024] rows by 1000 consumers) one launch of 264 blocks, two an
+// SM, taking the 512 work items of 256 rows in order (the 24 % of them that
+// are padding end at once); then the last item of each tile sums the tile,
+// the last tile of each superblock the superblock and the last superblock
+// their total (left to right from the first, JAX's _ordered_sum).  K5 is
+// one pass with both marginals.  K4 is two passes: the predictor (the load
+// only, so rows with ws = 0 are skipped too), whose final block goes on to
+// the step (the predictor load's max, min and sum over the real consumers,
+// the damping from sc and prev_spread, the padded-lane mean and A_half);
+// then the corrector at (A_half, B) with both marginals.  One host call
+// zeroes both passes' tickets and launches both.
 //
-// What bounds it: the exp rate and the FP32 / shared-memory issue per plan
-// entry (row_tiles.cuh): one exp per live row and consumer (1e8 at config
-// 5, 24 us at 16 ex2 a clock an SM), about eight other instructions and
-// two shared-memory accesses beside it.  The bytes are O(P2 + C) plus the
-// partials: ws and cnt are 1 MB at config 5 and stay in L2 between passes.
+// What bounds it: the exp rate and the FP32 issue per plan entry
+// (row_tiles.cuh).  Up to 1,024 consumers (the register forms): one exp per
+// live row and consumer (1e8 at config 5, 24 us at 16 ex2 a clock an SM),
+// about eight other instructions and two shared-memory accesses beside it.
+// Above (the column form, the wide groups): a pass is two launches, the
+// rows' statistics over 1,024-consumer column tiles, then the columns, so
+// two exps per live row and consumer (8e9 a step at 200,000 partitions by
+// 20,000 consumers, 1.9 ms at the card's exp rate; K4's step is four
+// launches), with every warp of a block on rows or columns of its own.  The
+// bytes are O(P2 + C) plus the partials: ws and cnt are 1 MB at config 5
+// and stay in L2 between passes.
 
 #include "row_tiles.cuh"
 
@@ -105,22 +110,37 @@ __global__ void __launch_bounds__(klba::kThreads, 2)
   }
 }
 
+// The column form (C > 1,024): the rows' statistics, then the columns,
+// whose final block goes on to K4's step as the register form's does.
+__global__ void __launch_bounds__(klba::kThreads, klba::kColBlocks)
+    klba_linear_ot_pass_rows(klba::Pass p) {
+  klba::row_stats_pass(p);
+}
+
+__global__ void __launch_bounds__(klba::kThreads, klba::kColBlocks)
+    klba_linear_ot_pass_cols(klba::Pass p, Mirror m) {
+  __shared__ float scratch[40];
+  if (klba::col_pass(p) && m.a_half) mirror_step(p.total_load, p.C, m, scratch);
+}
+
 using Kernel = void (*)(klba::Pass, Mirror);
 const Kernel kKernels[] = KLBA_PASS_TABLE(klba_linear_ot_pass);
 
 // Scratch layout (floats): item rows for the load and the colsum
 // [n_tiles * split * C] each when split > 1, tile rows [n_tiles * C] each,
-// superblock rows [n_sb * C] each, A_half [C], the x of the scratch form
-// [x_floats] (0 in the shared form), then the two passes' tickets.
+// superblock rows [n_sb * C] each, A_half [C], in the column form the row
+// data and tile statistics [klba::col_row_floats], then the two passes'
+// tickets.
 struct Scratch {
-  float *item_load, *item_col, *part_load, *part_col, *sb_load, *sb_col, *a_half, *x;
+  float *item_load, *item_col, *part_load, *part_col, *sb_load, *sb_col, *a_half, *rows;
   unsigned* tickets;
 };
 
-Scratch carve(void* scratch, int n_sb, int tpb, int C, int split, long long x_floats) {
+Scratch carve(void* scratch, int n_sb, int tpb, int tile, int C, int split) {
   float* f = static_cast<float*>(scratch);
   const size_t tiles = static_cast<size_t>(n_sb) * tpb * C, sb = static_cast<size_t>(n_sb) * C;
   const size_t items = split > 1 ? tiles * split : 0;
+  const long long rows = static_cast<long long>(n_sb) * tpb * tile;
   Scratch s;
   s.item_load = f;
   s.item_col = f + items;
@@ -129,8 +149,9 @@ Scratch carve(void* scratch, int n_sb, int tpb, int C, int split, long long x_fl
   s.sb_load = s.part_col + tiles;
   s.sb_col = s.sb_load + sb;
   s.a_half = s.sb_col + sb;
-  s.x = x_floats > 0 ? s.a_half + C : nullptr;
-  s.tickets = reinterpret_cast<unsigned*>(s.a_half + C + x_floats);
+  s.rows = s.a_half + C;
+  s.tickets = reinterpret_cast<unsigned*>(
+      s.rows + (klba::col_tiles(C) ? klba::col_row_floats(rows, C) : 0));
   if (split == 1) s.item_load = s.part_load, s.item_col = s.part_col;
   return s;
 }
@@ -145,7 +166,6 @@ klba::Pass base_pass(const void* ws, const void* cnt, const void* A, const void*
   p.item_load = s.item_load;
   p.part_load = s.part_load;
   p.tickets = s.tickets;
-  p.x_scratch = s.x;
   p.rows = static_cast<long long>(n_sb) * tpb * tile;
   p.tile = tile;
   p.split = split;
@@ -153,6 +173,7 @@ klba::Pass base_pass(const void* ws, const void* cnt, const void* A, const void*
   p.groups = n_sb;
   p.n_tiles = n_sb * tpb;
   p.C = C;
+  if (klba::col_tiles(C)) klba::carve_rows(s.rows, &p);
   return p;
 }
 
@@ -168,27 +189,33 @@ bool bad_shape(int n_sb, int tpb, int tile, int C) {
          static_cast<long long>(n_sb) * tpb * klba::kMaxSplit > (1LL << 30);
 }
 
-int tickets(int n_sb, int tpb) { return klba::pass_tickets(n_sb * tpb, n_sb); }
+// Tickets of one pass.
+long long tickets(int n_sb, int tpb, int tile, int C) {
+  if (!klba::col_tiles(C)) return klba::pass_tickets(n_sb * tpb, n_sb);
+  return klba::col_pass_tickets(static_cast<long long>(n_sb) * tpb * tile, n_sb * tpb, n_sb, C);
+}
 
 cudaError_t launch(const klba::Pass& p, const Mirror& m, cudaStream_t stream) {
+  if (klba::col_tiles(p.C))
+    return klba::launch_col_pass(klba_linear_ot_pass_rows, klba_linear_ot_pass_cols, p, stream,
+                                 m);
   return klba::launch_pass(kKernels[klba::kw_index(p.C)], p, stream, m);
 }
 
 }  // namespace
 
-// Floats of scratch either entry point needs on the current card; -1 on a
-// CUDA error.
+// Floats of scratch either entry point needs.
 extern "C" long long klba_linear_ot_scratch(int n_sb, int tpb, int tile, int C) {
   const long long tiles = static_cast<long long>(n_sb) * tpb;
   const int sp = klba::auto_split(tile);
-  long long x_floats = 0;
-  if (klba::x_scratch_floats(C, &x_floats) != cudaSuccess) return -1;
-  return (2 * tiles * (sp > 1 ? sp : 0) + 2 * tiles + 2LL * n_sb + 1) * C + x_floats +
-         2LL * tickets(n_sb, tpb);
+  const long long rows =
+      klba::col_tiles(C) ? klba::col_row_floats(tiles * tile, C) : 0;
+  return (2 * tiles * (sp > 1 ? sp : 0) + 2 * tiles + 2LL * n_sb + 1) * C + rows +
+         2 * tickets(n_sb, tpb, tile, C);
 }
 
-// K5: per-superblock partials sb_load, sb_col float[Sb, C], one launch.
-// Returns the CUDA error (0 = ok).
+// K5: per-superblock partials sb_load, sb_col float[Sb, C]: one launch (two
+// in the column form).  Returns the CUDA error (0 = ok).
 extern "C" int klba_superblock_partials(const void* ws, const void* cnt, const void* A,
                                         const void* B, void* scratch, void* sb_load,
                                         void* sb_col, int n_sb, int tpb, int tile, int C,
@@ -196,11 +223,9 @@ extern "C" int klba_superblock_partials(const void* ws, const void* cnt, const v
   if (bad_shape(n_sb, tpb, tile, C)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int split = klba::auto_split(tile);
-  long long x_floats = 0;
-  cudaError_t err = klba::x_scratch_floats(C, &x_floats);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Scratch s = carve(scratch, n_sb, tpb, C, split, x_floats);
-  err = cudaMemsetAsync(s.tickets, 0, tickets(n_sb, tpb) * sizeof(unsigned), st);
+  const Scratch s = carve(scratch, n_sb, tpb, tile, C, split);
+  cudaError_t err =
+      cudaMemsetAsync(s.tickets, 0, tickets(n_sb, tpb, tile, C) * sizeof(unsigned), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   klba::Pass p = base_pass(ws, cnt, A, B, s, n_sb, tpb, tile, C, split);
   with_colsum(p, s);
@@ -209,8 +234,9 @@ extern "C" int klba_superblock_partials(const void* ws, const void* cnt, const v
   return static_cast<int>(launch(p, Mirror{}, st));
 }
 
-// K4: one step in two launches.  load1, load2, colsum2 float[C]; sc and
-// prev_spread float scalars on the card.  Returns the CUDA error (0 = ok).
+// K4: one step in two passes (two launches; four in the column form).
+// load1, load2, colsum2 float[C]; sc and prev_spread float scalars on the
+// card.  Returns the CUDA error (0 = ok).
 extern "C" int klba_mirror_prox_step(const void* ws, const void* cnt, const void* A,
                                      const void* B, const void* sc, const void* prev_spread,
                                      float eta, void* scratch, void* load1, void* load2,
@@ -219,11 +245,9 @@ extern "C" int klba_mirror_prox_step(const void* ws, const void* cnt, const void
   if (bad_shape(n_sb, tpb, tile, C)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int split = klba::auto_split(tile);
-  long long x_floats = 0;
-  cudaError_t err = klba::x_scratch_floats(C, &x_floats);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Scratch s = carve(scratch, n_sb, tpb, C, split, x_floats);
-  err = cudaMemsetAsync(s.tickets, 0, 2 * tickets(n_sb, tpb) * sizeof(unsigned), st);
+  const Scratch s = carve(scratch, n_sb, tpb, tile, C, split);
+  const long long n_tickets = tickets(n_sb, tpb, tile, C);
+  cudaError_t err = cudaMemsetAsync(s.tickets, 0, 2 * n_tickets * sizeof(unsigned), st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   klba::Pass pred = base_pass(ws, cnt, A, B, s, n_sb, tpb, tile, C, split);
@@ -240,6 +264,6 @@ extern "C" int klba_mirror_prox_step(const void* ws, const void* cnt, const void
   corr.group_col = s.sb_col;
   corr.total_load = static_cast<float*>(load2);
   corr.total_col = static_cast<float*>(colsum2);
-  corr.tickets = s.tickets + tickets(n_sb, tpb);
+  corr.tickets = s.tickets + n_tickets;
   return static_cast<int>(launch(corr, Mirror{}, st));
 }

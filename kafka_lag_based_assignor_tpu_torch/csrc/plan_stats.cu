@@ -34,13 +34,18 @@
 //   is the launch, a few dependent round trips and, at C = 512, the exps of
 //   16 SMs' multi-function units: the whole card's ordered sums cost more
 //   below 4,096 value rows (PERF.md §6).
-// * the pass form (any C): row_tiles.cuh's persistent row-tile pass over
-//   value tiles of `tile` rows on the whole card, the tiles in groups of
-//   `per` (about sqrt(tiles)), the ordered sums finished by the last block
-//   to arrive; above about 57,000 consumers its x lives in device scratch
-//   (row_tiles.cuh's scratch form).  Its tickets live in a scratch buffer
-//   the wrapper zeroes once; the last block to leave re-zeroes the ones it
-//   used, so no call needs a memset.
+// * the pass form (C <= 1024 beyond the cluster form's rows):
+//   row_tiles.cuh's persistent row-tile pass over value tiles of `tile`
+//   rows on the whole card, the tiles in groups of `per` (about
+//   sqrt(tiles)), the ordered sums finished by the last block to arrive.
+// * the column form (C > 1024): row_tiles.cuh's column form, the value
+//   rows' statistics over 1,024-consumer column tiles, then the columns
+//   (two launches, two exps an entry, no plan tile anywhere), over value
+//   tiles of 64 rows so that a small U still gives the card (tiles x
+//   column tiles) blocks.
+//   The pass and column forms keep their tickets (and the column form its
+//   row statistics) in scratch the wrapper zeroes once; the last block to
+//   leave re-zeroes the tickets, so no call needs a memset.
 //
 // No float atomics: every sum runs in a fixed order, so two runs give the
 // same bits, which the duals loop needs (it branches on spread >
@@ -145,24 +150,39 @@ __global__ void __launch_bounds__(kBlock) klba_plan_stats_cluster(klba::Pass p) 
   cluster.sync();  // no block leaves while another reads its partials
 }
 
-// The pass form, then the last block to leave re-zeroes the `n_tickets`
-// tickets (the pass's and this exit count, the last of them).
+// The last block of the launch to leave re-zeroes the `n_tickets` tickets
+// (the pass's and this exit count, the last of them).
+__device__ __forceinline__ void leave(const klba::Pass& p, int n_tickets, int* flag) {
+  if (klba::last_to_arrive(p.tickets + n_tickets - 1, gridDim.x, flag))
+    for (int i = threadIdx.x; i < n_tickets; i += klba::kThreads) p.tickets[i] = 0u;
+}
+
+// The pass form, then leave().
 template <int KW>
 __global__ void __launch_bounds__(klba::kThreads, 2)
     klba_plan_stats_pass(klba::Pass p, int n_tickets) {
   klba::row_tile_pass<KW>(p);
   const klba::Smem s = klba::pass_smem(p);
-  if (klba::last_to_arrive(p.tickets + n_tickets - 1, gridDim.x, s))
-    for (int i = threadIdx.x; i < n_tickets; i += klba::kThreads) p.tickets[i] = 0u;
+  leave(p, n_tickets, s.misc + 9);
+}
+
+// The column form: the value rows' statistics, then the columns and
+// leave() (which zeroes the statistics' tickets too).
+__global__ void __launch_bounds__(klba::kThreads, klba::kColBlocks)
+    klba_plan_stats_rows(klba::Pass p) {
+  klba::row_stats_pass(p);
+}
+
+__global__ void __launch_bounds__(klba::kThreads, klba::kColBlocks)
+    klba_plan_stats_cols(klba::Pass p, int n_tickets) {
+  __shared__ int flag;
+  klba::col_pass(p);
+  leave(p, n_tickets, &flag);
 }
 
 using ClusterKernel = void (*)(klba::Pass);
 using PassKernel = void (*)(klba::Pass, int);
-// The cluster form keeps A and B in registers, so it has no KW = 0 kernel.
-const ClusterKernel kClusterKernels[] = {
-    nullptr,                       klba_plan_stats_cluster<1>,  klba_plan_stats_cluster<2>,
-    klba_plan_stats_cluster<4>,  klba_plan_stats_cluster<8>,  klba_plan_stats_cluster<16>,
-    klba_plan_stats_cluster<32>};
+const ClusterKernel kClusterKernels[] = KLBA_PASS_TABLE(klba_plan_stats_cluster);
 const PassKernel kPassKernels[] = KLBA_PASS_TABLE(klba_plan_stats_pass);
 
 // Sets, once for each kernel and device, the cluster kernel's shared-memory
@@ -211,11 +231,12 @@ long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
 }  // namespace
 
-// One launch on `stream`; returns the CUDA error (0 = ok).  w2 and out2 are
-// null for one marginal.  tickets null: the cluster form (C <= 1024); else
-// the pass form over tiles of `tile` rows in groups of `per` tiles, with
-// `n_tickets` zero tickets and `n_rows` floats of partial rows and, in the
-// scratch form, x (klba_row_tile_x_floats), at least what the shape takes
+// One launch on `stream` (two in the column form); returns the CUDA error
+// (0 = ok).  w2 and out2 are null for one marginal.  tickets null: the
+// cluster form (C <= 1024); else the pass form (C <= 1024) or the column
+// form (C > 1024) over tiles of `tile` rows in groups of `per` tiles, with
+// `n_tickets` zero tickets and `n_rows` floats of partial rows (and, in the
+// column form, row statistics), at least what the shape takes
 // (ops/plan_stats_cuda.pass_geometry computes the same sizes).
 extern "C" int klba_plan_stats(const void* ws, const void* w1, const void* w2, const void* A,
                                const void* B, void* out1, void* out2, void* tickets,
@@ -242,17 +263,16 @@ extern "C" int klba_plan_stats(const void* ws, const void* w1, const void* w2, c
   }
   if (tile < 1 || per < 1 || rows == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = static_cast<int>(cdiv(U, tile)), groups = static_cast<int>(cdiv(tiles, per));
-  const int used = klba::pass_tickets(tiles, groups) + 1;
+  const bool cols = klba::col_tiles(C) > 0;
+  const long long used = (cols ? klba::col_pass_tickets(U, tiles, groups, C)
+                               : klba::pass_tickets(tiles, groups)) + 1;
   const size_t tile_rows = static_cast<size_t>(tiles) * C, grp = static_cast<size_t>(groups) * C;
   const size_t partials = 2 * tile_rows + (groups > 1 ? 2 * grp : 0);
-  long long x_floats = 0;
-  const cudaError_t err = klba::x_scratch_floats(C, &x_floats);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_tickets < used || n_rows < static_cast<long long>(partials) + x_floats)
+  const long long stats = cols ? klba::col_row_floats(U, C) : 0;
+  if (n_tickets < used || n_rows < static_cast<long long>(partials) + stats)
     return static_cast<int>(cudaErrorInvalidValue);
   float* f = static_cast<float*>(rows);
   p.tickets = static_cast<unsigned*>(tickets);
-  p.x_scratch = x_floats > 0 ? f + partials : nullptr;
   p.item_load = p.part_load = f;
   p.item_col = p.part_col = two ? f + tile_rows : nullptr;
   p.group_load = groups > 1 ? f + 2 * tile_rows : nullptr;
@@ -262,5 +282,12 @@ extern "C" int klba_plan_stats(const void* ws, const void* w1, const void* w2, c
   p.per = per;
   p.groups = groups;
   p.n_tiles = tiles;
-  return static_cast<int>(klba::launch_pass(kPassKernels[klba::kw_index(C)], p, st, used));
+  if (cols) {
+    klba::carve_rows(f + partials, &p);
+    return static_cast<int>(
+        klba::launch_col_pass(klba_plan_stats_rows, klba_plan_stats_cols, p, st,
+                                static_cast<int>(used)));
+  }
+  return static_cast<int>(
+      klba::launch_pass(kPassKernels[klba::kw_index(C)], p, st, static_cast<int>(used)));
 }

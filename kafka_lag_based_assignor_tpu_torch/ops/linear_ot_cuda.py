@@ -20,9 +20,9 @@ version for a CPU tensor:
   twice in ``superblock_partials.launches``.
 
 Each card call allocates its outputs and the kernel's scratch in one
-tensor.  Both take any consumer count: where not even one row of the
-plan's tile fits a block's shared memory (about 57,000 consumers and up;
-``klba_row_tile_x_floats`` gives its size), the tile lives in that scratch.
+tensor.  Both take any consumer count: above 1,024 consumers each pass is
+the column form of ``csrc/row_tiles.cuh`` (two launches, the rows'
+statistics then the columns), so a step launches four kernels there.
 """
 
 from __future__ import annotations
@@ -91,8 +91,8 @@ def _bind():
     lib.klba_linear_ot_scratch.restype = ctypes.c_longlong
     lib.klba_row_tile_smem_bytes.argtypes = [i32]
     lib.klba_row_tile_smem_bytes.restype = ctypes.c_longlong
-    lib.klba_row_tile_x_floats.argtypes = [i32]
-    lib.klba_row_tile_x_floats.restype = ctypes.c_longlong
+    lib.klba_row_tile_col_tiles.argtypes = [i32]
+    lib.klba_row_tile_col_tiles.restype = i32
     lib.klba_cuda_error_string.argtypes = [i32]
     lib.klba_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -109,8 +109,6 @@ def _call(name: str, shape, ws_b, cnt_b, A, B, *args):
     n = math.prod(shape)
     with torch.cuda.device(dev):
         scratch = lib.klba_linear_ot_scratch(Sb, tpb, tile, C)
-        if scratch < 0:
-            raise RuntimeError(f"{name}: the card's SM count could not be read")
         buf = torch.empty(n + scratch, dtype=torch.float32, device=dev)
         outs = buf[:n].view(shape).unbind(0)
         err = getattr(lib, name)(

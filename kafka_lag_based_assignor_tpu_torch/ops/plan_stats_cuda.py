@@ -6,15 +6,17 @@ called by :func:`.plan_stats.plan_stats` for CUDA tensors only, after that
 wrapper has checked the inputs; it allocates the outputs and raises if the
 launch fails.
 
-The kernel has two forms with the same arithmetic, chosen by shape
-(:func:`form_for`): ``"cluster"``, one launch of one thread-block cluster
-that needs no scratch, and ``"pass"``, the row-tile pass over the whole card
-(:func:`pass_geometry`), whose tickets and partial rows (and, above about
-57,000 consumers, the plan's tile) live in scratch.
-That scratch is kept for each (device, stream) and grown when a call needs
-more (:func:`scratch_for`); the tickets are zeroed when made and the kernel
-leaves them zero, so no call at a shape seen before allocates scratch or
-enqueues a memset.  The library is bound once.
+The kernel has three forms, chosen by shape (:func:`form_for`):
+``"cluster"``, one launch of one thread-block cluster that needs no
+scratch; ``"pass"``, the row-tile pass over the whole card (both up to
+1,024 consumers, with the same arithmetic); and ``"columns"``, the column
+form above 1,024 consumers (two launches: the value rows' statistics over
+column tiles, then the columns).  The last two keep their tickets and
+partial rows (and the column form its row statistics) in scratch, sized by
+:func:`pass_geometry`, kept for each (device, stream) and grown when a call
+needs more (:func:`scratch_for`); the tickets are zeroed when made and the
+kernel leaves them zero, so no call at a shape seen before allocates
+scratch or enqueues a memset.  The library is bound once.
 """
 
 from __future__ import annotations
@@ -25,14 +27,20 @@ from typing import Dict, Tuple
 
 import torch
 
-#: Consumers up to which A and B fit a lane's registers: the cluster form's
-#: limit (``klba::kRegCols``).
+#: Consumers up to which A and B fit a lane's registers: the cluster and
+#: pass forms' limit (``klba::kRegCols``); the column form above.
 REG_COLS = 1024
 #: Padded value rows up to which one cluster is faster than the whole card
 #: (measured on the H100, ``PERF.md``): the cluster form's other limit.
 CLUSTER_MAX_ROWS = 2048
 #: Value rows a tile of the pass form.
 VAL_TILE = 16
+#: Value rows a tile of the column form.
+COL_VAL_TILE = 64
+#: Consumers a column tile of the column form (``klba::kColTile``).
+COL_TILE = 1024
+#: Value rows a block of the column form's statistics (``klba::kThreads``).
+STATS_ROWS = 256
 
 _NEEDS = ("both", "load", "colsum")
 _fn = None
@@ -41,19 +49,35 @@ _scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 def form_for(U: int, C: int) -> str:
     """The kernel form a call at U value rows and C consumers takes."""
-    return "cluster" if C <= REG_COLS and U <= CLUSTER_MAX_ROWS else "pass"
+    if C > REG_COLS:
+        return "columns"
+    return "cluster" if U <= CLUSTER_MAX_ROWS else "pass"
 
 
 def pass_geometry(U: int, C: int) -> Tuple[int, int, int, int]:
-    """(tile, per, tickets, floats) of the pass form: tiles of VAL_TILE rows
-    in groups of ``per`` = ceil(sqrt(tiles)) tiles; the tickets it takes
-    (the pass's and the exit count) and the floats of its partial rows (the
-    tile rows of both marginals and, with more than one group, the group
-    rows).  ``klba_plan_stats`` checks that its scratch holds both."""
-    tiles = -(-U // VAL_TILE)
+    """(tile, per, tickets, floats) of the pass form (C <= REG_COLS) or the
+    column form (above): tiles of VAL_TILE (COL_VAL_TILE) rows in groups of
+    ``per`` = ceil(sqrt(tiles)) tiles; the tickets it takes and the floats
+    of its partial rows (the tile rows of both marginals and, with more
+    than one group, the group rows).  The pass form's tickets: tiles +
+    groups + 3 (a tile's, a group's, the last group's, the work queue's and
+    the exit count).  The column form's: (tiles + groups + 1) for each
+    column tile of COL_TILE consumers, the column tiles' totals' ticket,
+    one a STATS_ROWS-row block of the statistics and the exit count; its
+    floats add the row statistics, 4 a row and 2 a row and column tile, and
+    4 of alignment slack.  ``klba_plan_stats`` checks that its scratch holds
+    both."""
+    cols = C > REG_COLS
+    tile = COL_VAL_TILE if cols else VAL_TILE
+    tiles = -(-U // tile)
     per = math.isqrt(tiles - 1) + 1
     groups = -(-tiles // per)
-    return VAL_TILE, per, tiles + groups + 3, 2 * tiles * C + (2 * groups * C if groups > 1 else 0)
+    floats = 2 * tiles * C + (2 * groups * C if groups > 1 else 0)
+    if not cols:
+        return tile, per, tiles + groups + 3, floats
+    n_ct = -(-C // COL_TILE)
+    tickets = (tiles + groups + 1) * n_ct + 1 + -(-U // STATS_ROWS) + 1
+    return tile, per, tickets, floats + 4 + U * (4 + 2 * n_ct)
 
 
 def scratch_for(device: torch.device, stream: int, tickets: int, floats: int):
@@ -81,38 +105,32 @@ def _bind():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr] * 8 + [i32, ptr, ctypes.c_longlong] + [i32] * 4 + [ptr]
         fn.restype = i32
-        lib.klba_row_tile_x_floats.argtypes = [i32]
-        lib.klba_row_tile_x_floats.restype = ctypes.c_longlong
         lib.klba_cuda_error_string.argtypes = [i32]
         lib.klba_cuda_error_string.restype = ctypes.c_char_p
-        _fn = fn, lib.klba_cuda_error_string, lib.klba_row_tile_x_floats
+        _fn = fn, lib.klba_cuda_error_string
     return _fn
 
 
 def launch(ws_u, count_u, wsum_u, A, B, need: str = "both", form: str | None = None):
     """(load, colsum) f32[C] from the kernel, on the inputs' card, with None
-    for the marginal ``need`` leaves out.  ``form`` forces a form (the
-    cluster form takes C <= 1024 only); by default :func:`form_for`."""
+    for the marginal ``need`` leaves out.  ``form`` forces a form: the
+    cluster (C <= 1024 only) or the whole-card pass, ``"pass"``, which
+    takes its column form above 1,024 consumers (``"columns"`` names that
+    form, and takes C > 1024 only); by default :func:`form_for`."""
     U, C = ws_u.shape[0], A.shape[0]
     form = form_for(U, C) if form is None else form
-    if need not in _NEEDS or form not in ("cluster", "pass"):
-        raise ValueError(f"need {need!r} / form {form!r}")
-    fn, error_string, x_floats = _bind()
+    if need not in _NEEDS or form not in ("cluster", "pass", "columns") or (
+            form == "cluster" and C > REG_COLS) or (form == "columns" and C <= REG_COLS):
+        raise ValueError(f"need {need!r} / form {form!r} at C {C}")
+    fn, error_string = _bind()
     dev = ws_u.device
     w1, w2 = {"both": (wsum_u, count_u), "load": (wsum_u, None),
               "colsum": (count_u, None)}[need]
     out = torch.empty(C if w2 is None else 2 * C, dtype=torch.float32, device=dev)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     scratch, tile, per = (None, 0, None, 0), 0, 0
-    if form == "pass":
+    if form != "cluster":
         tile, per, n_tickets, n_floats = pass_geometry(U, C)
-        # The plan's tile lives after the partial rows where it does not fit
-        # shared memory (0 floats where it does).
-        with torch.cuda.device(dev):
-            x = x_floats(C)
-        if x < 0:
-            raise RuntimeError("plan_stats: the card's SM count could not be read")
-        n_floats += x
         tickets, rows = scratch_for(dev, stream, n_tickets, n_floats)
         scratch = (tickets.data_ptr(), tickets.numel(), rows.data_ptr(), rows.numel())
     at = out.data_ptr()

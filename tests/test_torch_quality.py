@@ -205,24 +205,41 @@ def test_sinkhorn_duals_with_need_equal_both_marginals(monkeypatch, config):
 
 @pytest.mark.parametrize("U,C,form", [
     (1, 1, "cluster"), (1024, 16, "cluster"), (1024, 512, "cluster"), (2048, 1024, "cluster"),
-    (4096, 512, "pass"), (1024, 1025, "pass"), (8, 16384, "pass"),
+    (4096, 512, "pass"), (1024, 1025, "columns"), (8, 16384, "columns"),
+    (4096, 1024, "pass"), (1, 60000, "columns"),
 ])
 def test_plan_stats_form_choice(U, C, form):
     assert plan_stats_cuda.form_for(U, C) == form
 
 
-@pytest.mark.parametrize("U,C,per,tickets,floats", [
-    # tiles = ceil(U / 16) in groups of ceil(sqrt(tiles)); tickets: tiles +
-    # groups + 3; floats: the tile rows of both marginals and, with more
-    # than one group, the group rows.
-    (1, 1, 1, 5, 2),
-    (1024, 512, 8, 75, 2 * 64 * 512 + 2 * 8 * 512),
-    (4096, 16384, 16, 275, 2 * 256 * 16384 + 2 * 16 * 16384),
-    (1040, 3, 9, 76, 2 * 65 * 3 + 2 * 8 * 3),
+@pytest.mark.parametrize("U,C,tile,per,tickets,floats", [
+    # The pass form (C <= 1024): tiles = ceil(U / 16) in groups of
+    # ceil(sqrt(tiles)); tickets: tiles + groups + 3; floats: the tile rows
+    # of both marginals and, with more than one group, the group rows.
+    (1, 1, 16, 1, 5, 2),
+    (1024, 512, 16, 8, 75, 2 * 64 * 512 + 2 * 8 * 512),
+    (1040, 3, 16, 9, 76, 2 * 65 * 3 + 2 * 8 * 3),
+    # The column form (C > 1024): tiles = ceil(U / 64); tickets: (tiles +
+    # groups + 1) a column tile of 1,024 consumers, the totals' ticket, one
+    # a 256-row block and the exit count; floats add 4 + U * (4 + 2 *
+    # column tiles) of row statistics.
+    (4096, 16384, 64, 8, (64 + 8 + 1) * 16 + 1 + 16 + 1,
+     2 * 64 * 16384 + 2 * 8 * 16384 + 4 + 4096 * (4 + 2 * 16)),
+    (1024, 20000, 64, 4, (16 + 4 + 1) * 20 + 1 + 4 + 1,
+     2 * 16 * 20000 + 2 * 4 * 20000 + 4 + 1024 * (4 + 2 * 20)),
+    (17, 1025, 64, 1, (1 + 1 + 1) * 2 + 1 + 1 + 1, 2 * 1025 + 4 + 17 * (4 + 2 * 2)),
 ])
-def test_plan_stats_pass_geometry(U, C, per, tickets, floats):
-    assert plan_stats_cuda.pass_geometry(U, C) == (plan_stats_cuda.VAL_TILE, per, tickets,
-                                                   floats)
+def test_plan_stats_pass_geometry(U, C, tile, per, tickets, floats):
+    assert plan_stats_cuda.pass_geometry(U, C) == (tile, per, tickets, floats)
+
+
+@pytest.mark.parametrize("C,form", [(1025, "cluster"), (1024, "columns"), (16, "columns")])
+def test_plan_stats_launch_refuses_a_form_the_width_does_not_take(C, form):
+    """The cluster form holds A and B in registers (C <= 1024); the column
+    form is the whole-card pass above 1,024 consumers only."""
+    ws, cnt, wsum, A, B = (T(x) for x in duals_case(0, 8, C))
+    with pytest.raises(ValueError, match="form"):
+        plan_stats_cuda.launch(ws, cnt, wsum, A, B, form=form)
 
 
 def test_plan_stats_scratch_is_kept_per_device_stream_and_shape(monkeypatch):

@@ -18,8 +18,8 @@ held to in ``chip_smoke.py``) answers such groups as JAX does:
 * ``StreamingAssignor``: a cold epoch and two warm epochs at 20,000
   consumers, bit for bit against the JAX engine;
 * the f32 kernels' plain versions (``plan_stats`` in each ``need``,
-  ``superblock_partials``, ``mirror_prox_step``) at 16,385 and 60,000
-  consumers against ``plan_stats_lax`` and ``ops/linear_ot``'s XLA
+  ``superblock_partials``, ``mirror_prox_step``) at 16,385, 20,000 and
+  60,000 consumers against ``plan_stats_lax`` and ``ops/linear_ot``'s XLA
   functions, to ``tests/test_torch_quality.py``'s tolerance.
 
 Integer paths: exact equality.  Inputs are made with numpy from a seed.
@@ -173,11 +173,11 @@ def test_streaming_epochs_match_jax():
     assert refined[1] and refined[2]
 
 
-@pytest.mark.parametrize("C", [ABOVE, 60_000])
+@pytest.mark.parametrize("C", [ABOVE, WIDE, 60_000])
 @pytest.mark.parametrize("need", ["both", "load", "colsum"])
 def test_plan_stats_matches_jax(need, C):
-    """K3 past 16,384 consumers (at 60,000 its tile in device scratch on the
-    card): each ``need`` against ``plan_stats_lax``."""
+    """K3 past 16,384 consumers (on the card its column form, 17 to 59
+    column tiles): each ``need`` against ``plan_stats_lax``."""
     ws, cnt, wsum, A, B = duals_case(C, 40, C)
     got = plan_stats.plan_stats(*(T(x) for x in (ws, cnt, wsum, A, B)), need=need)
     want = jax_plan.plan_stats_lax(*(jnp.asarray(x) for x in (ws, cnt, wsum, A, B)),
@@ -197,7 +197,7 @@ def linear_case(C, seed):
     return ws, cnt, A, B
 
 
-@pytest.mark.parametrize("C", [ABOVE, 60_000])
+@pytest.mark.parametrize("C", [ABOVE, WIDE, 60_000])
 def test_superblock_partials_match_jax(C):
     ws, cnt, A, B = linear_case(C, C)
     got = linear_ot_cuda.superblock_partials(T(ws), T(cnt), T(A), T(B))
@@ -207,7 +207,7 @@ def test_superblock_partials_match_jax(C):
         assert_close(g.numpy(), w)
 
 
-@pytest.mark.parametrize("C", [ABOVE, 60_000])
+@pytest.mark.parametrize("C", [ABOVE, WIDE, 60_000])
 @pytest.mark.parametrize("sc,prev_spread", [(1.0, np.inf), (0.5, 0.0)])
 def test_mirror_prox_step_matches_jax(sc, prev_spread, C):
     ws, cnt, A, B = linear_case(C, C + 1)
