@@ -17,9 +17,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    same inputs, at every shape the main paths give it and at edge shapes:
    the round scan bit for bit (integers: tolerance 0), also at the quality
    solver's greedy-leg shapes of configs 2, 4 and 5, at every slot count
-   1, 2, 4, ..., 16,384 and at the wide form's 32,768, 65,536 and 131,072
-   (C not a power of two above 2) with small lags and with lags that force
-   the two-key form, at 16,385 consumers and on the ``global`` solve's
+   1, 2, 4, ..., 16,384, at the cluster form's 32,768, 65,536 and 131,072
+   and the scratch form's 262,144 (C not a power of two above 2), and at C
+   = 131,072 and 131,073, with small lags and with lags that force the
+   two-key form, at 16,385 consumers and on the ``global`` solve's
    carried rounds at 20,000, at config 5's shape forced into
    the two-key form (lags near 2^40), at the cold chain of phase 4f's
    config-3-shaped streams (16,384 rows, 64 slots) and with negative gains;
@@ -60,7 +61,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    against its plain version on the card, each case launched twice to the
    same bits, and a case the packed key admits also in the two-key form,
    at C = 1, 2, 31, 32, 33, 1,000, 1,024, 1,025, 16,384, 16,385 and
-   20,000 (and 20,000 eligible of 24,000: the wide form), with
+   20,000 (and 20,000 eligible of 24,000: the cluster form; 65,537, and
+   131,072 eligible of 140,000, each a round and a part, held to the round
+   identity on K1's plain version, ``scan_by_rounds``), with
    all-zero lags, lags near 2^62 (wrapping totals), an eligible mask and a
    mask with none eligible, padding rows (at the end and in the middle),
    config 3's 256 topics x 64 rows, E = 1, 2 and 33 eligible of 1,000
@@ -304,8 +307,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    l. wide groups: one topic of 200,000 partitions (uniform lags, seed 0)
       subscribed by 20,000 members, above the 16,384 slots of K1's
       register network, through ``assign()`` with the host rung off:
-      ``rounds`` (K1's wide form) and ``global`` equal to the port's CPU
-      solve (the plain version), ``scan`` (K7's wide form) equal to
+      ``rounds`` (K1's cluster form) and ``global`` equal to the port's CPU
+      solve (the plain version), ``scan`` (K7's cluster form) equal to
       ``rounds``, ``sinkhorn`` in linear mode (K4, K5, K1) with every
       partition once, count spread <= 1, a peak no worse than ``rounds``'
       and within total / C + max lag; a streaming cold epoch and two warm
@@ -314,9 +317,12 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       K6, on the engine's resident state, bit for bit; K3, K4, K5 to the
       f32 tolerance) and timed there (event and device time alone, the
       plain version, the bound; for K3 and K5 the library yardstick, K5's
-      one superblock at a time).  Its launches count into the kernels
-      line, its differences into the kernels line's ``max_abs_err``, and
-      it prints a JSON ``wide`` line;
+      one superblock at a time), the profiler's name of K1's and K7's
+      kernel there checked against the form their width takes.  Every K1
+      and K7 launch of its ``assign()`` and stream legs is named by form
+      (the kernels line's ``wide_group_forms``; no scratch at 20,000).
+      Its launches count into the kernels line, its differences into the
+      kernels line's ``max_abs_err``, and it prints a JSON ``wide`` line;
 5. times, with CUDA events, medians of 30 runs after warm-up: each kernel
    alone at its main-path shape, its plain version on the card, the
    library yardstick where there is one, and its bound; the device time
@@ -326,7 +332,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    scan's at config 5 and at config 3 ``global`` with its time a round and
    a network stage, and K4's kernel launches a step; the ``assign()``
    wall on the host clock at config 5 (``rounds``) and configs 4 and 5
-   (``sinkhorn``; medians of 15 at config 5); then, for each phase-4 cell, one ``assign()`` under
+   (``sinkhorn``; medians of 5 at config 5); then, for each phase-4 cell, one ``assign()`` under
    ``torch.profiler``: the device's busy time and its idle share of the
    wall; the streaming epoch walls by type (cold, and the medians of the
    no-op, warm-refine and delta epochs), the host reads of a warm epoch and
@@ -336,7 +342,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    config 3 and one call on the first 10,000 rows of config 5's processing
    order, equal to the kernel there and beside its time), the
    ``assign()`` walls of ``scan`` and ``rounds`` + 16 refine rounds at
-   config 5 (medians of 10), and the device shares of those cells at
+   config 5 (medians of 5), and the device shares of those cells at
    configs 5 and 3.
 
 It prints the card's name and power limit, one JSON ``ladder`` line (phase
@@ -386,8 +392,10 @@ beside its plain version) at U 1,024 by 20,000 consumers, and the control
 shapes K3 at config 4 (each ``need``) and K4, K5 at config 5, each with a
 digest of its output's bits, then phase 4l's ``sinkhorn`` ``assign()``
 (three walls on the host clock, and one profiled call's K4 and K5 device
-time, with a digest of its assignment); ``--wide-ab`` fails if two
-checkouts' control digests differ, or one checkout's digests at any shape.  The ``-ab``
+time, with a digest of its assignment), and digests of phase 4l's
+``rounds``, ``global`` and ``scan`` answers and stream epochs;
+``--wide-ab`` fails if two checkouts' control digests (the configs' and
+those answers') differ, or one checkout's digests at any shape.  The ``-ab``
 modes run the matching ``-times`` mode once for each checkout ROOT,
 in that order, each in a process that imports the port's package from
 that ROOT (its kernels build under ROOT), for example a parent commit
@@ -597,26 +605,43 @@ def round_inputs(lags: np.ndarray, n_valid: np.ndarray, C: int, device,
     )
 
 
-#: log2 of the slot counts of the wide form that phase 3 checks: 32,768,
-#: 65,536 and 131,072 slots, their keys in device scratch.
-WIDE_LOG_SLOTS = (15, 16, 17)
+#: log2 of the slot counts past the register network that phase 3 checks:
+#: 32,768, 65,536 and 131,072 slots (the cluster form) and 262,144 (the
+#: scratch form, the keys in device scratch).
+WIDE_LOG_SLOTS = (15, 16, 17, 18)
+
+
+def slot_form(slots: int) -> str:
+    """The form K1 and K7 take at ``slots`` slots, as the CUDA sources pick
+    it: "registers", "cluster" or "scratch"."""
+    if slots <= rounds_cuda.REGISTER_SLOTS:
+        return "registers"
+    return "cluster" if slots <= rounds_cuda.CLUSTER_SLOTS else "scratch"
+
+
+#: What each form's kernel name ends in, after ``KERNEL_NAMES``' prefix.
+FORM_SUFFIX = {"registers": "<", "cluster": "_cluster<", "scratch": "_wide<"}
 
 
 def slot_class_cases(rng, logs=tuple(range(15)) + WIDE_LOG_SLOTS):
-    """Two cases at each slot count N = 1, 2, 4, ..., 16,384 and at the wide
-    form's 32,768, 65,536 and 131,072 (C not a power of two where C > 2, so
-    every class has pad slots): small lags, which admit the packed key, and
+    """Two cases at each slot count N = 1, 2, 4, ..., 16,384 (the register
+    form), 32,768, 65,536 and 131,072 (the cluster form) and 262,144 (the
+    scratch form) (C not a power of two where C > 2, so every class has pad
+    slots), and at C = 131,072 (the cluster form full) and 131,073 (the
+    scratch form's least C): small lags, which admit the packed key, and
     lags from 2 to 4 times 2^(61 - rank_bits) over the rows, which force the
     two-key form.  The odd C of these takes the kernel's slot-at-a-time
     loads from 4,096 slots up; the ``_vector`` cases, at 4,096, 8,192 and
-    32,768 slots (4, 8 and 16 a thread), have a C that is a multiple of that
+    32,768 slots (4, 8 and 2 a thread), have a C that is a multiple of that
     and must take its 16-byte loads and stores."""
     shapes = [(f"slots{1 << n}", {1: 1, 2: 2, 4: 3}.get(1 << n, (1 << n) // 2 + (1 << n) // 8 + 1))
               for n in logs]
+    shapes += [("slots131072_full", 1 << 17), ("slots262144_least", (1 << 17) + 1)]
     vector = [("slots4096_vector", 3000), ("slots8192_vector", 6000),
               ("slots32768_vector", 20000)]
-    vector = [(n, c) for n, c in vector if rounds_cuda.slots_for(c).bit_length() - 1 in logs]
-    for name, C in shapes + vector:
+    shapes = [(n, c) for n, c in shapes + vector
+              if rounds_cuda.slots_for(c).bit_length() - 1 in logs]
+    for name, C in shapes:
         P = 3 * C + 5
         lo = 2 ** (62 - max(1, (C - 1).bit_length())) // P
         yield (f"{name}_packed", rng.integers(0, 10**6, (2, P)), np.full(2, P), C, False,
@@ -668,10 +693,10 @@ def kernel_cases():
 
 
 def wide_kernel_cases(rng, logs=WIDE_LOG_SLOTS):
-    """The slot classes ``logs`` (by default the wide form's), then K1's
-    wide form on the ``global`` solve's carried rounds (4 topics of 30,000
-    rows, 20,000 consumers) and at one consumer above the register
-    network's 16,384 slots."""
+    """The slot classes ``logs`` (by default those past the register
+    network), then K1's cluster form on the ``global`` solve's carried
+    rounds (4 topics of 30,000 rows, 20,000 consumers) and at one consumer
+    above the register network's 16,384 slots."""
     yield from slot_class_cases(rng, logs)
     yield ("wide_global", rng.integers(0, 10**6, (4, 30_000)), np.full(4, 30_000), 20_000,
            True, None, None)
@@ -762,10 +787,14 @@ def scan_cases():
 
 
 def wide_scan_cases(rng=None):
-    """K7's wide form (more than 16,384 eligible consumers): 20,000
-    consumers over two rounds and a part (packed key) and over one and a
-    part (two-key form), one consumer above the register network, and
-    20,000 eligible of 24,000."""
+    """K7 past the register network (more than 16,384 eligible consumers):
+    20,000 consumers over two rounds and a part (packed key) and over one
+    and a part (two-key form), one consumer above the register network,
+    20,000 eligible of 24,000 (the cluster form at 32,768 slots); 65,537
+    consumers over one round and a part (the cluster form at 131,072
+    slots) and 131,072 eligible of 140,000 over one round and a part (its
+    least full and the last cluster slot count, with a mask).  The cases in
+    ``ROUND_HELD`` are held to ``scan_by_rounds``."""
     rng = np.random.default_rng(18) if rng is None else rng
 
     def rows(T, P, lo=0, hi=10**6):
@@ -777,14 +806,59 @@ def wide_scan_cases(rng=None):
     mask = np.zeros(24_000, bool)
     mask[rng.choice(24_000, 20_000, replace=False)] = True
     yield "E20000_of_C24000", *rows(1, 20_011), 24_000, mask
+    lags, valid = rows(2, 65_537 + 4_099)
+    valid[1, 777] = False
+    yield "E65537", lags, valid, 65_537, None
+    mask = np.zeros(140_000, bool)
+    mask[rng.choice(140_000, 131_072, replace=False)] = True
+    yield "E131072_of_C140000", *rows(1, 131_072 + 777), 140_000, mask
+
+
+#: K7's cases whose plain version, a torch step a row (about 0.35 ms each
+#: on the card), would take 23-46 s: they are held to ``scan_by_rounds``.
+ROUND_HELD = ("E65537", "E131072_of_C140000")
+
+
+def scan_by_rounds(L, V, C: int, E):
+    """K7's function by its round decomposition, on K1's plain version: per
+    topic, the eligible consumers (``E`` a uint8 mask or None) and the valid
+    rows compacted, ``rounds_scan_torch`` over [1, R, E] from zero totals in
+    the two-key form (totals wrap), its positions mapped back to consumer
+    indices.  Returns (choice, counts, totals) as ``scan_greedy_torch``."""
+    T, P = L.shape
+    dev = L.device
+    ids = (torch.arange(C, device=dev) if E is None
+           else torch.nonzero(E.bool()).flatten())
+    n_eligible = ids.numel()
+    choice = torch.full((T, P), -1, dtype=torch.int32, device=dev)
+    counts = torch.zeros((T, C), dtype=torch.int32, device=dev)
+    totals = torch.zeros((T, C), dtype=torch.int64, device=dev)
+    for t in range(T):
+        rows = torch.nonzero(V[t].bool()).flatten()
+        n = rows.numel()
+        if n_eligible == 0 or n == 0:
+            continue
+        R = -(-n // n_eligible)
+        gains = torch.zeros(R * n_eligible, dtype=torch.int64, device=dev)
+        ok = torch.zeros(R * n_eligible, dtype=torch.uint8, device=dev)
+        gains[:n], ok[:n] = L[t, rows], 1
+        seat, tot = rounds_cuda.rounds_scan_torch(
+            gains.view(1, R, n_eligible), ok.view(1, R, n_eligible),
+            torch.zeros(n_eligible, dtype=torch.int64, device=dev))
+        seat = seat.flatten()[:n].long()
+        choice[t, rows] = ids[seat].int()
+        counts[t, ids] = torch.bincount(seat, minlength=n_eligible).int()
+        totals[t, ids] = tot[0]
+    return choice, counts, totals
 
 
 def scan_vs_plain(device, wide_only: bool = False) -> tuple:
     """K7 bit for bit against its plain version, each case launched twice
     to the same bits: the ``scan_cases`` against the plain version on the
-    card, then the main path's inputs at configs 5 and 3 (``k7_cases``)
-    against the plain version on CPU copies, timed on the host clock; any
-    difference raises.  ``wide_only``: the wide form's cases alone.
+    card (``ROUND_HELD`` against ``scan_by_rounds``), then the main path's
+    inputs at configs 5 and 3 (``k7_cases``) against the plain version on
+    CPU copies, timed on the host clock; any difference raises.
+    ``wide_only``: the cases past the register network alone.
     Returns (the max |diff|, {config: the CPU plain version's ms})."""
 
     def check(name, L, V, C, E, want, where, lag_range=None):
@@ -815,7 +889,11 @@ def scan_vs_plain(device, wide_only: bool = False) -> tuple:
         L = torch.from_numpy(lags.astype(np.int64)).to(device)
         V = torch.from_numpy(valid.astype(np.uint8)).to(device)
         E = None if elig is None else torch.from_numpy(elig.astype(np.uint8)).to(device)
-        check(name, L, V, C, E, scan_cuda.scan_greedy_torch(L, V, C, E), "on the card")
+        if name in ROUND_HELD:
+            check(name, L, V, C, E, scan_by_rounds(L, V, C, E),
+                  "as its round decomposition (on K1's plain version) on the card")
+        else:
+            check(name, L, V, C, E, scan_cuda.scan_greedy_torch(L, V, C, E), "on the card")
     cpu_ms = {}
     for name, sl, sv, C, lag_range in ([] if wide_only else k7_cases(device)):
         start = time.perf_counter()
@@ -4484,14 +4562,30 @@ def k1_cases(device):
            round_inputs(table, np.full(len(table), table.shape[1]), len(members), device), True)
 
 
-def k1_times(device) -> dict:
-    """K1 through its wrapper at each of ``k1_cases``: the CUDA-event time
-    (the wrapper's checks and host read included), the device time alone
-    (profiler, by kernel name), per round and per network stage, beside the
-    bound.  Uses only the wrapper's public interface, so that it times any
-    version of the package on the path."""
+def k1_wide_cases(device):
+    """K1 past the register network, for the A/B modes: phase 4l's rounds
+    (T 1, R 10, C 20,000: 32,768 slots) and 10 rounds of 60,000 and of
+    120,000 consumers (65,536 and 131,072 slots), uniform lags from seed 1.
+    Yields as ``k1_cases``."""
+    arr = wide_workload()[0]["t0"]
+    yield "wide group", round_inputs(arr[None], np.array([WIDE_P]), WIDE_C, device), False
+    rng = np.random.default_rng(1)
+    for C in (60_000, 120_000):
+        yield (f"{rounds_cuda.slots_for(C)} slots",
+               round_inputs(rng.integers(0, 10**6, (1, 10 * C)), np.array([10 * C]), C, device),
+               False)
+
+
+def k1_times(device, cases=None) -> dict:
+    """K1 through its wrapper at each of ``cases`` (``k1_cases``): the
+    CUDA-event time (the wrapper's checks and host read included), the
+    device time alone (profiler, by kernel name) and the kernels it ran, per
+    round and per network stage, beside the bound, with a digest of its
+    output's bits; past the register network also its plain version's
+    event time (median of 5).  Uses only the wrapper's public interface, so
+    that it times any version of the package on the path."""
     out = {}
-    for name, (gains, valid, totals0), carry in k1_cases(device):
+    for name, (gains, valid, totals0), carry in (k1_cases(device) if cases is None else cases):
         T, R, C = gains.shape
         depth = T * R if carry else R  # rounds in one block's chain
 
@@ -4499,7 +4593,8 @@ def k1_times(device) -> dict:
             return rounds_cuda.rounds_scan(gains, valid, totals0, carry)
 
         event = median_event_ms(fn)
-        alone, per_call = device_ms(fn, KERNEL_NAMES["rounds_scan"])
+        prof = device_profile(fn, KERNEL_NAMES["rounds_scan"])
+        alone, per_call = prof["alone_ms"], prof["launches"]
         bound, bound_by, stages = bound_ms(T, R, C)
         packed = getattr(rounds_cuda, "packed_rank_bits", None)
         rank_bits = packed(gains, valid, totals0, carry) if packed else None
@@ -4508,23 +4603,32 @@ def k1_times(device) -> dict:
             two_key, _ = device_ms(
                 lambda: rounds_cuda._launch(gains, valid, totals0, carry, 0),
                 KERNEL_NAMES["rounds_scan"])
+        plain = None
+        if rounds_cuda.slots_for(C) > rounds_cuda.REGISTER_SLOTS:
+            plain = median_event_ms(lambda: rounds_cuda.rounds_scan_torch(
+                gains, valid, totals0, carry, rank_bits or 0), 5)
         out[name] = {
             "T": T, "R": R, "C": C, "carry": carry, "rank_bits": rank_bits,
             "event_ms": event, "alone_ms": alone, "launches_a_call": per_call,
+            "kernels": sorted(prof["by_kernel"]), "bits": bits(fn()),
             "ns_a_round": alone * 1e6 / depth, "ns_a_stage": alone * 1e6 / (depth * stages),
-            "two_key_alone_ms": two_key, "bound_ms": bound, "bound_by": bound_by,
+            "two_key_alone_ms": two_key, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": bound_by,
         }
         log(f"times  rounds_scan at {name} (T={T} R={R} C={C} carry={carry}, rank_bits "
             f"{rank_bits}): event {event!r} ms, device time alone {alone!r} ms "
-            f"({per_call!r} kernels a call), {alone * 1e6 / depth!r} ns a round, "
+            f"({per_call!r} kernels a call: {out[name]['kernels']}), "
+            f"{alone * 1e6 / depth!r} ns a round, "
             f"{alone * 1e6 / (depth * stages)!r} ns a stage of {stages}, bound {bound!r} ms "
-            f"({bound_by}); forced into the two-key form, alone {two_key!r} ms")
+            f"({bound_by}); forced into the two-key form, alone {two_key!r} ms; plain "
+            f"{plain!r} ms; bits {out[name]['bits']}")
     return out
 
 
-# assign() walls at config 5 take about 2 s each: their medians are of
-# fewer runs, so that the script stays well inside its time limit.
-CONFIG5_WALL_REPEATS = 15
+# assign() walls at config 5 take about 2-3 s each: their medians are of
+# fewer runs, so that the script stays well inside its time limit (15
+# until the cluster form's builds added about 35 s to the script).
+CONFIG5_WALL_REPEATS = 5
 
 
 def assign_walls(cfg: int, solver: str, device, repeats: int = REPEATS, refine=None):
@@ -4644,16 +4748,32 @@ def k7_inputs(device):
                    None)
 
 
-def k7_times(device) -> dict:
-    """K7 through its wrapper at each of ``k7_inputs``, called as the main
-    path calls it (with the lags' range where this version takes one):
-    CUDA-event time (the wrapper's host work included), device time alone
-    (profiler, by kernel name), time a valid row of the deepest topic, its
-    depth as the round form has it (rounds of E rows, stages of a sort of
-    next_pow2(E) slots) and the bound.  Uses only the wrapper's public
+def k7_wide_inputs(device):
+    """K7 past the register network, for the A/B modes: phase 4l's input
+    (``wide_scan_input``: 10 rounds of 20,000, 32,768 slots) and 10 rounds
+    of 60,000 and of 120,000 consumers (65,536 and 131,072 slots), uniform
+    lags from seed 1 in processing order.  Yields as ``k7_inputs``."""
+    sl, sv, lag_range = wide_scan_input(device)
+    yield "wide group", sl, sv, WIDE_C, None, lag_range
+    rng = np.random.default_rng(1)
+    for C in (60_000, 120_000):
+        lags = -np.sort(-rng.integers(0, 10**6, (1, 10 * C)), axis=1)
+        yield (f"{rounds_cuda.slots_for(C)} slots", torch.from_numpy(lags).to(device),
+               torch.ones(lags.shape, dtype=torch.uint8, device=device), C, None,
+               scan_cuda.host_lag_range(lags, np.array([10 * C])))
+
+
+def k7_times(device, inputs=None) -> dict:
+    """K7 through its wrapper at each of ``inputs`` (``k7_inputs``), called
+    as the main path calls it (with the lags' range where this version
+    takes one): CUDA-event time (the wrapper's host work included), device
+    time alone (profiler, by kernel name) and the kernels it ran, time a
+    valid row of the deepest topic, its depth as the round form has it
+    (rounds of E rows, stages of a sort of next_pow2(E) slots), the bound
+    and a digest of its output's bits.  Uses only the wrapper's public
     interface, so that it times any version of the package (``--k7-ab``)."""
     out = {}
-    for name, sl, sv, C, elig, lag_range in k7_inputs(device):
+    for name, sl, sv, C, elig, lag_range in (k7_inputs(device) if inputs is None else inputs):
         T, P = sl.shape
         n_valid = sv.sum(dim=1).tolist()
         depth = int(max(n_valid))
@@ -4665,16 +4785,19 @@ def k7_times(device) -> dict:
             return scan_cuda.scan_greedy(sl, sv, C, elig, **ranged)
 
         event = median_event_ms(fn)
-        alone, per_call = device_ms(fn, KERNEL_NAMES["scan_greedy"])
+        prof = device_profile(fn, KERNEL_NAMES["scan_greedy"])
+        alone, per_call = prof["alone_ms"], prof["launches"]
         bound, bound_by = k7_bound(T, P, C, E, n_valid)
         out[name] = {"T": T, "P": P, "C": C, "E": E, "depth": depth, "rounds": rounds,
                      "stages": stages, "event_ms": event, "alone_ms": alone,
-                     "launches_a_call": per_call, "ns_a_step": alone * 1e6 / max(depth, 1),
+                     "launches_a_call": per_call, "kernels": sorted(prof["by_kernel"]),
+                     "bits": bits(fn()), "ns_a_step": alone * 1e6 / max(depth, 1),
                      "bound_ms": bound, "bound_by": bound_by}
         log(f"times  scan_greedy at {name} (T={T} P={P} C={C} E={E}, {depth} valid rows in "
             f"the deepest topic: {rounds} rounds x {stages} stages): event {event!r} ms, "
-            f"device time alone {alone!r} ms ({per_call!r} kernels a call), "
-            f"{alone * 1e6 / max(depth, 1)!r} ns a row, bound {bound!r} ms ({bound_by})")
+            f"device time alone {alone!r} ms ({per_call!r} kernels a call: "
+            f"{out[name]['kernels']}), {alone * 1e6 / max(depth, 1)!r} ns a row, bound "
+            f"{bound!r} ms ({bound_by}); bits {out[name]['bits']}")
     return out
 
 
@@ -4684,7 +4807,7 @@ def solver_times(device, plain_cpu_ms: dict) -> dict:
     torch loop of as many steps, whose output must equal the kernel's on
     the same rows, and the kernel's time there) and 3 (median), and the
     ``assign()`` walls of ``scan`` and of ``rounds`` + 16 refine rounds at
-    config 5, medians of 10.  Returns the kernels-line fields: the standard
+    config 5, medians of ``CONFIG5_WALL_REPEATS``.  Returns the kernels-line fields: the standard
     ones at config 5, where K7 spends its time (``plain_ms`` on the cut
     rows, beside the kernel's ``plain_rows_ms`` there); config 3's under
     ``config3_*``; the CPU plain version's time from phase 3 (all config
@@ -4705,8 +4828,9 @@ def solver_times(device, plain_cpu_ms: dict) -> dict:
             + (f" (one call on the first {K7_PLAIN_ROWS} rows; the kernel there "
                f"{k7[name]['plain_rows_ms']!r} ms)" if name == "config 5" else ""))
     for solver, refine_iters in (("scan", None), ("rounds", REFINE_ITERS)):
-        wall, lag_read, solve, fastest = assign_walls(5, solver, device, 10, refine_iters)
-        log(f"assign() at config 5 {solver} refine {refine_iters}, medians of 10 (host "
+        wall, lag_read, solve, fastest = assign_walls(5, solver, device, refine=refine_iters)
+        log(f"assign() at config 5 {solver} refine {refine_iters}, medians of "
+            f"{CONFIG5_WALL_REPEATS} (host "
             f"clock): wall {wall!r} ms (min {fastest!r}), lag read {lag_read!r} ms, solve "
             f"{solve!r} ms")
     c3, c5 = k7["config 3"], k7["config 5"]
@@ -5294,14 +5418,8 @@ def wide_times(device, engine) -> dict:
             lambda: rounds_cuda.rounds_scan_torch(gains, valid, totals0, False, rb)),
         bound_ms=bound, bound_by=by, max_abs_err=err,
         shape=f"T {T} R {R} C {C}, rank_bits {rb}")
-    table = pad_topic_rows(arr)[0][None]
-    Pp = table.shape[1]
-    L = torch.from_numpy(table).to(device)
-    pids = torch.arange(Pp, dtype=torch.int32, device=device).expand(1, Pp)
-    V = torch.arange(Pp, device=device)[None, :] < WIDE_P
-    _, sl, sv = sort_partitions_with(L, pids, V, pack_shift_for(int(table.max()), Pp - 1))
-    sl, sv = sl.contiguous(), sv.to(torch.uint8).contiguous()
-    lag_range = scan_cuda.host_lag_range(table, np.array([WIDE_P]))
+    sl, sv, lag_range = wide_scan_input(device)
+    Pp = sl.shape[1]
     bound, by = k7_bound(1, Pp, WIDE_C, WIDE_C, [WIDE_P])
     out["scan_greedy"] = dict(
         op_times(lambda: scan_cuda.scan_greedy(sl, sv, WIDE_C, lag_range=lag_range),
@@ -5391,6 +5509,11 @@ def wide_times(device, engine) -> dict:
         library_alone_ms=device_profile(k3_library, "")["all_ops_ms"],
         bound_ms=bound, bound_by=by, bound_2exp_ms=exp_bound(2 * U * WIDE_C, moved)[0],
         max_abs_err=err, shape=k3_name)
+    for name in ("rounds_scan", "scan_greedy"):
+        kernel = KERNEL_NAMES[name] + FORM_SUFFIX[slot_form(rounds_cuda.slots_for(WIDE_C))]
+        if not all(kernel in k for k in out[name]["by_kernel"]):
+            raise AssertionError(f"{name} at the wide group ran {out[name]['by_kernel']}, "
+                                 f"not {kernel}")
     for name, t in out.items():
         log(f"times at the wide group  {name:19s} {t['shape']}: event {t['event_ms']!r} ms, "
             f"device time alone {t['alone_ms']!r} ms ({t['launches']} launches: "
@@ -5399,6 +5522,20 @@ def wide_times(device, engine) -> dict:
             f"{t.get('library_alone_ms')!r} ms), bound {t['bound_ms']!r} ms ({t['bound_by']}; "
             f"two exps an entry {t.get('bound_2exp_ms')!r} ms)")
     return out
+
+
+def wide_scan_input(device):
+    """K7's input at the wide group as ``scan`` makes it: the topic padded
+    to its bucket (P_pad 262,144), sorted into processing order; (sorted
+    lags, sorted valid, the lags' range as ``dispatch`` hands it over)."""
+    table = pad_topic_rows(wide_workload()[0]["t0"])[0][None]
+    Pp = table.shape[1]
+    L = torch.from_numpy(table).to(device)
+    pids = torch.arange(Pp, dtype=torch.int32, device=device).expand(1, Pp)
+    V = torch.arange(Pp, device=device)[None, :] < WIDE_P
+    _, sl, sv = sort_partitions_with(L, pids, V, pack_shift_for(int(table.max()), Pp - 1))
+    return (sl.contiguous(), sv.to(torch.uint8).contiguous(),
+            scan_cuda.host_lag_range(table, np.array([WIDE_P])))
 
 
 def wide_blocks(device):
@@ -5442,8 +5579,11 @@ def wide_ab_times(device) -> dict:
     device time alone of each, and a digest of each output's bits
     (``bits``); then phase 4l's ``sinkhorn`` ``assign()``: three walls on
     the host clock and one profiled call (K4's and K5's device time alone,
-    and all its device work), with a digest of its assignment.  Uses only
-    interfaces this change's parent has too."""
+    and all its device work), with a digest of its assignment; then a digest
+    of each of phase 4l's ``rounds``, ``global`` and ``scan`` assignments
+    and of its three stream epochs on the card (``wide_stream``'s, without
+    the CPU engine), which ``--wide-ab`` holds equal across checkouts.  Uses
+    only interfaces this change's parent has too."""
     ws_b, cnt_b, A, B = wide_blocks(device)
     args = wide_k3_args(device)
     (ws5, cnt5), C5 = blocks_case(5, device)
@@ -5487,37 +5627,96 @@ def wide_ab_times(device) -> dict:
     prof = device_profile(assign, KERNEL_NAMES["mirror_prox_step"], 1)
     out["sinkhorn wide assign"] = dict(
         walls_ms=walls, alone_ms=prof["alone_ms"], launches=prof["launches"],
-        all_ops_ms=prof["all_ops_ms"],
-        bits=hashlib.sha256(json.dumps(sorted(got.items())).encode()).hexdigest()[:16])
+        all_ops_ms=prof["all_ops_ms"], bits=assignment_bits(got))
+    for solver in ("rounds", "global", "scan"):
+        out[f"{solver} wide assign"] = dict(
+            bits=assignment_bits(assign_once(lags, members, solver, device)[0]))
+    engine, arr, epochs = wide_engine(device), lags["t0"], []
+    for _ in range(3):
+        epochs.append(np.asarray(engine.rebalance(arr)))
+        arr = heat(arr, epochs[-1], WIDE_C)
+    out["wide stream epochs"] = dict(bits=bits([torch.from_numpy(np.stack(epochs))]))
     return out
+
+
+def assignment_bits(assignment: dict) -> str:
+    """A digest of an ``assign()`` answer (member -> partitions)."""
+    return hashlib.sha256(json.dumps(sorted(assignment.items())).encode()).hexdigest()[:16]
+
+
+class FormSpy:
+    """While entered, records the form (``slot_form``) of every K1 and K7
+    launch through the wrappers, as (kernel, slots, form), and the bytes
+    of scratch the wrappers allocate for them (``wide_scratch``)."""
+
+    def __init__(self):
+        self.forms = []
+        self.scratch_bytes = 0
+
+    def __enter__(self):
+        k1, k7, scratch = rounds_cuda._launch, scan_cuda._launch, rounds_cuda.wide_scratch
+        self._saved = [(rounds_cuda, "_launch", k1), (scan_cuda, "_launch", k7),
+                       (rounds_cuda, "wide_scratch", scratch),
+                       (scan_cuda, "wide_scratch", scan_cuda.wide_scratch)]
+
+        def note(kernel, slots):
+            self.forms.append((kernel, slots, slot_form(slots)))
+
+        def k1_launch(gains, *args, **kw):
+            note("rounds_scan", rounds_cuda.slots_for(gains.shape[2]))
+            return k1(gains, *args, **kw)
+
+        def k7_launch(sorted_lags, sorted_valid, C, eligible, *args, **kw):
+            E = C if eligible is None else int(eligible.bool().sum())
+            note("scan_greedy", rounds_cuda.slots_for(E))
+            return k7(sorted_lags, sorted_valid, C, eligible, *args, **kw)
+
+        def wide_scratch(*args, **kw):
+            out = scratch(*args, **kw)
+            self.scratch_bytes += 0 if out is None else out.numel()
+            return out
+
+        rounds_cuda._launch, scan_cuda._launch = k1_launch, k7_launch
+        rounds_cuda.wide_scratch = scan_cuda.wide_scratch = wide_scratch
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self._saved:
+            setattr(module, name, fn)
 
 
 def wide_path(device) -> tuple:
     """Phase 4l: the wide group (one topic, WIDE_P partitions, WIDE_C
     members) through ``assign()`` with the host rung off: ``rounds`` (K1's
-    wide form) equal to the port's CPU solve, which runs K1's plain
-    version; ``scan`` (K7's wide form) equal to ``rounds``; ``global``
+    cluster form) equal to the port's CPU solve, which runs K1's plain
+    version; ``scan`` (K7's cluster form) equal to ``rounds``; ``global``
     equal to the CPU solve; ``sinkhorn`` in linear mode (K4, K5 and K1)
     with every partition once, count spread <= 1, a peak no worse than
     ``rounds``' and within total / C + max lag; then ``wide_stream`` and
-    ``wide_times``.  Returns (launches from just before the path to just
+    ``wide_times``.  K1's and K7's launches in the assign() and stream legs
+    are named by form (``FormSpy``): at 20,000 members the cluster form,
+    with no scratch.  Returns (launches from just before the path to just
     after its assign() and stream legs, the report)."""
     lags, members = wide_workload()
     start_path = time.perf_counter()
     reset_counts()
-    got, walls, cpu = {}, {}, torch.device("cpu")
+    got, walls, cpu, forms = {}, {}, torch.device("cpu"), {}
     need = {"rounds": ["rounds_scan"], "scan": ["scan_greedy"], "global": ["rounds_scan"],
             "sinkhorn": ["mirror_prox_step", "superblock_partials", "rounds_scan"]}
+    spy = FormSpy()
     for solver, kernels in need.items():
         before = read_counts()
         start = time.perf_counter()
-        got[solver], stats = assign_once(lags, members, solver, device)
+        with spy:
+            got[solver], stats = assign_once(lags, members, solver, device)
         walls[solver] = (time.perf_counter() - start) * 1e3
         grew = {k: v - before[k] for k, v in read_counts().items()}
         if any(grew[k] < 1 for k in kernels):
             raise AssertionError(f"wide {solver}: launches {grew}, expected {kernels}")
+        forms[solver] = spy.forms[-(grew["rounds_scan"] + grew["scan_greedy"]):]
         log(f"wide group {solver:8s}: assign() {walls[solver]!r} ms (solve {stats.solve_ms!r} "
-            f"ms), quality_ratio {stats.quality_ratio!r}, launches {grew}")
+            f"ms), quality_ratio {stats.quality_ratio!r}, launches {grew}, K1/K7 forms "
+            f"{forms[solver]}")
     for solver in ("rounds", "global"):
         if got[solver] != assign_once(lags, members, solver, cpu)[0]:
             raise AssertionError(f"wide {solver}: differs from the plain path (CPU)")
@@ -5532,14 +5731,26 @@ def wide_path(device) -> tuple:
     q_peak = check_quality("wide sinkhorn", lags, members, got["sinkhorn"], peak, True)
     if q_peak > arr.sum() / WIDE_C + arr.max():
         raise AssertionError(f"wide sinkhorn: peak {q_peak} above total / C + max lag")
-    engine, stream_walls = wide_stream(device)
+    with spy:
+        engine, stream_walls = wide_stream(device)
+    forms["stream"] = spy.forms[sum(map(len, forms.values())):]
     launches = read_counts()
+    if len(spy.forms) != launches["rounds_scan"] + launches["scan_greedy"]:
+        raise AssertionError(f"wide group: {launches} launches, forms {spy.forms}")
+    want = slot_form(rounds_cuda.slots_for(WIDE_C))
+    if {f[2] for f in spy.forms} != {want} or (want != "scratch" and spy.scratch_bytes):
+        raise AssertionError(f"wide group: K1/K7 took {spy.forms} with "
+                             f"{spy.scratch_bytes} bytes of scratch, not the {want} form")
+    log(f"wide group: every K1/K7 launch ({len(spy.forms)}) in the {want} form, "
+        f"{spy.scratch_bytes} bytes of scratch")
     path_s = time.perf_counter() - start_path
     log(f"wide group: rounds and global equal to the CPU path, scan equal to rounds, "
         f"sinkhorn peak {q_peak} (rounds {peak}, total / C + max lag "
         f"{arr.sum() / WIDE_C + arr.max():.1f}); assign() and stream legs {path_s:.1f} s")
     kernel_times = wide_times(device, engine)
     report = {"P": WIDE_P, "C": WIDE_C, "assign_ms": walls, "stream_ms": stream_walls,
+              "forms": {leg: [[f[0], f[2]] for f in fs] for leg, fs in forms.items()},
+              "scratch_bytes": spy.scratch_bytes,
               "sinkhorn_peak": q_peak, "rounds_peak": peak, "legs_s": path_s,
               "times": kernel_times, "card": CARD[0] if CARD else None,
               "phase_s": time.perf_counter() - start_path}
@@ -5685,7 +5896,10 @@ def ab(mode: str, roots) -> None:
                     "alone_ms", "event_ms", "plain_ms", "walls_ms", "all_ops_ms", "bits")
                     if k in t) for name, t in run["wide_times"].items()))
         for name in runs[0]["wide_times"]:
-            control = "config" in name
+            # The configs' shapes, and the wide group's integer answers,
+            # which no form of a kernel may change.
+            control = "config" in name or name.startswith(
+                ("rounds", "global", "scan", "wide stream"))
             for root, same in by_root.items():
                 if len({r["wide_times"][name]["bits"] for r in same}) > 1:
                     raise AssertionError(f"wide a/b: {name} differs between runs of {root}")
@@ -5697,6 +5911,8 @@ def ab(mode: str, roots) -> None:
         if mode in ("k1", "k7"):
             log(f"{mode} a/b  {run['root']}: " + "; ".join(
                 f"{name} alone {t['alone_ms']!r} ms event {t['event_ms']!r} ms"
+                + (f" plain {t['plain_ms']!r} ms" if t.get("plain_ms") is not None else "")
+                + f" bits {t['bits']} {t['kernels']}"
                 for name, t in run[f"{mode}_times"].items()))
         else:
             t = run["k36_times"]
@@ -5713,6 +5929,11 @@ def ab(mode: str, roots) -> None:
                 f"{t['state_digest']['event_ms']!r} ms; K5 {t['superblock_partials']!r} ms; "
                 f"K4 {t['mirror_prox_step']!r} ms; K1 {t['rounds_scan']}; quality ratios "
                 f"{t['quality_ratio']}")
+    if mode in ("k1", "k7"):
+        # Every checkout computes the same function: the same bits.
+        for name in runs[0][f"{mode}_times"]:
+            if len({r[f"{mode}_times"][name]["bits"] for r in runs}) > 1:
+                raise AssertionError(f"{mode} a/b: {name} has other bits in another checkout")
     log(json.dumps({f"{mode}_ab": runs}))
 
 
@@ -5728,10 +5949,12 @@ def main() -> int:
             return 0
     name = environment()
     if sys.argv[1:] == ["--k1-times"]:
-        log(json.dumps({"k1_times": k1_times(device), "device": name}))
+        cases = [*k1_cases(device), *k1_wide_cases(device)]
+        log(json.dumps({"k1_times": k1_times(device, cases), "device": name}))
         return 0
     if sys.argv[1:] == ["--k7-times"]:
-        log(json.dumps({"k7_times": k7_times(device), "device": name}))
+        inputs = [*k7_inputs(device), *k7_wide_inputs(device)]
+        log(json.dumps({"k7_times": k7_times(device, inputs), "device": name}))
         return 0
     if sys.argv[1:] == ["--k36-times"]:
         _build.build_all()
@@ -5871,6 +6094,14 @@ def main() -> int:
         line.append(kernel_line(k, launches[k], f32_err[k], t))
     line.append(kernel_line("state_digest", launches["state_digest"], digest_err, digest))
     line.append(kernel_line("scan_greedy", launches["scan_greedy"], scan_err, k7))
+    # Phase 4l's K1 and K7 launches by leg, each named by its form, and the
+    # kernel the profiler saw at that width.
+    for entry in line:
+        if entry["name"] in ("rounds_scan", "scan_greedy"):
+            entry["wide_group_forms"] = {
+                leg: [form for kernel, form in fs if kernel == entry["name"]]
+                for leg, fs in wide["forms"].items()}
+            entry["wide_group_kernels"] = sorted(wide["times"][entry["name"]]["by_kernel"])
     line.append(kernel_line("state_digest_rows", launches["state_digest_rows"],
                             digest_rows_err, digest_rows_t))
     line.append(kernel_line("state_digest_sharded", launches["state_digest_sharded"],

@@ -28,16 +28,25 @@
 // with t ascending and g descending, which can be any order at all.  So the
 // design shortens each stage instead:
 //
-// - The sort is slot_sort.cuh's network: keys in registers, shuffles for
-//   the short strides, shared memory (one barrier each) only for the long
-//   ones.  The kernel is a template on log2(N), one instantiation for each
-//   power of two up to 16,384.  Above that (rounds_scan_kernel_wide, one
-//   instantiation a key form for every N) the slots live in a per-block
-//   scratch of device memory and each round is slot_sort.cuh's wide_sort;
-//   the round is seated on the last level's chunks while their keys are
-//   still in registers (gain j added at position j, the choice row
-//   written), and the totals are scattered back by id at the end.  The
-//   wrapper allocates the scratch, T * N * 12 bytes.
+// - The sort is slot_sort.cuh's network in one of its three forms (see its
+//   header), by N: keys in registers, shuffles for the short strides,
+//   shared memory (one barrier each) for the long ones.
+//   * Registers, N <= 16,384 (rounds_scan_kernel, one instantiation a power
+//     of two): one block, the whole round in its registers.
+//   * Cluster, 16,384 < N <= 131,072 (rounds_scan_kernel_cluster, one
+//     instantiation a power of two): one thread-block cluster of 16 blocks a
+//     topic, block r holding positions r * N / 16 ... in registers; the
+//     strides of N / 16 and more go through distributed shared memory, one
+//     cluster barrier each (10 of a round's stages).  Each block loads its
+//     own positions' gains and validity, seats them and writes its part of
+//     the choice row, and scatters its own slots' totals at the end.
+//   * Scratch, N > 131,072 (rounds_scan_kernel_wide, one instantiation a
+//     key form for every N): the slots live in a per-block scratch of device
+//     memory and each round is slot_sort.cuh's wide_sort; the round is
+//     seated on the last level's chunks while their keys are still in
+//     registers, and the totals are scattered back by id at the end.  The
+//     wrapper allocates the scratch, T * N * 12 bytes.  It is bound by one
+//     SM's throughput, not by the network's depth.
 // - One key where it is admissible: the packed int64 (total << rank_bits) |
 //   id, whose order is the (total, id) order, so a stage compares and moves
 //   one 64-bit word instead of a word and an id; the gain is added as gain
@@ -48,10 +57,10 @@
 // - The next round's C gains and validity bytes are loaded into registers
 //   (16-byte loads where the row allows) before this round's network starts
 //   and read only after it, so no round waits on device memory; the choice
-//   row is written K int32 at a time.  At 8,192 and 16,384 slots (K 8 and 16 over 1,024 threads,
-//   64 registers a thread) the round's gains are read after its network
-//   instead, so that the keys stay in registers; at 16,384 slots they spill
-//   all the same.
+//   row is written K int32 at a time.  At 8,192 and 16,384 slots a block
+//   (K 8 and 16 over 1,024 threads, 64 registers a thread) the round's gains
+//   are read after its network instead, so that the keys stay in registers;
+//   at 16,384 slots they spill all the same.
 //
 // Pad slots (positions >= C) hold a key above every real one (total
 // INT64_MAX, or the packed ((INT64_MAX >> rank_bits) << rank_bits) | j) and
@@ -71,8 +80,9 @@
 namespace {
 
 using klba::Exchange;
+using klba::kMaxClusterSlots;
+using klba::kMaxLogCluster;
 using klba::kMaxLogSlots;
-using klba::kMaxSlots;
 
 // Most slots a call takes: the ids are int32 and the pad ids reach N - 1.
 constexpr int kMaxLogWide = 30;
@@ -253,7 +263,88 @@ __global__ void __launch_bounds__(Plan<kLogN, kPacked>::kThreads, 1)
   }
 }
 
-// The round scan over N = 2^log_n > kMaxSlots slots, kept in the block's
+// The round scan over N = 2^kLogN slots, kMaxSlots < N <= kMaxClusterSlots,
+// on one cluster of ClusterPlan::kBlocks blocks a topic (grid = T * blocks):
+// the same rounds as rounds_scan_kernel, block r holding positions r * N /
+// blocks ... of each, sorted by cluster_sort.
+template <int kLogN, bool kPacked>
+__global__ void __launch_bounds__(klba::ClusterPlan<kLogN, kPacked>::Block::kThreads, 1)
+    rounds_scan_kernel_cluster(const long long* __restrict__ gains,
+                               const unsigned char* __restrict__ valid,
+                               const long long* __restrict__ totals0, int* __restrict__ choice,
+                               long long* __restrict__ totals_out, int R, int C, int rank_bits,
+                               int vec) {
+  using CP = klba::ClusterPlan<kLogN, kPacked>;
+  using P = typename CP::Block;
+  constexpr int K = P::kK;
+  constexpr bool kPrefetch = K <= 4;  // as Plan::kPrefetch
+  extern __shared__ __align__(16) unsigned char smem[];
+  Exchange x{reinterpret_cast<long long*>(smem),
+             reinterpret_cast<int*>(smem + static_cast<size_t>(2) * P::kSlots * 8), 0};
+
+  const unsigned rank = cooperative_groups::this_cluster().block_rank();
+  const int topic = static_cast<int>(blockIdx.x) >> CP::kLogBlocks;
+  const int i0 = static_cast<int>(rank) * P::kSlots + static_cast<int>(threadIdx.x) * K;
+  const long long id_mask = (1LL << rank_bits) - 1;
+  long long key[K];
+  int id[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = i0 + k;
+    id[k] = j;
+    if constexpr (kPacked) {
+      key[k] = j < C ? (totals0[j] << rank_bits) | j
+                     : ((LLONG_MAX >> rank_bits) << rank_bits) | j;
+    } else {
+      key[k] = j < C ? totals0[j] : LLONG_MAX;
+    }
+  }
+
+  const long long first = static_cast<long long>(topic) * R;  // first row
+  RowLoad<K> cur, next;
+  if (kPrefetch && R > 0)
+    fetch<K>(gains + first * C, valid + first * C, i0, C, vec != 0, cur);
+  if constexpr (kPrefetch) next = cur;
+
+  for (int r = 0; r < R; ++r) {
+    const long long row = (first + r) * C;
+    if constexpr (kPrefetch) {
+      if (r + 1 < R) fetch<K>(gains + row + C, valid + row + C, i0, C, vec != 0, next);
+    }
+    klba::cluster_sort<CP>(key, id, x, rank);
+    if constexpr (!kPrefetch) fetch<K>(gains + row, valid + row, i0, C, vec != 0, cur);
+    long long gain[K];
+    const unsigned mask = decode<K>(cur, vec != 0, gain);
+    int cv[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int who = kPacked ? static_cast<int>(key[k] & id_mask) : id[k];
+      cv[k] = (mask >> k) & 1 ? who : -1;
+      key[k] += kPacked ? gain[k] << rank_bits : gain[k];
+    }
+    store_choice<K>(choice + row, i0, C, vec != 0, cv);
+    if constexpr (kPrefetch) cur = next;
+  }
+
+  // This block's positions < C, in the last round's order, to consumer
+  // order.
+  long long* out = totals_out + static_cast<long long>(topic) * C;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (i0 + k < C) {
+      if constexpr (kPacked) {
+        out[key[k] & id_mask] = key[k] >> rank_bits;
+      } else {
+        out[id[k]] = key[k];
+      }
+    }
+  }
+  // No block's shared memory goes while a partner may still read it.
+  klba::cluster_arrive();
+  klba::cluster_wait();
+}
+
+// The round scan over N = 2^log_n > kMaxClusterSlots slots, kept in the block's
 // scratch (keys [T, N], ids [T, N]): the same rounds as
 // rounds_scan_kernel, each sorted by wide_sort and seated on the chunks of
 // its last level.
@@ -323,40 +414,66 @@ struct Instance {
   int threads;
   int k;
   int smem;
+  int blocks;  // of a cluster; 1 for the register and scratch forms
 };
 
-// One instantiation a slot count 2^0 ... 2^14, then the wide form's.
-template <bool kPacked, int... Ls>
-const Instance* instances(std::integer_sequence<int, Ls...>) {
-  using W = Plan<kMaxLogSlots, kPacked>;  // the wide form's chunk network
+template <int kLogN, bool kPacked>
+Instance cluster_instance() {
+  using P = typename klba::ClusterPlan<kLogN, kPacked>::Block;
+  return {reinterpret_cast<const void*>(rounds_scan_kernel_cluster<kLogN, kPacked>),
+          P::kThreads, P::kK, P::kExchangeBytes, klba::ClusterPlan<kLogN, kPacked>::kBlocks};
+}
+
+constexpr int kClusterForms = kMaxLogCluster - kMaxLogSlots;
+
+// One instantiation a slot count 2^0 ... 2^14, one a slot count 2^15 ...
+// 2^17 of the cluster form, then the scratch form's.
+template <bool kPacked, int... Ls, int... Cs>
+const Instance* instances(std::integer_sequence<int, Ls...>,
+                          std::integer_sequence<int, Cs...>) {
+  using W = Plan<kMaxLogSlots, kPacked>;  // the scratch form's chunk network
   static const Instance table[] = {
       {reinterpret_cast<const void*>(rounds_scan_kernel<Ls, kPacked>),
-       Plan<Ls, kPacked>::kThreads, Plan<Ls, kPacked>::kK, Plan<Ls, kPacked>::kSmem}...,
+       Plan<Ls, kPacked>::kThreads, Plan<Ls, kPacked>::kK, Plan<Ls, kPacked>::kSmem, 1}...,
+      cluster_instance<kMaxLogSlots + 1 + Cs, kPacked>()...,
       {reinterpret_cast<const void*>(rounds_scan_kernel_wide<kPacked>), W::kThreads, W::kK,
-       W::kSmem}};
+       W::kSmem, 1}};
   return table;
 }
 
-// The instantiation for 2^log_n slots: the wide form above kMaxLogSlots.
+// The index of the instantiation for 2^log_n slots: the scratch form's
+// above kMaxLogCluster.
+int form_of(int log_n) { return log_n > kMaxLogCluster ? kMaxLogCluster + 1 : log_n; }
+
 const Instance& instance(int log_n, bool packed) {
-  constexpr auto all = std::make_integer_sequence<int, kMaxLogSlots + 1>{};
-  const int i = log_n > kMaxLogSlots ? kMaxLogSlots + 1 : log_n;
-  return packed ? instances<true>(all)[i] : instances<false>(all)[i];
+  constexpr auto narrow = std::make_integer_sequence<int, kMaxLogSlots + 1>{};
+  constexpr auto cluster = std::make_integer_sequence<int, kClusterForms>{};
+  const int i = form_of(log_n);
+  return packed ? instances<true>(narrow, cluster)[i] : instances<false>(narrow, cluster)[i];
 }
 
-// Raise every instantiation's dynamic shared-memory limit to what it uses,
-// once a device, whatever C the first call has.
-cudaError_t set_smem_limits() {
+// What a device says of each instantiation, once a device: whether its
+// dynamic shared-memory limit could be raised to what it uses, whatever C
+// the first call has, and, for each cluster form, whether it is launchable
+// and the device holds one of its clusters.  A form that fails keeps its
+// error; the other forms still launch.
+struct Limits {
+  cudaError_t form[2][kMaxLogCluster + 2];
+};
+
+void set_smem_limits(Limits& out) {
   for (int packed = 0; packed < 2; ++packed) {
-    for (int log_n = 0; log_n <= kMaxLogSlots + 1; ++log_n) {
+    for (int log_n = 0; log_n <= kMaxLogCluster + 1; ++log_n) {
       const Instance& in = instance(log_n, packed != 0);
-      if (in.smem <= 48 * 1024) continue;
-      const cudaError_t err = cudaFuncSetAttribute(
-          in.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, in.smem);
-      if (err != cudaSuccess) return err;
+      cudaError_t err = cudaSuccess;
+      if (in.blocks > 1) {
+        err = klba::prepare_cluster(in.fn, in.blocks, in.threads, in.smem);
+      } else if (in.smem > 48 * 1024) {
+        err = cudaFuncSetAttribute(in.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, in.smem);
+      }
+      out.form[packed][log_n] = err;
     }
   }
-  return cudaSuccess;
 }
 
 int log2_of(int n) {
@@ -383,30 +500,34 @@ int vector_io(int k, const void* gains, const void* valid, const void* choice, i
 }  // namespace
 
 // Launches the round scan on `stream`; returns the CUDA error (0 = ok).
-// T blocks, each over R rounds of C consumers; c_pad = next_pow2(C).
+// T topics, each over R rounds of C consumers; c_pad = next_pow2(C).
 // rank_bits > 0 runs the packed key (the caller has checked that the
 // shifted totals fit, and c_pad <= 2^rank_bits), 0 the two-key network.
-// Above 16,384 slots `scratch` holds T * c_pad * 12 bytes (the keys, then
-// the ids), which the kernel overwrites; below it is not read.
+// Up to 16,384 slots a topic is one block; up to 131,072 one cluster of
+// blocks (a device that cannot hold one gives its error); above, one block
+// whose slots are in `scratch`, T * c_pad * 12 bytes (the keys, then the
+// ids), which the kernel overwrites.  Below 131,072 slots `scratch` is not
+// read.
 extern "C" int klba_rounds_scan(const void* gains, const void* valid,
                                 const void* totals0, void* choice,
                                 void* totals_out, int T, int R, int C,
                                 int c_pad, int rank_bits, void* scratch, void* stream) {
   if (T < 1 || R < 0 || bad_slots(C, c_pad) || rank_bits < 0 || rank_bits > 61 ||
       (rank_bits > 0 && c_pad > (1LL << rank_bits)) ||
-      (c_pad > kMaxSlots && scratch == nullptr))
+      (c_pad > kMaxClusterSlots && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   static std::once_flag once[kMaxDevices];
-  static cudaError_t limits[kMaxDevices];
-  std::call_once(once[device], [device] { limits[device] = set_smem_limits(); });
-  if (limits[device] != cudaSuccess) return static_cast<int>(limits[device]);
+  static Limits limits[kMaxDevices];
+  std::call_once(once[device], [device] { set_smem_limits(limits[device]); });
 
   int log_n = log2_of(c_pad);
   const Instance& in = instance(log_n, rank_bits > 0);
+  err = limits[device].form[rank_bits > 0][form_of(log_n)];
+  if (err != cudaSuccess) return static_cast<int>(err);
   int vec = vector_io(in.k, gains, valid, choice, C);
   const long long* g = static_cast<const long long*>(gains);
   const unsigned char* v = static_cast<const unsigned char*>(valid);
@@ -414,12 +535,18 @@ extern "C" int klba_rounds_scan(const void* gains, const void* valid,
   int* ch = static_cast<int*>(choice);
   long long* out = static_cast<long long*>(totals_out);
   long long* sk = static_cast<long long*>(scratch);
-  int* si = log_n > kMaxLogSlots ? reinterpret_cast<int*>(sk + static_cast<long long>(T) * c_pad)
-                                 : nullptr;
+  int* si = log_n > kMaxLogCluster
+                ? reinterpret_cast<int*>(sk + static_cast<long long>(T) * c_pad)
+                : nullptr;
   void* args[] = {&g, &v, &t0, &ch, &out, &R, &C, &rank_bits, &vec, &log_n, &sk, &si};
   void* narrow[] = {&g, &v, &t0, &ch, &out, &R, &C, &rank_bits, &vec};
-  err = cudaLaunchKernel(in.fn, dim3(T), dim3(in.threads), log_n > kMaxLogSlots ? args : narrow,
-                         in.smem, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in.blocks > 1) {
+    err = klba::launch_cluster(in.fn, T, in.blocks, in.threads, in.smem, narrow, s);
+  } else {
+    err = cudaLaunchKernel(in.fn, dim3(T), dim3(in.threads),
+                           log_n > kMaxLogCluster ? args : narrow, in.smem, s);
+  }
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 

@@ -22,27 +22,48 @@
 // Every register index is a constant after unrolling: the network is a
 // template on log2(N).
 //
-// Above kMaxSlots (16,384) slots a block's registers cannot hold them: the
-// wide form (wide_sort) keeps a block's N slots in a scratch of device
-// memory (int64 keys, int32 ids: 12 B a slot, 1.5 MB at 2^17, which stays
-// in the 50 MB L2) and runs the same all-ascending network in three kinds
-// of step.  Each 16,384-slot chunk is loaded into the registers of the
-// 16,384-slot network and sorted there (the levels of merge size up to
-// 2^14 never leave a chunk); each stage of stride 2^14 or more is a
-// compare-exchange pass over the scratch, one barrier after it; and each
-// level ends with a merge-only entry into the register network, its last
-// 14 stages, one chunk at a time.  Every index into the scratch is 64-bit.
+// Three forms, by N = next_pow2(C):
+//
+// - Registers, N <= kMaxSlots (16,384): one block holds the slots
+//   (sort_slots).  Bound by its depth: log2(N) * (log2(N) + 1) / 2
+//   dependent stages, each a shuffle or one block barrier.
+// - Cluster, kMaxSlots < N <= kMaxClusterSlots (131,072): a thread-block
+//   cluster of S = 2^kClusterLogBlocks = 16 blocks holds them, block
+//   r the N / S slots r * N / S ... in registers, in the same blocked layout
+//   (cluster_sort).  A stage of a stride below N / S runs inside each block
+//   as in the register form; a stage of a stride of N / S or more (log2 S
+//   * (log2 S + 1) / 2 of them a sort: 10 at 16 blocks) goes through
+//   distributed shared memory: each block writes its keys into its own
+//   exchange buffer, one cluster barrier, and each reads its partner's.  Bound
+//   by the same depth: a stage inside a block is a shuffle or a block
+//   barrier, a cross-block stage a cluster barrier and a read of another
+//   SM's shared memory.
+// - Scratch, N > kMaxClusterSlots (up to 2^30): one block keeps its N slots
+//   in a scratch of device memory (int64 keys, int32 ids: 12 B a slot, 3 MB
+//   at 2^18, which stays in the 50 MB L2) and runs the same all-ascending
+//   network in three kinds of step (wide_sort).  Each 16,384-slot chunk is
+//   loaded into the registers of the 16,384-slot network and sorted there
+//   (the levels of merge size up to 2^14 never leave a chunk); each stage of
+//   stride 2^14 or more is a compare-exchange pass over the scratch, one
+//   barrier after it; and each level ends with a merge-only entry into the
+//   register network, its last 14 stages, one chunk at a time.  Every index
+//   into the scratch is 64-bit.  Bound by one SM's throughput: each round
+//   moves the scratch through L2 about five times.
 
 #pragma once
 
 #include <utility>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace klba {
 
 constexpr int kMaxLogSlots = 14;
 constexpr int kMaxSlots = 1 << kMaxLogSlots;
+// Most slots of the cluster form; above them the scratch form.
+constexpr int kMaxLogCluster = 17;
+constexpr int kMaxClusterSlots = 1 << kMaxLogCluster;
 // Dynamic shared memory a block may use on Hopper (227 KB).
 constexpr int kSmemPerBlock = 232448;
 
@@ -347,6 +368,150 @@ __device__ __forceinline__ void wide_sort(const WideSlots& w, Exchange& x, AtEnd
     }
   }
   __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// The cluster form.
+
+// log2 of the blocks of a cluster: 16 at every slot count.  8 blocks (2 or
+// 4 times the slots a thread, 6 cluster stages a sort instead of 10) took
+// 1.7x as long a round at 2^15 and 2.0x at 2^16 on the H100: the block-local
+// stages, not the cluster barriers, hold most of a round.
+constexpr int kClusterLogBlocks = 4;
+
+// The cluster form's geometry for 2^kLogN slots: kBlocks blocks, each the
+// register network's plan over its 2^kLogN / kBlocks slots.
+template <int kLogN, bool kPacked>
+struct ClusterPlan {
+  static constexpr int kLogBlocks = kClusterLogBlocks;
+  static constexpr int kBlocks = 1 << kLogBlocks;
+  using Block = SlotPlan<kLogN - kLogBlocks, kPacked>;
+  // One cluster barrier a cross-block stage needs two buffers; cluster_sort
+  // takes the first local stage after the cross-block ones (stride half a
+  // block's share) to go through shared memory: at least 64 threads.
+  static_assert(Block::kDouble && Block::kThreads >= 64, "the cluster form's block");
+};
+
+// The two halves of a cluster barrier, every thread of every block of the
+// cluster: what a thread wrote to shared memory before it arrives is seen by
+// every thread that has waited.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// One stage of stride 2^lj >= P::kSlots across the blocks of a cluster, in
+// the all-ascending form of `stage`: each block writes its slots to its own
+// exchange buffer, one cluster barrier, and each thread reads its partner's
+// K slots from the partner block's buffer (the same thread and register
+// index, or in the mirror stage the reversed thread and register index) and
+// keeps the smaller or the larger of each pair.
+template <class P, bool kMirror>
+__device__ __forceinline__ void cluster_stage(long long (&key)[P::kK], int (&id)[P::kK],
+                                              Exchange& x, unsigned partner, bool keep_min) {
+  constexpr bool kPacked = P::kPacked;
+  constexpr int K = P::kK;
+  const int t = threadIdx.x;
+  long long* kb = x.key + x.sel * P::kSlots;
+  int* ib = x.id + x.sel * P::kSlots;
+  put_keys<K>(kb + t * K, key);
+  if constexpr (!kPacked) put_ids<K>(ib + t * K, id);
+  cluster_arrive();
+  cluster_wait();
+  const cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int at = (kMirror ? P::kThreads - 1 - t : t) * K;
+  long long pk[K];
+  int pi[K];
+  get_keys<K>(cluster.map_shared_rank(kb, partner) + at, pk);
+  if constexpr (!kPacked) get_ids<K>(cluster.map_shared_rank(ib, partner) + at, pi);
+  x.sel ^= 1;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int src = kMirror ? K - 1 - k : k;
+    const long long yk = pk[src];
+    const int yi = kPacked ? 0 : pi[src];
+    const bool take = less<kPacked>(yk, yi, key[k], id[k]) == keep_min;
+    key[k] = take ? yk : key[k];
+    if constexpr (!kPacked) id[k] = take ? yi : id[k];
+  }
+}
+
+// The ascending sort of 2^kLogN slots over the blocks of a cluster (see the
+// header), run by every thread of every block; `rank` is the block's rank
+// in its cluster.  Each block first sorts its own slots (levels up to its
+// share); each larger level runs its strides of a share or more across the
+// blocks, then merge_slots' strides inside each block.  The last cross-block
+// stage of a level leaves the partners reading this block's buffer, which
+// the second local stage writes again: a split cluster barrier (arrive
+// after the reads, wait after the first local stage) keeps them apart.
+template <class CP>
+__device__ __forceinline__ void cluster_sort(long long (&key)[CP::Block::kK],
+                                             int (&id)[CP::Block::kK], Exchange& x,
+                                             unsigned rank) {
+  using P = typename CP::Block;
+  sort_slots<P>(key, id, x);
+  static_for<CP::kLogBlocks>([&](auto a) {
+    constexpr int up = decltype(a)::value + 1;  // merge size 2^up shares
+    cluster_stage<P, true>(key, id, x, rank ^ ((1u << up) - 1u), ((rank >> (up - 1)) & 1u) == 0);
+#pragma unroll
+    for (int b = up - 2; b >= 0; --b)
+      cluster_stage<P, false>(key, id, x, rank ^ (1u << b), ((rank >> b) & 1u) == 0);
+    cluster_arrive();
+    stage<P, P::kLog + 1, P::kLog - 1>(key, id, x);
+    cluster_wait();
+    static_for<P::kLog - 1>([&](auto b) {
+      stage<P, P::kLog + 1, P::kLog - 2 - decltype(b)::value>(key, id, x);
+    });
+  });
+}
+
+// Host side: the launch of `clusters` clusters of `blocks` blocks each
+// (grid = clusters * blocks) on `stream`.
+struct ClusterLaunch {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t config;
+
+  ClusterLaunch(int clusters, int blocks, int threads, int smem, cudaStream_t stream)
+      : attr{}, config{} {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = static_cast<unsigned>(blocks);
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    config.gridDim = dim3(static_cast<unsigned>(clusters) * static_cast<unsigned>(blocks));
+    config.blockDim = dim3(threads);
+    config.dynamicSmemBytes = static_cast<size_t>(smem);
+    config.stream = stream;
+    config.attrs = &attr;
+    config.numAttrs = 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;  // config points at attr
+};
+
+// Make a cluster kernel launchable (its shared memory, a cluster of more
+// than 8 blocks) and check that the device can hold one of its clusters;
+// cudaErrorLaunchOutOfResources where it cannot.
+inline cudaError_t prepare_cluster(const void* fn, int blocks, int threads, int smem) {
+  cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  if (blocks > 8) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  const ClusterLaunch one(1, blocks, threads, smem, nullptr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, fn, &one.config);
+  if (err != cudaSuccess) return err;
+  return clusters >= 1 ? cudaSuccess : cudaErrorLaunchOutOfResources;
+}
+
+inline cudaError_t launch_cluster(const void* fn, int clusters, int blocks, int threads,
+                                  int smem, void** args, cudaStream_t stream) {
+  const ClusterLaunch launch(clusters, blocks, threads, smem, stream);
+  return cudaLaunchKernelExC(&launch.config, fn, args);
 }
 
 }  // namespace klba

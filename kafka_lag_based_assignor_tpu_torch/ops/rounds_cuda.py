@@ -4,11 +4,21 @@ plain PyTorch version.
 Counterpart of ``kafka_lag_based_assignor_tpu/ops/rounds_pallas.py``: the
 kernel in ``csrc/rounds_scan.cu`` replaces the TPU kernels
 ``_rounds_kernel`` (int32 totals) and ``_rounds_kernel_wide`` (int64 totals
-as two int32 planes).  It is one int64 kernel, one thread block per topic,
-with every consumer's slot kept in registers across the rounds up to
-:data:`REGISTER_SLOTS` slots, and in a per-block scratch of device memory
-above (the wide form, :func:`wide_scratch`); see the source for what bounds
-it.  Both forms take any consumer count, as the JAX package does.
+as two int32 planes).  It is one int64 kernel in three forms, picked in the
+CUDA source from the slot count N = next_pow2(C) (:func:`slots_for`):
+
+* registers, up to :data:`REGISTER_SLOTS` (16,384) slots: one thread block
+  a topic, every consumer's slot in its registers across the rounds; bound
+  by the network's depth, a shuffle or a block barrier a stage;
+* cluster, up to :data:`CLUSTER_SLOTS` (131,072) slots: one thread-block
+  cluster of 16 blocks a topic, each block's share of the slots in its
+  registers and the long strides through distributed shared memory; bound
+  by the same depth, a cluster barrier for each of the 10 cross-block
+  stages of a round;
+* scratch, above: one block a topic, its slots in device scratch
+  (:func:`wide_scratch`); bound by one SM's throughput over that scratch.
+
+Every form takes any consumer count, as the JAX package does.
 
 It has two key forms, chosen per call from the input's range as the JAX
 package chooses its round body (``totals_rank_bits_for``): the packed int64
@@ -32,9 +42,13 @@ from ._build import count_launch
 
 #: Most slots the register network holds (16 a thread over 1,024 threads,
 #: whose two-key exchange buffer, 12 B a slot, is 192 KiB of shared memory);
-#: above it K1 and K7 sort in their wide form, the slots in device scratch.
+#: above it K1 and K7 sort on a thread-block cluster.
 REGISTER_SLOTS = 16384
-#: Bytes of a slot in the wide form's scratch: an int64 key, an int32 id.
+#: Most slots the cluster form holds (``kMaxClusterSlots`` in
+#: ``csrc/slot_sort.cuh``: 16 blocks of 8,192); above it K1 and K7 sort in
+#: their scratch form, the slots in device scratch, which the wrapper sizes.
+CLUSTER_SLOTS = 131072
+#: Bytes of a slot in the scratch form: an int64 key, an int32 id.
 _WIDE_SLOT_BYTES = 12
 _INT64_MAX = torch.iinfo(torch.int64).max
 
@@ -158,11 +172,12 @@ def _packed_rounds(gains, valid, totals0, rank_bits: int):
 
 
 def wide_scratch(blocks: int, slots: int, device):
-    """The wide form's scratch for ``blocks`` blocks of ``slots`` slots
+    """The scratch form's scratch for ``blocks`` blocks of ``slots`` slots
     (int64 keys, then int32 ids), or None at or below
-    :data:`REGISTER_SLOTS` slots, where the kernel keeps its slots in
-    registers.  The kernel writes every slot before it reads it."""
-    if slots <= REGISTER_SLOTS:
+    :data:`CLUSTER_SLOTS` slots, where the kernel keeps its slots in
+    registers (of one block or of a cluster's).  The kernel writes every
+    slot before it reads it."""
+    if slots <= CLUSTER_SLOTS:
         return None
     return torch.empty(blocks * slots * _WIDE_SLOT_BYTES, dtype=torch.uint8, device=device)
 

@@ -6,8 +6,11 @@ The JAX package runs these steps as a ``lax.scan`` inside
 there is no Pallas kernel to replace.  The kernel in
 ``csrc/scan_greedy.cu`` computes the same function as rounds: the eligible
 set is fixed, so the steps fill rounds of E valid rows (E the eligible
-consumers), each a sort of the E consumers by (total, index), one thread
-block per topic.  See the source for what bounds it.  The wrapper picks
+consumers), each a sort of the E consumers by (total, index) on K1's
+network in its three forms (``ops/rounds_cuda``): one thread block a topic
+up to 16,384 eligible consumers, one thread-block cluster up to 131,072,
+one block with its slots in device scratch above.  See the source for what
+bounds it.  The wrapper picks
 its instantiation (``scan_plan``: E, and the key form by K1's rule) from
 what the caller knows on the host (``lag_range``: the main path's, with
 every consumer eligible, reads nothing from the card), else from one host
@@ -180,7 +183,8 @@ def scan_greedy(sorted_lags, sorted_valid, num_consumers: int, eligible=None,
       sorted_lags: int64[T, P] — each topic's lags in processing order.
       sorted_valid: uint8[T, P] — their validity (0 = padding).
       num_consumers: C >= 1 (above 16,384 eligible consumers the kernel
-        sorts in its wide form, :func:`..ops.rounds_cuda.wide_scratch`).
+        sorts on a thread-block cluster, above 131,072 in its scratch form,
+        :func:`..ops.rounds_cuda.wide_scratch`).
       eligible: uint8[C] or None (every consumer eligible).
       lag_range: None, or (least lag, bound on any topic's sum of |valid
         lags|) as the caller knows them on the host (:func:`host_lag_range`);

@@ -7,8 +7,13 @@ plain versions of K1/K2, K7, K6 and K3-K5, which the card's wide forms are
 held to in ``chip_smoke.py``) answers such groups as JAX does:
 
 * ``rounds``, ``global`` and ``scan`` through ``ops.dispatch.assign_device``
-  at 16,385 and 20,000 consumers, and ``rounds`` with a 16-round refine at
-  20,000, bit for bit against ``kafka_lag_based_assignor_tpu.ops.dispatch``;
+  at 16,385 and 20,000 consumers, ``rounds`` and ``global`` at 65,537 and
+  131,073 (the widest cluster form and the scratch form on the card), and
+  ``rounds`` with a 16-round refine at 20,000, bit for bit against
+  ``kafka_lag_based_assignor_tpu.ops.dispatch``; ``scan`` at 65,537 and
+  131,073 against the port's ``rounds``;
+* the scratch the wrapper allocates (none up to 131,072 slots), and the
+  cluster kernels' names in the CUDA sources;
 * the refine's 14-bit pair-id field: both packages raise the same
   ``ValueError`` at 32,768 consumers;
 * the plugin's ``assign()`` at 20,000 consumers with the host rung off;
@@ -25,7 +30,10 @@ held to in ``chip_smoke.py``) answers such groups as JAX does:
 Integer paths: exact equality.  Inputs are made with numpy from a seed.
 """
 
+import ast
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -62,6 +70,7 @@ from kafka_lag_based_assignor_tpu_torch.types import (  # noqa: E402
 from test_torch_digest import KINDS, both_digests, corrupt, resident_state  # noqa: E402
 from test_torch_quality import assert_close, duals_case, jax_step  # noqa: E402
 
+REPO = Path(__file__).resolve().parent.parent
 T = torch.from_numpy
 WIDE = 20_000
 ABOVE = rounds_cuda.REGISTER_SLOTS + 1
@@ -83,16 +92,70 @@ def spread_ok(got, C):
     return max(counts) - min(counts) <= 1
 
 
-@pytest.mark.parametrize("C", [ABOVE, WIDE])
-@pytest.mark.parametrize("solver", ["rounds", "global", "scan"])
+#: The cluster form's widest slot count and the scratch form's least
+#: consumer count.
+CLUSTER = rounds_cuda.CLUSTER_SLOTS // 2 + 1
+SCRATCH = rounds_cuda.CLUSTER_SLOTS + 1
+
+
+@pytest.mark.parametrize("solver,C", [
+    *((solver, C) for C in (ABOVE, WIDE) for solver in ("rounds", "global", "scan")),
+    *((solver, C) for C in (CLUSTER, SCRATCH) for solver in ("rounds", "global")),
+])
 def test_parity_solvers_match_jax(solver, C):
-    """P 60,000 for ``rounds`` and ``global`` (K1's wide form on the card),
-    about 2C for ``scan`` (K7's), whose JAX scan takes a step a row."""
-    lags, _, subs = group(C, 60_000 if solver != "scan" else 2 * C + 17, seed=C)
+    """P 60,000 for ``rounds`` and ``global`` at 16,385 and 20,000 consumers
+    (K1's cluster form on the card, 32,768 slots), 2C + 5 at 65,537 (the
+    cluster form at 131,072 slots) and 131,073 (the scratch form); about 2C
+    for ``scan`` (K7's cluster form), whose JAX scan takes a step a row."""
+    P = 2 * C + 17 if solver == "scan" else 60_000 if C <= WIDE else 2 * C + 5
+    lags, _, subs = group(C, P, seed=C)
     rows = lag_rows(lags)
     got = pairs(assign_device(rows, subs, kernel=solver, device="cpu"))
     assert got == pairs(jax_dispatch.assign_device(rows, subs, kernel=solver))
     assert spread_ok(got, C)
+
+
+@pytest.mark.parametrize("C", [CLUSTER, SCRATCH])
+def test_scan_matches_rounds_at_cluster_and_scratch_widths(C):
+    """``scan`` (K7's cluster and scratch forms on the card) is held to the
+    port's own ``rounds`` answer, the identity phase 4l of ``chip_smoke.py``
+    holds on the card.  The CPU runs K7's plain version, a torch step a row
+    (1.4-1.8 ms each at these widths), so the topic has 3,000 rows: less
+    than one round."""
+    lags, _, subs = group(C, 3_000, seed=C + 1)
+    rows = lag_rows(lags)
+    got = pairs(assign_device(rows, subs, kernel="scan", device="cpu"))
+    assert got == pairs(assign_device(rows, subs, kernel="rounds", device="cpu"))
+    assert spread_ok(got, C)
+
+
+@pytest.mark.parametrize("slots", [1024, rounds_cuda.REGISTER_SLOTS, 32768,
+                                   rounds_cuda.CLUSTER_SLOTS, 2 * rounds_cuda.CLUSTER_SLOTS,
+                                   1 << 20])
+@pytest.mark.parametrize("blocks", [1, 3])
+def test_wide_scratch_only_for_the_scratch_form(slots, blocks):
+    """No scratch up to 131,072 slots (the register and cluster forms keep
+    their slots on chip); above, 12 bytes a slot a block."""
+    got = rounds_cuda.wide_scratch(blocks, slots, "cpu")
+    if slots <= rounds_cuda.CLUSTER_SLOTS:
+        assert got is None
+    else:
+        assert got.dtype == torch.uint8 and got.numel() == blocks * slots * 12
+
+
+def test_each_source_defines_a_cluster_kernel_chip_smoke_can_name():
+    """K1's and K7's sources define a ``_cluster`` kernel whose name starts
+    with the prefix ``chip_smoke.py``'s ``KERNEL_NAMES`` finds it by."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text(encoding="utf-8"))
+    names = next(ast.literal_eval(node.value) for node in tree.body
+                 if isinstance(node, ast.Assign)
+                 and any(getattr(t, "id", None) == "KERNEL_NAMES" for t in node.targets))
+    csrc = REPO / "kafka_lag_based_assignor_tpu_torch" / "csrc"
+    for source, key in (("rounds_scan.cu", "rounds_scan"), ("scan_greedy.cu", "scan_greedy")):
+        kernels = re.findall(r"__global__ void __launch_bounds__\([^;]*?\)\s+(\w+)\(",
+                             (csrc / source).read_text(encoding="utf-8"))
+        cluster = [k for k in kernels if k.endswith("_cluster")]
+        assert cluster == [names[key] + "_cluster"], (source, kernels)
 
 
 def test_rounds_refine_matches_jax():
