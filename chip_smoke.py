@@ -208,7 +208,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       ``multistream_32g`` shape (32 streams, P 4,096, C 16, ``refine_iters``
       64, ``refine_threshold=None``, lags from seeds 6000 + g): 32 serial
       engines inline, then 32 engines through one ``MegabatchCoalescer``
-      (batch cap 32): 2 warm-up waves, 6 timed waves, a locked delta wave
+      (batch cap 32): 2 warm-up waves, 4 timed waves, a locked delta wave
       (every row a delta), a ``coalesce.flush`` fault wave (every row
       re-run on the card's single-stream dispatch); every row equal to the
       serial engine's epoch, the roster locked after the first wave
@@ -323,6 +323,46 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       (the kernels line's ``wide_group_forms``; no scratch at 20,000).
       Its launches count into the kernels line, its differences into the
       kernels line's ``max_abs_err``, and it prints a JSON ``wide`` line;
+   m. wide groups on every other path, at phase 4l's group and with its
+      answers, the host rung off: (a) the sidecar over TCP:
+      ``rounds``, ``scan``, ``global`` and linear ``sinkhorn`` each equal
+      to phase 4l's in-process answer, then a stream through phase 4l's
+      cold and two heated warm epochs (zlib both ways on the cold one,
+      ``lag_delta`` on the warm ones, the second acked into an
+      ``assignment_delta``), each equal to phase 4l's epoch; the bytes and
+      round trips printed; (b) four streams of that shape (lags from seeds
+      6000 + g, ``refine_iters`` 32, ``refine_threshold=None``) through
+      ``MegabatchCoalescer(max_batch=4)``: a re-stack wave, two locked
+      waves and a locked delta wave, every row equal to a serial engine's
+      epoch, one batched K6 launch a wave, and K6's batched entry on the
+      locked state [4 x B 262,144, C 20,000] bit for bit against its plain
+      version and four single launches, timed; (c) the sharded duals at D
+      = 1, 2, 4 virtual shards, A and B bit-identical across D, K5 at Sb
+      8, 4, 2 on the group's blocks at those duals against its plain
+      version and each superblock's bits equal to Sb 8's, timed; the
+      exchange program at 65,536 x 20,000 (phase 4l's first lags), D 2,
+      equal to its CPU run; the engine with the manager at D 4: its sharded
+      cold epoch (K1 once, in the tail) equal to the one-shard solve; the
+      topic axis, 16 topics x 25,000 partitions, 20,000 members, on (1, 1),
+      (4, 1) and (2, 2), refine 0 and 16, each equal to (1, 1), and (1, 1)
+      to ``assign_stream_batch`` (one K1 launch a shard, up to 16 clusters
+      a launch); (d) that engine's two heated warm epochs and one delta
+      epoch on its 4 placed shards, each equal to an unplaced engine
+      seeded with the cold choice, and K6's shard entry on the placed
+      state bit for bit against the one-state K6 and its plain version,
+      timed; (e) three port sidecars with the group split round-robin three
+      ways (66,667 / 66,667 / 66,666 rows), 16 rounds: rung ``global``,
+      each shard count-balanced, quality within 7.5 % of phase 4l's
+      ``sinkhorn`` (provisional: the JAX package's federation is 5.0 %
+      from its leader at 10,000 members and 10 rows a member on the CPU),
+      a partition answered on one sidecar
+      ``last_good_global`` / ``local_only`` with zero request errors and
+      healed, and K3's column
+      form (``need="both"``) at one round's shape against its plain
+      version, timed.  Every K1 and K7 launch is named by form: the
+      cluster form, no scratch.  Its launches count into the kernels line
+      (``wide_paths_forms`` there), its differences into ``max_abs_err``,
+      and it prints a JSON ``wide_paths`` line;
 5. times, with CUDA events, medians of 30 runs after warm-up: each kernel
    alone at its main-path shape, its plain version on the card, the
    library yardstick where there is one, and its bound; the device time
@@ -332,7 +372,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    scan's at config 5 and at config 3 ``global`` with its time a round and
    a network stage, and K4's kernel launches a step; the ``assign()``
    wall on the host clock at config 5 (``rounds``) and configs 4 and 5
-   (``sinkhorn``; medians of 5 at config 5); then, for each phase-4 cell, one ``assign()`` under
+   (``sinkhorn``; medians of 3 at config 5); then, for each phase-4 cell, one ``assign()`` under
    ``torch.profiler``: the device's busy time and its idle share of the
    wall; the streaming epoch walls by type (cold, and the medians of the
    no-op, warm-refine and delta epochs), the host reads of a warm epoch and
@@ -342,7 +382,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    config 3 and one call on the first 10,000 rows of config 5's processing
    order, equal to the kernel there and beside its time), the
    ``assign()`` walls of ``scan`` and ``rounds`` + 16 refine rounds at
-   config 5 (medians of 5), and the device shares of those cells at
+   config 5 (medians of 3), and the device shares of those cells at
    configs 5 and 3.
 
 It prints the card's name and power limit, one JSON ``ladder`` line (phase
@@ -351,14 +391,17 @@ walls and bytes), one JSON ``lifecycle`` line (phase 4g's warm-up rows,
 boot, first epochs and scrub walls, and its launches), one JSON
 ``coalesce`` line (phase 4h's rates, walls, idle shares and K6 times), one
 JSON ``sharded`` line (phase 4i's checks, K5 times by superblock count,
-walls and idle share), one JSON ``placement``, one JSON ``federation``
-and one JSON ``wide`` line (phases 4j, 4k and 4l), one JSON
+walls and idle share), one JSON ``placement``, one JSON ``federation``,
+one JSON ``wide`` and one JSON ``wide_paths`` line (phases 4j, 4k, 4l and
+4m), one JSON
 ``profiler`` line (the profiler's clock skew
 after the builds, around phase 4f and after phase 5, and its sessions
 recorded and discarded), one JSON ``kernels`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
 result.  ``python3 chip_smoke.py --wide`` runs, after the builds, phase 3's
-checks past 16,384 consumers and phase 4l, and prints the ``wide`` line.
+checks past 16,384 consumers and phase 4l, and prints the ``wide`` line;
+``--wide-paths`` runs, after the builds, phase 4l and then phase 4m, and
+prints the ``wide_paths`` line.
 
 ``python3 chip_smoke.py --coalesce`` runs phase 4h alone (after the builds)
 and prints its ``coalesce`` line; ``--sharded`` runs phase 4i alone (after
@@ -2901,7 +2944,7 @@ def lifecycle_path(device, reference: StreamRun) -> tuple:
 # bench.py's multistream_32g shape: streams, partitions, consumers, the warm
 # exchange budget, and the warm-up and timed waves.
 MS_G, MS_P, MS_C, MS_BUDGET = 32, 4096, 16, 64
-MS_WARM, MS_TIMED = 2, 6
+MS_WARM, MS_TIMED = 2, 4
 # Config 5's resident shape in one locked wave of four streams.
 C5_ROWS = 4
 
@@ -3106,11 +3149,60 @@ def multistream(device) -> tuple:
     return launches, report
 
 
+def rows_digest_held(bufs, C: int, P: int, label: str, victim=None, kind: str = "clean"):
+    """K6's batched entry on the rows ``bufs`` [(lags, choice, counts, tab)]
+    against one single launch a row and the plain version, bit for bit,
+    twice; each row's host check (``P`` valid rows) fails just where row
+    ``victim`` carries the corruption ``kind``.  Returns (max |diff| (0),
+    the digests)."""
+    lags, choice, counts, tab = (torch.stack([b[k] for b in bufs]).contiguous()
+                                 for k in range(4))
+    got = refine.state_digest_rows(lags, choice, counts, C, tab)
+    again = refine.state_digest_rows(lags, choice, counts, C, tab)
+    single = torch.stack([refine.state_digest(*b[:3], C, row_tab=b[3]) for b in bufs])
+    plain = torch.stack([digest_plain(*b[:3], C, b[3]) for b in bufs])
+    err = int((got - plain).abs().max())
+    if err or not torch.equal(got, single) or not torch.equal(got, again):
+        raise AssertionError(f"{label}: state_digest_rows ({kind}) gave {got.tolist()}, the "
+                             f"single launches {single.tolist()}, plain {plain.tolist()}")
+    for n, b in enumerate(bufs):
+        fails = scrub.digest_failures(got[n].cpu().numpy(), P, int(b[0].sum()))
+        if (n == victim and kind not in ("clean", "lag sum wraps")) != bool(fails):
+            raise AssertionError(f"{label}: state_digest_rows {kind} row {n}: host check {fails}")
+    return err, got
+
+
+def rows_digest_times(rows, C: int, label: str) -> dict:
+    """K6's batched entry timed on ``rows`` (one launch), beside one single
+    launch a row, the plain version and its bound."""
+    lags, choice, counts, tab = (torch.stack([r[k] for r in rows]).contiguous()
+                                 for k in range(4))
+    t = op_times(lambda: refine.state_digest_rows(lags, choice, counts, C, tab),
+                 KERNEL_NAMES["state_digest_rows"])
+    plain = median_event_ms(lambda: [digest_plain(*r[:3], C, r[3]) for r in rows])
+    singles = median_event_ms(lambda: [refine.state_digest(*r[:3], C, row_tab=r[3])
+                                       for r in rows])
+    (N, B), M = lags.shape, tab.shape[2]
+    slots = int(torch.clamp(counts, max=M).sum())
+    moved = N * (8 * B + 4 * (B + C + C * M) + 8 * 5) + 4 * slots
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    if t["launches"] != 1:
+        raise AssertionError(f"state_digest_rows enqueued {t['launches']} kernels a call")
+    out = dict(ms=t["event_ms"], alone_ms=t["alone_ms"], all_ops_ms=t["all_ops_ms"],
+               plain_ms=plain, four_single_launches_ms=singles, bound_ms=bound,
+               bound_by="bytes", library_ms=None, rows=N, B=B, C=C, M=M, bytes=moved)
+    log(f"times  state_digest_rows {label} at {N} x (B={B} C={C} M={M}): event "
+        f"{t['event_ms']!r} ms, alone {t['alone_ms']!r} ms ({t['kernels']} kernel, "
+        f"{t['memsets']} memsets), {N} single launches {singles!r} ms, plain version "
+        f"{plain!r} ms, bound {bound!r} ms ({moved} bytes), {t['event_ms'] / bound:.1f}x")
+    return out
+
+
 def digest_rows_check(device) -> tuple:
     """4h (b) first half: the batched K6 at config 5's resident shape, four
-    rows, against four single-row launches and the plain version, clean and
-    with each corruption class in one row; then its times.  Returns (max
-    |diff|, the times)."""
+    rows, clean and with each corruption class in one row
+    (``rows_digest_held``); then its times.  Returns (max |diff|, the
+    times)."""
     B = pad_bucket(STREAM_P)
     rows = [resident_case(B, STREAM_P, STREAM_C, device, seed) for seed in range(C5_ROWS)]
     worst = 0
@@ -3118,45 +3210,12 @@ def digest_rows_check(device) -> tuple:
         victim = len(kind) % C5_ROWS
         bufs = [corrupted(kind, *r, STREAM_C) if n == victim else r
                 for n, r in enumerate(rows)]
-        lags, choice, counts, tab = (torch.stack([b[k] for b in bufs]).contiguous()
-                                     for k in range(4))
-        got = refine.state_digest_rows(lags, choice, counts, STREAM_C, tab)
-        again = refine.state_digest_rows(lags, choice, counts, STREAM_C, tab)
-        single = torch.stack([refine.state_digest(*b[:3], STREAM_C, row_tab=b[3])
-                              for b in bufs])
-        plain = torch.stack([digest_plain(*b[:3], STREAM_C, b[3]) for b in bufs])
-        err = int((got - plain).abs().max())
+        err, _ = rows_digest_held(bufs, STREAM_C, STREAM_P, "coalesce 4h(b) config 5",
+                                  victim, kind)
         worst = max(worst, err)
-        if err or not torch.equal(got, single) or not torch.equal(got, again):
-            raise AssertionError(f"state_digest_rows disagrees at config 5 ({kind})")
-        for n, b in enumerate(bufs):
-            fails = scrub.digest_failures(got[n].cpu().numpy(), STREAM_P,
-                                          int(b[0].sum()))
-            if (n == victim and kind not in ("clean", "lag sum wraps")) != bool(fails):
-                raise AssertionError(f"state_digest_rows {kind} row {n}: host check {fails}")
         log(f"kernel vs plain  state_digest_rows config5 x{C5_ROWS} {kind:30s} (row {victim}): "
             f"equal to {C5_ROWS} single launches and the plain version, two runs equal")
-    lags, choice, counts, tab = (torch.stack([r[k] for r in rows]).contiguous()
-                                 for k in range(4))
-    t = op_times(lambda: refine.state_digest_rows(lags, choice, counts, STREAM_C, tab),
-                 KERNEL_NAMES["state_digest"])
-    plain = median_event_ms(lambda: [digest_plain(*r[:3], STREAM_C, r[3]) for r in rows])
-    singles = median_event_ms(lambda: [refine.state_digest(*r[:3], STREAM_C, row_tab=r[3])
-                                       for r in rows])
-    M = tab.shape[2]
-    slots = int(torch.clamp(counts, max=M).sum())
-    moved = C5_ROWS * (8 * B + 4 * (B + STREAM_C + STREAM_C * M) + 8 * 5) + 4 * slots
-    bound = moved / HBM_BYTES_PER_S * 1e3
-    if t["launches"] != 1:
-        raise AssertionError(f"state_digest_rows enqueued {t['launches']} kernels a call")
-    out = dict(ms=t["event_ms"], alone_ms=t["alone_ms"], all_ops_ms=t["all_ops_ms"],
-               plain_ms=plain, four_single_launches_ms=singles, bound_ms=bound,
-               bound_by="bytes", library_ms=None, rows=C5_ROWS)
-    log(f"times  state_digest_rows at {C5_ROWS} x (B={B} C={STREAM_C} M={M}): event "
-        f"{t['event_ms']!r} ms, alone {t['alone_ms']!r} ms ({t['kernels']} kernel, "
-        f"{t['memsets']} memsets), four single launches {singles!r} ms, plain version "
-        f"{plain!r} ms, bound {bound!r} ms ({moved} bytes), {t['event_ms'] / bound:.1f}x")
-    return worst, out
+    return worst, rows_digest_times(rows, STREAM_C, "config5")
 
 
 def config5_wave(device) -> tuple:
@@ -3399,33 +3458,39 @@ def assignment_facts(label: str, lags: np.ndarray, choice: np.ndarray, C: int,
     return {"quality_ratio": ratio, "peak": float(totals.max()), "additive_bound": bound}
 
 
-def k5_superblock_shapes(device) -> dict:
+def k5_superblock_shapes(device, case=None, sbs=(8, 4, 2, 1), phase: str = "4i") -> dict:
     """4i (a): K5 at Sb = 8, 4, 2, 1 (a shard of a 1-, 2-, 4- or 8-way
     mesh) on config 5's blocks at the duals the linear loop ends with:
     against its plain version, and each superblock's partial with the same
-    bits whatever Sb it was launched with.  Each shape's event time."""
-    (ws_b, cnt_b), C = blocks_case(5, device)
-    A, B = loop_duals(ws_b, cnt_b, C, device)
+    bits whatever Sb it was launched with.  Each shape's event time and
+    device time alone.  ``case`` (ws_b, cnt_b, A, B) and ``sbs`` give
+    another shape (phase 4m: the wide group's blocks, Sb 8, 4, 2)."""
+    if case is None:
+        (ws_b, cnt_b), C = blocks_case(5, device)
+        A, B = loop_duals(ws_b, cnt_b, C, device)
+    else:
+        ws_b, cnt_b, A, B = case
+        C = A.shape[0]
     full = linear_ot_cuda.superblock_partials(ws_b, cnt_b, A, B)
     worst, times = 0.0, {}
-    for Sb in (8, 4, 2, 1):
+    for Sb in sbs:
         for d in range(8 // Sb):
             w, c = (x[d * Sb:(d + 1) * Sb].contiguous() for x in (ws_b, cnt_b))
             got = linear_ot_cuda.superblock_partials(w, c, A, B)
             again = linear_ot_cuda.superblock_partials(w, c, A, B)
             want = linear_ot._superblock_partials(w, c, A, B)
             worst = max(worst, f32_check("superblock_partials",
-                                         f"4i Sb={Sb} shard {d} of {8 // Sb} (virtual)",
+                                         f"{phase} Sb={Sb} shard {d} of {8 // Sb} (virtual)",
                                          got, want, again))
             for g, f in zip(got, full):
                 if not torch.equal(g, f[d * Sb:(d + 1) * Sb]):
-                    raise AssertionError(f"sharded 4i(a): K5's superblock partials at Sb={Sb} "
+                    raise AssertionError(f"sharded {phase}: K5's superblock partials at Sb={Sb} "
                                          "differ from the same superblocks at Sb=8")
         w, c = ws_b[:Sb].contiguous(), cnt_b[:Sb].contiguous()
         call = lambda: linear_ot_cuda.superblock_partials(w, c, A, B)  # noqa: E731
         times[Sb] = {"event_ms": median_event_ms(call),
                      "alone_ms": device_ms(call, KERNEL_NAMES["superblock_partials"])[0]}
-        log(f"sharded 4i(a) K5 at Sb={Sb} [{Sb}, {ws_b.shape[1]}, {ws_b.shape[2]}] C={C}: "
+        log(f"sharded {phase} K5 at Sb={Sb} [{Sb}, {ws_b.shape[1]}, {ws_b.shape[2]}] C={C}: "
             f"{times[Sb]} ms; every superblock's partial bit-equal to Sb=8's")
     return {"max_abs_err": worst, "ms_by_sb": times}
 
@@ -3540,36 +3605,56 @@ def sharded_cold_solves(device, lags: np.ndarray, launches: dict) -> dict:
     return report, linear[4]
 
 
-def sharded_topics(device, launches: dict) -> dict:
+def sharded_topics(device, launches: dict, case=None, shapes=((4, 1), (2, 2)),
+                   phase: str = "4i(c)") -> dict:
     """4i (c): config 3's [256, 64] table (64 consumers) through
     ``assign_sharded`` on (topics, members) = (4, 1) and (2, 2), without and
-    with the per-topic refine: bit-equal to the single-device batched solve,
-    one K1 launch a shard."""
+    with the per-topic refine: bit-equal to the single-device batched solve
+    (and that, without refine, to ``assign_stream_batch``), each topic's
+    counts within one, one K1 launch a shard.  ``case`` (table, C) and
+    ``shapes`` give another table (phase 4m: 16 x 25,000 at 20,000 members
+    on (1, 1), (4, 1) and (2, 2), up to 16 clusters a launch)."""
     from kafka_lag_based_assignor_tpu_torch.sharded import topics
 
-    lags, _ = baseline_workload(3)
-    table = np.stack([lags[t] for t in sorted(lags)])
+    if case is None:
+        lags, _ = baseline_workload(3)
+        table, C = np.stack([lags[t] for t in sorted(lags)]), 64
+    else:
+        table, C = case
     pids = np.tile(np.arange(table.shape[1], dtype=np.int32), (table.shape[0], 1))
     valid = np.ones(table.shape, bool)
     on_card = [torch.from_numpy(a).to(device) for a in (table, pids, valid)]
+    name = f"{table.shape[0]} x {table.shape[1]}, C={C}"
     report = {}
-    for shape in ((4, 1), (2, 2)):
-        mesh = topics.make_mesh([device] * 4, *shape)
-        for refine_iters in (0, REFINE_ITERS):
-            got, grew = counted(lambda: topics.assign_sharded(
-                mesh, table, pids, valid, 64, refine_iters=refine_iters))
+    for refine_iters in (0, REFINE_ITERS):
+        want, grew = counted(lambda: batched.assign_batched_rounds(
+            *on_card, num_consumers=C, refine_iters=refine_iters))
+        add_counts(launches, grew)
+        if not refine_iters:
+            dense, grew = counted(lambda: batched.assign_stream_batch(table, C, device=device))
             add_counts(launches, grew)
-            want = batched.assign_batched_rounds(*on_card, num_consumers=64,
-                                                 refine_iters=refine_iters)
+            if not torch.equal(dense.long(), want[0].long()):
+                raise AssertionError(f"sharded {phase} {name}: assign_stream_batch differs "
+                                     "from the batched solve")
+        counts = want[1].cpu()
+        if int((counts.max(dim=1).values - counts.min(dim=1).values).max()) > 1:
+            raise AssertionError(f"sharded {phase} {name} refine {refine_iters}: count "
+                                 "spread > 1")
+        for shape in shapes:
+            n = shape[0] * shape[1]
+            mesh = topics.make_mesh([device] * n, *shape)
+            got, grew = counted(lambda: topics.assign_sharded(
+                mesh, table, pids, valid, C, refine_iters=refine_iters))
+            add_counts(launches, grew)
             same = all(torch.equal(g, w) for g, w in zip(got[:3], want))
             if (not same or not torch.equal(got[3], want[2].sum(dim=0))
-                    or grew["rounds_scan"] != 4):
-                raise AssertionError(f"sharded 4i(c) {shape} refine {refine_iters}: equal "
-                                     f"{same}, launches {grew}")
+                    or device.type == "cuda" and grew["rounds_scan"] != n):
+                raise AssertionError(f"sharded {phase} {name} on {shape} refine "
+                                     f"{refine_iters}: equal {same}, launches {grew}")
             report[f"{shape[0]}x{shape[1]}_refine{refine_iters}"] = grew["rounds_scan"]
-            log(f"sharded 4i(c) config 3 on (topics, members) = {shape} (virtual), refine "
-                f"{refine_iters}: equal to the single-device batched solve, one K1 launch "
-                "a shard")
+            log(f"sharded {phase} {name} on (topics, members) = {shape} (virtual), refine "
+                f"{refine_iters}: equal to the single-device batched solve"
+                f"{'' if refine_iters else ' and assign_stream_batch'}, one K1 launch a shard")
     return report
 
 
@@ -3772,12 +3857,64 @@ def digest_sharded_plain(ls, cs, counts, C: int, tab, offsets):
                                         sum(h.long() for _, h in parts), counts)
 
 
+def shard_digest_held(ls, cs, counts, C: int, tab, offsets, single, label: str) -> int:
+    """K6's shard entry on the row shards ``ls`` / ``cs`` (first rows at
+    ``offsets``) against the one-state K6's ``single`` on the gathered state
+    and against its plain version, bit for bit, twice; each shard's partial
+    lanes and histogram against the plain shard version.  Returns max
+    |diff| (0)."""
+    B = sum(int(t.shape[0]) for t in ls)
+    got = refine.state_digest_sharded(ls, cs, counts, C, tab, offsets)
+    again = refine.state_digest_sharded(ls, cs, counts, C, tab, offsets)
+    plain = digest_sharded_plain(ls, cs, counts, C, tab, offsets)
+    err = int((got - plain).abs().max())
+    if err or not torch.equal(got, single) or not torch.equal(got, again):
+        raise AssertionError(f"{label}: state_digest_sharded D={len(ls)} {got.tolist()} against "
+                             f"one-state K6 {single.tolist()} and plain {plain.tolist()}")
+    for d in range(len(ls)):
+        args = (ls[d], cs[d], counts, C, tab, offsets[d], B, d == 0)
+        part, hist = state_digest_cuda.launch_shard(*args)
+        p_part, p_hist = refine._state_digest_shard_torch(*args)
+        if not (torch.equal(part, p_part) and torch.equal(hist, p_hist)):
+            raise AssertionError(f"{label}: shard {d} of {len(ls)}: partial {part.tolist()} "
+                                 f"against plain {p_part.tolist()}")
+    return err
+
+
+def shard_digest_times(ls, cs, counts, C: int, tab, offsets, label: str) -> dict:
+    """K6's shard entry timed on these shards (one launch a shard), beside
+    its plain version and its bound."""
+    call = lambda: refine.state_digest_sharded(ls, cs, counts, C, tab, offsets)  # noqa: E731
+    t = op_times(call, KERNEL_NAMES["state_digest_sharded"])
+    D = len(ls)
+    if t["launches"] != D:
+        raise AssertionError(f"state_digest_sharded launched {t['launches']} kernels for "
+                             f"{D} shards")
+    plain = median_event_ms(lambda: digest_sharded_plain(ls, cs, counts, C, tab, offsets))
+    B, M = sum(int(x.shape[0]) for x in ls), tab.shape[1]
+    slots = int(torch.clamp(counts, max=M).sum())
+    # The function's own bytes: the rows (lags, choice) once, the table and
+    # counts once, the choices of the valid slots, and the int64[5] digest.
+    # This design reads the replicated table and counts once a shard and
+    # writes a partial a shard on top of that (``design_bytes``).
+    moved = 12 * B + 4 * C + 4 * C * M + 4 * slots + 40
+    design = 12 * B + D * (4 * C + 4 * C * M + 40 + 4 * C) + 4 * slots
+    out = dict(ms=t["event_ms"], alone_ms=t["alone_ms"], all_ops_ms=t["all_ops_ms"],
+               plain_ms=plain, bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               library_ms=None, shards=D, B=B, C=C, M=M, bytes=moved, design_bytes=design,
+               design_bound_ms=design / HBM_BYTES_PER_S * 1e3, launches=t["launches"])
+    log(f"times  state_digest_sharded {label} at D={D} (B={B} C={C} M={M}): event "
+        f"{t['event_ms']!r} ms, alone {t['alone_ms']!r} ms ({t['launches']} launches, "
+        f"{t['kernels']} kernels, {t['memsets']} memsets), all ops {t['all_ops_ms']!r} ms, "
+        f"plain {plain!r} ms, bound {out['bound_ms']!r} ms ({moved} bytes; this design "
+        f"moves {design} bytes, {out['design_bound_ms']!r} ms)")
+    return out
+
+
 def sharded_digest_check(device) -> tuple:
     """4j (a): ``state_digest_sharded`` on config 5's resident state (B
     131,072, C 1,000, M 133) at D = 1, 2, 4, 8, clean and under each
-    corruption class of ``digest_cases``: equal to the single-device K6 on
-    the gathered state and to its plain version, bit for bit; each shard's
-    partial lanes and histogram equal to the plain shard version; then its
+    corruption class of ``digest_cases`` (``shard_digest_held``); then its
     times at D = 4.  Returns (max |diff| (0), the times)."""
     B = pad_bucket(STREAM_P)
     base = resident_case(B, STREAM_P, STREAM_C, device)
@@ -3787,22 +3924,8 @@ def sharded_digest_check(device) -> tuple:
         single = refine.state_digest(lags, choice, counts, STREAM_C, row_tab=tab)
         for D in PLACEMENT_SIZES:
             ls, cs, offsets = split_rows(lags, choice, D)
-            got = refine.state_digest_sharded(ls, cs, counts, STREAM_C, tab, offsets)
-            again = refine.state_digest_sharded(ls, cs, counts, STREAM_C, tab, offsets)
-            plain = digest_sharded_plain(ls, cs, counts, STREAM_C, tab, offsets)
-            err = int((got - plain).abs().max())
-            worst = max(worst, err)
-            if err or not torch.equal(got, single) or not torch.equal(got, again):
-                raise AssertionError(f"placement 4j(a): state_digest_sharded D={D} {kind}: "
-                                     f"{got.tolist()} against one-state K6 {single.tolist()} "
-                                     f"and plain {plain.tolist()}")
-            for d in range(D):
-                args = (ls[d], cs[d], counts, STREAM_C, tab, offsets[d], B, d == 0)
-                part, hist = state_digest_cuda.launch_shard(*args)
-                p_part, p_hist = refine._state_digest_shard_torch(*args)
-                if not (torch.equal(part, p_part) and torch.equal(hist, p_hist)):
-                    raise AssertionError(f"placement 4j(a): shard {d} of {D} {kind}: partial "
-                                         f"{part.tolist()} against plain {p_part.tolist()}")
+            worst = max(worst, shard_digest_held(ls, cs, counts, STREAM_C, tab, offsets,
+                                                 single, f"placement 4j(a) {kind}"))
         log(f"kernel vs plain  state_digest_sharded config5 {kind:30s}: D = 1, 2, 4, 8 equal to "
             f"the one-state K6 {single.tolist()} and to the plain version")
     wide = []
@@ -3817,31 +3940,7 @@ def sharded_digest_check(device) -> tuple:
                              f"CPU {wide[1].tolist()}")
     lags, choice, counts, tab = base
     ls, cs, offsets = split_rows(lags, choice, PLACEMENT_D)
-    call = lambda: refine.state_digest_sharded(ls, cs, counts, STREAM_C, tab, offsets)  # noqa: E731
-    t = op_times(call, KERNEL_NAMES["state_digest_sharded"])
-    if t["launches"] != PLACEMENT_D:
-        raise AssertionError(f"state_digest_sharded launched {t['launches']} kernels for "
-                             f"{PLACEMENT_D} shards")
-    plain = median_event_ms(lambda: digest_sharded_plain(ls, cs, counts, STREAM_C, tab, offsets))
-    M = tab.shape[1]
-    slots = int(torch.clamp(counts, max=M).sum())
-    # The function's own bytes: the rows (lags, choice) once, the table and
-    # counts once, the choices of the valid slots, and the int64[5] digest.
-    # This design reads the replicated table and counts once a shard and
-    # writes a partial a shard on top of that (``design_bytes``).
-    moved = 12 * B + 4 * STREAM_C + 4 * STREAM_C * M + 4 * slots + 40
-    design = (12 * B + PLACEMENT_D * (4 * STREAM_C + 4 * STREAM_C * M + 40 + 4 * STREAM_C)
-              + 4 * slots)
-    out = dict(ms=t["event_ms"], alone_ms=t["alone_ms"], all_ops_ms=t["all_ops_ms"],
-               plain_ms=plain, bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-               library_ms=None, shards=PLACEMENT_D, bytes=moved, design_bytes=design,
-               design_bound_ms=design / HBM_BYTES_PER_S * 1e3)
-    log(f"times  state_digest_sharded at D={PLACEMENT_D} (B={B} C={STREAM_C} M={M}): event "
-        f"{t['event_ms']!r} ms, alone {t['alone_ms']!r} ms ({t['launches']} launches, "
-        f"{t['kernels']} kernels, {t['memsets']} memsets), all ops {t['all_ops_ms']!r} ms, "
-        f"plain {plain!r} ms, bound {out['bound_ms']!r} ms ({moved} bytes; this design "
-        f"moves {design} bytes, {out['design_bound_ms']!r} ms)")
-    return worst, out
+    return worst, shard_digest_times(ls, cs, counts, STREAM_C, tab, offsets, "config5")
 
 
 def profiled_call(fn, kernel: str) -> tuple:
@@ -3990,10 +4089,9 @@ def placed_stream(device, launches: dict) -> dict:
 def placed_rows_digest(batch, label: str) -> int:
     """4j (c): the rows of a locked placed batch on its first device, the
     stacked state that device's batched K6 launch digests in the next wave
-    (8 x 4,096, C 16), through ``state_digest_rows`` against its plain
-    version, clean and with one corrupted row under a few corruption
-    classes; a corrupted row's digest must differ from its clean one.
-    Returns max |diff| (0)."""
+    (8 x 4,096, C 16), through ``rows_digest_held``, clean and with one
+    corrupted row under a few corruption classes; a corrupted row's digest
+    must differ from its clean one.  Returns max |diff| (0)."""
     with batch.lock:
         rows = [tuple(t.parts[0][n].clone() for t in (batch.lags, batch.choice,
                                                       batch.counts, batch.row_tab))
@@ -4001,20 +4099,15 @@ def placed_rows_digest(batch, label: str) -> int:
     worst, clean, victim = 0, None, 1
     for kind in ("clean", "choice C", "counts +1", "table bit flip"):
         bufs = [corrupted(kind, *r, MS_C) if n == victim else r for n, r in enumerate(rows)]
-        lags, choice, counts, tab = (torch.stack([b[k] for b in bufs]).contiguous()
-                                     for k in range(4))
-        got = refine.state_digest_rows(lags, choice, counts, MS_C, tab)
-        plain = torch.stack([digest_plain(*b[:3], MS_C, b[3]) for b in bufs])
-        err = int((got - plain).abs().max())
+        err, got = rows_digest_held(bufs, MS_C, MS_P, f"placement 4j(c) {label}", victim, kind)
         worst = max(worst, err)
         clean = got[victim].clone() if clean is None else clean
-        if err or (kind != "clean") == torch.equal(got[victim], clean):
-            raise AssertionError(f"placement 4j(c) {label}: state_digest_rows on one "
-                                 f"device's {len(rows)} rows ({kind}) gave {got.tolist()}, "
-                                 f"the plain version {plain.tolist()}")
+        if (kind != "clean") == torch.equal(got[victim], clean):
+            raise AssertionError(f"placement 4j(c) {label}: the {kind} row's digest "
+                                 f"{got[victim].tolist()} against clean {clean.tolist()}")
     log(f"kernel vs plain  state_digest_rows {label} one device's {len(rows)} placed rows "
         f"(B={rows[0][0].shape[0]} C={MS_C}): clean and one corrupted row (choice C, counts "
-        "+1, table bit flip) equal to the plain version")
+        "+1, table bit flip) equal to the single launches and the plain version")
     return worst
 
 
@@ -4259,6 +4352,34 @@ def capture_peer_wire():
     return captured, lambda: setattr(peers._PeerLink, "request", real)
 
 
+def partition_drill(trio, shards, members, pids, who, label: str) -> tuple:
+    """A full partition (every peer link cut): sidecars ``who`` answer from
+    their last good duals (``last_good_global``), then sidecar 0, its cache
+    expired, on its own rows (``local_only``, held to the plain rounds
+    path), with zero request errors; after the heal each of ``who``
+    converges again at rung ``global`` within FED_ROUNDS.  Returns (the
+    rungs, the heal's federation blocks)."""
+    from kafka_lag_based_assignor_tpu_torch.utils import faults
+
+    errors = [svc.errors for svc in trio.svcs]
+    with faults.injected(faults.FaultInjector(13).plan("peer.partition", times=0)):
+        part = [trio.assign(i, shards[i], members, pids[i])[0]["federation"]["rung"]
+                for i in who]
+        fed0 = trio.svcs[0]._federation
+        with fed0._cache_lock:
+            fed0._last_good["at"] -= fed0.max_staleness_s + 1.0
+        part.append(trio.assign(0, shards[0], members, pids[0])[0]["federation"]["rung"])
+    if (part != ["last_good_global"] * len(who) + ["local_only"]
+            or [svc.errors for svc in trio.svcs] != errors):
+        raise AssertionError(f"{label}: partition rungs {part}")
+    for svc in trio.svcs:
+        svc._watchdog.reset()
+    heal = [trio.assign(i, shards[i], members, pids[i])[0]["federation"] for i in who]
+    if any(h["rung"] != "global" or h["rounds"] > FED_ROUNDS for h in heal):
+        raise AssertionError(f"{label}: the heal answered {heal}")
+    return part, heal
+
+
 def fed_config12(device, launches: dict) -> dict:
     """4k (a): config 12 (3 shards x 2,048, C 8, seed 0xFED12, 16 rounds):
     rung global on all three, quality within 5 % of the port's single-leader
@@ -4268,7 +4389,7 @@ def fed_config12(device, launches: dict) -> dict:
     re-converges within 16 rounds; stale and fenced duals are rejected and
     counted."""
     from kafka_lag_based_assignor_tpu_torch.federated import wire
-    from kafka_lag_based_assignor_tpu_torch.utils import faults, metrics
+    from kafka_lag_based_assignor_tpu_torch.utils import metrics
 
     members = [f"m{j}" for j in range(FED_C)]
     rng = np.random.default_rng(0xFED12)
@@ -4301,23 +4422,9 @@ def fed_config12(device, launches: dict) -> dict:
         for payload in captured:
             for s in shards:
                 wire.assert_lag_free(payload, s)
-        errors = [svc.errors for svc in trio.svcs]
         reset_counts()
-        with faults.injected(faults.FaultInjector(13).plan("peer.partition", times=0)):
-            part = [trio.assign(i, shards[i], members)[0]["federation"]["rung"]
-                    for i in range(FED_N)]
-            fed0 = trio.svcs[0]._federation
-            with fed0._cache_lock:
-                fed0._last_good["at"] -= fed0.max_staleness_s + 1.0
-            part.append(trio.assign(0, shards[0], members)[0]["federation"]["rung"])
-        if (part != ["last_good_global"] * FED_N + ["local_only"]
-                or [svc.errors for svc in trio.svcs] != errors):
-            raise AssertionError(f"federation 4k(a): partition rungs {part}")
-        for svc in trio.svcs:
-            svc._watchdog.reset()
-        heal = [trio.assign(i, shards[i], members)[0]["federation"] for i in range(FED_N)]
-        if any(h["rung"] != "global" or h["rounds"] > FED_ROUNDS for h in heal):
-            raise AssertionError(f"federation 4k(a): the heal answered {heal}")
+        part, heal = partition_drill(trio, shards, members, [None] * FED_N, range(FED_N),
+                                     "federation 4k(a)")
         drill = read_counts()
         add_counts(launches, drill)
         if device.type == "cuda" and drill["rounds_scan"] < 1:
@@ -4474,24 +4581,32 @@ def fed_weighted(device, launches: dict) -> dict:
         trio.close()
 
 
-def fed_k3_check(device) -> float:
-    """4k (d): K3 at the federated shards' U_pad (config 12's and config 5's
-    shard dedup under their global scales) against its plain version."""
+def fed_k3_args(lags: np.ndarray, C: int, device) -> list:
+    """K3's inputs in one exchange round on a federated shard: the shard's
+    dedup under the global scale (``FED_N`` such shards) and duals at C."""
     from kafka_lag_based_assignor_tpu_torch.ops import fedsolve
 
+    w = fedsolve.shard_dedup(lags, np.ones(lags.shape[0], bool),
+                             float(lags.sum()) * FED_N / C)
+    return [torch.from_numpy(a).to(device) for a in w] + list(random_duals(C, device))
+
+
+def fed_k3_check(device, shards=None) -> float:
+    """4k (d): K3 at the federated shards' U_pad (config 12's and config 5's
+    shard dedup under their global scales; ``shards``, (name, lags, C)
+    triples, gives others) against its plain version, ``need="both"``."""
+    if shards is None:
+        rng = np.random.default_rng(0xFED12)
+        c12 = rng.integers(0, 10**6, FED_P).astype(np.int64)
+        full = baseline_workload(5)[0]["t0"]
+        shards = (("config12 shard", c12, FED_C), ("config5 shard", full[0::FED_N], STREAM_C))
     worst = 0.0
-    rng = np.random.default_rng(0xFED12)
-    c12 = rng.integers(0, 10**6, FED_P).astype(np.int64)
-    full = baseline_workload(5)[0]["t0"]
-    for name, lags, C in (("config12 shard", c12, FED_C),
-                          ("config5 shard", full[0::FED_N], STREAM_C)):
-        w = fedsolve.shard_dedup(lags, np.ones(lags.shape[0], bool),
-                                 float(lags.sum()) * FED_N / C)
-        args = [torch.from_numpy(a).to(device) for a in w] + list(random_duals(C, device))
+    for name, lags, C in shards:
+        args = fed_k3_args(lags, C, device)
         got = plan_stats.plan_stats(*args, need="both")
         again = plan_stats.plan_stats(*args, need="both")
         want = plan_stats.plan_stats_torch(*args, need="both")
-        worst = max(worst, f32_check("plan_stats", f"{name} U={w[0].shape[0]} C={C}",
+        worst = max(worst, f32_check("plan_stats", f"{name} U={args[0].shape[0]} C={C}",
                                      got, want, again))
     return worst
 
@@ -4626,9 +4741,8 @@ def k1_times(device, cases=None) -> dict:
 
 
 # assign() walls at config 5 take about 2-3 s each: their medians are of
-# fewer runs, so that the script stays well inside its time limit (15
-# until the cluster form's builds added about 35 s to the script).
-CONFIG5_WALL_REPEATS = 5
+# fewer runs, so that the script stays well inside its time limit.
+CONFIG5_WALL_REPEATS = 3
 
 
 def assign_walls(cfg: int, solver: str, device, repeats: int = REPEATS, refine=None):
@@ -5352,11 +5466,11 @@ def wide_stream(device) -> tuple:
     kept assignment needs a refine) at the wide group, on the card and on
     the port's CPU engine at the card's bucket: every epoch equal, count
     spread <= 1, K1 in the cold chain and K6 in each warm refine.  Returns
-    (the card's engine, {epoch: wall ms})."""
+    (the card's engine, {epoch: wall ms}, [(lags, choice)] an epoch)."""
     arr = wide_workload()[0]["t0"]
     card, cpu = wide_engine(device), wide_engine(torch.device("cpu"))
     cpu._bucket = pad_bucket
-    lags, walls = arr, {}
+    lags, walls, records = arr, {}, []
     for epoch in ("cold", "warm 1", "warm 2"):
         before = read_counts()
         start = time.perf_counter()
@@ -5377,8 +5491,9 @@ def wide_stream(device) -> tuple:
         log(f"wide stream {epoch}: equal to the CPU engine, cold {s.cold_start}, refined "
             f"{s.refined} in {s.refine_rounds} rounds, launches {grew}, wall "
             f"{walls[epoch]!r} ms")
+        records.append((lags, np.asarray(got)))
         lags = heat(lags, np.asarray(got), WIDE_C)
-    return card, walls
+    return card, walls, records
 
 
 def held_exact(kind: str, got, want, again) -> int:
@@ -5696,7 +5811,8 @@ def wide_path(device) -> tuple:
     ``wide_times``.  K1's and K7's launches in the assign() and stream legs
     are named by form (``FormSpy``): at 20,000 members the cluster form,
     with no scratch.  Returns (launches from just before the path to just
-    after its assign() and stream legs, the report)."""
+    after its assign() and stream legs, the report, the answers phase 4m
+    holds its paths to: each solver's and the stream's epochs)."""
     lags, members = wide_workload()
     start_path = time.perf_counter()
     reset_counts()
@@ -5732,7 +5848,7 @@ def wide_path(device) -> tuple:
     if q_peak > arr.sum() / WIDE_C + arr.max():
         raise AssertionError(f"wide sinkhorn: peak {q_peak} above total / C + max lag")
     with spy:
-        engine, stream_walls = wide_stream(device)
+        engine, stream_walls, stream_records = wide_stream(device)
     forms["stream"] = spy.forms[sum(map(len, forms.values())):]
     launches = read_counts()
     if len(spy.forms) != launches["rounds_scan"] + launches["scan_greedy"]:
@@ -5754,7 +5870,472 @@ def wide_path(device) -> tuple:
               "sinkhorn_peak": q_peak, "rounds_peak": peak, "legs_s": path_s,
               "times": kernel_times, "card": CARD[0] if CARD else None,
               "phase_s": time.perf_counter() - start_path}
-    return launches, report
+    return launches, report, {**got, "stream": stream_records}
+
+
+# -- phase 4m: wide groups on every path ----------------------------------------
+
+#: Phase 4m's coalesced streams (phase 4l's shape each), their lags' first
+#: seed, and the rows the delta wave changes in each.
+WP_STREAMS, WP_SEED, WP_DELTA_ROWS = 4, 6000, 8
+#: The topic axis at the wide width: T topics of P partitions, uniform lags
+#: from seed 16; (topics, members) mesh shapes and refine budgets.
+WP_TOPICS, WP_TOPIC_P = 16, 25_000
+WP_TOPIC_SHAPES = ((1, 1), (4, 1), (2, 2))
+#: The exchange program held to its CPU run: phase 4l's first 65,536 lags
+#: (the bucket both devices pick), all 20,000 members, D 2, 16 refine
+#: rounds.  The CPU takes seconds there; the whole group would take minutes.
+WP_EXCHANGE_P, WP_EXCHANGE_REFINE = 65_536, 16
+#: Virtual shards of the sharded duals and of the placed stream.
+WP_DUALS_D = (1, 2, 4)
+WP_PLACED_D = 4
+#: Provisional: the federated answer's quality (max over mean member load)
+#: at most this factor of phase 4l's single-leader ``sinkhorn``'s.  At 10
+#: partitions a member each of three shards is count-balanced on its own
+#: (3 or 4 a member), and the JAX package's federation stays as far from
+#: its leader, the more so the more members: 3.6 %, 4.6 % and 5.0 % above
+#: it at 2,000, 6,000 and 10,000 members (uniform lags, seed 0, 16 rounds,
+#: ``tests/test_torch_wide_fed_quality.py`` run as a script), the port
+#: within 0.07 % of it each time.  The 5 % that config 12's 256 rows a
+#: member keep (phase 4k) is past the JAX package's own answer there; no
+#: CPU run reached 20,000 members, so the bound leaves room for that
+#: growth.
+WP_FED_QUALITY = 1.075
+
+
+def wide_sidecar(device, answers: dict, launches: dict) -> dict:
+    """4m (a): the port's sidecar (``AssignorService(device=..., host_fallback=
+    False, metrics_port=0)``) over TCP at the wide group: ``rounds``,
+    ``scan``, ``global`` and linear ``sinkhorn``, each equal to phase 4l's
+    in-process answer for that solver, answered on the card with its
+    kernels launched; then a stream (``refine_iters`` 32, guardrail 1.25)
+    through phase 4l's cold and two heated warm epochs: the cold epoch's
+    lags zlib-encoded up and its answer zlib-encoded down, the warm epochs
+    as ``lag_delta`` from the client's ``LagDeltaTracker``, the second
+    acked and so answered with an ``assignment_delta``, each epoch's choice
+    equal to ``wide_stream``'s.  Every request's and reply's bytes on the
+    raw connection and its round-trip wall."""
+    import socket
+
+    from kafka_lag_based_assignor_tpu_torch import service
+    from kafka_lag_based_assignor_tpu_torch.lag import (
+        AssignmentDeltaTracker,
+        LagDeltaTracker,
+    )
+
+    lags, members = wide_workload()
+    params = {"topics": wire_topics(lags), "subscriptions": {m: ["t0"] for m in members}}
+    need = {"rounds": ["rounds_scan"], "scan": ["scan_greedy"], "global": ["rounds_scan"],
+            "sinkhorn": ["mirror_prox_step", "superblock_partials", "rounds_scan"]}
+    report = {"assign": {}, "stream": []}
+    svc = service.AssignorService(port=0, device=device, host_fallback=False, metrics_port=0,
+                                  coalesce_max_batch=1, scrub_interval_ms=0).start()
+    try:
+        with socket.create_connection(svc.address, timeout=600) as sock, \
+                sock.makefile("rwb") as f:
+            def call(method: str, p: dict) -> tuple:
+                line = json.dumps({"id": 1, "method": method, "params": p}).encode() + b"\n"
+                t0 = time.perf_counter()
+                f.write(line)
+                f.flush()
+                reply = f.readline()
+                wall = (time.perf_counter() - t0) * 1e3
+                msg = json.loads(reply)
+                if "error" in msg:
+                    raise AssertionError(f"wide paths 4m(a) {method}: {msg['error']}")
+                return msg["result"], {"request_bytes": len(line), "reply_bytes": len(reply),
+                                       "round_trip_ms": wall}
+
+            for solver, kernels in need.items():
+                (result, sizes), grew = counted(
+                    lambda: call("assign", {**params, "solver": solver}))
+                add_counts(launches, grew)
+                stats = result["stats"]
+                if wire_answer(result) != answers[solver]:
+                    raise AssertionError(f"wide paths 4m(a) {solver}: differs from phase 4l's "
+                                         "in-process answer")
+                if (stats["fallback_used"] or stats["device"] != device.type
+                        or device.type == "cuda" and any(grew[k] < 1 for k in kernels)):
+                    raise AssertionError(f"wide paths 4m(a) {solver}: stats {stats}, "
+                                         f"launches {grew}")
+                report["assign"][solver] = {**sizes, "launches": grew}
+                log(f"wide paths 4m(a) sidecar {solver:8s}: equal to phase 4l's answer; "
+                    f"{sizes}; launches {grew}")
+            up, down = LagDeltaTracker(), AssignmentDeltaTracker()
+            base = {"stream_id": "wide", "topic": "t0", "members": members,
+                    "options": {"refine_iters": WIDE_REFINE, "guardrail": 1.25}}
+            for k, (epoch_lags, want) in enumerate(answers["stream"]):
+                rows = wire_rows(epoch_lags)
+                if k == 0:
+                    p = {"lags": service.encode_lags_zlib(rows), "encoding": "zlib",
+                         "accept_encoding": "zlib"}
+                    up.params_for(rows)  # the tracker's pending read
+                else:
+                    p = up.params_for(rows)
+                    if k == 2:
+                        down.stamp(p)
+                (result, sizes), grew = counted(lambda: call("stream_assign", {**base, **p}))
+                add_counts(launches, grew)
+                shape = ("zlib" if k == 0 else "lag_delta" if "lag_delta" in p else "dense",
+                         "zlib" if "assignments_encoded" in result
+                         else "assignment_delta" if "assignment_delta" in result else "dense")
+                result = service.decode_wire_assignments(result)
+                view = down.note_result(result, members)
+                up.note_result(result)
+                s = result["stream"]
+                need_k = "rounds_scan" if k == 0 else "state_digest"
+                if (not np.array_equal(wire_choice(view, members), want)
+                        or shape != (("zlib", "zlib"), ("lag_delta", "dense"),
+                                     ("lag_delta", "assignment_delta"))[k]
+                        or s["fallback_used"] or s["cold_start"] != (k == 0)
+                        or device.type == "cuda" and grew[need_k] < 1):
+                    raise AssertionError(f"wide paths 4m(a) stream epoch {k}: shape {shape}, "
+                                         f"stats {s}, launches {grew}, equal "
+                                         f"{np.array_equal(wire_choice(view, members), want)}")
+                report["stream"].append({**sizes, "shape": shape, "refined": s["refined"],
+                                         "launches": grew})
+                log(f"wide paths 4m(a) sidecar stream epoch {k}: equal to wide_stream's; up "
+                    f"{shape[0]}, down {shape[1]}; {sizes}; launches {grew}")
+    finally:
+        svc.stop()
+    return report
+
+
+def wide_coalesce(device, launches: dict) -> tuple:
+    """4m (b): ``WP_STREAMS`` streams of phase 4l's shape (lags from seeds
+    6000 + g, ``refine_iters`` 32, ``refine_threshold=None``) through one
+    ``MegabatchCoalescer(max_batch=4)``: a wave that re-stacks and locks the
+    roster, two locked dense waves and a locked delta wave (8 rows a
+    stream), every row equal to the same stream's inline epoch on a serial
+    engine, one batched K6 launch and no other kernel a wave.  After the
+    third wave the locked state [4 x B 262,144, C 20,000] through K6's
+    batched entry against its plain version and four single launches, bit
+    for bit, and timed.  Returns (max |diff| (0), the report)."""
+    from kafka_lag_based_assignor_tpu_torch.ops.coalesce import MegabatchCoalescer
+
+    def engines():
+        return [streaming.StreamingAssignor(num_consumers=WIDE_C, refine_iters=WIDE_REFINE,
+                                            refine_threshold=None, device=device)
+                for _ in range(WP_STREAMS)]
+
+    rngs = [np.random.default_rng(WP_SEED + g) for g in range(WP_STREAMS)]
+    waves = [[r.integers(0, 10**6, WIDE_P).astype(np.int64) for r in rngs] for _ in range(4)]
+    delta = [lg.copy() for lg in waves[-1]]
+    for lg, r in zip(delta, rngs):
+        lg[r.choice(WIDE_P, WP_DELTA_ROWS, replace=False)] += 10**5
+    waves.append(delta)
+    inline, co = engines(), engines()
+    t0 = time.perf_counter()
+    want, grew = counted(lambda: [[np.asarray(e.rebalance(lg)) for e, lg in zip(inline, wave)]
+                                  for wave in waves])
+    serial_ms = (time.perf_counter() - t0) * 1e3
+    add_counts(launches, grew)
+    add_counts(launches, counted(lambda: [e.rebalance(lg) for e, lg in zip(co, waves[0])])[1])
+    coal = MegabatchCoalescer(window_s=2.0, max_batch=WP_STREAMS, lock_waves=1, device=device)
+    walls, worst, times = [], 0, None
+    try:
+        for w in range(1, len(waves)):
+            before = coalesce_series()
+            (got, wall), grew = counted(lambda: submit_wave(co, waves[w], coal))
+            add_counts(launches, grew)
+            moved = series_moved(before)
+            walls.append(wall)
+            if device.type == "cuda" and grew != {**{k: 0 for k in grew},
+                                                  "state_digest_rows": 1}:
+                raise AssertionError(f"wide paths 4m(b) wave {w}: launches {grew}")
+            for g in range(WP_STREAMS):
+                if not np.array_equal(np.asarray(got[g]), want[w][g]):
+                    raise AssertionError(f"wide paths 4m(b) wave {w}: row {g} differs from "
+                                         "its inline epoch")
+            if w == len(waves) - 1 and moved["delta_applied"] < WP_STREAMS:
+                raise AssertionError(f"wide paths 4m(b): the delta wave moved {moved}")
+            log(f"wide paths 4m(b) coalesced wave {w} ({'delta' if w == 4 else 'dense'}): "
+                f"{wall!r} ms, rows equal to inline, launches {grew}, series {moved}")
+            if w == 3:
+                worst, times = wide_rows_digest(co[0]._resident.batch)
+    finally:
+        coal.close(timeout_s=60)
+    report = {"streams": WP_STREAMS, "wave_ms": walls, "serial_epochs_ms": serial_ms,
+              "rows_digest": times}
+    return worst, report
+
+
+def wide_rows_digest(batch) -> tuple:
+    """4m (b): K6's batched entry on a locked wide batch
+    (``rows_digest_held``, every row passing the host check); then timed."""
+    rows = [tuple(t[n] for t in (batch.lags, batch.choice, batch.counts, batch.row_tab))
+            for n in range(batch.lags.shape[0])]
+    err, _ = rows_digest_held(rows, WIDE_C, WIDE_P, "wide paths 4m(b)")
+    log(f"kernel vs plain  state_digest_rows wide x{len(rows)}: equal to {len(rows)} single "
+        "launches and the plain version, every row passing the host check")
+    return err, rows_digest_times(rows, WIDE_C, "wide")
+
+
+def wide_linear_duals(device, arr: np.ndarray, launches: dict) -> tuple:
+    """4m (c), the duals: the wide group's sharded mirror-prox duals
+    (``_linear_duals_sharded``, K5 on each shard's 8 / D superblocks) at
+    D = 1, 2, 4 virtual shards, A and B bit-identical on every shard and
+    across D, 2 x D x rounds K5 launches each.  Returns (the D = 1 duals,
+    the blocks and their C, rounds)."""
+    from kafka_lag_based_assignor_tpu_torch.sharded import solve as sharded_solve
+
+    P2, tile, _ = linear_ot.plan_shape(WIDE_P, dispatch.quality_tile())
+    lags_p = np.zeros(P2, np.int64)
+    lags_p[:WIDE_P] = arr
+    valid = np.arange(P2) < WIDE_P
+    scale = sinkhorn._scale_np(lags_p, valid, WIDE_C)
+    duals = {}
+    for D in WP_DUALS_D:
+        lp, vp = sharded_solve._place_inputs(virtual_mesh(D, device), lags_p, valid)
+        (A, B, rounds), grew = counted(lambda: sharded_solve._linear_duals_sharded(
+            lp, vp, scale, float(WIDE_P), WIDE_C, LINEAR_ITERS, tile))
+        add_counts(launches, grew)
+        if device.type == "cuda" and grew["superblock_partials"] != 2 * D * rounds:
+            raise AssertionError(f"wide paths 4m(c) duals D={D}: launches {grew} for "
+                                 f"{rounds} rounds")
+        if not all(torch.equal(a, A[0]) and torch.equal(b, B[0]) for a, b in zip(A, B)):
+            raise AssertionError(f"wide paths 4m(c) duals D={D}: the shards disagree")
+        duals[D] = (A[0], B[0], rounds)
+        if not (torch.equal(A[0], duals[1][0]) and torch.equal(B[0], duals[1][1])
+                and rounds == duals[1][2]):
+            raise AssertionError(f"wide paths 4m(c) duals: D={D} differs from D=1")
+        log(f"wide paths 4m(c) linear duals at D={D} (virtual; K5 at Sb={8 // D}): "
+            f"{rounds} rounds, bit-identical to D=1 on every shard; launches {grew}")
+    ws, cnt = linear_ot._ws_cnt(torch.from_numpy(lags_p).to(device),
+                                torch.from_numpy(valid).to(device), scale)
+    blocks = (linear_ot._to_blocks(ws, P2, 8, tile), linear_ot._to_blocks(cnt, P2, 8, tile))
+    return duals[1], blocks
+
+
+def wide_sharded_and_placed(device, arr: np.ndarray, launches: dict) -> tuple:
+    """4m (c) and (d): the duals (``wide_linear_duals``) and K5 at Sb 8, 4,
+    2 on the wide group's blocks at those duals (``k5_superblock_shapes``);
+    the exchange program at WP_EXCHANGE_P x WIDE_C, D = 2, card against
+    CPU; the wide stream through ``StreamingAssignor(mesh_backend=manager)``
+    on 4 virtual shards: the sharded linear cold epoch (K1 once, in the
+    tail) equal to the one-shard ``solve_linear_sharded``, then two heated
+    warm epochs after a 5 % drift and one heated epoch alone (a delta
+    upload), each equal to an unplaced engine seeded with the cold choice,
+    the placed ones digested with K6's shard entry, which is then held to
+    the one-state K6 on the gathered state and to its plain version, bit
+    for bit, and timed; then the topic axis (``sharded_topics`` on
+    WP_TOPICS x WP_TOPIC_P, uniform lags from seed 16).
+    Returns (K5's max |diff|, K6 shard's max |diff| (0), the report)."""
+    from kafka_lag_based_assignor_tpu_torch.sharded import mesh as mesh_mod
+
+    mesh_mod.set_virtual_shards(WP_PLACED_D, device)
+    try:
+        return wide_sharded_legs(device, arr, launches)
+    finally:
+        mesh_mod.set_virtual_shards(None)
+
+
+def wide_sharded_legs(device, arr: np.ndarray, launches: dict) -> tuple:
+    """The legs of ``wide_sharded_and_placed``, with WP_PLACED_D virtual
+    shards of ``device`` configured for the mesh manager."""
+    from kafka_lag_based_assignor_tpu_torch.sharded import solve as sharded_solve
+    from kafka_lag_based_assignor_tpu_torch.sharded.mesh import MeshManager
+    from kafka_lag_based_assignor_tpu_torch.sharded.resident import PlacedResident
+
+    report = {}
+    (A, B, rounds), (ws_b, cnt_b) = wide_linear_duals(device, arr, launches)
+    k5 = k5_superblock_shapes(device, (ws_b, cnt_b, A, B), (8, 4, 2), "4m(c)")
+    report["duals"] = {"rounds": rounds, "equal_across_D": True, "k5": k5}
+
+    small = arr[:WP_EXCHANGE_P]
+    got, grew = counted(lambda: sharded_solve.solve_sharded(
+        virtual_mesh(2, device), small, WIDE_C, refine_iters=WP_EXCHANGE_REFINE))
+    add_counts(launches, grew)
+    want = sharded_solve.solve_sharded(virtual_mesh(2, torch.device("cpu")), small, WIDE_C,
+                                       refine_iters=WP_EXCHANGE_REFINE)
+    if not all(np.array_equal(np.asarray(g), np.asarray(w)) for g, w in zip(got, want)):
+        raise AssertionError("wide paths 4m(c): the exchange program differs between the "
+                             "card and the CPU")
+    report["exchange"] = {"P": WP_EXCHANGE_P, "C": WIDE_C, "D": 2, "rounds": got[3]}
+    log(f"wide paths 4m(c) exchange program {WP_EXCHANGE_P} x {WIDE_C}, D=2 (virtual): the "
+        f"card equals the CPU ({got[3]} refine rounds)")
+
+    (one, _, _, _), grew = counted(lambda: sharded_solve.solve_linear_sharded(
+        virtual_mesh(1, device), arr, WIDE_C, refine_iters=64))
+    add_counts(launches, grew)
+    mgr = MeshManager(devices=WP_PLACED_D).configure()
+    if not (mgr.active and mgr.size == WP_PLACED_D):
+        raise AssertionError(f"wide paths 4m(d): the manager did not come up: {mgr.status()}")
+    engine = streaming.StreamingAssignor(num_consumers=WIDE_C, refine_iters=WIDE_REFINE,
+                                         imbalance_guardrail=1.25, mesh_backend=mgr,
+                                         device=device)
+    cold, grew = counted(lambda: engine.rebalance(arr))
+    add_counts(launches, grew)
+    if (not engine.last_stats.sharded_solve or not np.array_equal(cold, one)
+            or device.type == "cuda" and grew["rounds_scan"] != 1):
+        raise AssertionError(f"wide paths 4m(c): the D={WP_PLACED_D} cold epoch (sharded "
+                             f"{engine.last_stats.sharded_solve}) against D=1: equal "
+                             f"{np.array_equal(cold, one)}; launches {grew}")
+    log(f"wide paths 4m(c) sharded cold epoch through the engine at D={WP_PLACED_D}: equal to "
+        f"D=1's solve_linear_sharded; launches {grew}")
+    ref = wide_engine(device)
+    ref.seed_choice(cold)
+    rng, lags, choice, epochs = np.random.default_rng(44), arr, cold, []
+    for k in range(3):
+        if k < 2:
+            lags = (lags * rng.lognormal(0.0, 0.05, WIDE_P)).astype(np.int64)
+        lags = heat(lags, np.asarray(choice), WIDE_C)
+        placed = isinstance(engine._resident, PlacedResident)
+        delta0 = engine.delta_epochs["applied"]
+        choice, grew = counted(lambda: engine.rebalance(lags))
+        add_counts(launches, grew)
+        kind = "delta" if engine.delta_epochs["applied"] > delta0 else "dense"
+        shard_k6 = grew["state_digest_sharded"]
+        want, ref_grew = counted(lambda: ref.rebalance(lags))
+        add_counts(launches, ref_grew)
+        if (not np.array_equal(choice, want) or not engine.last_stats.refined
+                or (k == 2) != (kind == "delta")
+                or device.type == "cuda" and placed and shard_k6 != WP_PLACED_D):
+            raise AssertionError(f"wide paths 4m(d) epoch {k + 1} ({kind}, placed {placed}): "
+                                 f"launches {grew}, refined {engine.last_stats.refined}")
+        epochs.append({"kind": kind, "placed": placed, "launches": grew})
+        log(f"wide paths 4m(d) placed stream epoch {k + 1} ({kind}, placed before {placed}): "
+            f"equal to the unplaced engine; launches {grew}")
+    res = engine._resident
+    if not isinstance(res, PlacedResident) or len(res.shards) != WP_PLACED_D:
+        raise AssertionError("wide paths 4m(d): the resident state is not placed")
+    err, times = wide_shard_digest(res)
+    report["placed"] = {"epochs": epochs, "shard_digest": times}
+    table = np.random.default_rng(16).integers(0, 10**6, (WP_TOPICS, WP_TOPIC_P))
+    report["topics"] = sharded_topics(device, launches, (table.astype(np.int64), WIDE_C),
+                                      WP_TOPIC_SHAPES, "4m(c)")
+    return k5["max_abs_err"], err, report
+
+
+def wide_shard_digest(res) -> tuple:
+    """4m (d): K6's shard entry on a placed wide state (``shard_digest_held``
+    against the one-state K6 on the gathered state), passing the host
+    check; then timed."""
+    choice, tab, counts, lags = res.gather()
+    ls, cs, offsets = res.lag_shards, res.choice_shards, res.row_offsets
+    single = refine.state_digest(lags, choice, counts, WIDE_C, row_tab=tab)
+    err = shard_digest_held(ls, cs, counts, WIDE_C, tab, offsets, single, "wide paths 4m(d)")
+    if scrub.digest_failures(single.cpu().numpy(), WIDE_P, int(lags.sum())):
+        raise AssertionError(f"wide paths 4m(d): the placed state's digest {single.tolist()} "
+                             "fails the host check")
+    return err, shard_digest_times(ls, cs, counts, WIDE_C, tab, offsets, "wide placed")
+
+
+def wide_federation(device, leader: dict, launches: dict) -> tuple:
+    """4m (e): three port sidecars over loopback with phase 4l's group split
+    round-robin by partition id (66,667 / 66,667 / 66,666 rows), WIDE_C
+    members, 16 rounds: rung ``global`` on all three, each shard's counts
+    within floor / ceil, quality within ``WP_FED_QUALITY`` of phase 4l's
+    single-leader ``sinkhorn`` (``leader``); a full partition answered on
+    sidecar 0 ``last_good_global`` (and, with the cache expired,
+    ``local_only``, held to the plain rounds path) with zero request
+    errors, a heal re-converged; then K3's column
+    form (``need="both"``) at one exchange round's shape against its plain
+    version, and timed.  Returns (K3's max |diff|, the report)."""
+    lags, members = wide_workload()
+    full = lags["t0"]
+    pids = [np.arange(i, WIDE_P, FED_N) for i in range(FED_N)]
+    shards = [full[p] for p in pids]
+    owner = {m: j for j, m in enumerate(members)}
+    totals = np.zeros(WIDE_C)
+    for m, tps in leader.items():
+        totals[owner[m]] += full[[p for _, p in tps]].sum()
+    leader_q = float(totals.max() / totals.mean())
+    trio = FedTrio(device, "wide", rounds=FED_ROUNDS)
+    try:
+        reset_counts()
+        for i in range(FED_N):
+            trio.assign(i, shards[i], members, pids[i])
+        out = [trio.assign(i, shards[i], members, pids[i]) for i in range(FED_N)]
+        fed = [r["federation"] for r, _ in out]
+        if any(f["rung"] != "global" for f in fed):
+            raise AssertionError(f"wide paths 4m(e): {fed}")
+        choices = [local_choice(r, members, p) for (r, _), p in zip(out, pids)]
+        for i, ch in enumerate(choices):
+            counts = np.bincount(ch, minlength=WIDE_C)
+            if ch.min() < 0 or counts.max() - counts.min() > 1:
+                raise AssertionError(f"wide paths 4m(e): shard {i} counts "
+                                     f"{counts.min()}..{counts.max()}")
+        fed_q = fed_quality(shards, choices, WIDE_C)
+        if not fed_q <= leader_q * WP_FED_QUALITY:
+            raise AssertionError(f"wide paths 4m(e): quality {fed_q} against phase 4l's "
+                                 f"sinkhorn {leader_q}")
+        part, heal = partition_drill(trio, shards, members, pids, [0], "wide paths 4m(e)")
+        grew = read_counts()
+        add_counts(launches, grew)
+        if device.type == "cuda" and (grew["plan_stats"] < sum(f["rounds"] for f in fed)
+                                      or grew["rounds_scan"] < 1):
+            raise AssertionError(f"wide paths 4m(e): launches {grew}")
+        report = {"rows": [int(s.shape[0]) for s in shards],
+                  "rounds": [f["rounds"] for f in fed],
+                  "converged": [f["converged"] for f in fed],
+                  "walls_ms": [w for _, w in out], "quality": fed_q,
+                  "leader_quality": leader_q, "partition_rungs": part,
+                  "heal_rounds": [h["rounds"] for h in heal], "launches": grew,
+                  "local_only_checked": trio.local_only_checked}
+        log(f"wide paths 4m(e) federation, {report['rows']} rows over 3 sidecars, C={WIDE_C}: "
+            f"rung global, rounds {report['rounds']}, walls {report['walls_ms']} ms, quality "
+            f"{fed_q!r} against phase 4l's sinkhorn {leader_q!r}; partition {part} with zero "
+            f"request errors, heal rounds {report['heal_rounds']}; launches {grew}")
+    finally:
+        trio.close()
+    k3_err = fed_k3_check(device, (("wide shard", shards[0], WIDE_C),))
+    args = fed_k3_args(shards[0], WIDE_C, device)
+    t = op_times(lambda: plan_stats.plan_stats(*args, need="both"), KERNEL_NAMES["plan_stats"])
+    plain_ms = median_event_ms(lambda: plan_stats.plan_stats_torch(*args, need="both"))
+    U = args[0].shape[0]
+    # One exp an entry of the [U, C] plan; the three value vectors and the
+    # duals read once, the two marginals written once.
+    bound, by = exp_bound(U * WIDE_C, 4 * (3 * U + 4 * WIDE_C))
+    library = median_event_ms(lambda: softmax_library(args[0], args[3], args[4],
+                                                      (args[2], args[1])))
+    report["k3_both"] = dict(ms=t["event_ms"], alone_ms=t["alone_ms"], plain_ms=plain_ms,
+                             bound_ms=bound, bound_by=by, library_ms=library, U=U, C=WIDE_C,
+                             launches=t["launches"])
+    log(f"times  plan_stats need=both at one wide exchange round (U={U} C={WIDE_C}): "
+        f"{report['k3_both']}")
+    return k3_err, report
+
+
+def wide_paths(device, answers: dict) -> tuple:
+    """Phase 4m: the wide group on every other path, each held to phase
+    4l's answers or the port's own plain path: (a) the sidecar, (b) the
+    coalescer, (c) the sharded programs and the topic axis, (d) placement,
+    (e) federation.  Every K1 and K7 launch is named by form (``FormSpy``):
+    at 20,000 members the cluster form, with no scratch.  Returns (the
+    main paths' launches, the kernel checks' max |diff| by kernel, the
+    ``wide_paths`` report, which holds the kernels' times)."""
+    t0 = time.perf_counter()
+    launches = {name: 0 for name, _ in COUNTERS}
+    arr = wide_workload()[0]["t0"]
+    report, seconds = {}, {}
+    spy = FormSpy()
+    with spy:
+        for leg, run in (
+                ("sidecar", lambda: wide_sidecar(device, answers, launches)),
+                ("coalesce", lambda: wide_coalesce(device, launches)),
+                ("sharded", lambda: wide_sharded_and_placed(device, arr, launches)),
+                ("federation", lambda: wide_federation(device, answers["sinkhorn"], launches))):
+            start = time.perf_counter()
+            report[leg] = run()
+            seconds[leg] = time.perf_counter() - start
+    rows_err, report["coalesce"] = report["coalesce"]
+    k5_err, shard_err, report["sharded"] = report["sharded"]
+    k3_err, report["federation"] = report["federation"]
+    want = slot_form(rounds_cuda.slots_for(WIDE_C))
+    if device.type == "cuda" and (
+            len(spy.forms) != launches["rounds_scan"] + launches["scan_greedy"]
+            or {f[2] for f in spy.forms} != {want} or spy.scratch_bytes):
+        raise AssertionError(f"wide paths: launches {launches}, K1/K7 forms {spy.forms}, "
+                             f"{spy.scratch_bytes} bytes of scratch")
+    report.update(launches=launches, seconds=seconds, scratch_bytes=spy.scratch_bytes,
+                  forms=sorted({(f[0], f[2]) for f in spy.forms}),
+                  card=CARD[0] if CARD else None, phase_s=time.perf_counter() - t0)
+    log(f"wide paths: every K1/K7 launch ({len(spy.forms)}) in the {want} form, no scratch; "
+        f"launches {launches}; legs {seconds} s")
+    errs = {"superblock_partials": k5_err, "plan_stats": k3_err, "state_digest_rows": rows_err,
+            "state_digest_sharded": shard_err}
+    return launches, errs, report
 
 
 SOURCES = {
@@ -6008,9 +6589,17 @@ def main() -> int:
         digest_vs_plain(device, wide_only=True)
         plan_stats_vs_plain(device, wide_plan_stats_cases(device))
         linear_limits(device)
-        launches, report = wide_path(device)
+        launches, report, _ = wide_path(device)
         log(f"card: {CARD[0]}")
         log(json.dumps({"wide": report, "launches": launches, "device": name}, default=str))
+        return 0
+    if sys.argv[1:] == ["--wide-paths"]:
+        build()
+        answers = wide_path(device)[2]
+        launches, errs, report = wide_paths(device, answers)
+        log(f"card: {CARD[0]}")
+        log(json.dumps({"wide_paths": report, "max_abs_err": errs, "device": name},
+                       default=str))
         return 0
     if sys.argv[1:] == ["--lifecycle"]:
         build()
@@ -6048,7 +6637,8 @@ def main() -> int:
     placement_launches, shard_digest_err, shard_digest_t, placement = placement_path(
         device, coalesce["multistream_32g"]["coalesced_wave_ms"])
     federation_launches, fed_k3_err, federation = federation_path(device)
-    wide_launches, wide = wide_path(device)
+    wide_launches, wide, wide_answers = wide_path(device)
+    paths_launches, paths_err, wide_paths_report = wide_paths(device, wide_answers)
     launches["rounds_scan"] += (rounds_launches + stream_launches["rounds_scan"]
                                 + solver_launches["rounds_scan"]
                                 + ladder_launches["rounds_scan"])
@@ -6071,12 +6661,19 @@ def main() -> int:
     # placed waves, K5 and K1 in the placed stream's sharded cold epochs.
     # Phase 4k: K3 a federated exchange round, K1 on the local_only rung.
     # Phase 4l: K1, K7, K4, K5 and K6 at the wide group (20,000 members).
+    # Phase 4m: every other path at that group: the sidecar's solvers and
+    # stream, the coalescer's waves (batched K6), the sharded duals (K5 a
+    # shard), the topic axis and the sharded tail (K1), the placed stream
+    # (K6's shard entry) and federation (K3, K1 on the local_only rung).
     for k, v in (*placement_launches.items(), *federation_launches.items(),
-                 *wide_launches.items()):
+                 *wide_launches.items(), *paths_launches.items()):
         launches[k] += v
-    f32_err["superblock_partials"] = max(f32_err["superblock_partials"], k5_shard_err)
-    f32_err["plan_stats"] = max(f32_err["plan_stats"], fed_k3_err)
-    digest_rows_err = max(digest_rows_err, placement["waves"]["rows_digest_err"])
+    f32_err["superblock_partials"] = max(f32_err["superblock_partials"], k5_shard_err,
+                                         paths_err["superblock_partials"])
+    f32_err["plan_stats"] = max(f32_err["plan_stats"], fed_k3_err, paths_err["plan_stats"])
+    shard_digest_err = max(shard_digest_err, paths_err["state_digest_sharded"])
+    digest_rows_err = max(digest_rows_err, placement["waves"]["rows_digest_err"],
+                          paths_err["state_digest_rows"])
     wide_err = {k: t["max_abs_err"] for k, t in wide["times"].items() if "max_abs_err" in t}
     max_err = max(max_err, wide_err.pop("rounds_scan"))
     digest_err = max(digest_err, wide_err.pop("state_digest"))
@@ -6102,6 +6699,8 @@ def main() -> int:
                 leg: [form for kernel, form in fs if kernel == entry["name"]]
                 for leg, fs in wide["forms"].items()}
             entry["wide_group_kernels"] = sorted(wide["times"][entry["name"]]["by_kernel"])
+            entry["wide_paths_forms"] = sorted({form for kernel, form in wide_paths_report["forms"]
+                                                if kernel == entry["name"]})
     line.append(kernel_line("state_digest_rows", launches["state_digest_rows"],
                             digest_rows_err, digest_rows_t))
     line.append(kernel_line("state_digest_sharded", launches["state_digest_sharded"],
@@ -6114,6 +6713,7 @@ def main() -> int:
     log(json.dumps({"placement": placement}, default=str))
     log(json.dumps({"federation": federation}, default=str))
     log(json.dumps({"wide": wide}, default=str))
+    log(json.dumps({"wide_paths": wide_paths_report}, default=str))
     log(json.dumps({"profiler": {"skew": skew, "sessions": SESSIONS,
                                  "pad_s": PROFILER_PAD_S, "skew_pad_s": SKEW_PAD_S}}))
     log(f"card: {CARD[0]}")

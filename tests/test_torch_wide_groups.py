@@ -76,6 +76,18 @@ WIDE = 20_000
 ABOVE = rounds_cuda.REGISTER_SLOTS + 1
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch work, restored after.
+    The suite runs six workers on the machine's cores, and at these widths
+    each worker's own thread pool made a torch step a row (K7's plain
+    version, the refine rounds) tens of times slower than on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def group(C, P, seed=0):
     """One topic of P uniform lags in [0, 10^6) subscribed by C members."""
     lags = {"t0": np.random.default_rng(seed).integers(0, 10**6, P)}
