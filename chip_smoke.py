@@ -119,24 +119,25 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       <= the greedy one, equals the port's CPU path and ``scan`` + refine;
    e. the fault ladder at BASELINE config 5: first the watchdog's cost,
       ``assign()`` at configs 5 and 3 ``rounds`` with the default deadline
-      and with ``solve.timeout.ms=0`` (inline) in turns (medians of 6
+      and with ``solve.timeout.ms=0`` (inline) in turns (medians of 3
       each); then assignors (``rounds``, host rung on,
       ``breaker.failures=1``, an hour's cooldown, ``solve.timeout.ms`` 10x
-      the config-5 solve median, at least 1 s) through legs (a)-(c) at
-      config 5 and (d)-(g) at config 5 cut to ``LADDER_P`` partitions (the
-      host rung's Python greedy takes ~18 s a leg at the full 100,000):
+      the config-5 solve median, at least 1 s) through legs (a) and (b) at
+      config 5 and (c)-(g) at config 5 cut to ``LADDER_P`` partitions (the
+      host rung's Python greedy takes ~18-25 s a leg at the full 100,000):
       (a) no fault:
       K1 launches, the ``assign.solve`` span histogram grows by one; (b) a
       ``device.solve`` raise and (c) a ``device.compile`` raise: no K1
-      launch, the host rung's answer equal to (a)'s, the rung counter +1,
+      launch, the host rung's answer equal to (a)'s (b) or to (f)'s (c),
+      the rung counter +1,
       one ``rebalance`` flight record, with ``fallback_used``, and two
       dumps (the breaker's trip and the ladder's)
       (the breaker, opened by the one failure, is reset after each); (d) a
       ``device.solve`` hang of twice the deadline: a solve timeout, the
       breaker open, the host's answer; (e) no fault with the breaker open:
       rejected without running, no K1 launch, the host's answer; (f) after
-      ``reset_accelerator()``: K1 launches, and (d)'s and (e)'s host
-      answers equal its bits; (g) ``host.fallback=false`` with a ``device.solve``
+      ``reset_accelerator()``: K1 launches, and (c)-(e)'s host answers
+      equal its bits; (g) ``host.fallback=false`` with a ``device.solve``
       raise: ``assign()`` raises ``FaultError``.  Each abandoned worker is
       waited for.  Then the streaming engine at config 5 under a
       ``device.corrupt.choice`` plan: the cold epoch adopts a flipped
@@ -171,7 +172,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       answers are held against a sidecar on the CPU (``rounds`` and the
       streams equal, ``sinkhorn`` to phase 4b's rule on both and a quality
       ratio within 2 % of the CPU's); the
-      config-5 ``rounds`` round trip (median of 5), its bytes, the
+      config-5 ``rounds`` round trip (median of 3), its bytes, the
       server's ``wire.assign`` and ``assign.solve`` spans and the stream
       epoch walls by type against phase 4c's; ``stop()`` leaves no service
       thread.  The sequential legs' launches count into the kernels line;
@@ -363,6 +364,27 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       cluster form, no scratch.  Its launches count into the kernels line
       (``wide_paths_forms`` there), its differences into ``max_abs_err``,
       and it prints a JSON ``wide_paths`` line;
+   n. the fenced takeover, ``bench.py``'s ``handoff_storm`` at config 5's
+      width: 8 streams of 100,000 partitions x 1,000 members (lags uniform
+      in [0, 10^6) from ``default_rng(9000 + i)``, phase 4c's stream
+      options), sidecars on the ``object`` backend (lease TTL 2 s, wait
+      30 s, explicit snapshots), ``coalesce_max_batch=8``, the host rung
+      off.  Sidecar A serves 8 serial cold chains (one K1 each) and two
+      concurrent warm waves through the coalescer (batched K6), snapshots
+      and stops holding the lease; B boots with ``resync_max_inflight=2``
+      and must report ``takeover_crash`` and 8 streams recovered, and its
+      concurrent first-epoch storm must be valid, ``warm_restart`` and
+      bit-equal to engines on the card seeded with A's choices, with no
+      build and no K1, at most 2 dense rebuilds at once; A's stale write
+      is then refused as fenced with the backend's version unmoved; B
+      serves a second concurrent wave (equal to those engines' next
+      epoch) and drains; C boots with ``recovery_prestack`` and must
+      report ``takeover_drain`` within 5 s and 8 streams pre-stacked, and
+      its storm must be bit-equal to its own baseline with no build and no
+      dense rebuild.  Its launches count into the kernels line, and it
+      prints a JSON ``takeover`` line (modes, waits, boot walls, streams
+      recovered and pre-stacked, each storm's walls, faults, launches and
+      builds, the fenced writes and overwrites);
 5. times, with CUDA events, medians of 30 runs after warm-up: each kernel
    alone at its main-path shape, its plain version on the card, the
    library yardstick where there is one, and its bound; the device time
@@ -372,7 +394,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    scan's at config 5 and at config 3 ``global`` with its time a round and
    a network stage, and K4's kernel launches a step; the ``assign()``
    wall on the host clock at config 5 (``rounds``) and configs 4 and 5
-   (``sinkhorn``; medians of 3 at config 5); then, for each phase-4 cell, one ``assign()`` under
+   (``sinkhorn``; medians of 3 after one warm-up at config 5); then, for each phase-4 cell, one ``assign()`` under
    ``torch.profiler``: the device's busy time and its idle share of the
    wall; the streaming epoch walls by type (cold, and the medians of the
    no-op, warm-refine and delta epochs), the host reads of a warm epoch and
@@ -392,16 +414,18 @@ boot, first epochs and scrub walls, and its launches), one JSON
 ``coalesce`` line (phase 4h's rates, walls, idle shares and K6 times), one
 JSON ``sharded`` line (phase 4i's checks, K5 times by superblock count,
 walls and idle share), one JSON ``placement``, one JSON ``federation``,
-one JSON ``wide`` and one JSON ``wide_paths`` line (phases 4j, 4k, 4l and
-4m), one JSON
+one JSON ``wide``, one JSON ``wide_paths`` and one JSON ``takeover`` line
+(phases 4j, 4k, 4l, 4m and 4n), one JSON
 ``profiler`` line (the profiler's clock skew
 after the builds, around phase 4f and after phase 5, and its sessions
-recorded and discarded), one JSON ``kernels`` line, and as its last line
+recorded and discarded), one JSON ``phases_s`` line (each phase's seconds,
+phases 1 and 2 together), one JSON ``kernels`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
 result.  ``python3 chip_smoke.py --wide`` runs, after the builds, phase 3's
 checks past 16,384 consumers and phase 4l, and prints the ``wide`` line;
 ``--wide-paths`` runs, after the builds, phase 4l and then phase 4m, and
-prints the ``wide_paths`` line.
+prints the ``wide_paths`` line; ``--takeover`` runs, after the builds, phase
+4n alone and prints the ``takeover`` line.
 
 ``python3 chip_smoke.py --coalesce`` runs phase 4h alone (after the builds)
 and prints its ``coalesce`` line; ``--sharded`` runs phase 4i alone (after
@@ -534,6 +558,8 @@ SESSIONS = {"recorded": 0, "discarded": 0}
 # results (the build logs push the first print out of a short tail).
 CARD = []
 T_START = time.perf_counter()
+# Each phase's seconds in the full run, by phase (``lap``).
+PHASE_S = {}
 # Dynamic shared memory a block may use on the H100 (227 KB).
 SMEM_PER_BLOCK = 232448
 # The f32 kernels' tolerance against their plain versions, relative to the
@@ -580,6 +606,11 @@ REFINE_ITERS = 16
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+def lap(phase: str) -> None:
+    """Record the seconds since the last lap (or the start) as ``phase``'s."""
+    PHASE_S[phase] = time.perf_counter() - T_START - sum(PHASE_S.values())
 
 
 def sync(device) -> None:
@@ -1858,10 +1889,11 @@ def streaming_path(device):
 
 # -- phase 4e --------------------------------------------------------------
 
-# Legs (d)-(g) of the ladder run config 5 cut to this many partitions: they
-# drill the watchdog's timeout, the open breaker, its reset and the strict
-# raise, and compare no kernel with the host rung (legs (a)-(c) do that at the
-# full 100,000); each host-rung leg at the full size costs ~18 s.
+# Legs (c)-(g) of the ladder run config 5 cut to this many partitions: they
+# drill the compile fault, the watchdog's timeout, the open breaker, its
+# reset and the strict raise, and hold the host rung's answers to K1's at
+# this size (legs (a) and (b) do that at the full 100,000); each host-rung
+# leg at the full size costs ~18-25 s.
 LADDER_P = 20_000
 
 
@@ -1923,7 +1955,7 @@ def watchdog_call_overhead(device, calls: int = 200) -> dict:
     return out
 
 
-def watchdog_cost(device, pairs: int = 6) -> dict:
+def watchdog_cost(device, pairs: int = 3) -> dict:
     """``assign()`` at configs 5 and 3 ``rounds`` with the watchdog at its
     default (the solve in the ``klba-solve`` worker) and inline
     (``solve.timeout.ms=0``), in turns (w, i, i, w, ...) after one warm-up
@@ -1966,8 +1998,8 @@ def watchdog_cost(device, pairs: int = 6) -> dict:
 def ladder_legs(device, timeout_ms: int) -> dict:
     """Legs (a)-(g) of the fault ladder through port assignors (``rounds``,
     host rung on, ``breaker.failures=1``, an hour's cooldown,
-    ``solve.timeout.ms`` = ``timeout_ms``): (a)-(c) on one at BASELINE
-    config 5, (d)-(f) on one at config 5 cut to ``LADDER_P`` partitions,
+    ``solve.timeout.ms`` = ``timeout_ms``): (a) and (b) on one at BASELINE
+    config 5, (c)-(f) on one at config 5 cut to ``LADDER_P`` partitions,
     (g) on a strict one at that size; each checked as it runs.  Returns
     each leg's outcome, launches and wall."""
     from kafka_lag_based_assignor_tpu_torch.utils import faults, metrics
@@ -2025,17 +2057,21 @@ def ladder_legs(device, timeout_ms: int) -> dict:
     r = leg("a")
     expect("a", r["k1_launches"] >= 1 and not r["fallback_used"] and r["rung"] == 0
            and r["assign_solve_spans"] == 1 and r["breaker_state"] == "closed")
-    for name, point in (("b", "device.solve"), ("c", "device.compile")):
-        r = leg(name, (point, "raise", {}))
+    # (b) at the full size, held to (a); (c) on the cut assignor, held to
+    # (f) below.
+    for name, point, run, ref in (("b", "device.solve", full, "a"),
+                                  ("c", "device.compile", cut, "f")):
+        r = leg(name, (point, "raise", {}), run=run, ref=ref)
         # The breaker trip dumps inside the request, the ladder's dump after
         # it (the JAX plugin's order): two dumps, one rebalance record.
-        expect(name, r["k1_launches"] == 0 and r["fallback_used"] and r["same"]
+        expect(name, r["k1_launches"] == 0 and r["fallback_used"]
+               and r["same"] is not False
                and r["rung"] == 1 and r["flight_dumps"] == 2
                and r["flight_records"] == [("rebalance", True)]
                and r["breaker_state"] == "open")  # breaker.failures=1
-        full[0].reset_accelerator()
-    # (d) and (e) are answered by the host rung; (f), K1 after the reset, is
-    # the answer they are held to, checked once it has run.
+        run[0].reset_accelerator()
+    # (c)-(e) are answered by the host rung; (f), K1 after the reset, is the
+    # answer they are held to, checked once it has run.
     r = leg("d", ("device.solve", "hang", {"delay_s": hang_s}), run=cut, ref="f")
     expect("d", r["k1_launches"] == 0 and r["fallback_used"] and r["timeouts"] == 1
            and r["breaker_state"] == "open" and r["rung"] == 1)
@@ -2046,7 +2082,7 @@ def ladder_legs(device, timeout_ms: int) -> dict:
     r = leg("f", run=cut, ref="f")
     expect("f", r["k1_launches"] >= 1 and not r["fallback_used"]
            and r["breaker_state"] == "closed" and r["rung"] == 0)
-    for name in ("d", "e"):
+    for name in ("c", "d", "e"):
         legs[name]["same"] = answers[name] == answers["f"]
         expect(name, legs[name]["same"])
     strict = plugin(cut_lags, cut_members, "rounds", device)
@@ -2127,7 +2163,7 @@ def ladder_path(device) -> tuple:
     launches = read_counts()
     join_abandoned_workers()
     log(f"main path (ladder): launches {launches}")
-    return launches, {"config": 5, "legs_partitions": {"a-c": 100_000, "d-g": LADDER_P},
+    return launches, {"config": 5, "legs_partitions": {"a-b": 100_000, "c-g": LADDER_P},
                       "solve_timeout_ms": timeout_ms, "legs": legs,
                       "stream_drill": drill, "watchdog_cost": cost}
 
@@ -2140,6 +2176,8 @@ SIDECAR_STREAM_OPTS = {"refine_iters": STREAM_BUDGET, "guardrail": 1.25}
 # Phase 4c's legs the sidecar replays, by epoch index: the cold start and
 # the 10 drift epochs, 3 delta epochs, the member leaving and joining.
 SIDECAR_EPOCHS = 16
+# The config-5 ``assign`` round trips the sidecar's median is taken over.
+SIDECAR_ROUND_TRIPS = 3
 
 
 def wire_rows(arr: np.ndarray, pids=None) -> list:
@@ -2175,6 +2213,33 @@ def counted(fn):
 def add_counts(total: dict, grew: dict) -> None:
     for k, v in grew.items():
         total[k] += v
+
+
+def at_once(label: str, calls: dict, timeout: float = 600.0) -> tuple:
+    """Every ``calls[key]()`` on a thread of its own, all started together:
+    ({key: result}, {key: its wall in ms}, the whole wall in ms).  Raises
+    if a call raised or had not returned after ``timeout`` seconds."""
+    got, walls, errors = {}, {}, []
+
+    def one(key, fn):
+        t0 = time.perf_counter()
+        try:
+            got[key] = fn()
+        except Exception as exc:  # noqa: BLE001 — raised below
+            errors.append(f"{key}: {exc!r}")
+        walls[key] = (time.perf_counter() - t0) * 1e3
+
+    threads = [threading.Thread(target=one, args=item, name=f"{label}-{item[0]}")
+               for item in calls.items()]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+    wall = (time.perf_counter() - t0) * 1e3
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"{label}: {errors or 'a call did not return'}")
+    return got, walls, wall
 
 
 def assign_rung(rung: str) -> int:
@@ -2460,23 +2525,9 @@ def sidecar_concurrency(svc, clients: int = 4) -> dict:
         same_as_cpu(plan, lags, want, run(on_cpu.address, "alone", "cpu"))
     finally:
         on_cpu.stop()
-    t0 = time.perf_counter()
-    got, errors = {}, []
-
-    def worker(k):
-        try:
-            got[k] = run(svc.address, f"client{k}")
-        except Exception as exc:  # noqa: BLE001 — re-raised on the main thread
-            errors.append(exc)
-
-    threads = [threading.Thread(target=worker, args=(k,)) for k in range(clients)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=900)
-    wall = (time.perf_counter() - t0) * 1e3
-    if errors or any(t.is_alive() for t in threads):
-        raise AssertionError(f"sidecar concurrency: {errors or 'a client hung'}")
+    got, _, wall = at_once(
+        "sidecar concurrency",
+        {k: lambda k=k: run(svc.address, f"client{k}") for k in range(clients)}, timeout=900)
     for k, answers in got.items():
         for i, (a, b) in enumerate(zip(answers, want)):
             if a != b:
@@ -2495,9 +2546,10 @@ def sidecar_concurrency(svc, clients: int = 4) -> dict:
 
 
 def sidecar_times(client, svc, launches: dict, stream: WireStream, reference: StreamRun) -> dict:
-    """The config-5 ``rounds`` round trip through the client (median of 5),
-    its request and response bytes on a raw connection, the server's
-    ``wire.assign`` and ``assign.solve`` spans over those 5 calls (registry
+    """The config-5 ``rounds`` round trip through the client (median of
+    ``SIDECAR_ROUND_TRIPS``), its request and response bytes on a raw
+    connection, the server's ``wire.assign`` and ``assign.solve`` spans over
+    those calls (registry
     log2-bucket p50, and the mean), and the stream epoch walls by type over
     the wire against phase 4c's in-process ones."""
     import socket
@@ -2508,7 +2560,7 @@ def sidecar_times(client, svc, launches: dict, stream: WireStream, reference: St
     params = {"topics": wire_topics(lags), "subscriptions": {m: ["t0"] for m in members}}
     before = metrics.REGISTRY.snapshot()
     walls = []
-    for _ in range(5):
+    for _ in range(SIDECAR_ROUND_TRIPS):
         t0 = time.perf_counter()
         _, grew = counted(lambda: client.request("assign", params))
         walls.append((time.perf_counter() - t0) * 1e3)
@@ -2527,8 +2579,9 @@ def sidecar_times(client, svc, launches: dict, stream: WireStream, reference: St
            "request_bytes": len(line), "response_bytes": len(reply)}
     for span in ("wire.assign", "assign.solve"):
         h = spans[f"klba_span_duration_ms{{span={span}}}"]
-        if h["count"] != 5:
-            raise AssertionError(f"sidecar times: {h['count']} {span} spans for 5 calls")
+        if h["count"] != SIDECAR_ROUND_TRIPS:
+            raise AssertionError(f"sidecar times: {h['count']} {span} spans for "
+                                 f"{SIDECAR_ROUND_TRIPS} calls")
         out[span] = {"p50_bucket_ms": h["p50"], "mean_ms": h["sum"] / h["count"]}
     by_kind = {}
     for kind, wall in stream.walls:
@@ -2980,27 +3033,9 @@ def series_moved(before: dict) -> dict:
 def submit_wave(engines, lags_list, coal) -> tuple:
     """Every engine's ``submit_epoch`` at once, one thread each; returns
     (choices, wall ms).  A failed epoch raises."""
-    out, errs = [None] * len(engines), [None] * len(engines)
-
-    def run(i):
-        try:
-            out[i] = engines[i].submit_epoch(lags_list[i], coal)
-        except Exception as exc:  # noqa: BLE001 — raised below
-            errs[i] = exc
-
-    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(engines))]
-    t0 = time.perf_counter()
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=600)
-        if t.is_alive():
-            raise AssertionError("a coalesced epoch did not complete")
-    wall = (time.perf_counter() - t0) * 1e3
-    for e in errs:
-        if e is not None:
-            raise e
-    return out, wall
+    got, _, wall = at_once("coalesced wave", {
+        i: lambda i=i: engines[i].submit_epoch(lags_list[i], coal) for i in range(len(engines))})
+    return [got[i] for i in range(len(engines))], wall
 
 
 def profiled_wave(engines, make_lags, coal) -> dict:
@@ -3304,21 +3339,14 @@ def coalesced_sidecar(device) -> tuple:
                                                                          timeout_s=600))
                        for _ in range(4)]
             for lags_list in epochs:
-                got = [None] * 4
-
-                def run(i):
-                    got[i] = clients[i].stream_assign(f"s{i}", "t0", wire_rows(lags_list[i]),
-                                                      members, options=opts)
-
-                threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
-                for t in threads:
-                    t.start()
-                for t in threads:
-                    t.join(timeout=600)
-                answers.append([wire_answer(g) for g in got])
-                for g in got:
-                    if g is None or g["stream"]["degraded_rung"] != "none":
-                        raise AssertionError(f"coalesce 4h(c): stream answer {g and g['stream']}")
+                got = at_once("coalesce 4h(c)", {
+                    i: lambda i=i: clients[i].stream_assign(
+                        f"s{i}", "t0", wire_rows(lags_list[i]), members, options=opts)
+                    for i in range(4)})[0]
+                answers.append([wire_answer(got[i]) for i in range(4)])
+                for g in got.values():
+                    if g["stream"]["degraded_rung"] != "none":
+                        raise AssertionError(f"coalesce 4h(c): stream answer {g['stream']}")
             stats = clients[0].request("stats")
         return answers, stats
 
@@ -4743,25 +4771,41 @@ def k1_times(device, cases=None) -> dict:
 # assign() walls at config 5 take about 2-3 s each: their medians are of
 # fewer runs, so that the script stays well inside its time limit.
 CONFIG5_WALL_REPEATS = 3
+# The warm-ups before each config-5 median: phases 4a-4d have run every
+# config-5 cell's solver on the card before phase 5, and in one run on the
+# H100 the medians after one and after three warm-ups differed by less than
+# the three timed calls' own spread (PERF.md).
+CONFIG5_WARMUPS = 1
+# The config-5 assignors phase 5's medians warmed, by (cfg, solver, refine):
+# ``profiled_assign`` profiles those cells on them.
+WARMED = {}
 
 
 def assign_walls(cfg: int, solver: str, device, repeats: int = REPEATS, refine=None):
     """Medians of ``repeats`` ``assign()`` calls (at most
-    ``CONFIG5_WALL_REPEATS`` at config 5) after 3 warm-ups, host clock,
-    ending in a synchronize: (wall, lag read, solve, min wall)."""
+    ``CONFIG5_WALL_REPEATS`` at config 5) after 3 warm-ups
+    (``CONFIG5_WARMUPS`` at config 5), host clock, ending in a synchronize:
+    (wall, lag read, solve, min wall).  At config 5 it logs every call's
+    wall and lag read, warm-ups included, and keeps the assignor in
+    ``WARMED``."""
+    warmups = 3
     if cfg == 5:
-        repeats = min(repeats, CONFIG5_WALL_REPEATS)
+        repeats, warmups = min(repeats, CONFIG5_WALL_REPEATS), CONFIG5_WARMUPS
     lags, members = baseline_workload(cfg)
-    assignor, cluster, group = plugin(lags, members, solver, device, refine)
+    run = plugin(lags, members, solver, device, refine)
     walls, parts = [], []
-    for i in range(repeats + 3):
+    for _ in range(repeats + warmups):
         t0 = time.perf_counter()
-        checked_assign(assignor, cluster, group)
+        checked_assign(*run)
         torch.cuda.synchronize()
-        if i >= 3:
-            walls.append((time.perf_counter() - t0) * 1e3)
-            stats = assignor.last_stats
-            parts.append((stats.lag_read_ms, stats.solve_ms))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        stats = run[0].last_stats
+        parts.append((stats.lag_read_ms, stats.solve_ms))
+    if cfg == 5:
+        WARMED[(cfg, solver, refine)] = run
+        log(f"assign() walls at config 5 {solver} refine {refine}, warm-ups included: "
+            f"{walls} ms, lag reads {[p[0] for p in parts]} ms")
+    walls, parts = walls[warmups:], parts[warmups:]
     return (statistics.median(walls), statistics.median(p[0] for p in parts),
             statistics.median(p[1] for p in parts), min(walls))
 
@@ -5278,16 +5322,20 @@ def quality_times(device) -> dict:
 def profiled_assign(cfg: int, solver: str, refine_iters, device) -> dict:
     """One assign() of a phase-4 cell under torch.profiler: its wall (ms,
     host clock), the device's busy time (ms), the port's kernels' part of
-    it and the five busiest device ops.  A session first runs one assign()
-    with the profiler warming up (its records are dropped), then records
-    one.  Every main-path cell launches a port kernel, so a session that
-    recorded none of them lost its records: it is repeated, up to three in
-    all, with the pads of ``pad_for``; ``None`` when none was whole."""
+    it and the five busiest device ops.  The cell's assignor is the one
+    phase 5's medians warmed (``WARMED``), else a new one after one
+    ``assign()``.  A session first runs one assign() with the profiler
+    warming up (its records are dropped), then records one.  Every
+    main-path cell launches a port kernel, so a session that recorded none
+    of them lost its records: it is repeated, up to three in all, with the
+    pads of ``pad_for``; ``None`` when none was whole."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    lags, members = baseline_workload(cfg)
-    assignor, cluster, group = plugin(lags, members, solver, device, refine_iters)
-    checked_assign(assignor, cluster, group)
+    run = WARMED.pop((cfg, solver, refine_iters), None)
+    if run is None:
+        run = plugin(*baseline_workload(cfg), solver, device, refine_iters)
+        checked_assign(*run)
+    assignor, cluster, group = run
     ours = tuple(dict.fromkeys(KERNEL_NAMES.values()))
     for attempt in range(3):
         sessions, walls = [], []
@@ -6338,6 +6386,262 @@ def wide_paths(device, answers: dict) -> tuple:
     return launches, errs, report
 
 
+# -- phase 4n: the fenced takeover -------------------------------------------
+
+# bench.py's handoff_storm (config 10) at config 5's width: N streams of
+# STREAM_P x STREAM_C behind sidecars that share one object backend, its
+# lease TTL and wait, and sidecar B's cap on concurrent dense rebuilds.
+TAKEOVER_N = 8
+TAKEOVER_TTL_S = 2.0
+TAKEOVER_WAIT_S = 30.0
+TAKEOVER_INFLIGHT = 2
+
+
+class TakeoverFleet:
+    """Phase 4n's streams and sidecars: each stream's lags drawn from its
+    own ``default_rng(9000 + i)``, epoch after epoch, as bench.py's
+    handoff_storm draws them; every sidecar on the card with the host rung
+    off, the ``object`` backend in ``root`` and explicit snapshots only."""
+
+    def __init__(self, device, root: str, launches: dict):
+        self.sids = [f"h{i}" for i in range(TAKEOVER_N)]
+        self.members = [f"c{j:04d}" for j in range(STREAM_C)]
+        self.rngs = [np.random.default_rng(9000 + i) for i in range(TAKEOVER_N)]
+        self.device = device
+        self.launches = launches
+        self.knobs = dict(port=0, device=device, host_fallback=False, scrub_interval_ms=0,
+                          snapshot_path=root, snapshot_backend="object",
+                          snapshot_lease_ttl_s=TAKEOVER_TTL_S,
+                          snapshot_lease_wait_s=TAKEOVER_WAIT_S, snapshot_interval_s=3600.0,
+                          coalesce_max_batch=TAKEOVER_N)
+
+    def lags(self) -> dict:
+        """Every stream's next epoch."""
+        return {sid: rng.integers(0, 10**6, STREAM_P).astype(np.int64)
+                for sid, rng in zip(self.sids, self.rngs)}
+
+    def boot(self, **kw) -> tuple:
+        """(a started sidecar, its ``start()`` wall in ms)."""
+        from kafka_lag_based_assignor_tpu_torch import service
+
+        reset_counts()
+        t0 = time.perf_counter()
+        svc = service.AssignorService(**self.knobs, **kw).start()
+        wall = (time.perf_counter() - t0) * 1e3
+        add_counts(self.launches, read_counts())
+        return svc, wall
+
+    def baseline(self, choices: dict, *epochs: dict) -> dict:
+        """What an uninterrupted sidecar answers: for each stream, phase
+        4c's engine on the card seeded with ``choices`` and rebalanced on
+        each of ``epochs`` in turn; its last answer."""
+        out = {}
+        for sid in self.sids:
+            engine = stream_engine(self.device)
+            engine.seed_choice(choices[sid])
+            for lags in epochs:
+                out[sid] = np.asarray(engine.rebalance(lags[sid]))
+        return out
+
+    def check(self, label: str, sid: str, result: dict, want=None,
+              warm_restart: bool = False, cold: bool = False) -> dict:
+        """One answer's faults, counted: invalid (not every partition once,
+        or a count spread above 1), mismatched (not ``want``'s bits), not a
+        warm restart where one is due, or not answered warm or cold on the
+        card's engine."""
+        s = result["stream"]
+        pids = sorted(p for tps in result["assignments"].values() for _, p in tps)
+        sizes = [len(result["assignments"].get(m, ())) for m in self.members]
+        faults = {
+            "invalid": int(pids != list(range(STREAM_P)) or max(sizes) - min(sizes) > 1),
+            "mismatched": int(want is not None and not np.array_equal(
+                wire_choice(result["assignments"], self.members), want)),
+            "not_warm_restart": int(warm_restart and not s["warm_restart"]),
+            "off_engine": int(s["fallback_used"] or s["degraded_rung"] != "none"
+                              or s["shed"] is not None or s["cold_start"] != cold),
+        }
+        if any(faults.values()):
+            raise AssertionError(f"takeover {label} {sid}: {faults}; {s}")
+        return faults
+
+    def wave(self, svc, label: str, lags: dict, want=None, warm_restart: bool = False) -> dict:
+        """Every stream's epoch at once, one client each; every answer
+        checked.  Returns the walls, the faults, the launches and the
+        builds (``compile_count()`` delta)."""
+        from kafka_lag_based_assignor_tpu_torch import service
+        from kafka_lag_based_assignor_tpu_torch.utils.observability import compile_count
+
+        rows = {sid: wire_rows(lags[sid]) for sid in self.sids}
+        with ExitStack() as stack:
+            clients = {sid: stack.enter_context(
+                service.AssignorServiceClient(*svc.address, timeout_s=600)) for sid in self.sids}
+            builds = compile_count()
+            reset_counts()
+            got, walls, wall = at_once(f"takeover {label}", {
+                sid: lambda sid=sid: clients[sid].stream_assign(
+                    sid, "t0", rows[sid], self.members, options=SIDECAR_STREAM_OPTS)
+                for sid in self.sids})
+            grew = read_counts()
+        add_counts(self.launches, grew)
+        faults = {"invalid": 0, "mismatched": 0, "not_warm_restart": 0, "off_engine": 0}
+        for sid in self.sids:
+            add_counts(faults, self.check(label, sid, got[sid],
+                                          None if want is None else want[sid], warm_restart))
+        lat = sorted(walls.values())
+        out = {"wall_ms": wall, "p50_ms": statistics.median(lat), "max_ms": lat[-1],
+               "warm_restarts": sum(bool(g["stream"]["warm_restart"]) for g in got.values()),
+               **faults, "builds": compile_count() - builds, "launches": grew}
+        if out["builds"]:
+            raise AssertionError(f"takeover {label}: {out['builds']} kernel builds")
+        log(f"takeover {label}: {TAKEOVER_N} epochs at once in {wall:.3f} ms (p50 "
+            f"{out['p50_ms']:.3f}, max {out['max_ms']:.3f}); faults {faults}; launches {grew}")
+        return out
+
+
+def takeover_boot(svc, boot_ms: float, mode: str) -> dict:
+    """The boot's hand-off and recovery, held to ``mode`` and every stream."""
+    h, rec = dict(svc._last_handoff or {}), dict(svc._last_recovery or {})
+    if (h.get("acquired"), h.get("mode"), rec.get("outcome"),
+            rec.get("streams_recovered")) != (True, mode, "ok", TAKEOVER_N):
+        raise AssertionError(f"takeover: expected a {mode} of {TAKEOVER_N} streams; "
+                             f"hand-off {h}, recovery {rec}")
+    out = {"mode": h["mode"], "token": h["token"], "waited_ms": h["waited_ms"],
+           "boot_ms": boot_ms, "recovery_ms": rec["duration_ms"],
+           "streams_recovered": rec["streams_recovered"],
+           "streams_prestacked": rec.get("streams_prestacked", 0),
+           "seeded_depth": rec.get("seeded_depth")}
+    log(f"takeover boot: {out}")
+    return out
+
+
+def takeover_path(device) -> tuple:
+    """Phase 4n, bench.py's handoff_storm on the card: sidecar A serves N
+    config-5-wide streams (serial cold chains, then two concurrent warm
+    waves through the coalescer), snapshots and crashes holding the lease;
+    B takes over with ``resync_max_inflight=2`` and answers its first-epoch
+    storm bit-equal to engines seeded with A's choices, with no build and
+    no K1; A's stale write is fenced; B serves a second wave and drains; C
+    takes over with the pre-stack and answers its storm bit-equal to its
+    own baseline with no build and no dense rebuild.  Returns (the
+    launches, the ``takeover`` line)."""
+    import tempfile
+
+    from kafka_lag_based_assignor_tpu_torch import service
+    from kafka_lag_based_assignor_tpu_torch.utils import metrics
+
+    def series(name, **labels):
+        return metrics.REGISTRY.counter(name, labels or None).value
+
+    t_phase = time.perf_counter()
+    launches = {name: 0 for name, _ in COUNTERS}
+    report = {"streams": TAKEOVER_N, "partitions": STREAM_P, "consumers": STREAM_C,
+              "backend": "object", "lease_ttl_s": TAKEOVER_TTL_S}
+    svcs = []
+    with tempfile.TemporaryDirectory(prefix="klba-takeover-") as root:
+        fleet = TakeoverFleet(device, root, launches)
+        try:
+            # A: serial cold chains, two concurrent warm waves, a snapshot,
+            # then a crash (stop without the drain: the lease stays held).
+            a, boot_a = fleet.boot()
+            svcs.append(a)
+            cold = []
+            lags = fleet.lags()
+            with service.AssignorServiceClient(*a.address, timeout_s=600) as client:
+                for sid in fleet.sids:
+                    t0 = time.perf_counter()
+                    result, grew = counted(lambda: client.stream_assign(
+                        sid, "t0", wire_rows(lags[sid]), fleet.members,
+                        options=SIDECAR_STREAM_OPTS))
+                    cold.append((time.perf_counter() - t0) * 1e3)
+                    add_counts(launches, grew)
+                    fleet.check("A cold", sid, result, cold=True)
+                    if device.type == "cuda" and grew["rounds_scan"] != 1:
+                        raise AssertionError(f"takeover A cold {sid}: launches {grew}")
+            waves = [fleet.wave(a, f"A warm wave {k}", fleet.lags()) for k in range(2)]
+            if device.type == "cuda" and not all(w["launches"]["state_digest_rows"] for w in waves):
+                raise AssertionError("takeover A: a warm wave did not go through the coalescer")
+            if not a.snapshot_now()["ok"]:
+                raise AssertionError("takeover A: the snapshot was not written")
+            choices_a = {sid: a._streams[sid].engine.export_state() for sid in fleet.sids}
+            a.stop()
+            report["a"] = {"boot_ms": boot_a, "cold_chain_ms": cold,
+                           "warm_waves_ms": [w["wall_ms"] for w in waves]}
+            log(f"takeover A: cold chains {cold} ms, warm waves "
+                f"{report['a']['warm_waves_ms']} ms; snapshot written, A stopped holding "
+                "the lease")
+
+            # B: the crash takeover, paced, then A's stale write.
+            lags_b = fleet.lags()
+            want_b = fleet.baseline(choices_a, lags_b)
+            paced = series("klba_resync_paced_total")
+            b, boot_b = fleet.boot(resync_max_inflight=TAKEOVER_INFLIGHT)
+            svcs.append(b)
+            crash = takeover_boot(b, boot_b, "takeover_crash")
+            crash["storm"] = fleet.wave(b, "B storm", lags_b, want_b, warm_restart=True)
+            crash["paced"] = series("klba_resync_paced_total") - paced
+            crash["high_water"] = b._resync_pacer.high_water
+            if device.type == "cuda" and crash["storm"]["launches"]["rounds_scan"]:
+                raise AssertionError(f"takeover B storm: {crash['storm']['launches']}")
+            if crash["high_water"] > TAKEOVER_INFLIGHT:
+                raise AssertionError(f"takeover B: {crash['high_water']} dense rebuilds at once")
+            fenced = series("klba_snapshot_writes_total", outcome="fenced")
+            version = b._snapshot_store.backend.version()
+            stale = a.snapshot_now()
+            overwrites = int(bool(stale.get("ok"))) + int(
+                b._snapshot_store.backend.version() != version)
+            report["fenced_stale_writes"] = series("klba_snapshot_writes_total",
+                                                   outcome="fenced") - fenced
+            report["adopted_state_overwrites"] = overwrites
+            if overwrites or report["fenced_stale_writes"] != 1 or not stale.get("fenced"):
+                raise AssertionError(f"takeover: A's stale write answered {stale}; "
+                                     f"{overwrites} overwrites")
+            log(f"takeover: A's stale write fenced ({stale.get('error')}); backend version "
+                f"{version} unmoved; B paced {crash['paced']} epochs, high water "
+                f"{crash['high_water']}")
+
+            # B's second wave (through the coalescer), then the drain.
+            lags_b2 = fleet.lags()
+            want_b2 = fleet.baseline(choices_a, lags_b, lags_b2)
+            crash["wave_2"] = fleet.wave(b, "B wave 2", lags_b2, want_b2)
+            if device.type == "cuda" and not crash["wave_2"]["launches"]["state_digest_rows"]:
+                raise AssertionError("takeover B: wave 2 did not go through the coalescer")
+            choices_b = {sid: b._streams[sid].engine.export_state() for sid in fleet.sids}
+            t0 = time.perf_counter()
+            if not b.begin_drain() or not b.wait_stopped(120):
+                raise AssertionError("takeover B: the drain did not finish")
+            crash["drain_ms"] = (time.perf_counter() - t0) * 1e3
+
+            # C: the drain hand-off with the pre-stack.
+            lags_c = fleet.lags()
+            want_c = fleet.baseline(choices_b, lags_c)
+            c, boot_c = fleet.boot(recovery_prestack=True)
+            svcs.append(c)
+            drain = takeover_boot(c, boot_c, "takeover_drain")
+            if drain["waited_ms"] >= 5_000.0 or drain["streams_prestacked"] != TAKEOVER_N:
+                raise AssertionError(f"takeover C: {drain}")
+            stale_resident = [sid for sid in fleet.sids
+                              if c._streams[sid].engine.needs_dense_resync]
+            if stale_resident:
+                raise AssertionError(f"takeover C: not pre-stacked: {stale_resident}")
+            drain["storm"] = fleet.wave(c, "C storm", lags_c, want_c, warm_restart=True)
+            # The pacer gives a slot only to an epoch whose resident state
+            # must be rebuilt from a dense upload.
+            drain["dense_rebuilds"] = c._resync_pacer.high_water
+            if device.type == "cuda" and drain["storm"]["launches"]["rounds_scan"]:
+                raise AssertionError(f"takeover C storm: {drain['storm']['launches']}")
+            if drain["dense_rebuilds"]:
+                raise AssertionError("takeover C: a first epoch rebuilt its resident densely")
+        finally:
+            for svc in svcs:
+                svc.stop()
+    report.update(crash=crash, drain=drain, launches=launches,
+                  builds=sum(leg["storm"]["builds"] for leg in (crash, drain))
+                  + crash["wave_2"]["builds"],
+                  seconds=time.perf_counter() - t_phase, card=CARD[0] if CARD else None)
+    log(f"main path (takeover): launches {launches}; {report['seconds']:.3f} s")
+    return launches, report
+
+
 SOURCES = {
     "rounds_scan": ("csrc/rounds_scan.cu", "ops/rounds_pallas.py:194"),
     "plan_stats": ("csrc/plan_stats.cu", "ops/plan_stats.py:184"),
@@ -6601,6 +6905,12 @@ def main() -> int:
         log(json.dumps({"wide_paths": report, "max_abs_err": errs, "device": name},
                        default=str))
         return 0
+    if sys.argv[1:] == ["--takeover"]:
+        build()
+        launches, report = takeover_path(device)
+        log(f"card: {CARD[0]}")
+        log(json.dumps({"takeover": report, "device": name}, default=str))
+        return 0
     if sys.argv[1:] == ["--lifecycle"]:
         build()
         launches, lifecycle = lifecycle_path(device, StreamRun(device).run())
@@ -6614,6 +6924,7 @@ def main() -> int:
         log(json.dumps({"device_share": profiled_assign(cfg, solver, refine_iters, device)}))
         return 0
     build()
+    lap("1-2")
     skew = [profiler_skew("after the builds")]
     max_err = kernels_vs_plain(device)
     f32_err = quality_kernels_vs_plain(device)
@@ -6623,22 +6934,38 @@ def main() -> int:
     scan_err, k7_plain_cpu_ms = scan_vs_plain(device)
     refine_batched_vs_cpu(device)
     native_vs_rounds(device)
+    lap("3")
     rounds_launches, answers = main_path(device)
+    lap("4a")
     launches = sinkhorn_path(device)
+    lap("4b")
     stream_launches, stream_run = streaming_path(device)
+    lap("4c")
     solver_launches = solver_path(device)
+    lap("4d")
     ladder_launches, ladder = ladder_path(device)
+    lap("4e")
     skew.append(profiler_skew("before phase 4f"))
     sidecar_launches, sidecar = sidecar_path(device, answers, stream_run)
     skew.append(profiler_skew("after phase 4f"))
+    lap("4f")
     lifecycle_launches, lifecycle = lifecycle_path(device, stream_run)
+    lap("4g")
     coalesce_launches, digest_rows_err, digest_rows_t, coalesce = coalesce_path(device)
+    lap("4h")
     sharded_launches, k5_shard_err, sharded = sharded_path(device)
+    lap("4i")
     placement_launches, shard_digest_err, shard_digest_t, placement = placement_path(
         device, coalesce["multistream_32g"]["coalesced_wave_ms"])
+    lap("4j")
     federation_launches, fed_k3_err, federation = federation_path(device)
+    lap("4k")
     wide_launches, wide, wide_answers = wide_path(device)
+    lap("4l")
     paths_launches, paths_err, wide_paths_report = wide_paths(device, wide_answers)
+    lap("4m")
+    takeover_launches, takeover = takeover_path(device)
+    lap("4n")
     launches["rounds_scan"] += (rounds_launches + stream_launches["rounds_scan"]
                                 + solver_launches["rounds_scan"]
                                 + ladder_launches["rounds_scan"])
@@ -6665,8 +6992,12 @@ def main() -> int:
     # stream, the coalescer's waves (batched K6), the sharded duals (K5 a
     # shard), the topic axis and the sharded tail (K1), the placed stream
     # (K6's shard entry) and federation (K3, K1 on the local_only rung).
+    # Phase 4n: K1 in sidecar A's cold chains and the boots' warm-ups, K6's
+    # single entry in the restarted dispatches and the pre-stack, its batched
+    # entry in the coalesced waves.
     for k, v in (*placement_launches.items(), *federation_launches.items(),
-                 *wide_launches.items(), *paths_launches.items()):
+                 *wide_launches.items(), *paths_launches.items(),
+                 *takeover_launches.items()):
         launches[k] += v
     f32_err["superblock_partials"] = max(f32_err["superblock_partials"], k5_shard_err,
                                          paths_err["superblock_partials"])
@@ -6685,6 +7016,7 @@ def main() -> int:
     k7 = solver_times(device, k7_plain_cpu_ms)
     device_shares(device)
     skew.append(profiler_skew("after phase 5"))
+    lap("5")
     line = [dict(kernel_line("rounds_scan", launches["rounds_scan"], max_err, k1),
                  also_replaces="kafka_lag_based_assignor_tpu/ops/rounds_pallas.py:160")]
     for k, t in quality.items():
@@ -6714,8 +7046,10 @@ def main() -> int:
     log(json.dumps({"federation": federation}, default=str))
     log(json.dumps({"wide": wide}, default=str))
     log(json.dumps({"wide_paths": wide_paths_report}, default=str))
+    log(json.dumps({"takeover": takeover}, default=str))
     log(json.dumps({"profiler": {"skew": skew, "sessions": SESSIONS,
                                  "pad_s": PROFILER_PAD_S, "skew_pad_s": SKEW_PAD_S}}))
+    log(json.dumps({"phases_s": PHASE_S}))
     log(f"card: {CARD[0]}")
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
