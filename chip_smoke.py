@@ -119,7 +119,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       <= the greedy one, equals the port's CPU path and ``scan`` + refine;
    e. the fault ladder at BASELINE config 5: first the watchdog's cost,
       ``assign()`` at configs 5 and 3 ``rounds`` with the default deadline
-      and with ``solve.timeout.ms=0`` (inline) in turns (medians of 3
+      and with ``solve.timeout.ms=0`` (inline) in turns (medians of 2
       each); then assignors (``rounds``, host rung on,
       ``breaker.failures=1``, an hour's cooldown, ``solve.timeout.ms`` 10x
       the config-5 solve median, at least 1 s) through legs (a) and (b) at
@@ -167,7 +167,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       kernel rule) and ``klba_requests_total{method="stream_assign"}`` in
       the ``metrics`` Prometheus view and on ``GET /metrics``; four
       clients at once, 8 mixed requests each (config 3 ``rounds``,
-      ``sinkhorn`` on 16 of config 3's topics, a stream of its own at
+      ``sinkhorn`` on 4 of config 3's topics, a stream of its own at
       config 3's shape), every answer equal to a lone client's, whose
       answers are held against a sidecar on the CPU (``rounds`` and the
       streams equal, ``sinkhorn`` to phase 4b's rule on both and a quality
@@ -187,13 +187,13 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       the warm-up launches every kernel (its sharded job, with a mesh
       manager, is phase 4i's); (b)
       sidecar A (``snapshot_path`` in a temporary directory) serves two
-      streams through phase 4c's first 10 epochs (each equal to phase 4c's
+      streams through phase 4c's first 6 epochs (each equal to phase 4c's
       choice), ``drain`` over the wire writes the final snapshot and a
       request during the drain is answered ``DrainReject``; sidecar B boots
       on the same snapshot with ``recovery_prestack`` and
       ``recovery_warmup``: ``stats.lifecycle`` reports both streams
       recovered and pre-stacked, load outcome ``ok``, and each stream's next
-      epoch equals phase 4c's epoch 11 bit for bit with no round-scan launch,
+      epoch equals phase 4c's epoch 7 bit for bit with no round-scan launch,
       one digest launch and no build; the boot's walls (recovery, pre-stack,
       recovery warm-up) and the first epochs' walls beside phase 4c's are
       printed; (c) on B, with the scrubber every 100 ms, one flipped bit of
@@ -258,12 +258,13 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       resident state, one K6; the next two digest it with one K6 shard
       launch a shard), ``stats.mesh`` is filled in; then under a ``mesh.collective`` fault the manager degrades one rung
       (the series move) and the stream's cold epoch is single-device and
-      valid; (e) the config-5 cold solves on the host clock (median of 3) at
-      D = 1, 2, 4 for both programs beside the single-device cold solves,
-      and one profiled D = 4 linear solve (device busy, idle share).  These
-      are virtual shards on one card: the times measure the host loop over
-      shards, not multi-GPU scaling.  Its launches of (b)-(d) count into the
-      kernels line, and it prints a JSON ``sharded`` line;
+      valid; (e) with ``--sharded`` alone, the config-5 cold solves on the
+      host clock (median of 3) at D = 1, 2, 4 for both programs beside the
+      single-device cold solves, and one profiled D = 4 linear solve
+      (device busy, idle share).  These are virtual shards on one card: the
+      times measure the host loop over shards, not multi-GPU scaling.  Its
+      launches of (b)-(d) count into the kernels line, and it prints a JSON
+      ``sharded`` line;
    j. placement on 4 virtual shards of the card: (a) K6's shard entry
       (``state_digest_sharded``) on config 5's resident state at D = 1, 2,
       4, 8, clean and with each corruption class, bit for bit against the
@@ -365,26 +366,55 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       (``wide_paths_forms`` there), its differences into ``max_abs_err``,
       and it prints a JSON ``wide_paths`` line;
    n. the fenced takeover, ``bench.py``'s ``handoff_storm`` at config 5's
-      width: 8 streams of 100,000 partitions x 1,000 members (lags uniform
-      in [0, 10^6) from ``default_rng(9000 + i)``, phase 4c's stream
-      options), sidecars on the ``object`` backend (lease TTL 2 s, wait
-      30 s, explicit snapshots), ``coalesce_max_batch=8``, the host rung
-      off.  Sidecar A serves 8 serial cold chains (one K1 each) and two
+      width: ``TAKEOVER_N`` (4) streams of 100,000 partitions x 1,000
+      members (lags uniform in [0, 10^6) from ``default_rng(9000 + i)``,
+      phase 4c's stream options), sidecars on the ``object`` backend (lease
+      TTL 2 s, wait 30 s, explicit snapshots), ``coalesce_max_batch`` 4,
+      the host rung off.  Sidecar A serves 4 serial cold chains (one K1
+      each) and two
       concurrent warm waves through the coalescer (batched K6), snapshots
       and stops holding the lease; B boots with ``resync_max_inflight=2``
-      and must report ``takeover_crash`` and 8 streams recovered, and its
+      and must report ``takeover_crash`` and 4 streams recovered, and its
       concurrent first-epoch storm must be valid, ``warm_restart`` and
       bit-equal to engines on the card seeded with A's choices, with no
       build and no K1, at most 2 dense rebuilds at once; A's stale write
       is then refused as fenced with the backend's version unmoved; B
       serves a second concurrent wave (equal to those engines' next
       epoch) and drains; C boots with ``recovery_prestack`` and must
-      report ``takeover_drain`` within 5 s and 8 streams pre-stacked, and
+      report ``takeover_drain`` within 5 s and 4 streams pre-stacked, and
       its storm must be bit-equal to its own baseline with no build and no
       dense rebuild.  Its launches count into the kernels line, and it
       prints a JSON ``takeover`` line (modes, waits, boot walls, streams
       recovered and pre-stacked, each storm's walls, faults, launches and
       builds, the fenced writes and overwrites);
+   o. the scenario fleet and the trace plane (``bench.py``'s configs 16
+      and 17) through the port's sidecars: (a) the whole corpus of
+      ``kafka_lag_based_assignor_tpu_torch.scenarios`` (all 12 scenarios,
+      fast or not: seeded traces composed with fault planes, replayed over
+      the wire, each gated by its degradation envelope), every sidecar
+      booted with the service kwargs its scenario gives it, so with the
+      host rung ON (the faulted scenarios' envelopes allow rung
+      ``host_snake``; every clean scenario's envelope has ``max_rung=
+      "none"``, so a kernel fault there fails the run instead of falling
+      back), the cross-axis mesh scenario on 8 virtual shards of the card:
+      every envelope must hold, no answer may be invalid, and every steady
+      phase must build nothing; the counts ``bench.py`` reports
+      (scenarios, composed, crash-restart, served, sheds, invalid,
+      quarantines, corruptions planted) are printed; (b) the corpus'
+      ``skew_storm`` (``hot_skew_storm``, seed 1101) at config 5's width,
+      100,000 partitions x 1,000 members, 10 epochs: every epoch valid, at
+      rung ``none``, unshed, no build; its steady churn printed beside the
+      envelope's 0.75 (set at 192 x 4: reported, not gated); (c) the
+      tracing probe: the warm no-op epoch at config 5's shape
+      (``refine_iters`` 64, threshold 1000), the traced scope against the
+      flat request scope by ``bench.py``'s paired estimator, its marginal
+      cost below 1 % of the epoch and no build in the traced loop; two
+      port sidecars at P 2,048, C 8 with ``peer.partition`` injected after
+      the hello: one joined trace of >= 2 segments, kept as anomalous; a
+      coalescing sidecar (4 streams, 3 concurrent rounds): every request
+      trace of the last round linked both ways to its ``coalesce.wave``
+      trace.  Its launches count into the kernels line, and it prints a
+      JSON ``scenarios`` line;
 5. times, with CUDA events, medians of 30 runs after warm-up: each kernel
    alone at its main-path shape, its plain version on the card, the
    library yardstick where there is one, and its bound; the device time
@@ -392,30 +422,32 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    device work one call enqueues (kernels, memsets and copies: "all
    ops"), and of K3's library yardstick (all its ops), the round
    scan's at config 5 and at config 3 ``global`` with its time a round and
-   a network stage, and K4's kernel launches a step; the ``assign()``
-   wall on the host clock at config 5 (``rounds``) and configs 4 and 5
-   (``sinkhorn``; medians of 3 after one warm-up at config 5); then, for each phase-4 cell, one ``assign()`` under
-   ``torch.profiler``: the device's busy time and its idle share of the
-   wall; the streaming epoch walls by type (cold, and the medians of the
+   a network stage, and K4's kernel launches a step; the streaming epoch
+   walls by type (cold, and the medians of the
    no-op, warm-refine and delta epochs), the host reads of a warm epoch and
    one profiled warm-refine epoch; K7 alone at configs 5 and 3 and at the
    direct API's ``K7_TIMED`` shapes (event and device time, time a row,
    rounds x stages, bound; its plain version on the card, a median at
    config 3 and one call on the first 10,000 rows of config 5's processing
-   order, equal to the kernel there and beside its time), the
-   ``assign()`` walls of ``scan`` and ``rounds`` + 16 refine rounds at
-   config 5 (medians of 3), and the device shares of those cells at
-   configs 5 and 3.
+   order, equal to the kernel there and beside its time).
+
+``python3 chip_smoke.py --cells`` measures the phase-4 cells after the
+builds: the ``assign()`` wall on the host clock at config 5 (``rounds``,
+``sinkhorn``, ``scan``, ``rounds`` + 16 refine rounds; medians of 3 after
+one warm-up) and config 4 (``sinkhorn``; median of 30 after 3), split into
+lag read, solve and the rest, then for each phase-4 cell one ``assign()``
+under ``torch.profiler``: the device's busy time and its idle share of the
+wall.
 
 It prints the card's name and power limit, one JSON ``ladder`` line (phase
 4e's legs, drill and watchdog cost), one JSON ``sidecar`` line (phase 4f's
 walls and bytes), one JSON ``lifecycle`` line (phase 4g's warm-up rows,
 boot, first epochs and scrub walls, and its launches), one JSON
 ``coalesce`` line (phase 4h's rates, walls, idle shares and K6 times), one
-JSON ``sharded`` line (phase 4i's checks, K5 times by superblock count,
-walls and idle share), one JSON ``placement``, one JSON ``federation``,
-one JSON ``wide``, one JSON ``wide_paths`` and one JSON ``takeover`` line
-(phases 4j, 4k, 4l, 4m and 4n), one JSON
+JSON ``sharded`` line (phase 4i's checks and K5 times by superblock count;
+with ``--sharded``, the cold solves' walls and idle share), one JSON ``placement``, one JSON ``federation``,
+one JSON ``wide``, one JSON ``wide_paths``, one JSON ``takeover`` and one
+JSON ``scenarios`` line (phases 4j, 4k, 4l, 4m, 4n and 4o), one JSON
 ``profiler`` line (the profiler's clock skew
 after the builds, around phase 4f and after phase 5, and its sessions
 recorded and discarded), one JSON ``phases_s`` line (each phase's seconds,
@@ -425,7 +457,8 @@ result.  ``python3 chip_smoke.py --wide`` runs, after the builds, phase 3's
 checks past 16,384 consumers and phase 4l, and prints the ``wide`` line;
 ``--wide-paths`` runs, after the builds, phase 4l and then phase 4m, and
 prints the ``wide_paths`` line; ``--takeover`` runs, after the builds, phase
-4n alone and prints the ``takeover`` line.
+4n alone and prints the ``takeover`` line; ``--scenarios`` runs, after the
+builds, phase 4o alone and prints the ``scenarios`` line.
 
 ``python3 chip_smoke.py --coalesce`` runs phase 4h alone (after the builds)
 and prints its ``coalesce`` line; ``--sharded`` runs phase 4i alone (after
@@ -468,8 +501,8 @@ in that order, each in a process that imports the port's package from
 that ROOT (its kernels build under ROOT), for example a parent commit
 unpacked with ``git archive`` beside this one: ``--k36-ab parent . .
 parent``.  ``--device-share CFG SOLVER REFINE`` (REFINE 0 for none) prints
-one phase-4 cell's profiled ``assign()`` as JSON: phase 5 runs it when the
-cell's profiler sessions in its own process all lost their records.
+one phase-4 cell's profiled ``assign()`` as JSON: ``--cells`` runs it when
+the cell's profiler sessions in its own process all lost their records.
 """
 
 from __future__ import annotations
@@ -1955,7 +1988,7 @@ def watchdog_call_overhead(device, calls: int = 200) -> dict:
     return out
 
 
-def watchdog_cost(device, pairs: int = 3) -> dict:
+def watchdog_cost(device, pairs: int = 2) -> dict:
     """``assign()`` at configs 5 and 3 ``rounds`` with the watchdog at its
     default (the solve in the ``klba-solve`` worker) and inline
     (``solve.timeout.ms=0``), in turns (w, i, i, w, ...) after one warm-up
@@ -2440,7 +2473,7 @@ def comparable(result: dict, device: bool = True) -> dict:
 # Topics of config 3 in the concurrent leg's ``sinkhorn`` requests: the
 # dense solve of one 64-partition topic is a host loop of small launches,
 # and all 256 topics would hold four clients for minutes.
-SIDECAR_SINKHORN_TOPICS = 16
+SIDECAR_SINKHORN_TOPICS = 4
 
 
 def same_as_cpu(plan, lags, card: list, cpu: list) -> None:
@@ -2651,8 +2684,8 @@ LIFECYCLE_SOLVERS = ("rounds", "scan", "global", "stream", "sinkhorn")
 LIFECYCLE_ROWS = (["stream"] + ["stream_delta"] * 6
                   + ["sinkhorn", "linear", "rounds", "scan", "global"])
 # Phase 4c's epochs each stream of sidecar A serves before the drain; the
-# restart's first epoch is phase 4c's next one.
-LIFECYCLE_EPOCHS = 10
+# restart's first epoch is phase 4c's next one, a warm refine.
+LIFECYCLE_EPOCHS = 6
 LIFECYCLE_SIDS = ("config5-a", "config5-b")
 # The scrubber's cadence on sidecar B.
 LIFECYCLE_SCRUB_MS = 100.0
@@ -2805,9 +2838,9 @@ def timed(fn, into: list):
 
 def lifecycle_restart(device, reference: StreamRun, root: str) -> tuple:
     """4g (b) and (c): sidecar A serves two streams through phase 4c's first
-    10 epochs and drains over the wire; sidecar B boots on its snapshot
+    ``LIFECYCLE_EPOCHS`` epochs and drains over the wire; sidecar B boots on its snapshot
     (pre-stack and recovery warm-up on), and each stream's next epoch is
-    phase 4c's epoch 11, bit for bit, with no cold chain and one digest;
+    phase 4c's next epoch, bit for bit, with no cold chain and one digest;
     then B's scrubber catches a flipped bit of an idle stream's resident
     choice and the next epoch heals.  Returns (the launches, the report)."""
     from kafka_lag_based_assignor_tpu_torch import service
@@ -2821,11 +2854,12 @@ def lifecycle_restart(device, reference: StreamRun, root: str) -> tuple:
     lags = reference_lags(reference, LIFECYCLE_EPOCHS + 2)
     rec = reference.records
     if not rec[LIFECYCLE_EPOCHS][3].refined:
-        raise AssertionError("phase 4c's epoch 11 is not a refine: the restart check needs one")
+        raise AssertionError(f"phase 4c's epoch {LIFECYCLE_EPOCHS + 1} is not a refine: the "
+                             "restart check needs one")
     knobs = dict(port=0, device=device, host_fallback=False, snapshot_path=path,
                  snapshot_interval_s=3600.0, coalesce_max_batch=1)
     report = {}
-    # (b) 1: sidecar A through phase 4c's first 10 epochs, then the drain.
+    # (b) 1: sidecar A through phase 4c's first LIFECYCLE_EPOCHS epochs, then the drain.
     a = service.AssignorService(scrub_interval_ms=0, **knobs).start()
     client = LifecycleClient(a, launches)
     try:
@@ -2886,7 +2920,7 @@ def lifecycle_restart(device, reference: StreamRun, root: str) -> tuple:
         log(f"lifecycle B boot: start() {boot_ms:.3f} ms: recovery "
             f"{recovery['duration_ms']:.3f} ms, prestack {prestack_ms[0]:.3f} ms, recovery "
             f"warm-up {warmup_ms[0]:.3f} ms; {recovery}")
-        # (b) 4: the next epoch of each stream is phase 4c's epoch 11.
+        # (b) 4: the next epoch of each stream is phase 4c's next one.
         builds = compile_count()
         ref = rec[LIFECYCLE_EPOCHS]
         first = {}
@@ -3830,11 +3864,11 @@ def sharded_times(device, lags: np.ndarray) -> dict:
     raise AssertionError("sharded 4i(e): no profiler session recorded K5")
 
 
-def sharded_path(device) -> tuple:
+def sharded_path(device, times: bool = False) -> tuple:
     """Phase 4i: (a) K5 at every superblock count a shard takes, (b) config
     5's sharded cold solves, (c) the topic-axis backend, (d) the sidecar
-    with ``mesh_devices=4``, (e) times.  Every shard is a virtual shard on
-    the card.  Returns (the launches of the driven paths (b)-(d), K5's max
+    with ``mesh_devices=4``, and with ``times`` (``--sharded``) (e) the
+    cold solves' times.  Every shard is a virtual shard on the card.  Returns (the launches of the driven paths (b)-(d), K5's max
     |diff| at the shard shapes, the ``sharded`` line)."""
     from kafka_lag_based_assignor_tpu_torch.sharded import mesh as mesh_mod
 
@@ -3849,7 +3883,8 @@ def sharded_path(device) -> tuple:
         report["cold"], want4 = sharded_cold_solves(device, lags, launches)
         report["topics"] = sharded_topics(device, launches)
         report["sidecar"] = sharded_sidecar(device, lags, want4, launches)
-        report["times"] = sharded_times(device, lags)
+        if times:
+            report["times"] = sharded_times(device, lags)
     finally:
         mesh_mod.set_virtual_shards(None)
     report["launches"] = dict(launches)
@@ -4769,14 +4804,13 @@ def k1_times(device, cases=None) -> dict:
 
 
 # assign() walls at config 5 take about 2-3 s each: their medians are of
-# fewer runs, so that the script stays well inside its time limit.
+# fewer runs.
 CONFIG5_WALL_REPEATS = 3
-# The warm-ups before each config-5 median: phases 4a-4d have run every
-# config-5 cell's solver on the card before phase 5, and in one run on the
-# H100 the medians after one and after three warm-ups differed by less than
-# the three timed calls' own spread (PERF.md).
+# The warm-ups before each config-5 median: in one run on the H100 the
+# medians after one and after three warm-ups differed by less than the
+# three timed calls' own spread (PERF.md).
 CONFIG5_WARMUPS = 1
-# The config-5 assignors phase 5's medians warmed, by (cfg, solver, refine):
+# The config-5 assignors the medians warmed, by (cfg, solver, refine):
 # ``profiled_assign`` profiles those cells on them.
 WARMED = {}
 
@@ -4812,8 +4846,7 @@ def assign_walls(cfg: int, solver: str, device, repeats: int = REPEATS, refine=N
 
 def times(device) -> dict:
     """K1 at config 5 (the launch alone, through the wrapper, the plain
-    version), ``k1_times`` and the config-5 ``rounds`` walls.  Returns the
-    kernels-line fields."""
+    version) and ``k1_times``.  Returns the kernels-line fields."""
     lags, members = baseline_workload(5)
     P = lags["t0"].size
     C = len(members)
@@ -4832,13 +4865,26 @@ def times(device) -> dict:
         f"wrapper with its checks {wrapper!r} ms, plain version on the card {plain!r} ms "
         f"(its two-key body {plain_two_key!r} ms), bound {bound!r} ms ({bound_by})")
     alone = k1_times(device)["config 5"]["alone_ms"]
-    wall, lag_read, solve, fastest = assign_walls(5, "rounds", device)
-    log(f"assign() at config 5 rounds, medians of {CONFIG5_WALL_REPEATS} (host clock): wall "
-        f"{wall!r} ms (min {fastest!r}), of which lag read {lag_read!r} ms "
-        f"(FakeBroker), solve {solve!r} ms, the rest (stats, result objects) "
-        f"{wall - lag_read - solve!r} ms; the kernel is {kernel / wall:.4%} of the wall")
     return dict(ms=kernel, alone_ms=alone, plain_ms=plain, bound_ms=bound, bound_by=bound_by,
                 library_ms=None)
+
+
+def cell_times(device) -> None:
+    """``--cells``: the ``assign()`` walls of the phase-4 cells on the host
+    clock, medians of ``CONFIG5_WALL_REPEATS`` at config 5 (``rounds``,
+    ``sinkhorn``, ``scan``, ``rounds`` + 16 refine rounds) and of
+    ``REPEATS`` at config 4 (``sinkhorn``), each split into lag read, solve
+    and the rest, then every cell's device share (``device_shares``).
+    These measure cells; the checks of those cells are phases 4a-4d's."""
+    for cfg, solver, refine_iters in ((5, "rounds", None), (4, "sinkhorn", None),
+                                      (5, "sinkhorn", None), (5, "scan", None),
+                                      (5, "rounds", REFINE_ITERS)):
+        wall, lag_read, solve, fastest = assign_walls(cfg, solver, device, refine=refine_iters)
+        log(f"assign() at config {cfg} {solver} refine {refine_iters}, medians of "
+            f"{CONFIG5_WALL_REPEATS if cfg == 5 else REPEATS} (host clock): wall {wall!r} ms "
+            f"(min {fastest!r}), lag read {lag_read!r} ms (FakeBroker), solve {solve!r} ms, "
+            f"the rest (stats, result objects) {wall - lag_read - solve!r} ms")
+    device_shares(device)
 
 
 def k7_cases(device):
@@ -4963,9 +5009,8 @@ def solver_times(device, plain_cpu_ms: dict) -> dict:
     """K7's times (``k7_times``), its plain version on the card at configs 5
     (one call on the first K7_PLAIN_ROWS rows of the processing order, a
     torch loop of as many steps, whose output must equal the kernel's on
-    the same rows, and the kernel's time there) and 3 (median), and the
-    ``assign()`` walls of ``scan`` and of ``rounds`` + 16 refine rounds at
-    config 5, medians of ``CONFIG5_WALL_REPEATS``.  Returns the kernels-line fields: the standard
+    the same rows, and the kernel's time there) and 3 (median).  Returns
+    the kernels-line fields: the standard
     ones at config 5, where K7 spends its time (``plain_ms`` on the cut
     rows, beside the kernel's ``plain_rows_ms`` there); config 3's under
     ``config3_*``; the CPU plain version's time from phase 3 (all config
@@ -4985,12 +5030,6 @@ def solver_times(device, plain_cpu_ms: dict) -> dict:
         log(f"times  scan_greedy's plain version on the card at {name}: {plain!r} ms"
             + (f" (one call on the first {K7_PLAIN_ROWS} rows; the kernel there "
                f"{k7[name]['plain_rows_ms']!r} ms)" if name == "config 5" else ""))
-    for solver, refine_iters in (("scan", None), ("rounds", REFINE_ITERS)):
-        wall, lag_read, solve, fastest = assign_walls(5, solver, device, refine=refine_iters)
-        log(f"assign() at config 5 {solver} refine {refine_iters}, medians of "
-            f"{CONFIG5_WALL_REPEATS} (host "
-            f"clock): wall {wall!r} ms (min {fastest!r}), lag read {lag_read!r} ms, solve "
-            f"{solve!r} ms")
     c3, c5 = k7["config 3"], k7["config 5"]
     return dict(ms=c5["event_ms"], alone_ms=c5["alone_ms"], plain_ms=c5["plain_ms"],
                 bound_ms=c5["bound_ms"], bound_by=c5["bound_by"], library_ms=None,
@@ -5310,12 +5349,6 @@ def quality_times(device) -> dict:
             f"alone {t['alone_ms']!r} ms, all ops {t['all_ops_ms']!r} ms), plain version "
             f"{t['plain_ms']!r} ms, library yardstick {t['library_ms']!r} ms, bound "
             f"{t['bound_ms']!r} ms ({t['bound_by']}), {t['ms'] / t['bound_ms']:.1f}x the bound")
-    for cfg in (4, 5):
-        wall, lag_read, solve, fastest = assign_walls(cfg, "sinkhorn", device)
-        log(f"assign() at config {cfg} sinkhorn, medians of "
-            f"{CONFIG5_WALL_REPEATS if cfg == 5 else REPEATS} (host clock): "
-            f"wall {wall!r} ms (min {fastest!r}), lag read {lag_read!r} ms, solve "
-            f"{solve!r} ms ({solve / wall:.2%} of the wall)")
     return out
 
 
@@ -6391,7 +6424,7 @@ def wide_paths(device, answers: dict) -> tuple:
 # bench.py's handoff_storm (config 10) at config 5's width: N streams of
 # STREAM_P x STREAM_C behind sidecars that share one object backend, its
 # lease TTL and wait, and sidecar B's cap on concurrent dense rebuilds.
-TAKEOVER_N = 8
+TAKEOVER_N = 4
 TAKEOVER_TTL_S = 2.0
 TAKEOVER_WAIT_S = 30.0
 TAKEOVER_INFLIGHT = 2
@@ -6642,6 +6675,455 @@ def takeover_path(device) -> tuple:
     return launches, report
 
 
+# -- phase 4o: the scenario fleet and the trace plane ------------------------
+
+# bench.py's scenario_fleet (config 16) runs the whole corpus; its
+# skew_storm scenario runs again at config 5's width (the trace's own
+# generator, seed and schedule; 10 epochs), where the envelope's churn
+# bound (set at 192 x 4) is reported, not gated.
+SKEW_P, SKEW_C, SKEW_EPOCHS = STREAM_P, STREAM_C, 10
+# bench.py's tracing probe (config 17): the warm no-op epoch's engine at
+# config 5's shape, the paired estimator's pairs, the 1 % budget
+# (bench.py's gate), and the sidecars' shape for the federated join and the
+# wave links.
+TRACE_NOOP_ITERS, TRACE_NOOP_THRESHOLD = 64, 1000.0
+TRACE_NULL_PAIRS, TRACE_PAIRS, TRACE_P50_RUNS = 600, 2400, 200
+TRACE_BUDGET = 0.01
+TRACE_P, TRACE_C, TRACE_W = 2048, 8, 4
+
+
+# Row ids a corrupted row table can hold for phase 4o's 512-row states:
+# one past the end (the next row's first slot in a stacked wave), far past
+# it, a high bit flipped, negative past one wrap.
+CORRUPT_ROWS = (513, 512 + 12345, 2**30, -(512 + 7))
+
+
+def corrupted_refine(device) -> dict:
+    """4o, first: the refine bodies on a corrupted row table, on the card,
+    against the same call on the CPU (the plain path).  Three resident
+    states (P 480 of B 512, C 8; a rounds solve, then drifted lags), row 1's
+    heaviest and lightest consumers' first slots overwritten with each of
+    ``CORRUPT_ROWS``: the wave's batched refine (``coalesce._epoch_rows``)
+    and the single-stream refine (both bodies) must finish without a
+    device-side assert and give the CPU's bits, the clean rows' answers
+    included (the ``wave_corruption`` scenario's flips once ended the
+    sidecar's CUDA context here).  Returns the cases held."""
+    from kafka_lag_based_assignor_tpu_torch.ops import coalesce
+    from kafka_lag_based_assignor_tpu_torch.ops.packing import table_rows
+    from kafka_lag_based_assignor_tpu_torch.ops.rounds_kernel import assign_topic_rounds
+
+    rng = np.random.default_rng(7)
+    N, P, B, C = 3, 480, 512, 8
+    rows = []
+    for _ in range(N):
+        lags = np.zeros(B, np.int64)
+        lags[:P] = rng.integers(10**6, 10**8, P)
+        lt = torch.from_numpy(lags)
+        valid = torch.arange(B) < P
+        choice, _, _ = assign_topic_rounds(lt, torch.arange(B, dtype=torch.int32), valid, C,
+                                           n_valid=P)
+        lags[:P] = rng.integers(10**6, 10**8, P)
+        tab, counts, totals = refine.build_choice_tables(lt, valid, choice, C, table_rows(B, C))
+        rows.append((lt, choice.to(torch.int32), tab, counts, totals))
+    held = []
+    for bad in CORRUPT_ROWS:
+        stacked = [torch.stack([r[k] for r in rows]) for k in range(5)]
+        for c in (int(rows[1][4].argmax()), int(rows[1][4].argmin())):
+            stacked[2][1, c, :5] = bad
+        limits = torch.full((N,), -1.0, dtype=torch.float64)
+
+        def wave(dev):
+            lags, choice, tab, counts, _ = (t.to(dev) for t in stacked)
+            return coalesce._epoch_rows(lags.to(torch.int32), choice, tab, counts,
+                                        limits.to(dev), C, 32, 4, 32)
+
+        def single(dev, bulk):
+            kw = dict(bulk_transfer=True, fan=8) if bulk else {}
+            return refine.refine_rounds_resident(
+                *(t[1].to(dev) for t in stacked), C, iters=32, max_pairs=4,
+                exchange_budget=32, quality_limit=-1.0, **kw)
+
+        for label, run in (("wave", wave), ("parity", lambda d: single(d, False)),
+                           ("bulk", lambda d: single(d, True))):
+            got, want = run(device), run(torch.device("cpu"))
+            sync(device)
+            for k, (g, w) in enumerate(zip(got, want)):
+                g = g.cpu() if isinstance(g, torch.Tensor) else torch.as_tensor(g)
+                w = w if isinstance(w, torch.Tensor) else torch.as_tensor(w)
+                if not torch.equal(g, w):
+                    raise AssertionError(f"scenarios 4o: the {label} refine on a row table "
+                                         f"holding {bad} differs from the CPU in output {k}")
+            held.append(f"{label} {bad}")
+    log(f"scenarios 4o: the refine bodies on corrupted row tables ({list(CORRUPT_ROWS)}) on "
+        f"the card equal the CPU bit for bit, no device-side assert: {len(held)} cases")
+    return {"cases": held}
+
+
+def fleet_leg(device) -> dict:
+    """4o (a): the whole corpus (all 12 scenarios, fast or not) through the
+    port's sidecars on ``device``, each booted with the service kwargs the
+    corpus gives it (the host rung on, as the faulted scenarios' envelopes
+    need; every clean scenario's envelope has ``max_rung="none"``, so a
+    kernel fault there fails the run instead of hiding behind the host
+    rung); the cross-axis mesh scenario on 8 virtual shards of the card.
+    Every envelope must hold, no assignment may be invalid, and every
+    steady phase must build nothing (the kernels were built in phase 2)."""
+    from kafka_lag_based_assignor_tpu_torch.scenarios import CORPUS, run_fleet
+
+    reset_counts()
+    t0 = time.perf_counter()
+    fleet = run_fleet(device=device, log=log)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    rows = fleet["scenarios"]
+    steady_builds = {r["scenario"]: r["compiles_by_phase"].get("steady", 0)
+                     for r in rows if r.get("compiles_by_phase") is not None}
+    report = {
+        "scenarios": len(rows),
+        "composed_fault_scenarios": sum(
+            1 for r in rows
+            if len(r["planes"]) >= 2 or (r["planes"] and r["crash_epoch"] is not None)),
+        "crash_restart_scenarios": sum(1 for r in rows if r["crash_epoch"] is not None),
+        "served": sum(r["served"] for r in rows),
+        "sheds": sum(r["sheds"] for r in rows),
+        "invalid": sum(r["invalid"] for r in rows),
+        "quarantines": sum(r.get("quarantines", 0) for r in rows),
+        "corruptions_planted": sum(r.get("corruptions_planted", 0) for r in rows),
+        "twin_mismatches": {r["scenario"]: r["twin_mismatches"] for r in rows
+                            if r.get("twin_mismatches") is not None},
+        "mesh_degrades": {r["scenario"]: r["mesh_degrades"] for r in rows
+                          if r.get("mesh_degrades")},
+        "steady_builds": steady_builds,
+        "wall_s": {r["scenario"]: r["wall_s"] for r in rows},
+        "violations": fleet["violations"],
+        "failed": [(r["scenario"], r["violations"]) for r in rows if r["violations"]],
+        "launches": launches, "seconds": seconds,
+    }
+    fed = [r for r in rows if "federation_ladder" in r]
+    report["federation_ladder"] = {r["scenario"]: [e["rung"] for e in r["federation_ladder"]]
+                                   for r in fed}
+    log(f"scenarios 4o(a): {report['scenarios']} scenarios ({report['composed_fault_scenarios']} "
+        f"composed, {report['crash_restart_scenarios']} crash-restart), served "
+        f"{report['served']}, sheds {report['sheds']}, invalid {report['invalid']}, quarantines "
+        f"{report['quarantines']}, corruptions planted {report['corruptions_planted']}, "
+        f"violations {report['violations']}; steady builds {steady_builds}; launches "
+        f"{launches}; {seconds:.1f} s")
+    if (not fleet["ok"] or len(rows) != len(CORPUS) or report["invalid"]
+            or any(steady_builds.values()) or len(steady_builds) != len(rows) - len(fed)):
+        raise AssertionError(f"scenarios 4o(a): {report}")
+    # K1 and K6 in every stream scenario, K3 in the federated one's
+    # exchanges, K5 and K6's shard entry in the mesh scenario's sharded
+    # solves and placed state.
+    if device.type == "cuda" and not all(launches[k] for k in (
+            "rounds_scan", "plan_stats", "superblock_partials", "state_digest",
+            "state_digest_rows", "state_digest_sharded")):
+        raise AssertionError(f"scenarios 4o(a): a kernel of the fleet's paths never "
+                             f"launched: {launches}")
+    return report
+
+
+def skew_storm_wide(device) -> dict:
+    """4o (b): the corpus' ``skew_storm`` (``hot_skew_storm``, seed 1101)
+    at config 5's width, ``SKEW_P`` x ``SKEW_C``, ``SKEW_EPOCHS`` epochs,
+    through a port sidecar on ``device`` booted with the scenario's kwargs
+    (its warm-up at that shape): every epoch answered, valid (complete,
+    count spread <= 1), at rung ``none`` and unshed, no build in any phase;
+    the steady churn is reported beside the envelope's bound."""
+    from kafka_lag_based_assignor_tpu_torch.scenarios import corpus, evaluate, generate
+    from kafka_lag_based_assignor_tpu_torch.scenarios.replay import replay
+
+    sc = corpus.get_scenario("skew_storm")
+    trace = generate(sc.trace, sc.seed, partitions=SKEW_P, consumers=SKEW_C,
+                     epochs=SKEW_EPOCHS)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = replay(trace, service_kwargs=dict(sc.service_kwargs), device=device)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    recs = res.records
+    steady = [r.churn for r in recs if r.phase == "steady" and r.churn is not None]
+    violations = evaluate(res, sc.envelope)
+    report = {
+        "partitions": SKEW_P, "consumers": SKEW_C, "epochs": len(trace.epochs),
+        "trace_sha256": res.trace_sha256,
+        "rungs": [r.rung for r in recs], "valid": [r.valid for r in recs],
+        "latency_ms": [r.latency_ms for r in recs], "churn": [r.churn for r in recs],
+        "steady_churn_max": max(steady), "churn_bound": sc.envelope.max_steady_churn,
+        "builds_by_phase": res.compiles_by_phase, "envelope_violations": violations,
+        "replay_wall_s": res.wall_s, "launches": launches, "seconds": seconds,
+    }
+    log(f"scenarios 4o(b): skew_storm at {SKEW_P} x {SKEW_C}, {len(recs)} epochs: rungs "
+        f"{report['rungs']}, epoch walls {[round(x) for x in report['latency_ms']]} ms, "
+        f"steady churn max {report['steady_churn_max']!r} (envelope bound "
+        f"{sc.envelope.max_steady_churn}, reported), builds {res.compiles_by_phase}, "
+        f"launches {launches}; {seconds:.1f} s")
+    if (len(recs) != SKEW_EPOCHS or not all(r.ok and r.valid for r in recs)
+            or any(r.rung != "none" or r.shed is not None for r in recs)
+            or any(res.compiles_by_phase.values())
+            or [v for v in violations if not v.startswith("steady-state churn")]):
+        raise AssertionError(f"scenarios 4o(b): {report}")
+    if device.type == "cuda" and not (launches["rounds_scan"] and launches["state_digest"]):
+        raise AssertionError(f"scenarios 4o(b): launches {launches}")
+    return report
+
+
+def trace_overhead(device) -> dict:
+    """4o (c) 1: bench.py's tracing cost on the warm no-op epoch at config
+    5's shape (``refine_iters`` 64, threshold 1000), the traced client scope
+    against the flat request scope the sidecar wrapped every request in
+    before the trace plane, by bench.py's order-cancelling paired estimator
+    (alternating order, 20 %-trimmed means per order, averaged), at the
+    default healthy sample rate 0.01; no build in the traced loop."""
+    from contextlib import contextmanager
+
+    from kafka_lag_based_assignor_tpu_torch.utils import metrics as m
+    from kafka_lag_based_assignor_tpu_torch.utils import trace as trace_mod
+    from kafka_lag_based_assignor_tpu_torch.utils.observability import (
+        compile_count,
+        install_compile_counter,
+    )
+
+    install_compile_counter()
+    coll = trace_mod.collector()
+    prev_rate = coll.sample_rate
+    coll.sample_rate = 0.01
+    lags = np.random.default_rng(8).integers(1, 10**6, size=STREAM_P)
+    eng = streaming.StreamingAssignor(num_consumers=STREAM_C, refine_iters=TRACE_NOOP_ITERS,
+                                      refine_threshold=TRACE_NOOP_THRESHOLD, device=device)
+    eng.rebalance(lags)
+    eng.rebalance(lags)
+    with m.request_scope(kind="client", root_name="client"):
+        eng.rebalance(lags)
+
+    @contextmanager
+    def flat_scope():
+        ctx = m._RequestCtx(m.mint_request_id(), m.REGISTRY.clock())
+        m._tls.ctx = ctx
+        try:
+            yield
+        finally:
+            m._tls.ctx = None
+            m._teardown_ctx(ctx, finish=True)
+
+    def run(scope):
+        def one():
+            t0 = time.perf_counter()
+            with scope():
+                eng.rebalance(lags)
+            return (time.perf_counter() - t0) * 1e6
+        return one
+
+    plain = run(flat_scope)
+    traced = run(lambda: m.request_scope(kind="client", root_name="client"))
+
+    def trimmed_mean(xs, frac=0.2):
+        xs = np.sort(np.asarray(xs))
+        k = int(len(xs) * frac)
+        return float(xs[k: len(xs) - k].mean())
+
+    def paired_delta(fa, fb, pairs):
+        ab, ba = [], []
+        for i in range(pairs):
+            if i & 1:
+                b = fb()
+                ba.append(b - fa())
+            else:
+                a = fa()
+                ab.append(fb() - a)
+        return (trimmed_mean(ab) + trimmed_mean(ba)) / 2
+
+    try:
+        builds = compile_count()
+        null_us = paired_delta(plain, plain, TRACE_NULL_PAIRS)
+        marginal_us = paired_delta(plain, traced, TRACE_PAIRS)
+        warm_builds = compile_count() - builds
+        p50_us = float(np.percentile([plain() for _ in range(TRACE_P50_RUNS)], 50))
+    finally:
+        coll.sample_rate = prev_rate
+    ratio = max(0.0, marginal_us) / p50_us
+    out = {"noop_p50_ms": p50_us / 1e3, "marginal_us": marginal_us, "null_us": null_us,
+           "overhead_ratio": ratio, "budget": TRACE_BUDGET, "warm_builds": warm_builds,
+           "noop": not (eng.last_stats.refined or eng.last_stats.cold_start)}
+    log(f"scenarios 4o(c) tracing: no-op epoch p50 {out['noop_p50_ms']!r} ms, marginal "
+        f"{marginal_us!r} us (estimator null {null_us!r} us), overhead {ratio:.4%}, "
+        f"{warm_builds} builds in the traced loop")
+    if ratio >= TRACE_BUDGET or warm_builds or not out["noop"]:
+        raise AssertionError(f"scenarios 4o(c) tracing overhead: {out}")
+    return out
+
+
+def settled_traces(coll, trace_id, want: int = 1, deadline_s: float = 10.0) -> list:
+    t0 = time.perf_counter()
+    while True:
+        got = coll.traces(trace_id=trace_id)
+        if len(got) >= want or time.perf_counter() - t0 > deadline_s:
+            return got
+        time.sleep(0.01)
+
+
+def trace_federated_join(device) -> dict:
+    """4o (c) 2: bench.py's two-sidecar drill on the card: two port
+    sidecars federated at P ``TRACE_P`` (a shard each), C ``TRACE_C``; both
+    shards registered and the dual cache warmed; then sidecar 0's
+    ``federated_assign`` with ``peer.partition`` injected after the hello
+    (the context crosses, every exchange round then fails): a degraded
+    rung, and ``join_trace`` over the kept segments rebuilds ONE complete
+    trace of >= 2 segments whose origin is kept as anomalous."""
+    from kafka_lag_based_assignor_tpu_torch import service
+    from kafka_lag_based_assignor_tpu_torch.utils import faults
+    from kafka_lag_based_assignor_tpu_torch.utils import trace as trace_mod
+
+    coll = trace_mod.collector()
+    prev_rate = coll.sample_rate
+    coll.sample_rate = 1.0
+    rng = np.random.default_rng(0x7AC17)
+    shards = [rng.integers(0, 10**6, TRACE_P).astype(np.int64) for _ in range(2)]
+    members = [f"m{j}" for j in range(TRACE_C)]
+    ids = ("tr0", "tr1")
+    svcs, clients = [], []
+    try:
+        import socket
+
+        socks = [socket.socket() for _ in range(2)]
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        ports = [s.getsockname()[1] for s in socks]
+        for s in socks:
+            s.close()
+        for i in range(2):
+            svcs.append(service.AssignorService(
+                port=ports[i], device=device, host_fallback=False, coalesce_max_batch=1,
+                scrub_interval_ms=0.0, breaker_cooldown_s=0.5, federation_self_id=ids[i],
+                federation_peers=f"{ids[1 - i]}=127.0.0.1:{ports[1 - i]}",
+                federation_rounds=8, federation_sync_timeout_s=300.0).start())
+            clients.append(service.AssignorServiceClient(*svcs[i].address, timeout_s=600.0))
+
+        def fed(i):
+            return clients[i].federated_assign("t0", wire_rows(shards[i]), members)
+
+        for _ in range(2):
+            fed(0)
+            fed(1)
+        reset_counts()
+        with faults.injected(faults.FaultInjector(17).plan("peer.partition", times=0,
+                                                           after=1)):
+            r = fed(0)
+        launches = read_counts()
+        tid = clients[0].last_trace_id
+        t0 = time.perf_counter()
+        while True:
+            entries = settled_traces(coll, tid, want=2)
+            verdict = trace_mod.join_trace(entries)
+            if verdict["complete"] or time.perf_counter() - t0 > 10.0:
+                break
+            time.sleep(0.01)
+    finally:
+        coll.sample_rate = prev_rate
+        for c in clients:
+            c.close()
+        for svc in svcs:
+            svc.stop()
+    origins = [e for e in entries if e["root"]["parent_id"] is None]
+    out = {"rung": r["federation"]["rung"], "trace_id": tid, "join": verdict,
+           "segments": len(entries),
+           "remote_segments": sum(1 for e in entries if e["root"]["parent_id"] is not None),
+           "origin_outcome": origins[0]["outcome"] if origins else None,
+           "origin_anomalies": origins[0]["anomalies"] if origins else None,
+           "launches": launches}
+    log(f"scenarios 4o(c) federated join: rung {out['rung']}, trace {tid}: {verdict}; origin "
+        f"{out['origin_outcome']} {out['origin_anomalies']}; launches {launches}")
+    if (out["rung"] not in ("last_good_global", "local_only") or not verdict["complete"]
+            or verdict["segments"] < 2 or len(origins) != 1 or not out["remote_segments"]
+            or out["origin_outcome"] != "kept_anomalous"):
+        raise AssertionError(f"scenarios 4o(c) federated join: {out}")
+    return out
+
+
+def trace_wave_links(device) -> dict:
+    """4o (c) 3: bench.py's wave drill on the card: a port sidecar with
+    ``coalesce_max_batch`` ``TRACE_W`` and a 500 ms window, ``TRACE_W``
+    streams at P ``TRACE_P``, C ``TRACE_C`` with every epoch dispatched
+    (``guardrail`` and ``refine_threshold`` off), three concurrent rounds:
+    every request trace of the last round links to its ``coalesce.wave``
+    trace, and that wave trace links back to the request."""
+    from kafka_lag_based_assignor_tpu_torch import service
+    from kafka_lag_based_assignor_tpu_torch.utils import trace as trace_mod
+
+    coll = trace_mod.collector()
+    prev_rate = coll.sample_rate
+    coll.sample_rate = 1.0
+    rng = np.random.default_rng(0x7AC17 + 1)
+    members = [f"m{j}" for j in range(TRACE_C)]
+    opts = {"guardrail": None, "refine_threshold": None}
+    sids = [f"w{i}" for i in range(TRACE_W)]
+    svc = service.AssignorService(
+        port=0, device=device, host_fallback=False, coalesce_max_batch=TRACE_W,
+        coalesce_window_ms=500.0, scrub_interval_ms=3600_000.0,
+        breaker_cooldown_s=0.5).start()
+    clients = {sid: service.AssignorServiceClient(*svc.address, timeout_s=300.0)
+               for sid in sids}
+    links, missing = {}, []
+    try:
+        reset_counts()
+        for k in range(3):
+            lags = {sid: rng.integers(0, 10**6, TRACE_P) for sid in sids}
+            at_once(f"4o wave round {k}", {
+                sid: (lambda s=sid: clients[s].stream_assign(
+                    s, "t0", wire_rows(lags[s]), members, options=opts))
+                for sid in sids})
+        launches = read_counts()
+        for sid in sids:
+            tid = clients[sid].last_trace_id
+            forward = [ln["trace_id"] for e in settled_traces(coll, tid)
+                       for ln in e.get("links", []) if ln.get("relation") == "wave"]
+            if not forward:
+                missing.append(f"{sid}: no wave link")
+                continue
+            back = [ln for e in settled_traces(coll, forward[-1])
+                    for ln in e.get("links", [])
+                    if ln.get("relation") == "request" and ln.get("trace_id") == tid]
+            links[sid] = forward[-1]
+            if not back:
+                missing.append(f"{sid}: wave {forward[-1]} has no link back")
+    finally:
+        coll.sample_rate = prev_rate
+        for c in clients.values():
+            c.close()
+        svc.stop()
+    out = {"waves": sorted(set(links.values())), "linked": sorted(links),
+           "missing": missing, "launches": launches}
+    log(f"scenarios 4o(c) wave links: {len(links)} of {TRACE_W} requests linked both ways to "
+        f"{len(out['waves'])} wave trace(s); launches {launches}")
+    if missing or len(links) != TRACE_W:
+        raise AssertionError(f"scenarios 4o(c) wave links: {out}")
+    if device.type == "cuda" and not launches["state_digest_rows"]:
+        raise AssertionError(f"scenarios 4o(c) wave links: no coalesced wave: {launches}")
+    return out
+
+
+def scenarios_path(device) -> tuple:
+    """Phase 4o: (a) the scenario fleet, (b) ``skew_storm`` at config 5's
+    width, (c) bench.py's tracing probe.  Returns (the launches of (a),
+    (b) and the drills of (c), the ``scenarios`` report)."""
+    t0 = time.perf_counter()
+    report, seconds = {}, {}
+    for leg, run in (("corrupted_refine", corrupted_refine), ("fleet", fleet_leg),
+                     ("skew_storm_wide", skew_storm_wide),
+                     ("trace_overhead", trace_overhead),
+                     ("trace_federated_join", trace_federated_join),
+                     ("trace_wave_links", trace_wave_links)):
+        start = time.perf_counter()
+        report[leg] = run(device)
+        seconds[leg] = time.perf_counter() - start
+    launches = {name: 0 for name, _ in COUNTERS}
+    for leg in ("fleet", "skew_storm_wide", "trace_federated_join", "trace_wave_links"):
+        add_counts(launches, report[leg]["launches"])
+    report.update(launches=launches, seconds=seconds, phase_s=time.perf_counter() - t0,
+                  card=CARD[0] if CARD else None)
+    log(f"main path (scenarios): launches {launches}; legs {seconds} s")
+    return launches, report
+
+
 SOURCES = {
     "rounds_scan": ("csrc/rounds_scan.cu", "ops/rounds_pallas.py:194"),
     "plan_stats": ("csrc/plan_stats.cu", "ops/plan_stats.py:184"),
@@ -6867,7 +7349,7 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--sharded"]:
         build()
-        launches, k5_err, report = sharded_path(device)
+        launches, k5_err, report = sharded_path(device, times=True)
         log(f"card: {CARD[0]}")
         log(json.dumps({"sharded": report, "launches": launches, "max_abs_err": k5_err,
                         "device": name}, default=str))
@@ -6910,6 +7392,17 @@ def main() -> int:
         launches, report = takeover_path(device)
         log(f"card: {CARD[0]}")
         log(json.dumps({"takeover": report, "device": name}, default=str))
+        return 0
+    if sys.argv[1:] == ["--cells"]:
+        build()
+        cell_times(device)
+        log(f"card: {CARD[0]}")
+        return 0
+    if sys.argv[1:] == ["--scenarios"]:
+        build()
+        launches, report = scenarios_path(device)
+        log(f"card: {CARD[0]}")
+        log(json.dumps({"scenarios": report, "device": name}, default=str))
         return 0
     if sys.argv[1:] == ["--lifecycle"]:
         build()
@@ -6966,6 +7459,8 @@ def main() -> int:
     lap("4m")
     takeover_launches, takeover = takeover_path(device)
     lap("4n")
+    scenario_launches, scenarios = scenarios_path(device)
+    lap("4o")
     launches["rounds_scan"] += (rounds_launches + stream_launches["rounds_scan"]
                                 + solver_launches["rounds_scan"]
                                 + ladder_launches["rounds_scan"])
@@ -6995,9 +7490,13 @@ def main() -> int:
     # Phase 4n: K1 in sidecar A's cold chains and the boots' warm-ups, K6's
     # single entry in the restarted dispatches and the pre-stack, its batched
     # entry in the coalesced waves.
+    # Phase 4o: the scenario fleet's sidecars (K1 cold chains, K6 single and
+    # batched, K3 in the federated scenario's exchanges, the mesh
+    # scenario's sharded programs), skew_storm at config 5's width and the
+    # tracing probe's federated join and coalesced waves.
     for k, v in (*placement_launches.items(), *federation_launches.items(),
                  *wide_launches.items(), *paths_launches.items(),
-                 *takeover_launches.items()):
+                 *takeover_launches.items(), *scenario_launches.items()):
         launches[k] += v
     f32_err["superblock_partials"] = max(f32_err["superblock_partials"], k5_shard_err,
                                          paths_err["superblock_partials"])
@@ -7014,7 +7513,6 @@ def main() -> int:
     quality = quality_times(device)
     digest = stream_times(stream_run)
     k7 = solver_times(device, k7_plain_cpu_ms)
-    device_shares(device)
     skew.append(profiler_skew("after phase 5"))
     lap("5")
     line = [dict(kernel_line("rounds_scan", launches["rounds_scan"], max_err, k1),
@@ -7047,6 +7545,7 @@ def main() -> int:
     log(json.dumps({"wide": wide}, default=str))
     log(json.dumps({"wide_paths": wide_paths_report}, default=str))
     log(json.dumps({"takeover": takeover}, default=str))
+    log(json.dumps({"scenarios": scenarios}, default=str))
     log(json.dumps({"profiler": {"skew": skew, "sessions": SESSIONS,
                                  "pad_s": PROFILER_PAD_S, "skew_pad_s": SKEW_PAD_S}}))
     log(json.dumps({"phases_s": PHASE_S}))

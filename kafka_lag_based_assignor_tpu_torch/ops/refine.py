@@ -279,9 +279,26 @@ def _take(a, i):
 
 def _drop_set(flat, idx, vals):
     """``flat.at[idx].set(vals, mode="drop")`` for a flat tensor whose
-    last slot is the drop slot (idx == its index)."""
+    last slot is the drop slot (idx == its index).  An index outside
+    [-n, n), which only a corrupted resident row or count gives, goes to
+    the drop slot too: JAX drops it, and on the card an out-of-bounds
+    index would be a device-side assert that ends the process's CUDA
+    context (the digest then rejects the epoch's answer)."""
+    n = flat.shape[0]
+    idx = torch.where((idx < -n) | (idx >= n), n - 1, idx)
     flat[idx] = vals.to(flat.dtype)
     return flat
+
+
+def _row_local(rows, P: int):
+    """A vmapped row's ``ext.at[rows]`` index over its P + 1 slots (the
+    last the drop slot), resolved as JAX resolves it: a negative index
+    wraps once, and what is then outside [0, P) is dropped.  Returns (the
+    index, whether it lands in the row).  A stacked flat buffer needs the
+    test: a corrupted row id would otherwise write into the next row."""
+    r = rows.long()
+    r = torch.where(r < 0, r + (P + 1), r)
+    return r, (r >= 0) & (r < P)
 
 
 def refine_rounds_resident(
@@ -724,8 +741,10 @@ def refine_rounds_resident_rows(
         flat_tot.index_add_(0, (nrow * C + light).reshape(-1), transfer.reshape(-1))
         r3 = nrow[:, :, None]
         drop_p = N * P
-        h_rows = torch.where(sel, r3 * P + dh_row.long(), drop_p).reshape(-1)
-        l_rows = torch.where(sel, r3 * P + dl_row.long(), drop_p).reshape(-1)
+        h_local, h_in = _row_local(dh_row, P)
+        l_local, l_in = _row_local(dl_row, P)
+        h_rows = torch.where(sel & h_in, r3 * P + h_local, drop_p).reshape(-1)
+        l_rows = torch.where(sel & l_in, r3 * P + l_local, drop_p).reshape(-1)
         ext = torch.cat([choice.reshape(-1), choice.new_zeros(1)])
         ext = _drop_set(ext, h_rows, light[:, :, None].expand(N, K, Ms).reshape(-1))
         ext = _drop_set(ext, l_rows, heavy[:, :, None].expand(N, K, Ms).reshape(-1))

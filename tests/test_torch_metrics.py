@@ -235,9 +235,27 @@ TRACEPARENTS = [
 ]
 
 
-@pytest.mark.parametrize("value", TRACEPARENTS, ids=[f"tp{i}" for i in range(len(TRACEPARENTS))])
-def test_parse_traceparent_matches_jax(value):
-    assert trace.parse_traceparent(value) == jax_trace.parse_traceparent(value)
+# The strict-parse rejects of tests/test_trace.py's TestTraceparent: each
+# parses to None in both packages.
+REJECTED = [
+    b"00-" + b"a" * 32 + b"-" + b"b" * 16 + b"-01",
+    "00-" + "a" * 32 + "-" + "b" * 16,
+    "00-" + "a" * 32 + "-" + "z" * 16 + "-01",
+    "00-" + "a" * 32 + "-" + "b" * 16 + "-0x",
+    "00-" + "a" * 32 + "-" + "b" * 16 + "-015",
+    "x" * 55,
+    123,
+]
+PARSE_CASES = [(v, False) for v in TRACEPARENTS] + [(v, True) for v in REJECTED]
+
+
+@pytest.mark.parametrize("value,rejected", PARSE_CASES,
+                         ids=[f"tp{i}" for i in range(len(PARSE_CASES))])
+def test_parse_traceparent_matches_jax(value, rejected):
+    got = trace.parse_traceparent(value)
+    assert got == jax_trace.parse_traceparent(value)
+    if rejected:
+        assert got is None
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -1,14 +1,15 @@
 """The port stands alone: no JAX, devices resolved loudly, state carried.
 
 * no module of ``kafka_lag_based_assignor_tpu_torch`` (nor ``chip_smoke.py``)
-  imports ``jax`` or ``kafka_lag_based_assignor_tpu`` — by an AST walk, and
-  by importing every module in a fresh interpreter;
+  imports ``jax``, ``kafka_lag_based_assignor_tpu`` or the JAX fleet's
+  ``scenarios`` — by an AST walk, and by importing every module in a fresh
+  interpreter;
 * every module of the streaming slice, of the solver surface (the scan
   kernel's wrapper, the native core's loader), of the fault ladder and
   telemetry, of the sidecar (the service, overload control, the
   ``/metrics`` listener) and of its boot and restart (the warm-up, the
-  snapshots, the scrubber), of the sharded backend and its placements, and
-  of federation is covered by both checks;
+  snapshots, the scrubber), of the sharded backend and its placements, of
+  federation and of the scenario fleet is covered by both checks;
 * no module but ``utils/observability`` imports ``torch.profiler`` at
   import time, and that one only inside ``profile_trace``;
 * entry points default to the CUDA card and raise without one;
@@ -56,7 +57,9 @@ from kafka_lag_based_assignor_tpu_torch.utils.device import resolve_device  # no
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "kafka_lag_based_assignor_tpu_torch"
-FORBIDDEN = ("jax", "kafka_lag_based_assignor_tpu")
+# ``scenarios`` is the JAX fleet: its ``__init__`` imports its replay
+# engine, which imports the JAX sidecar.
+FORBIDDEN = ("jax", "kafka_lag_based_assignor_tpu", "scenarios")
 
 
 def port_sources():
@@ -112,6 +115,17 @@ SHARDED_SLICE = ("sharded/__init__.py", "sharded/mesh.py", "sharded/collectives.
 PLACEMENT_FEDERATION_SLICE = ("sharded/resident.py", "sharded/megabatch.py",
                               "federated/__init__.py", "federated/wire.py",
                               "federated/peers.py", "ops/fedsolve.py")
+
+
+SCENARIOS_SLICE = ("scenarios/__init__.py", "scenarios/__main__.py",
+                   "scenarios/traces.py", "scenarios/compose.py",
+                   "scenarios/envelopes.py", "scenarios/replay.py",
+                   "scenarios/federated.py", "scenarios/corpus.py")
+
+
+def test_import_checks_cover_the_scenario_fleet():
+    walked = {p.relative_to(PORT).as_posix() for p in port_sources() if PORT in p.parents}
+    assert set(SCENARIOS_SLICE) <= walked
 
 
 def test_import_checks_cover_placement_and_federation():
@@ -189,7 +203,8 @@ def test_importing_the_port_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules\n"
-        "             if k.split('.')[0] in ('jax', 'kafka_lag_based_assignor_tpu'))\n"
+        "             if k.split('.')[0] in ('jax', 'kafka_lag_based_assignor_tpu',\n"
+        "                                    'scenarios'))\n"
         "print(bad)\n"
     )
     out = subprocess.run(
@@ -340,7 +355,8 @@ def test_packaging_lists_every_port_subpackage():
                for init in PORT.rglob("__init__.py")}
     assert on_disk <= declared, sorted(on_disk - declared)
     assert {"kafka_lag_based_assignor_tpu_torch.federated",
-            "kafka_lag_based_assignor_tpu_torch.native"} <= on_disk
+            "kafka_lag_based_assignor_tpu_torch.native",
+            "kafka_lag_based_assignor_tpu_torch.scenarios"} <= on_disk
 
 
 def test_packaging_ships_every_port_source():
