@@ -366,7 +366,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       (``wide_paths_forms`` there), its differences into ``max_abs_err``,
       and it prints a JSON ``wide_paths`` line;
    n. the fenced takeover, ``bench.py``'s ``handoff_storm`` at config 5's
-      width: ``TAKEOVER_N`` (4) streams of 100,000 partitions x 1,000
+      width: ``TAKEOVER_N`` (3) streams of 100,000 partitions x 1,000
       members (lags uniform in [0, 10^6) from ``default_rng(9000 + i)``,
       phase 4c's stream options), sidecars on the ``object`` backend (lease
       TTL 2 s, wait 30 s, explicit snapshots), ``coalesce_max_batch`` 4,
@@ -402,7 +402,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       (scenarios, composed, crash-restart, served, sheds, invalid,
       quarantines, corruptions planted) are printed; (b) the corpus'
       ``skew_storm`` (``hot_skew_storm``, seed 1101) at config 5's width,
-      100,000 partitions x 1,000 members, 10 epochs: every epoch valid, at
+      100,000 partitions x 1,000 members, 6 epochs: every epoch valid, at
       rung ``none``, unshed, no build; its steady churn printed beside the
       envelope's 0.75 (set at 192 x 4: reported, not gated); (c) the
       tracing probe: the warm no-op epoch at config 5's shape
@@ -415,6 +415,36 @@ Phases (each raises on failure; the script exits 0 only if all pass):
       trace of the last round linked both ways to its ``coalesce.wave``
       trace.  Its launches count into the kernels line, and it prints a
       JSON ``scenarios`` line;
+   p. the overload, integrity and memory probes (``bench.py``'s configs 7,
+      11 and 14) through the port: (a) ``overload_stampede``: a sidecar
+      with the host rung off, 4 critical, 4 standard and 8 best-effort
+      tenants of 2,048 x 8 against a batch cap of 4 (``bench.py``'s knobs),
+      each round's 16 requests at once, 8 measured rounds: critical p99
+      within its 2 s deadline, no critical request shed or failed,
+      standard shed only in a round where best effort is shed too, every
+      served assignment valid, no build, the ``recommend`` trajectory of
+      one steepening stream monotone past C; (b1) ``corruption_storm`` at
+      2,048 x 8: seeded ``device.corrupt.{choice,counts,lags}`` flips into
+      an inline stream and into a locked row of a 4-row coalescing sidecar,
+      rehearsed until no build, then one measured round: 6 injected, 6
+      detected (``lags`` by one scrub pass or the locked delta wave's
+      re-sync, the others by the next epoch), 0 late, every heal equal to
+      a seeded CPU twin, 0 invalid, each locked-row event evicting the
+      roster once, no build, and the host digest check under 1 % of the
+      warm no-op epoch; (b2) the same flips at config 5's width in
+      process, into one engine (K6's single entry) and one row of a 4-row
+      locked wave (its batched entry), with the same gates and the digest
+      ratio reported; (c) ``linear_ot_scale`` in a process of its own (a
+      fresh allocator): each warm linear solve's growth of
+      ``torch.cuda.max_memory_allocated`` beside ``peak_bytes_estimate``,
+      the tile and the tiles: the parity shape (4,096 x 64, linear within
+      1.05x the dense quality), 16,384 and 65,536 x 128 (growth <= 4.5, no
+      build, the peak under 1/8 of the [P_pad, C] f32 block at the
+      larger), the sharded solve at D 4 and 8 bit for bit, config 5 and the wide
+      group at the static tile (peak under 1/8 of the block), and the wide
+      group once at the tile ``autotune_quality_tile`` picks (reported).
+      Its launches count into the kernels line, and it prints a JSON
+      ``probes`` line;
 5. times, with CUDA events, medians of 30 runs after warm-up: each kernel
    alone at its main-path shape, its plain version on the card, the
    library yardstick where there is one, and its bound; the device time
@@ -447,7 +477,8 @@ boot, first epochs and scrub walls, and its launches), one JSON
 JSON ``sharded`` line (phase 4i's checks and K5 times by superblock count;
 with ``--sharded``, the cold solves' walls and idle share), one JSON ``placement``, one JSON ``federation``,
 one JSON ``wide``, one JSON ``wide_paths``, one JSON ``takeover`` and one
-JSON ``scenarios`` line (phases 4j, 4k, 4l, 4m, 4n and 4o), one JSON
+JSON ``scenarios`` and one JSON ``probes`` line (phases 4j, 4k, 4l, 4m,
+4n, 4o and 4p), one JSON
 ``profiler`` line (the profiler's clock skew
 after the builds, around phase 4f and after phase 5, and its sessions
 recorded and discarded), one JSON ``phases_s`` line (each phase's seconds,
@@ -458,7 +489,8 @@ checks past 16,384 consumers and phase 4l, and prints the ``wide`` line;
 ``--wide-paths`` runs, after the builds, phase 4l and then phase 4m, and
 prints the ``wide_paths`` line; ``--takeover`` runs, after the builds, phase
 4n alone and prints the ``takeover`` line; ``--scenarios`` runs, after the
-builds, phase 4o alone and prints the ``scenarios`` line.
+builds, phase 4o alone and prints the ``scenarios`` line; ``--probes`` runs,
+after the builds, phase 4p alone and prints the ``probes`` line.
 
 ``python3 chip_smoke.py --coalesce`` runs phase 4h alone (after the builds)
 and prints its ``coalesce`` line; ``--sharded`` runs phase 4i alone (after
@@ -469,8 +501,8 @@ phase 4a and one phase-4c run it is held to) and prints its ``sidecar``
 line; ``--lifecycle`` runs phase 4g alone (after the builds and one
 phase-4c run) and prints its ``lifecycle`` line (``--lifecycle-child warm
 |cold`` is the fresh process of its step (a)).  ``--profiler-probe`` runs ``profiler_probe`` (torch.profiler's
-device records in a fresh process; no build) and prints it as JSON.  Eight
-more modes time kernels alone::
+device records in a fresh process; no build) and prints it as JSON.  Ten
+more modes time kernels and the rounding tail alone::
 
     python3 chip_smoke.py --k1-times           # phase 5's K1 times only
     python3 chip_smoke.py --k1-ab ROOT [ROOT ...]
@@ -480,6 +512,8 @@ more modes time kernels alone::
     python3 chip_smoke.py --k36-ab ROOT [ROOT ...]
     python3 chip_smoke.py --wide-times         # K3, K4, K5 wide and at configs 4, 5
     python3 chip_smoke.py --wide-ab ROOT [ROOT ...]
+    python3 chip_smoke.py --tail-times         # the rounding tail's blocked steps
+    python3 chip_smoke.py --tail-ab ROOT [ROOT ...]
 
 ``--k36-times`` times K3 at the dedup shapes of configs 2 and 4 (``need``
 load and colsum, through the public wrapper; a package without ``need``
@@ -487,7 +521,10 @@ computes both) and its library yardstick, K6 at config 5's resident
 state, K4 and K5 alone at config 5, and the quality ratio of the dense
 ``sinkhorn`` cells (configs 2 and 4); where the package has two K3 forms,
 each form alone at U = 1,024, 2,048, 4,096 and C = 16, 512, 1,024.
-``--wide-times`` times K5 and K4 at phase 4l's blocks and K3 (``need=load``,
+``--tail-times`` times the rounding tail's blocked steps (the plan argmax,
+one resident refine round at two pair counts) at config 5's width, 65,536
+x 128 and the wide group, each with a digest of its answers' bits
+(``tail_times``).  ``--wide-times`` times K5 and K4 at phase 4l's blocks and K3 (``need=load``,
 beside its plain version) at U 1,024 by 20,000 consumers, and the control
 shapes K3 at config 4 (each ``need``) and K4, K5 at config 5, each with a
 digest of its output's bits, then phase 4l's ``sinkhorn`` ``assign()``
@@ -900,8 +937,9 @@ def wide_scan_cases(rng=None):
     20,000 eligible of 24,000 (the cluster form at 32,768 slots); 65,537
     consumers over one round and a part (the cluster form at 131,072
     slots) and 131,072 eligible of 140,000 over one round and a part (its
-    least full and the last cluster slot count, with a mask).  The cases in
-    ``ROUND_HELD`` are held to ``scan_by_rounds``."""
+    least full and the last cluster slot count, with a mask); the mask of
+    20,000 of 24,000 again on 3,001 rows.  The cases in ``ROUND_HELD`` are
+    held to ``scan_by_rounds``."""
     rng = np.random.default_rng(18) if rng is None else rng
 
     def rows(T, P, lo=0, hi=10**6):
@@ -910,20 +948,28 @@ def wide_scan_cases(rng=None):
     yield "C20000", *rows(2, 2 * 20_000 + 7), 20_000, None
     yield "C20000_two_key", *rows(1, 20_000 + 7, 2**62 - 2**40, 2**62), 20_000, None
     yield "C16385", *rows(1, 16_385 + 9), 16_385, None
-    mask = np.zeros(24_000, bool)
-    mask[rng.choice(24_000, 20_000, replace=False)] = True
-    yield "E20000_of_C24000", *rows(1, 20_011), 24_000, mask
+    mask20 = np.zeros(24_000, bool)
+    mask20[rng.choice(24_000, 20_000, replace=False)] = True
+    yield "E20000_of_C24000", *rows(1, 20_011), 24_000, mask20
     lags, valid = rows(2, 65_537 + 4_099)
     valid[1, 777] = False
     yield "E65537", lags, valid, 65_537, None
     mask = np.zeros(140_000, bool)
     mask[rng.choice(140_000, 131_072, replace=False)] = True
     yield "E131072_of_C140000", *rows(1, 131_072 + 777), 140_000, mask
+    # The eligibility mask past the register network, held to the step form
+    # on 3,001 rows (part of one round).
+    yield "E20000_of_C24000_steps", *rows(1, 3_001), 24_000, mask20
 
 
 #: K7's cases whose plain version, a torch step a row (about 0.35 ms each
 #: on the card), would take 23-46 s: they are held to ``scan_by_rounds``.
-ROUND_HELD = ("E65537", "E131072_of_C140000")
+#: ``C20000``, ``C16385`` and ``E20000_of_C24000`` (40 s of steps) joined
+#: them for the script's time; the step form stays held past the register
+#: network by ``C20000_two_key`` (20,007 steps at 20,000 consumers), and
+#: the round decomposition by the step form at every smaller case, and
+#: the mask past it by ``E20000_of_C24000_steps`` (3,001 steps).
+ROUND_HELD = ("C20000", "C16385", "E20000_of_C24000", "E65537", "E131072_of_C140000")
 
 
 def scan_by_rounds(L, V, C: int, E):
@@ -4887,6 +4933,67 @@ def cell_times(device) -> None:
     device_shares(device)
 
 
+def tail_times(device) -> dict:
+    """``--tail-times``: the rounding tail's blocked steps, CUDA-event
+    medians of 10 on uniform lags in [1, 10^6) from seed 21 (the plan's
+    duals uniform in [0, 1) from seed 21), at config 5's width (131,072 x
+    1,000), 65,536 x 128 and the wide group (262,144 x 20,000): the plan
+    argmax of the parallel rounding, and one round of the resident refine
+    from the greedy start with the portfolio's 64 pairs and with C / 2
+    pairs (at most 10,000), the streaming engine's; at config 5 also the
+    whole ``sinkhorn`` solve of its topic (host clock).  It drives only
+    functions an older checkout has too, so a copy of this script beside
+    that checkout times it."""
+    from kafka_lag_based_assignor_tpu_torch.ops.rounds_kernel import assign_topic_rounds
+
+    out = {}
+    g = torch.Generator().manual_seed(21)
+    for name, P, C in (("config5", 131_072, 1000), ("scale65536", 65_536, 128),
+                       ("wide", 262_144, WIDE_C)):
+        lags = torch.from_numpy(np.random.default_rng(21).integers(1, 10**6, P)).to(device)
+        valid = torch.ones(P, dtype=torch.bool, device=device)
+        pids = torch.arange(P, dtype=torch.int32, device=device)
+        A, B = torch.rand(C, generator=g).to(device), torch.rand(C, generator=g).to(device)
+        ws = sinkhorn._scaled_ws(lags, valid, C)
+        def argmax():
+            return plan_stats.implicit_plan_argmax(ws, valid, A, B, tie_noise=False)
+
+        row = {"argmax_ms": median_event_ms(argmax, 10)}
+        answers = [argmax()]
+        choice = assign_topic_rounds(lags, pids, valid, C)[0]
+        tabs = refine.build_choice_tables(lags, valid, choice, C, table_rows(P, C))
+        for K in (64, min(C // 2, 10_000)):
+            def round_once():
+                return refine.refine_rounds_resident(lags, choice, *tabs, num_consumers=C,
+                                                     iters=1, max_pairs=K)
+
+            row[f"refine_round_ms_K{K}"] = median_event_ms(round_once, 10)
+            answers.append(round_once()[0])
+        if name == "config5":
+            # The whole quality solve of config 5's topic (the linear mode
+            # there), host clock, median of 7 after 3.
+            lp, pp, vp = pad_topic_rows(baseline_workload(5)[0]["t0"])
+
+            def solve():
+                got = sinkhorn.assign_topic_sinkhorn(lp, pp, vp, num_consumers=C, device=device)
+                sync(device)
+                return got
+
+            walls = []
+            for i in range(10):
+                t0 = time.perf_counter()
+                got = solve()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            row["sinkhorn_solve_ms"] = statistics.median(walls[3:])
+            answers.append(torch.as_tensor(got[0]))
+        # Every checkout computes the same function: the same bits.
+        row["bits"] = hashlib.sha1(b"".join(
+            a.cpu().numpy().tobytes() for a in answers)).hexdigest()[:16]
+        out[name] = row
+        log(f"tail times {name} (P {P}, C {C}): {json.dumps(row)}")
+    return out
+
+
 def k7_cases(device):
     """K7's inputs as the main path makes them, at configs 5 and 3: each
     topic padded to its bucket, sorted into processing order.  Yields
@@ -5069,6 +5176,15 @@ def superblock_library_each(ws_b, cnt_b, A, B):
     the whole plan is 21 GB, one superblock's 2.6 GB."""
     return [superblock_library(ws_b[s:s + 1], cnt_b[s:s + 1], A, B)
             for s in range(ws_b.shape[0])]
+
+
+def step_library(ws_b, cnt_b, A, B, each: bool = False):
+    """K4's library yardstick: one extragradient step evaluates the plan
+    twice (the predictor's load, the corrector's both marginals), so the
+    softmax + ``matmul`` plan of ``superblock_library`` twice (a superblock
+    at a time with ``each``; timed, never used by the port)."""
+    plan = superblock_library_each if each else superblock_library
+    return plan(ws_b, cnt_b, A, B), plan(ws_b, cnt_b, A, B)
 
 
 
@@ -5329,7 +5445,7 @@ def quality_times(device) -> dict:
         ms=median_event_ms(k4),
         plain_ms=median_event_ms(lambda: linear_ot_cuda.mirror_prox_step_torch(
             ws_b, cnt_b, A, B, sc, prev, eta=eta)),
-        library_ms=None,
+        library_ms=median_event_ms(lambda: step_library(ws_b, cnt_b, A, B)),
     )
     shape = f"config 5: {list(ws_b.shape)} ({rows} valid rows), C {C}"
     # K5 with both marginals is the launch of K4's corrector pass; the
@@ -5681,7 +5797,8 @@ def wide_times(device, engine) -> dict:
                  KERNEL_NAMES["mirror_prox_step"], slow),
         plain_ms=median_event_ms(lambda: linear_ot_cuda.mirror_prox_step_torch(
             *step, eta=eta), slow),
-        library_ms=None, bound_ms=bound, bound_by=by,
+        library_ms=median_event_ms(lambda: step_library(ws_b, cnt_b, A, B, each=True), slow),
+        bound_ms=bound, bound_by=by,
         bound_2exp_ms=exp_bound(2 * (rows + load_rows) * WIDE_C, moved)[0],
         max_abs_err=err, shape=name)
     args = wide_k3_args(device)
@@ -6424,7 +6541,7 @@ def wide_paths(device, answers: dict) -> tuple:
 # bench.py's handoff_storm (config 10) at config 5's width: N streams of
 # STREAM_P x STREAM_C behind sidecars that share one object backend, its
 # lease TTL and wait, and sidecar B's cap on concurrent dense rebuilds.
-TAKEOVER_N = 4
+TAKEOVER_N = 3
 TAKEOVER_TTL_S = 2.0
 TAKEOVER_WAIT_S = 30.0
 TAKEOVER_INFLIGHT = 2
@@ -6679,9 +6796,10 @@ def takeover_path(device) -> tuple:
 
 # bench.py's scenario_fleet (config 16) runs the whole corpus; its
 # skew_storm scenario runs again at config 5's width (the trace's own
-# generator, seed and schedule; 10 epochs), where the envelope's churn
-# bound (set at 192 x 4) is reported, not gated.
-SKEW_P, SKEW_C, SKEW_EPOCHS = STREAM_P, STREAM_C, 10
+# generator, seed and schedule, cut to 6 epochs for the script's time: 2
+# warm and 2 storms), where the envelope's churn bound (set at 192 x 4) is
+# reported, not gated.
+SKEW_P, SKEW_C, SKEW_EPOCHS = STREAM_P, STREAM_C, 6
 # bench.py's tracing probe (config 17): the warm no-op epoch's engine at
 # config 5's shape, the paired estimator's pairs, the 1 % budget
 # (bench.py's gate), and the sidecars' shape for the federated join and the
@@ -7124,6 +7242,710 @@ def scenarios_path(device) -> tuple:
     return launches, report
 
 
+# -- phase 4p: the overload, integrity and memory probes --------------------
+
+#: bench.py's overload_stampede (config 7): tenants of STAMPEDE_P partitions
+#: x STAMPEDE_C members, STAMPEDE_ROUNDS measured rounds, the critical class's
+#: deadline; 4 critical, 4 standard and 8 best-effort tenants.
+STAMPEDE_P, STAMPEDE_C, STAMPEDE_ROUNDS = 2048, 8, 8
+STAMPEDE_BUDGET_S = 2.0
+STAMPEDE_CLASSES = ({f"crit-{i}": "critical" for i in range(4)}
+                    | {f"std-{i}": "standard" for i in range(4)}
+                    | {f"be-{i}": "best_effort" for i in range(8)})
+#: bench.py's corruption_storm (config 11): the sidecar shape, the locked
+#: rows, the buffer classes flipped, and the engine options that make every
+#: epoch dispatch the warm path (no no-op gate, no guardrail trip).
+STORM_P, STORM_C, STORM_N = 2048, 8, 4
+STORM_BUFFERS = ("choice", "counts", "lags")
+STORM_OPTS = {"guardrail": None, "refine_threshold": None}
+#: The host digest check's budget against the warm no-op epoch.
+DIGEST_BUDGET = 0.01
+#: bench.py's linear_ot_scale (config 14): the peak over the [P_pad, C] f32
+#: block, and its growth across the 4x step in P.
+LINEAR_PEAK_FRACTION = 1 / 8
+LINEAR_PEAK_GROWTH = 4.5
+
+
+def stampede_probe(device) -> dict:
+    """4p (a): bench.py's overload_stampede on a port sidecar with the host
+    rung off: 16 tenants of 2,048 x 8 against a batch cap of 4, each round's
+    16 requests at once, 8 measured rounds after bench.py's warm-up, then
+    the ``recommend`` loop on one steepening stream."""
+    from kafka_lag_based_assignor_tpu_torch.service import (
+        AssignorService,
+        AssignorServiceClient,
+    )
+    from kafka_lag_based_assignor_tpu_torch.testing import (
+        assert_valid_assignment,
+        shed_totals_by_class,
+    )
+    from kafka_lag_based_assignor_tpu_torch.utils.observability import (
+        compile_count,
+        install_compile_counter,
+    )
+    from kafka_lag_based_assignor_tpu_torch.utils.overload import ShedReject
+
+    install_compile_counter()
+    P, C, classes = STAMPEDE_P, STAMPEDE_C, STAMPEDE_CLASSES
+    members = [f"m{j}" for j in range(C)]
+    rngs = {sid: np.random.default_rng(7000 + i) for i, sid in enumerate(sorted(classes))}
+    lags_now = {sid: rng.integers(10**6, 10**8, P).astype(np.int64) for sid, rng in rngs.items()}
+
+    def drift(sid):
+        bump = rngs[sid].integers(0, 10**6, P)
+        lags_now[sid] = np.minimum(lags_now[sid] + bump, np.int64(2**31 - 2))
+        return lags_now[sid]
+
+    svc = AssignorService(
+        port=0, device=device.type, host_fallback=False, solve_timeout_s=120.0,
+        slo_classes=classes, slo_deadline_s={"critical": STAMPEDE_BUDGET_S},
+        overload_depth_high=6.0, coalesce_window_ms=2.0, coalesce_max_batch=4,
+        coalesce_lock_waves=1 << 30).start()
+    svc._overload.eval_interval_s = 0.0
+    clients = {sid: AssignorServiceClient(*svc.address, timeout_s=180.0) for sid in classes}
+    lat = {k: [] for k in ("critical", "standard", "best_effort")}
+    errors, rejected = dict.fromkeys(lat, 0), dict.fromkeys(lat, 0)
+    invalid, lock = [0], threading.Lock()
+
+    def one(sid, override=None, record=True, shed=None):
+        klass = override or classes[sid]
+        t0 = time.perf_counter()
+        try:
+            r = clients[sid].request("stream_assign", {
+                "stream_id": sid, "topic": "t0", "lags": wire_rows(drift(sid)),
+                "members": members, **({"slo_class": override} if override else {})})
+        except ShedReject:
+            with lock:
+                if record:
+                    rejected[klass] += 1
+                if shed is not None:
+                    shed[klass] += 1
+            return
+        except (RuntimeError, ConnectionError):
+            if record:
+                with lock:
+                    errors[klass] += 1
+            return
+        with lock:
+            if shed is not None and r["stream"]["shed"] is not None:
+                shed[klass] += 1
+            if record:
+                lat[klass].append(time.perf_counter() - t0)
+                try:
+                    assert_valid_assignment(r["assignments"], P)
+                except AssertionError:
+                    invalid[0] += 1
+
+    def stampede_round(**kw):
+        at_once("stampede", {sid: lambda sid=sid: one(sid, **kw) for sid in sorted(classes)})
+
+    round_sheds = []
+    try:
+        for sid in sorted(classes):
+            one(sid, override="standard", record=False)
+        for _ in range(2):
+            stampede_round(record=False)
+        shed_before, builds0 = shed_totals_by_class(), compile_count()
+        t0 = time.perf_counter()
+        for _ in range(STAMPEDE_ROUNDS):
+            shed = dict.fromkeys(lat, 0)
+            stampede_round(shed=shed)
+            round_sheds.append(shed)
+        wall_s = time.perf_counter() - t0
+        builds = compile_count() - builds0
+        shed_by_class = {k: v - shed_before.get(k, 0)
+                         for k, v in shed_totals_by_class().items()}
+        overload = clients["crit-0"].request("stats")["overload"]
+        recs = []
+        for pct in (5, 15, 45):
+            arr = lags_now["std-0"]
+            lags_now["std-0"] = np.minimum(arr + arr // (100 // pct), np.int64(2**31 - 2))
+            one("std-0", record=False)
+            recs.append(clients["std-0"].request("recommend", {"stream_id": "std-0"})
+                        ["streams"]["std-0"]["recommended_consumers"])
+    finally:
+        for cl in clients.values():
+            cl.close()
+        svc.stop()
+
+    def pct(k, q):
+        return float(np.percentile(lat[k], q)) if lat[k] else None
+
+    out = dict(
+        streams=len(classes), partitions=P, consumers=C, rounds=STAMPEDE_ROUNDS, wall_s=wall_s,
+        served={k: len(v) for k, v in lat.items()}, rejected=rejected, request_errors=errors,
+        invalid_assignments=invalid[0], shed_by_class=shed_by_class, round_sheds=round_sheds,
+        p50_s={k: pct(k, 50) for k in lat}, p99_s={k: pct(k, 99) for k in lat},
+        critical_budget_s=STAMPEDE_BUDGET_S, warm_builds=builds, recommend_trajectory=recs,
+        overload_state=overload)
+    log(f"probes 4p(a) overload_stampede: {json.dumps(out, default=str)}")
+    crit_p99 = out["p99_s"]["critical"]
+    if crit_p99 is None or crit_p99 > STAMPEDE_BUDGET_S:
+        raise AssertionError(f"4p(a): critical p99 {crit_p99} s past {STAMPEDE_BUDGET_S} s")
+    if errors["critical"] or rejected["critical"] or shed_by_class.get("critical", 0):
+        raise AssertionError(f"4p(a): critical shed or failed: {errors}, {rejected}, "
+                             f"{shed_by_class}")
+    for shed in round_sheds:
+        if shed["critical"] or (shed["standard"] and not shed["best_effort"]):
+            raise AssertionError(f"4p(a): sheds out of class order in a round: {round_sheds}")
+    if invalid[0] or builds:
+        raise AssertionError(f"4p(a): {invalid[0]} invalid assignments, {builds} builds")
+    if recs != sorted(recs) or recs[-1] <= C:
+        raise AssertionError(f"4p(a): recommend trajectory {recs} is not a monotone scale-up")
+    return out
+
+
+def quarantine_total(outcome: str) -> float:
+    from kafka_lag_based_assignor_tpu_torch.utils import metrics
+
+    return sum(c.value for c in metrics.REGISTRY.series("klba_quarantine_total")
+               if c.labels.get("outcome") == outcome)
+
+
+def roster_invalidations() -> float:
+    from kafka_lag_based_assignor_tpu_torch.utils import metrics
+
+    return metrics.REGISTRY.counter("klba_coalesce_roster_invalidations_total").value
+
+
+def healed_twin(prev, lags, C: int, **kw) -> np.ndarray:
+    """The uncorrupted twin of a healed stream (bench.py's): a port engine on
+    the CPU at the card's bucket, seeded from the host truth, one epoch on
+    ``lags``."""
+    twin = streaming.StreamingAssignor(num_consumers=C, refine_threshold=None,
+                                       device="cpu", **kw)
+    twin._bucket = pad_bucket
+    twin.seed_choice(prev)
+    return np.asarray(twin.rebalance(lags))
+
+
+class StormTally:
+    """What one corruption storm counted: flips injected and detected (late
+    ones apart), heal mismatches, invalid answers, locked-row evictions."""
+
+    def __init__(self):
+        self.injected = self.detected = self.late = self.heal_mismatch = self.invalid = 0
+        self.evictions = []
+
+    def gate(self, label: str) -> dict:
+        out = dict(injected=self.injected, detected=self.detected, late=self.late,
+                   heal_mismatches=self.heal_mismatch, invalid_assignments=self.invalid,
+                   roster_evictions=self.evictions)
+        if not (self.injected == 6 and self.detected == 6 and self.late == 0
+                and self.heal_mismatch == 0 and self.invalid == 0
+                and self.evictions == [1, 1]):
+            raise AssertionError(f"4p({label}) corruption storm: {out}")
+        return out
+
+
+def digest_ratio(device, B: int, P: int, C: int, noop_ms: float) -> dict:
+    """bench.py's ``digest_overhead_ratio``: the per-epoch host check of a
+    fetched digest (``scrub.digest_failures`` over int64[5], 5,000 times)
+    against the warm no-op epoch."""
+    lags, choice, counts, tab = resident_case(B, P, C, device)
+    digest = refine.state_digest(lags, choice, counts, C, row_tab=tab).cpu().numpy()
+    lag_sum = int(lags.sum())
+    if scrub.digest_failures(digest, P, lag_sum):
+        raise AssertionError("4p(b): a clean state's digest fails the host check")
+    reps = 5000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        scrub.digest_failures(digest, P, lag_sum)
+    check_ms = (time.perf_counter() - t0) / reps * 1e3
+    return dict(digest_check_ms=check_ms, warm_noop_p50_ms=noop_ms,
+                digest_overhead_ratio=check_ms / noop_ms)
+
+
+def warm_noop_p50_ms(device) -> float:
+    """The denominator of the digest ratio, bench.py's: the warm no-op epoch
+    at the north-star scale (100,000 lags, 1,000 consumers, threshold 1,000),
+    median of 30."""
+    lags = np.random.default_rng(8).integers(1, 10**6, size=STREAM_P)
+    eng = streaming.StreamingAssignor(num_consumers=STREAM_C, refine_iters=64,
+                                      refine_threshold=1000.0, device=device)
+    eng.rebalance(lags)
+    eng.rebalance(lags)
+    walls = []
+    for _ in range(30):
+        t0 = time.perf_counter()
+        eng.rebalance(lags)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(walls, 50))
+
+
+def storm_sidecar(device, noop_ms: float) -> dict:
+    """4p (b1): bench.py's corruption_storm at its own shape on port sidecars
+    on the card: seeded ``device.corrupt.{choice,counts,lags}`` flips into an
+    inline stream (``coalesce_max_batch=1``) and into a locked row of an N = 4
+    coalescing sidecar, rehearsed until compile-quiet, then one measured
+    round."""
+    from kafka_lag_based_assignor_tpu_torch.service import (
+        AssignorService,
+        AssignorServiceClient,
+    )
+    from kafka_lag_based_assignor_tpu_torch.testing import assert_valid_assignment
+    from kafka_lag_based_assignor_tpu_torch.utils import faults
+    from kafka_lag_based_assignor_tpu_torch.utils.observability import (
+        compile_count,
+        install_compile_counter,
+    )
+
+    install_compile_counter()
+    P, C, N = STORM_P, STORM_C, STORM_N
+    members = [f"m{j}" for j in range(C)]
+    rng = np.random.default_rng(0x5C12B)
+    seeds = iter(range(100, 200))
+    tally = StormTally()
+
+    def fresh():
+        return rng.integers(0, 10**6, P).astype(np.int64)
+
+    def valid(r, record=True):
+        try:
+            assert_valid_assignment(r["assignments"], P)
+        except AssertionError:
+            tally.invalid += record
+
+    def healed(prev, lags, r, record):
+        if record and not np.array_equal(wire_choice(r["assignments"], members),
+                                         healed_twin(prev, lags, C)):
+            tally.heal_mismatch += 1
+
+    def injector(buffer):
+        return faults.FaultInjector(seed=next(seeds)).plan(
+            f"device.corrupt.{buffer}", mode="raise", times=1)
+
+    # Phase A: the inline stream.
+    svc = AssignorService(port=0, device=device.type, coalesce_max_batch=1,
+                          scrub_interval_ms=3600_000.0, breaker_cooldown_s=0.5).start()
+    ca = AssignorServiceClient(*svc.address, timeout_s=300.0)
+
+    def epoch_a(lags=None, record=True):
+        r = ca.stream_assign("a0", "t0", wire_rows(fresh() if lags is None else lags),
+                             members, options=STORM_OPTS)
+        valid(r, record)
+        return r
+
+    def storm_a(record=True):
+        for buffer in STORM_BUFFERS:
+            inj = injector(buffer)
+            with faults.injected(inj):
+                epoch_a(record=record)
+            tally.injected += record * inj.fired(f"device.corrupt.{buffer}")
+            engine = svc._streams["a0"].engine
+            if buffer == "lags":
+                q0 = quarantine_total("quarantined")
+                svc._scrubber.scrub_once()
+                hit = quarantine_total("quarantined") - q0 >= 1
+            else:
+                hit = epoch_a(record=record)["stream"]["degraded_rung"] == "kept_previous"
+            if record:
+                tally.detected += hit
+                tally.late += not hit
+            prev = np.array(engine._prev_choice, copy=True)
+            heal = fresh()
+            healed(prev, heal, epoch_a(heal, record), record)
+            epoch_a(record=record)
+            epoch_a(record=record)
+
+    try:
+        epoch_a()
+        epoch_a()
+        for _ in range(3):
+            c0 = compile_count()
+            storm_a(record=False)
+            if compile_count() == c0:
+                break
+        c0 = compile_count()
+        storm_a()
+        builds = compile_count() - c0
+    finally:
+        ca.close()
+        svc.stop()
+
+    # Phase B: a locked row of a coalescing sidecar.
+    svc = AssignorService(port=0, device=device.type, coalesce_max_batch=N,
+                          coalesce_window_ms=500.0, scrub_interval_ms=3600_000.0,
+                          breaker_cooldown_s=0.5).start()
+    streams = [f"b{i}" for i in range(N)]
+    clients = {sid: AssignorServiceClient(*svc.address, timeout_s=300.0) for sid in streams}
+    last = {sid: fresh() for sid in streams}
+
+    def wave(small_drift=False, record=True):
+        for sid in streams:
+            nxt = last[sid].copy()
+            if small_drift:
+                nxt[np.random.default_rng(7000 + int(sid[1:])).choice(P, 16, replace=False)] += 13
+            else:
+                nxt = fresh()
+            last[sid] = nxt
+        got, _, _ = at_once("storm wave", {sid: lambda sid=sid: clients[sid].stream_assign(
+            sid, "t0", wire_rows(last[sid]), members, options=STORM_OPTS) for sid in streams})
+        for r in got.values():
+            valid(r, record)
+        return got
+
+    def storm_b(record=True):
+        for buffer in STORM_BUFFERS:
+            inv0 = roster_invalidations()
+            inj = injector(buffer)
+            with faults.injected(inj):
+                wave(record=record)
+            tally.injected += record * inj.fired(f"device.corrupt.{buffer}")
+            if buffer == "lags":
+                q0 = quarantine_total("resynced")
+                wave(small_drift=True, record=record)
+                hit = quarantine_total("resynced") - q0 >= 1
+                if not hit:
+                    hit = True
+                    for sid in streams:
+                        st = svc._streams[sid]
+                        with st.lock:
+                            hit = hit and not scrub.audit_engine(st.engine)[1]
+            else:
+                kept = [sid for sid, r in wave(record=record).items()
+                        if r["stream"]["degraded_rung"] == "kept_previous"]
+                hit = len(kept) == 1
+                if record:
+                    tally.evictions.append(int(roster_invalidations() - inv0))
+                for sid in [s for s in streams if svc._streams[s].engine.quarantined]:
+                    prev = np.array(svc._streams[sid].engine._prev_choice, copy=True)
+                    last[sid] = heal = fresh()
+                    r = clients[sid].stream_assign(sid, "t0", wire_rows(heal), members,
+                                                   options=STORM_OPTS)
+                    valid(r, record)
+                    healed(prev, heal, r, record)
+            if record:
+                tally.detected += hit
+                tally.late += not hit
+            wave(record=record)
+            wave(record=record)
+
+    try:
+        for sid in streams:
+            clients[sid].stream_assign(sid, "t0", wire_rows(last[sid]), members,
+                                       options=STORM_OPTS)
+        wave()
+        wave()
+        wave(small_drift=True)
+        for _ in range(5):
+            c0 = compile_count()
+            storm_b(record=False)
+            if compile_count() == c0:
+                break
+        c0 = compile_count()
+        storm_b()
+        builds += compile_count() - c0
+    finally:
+        for cl in clients.values():
+            cl.close()
+        svc.stop()
+    out = dict(partitions=P, consumers=C, streams_locked=N, **tally.gate("b1"),
+               storm_builds=builds, **digest_ratio(device, pad_bucket(P), P, C, noop_ms))
+    log(f"probes 4p(b1) corruption_storm at {P} x {C}: {json.dumps(out)}")
+    if builds or out["digest_overhead_ratio"] >= DIGEST_BUDGET:
+        raise AssertionError(f"4p(b1): {builds} builds in the measured round, digest ratio "
+                             f"{out['digest_overhead_ratio']}")
+    return out
+
+
+def storm_config5(device, noop_ms: float) -> dict:
+    """4p (b2): the same flips at config 5's width (100,000 x 1,000, resident
+    B 131,072, M 133, phase 4c's refine budget) in process: into one
+    ``StreamingAssignor`` (K6's single entry reads the corrupted state) and
+    into one row of a 4-row locked ``MegabatchCoalescer`` wave (its batched
+    entry).  choice / counts are caught by the next dispatch, lags by the
+    audit (one scrub pass) inline and by the locked delta wave's lag-sum
+    check; each heal equals a CPU twin seeded from the host truth."""
+    from kafka_lag_based_assignor_tpu_torch.ops.coalesce import MegabatchCoalescer
+    from kafka_lag_based_assignor_tpu_torch.utils import faults
+
+    P, C = STREAM_P, STREAM_C
+    opts = dict(refine_iters=STREAM_BUDGET, imbalance_guardrail=None, refine_threshold=None)
+    rng = np.random.default_rng(0x5C125)
+    seeds = iter(range(300, 400))
+    tally = StormTally()
+
+    def fresh():
+        return rng.integers(0, 10**6, P).astype(np.int64)
+
+    def check(choice):
+        counts = np.bincount(np.asarray(choice), minlength=C)
+        tally.invalid += bool(counts.max() - counts.min() > 1 or np.asarray(choice).min() < 0)
+
+    def heal(engine):
+        prev = np.array(engine._prev_choice, copy=True)
+        lags = fresh()
+        got = engine.rebalance(lags)
+        check(got)
+        tally.heal_mismatch += not np.array_equal(
+            np.asarray(got), healed_twin(prev, lags, C, refine_iters=STREAM_BUDGET,
+                                         imbalance_guardrail=None))
+        return lags
+
+    def injector(buffer):
+        return faults.FaultInjector(seed=next(seeds)).plan(
+            f"device.corrupt.{buffer}", mode="raise", times=1)
+
+    t0 = time.perf_counter()
+    engine = streaming.StreamingAssignor(num_consumers=C, device=device, **opts)
+    check(engine.rebalance(fresh()))
+    check(engine.rebalance(fresh()))
+    for buffer in STORM_BUFFERS:
+        inj = injector(buffer)
+        with faults.injected(inj):
+            check(engine.rebalance(fresh()))
+        tally.injected += inj.fired(f"device.corrupt.{buffer}")
+        if buffer == "lags":
+            audited, fails = scrub.audit_engine(engine)
+            hit = audited and fails == ["lags"]
+            engine.quarantine_resident(fails, source="scrub")
+        else:
+            try:
+                engine.rebalance(fresh())
+                hit = False
+            except scrub.CorruptStateDetected as exc:
+                hit = buffer in exc.buffers and engine.quarantined
+        tally.detected += hit
+        tally.late += not hit
+        heal(engine)
+        if engine.quarantined:
+            raise AssertionError(f"4p(b2): the inline engine did not heal after {buffer}")
+    inline_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    engines = [streaming.StreamingAssignor(num_consumers=C, device=device, **opts)
+               for _ in range(C5_ROWS)]
+    last = [fresh() for _ in engines]
+    coal = MegabatchCoalescer(window_s=2.0, max_batch=C5_ROWS, lock_waves=1, device=device)
+
+    def wave(small_drift=False):
+        for n in range(len(engines)):
+            if small_drift:
+                last[n] = last[n].copy()
+                last[n][np.random.default_rng(7000 + n).choice(P, 16, replace=False)] += 13
+            else:
+                last[n] = fresh()
+        got, errs = [None] * len(engines), [None] * len(engines)
+
+        def one(n):
+            try:
+                got[n] = engines[n].submit_epoch(last[n], coal)
+            except scrub.CorruptStateDetected as exc:
+                errs[n] = exc
+
+        at_once("config-5 storm wave", {n: lambda n=n: one(n) for n in range(len(engines))})
+        for g in got:
+            if g is not None:
+                check(g)
+        return errs
+
+    try:
+        for eng, lags in zip(engines, last):
+            check(eng.rebalance(lags))
+        wave()
+        wave()
+        wave(small_drift=True)
+        for buffer in STORM_BUFFERS:
+            inv0 = roster_invalidations()
+            inj = injector(buffer)
+            with faults.injected(inj):
+                errs = wave()
+            tally.injected += inj.fired(f"device.corrupt.{buffer}")
+            if any(errs):
+                raise AssertionError(f"4p(b2): the flipped wave failed a row: {errs}")
+            if buffer == "lags":
+                q0 = quarantine_total("resynced")
+                errs = wave(small_drift=True)
+                hit = quarantine_total("resynced") - q0 >= 1 and not any(errs)
+            else:
+                errs = wave()
+                bad = [n for n, e in enumerate(errs) if e is not None]
+                hit = (len(bad) == 1 and buffer in errs[bad[0]].buffers
+                       and engines[bad[0]].quarantined)
+                tally.evictions.append(int(roster_invalidations() - inv0))
+                for n in bad:
+                    last[n] = heal(engines[n])
+            tally.detected += hit
+            tally.late += not hit
+            wave()
+            wave()
+    finally:
+        coal.close(timeout_s=60)
+    out = dict(partitions=P, consumers=C, bucket=pad_bucket(P), refine_iters=STREAM_BUDGET,
+               rows_locked=C5_ROWS, **tally.gate("b2"), inline_s=inline_s,
+               locked_s=time.perf_counter() - t0,
+               **digest_ratio(device, pad_bucket(P), P, C, noop_ms))
+    log(f"probes 4p(b2) corruption storm at config 5's width: {json.dumps(out)}")
+    return out
+
+
+def linear_solve_peak(lags: np.ndarray, C: int, device, tile=None, refine_iters=None) -> dict:
+    """One warm linear solve (``assign_topic_linear`` after a warm-up call on
+    the same input): its wall, the growth of the card's peak allocation over
+    it, and the geometry ``last_solve_info`` reports."""
+    from kafka_lag_based_assignor_tpu_torch.utils.observability import compile_count
+
+    lp, pp, vp = pad_topic_rows(lags)
+
+    def solve():
+        return linear_ot.assign_topic_linear(lp, pp, vp, num_consumers=C, tile=tile,
+                                             refine_iters=refine_iters, device=device)
+
+    solve()
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    builds = compile_count()
+    t0 = time.perf_counter()
+    choice, _, totals = solve()
+    torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(device) - base
+    info = dict(linear_ot.last_solve_info())
+    block = int(lp.shape[0]) * C * 4
+    return dict(rows=int(lp.shape[0]), consumers=C, tile=info["tile"], tiles=info["tiles"],
+                warm_ms=ms, warm_builds=compile_count() - builds, peak_bytes=int(peak),
+                peak_bytes_estimate=info["peak_bytes_estimate"], pc_bytes=block,
+                peak_pc_fraction=peak / block,
+                quality_ratio=quality_of(lags, totals, C),
+                choice=np.asarray(choice)[:lags.size], totals=np.asarray(totals))
+
+
+def quality_of(lags: np.ndarray, totals, C: int) -> float:
+    """bench.py's quality ratio: the max over the mean consumer load, over the
+    count-constrained bound (at least 1)."""
+    t = np.asarray(totals, dtype=np.float64)
+    imbalance = float(t.max() / t.mean()) if t.mean() > 0 else 1.0
+    return imbalance / max(count_constrained_bound(lags, C), 1.0)
+
+
+def linear_probe(device) -> dict:
+    """4p (c): bench.py's linear_ot_scale with the card's allocator: the
+    parity shape against the dense solve, the scale shapes' peaks and
+    growth, the sharded solve bit for bit at D 4 and 8 virtual shards, then
+    config 5 and the wide group at the static tile and the wide group once
+    at the tile ``autotune_quality_tile`` picks in this process."""
+    rng = np.random.default_rng(0x11EA)
+    out = {}
+
+    def row(r):
+        return {k: v for k, v in r.items() if k not in ("choice", "totals")}
+
+    lags = zipf_lags(rng, 4096)
+    lp, pp, vp = pad_topic_rows(lags)
+    with dispatch.quality_scope("sinkhorn"):
+        s_tot = np.asarray(sinkhorn.assign_topic_sinkhorn(lp, pp, vp, num_consumers=64,
+                                                          device=device)[2].cpu())
+    with dispatch.quality_scope("linear"):
+        lin = linear_solve_peak(lags, 64, device, tile=linear_ot.DEFAULT_TILE)
+    q_sink = quality_of(lags, s_tot, 64)
+    out["parity"] = dict(row(lin), quality_ratio_sinkhorn=q_sink,
+                         linear_vs_sinkhorn=lin["quality_ratio"] / q_sink)
+    scale = []
+    for P in (16384, 65536):
+        with dispatch.quality_scope("linear"):
+            scale.append(row(linear_solve_peak(zipf_lags(rng, P), 128, device,
+                                               tile=linear_ot.DEFAULT_TILE)))
+    out["scale"] = dict(rows=scale, peak_growth=scale[1]["peak_bytes"] / scale[0]["peak_bytes"],
+                        bytes_a_row=scale[1]["peak_bytes"] / scale[1]["rows"],
+                        fraction_gate=LINEAR_PEAK_FRACTION)
+    from kafka_lag_based_assignor_tpu_torch.sharded.solve import solve_linear_sharded
+
+    arr = zipf_lags(rng, 32768)
+    with dispatch.quality_scope("linear"):
+        single = linear_solve_peak(arr, 64, device, tile=linear_ot.DEFAULT_TILE, refine_iters=64)
+        sharded = {}
+        for D in (4, 8):
+            t0 = time.perf_counter()
+            ch, _, tot, _ = solve_linear_sharded(virtual_mesh(D, device), arr, 64,
+                                                 refine_iters=64, tile=linear_ot.DEFAULT_TILE)
+            sharded[D] = dict(ms=(time.perf_counter() - t0) * 1e3, bit_identical=bool(
+                np.array_equal(np.asarray(ch), single["choice"])
+                and np.array_equal(np.asarray(tot), single["totals"])))
+    out["sharded"] = dict(partitions=32768, consumers=64, refine_iters=64, shards=sharded)
+    real = {"config5": (baseline_workload(5)[0]["t0"], STREAM_C),
+            "wide": (wide_workload()[0]["t0"], WIDE_C)}
+    for name, (arr, C) in real.items():
+        out[name] = row(linear_solve_peak(arr, C, device, tile=linear_ot.DEFAULT_TILE))
+    tile0 = dispatch.quality_tile()
+    try:
+        auto = dispatch.autotune_quality_tile(device=device)
+        try:
+            out["wide_autotuned"] = row(linear_solve_peak(real["wide"][0], WIDE_C, device,
+                                                          tile=auto))
+        except ValueError as exc:
+            out["wide_autotuned"] = {"refused": str(exc)}
+        out["wide_autotuned"]["autotuned_tile"] = auto
+    finally:
+        dispatch.set_quality_tile(tile0)
+    log(f"probes 4p(c) linear_ot_scale: {json.dumps(out, default=str)}")
+    bad = []
+    if out["parity"]["linear_vs_sinkhorn"] > 1.05:
+        bad.append(f"parity {out['parity']['linear_vs_sinkhorn']}")
+    if scale[1]["peak_pc_fraction"] >= LINEAR_PEAK_FRACTION:
+        bad.append(f"scale peak {scale[1]['peak_pc_fraction']} of the block")
+    if out["scale"]["peak_growth"] > LINEAR_PEAK_GROWTH:
+        bad.append(f"peak growth {out['scale']['peak_growth']}")
+    if any(r["warm_builds"] for r in scale):
+        bad.append("builds in the warm loop")
+    if not all(s["bit_identical"] for s in sharded.values()):
+        bad.append(f"sharded {sharded}")
+    for name in real:
+        if out[name]["peak_pc_fraction"] >= LINEAR_PEAK_FRACTION:
+            bad.append(f"{name} peak {out[name]['peak_pc_fraction']} of the block")
+    if bad:
+        raise AssertionError(f"4p(c) linear_ot_scale: {bad}")
+    return out
+
+
+def linear_probe_run() -> tuple:
+    """4p (c) in a process of its own (``--linear-probe-child``): a fresh
+    allocator, and no thread of the earlier legs' sidecars that could
+    allocate while a solve is measured.  Returns (the report, the child's
+    launches)."""
+    argv = [sys.executable, os.path.abspath(__file__), "--linear-probe-child"]
+    done = subprocess.run(argv, capture_output=True, text=True, timeout=600)
+    lines = done.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        if line.startswith("probes 4p(c)"):
+            log(line)
+    if done.returncode != 0 or not lines:
+        raise AssertionError(f"linear probe child exited {done.returncode}: "
+                             f"{done.stdout[-3000:]}{done.stderr[-3000:]}")
+    got = json.loads(lines[-1])
+    return got["linear_ot_scale"], got["launches"]
+
+
+def probes_path(device) -> tuple:
+    """Phase 4p: (a) the overload stampede, (b1) the corruption storm at
+    bench.py's shape and (b2) at config 5's width, (c) the linear solve's
+    peak memory.  Returns (the launches of all four, the ``probes``
+    report)."""
+    t0 = time.perf_counter()
+    report, seconds = {}, {}
+    launches = {name: 0 for name, _ in COUNTERS}
+    noop_ms = warm_noop_p50_ms(device)
+    for leg, run in (
+            ("overload_stampede", lambda: counted(lambda: stampede_probe(device))),
+            ("corruption_storm", lambda: counted(lambda: storm_sidecar(device, noop_ms))),
+            ("corruption_storm_config5",
+             lambda: counted(lambda: storm_config5(device, noop_ms))),
+            ("linear_ot_scale", linear_probe_run)):
+        start = time.perf_counter()
+        report[leg], grew = run()
+        add_counts(launches, grew)
+        seconds[leg] = time.perf_counter() - start
+    report.update(launches=launches, seconds=seconds, phase_s=time.perf_counter() - t0,
+                  card=CARD[0] if CARD else None)
+    log(f"main path (probes): launches {launches}; legs {seconds} s")
+    for name in ("rounds_scan", "plan_stats", "mirror_prox_step", "superblock_partials",
+                 "state_digest", "state_digest_rows"):
+        if not launches[name]:
+            raise AssertionError(f"phase 4p: {name} never launched: {launches}")
+    return launches, report
+
+
 SOURCES = {
     "rounds_scan": ("csrc/rounds_scan.cu", "ops/rounds_pallas.py:194"),
     "plan_stats": ("csrc/plan_stats.cu", "ops/plan_stats.py:184"),
@@ -7275,7 +8097,9 @@ def ab(mode: str, roots) -> None:
         log(json.dumps({"wide_ab": runs}))
         return
     for run in runs:
-        if mode in ("k1", "k7"):
+        if mode == "tail":
+            log(f"tail a/b  {run['root']}: {json.dumps(run['tail_times'])}")
+        elif mode in ("k1", "k7"):
             log(f"{mode} a/b  {run['root']}: " + "; ".join(
                 f"{name} alone {t['alone_ms']!r} ms event {t['event_ms']!r} ms"
                 + (f" plain {t['plain_ms']!r} ms" if t.get("plain_ms") is not None else "")
@@ -7296,7 +8120,7 @@ def ab(mode: str, roots) -> None:
                 f"{t['state_digest']['event_ms']!r} ms; K5 {t['superblock_partials']!r} ms; "
                 f"K4 {t['mirror_prox_step']!r} ms; K1 {t['rounds_scan']}; quality ratios "
                 f"{t['quality_ratio']}")
-    if mode in ("k1", "k7"):
+    if mode in ("k1", "k7", "tail"):
         # Every checkout computes the same function: the same bits.
         for name in runs[0][f"{mode}_times"]:
             if len({r[f"{mode}_times"][name]["bits"] for r in runs}) > 1:
@@ -7310,7 +8134,7 @@ def main() -> int:
               "port on the card", file=sys.stderr)
         return 1
     device = torch.device("cuda")
-    for mode in ("k1", "k7", "k36", "wide"):
+    for mode in ("k1", "k7", "k36", "wide", "tail"):
         if sys.argv[1:2] == [f"--{mode}-ab"]:
             ab(mode, sys.argv[2:])
             return 0
@@ -7329,6 +8153,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--wide-times"]:
         log(json.dumps({"wide_times": wide_ab_times(device), "device": name}))
+        return 0
+    if sys.argv[1:] == ["--tail-times"]:
+        log(json.dumps({"tail_times": tail_times(device), "device": name}))
         return 0
     if sys.argv[1:] == ["--profiler-probe"]:
         log(json.dumps({"profiler_probe": profiler_probe(), "device": name,
@@ -7404,6 +8231,16 @@ def main() -> int:
         log(f"card: {CARD[0]}")
         log(json.dumps({"scenarios": report, "device": name}, default=str))
         return 0
+    if sys.argv[1:] == ["--probes"]:
+        build()
+        launches, report = probes_path(device)
+        log(f"card: {CARD[0]}")
+        log(json.dumps({"probes": report, "device": name}, default=str))
+        return 0
+    if sys.argv[1:] == ["--linear-probe-child"]:
+        report, launches = counted(lambda: linear_probe(device))
+        log(json.dumps({"linear_ot_scale": report, "launches": launches}, default=str))
+        return 0
     if sys.argv[1:] == ["--lifecycle"]:
         build()
         launches, lifecycle = lifecycle_path(device, StreamRun(device).run())
@@ -7461,6 +8298,8 @@ def main() -> int:
     lap("4n")
     scenario_launches, scenarios = scenarios_path(device)
     lap("4o")
+    probe_launches, probes = probes_path(device)
+    lap("4p")
     launches["rounds_scan"] += (rounds_launches + stream_launches["rounds_scan"]
                                 + solver_launches["rounds_scan"]
                                 + ladder_launches["rounds_scan"])
@@ -7494,9 +8333,14 @@ def main() -> int:
     # batched, K3 in the federated scenario's exchanges, the mesh
     # scenario's sharded programs), skew_storm at config 5's width and the
     # tracing probe's federated join and coalesced waves.
+    # Phase 4p: the stampede's and the storms' sidecars (K1 cold chains, K6
+    # single and batched), the storm at config 5's width (K6's single and
+    # batched entries on a real resident state) and the linear solves (K4,
+    # K5, K1 in the rounding tail; K3 in the dense parity solve).
     for k, v in (*placement_launches.items(), *federation_launches.items(),
                  *wide_launches.items(), *paths_launches.items(),
-                 *takeover_launches.items(), *scenario_launches.items()):
+                 *takeover_launches.items(), *scenario_launches.items(),
+                 *probe_launches.items()):
         launches[k] += v
     f32_err["superblock_partials"] = max(f32_err["superblock_partials"], k5_shard_err,
                                          paths_err["superblock_partials"])
@@ -7546,6 +8390,7 @@ def main() -> int:
     log(json.dumps({"wide_paths": wide_paths_report}, default=str))
     log(json.dumps({"takeover": takeover}, default=str))
     log(json.dumps({"scenarios": scenarios}, default=str))
+    log(json.dumps({"probes": probes}, default=str))
     log(json.dumps({"profiler": {"skew": skew, "sessions": SESSIONS,
                                  "pad_s": PROFILER_PAD_S, "skew_pad_s": SKEW_PAD_S}}))
     log(json.dumps({"phases_s": PHASE_S}))

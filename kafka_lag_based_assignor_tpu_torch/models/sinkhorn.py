@@ -51,6 +51,13 @@ _AUTO_REFINE_PARALLEL = 96
 # factor of greedy's; beyond it the refine starts from greedy's answer.
 _START_SLACK = 3
 
+# The rounding tail's sorts (:func:`_tail_sort_rows`): a sort of n rows
+# keeps about 48 B a row of its own live (int64 keys, values, an iota, the
+# indices and the radix sort's double buffers), so a group narrower than
+# this many consumers sorts in up to _TAIL_SORT_CHUNKS chunks.
+_TAIL_SORT_WIDTH = 512
+_TAIL_SORT_CHUNKS = 4
+
 # Cap on the deduplicated value axis; above it the tail of the value
 # distribution is log-bucketed (each bin by its weighted mean, so both
 # marginals stay mass-preserving).
@@ -198,13 +205,17 @@ def sinkhorn_duals(lags, valid, num_consumers: int, iters: int = 24,
 
 
 def _round_parallel(lags, ws, valid, A, B, C: int, floor_cap: int, extras: int,
-                    cap_vec=None, cap_max=None):
+                    cap_vec=None, cap_max=None, sort_rows=None):
     """Parallel plan rounding (no per-partition scan).
 
     ``cap_vec`` (int32[C] summing to the valid row count) replaces the
     uniform floor/ceil capacities with explicit per-consumer seat counts
     (the federated weighted rounding, :mod:`..ops.fedsolve`); ``cap_max``
     must then bound its largest entry: it sizes the open-slot enumeration.
+    ``sort_rows`` bounds the rows a sort takes at a time
+    (:func:`..ops.sortops.stable_argsort`; default one sort of every row).
+    ``ws=None`` makes the scaled lags here (:func:`_scaled_ws`), freed once
+    read.
 
     1. each partition takes its noise-free plan-argmax consumer;
     2. capacity repair: within each consumer's takers (lag descending) the
@@ -216,52 +227,86 @@ def _round_parallel(lags, ws, valid, A, B, C: int, floor_cap: int, extras: int,
 
     Returns choice int32[P] (input order, -1 for invalid rows).
     """
-    from ..ops.sortops import lexsort, unsort
+    from ..ops.sortops import stable_argsort, unsort
 
-    P = ws.shape[0]
-    dev = ws.device
+    P = lags.shape[0]
+    dev = lags.device
+    rows = P if sort_rows is None else int(sort_rows)
     i64max = torch.iinfo(torch.int64).max
-    i32max = torch.iinfo(torch.int32).max
     if cap_vec is None:
         cap = floor_cap + (torch.arange(C, device=dev) < extras).to(torch.int64)
     else:
         cap = torch.as_tensor(cap_vec, device=dev).to(torch.int64)
 
-    jstar = implicit_plan_argmax(ws, valid, A, B, tie_noise=False).to(torch.int64)
-    neg_lag = torch.where(valid, -lags, i64max)
-    idx = torch.arange(P, device=dev)
-    perm = lexsort(jstar, neg_lag)
-    sj = jstar[perm]
-    bnd = torch.searchsorted(sj, torch.arange(C + 1, device=dev))
-    pos = idx - bnd[torch.clamp(sj, 0, C)]
-    keep = (sj < C) & (pos < cap[torch.clamp(sj, 0, C - 1)])
+    # The lexicographic (jstar, -lag) order: a stable sort by -lag, then a
+    # stable sort by the argmax consumer.  Row ids are int32, and each [P]
+    # buffer is freed once dead: at 128 consumers the tail's peak must stay
+    # within 1/8 of the [P, C] f32 plan, 64 B a row.
+    by_lag = stable_argsort(torch.where(valid, -lags, i64max), rows)
+    if ws is None:
+        ws = _scaled_ws(lags, valid, C)
+    key = implicit_plan_argmax(ws, valid, A, B, tie_noise=False)[by_lag]
+    by_j = stable_argsort(key, rows)
+    sj = key[by_j]
+    del key
+    # Each row's lag rank, int32: its lag's first place in the lag order,
+    # equal for equal lags (the overflow's sort key).
+    rank = _lag_rank(lags, by_lag)
+    perm = by_lag[by_j]
+    del by_lag, by_j
+    bnd = torch.searchsorted(sj, torch.arange(C + 1, dtype=sj.dtype, device=dev))
+    # Row i keeps its seat while its place in its consumer's run is under
+    # the consumer's cap: i < bnd[j] + cap[j] (int32: P and the caps fit).
+    seat_end = (bnd[:-1] + cap).to(torch.int32)
+    keep = torch.arange(P, dtype=torch.int32, device=dev) < seat_end[torch.clamp(sj, 0, C - 1)]
+    keep &= sj < C
 
-    ws_s = ws[perm]
     kept_cnt = torch.minimum(bnd[1:] - bnd[:-1], cap)
-    csum = torch.cat([ws_s.new_zeros(1), torch.cumsum(torch.where(keep, ws_s, 0.0), 0)])
+    csum = torch.cat([ws.new_zeros(1), torch.cumsum(torch.where(keep, ws[perm], 0.0), 0)])
     kept_load = csum[bnd[1:]] - csum[bnd[:-1]]
+    del csum, ws
     rem = cap - kept_cnt
 
-    # Open slots in (round, load-rank) order.
-    load_rank = torch.empty(C, dtype=torch.int64, device=dev)
-    load_rank[torch.argsort(kept_load, stable=True)] = torch.arange(C, device=dev)
+    # Open slots in (round, load-rank) order: round r holds a slot of each
+    # consumer with more than r seats left, consumers by ascending kept
+    # load (the slots' (r, load rank) keys are distinct, so this is their
+    # sorted order; the closed slots sorted after them are never taken).
+    by_load = torch.argsort(kept_load, stable=True)
     cap_max = int(cap_max) if cap_max is not None else P // C + 1
-    slot_r = torch.arange(cap_max, device=dev).repeat_interleave(C)
-    slot_j = torch.arange(C, device=dev).repeat(cap_max)
-    slot_open = slot_r < rem[slot_j]
-    slot_key = torch.where(slot_open, slot_r * C + load_rank[slot_j], i32max)
-    slot_j_sorted = slot_j[torch.argsort(slot_key, stable=True)]
+    rounds = torch.arange(cap_max, device=dev)[:, None]
+    slot_j = by_load.to(torch.int32).repeat(cap_max)[(rem[by_load][None, :] > rounds).reshape(-1)]
 
-    # Overflow rows in lag-desc order meet the slots positionally.
-    overflow = valid[perm] & ~keep
-    okey = torch.where(overflow, neg_lag[perm], i64max)
-    oorder = torch.argsort(okey, stable=True)
-    n_over = overflow.sum()
-    seat = torch.where(
-        idx < n_over, slot_j_sorted[torch.clamp(idx, max=C * cap_max - 1)], -1
-    )
-    choice_sorted = torch.maximum(torch.where(keep, sj, -1), unsort(oorder, seat))
-    return unsort(perm, choice_sorted).to(torch.int32)
+    # Overflow rows in lag-desc order meet the slots positionally: the
+    # overflow rows alone, in their (jstar, -lag) order, sorted stably by
+    # lag rank, are the k-th largest-lag overflow rows, ties in that order.
+    choice_sorted = torch.where(keep, sj, -1)
+    del sj
+    over = torch.nonzero(valid[perm] & ~keep).squeeze(1).to(torch.int32)
+    del keep
+    key = rank[perm[over]]
+    del rank
+    if over.numel():
+        over = over[stable_argsort(key, rows)]
+        choice_sorted[over] = slot_j[: over.numel()]
+    del over, slot_j, key
+    return unsort(perm, choice_sorted)
+
+
+def _lag_rank(lags, by_lag):
+    """int32[P]: each row's first place in the lag order ``by_lag`` (rows by
+    descending lag) among the rows of its lag, so that rows compare as their
+    lags do; the invalid rows, sorted last, rank by their own lags too (they
+    are never compared)."""
+    P = lags.shape[0]
+    sorted_lags = lags[by_lag]
+    first = torch.ones(P, dtype=torch.bool, device=lags.device)
+    first[1:] = sorted_lags[1:] != sorted_lags[:-1]
+    del sorted_lags
+    place = torch.where(first, torch.arange(P, dtype=torch.int32, device=lags.device), 0)
+    del first
+    rank = torch.empty(P, dtype=torch.int32, device=lags.device)
+    rank[by_lag] = torch.cummax(place, 0).values
+    return rank
 
 
 def _round_sequential(lags, ws, valid, A, B, C: int, floor_cap: int, extras: int):
@@ -305,7 +350,17 @@ def _round_sequential(lags, ws, valid, A, B, C: int, floor_cap: int, extras: int
     return choice
 
 
-def _round_refine_portfolio(lags, partition_ids, valid, ws, A, B, *,
+def _tail_sort_rows(P: int, C: int) -> int:
+    """Rows a sort of the rounding tail takes at a time: every row when the
+    [P, C] f32 plan is at least _TAIL_SORT_WIDTH consumers wide (a whole
+    sort's buffers are then under 3/32 of it), else P in up to
+    _TAIL_SORT_CHUNKS chunks, so that at 128 consumers the tail stays
+    within 1/8 of the plan.  The chunking changes no bit."""
+    chunks = min(_TAIL_SORT_CHUNKS, -(-_TAIL_SORT_WIDTH // max(int(C), 1)))
+    return -(-int(P) // chunks)
+
+
+def _round_refine_portfolio(lags, partition_ids, valid, A, B, *,
                             num_consumers: int, refine_iters: int):
     """Shared rounding + refine + portfolio tail of both quality modes:
     round the implicit plan of the ``(A, B)`` duals, refine the more
@@ -321,22 +376,28 @@ def _round_refine_portfolio(lags, partition_ids, valid, ws, A, B, *,
     n_valid = int(valid.sum())
     floor_cap = n_valid // C
     extras = n_valid - floor_cap * C
-    rounding = _round_parallel if P > _SCAN_ROUNDING_MAX_P else _round_sequential
-    choice = rounding(lags, ws, valid, A, B, C, floor_cap, extras)
+    rows = _tail_sort_rows(P, C)
+    if P > _SCAN_ROUNDING_MAX_P:
+        # The rounding makes the scaled lags itself and frees them once read.
+        choice = _round_parallel(lags, None, valid, A, B, C, floor_cap, extras, sort_rows=rows)
+    else:
+        choice = _round_sequential(lags, _scaled_ws(lags, valid, C), valid, A, B, C,
+                                   floor_cap, extras)
 
     # Refine the OT rounding only while its peak is within _START_SLACK of
     # greedy's; otherwise refine greedy's start.
     g_choice, g_counts, g_totals = assign_topic_rounds(
-        lags, partition_ids, valid, num_consumers=C
+        lags, partition_ids, valid, num_consumers=C, sort_rows=rows
     )
     ot_totals = segment_sum(
         torch.where(valid, lags, 0), torch.where(valid, choice, -1), C
     )
     use_ot_start = ot_totals.max() <= _START_SLACK * g_totals.max()
     start = torch.where(use_ot_start, choice, g_choice)
+    del choice
 
     row_tab, r_counts, r_totals = build_choice_tables(
-        lags, valid, start, C, table_rows(P, C)
+        lags, valid, start, C, table_rows(P, C), sort_rows=rows
     )
     s_choice, _, s_counts, s_totals, _, _ = refine_rounds_resident(
         lags, start, row_tab, r_counts, r_totals, num_consumers=C,
@@ -394,9 +455,8 @@ def assign_topic_sinkhorn(lags, partition_ids, valid, num_consumers: int,
         torch.from_numpy(a).to(dev) for a in (lags_np, pids_np, valid_np)
     )
     A, B = _sinkhorn_duals(ws_u, count_u, wsum_u, C, iters=iters)
-    ws = _scaled_ws(lags_d, valid_d, C)
     return _round_refine_portfolio(
-        lags_d, pids_d, valid_d, ws, A, B,
+        lags_d, pids_d, valid_d, A, B,
         num_consumers=C, refine_iters=refine_iters,
     )
 

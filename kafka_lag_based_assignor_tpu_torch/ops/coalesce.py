@@ -546,6 +546,12 @@ class MegabatchCoalescer:
 
     # -- submission --------------------------------------------------------
 
+    def set_window_scale(self, scale: float) -> None:
+        """The single-scale form: every class's window to ``window_s *
+        scale`` (clamped to [0.05, 1.0]).  Safe from any thread."""
+        scale = min(max(float(scale), 0.05), 1.0)
+        self.set_window_scales((scale, scale, scale))
+
     def set_window_scales(self, scales) -> None:
         """Per-class window scales in rank order (critical, standard,
         best_effort), from the overload controller's decision: each parked

@@ -260,14 +260,13 @@ def finish_from_duals(lags_d, pids_d, valid_d, A, B, num_consumers: int,
                       rounds: int, backend: str):
     """Rounding, refinement and portfolio on the device, then the bound
     check on the host.  Returns host ``(choice, counts, totals)``."""
-    from ..models.sinkhorn import _round_refine_portfolio, _scaled_ws
+    from ..models.sinkhorn import _round_refine_portfolio
 
     C = int(num_consumers)
     # The phase ends in the host read of its results.
     with metrics.device_phase("rounding"):
-        ws = _scaled_ws(lags_d, valid_d, C)
         choice, counts, totals = _round_refine_portfolio(
-            lags_d, pids_d, valid_d, ws, A, B,
+            lags_d, pids_d, valid_d, A, B,
             num_consumers=C, refine_iters=int(refine_iters),
         )
         choice_np, counts_np, totals_np = (

@@ -36,6 +36,9 @@ NOISE_AMP = 0.02
 
 #: Rows per tile of the plain version and of the argmax streaming.
 _TILE_P = 512
+#: One block of the argmax streaming holds at most 1/_ARGMAX_SHARE of the
+#: [P, C] f32 plan's logits: whole tiles, at least one and at most 64.
+_ARGMAX_SHARE = 32
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -79,16 +82,19 @@ def implicit_plan_argmax(ws, valid, A, B, tie_noise: bool = True) -> torch.Tenso
     P, C = ws.shape[0], A.shape[0]
     j = torch.arange(C, dtype=torch.int32, device=A.device)
     out = torch.empty(P, dtype=torch.int32, device=ws.device)
-    # Tiles of 64 of the JAX package's 512-row tiles: the rows are
-    # independent, so the tile size changes no result.
-    step = _TILE_P * 64
+    # Blocks of up to 64 of the JAX package's 512-row tiles, 1/_ARGMAX_SHARE
+    # of the rows: the rows are independent, so the block size changes no
+    # result.
+    step = _TILE_P * max(1, min(64, P // (_ARGMAX_SHARE * _TILE_P)))
     for lo in range(0, P, step):
         w = ws[lo: lo + step]
-        logits = -w[:, None] * A[None, :] + B[None, :]
+        # -w * A + B with the add in place: one block live at a time.
+        logits = torch.mul(-w[:, None], A[None, :]).add_(B[None, :])
         if tie_noise:
             p = torch.arange(lo, lo + w.shape[0], dtype=torch.int32, device=ws.device)
-            logits = logits + noise(p[:, None], j[None, :])
+            logits += noise(p[:, None], j[None, :])
         out[lo: lo + step] = torch.argmax(logits, dim=1).to(torch.int32)
+        del logits
     return torch.where(valid, out, C)
 
 

@@ -53,11 +53,16 @@ from .sortops import (
     segment_argmin_first,
     segment_sum,
     sort_with,
+    stable_argsort,
 )
 
 _PAIR_BITS = 14
 _VBITS = 63 - _PAIR_BITS - 1  # quantized-lag field width (48)
 _SBIG = 1 << 60  # score sentinel; (x << 1) | 1 fits int64
+# The parity round's pair blocks (refine_rounds_resident): rows x M at most
+# P x C / _PAIR_SHARE entries, or _PAIR_MIN_ENTRIES where that is more.
+_PAIR_SHARE = 1024
+_PAIR_MIN_ENTRIES = 8192
 _INT64_MAX = torch.iinfo(torch.int64).max
 
 
@@ -243,8 +248,11 @@ def refine_assignment(lags, valid, choice, num_consumers: int, iters: int = 16,
     return choice, counts, totals
 
 
-def build_choice_tables(lags, valid, choice, num_consumers: int, table_rows: int):
-    """One P-sized stable sort -> the compact per-consumer row table.
+def build_choice_tables(lags, valid, choice, num_consumers: int, table_rows: int,
+                        sort_rows=None):
+    """One P-sized stable sort -> the compact per-consumer row table
+    (``sort_rows`` bounds the rows it sorts at a time,
+    :func:`.sortops.stable_argsort`).
 
     Returns (row_tab int32[C, M] — row indices in ascending order within a
     consumer, P at empty slots — counts int32[C], totals int64[C]).
@@ -252,23 +260,31 @@ def build_choice_tables(lags, valid, choice, num_consumers: int, table_rows: int
     C, M = int(num_consumers), int(table_rows)
     P = lags.shape[0]
     dev = lags.device
-    arange_p = torch.arange(P, device=dev)
-    seg = torch.where(valid & (choice >= 0), choice.to(torch.int64), C)
-    sseg, srow = torch.sort(seg, stable=True)
-    bnd = torch.searchsorted(sseg, torch.arange(C + 1, device=dev))
+    seg = torch.where(valid & (choice >= 0), choice.to(torch.int32), C)
+    if sort_rows is None:
+        sseg, srow = torch.sort(seg, stable=True)
+    else:
+        srow = stable_argsort(seg, sort_rows)
+        sseg = seg[srow]
+    del seg
+    bnd = torch.searchsorted(sseg, torch.arange(C + 1, dtype=sseg.dtype, device=dev))
     counts = (bnd[1:] - bnd[:-1]).to(torch.int32)
-    pos = arange_p - bnd[torch.clamp(sseg, 0, C)]
-    flat = torch.where((sseg < C) & (pos < M), sseg * M + pos, C * M)
+    # A sorted row's slot: its place in its consumer's run plus the
+    # consumer's table offset, C * M (the drop slot) past M or past C.
+    # int32 throughout (C * M + P fits), each [P] buffer freed once dead.
+    flat = torch.arange(P, dtype=torch.int32, device=dev)
+    flat -= bnd.to(torch.int32)[torch.clamp(sseg, 0, C)]
+    drop = (sseg >= C) | (flat >= M)
+    flat += sseg * M
+    flat.masked_fill_(drop, C * M)
+    del sseg, drop
     # One extra slot takes the writes that JAX's mode="drop" discards.
     tab = torch.full((C * M + 1,), P, dtype=torch.int32, device=dev)
     tab[flat] = srow.to(torch.int32)
+    del flat, srow
     row_tab = tab[: C * M].reshape(C, M)
-    slots = torch.arange(M, device=dev)[None, :]
-    lag_tab = torch.where(
-        slots < counts[:, None].to(torch.int64),
-        lags[torch.clamp(row_tab.to(torch.int64), 0, P - 1)],
-        0,
-    )
+    lag_tab = lags[torch.clamp(row_tab, 0, P - 1)]
+    lag_tab.masked_fill_(torch.arange(M, device=dev)[None, :] >= counts[:, None], 0)
     return row_tab, counts, lag_tab.sum(dim=1)
 
 
@@ -359,6 +375,11 @@ def refine_rounds_resident(
     kk = torch.arange(K, device=dev)
     mslots = torch.arange(M, device=dev)
     nop = C * M
+    # Pairs a block of the parity round's candidate search: its [rows, M]
+    # temporaries (about a dozen int64 a pair slot) stay within 1/_PAIR_SHARE
+    # of the [P, C] plan's entries (at least _PAIR_MIN_ENTRIES), one block
+    # where all K pairs fit.
+    pair_rows = max(1, min(K, max(P * C // _PAIR_SHARE, _PAIR_MIN_ENTRIES) // max(M, 1)))
     limit = -1.0 if quality_limit is None else float(quality_limit)
     budget = int(exchange_budget)
 
@@ -383,63 +404,83 @@ def refine_rounds_resident(
         diff_q = diff >> pshift
         delta_q = delta >> pshift
 
-        rows_h = tab[heavy].to(torch.int64)  # [K, M]
-        rows_l = tab[light].to(torch.int64)
-        hvalid = mslots[None, :] < cnt_h[:, None]
-        lvalid = mslots[None, :] < cnt_l[:, None]
-        lag_h = torch.where(hvalid, lags[torch.clamp(rows_h, 0, P - 1)], 0)
-        lag_l = torch.where(lvalid, lags[torch.clamp(rows_l, 0, P - 1)], 0)
-        qlag_h = lag_h >> pshift
-        tgt_h = torch.clamp(lag_h - delta[:, None], min=0) >> pshift
+        def winners(k):
+            """The winning candidate of the pairs ``k`` (a slice): (m1, win,
+            p_sel, lag_p, q_sel, lag_q, q_slot), one entry a pair."""
+            hv, lt, dq, dlt_q = heavy[k], light[k], diff_q[k], delta_q[k]
+            rows_h = tab[hv].to(torch.int64)  # [k, M]
+            rows_l = tab[lt].to(torch.int64)
+            hvalid = mslots[None, :] < cnt_h[k][:, None]
+            lvalid = mslots[None, :] < cnt_l[k][:, None]
+            lag_h = torch.where(hvalid, lags[torch.clamp(rows_h, 0, P - 1)], 0)
+            lag_l = torch.where(lvalid, lags[torch.clamp(rows_l, 0, P - 1)], 0)
+            qlag_h = lag_h >> pshift
+            tgt_h = torch.clamp(lag_h - delta[k][:, None], min=0) >> pshift
 
-        # Light segments sorted by (qval, row), as lax.sort(num_keys=2).
-        key_q = torch.where(lvalid, lag_l >> pshift, _INT64_MAX)
-        key_r = torch.where(lvalid, rows_l, P)
-        perm = lexsort(key_q, key_r, dim=1)
-        sq = key_q.gather(1, perm)
-        srow_l = key_r.gather(1, perm)
-        sslot_l = perm
-        slag_l = lag_l.gather(1, perm)
-        ins = torch.searchsorted(sq, tgt_h, right=True)
+            # Light segments sorted by (qval, row), as lax.sort(num_keys=2).
+            key_q = torch.where(lvalid, lag_l >> pshift, _INT64_MAX)
+            key_r = torch.where(lvalid, rows_l, P)
+            del rows_l
+            perm = lexsort(key_q, key_r, dim=1)
+            sq = key_q.gather(1, perm)
+            srow_l = key_r.gather(1, perm)
+            sslot_l = perm
+            slag_l = lag_l.gather(1, perm)
+            del key_q, key_r, lag_l
+            ins = torch.searchsorted(sq, tgt_h, right=True)
+            n_l = cnt_l[k][:, None]
 
-        def neighbour(idx):
-            ok_idx = (idx >= 0) & (idx < cnt_l[:, None])
-            i_c = torch.clamp(idx, 0, M - 1)
-            d_q = qlag_h - sq.gather(1, i_c)
-            ok = hvalid & ok_idx & (d_q > 0) & (d_q < diff_q[:, None])
-            return torch.where(ok, (d_q - delta_q[:, None]).abs(), _SBIG), i_c
+            def neighbour(idx):
+                ok_idx = (idx >= 0) & (idx < n_l)
+                i_c = torch.clamp(idx, 0, M - 1)
+                d_q = qlag_h - sq.gather(1, i_c)
+                ok = hvalid & ok_idx & (d_q > 0) & (d_q < dq[:, None])
+                return torch.where(ok, (d_q - dlt_q[:, None]).abs(), _SBIG), i_c
 
-        err_a, ia = neighbour(ins - 1)
-        err_b, ib = neighbour(ins)
-        use_b = err_b < err_a
-        err_swap = torch.where(use_b, err_b, err_a)
-        nb_i = torch.where(use_b, ib, ia)
+            err_a, ia = neighbour(ins - 1)
+            err_b, ib = neighbour(ins)
+            del ins, sq
+            use_b = err_b < err_a
+            err_swap = torch.where(use_b, err_b, err_a)
+            nb_i = torch.where(use_b, ib, ia)
+            del err_a, err_b, ia, ib, use_b
 
-        ok_move = hvalid & move_ok[:, None] & (lag_h > 0) & (lag_h < diff[:, None])
-        score_move = torch.where(ok_move, (qlag_h - delta_q[:, None]).abs(), _SBIG)
-        combined = torch.where(
-            score_move <= err_swap, score_move << 1, (err_swap << 1) | 1
-        )
+            ok_move = (hvalid & move_ok[k][:, None] & (lag_h > 0)
+                       & (lag_h < diff[k][:, None]))
+            score_move = torch.where(ok_move, (qlag_h - dlt_q[:, None]).abs(), _SBIG)
+            del ok_move, qlag_h, hvalid
+            combined = torch.where(
+                score_move <= err_swap, score_move << 1, (err_swap << 1) | 1
+            )
+            del score_move, err_swap
 
-        # Winner per pair: lexicographic min (combined, target, row).
-        m1 = combined.min(dim=1).values
-        on1 = combined == m1[:, None]
-        m2 = torch.where(on1, tgt_h, _INT64_MAX).min(dim=1).values
-        on2 = on1 & (tgt_h == m2[:, None])
-        m3 = torch.where(on2, rows_h, P).min(dim=1).values
-        win = torch.argmax((on2 & (rows_h == m3[:, None])).to(torch.int32), dim=1)
+            # Winner per pair: lexicographic min (combined, target, row).
+            m1 = combined.min(dim=1).values
+            on1 = combined == m1[:, None]
+            del combined
+            m2 = torch.where(on1, tgt_h, _INT64_MAX).min(dim=1).values
+            on2 = on1 & (tgt_h == m2[:, None])
+            del on1, tgt_h
+            m3 = torch.where(on2, rows_h, P).min(dim=1).values
+            win = torch.argmax((on2 & (rows_h == m3[:, None])).to(torch.int32), dim=1)
+            del on2
+            nb_sel = _take(nb_i, win)
+            return (m1, win, _take(rows_h, win), _take(lag_h, win), _take(srow_l, nb_sel),
+                    _take(slag_l, nb_sel), _take(sslot_l, nb_sel))
+
+        # The pairs in blocks of at most pair_rows: every step is per pair,
+        # so the blocks give the same bits as one [K, M] pass, and the live
+        # [rows, M] temporaries stay a fraction of the [P] buffers.
+        parts = [winners(slice(lo, lo + pair_rows)) for lo in range(0, K, pair_rows)]
+        m1, win, p_sel, lag_p, q_sel, lag_q, q_slot = (
+            torch.cat(x) if len(parts) > 1 else x[0] for x in zip(*parts))
+        del parts
 
         # With a quality limit, a pair whose heavy consumer already meets
         # the target applies nothing; limit < 0 keeps every pair active.
         active = totals[heavy].to(torch.float64) > limit
         do = admit((m1 < (_SBIG << 1)) & active, ex_done)
         is_swap = (m1 & 1) == 1
-        p_sel = _take(rows_h, win)
-        lag_p = _take(lag_h, win)
-        nb_sel = _take(nb_i, win)
-        q_sel = _take(srow_l, nb_sel)
-        lag_q = _take(slag_l, nb_sel)
-        q_slot = _take(sslot_l, nb_sel)
         use_swap = do & is_swap
         d = torch.where(use_swap, lag_p - lag_q, lag_p)
         d = torch.where(do, d, 0)

@@ -84,9 +84,13 @@ def _check(gains, valid, totals0, carry_across_topics: bool) -> tuple:
     f64 = torch.float64
     if gains.numel():
         live = torch.where(valid.bool(), gains, 0)
-        per_topic = live.to(f64).abs()
-        sums = per_topic.sum() if carry_across_topics else per_topic.sum(dim=(1, 2)).amax()
         low = live.amin().to(f64)
+        # One f64 copy, its abs in place (the linear solve's greedy start
+        # runs this beside the rounding tail's [P] buffers).
+        per_topic = live.to(f64)
+        del live
+        per_topic.abs_()
+        sums = per_topic.sum() if carry_across_topics else per_topic.sum(dim=(1, 2)).amax()
     else:
         sums = low = torch.zeros((), dtype=f64, device=gains.device)
     start = totals0.to(f64)

@@ -85,21 +85,21 @@ def _rounds_scan(
 
 def _assign_rounds(lags, partition_ids, valid, num_consumers: int,
                    pack_shift: int, n_valid: int | None,
-                   carry_across_topics: bool):
+                   carry_across_topics: bool, sort_rows: int | None = None):
     C = int(num_consumers)
     perm, sorted_lags, sorted_valid = sort_partitions_with(
-        lags, partition_ids, valid, pack_shift
+        lags, partition_ids, valid, pack_shift, sort_rows
     )
     totals0 = torch.zeros((C,), dtype=torch.int64, device=lags.device)
     totals, sorted_choice = _rounds_scan(
         sorted_lags, sorted_valid, totals0, C,
         n_valid=n_valid, carry_across_topics=carry_across_topics,
     )
-    return (
-        unsort(perm, sorted_choice),
-        bincount_sorted(sorted_choice, C),
-        totals,
-    )
+    # The sorted copies are dead: the linear solve's greedy start runs this
+    # beside the rounding tail's [P] buffers.
+    del sorted_lags, sorted_valid
+    counts = bincount_sorted(sorted_choice, C)
+    return unsort(perm, sorted_choice), counts, totals
 
 
 def assign_topic_rounds(
@@ -109,6 +109,7 @@ def assign_topic_rounds(
     num_consumers: int,
     pack_shift: int = 0,
     n_valid: int | None = None,
+    sort_rows: int | None = None,
 ):
     """Assign partitions via the round decomposition, each topic on its own.
 
@@ -116,14 +117,16 @@ def assign_topic_rounds(
     bool[..., P] (one topic, or a [T, P] batch of independent topics);
     ``pack_shift`` as in :func:`..ops.scan_kernel.pack_shift_for`;
     ``n_valid`` an upper bound on any topic's valid rows (the scan stops
-    after ceil(n_valid / C) rounds; rows past it are padding).
+    after ceil(n_valid / C) rounds; rows past it are padding);
+    ``sort_rows`` bounds the rows one sort of a single topic's processing
+    order takes at a time (:func:`.scan_kernel.sort_partitions_with`).
 
     Returns (choice int32[..., P] in input order, counts int32[..., C],
     totals int64[..., C]).
     """
     return _assign_rounds(
         lags, partition_ids, valid, num_consumers, pack_shift, n_valid,
-        carry_across_topics=False,
+        carry_across_topics=False, sort_rows=sort_rows,
     )
 
 

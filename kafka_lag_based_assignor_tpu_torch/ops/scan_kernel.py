@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from .sortops import unsort
+from .sortops import stable_argsort, unsort
 
 _INT64_MAX = torch.iinfo(torch.int64).max
 _INT32_MAX = torch.iinfo(torch.int32).max
@@ -66,6 +66,7 @@ def sort_partitions_with(
     partition_ids: torch.Tensor,
     valid: torch.Tensor,
     pack_shift: int = 0,
+    sort_rows: int | None = None,
 ):
     """The processing-order permutation along the last axis, with the lags
     and validity gathered in that order.
@@ -76,8 +77,17 @@ def sort_partitions_with(
     with equal keys (the padding) keep their input order, as the JAX
     package's stable ``lax.sort`` does: the permutations are identical.
 
+    ``sort_rows`` (one topic, the general sort) sorts at most that many
+    rows at a time (:func:`.sortops.stable_argsort`); the permutation is
+    the same, as int32.
+
     Returns (perm int64[..., P], sorted_lags, sorted_valid).
     """
+    if sort_rows is not None and not pack_shift:
+        by_pid = stable_argsort(torch.where(valid, partition_ids, _INT32_MAX), sort_rows)
+        perm = by_pid[stable_argsort(torch.where(valid, -lags, 1)[by_pid], sort_rows)]
+        del by_pid
+        return perm, lags[perm], valid[perm]
     if pack_shift:
         key = torch.where(
             valid,

@@ -25,9 +25,43 @@ def sort_with(keys: torch.Tensor, *payloads: torch.Tensor):
     return (skeys, *(p.gather(-1, perm) for p in payloads))
 
 
+def stable_argsort(key: torch.Tensor, chunk_rows: int) -> torch.Tensor:
+    """The permutation of ``torch.sort(key, stable=True)`` for a 1-D
+    ``key``, as int32, sorting at most ``chunk_rows`` rows at a time.
+
+    Each chunk is sorted on its own; a row's place is then its rank in its
+    chunk plus, for every other chunk, the rows there that sort before it:
+    those with a key ``<=`` its own in an earlier chunk, ``<`` in a later
+    one, which is the stable order of ties.  A sort's own buffers (its
+    values, an int64 iota, the indices and the radix sort's double
+    buffers) thus stay a chunk's, while the rows held between the chunks
+    are the sorted keys and int32 ids.
+    """
+    n = key.shape[0]
+    if n <= chunk_rows:
+        return torch.sort(key, stable=True).indices.to(torch.int32)
+    parts = []
+    for lo in range(0, n, chunk_rows):
+        vals, idx = torch.sort(key[lo: lo + chunk_rows], stable=True)
+        parts.append((vals, idx.to(torch.int32).add_(lo)))
+        del idx
+    out = torch.empty(n, dtype=torch.int32, device=key.device)
+    for a, (vals, idx) in enumerate(parts):
+        pos = torch.arange(vals.shape[0], device=key.device)
+        for b, (other, _) in enumerate(parts):
+            if b != a:
+                pos += torch.searchsorted(other, vals, right=b < a)
+        out[pos] = idx
+    return out
+
+
 def unsort(perm: torch.Tensor, sorted_vals: torch.Tensor) -> torch.Tensor:
     """``out[..., perm[..., i]] = sorted_vals[..., i]``: values in sorted
-    order back to input row order."""
+    order back to input row order (a 1-D ``perm`` may be int32)."""
+    if perm.dtype != torch.int64:
+        out = torch.empty_like(sorted_vals)
+        out[perm] = sorted_vals
+        return out
     return torch.empty_like(sorted_vals).scatter_(-1, perm, sorted_vals)
 
 

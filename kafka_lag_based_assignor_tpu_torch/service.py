@@ -149,6 +149,7 @@ import numpy as np
 from .assignor import DEVICE_SOLVERS, solve_on_ladder
 from .ops.dispatch import quality_status, set_quality_mode, set_quality_tile
 from .ops.dispatch import normalize_quality_mode
+from .ops.coalesce import DeadlineShed
 from .ops.streaming import StreamingAssignor, StreamingStats
 from .types import TopicPartitionLag
 from .utils import faults, metrics
@@ -2022,7 +2023,7 @@ class AssignorService:
                 and self._resync_pacer.acquire(budget.remaining())
             )
             try:
-                choice, s, degraded_rung, fallback_used = self._solve_epoch(
+                choice, s, degraded_rung, fallback_used, shed_info = self._solve_epoch(
                     sid, st, lags, C, opts, prev, budget, members_sorted,
                     pids_sorted, klass,
                 )
@@ -2043,7 +2044,7 @@ class AssignorService:
             topic, members_sorted, pids_sorted, choice, s,
             fallback_used=fallback_used, degraded_rung=degraded_rung,
             warm_restart=warm_restart, opts=opts, klass=klass,
-            shed=None, lag_epoch=lag_epoch_out,
+            shed=shed_info, lag_epoch=lag_epoch_out,
             assign_delta=a_delta, assign_epoch=a_epoch,
             resp_enc=resp_enc,
         )
@@ -2103,7 +2104,8 @@ class AssignorService:
         """Ladder rung 1, the warm engine under the stream breaker with the
         request's REMAINING budget, and the rungs below it.  ``klass`` is the
         request's SLO class (the coalesced submission's placement).  Returns
-        ``(choice, stats, degraded_rung, fallback_used)``."""
+        ``(choice, stats, degraded_rung, fallback_used, shed)``, ``shed`` the
+        response's shed object of a deadline shed (else None)."""
         # With more than one live stream the warm dispatch parks on the
         # coalescer; a lone stream keeps the inline path.
         coalescer = self._coalescer
@@ -2144,15 +2146,25 @@ class AssignorService:
                 and st.clean_epochs >= scrub_lib.FORGIVE_AFTER
             ):
                 st.scrub_strikes = 0
-            return choice, st.engine.last_stats, "none", False
+            return choice, st.engine.last_stats, "none", False, None
         except SolveRejected as rej:
             # FAIL-FAST rejection (breaker open, budget spent, or a failed
             # integrity check): the warm engine is still valid (a
             # quarantined one heals on its next epoch), so degrade
             # host-side for this request only: the previous assignment
-            # when servable, else the snake, seeded into the engine.
+            # when servable, else the snake, seeded into the engine.  A
+            # DeadlineShed (the row's class budget expired while parked on
+            # the coalescer) is a shed, not a failure: with a servable
+            # previous assignment it is answered as a shed (the coalescer
+            # already counted klba_shed_total), outside the fallback and
+            # ladder accounting.
             if isinstance(rej, scrub_lib.CorruptStateDetected):
                 self._note_quarantine(sid, st, rej.buffers)
+            deadline_shed = isinstance(rej, DeadlineShed)
+            if deadline_shed and _keepable(prev, lags.shape[0], C):
+                choice, s = _serve_previous(prev, lags, C)
+                return choice, s, "none", False, {
+                    "rung": "admit_deadline", "served": "kept_previous"}
             if not self._host_fallback:
                 raise
             LOGGER.warning(
@@ -2161,10 +2173,14 @@ class AssignorService:
             )
             if _keepable(prev, lags.shape[0], C):
                 choice, s = _serve_previous(prev, lags, C)
-                return choice, s, "kept_previous", True
-            choice, s = _snake_fallback(lags, C, prev)
-            st.engine.seed_choice(np.asarray(choice))
-            return choice, s, "host_snake", True
+                rung = "kept_previous"
+            else:
+                choice, s = _snake_fallback(lags, C, prev)
+                st.engine.seed_choice(np.asarray(choice))
+                rung = "host_snake"
+            shed = ({"rung": "admit_deadline", "served": rung}
+                    if deadline_shed else None)
+            return choice, s, rung, True, shed
         except Exception:
             # An abandoned watchdog worker may STILL be running the
             # engine's rebalance and mutate its warm state later: the
@@ -2182,10 +2198,10 @@ class AssignorService:
                 "descending the degraded-mode ladder",
                 sid, exc_info=True,
             )
-            return self._stream_degraded(
+            return (*self._stream_degraded(
                 sid, lags, C, opts, prev, budget, members_sorted,
                 pids_sorted,
-            )
+            ), None)
 
     def _note_epoch(self, st: _Stream, klass: str, lags) -> None:
         """Record one served epoch's (time, total lag) sample and class,
